@@ -1,0 +1,8 @@
+"""``paddle.nn.functional`` names of the port's ops."""
+
+from ..ops.flash_attention import flash_attention
+from ..ops.nn_ops import (embedding, linear, rms_norm,
+                          scaled_dot_product_attention)
+
+__all__ = ["embedding", "flash_attention", "linear", "rms_norm",
+           "scaled_dot_product_attention"]
