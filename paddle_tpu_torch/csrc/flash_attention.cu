@@ -1,7 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a): the port of
-// paddle_tpu/ops/flash_attention.py::_flash_fwd_kernel (launched from
-// _pallas_flash with with_lse=False), the kernel that carries Llama prefill
-// and the concat-cache generate loop.
+// Flash attention for Hopper (sm_90a), forward and backward. The ports of
+// paddle_tpu/ops/flash_attention.py:
+//   _flash_fwd_kernel      (with_lse=False; prefill, generate)  -> flash_fwd
+//   _flash_fwd_kernel_lse  (with_lse=True; training forward)    -> flash_fwd_lse
+//   _flash_bwd_dq_kernel   (training backward, dq)              -> flash_bwd_dq
+//   _flash_bwd_dkv_kernel  (training backward, dk and dv)       -> flash_bwd_dkv
+// The forward with lse is the same kernel template as the forward, with the
+// lse store switched on at compile time.
 //
 // What it computes: out = softmax(q k^T * sm_scale [+ causal mask]) v per
 // (batch, head), online softmax in fp32, output in q's dtype. Causal masking
@@ -32,6 +36,33 @@
 //   tile staged once in shared memory pre-scaled by sm_scale, K transposed
 //   and padded; each thread owns a 4x4 block of scores and a 4 x (D/16)
 //   block of the accumulator; row statistics across 16 lanes by shuffles.
+//
+// lse (forward with lse): per (batch, head, query row) the logsumexp of the
+// scaled logits, layout (B, H, Lq) fp32; a row that sees no key gets +1e30
+// (so exp(s - lse) is 0 in the backward) and out 0.
+//
+// Backward. With P = exp(S * sm_scale - lse) recomputed from the saved lse,
+// dP = dO V^T, dS = P o (dP - delta) * sm_scale and delta = rowsum(dO o O)
+// (computed by the caller): dq = dS K, dk = dS^T Q, dv = P^T dO. It does
+// 2.5x the forward's products (S, dP, dq in one kernel; S, dP, dv, dk in
+// the other), so the tensor-core rate bounds it too. Two kernels, as on the
+// TPU, so that neither needs atomics:
+// * dq: one block per (64-row Q tile, batch * head); it streams 64-key K/V
+//   tiles over the causal range only (the forward's rule) and keeps dq in
+//   fp32 registers.
+// * dk/dv: one block per (64-key K tile, batch * kv head); it loops over the
+//   H / Hkv query heads of its group (GQA: the group's sum is taken in
+//   registers, where the TPU package repeated K/V and let AD sum) and over
+//   the Q tiles from the first one that can see the K tile, with Q, dO and
+//   their transposes, lse and delta staged in shared memory.
+// In bf16 both run mma.sync m16n8k16 as the forward does: a warp owns 16
+// rows (queries for dq, keys for dk/dv), the score and dP tiles come out in
+// the accumulator layout, and P and dS are re-packed in registers as bf16
+// A operands of the second products (B operands transposed in shared
+// memory). In fp32 they run on the CUDA cores, 256 threads, each owning a
+// 4x4 block of the score tile and a 4 x (D/16) block of the gradient, with
+// rows of stride D + 1 in shared memory so that neither the row-wise nor
+// the column-wise reads conflict.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,11 +93,14 @@ struct Smem {
   static constexpr size_t bytes = floats * sizeof(float);
 };
 
-template <typename T, int D>
+constexpr float LSE_MASKED = 1e30f;  // lse of a row that sees no key
+
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
-                 int H, int Hkv, int causal, float sm_scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Lq, int Lk, int H, int Hkv,
+                 int causal, float sm_scale) {
   using S = Smem<D>;
   constexpr int DJ = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -202,6 +236,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       ob[(long)row * q_stride + tx + 16 * j] = from_f<T>(acc[r][j] * inv);
+    if (LSE && tx == 0)
+      lse[(long)bh * Lq + row] = l_i[r] > 0.f ? m_i[r] + logf(l_i[r]) : LSE_MASKED;
   }
 }
 
@@ -236,13 +272,14 @@ struct TcSmem {
   static constexpr size_t bytes = (size_t)(BN * KST + D * VST) * sizeof(__nv_bfloat16);
 };
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(TC_NT)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int Lq, int Lk, int H,
-                    int Hkv, int causal, float sm_scale) {
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int Lq, int Lk, int H, int Hkv, int causal,
+                    float sm_scale) {
   using S = TcSmem<D>;
   constexpr int KSTEPS = D / 16;  // k-steps of q.k
   constexpr int NTILE = BN / 8;   // 8-key tiles of the scores
@@ -393,13 +430,19 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(ob + (long)r1 * q_stride + col) =
           pack_bf16(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
   }
+  if (LSE && tig == 0) {  // the 4 lanes of a row hold the same m_i, l_i
+    if (r0 < Lq)
+      lse[(long)bh * Lq + r0] = l_i[0] > 0.f ? m_i[0] + logf(l_i[0]) : LSE_MASKED;
+    if (r1 < Lq)
+      lse[(long)bh * Lq + r1] = l_i[1] > 0.f ? m_i[1] + logf(l_i[1]) : LSE_MASKED;
+  }
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int Lq, int Lk, int H, int Hkv, int causal,
-                      float sm_scale, cudaStream_t stream) {
-  auto kern = flash_fwd_tc_kernel<D>;
+                      float* lse, int B, int Lq, int Lk, int H, int Hkv,
+                      int causal, float sm_scale, cudaStream_t stream) {
+  auto kern = flash_fwd_tc_kernel<D, LSE>;
   const size_t smem = TcSmem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -407,16 +450,16 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Lq + BM - 1) / BM, B * H);
   kern<<<grid, TC_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq,
-      Lk, H, Hkv, causal, sm_scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      lse, Lq, Lk, H, Hkv, causal, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Lq, int Lk, int H, int Hkv, int causal, float sm_scale,
-                   cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
+template <typename T, int D, bool LSE>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int Lq, int Lk, int H, int Hkv,
+                   int causal, float sm_scale, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<T, D, LSE>;
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -424,27 +467,742 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Lq + BM - 1) / BM, B * H);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H, Hkv, causal,
-      sm_scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Lq, Lk, H, Hkv,
+      causal, sm_scale);
   return cudaGetLastError();
+}
+
+template <bool LSE>
+cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int B, int Lq, int Lk, int H, int Hkv,
+                         int D, int dtype, int causal, float sm_scale,
+                         cudaStream_t s) {
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || Hkv <= 0 || H % Hkv != 0)
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && D == 128)
+    return launch<float, 128, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+  if (dtype == 0 && D == 64)
+    return launch<float, 64, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+  if (dtype == 1 && D == 128)
+    return launch_tc<128, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+  if (dtype == 1 && D == 64)
+    return launch_tc<64, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// backward, float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct BwdSmem {
+  static constexpr int RS = D + 1;   // row stride of Q, dO, K, V tiles
+  static constexpr int PS = BN + 1;  // row stride of the P / dS tiles
+};
+
+// dq for one (64-row Q tile, batch * head). Thread (ty, tx) owns query rows
+// ty*4 + r, key columns tx + 16c of the score tile and dq columns tx + 16j.
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int Lq, int Lk, int H, int Hkv, int causal,
+                    float sm_scale) {
+  using S = BwdSmem<D>;
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // [BM][RS]
+  float* dOs = Qs + BM * S::RS;     // [BM][RS]
+  float* Ks = dOs + BM * S::RS;     // [BN][RS]
+  float* Vs = Ks + BN * S::RS;      // [BN][RS]
+  float* dSs = Vs + BN * S::RS;     // [BM][PS]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / Hkv);
+  const int m0 = blockIdx.x * BM;
+  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
+  const float* qb = q + ((long)b * Lq * H + h) * D;
+  const float* dob = dout + ((long)b * Lq * H + h) * D;
+  const float* kb = k + ((long)b * Lk * Hkv + kvh) * D;
+  const float* vb = v + ((long)b * Lk * Hkv + kvh) * D;
+  float* dqb = dq + ((long)b * Lq * H + h) * D;
+
+  for (int idx = tid; idx < BM * D; idx += NT) {
+    const int r = idx / D, d = idx % D, i = m0 + r;
+    const bool in = i < Lq;
+    Qs[r * S::RS + d] = in ? qb[(long)i * q_stride + d] : 0.f;
+    dOs[r * S::RS + d] = in ? dob[(long)i * q_stride + d] : 0.f;
+  }
+  float lse_r[4], dl_r[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = m0 + ty * 4 + r;
+    lse_r[r] = row < Lq ? lse[(long)bh * Lq + row] : LSE_MASKED;
+    dl_r[r] = row < Lq ? delta[(long)bh * Lq + row] : 0.f;
+  }
+
+  const int shift = Lk - Lq;
+  int n_end = Lk;
+  if (causal) n_end = min(Lk, max(0, m0 + BM + shift));
+
+  float acc[4][DJ];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[r][j] = 0.f;
+
+  for (int n0 = 0; n0 < n_end; n0 += BN) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int idx = tid; idx < BN * D; idx += NT) {
+      const int r = idx / D, d = idx % D, j = n0 + r;
+      const bool in = j < Lk;
+      Ks[r * S::RS + d] = in ? kb[(long)j * kv_stride + d] : 0.f;
+      Vs[r * S::RS + d] = in ? vb[(long)j * kv_stride + d] : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4], dov[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        qv[r] = Qs[(ty * 4 + r) * S::RS + d];
+        dov[r] = dOs[(ty * 4 + r) * S::RS + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float kv = Ks[(tx + 16 * c) * S::RS + d];
+        const float vv = Vs[(tx + 16 * c) * S::RS + d];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          s[r][c] = fmaf(qv[r], kv, s[r][c]);
+          dp[r][c] = fmaf(dov[r], vv, dp[r][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = m0 + ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = n0 + tx + 16 * c;
+        const bool ok = row < Lq && col < Lk && (!causal || row + shift >= col);
+        const float p = ok ? expf(s[r][c] * sm_scale - lse_r[r]) : 0.f;
+        dSs[(ty * 4 + r) * S::PS + tx + 16 * c] = p * (dp[r][c] - dl_r[r]) * sm_scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int n = 0; n < BN; ++n) {
+      float ds[4], kv[DJ];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ds[r] = dSs[(ty * 4 + r) * S::PS + n];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kv[j] = Ks[n * S::RS + tx + 16 * j];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[r][j] = fmaf(ds[r], kv[j], acc[r][j]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = m0 + ty * 4 + r;
+    if (row >= Lq) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dqb[(long)row * q_stride + tx + 16 * j] = acc[r][j];
+  }
+}
+
+// dk, dv for one (64-key K tile, batch * kv head). Thread (ty, tx) owns key
+// rows ty*4 + r, query columns tx + 16c of the transposed score tile and
+// dk/dv columns tx + 16j.
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Lq, int Lk, int H, int Hkv,
+                     int causal, float sm_scale) {
+  using S = BwdSmem<D>;
+  constexpr int DJ = D / 16;
+  constexpr int BQ = BM;
+  extern __shared__ float smem[];
+  float* Ks = smem;                  // [BN][RS]
+  float* Vs = Ks + BN * S::RS;       // [BN][RS]
+  float* Qs = Vs + BN * S::RS;       // [BQ][RS]
+  float* dOs = Qs + BQ * S::RS;      // [BQ][RS]
+  float* Ps = dOs + BQ * S::RS;      // [BN][PS]  P^T
+  float* dSs = Ps + BN * S::PS;      // [BN][PS]  dS^T
+  float* lse_s = dSs + BN * S::PS;   // [BQ]
+  float* dl_s = lse_s + BQ;          // [BQ]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bkv = blockIdx.y, b = bkv / Hkv, kvh = bkv % Hkv;
+  const int rep = H / Hkv;
+  const int k0 = blockIdx.x * BN;
+  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
+  const float* kb = k + ((long)b * Lk * Hkv + kvh) * D;
+  const float* vb = v + ((long)b * Lk * Hkv + kvh) * D;
+
+  for (int idx = tid; idx < BN * D; idx += NT) {
+    const int r = idx / D, d = idx % D, j = k0 + r;
+    const bool in = j < Lk;
+    Ks[r * S::RS + d] = in ? kb[(long)j * kv_stride + d] : 0.f;
+    Vs[r * S::RS + d] = in ? vb[(long)j * kv_stride + d] : 0.f;
+  }
+
+  const int shift = Lk - Lq;
+  const int q_begin = causal ? (max(0, k0 - shift) / BQ) * BQ : 0;
+
+  float dk_acc[4][DJ], dv_acc[4][DJ];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk_acc[r][j] = dv_acc[r][j] = 0.f;
+
+  for (int hq = kvh * rep; hq < kvh * rep + rep; ++hq) {
+    const float* qb = q + ((long)b * Lq * H + hq) * D;
+    const float* dob = dout + ((long)b * Lq * H + hq) * D;
+    const float* lseb = lse + ((long)b * H + hq) * Lq;
+    const float* dlb = delta + ((long)b * H + hq) * Lq;
+    for (int q0 = q_begin; q0 < Lq; q0 += BQ) {
+      __syncthreads();  // the previous tile's readers are done
+      for (int idx = tid; idx < BQ * D; idx += NT) {
+        const int r = idx / D, d = idx % D, i = q0 + r;
+        const bool in = i < Lq;
+        Qs[r * S::RS + d] = in ? qb[(long)i * q_stride + d] : 0.f;
+        dOs[r * S::RS + d] = in ? dob[(long)i * q_stride + d] : 0.f;
+      }
+      for (int r = tid; r < BQ; r += NT) {
+        const int i = q0 + r;
+        lse_s[r] = i < Lq ? lseb[i] : LSE_MASKED;
+        dl_s[r] = i < Lq ? dlb[i] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          kv[r] = Ks[(ty * 4 + r) * S::RS + d];
+          vv[r] = Vs[(ty * 4 + r) * S::RS + d];
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float qv = Qs[(tx + 16 * c) * S::RS + d];
+          const float dov = dOs[(tx + 16 * c) * S::RS + d];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            s[r][c] = fmaf(kv[r], qv, s[r][c]);
+            dp[r][c] = fmaf(vv[r], dov, dp[r][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = k0 + ty * 4 + r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qc = tx + 16 * c, row = q0 + qc;
+          const bool ok = row < Lq && key < Lk && (!causal || row + shift >= key);
+          const float p = ok ? expf(s[r][c] * sm_scale - lse_s[qc]) : 0.f;
+          Ps[(ty * 4 + r) * S::PS + qc] = p;
+          dSs[(ty * 4 + r) * S::PS + qc] = p * (dp[r][c] - dl_s[qc]) * sm_scale;
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int n = 0; n < BQ; ++n) {
+        float p[4], ds[4], qv[DJ], dov[DJ];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          p[r] = Ps[(ty * 4 + r) * S::PS + n];
+          ds[r] = dSs[(ty * 4 + r) * S::PS + n];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          qv[j] = Qs[n * S::RS + tx + 16 * j];
+          dov[j] = dOs[n * S::RS + tx + 16 * j];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) {
+            dv_acc[r][j] = fmaf(p[r], dov[j], dv_acc[r][j]);
+            dk_acc[r][j] = fmaf(ds[r], qv[j], dk_acc[r][j]);
+          }
+      }
+    }
+  }
+
+  float* dkb = dk + ((long)b * Lk * Hkv + kvh) * D;
+  float* dvb = dv + ((long)b * Lk * Hkv + kvh) * D;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = k0 + ty * 4 + r;
+    if (key >= Lk) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dkb[(long)key * kv_stride + tx + 16 * j] = dk_acc[r][j];
+      dvb[(long)key * kv_stride + tx + 16 * j] = dv_acc[r][j];
+    }
+  }
+}
+
+template <int D>
+constexpr size_t bwd_dq_smem() {
+  return (size_t)(2 * BM * BwdSmem<D>::RS + 2 * BN * BwdSmem<D>::RS +
+                  BM * BwdSmem<D>::PS) * sizeof(float);
+}
+
+template <int D>
+constexpr size_t bwd_dkv_smem() {
+  return (size_t)(2 * BN * BwdSmem<D>::RS + 2 * BM * BwdSmem<D>::RS +
+                  2 * BN * BwdSmem<D>::PS + 2 * BM) * sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// backward, bfloat16: tensor cores through mma.sync
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct TcBwdSmem {
+  static constexpr int RST = D + 8;   // row-major tile stride (bf16)
+  static constexpr int TST = BN + 8;  // transposed tile stride (bf16)
+};
+
+// Copy rows [r0, r0 + 64) of a (rows, D) bf16 matrix with row stride
+// `stride` into shared memory, row-major at stride RST and, if Tt is not
+// null, transposed ([D][TST]) too. Rows past `rows` are zero.
+template <int D>
+__device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ src,
+                                           long stride, int r0, int rows,
+                                           __nv_bfloat16* Rs, __nv_bfloat16* Tt) {
+  using S = TcBwdSmem<D>;
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < BN * CPR; c += TC_NT) {
+    const int r = c % BN, d = (c / BN) * 8, j = r0 + r;  // lanes: consecutive rows
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (j < rows) val = *reinterpret_cast<const uint4*>(src + (long)j * stride + d);
+    *reinterpret_cast<uint4*>(Rs + r * S::RST + d) = val;
+    if (Tt != nullptr) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) Tt[(d + i) * S::TST + r] = e[i];
+    }
+  }
+}
+
+// A fragment (16 rows x 16) at row `row` (this lane's g) of a row-major tile.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* t,
+                                       int stride, int row, int col) {
+  a[0] = ld32(t + row * stride + col);
+  a[1] = ld32(t + (row + 8) * stride + col);
+  a[2] = ld32(t + row * stride + col + 8);
+  a[3] = ld32(t + (row + 8) * stride + col + 8);
+}
+
+// Re-pack two 8-column accumulator tiles as one bf16 A fragment.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// dq: four warps, 16 query rows each; dO and Q fragments in registers.
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int H,
+                       int Hkv, int causal, float sm_scale) {
+  using S = TcBwdSmem<D>;
+  constexpr int KSTEPS = D / 16, NTILE = BN / 8, DTILE = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][RST]
+  __nv_bfloat16* Vs = Ks + BN * S::RST;                             // [BN][RST]
+  __nv_bfloat16* Kt = Vs + BN * S::RST;                             // [D][TST]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / Hkv);
+  const int m0 = blockIdx.x * BM;
+  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
+  const __nv_bfloat16* qb = q + ((long)b * Lq * H + h) * D;
+  const __nv_bfloat16* dob = dout + ((long)b * Lq * H + h) * D;
+  const __nv_bfloat16* kb = k + ((long)b * Lk * Hkv + kvh) * D;
+  const __nv_bfloat16* vb = v + ((long)b * Lk * Hkv + kvh) * D;
+  __nv_bfloat16* dqb = dq + ((long)b * Lq * H + h) * D;
+  const int r0 = m0 + warp * 16 + g, r1 = r0 + 8;
+
+  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int c = ks * 16 + tig * 2;
+    qa[ks][0] = r0 < Lq ? ld32(qb + (long)r0 * q_stride + c) : 0u;
+    qa[ks][1] = r1 < Lq ? ld32(qb + (long)r1 * q_stride + c) : 0u;
+    qa[ks][2] = r0 < Lq ? ld32(qb + (long)r0 * q_stride + c + 8) : 0u;
+    qa[ks][3] = r1 < Lq ? ld32(qb + (long)r1 * q_stride + c + 8) : 0u;
+    da[ks][0] = r0 < Lq ? ld32(dob + (long)r0 * q_stride + c) : 0u;
+    da[ks][1] = r1 < Lq ? ld32(dob + (long)r1 * q_stride + c) : 0u;
+    da[ks][2] = r0 < Lq ? ld32(dob + (long)r0 * q_stride + c + 8) : 0u;
+    da[ks][3] = r1 < Lq ? ld32(dob + (long)r1 * q_stride + c + 8) : 0u;
+  }
+  const float lse0 = r0 < Lq ? lse[(long)bh * Lq + r0] : LSE_MASKED;
+  const float lse1 = r1 < Lq ? lse[(long)bh * Lq + r1] : LSE_MASKED;
+  const float dl0 = r0 < Lq ? delta[(long)bh * Lq + r0] : 0.f;
+  const float dl1 = r1 < Lq ? delta[(long)bh * Lq + r1] : 0.f;
+
+  const int shift = Lk - Lq;
+  int n_end = Lk;
+  if (causal) n_end = min(Lk, max(0, m0 + BM + shift));
+
+  float acc[DTILE][4];
+#pragma unroll
+  for (int dt = 0; dt < DTILE; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  for (int n0 = 0; n0 < n_end; n0 += BN) {
+    __syncthreads();  // the previous tile's readers are done
+    stage_tile<D>(kb, kv_stride, n0, Lk, Ks, Kt);
+    stage_tile<D>(vb, kv_stride, n0, Lk, Vs, nullptr);
+    __syncthreads();
+
+    float sacc[NTILE][4], pacc[NTILE][4];
+#pragma unroll
+    for (int nt = 0; nt < NTILE; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < NTILE; ++nt) {
+        const int off = (nt * 8 + g) * S::RST + ks * 16 + tig * 2;
+        mma_bf16(sacc[nt], qa[ks], ld32(Ks + off), ld32(Ks + off + 8));
+        mma_bf16(pacc[nt], da[ks], ld32(Vs + off), ld32(Vs + off + 8));
+      }
+
+    // dS = P o (dP - delta) * scale, in place of the scores
+#pragma unroll
+    for (int nt = 0; nt < NTILE; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + nt * 8 + tig * 2 + e;
+        const bool ok0 = r0 < Lq && col < Lk && (!causal || r0 + shift >= col);
+        const bool ok1 = r1 < Lq && col < Lk && (!causal || r1 + shift >= col);
+        const float p0 = ok0 ? expf(sacc[nt][e] * sm_scale - lse0) : 0.f;
+        const float p1 = ok1 ? expf(sacc[nt][2 + e] * sm_scale - lse1) : 0.f;
+        sacc[nt][e] = p0 * (pacc[nt][e] - dl0) * sm_scale;
+        sacc[nt][2 + e] = p1 * (pacc[nt][2 + e] - dl1) * sm_scale;
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t a[4];
+      pack_a(a, sacc[2 * kk], sacc[2 * kk + 1]);
+#pragma unroll
+      for (int dt = 0; dt < DTILE; ++dt) {
+        const __nv_bfloat16* kr = Kt + (dt * 8 + g) * S::TST + kk * 16 + tig * 2;
+        mma_bf16(acc[dt], a, ld32(kr), ld32(kr + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int dt = 0; dt < DTILE; ++dt) {
+    const int col = dt * 8 + tig * 2;
+    if (r0 < Lq)
+      *reinterpret_cast<uint32_t*>(dqb + (long)r0 * q_stride + col) =
+          pack_bf16(acc[dt][0], acc[dt][1]);
+    if (r1 < Lq)
+      *reinterpret_cast<uint32_t*>(dqb + (long)r1 * q_stride + col) =
+          pack_bf16(acc[dt][2], acc[dt][3]);
+  }
+}
+
+// dk, dv: four warps, 16 keys each; K and V fragments read from shared
+// memory per step, dk and dv in fp32 registers across the whole group.
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int H,
+                        int Hkv, int causal, float sm_scale) {
+  using S = TcBwdSmem<D>;
+  constexpr int BQ = BN;  // queries per streamed tile
+  constexpr int KSTEPS = D / 16, NTILE = BQ / 8, DTILE = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][RST]
+  __nv_bfloat16* Vs = Ks + BN * S::RST;                             // [BN][RST]
+  __nv_bfloat16* Qs = Vs + BN * S::RST;                             // [BQ][RST]
+  __nv_bfloat16* dOs = Qs + BQ * S::RST;                            // [BQ][RST]
+  __nv_bfloat16* Qt = dOs + BQ * S::RST;                            // [D][TST]
+  __nv_bfloat16* dOt = Qt + D * S::TST;                             // [D][TST]
+  float* lse_s = reinterpret_cast<float*>(dOt + D * S::TST);        // [BQ]
+  float* dl_s = lse_s + BQ;                                         // [BQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int bkv = blockIdx.y, b = bkv / Hkv, kvh = bkv % Hkv;
+  const int rep = H / Hkv;
+  const int k0 = blockIdx.x * BN;
+  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
+  const int wr = warp * 16 + g;  // this lane's key rows in the tile: wr, wr + 8
+  const int c0 = k0 + wr, c1 = c0 + 8;
+
+  stage_tile<D>(k + ((long)b * Lk * Hkv + kvh) * D, kv_stride, k0, Lk, Ks, nullptr);
+  stage_tile<D>(v + ((long)b * Lk * Hkv + kvh) * D, kv_stride, k0, Lk, Vs, nullptr);
+
+  const int shift = Lk - Lq;
+  const int q_begin = causal ? (max(0, k0 - shift) / BQ) * BQ : 0;
+
+  float dk_acc[DTILE][4], dv_acc[DTILE][4];
+#pragma unroll
+  for (int dt = 0; dt < DTILE; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+
+  for (int hq = kvh * rep; hq < kvh * rep + rep; ++hq) {
+    const __nv_bfloat16* qb = q + ((long)b * Lq * H + hq) * D;
+    const __nv_bfloat16* dob = dout + ((long)b * Lq * H + hq) * D;
+    const float* lseb = lse + ((long)b * H + hq) * Lq;
+    const float* dlb = delta + ((long)b * H + hq) * Lq;
+    for (int q0 = q_begin; q0 < Lq; q0 += BQ) {
+      __syncthreads();  // the previous tile's readers are done
+      stage_tile<D>(qb, q_stride, q0, Lq, Qs, Qt);
+      stage_tile<D>(dob, q_stride, q0, Lq, dOs, dOt);
+      for (int r = tid; r < BQ; r += TC_NT) {
+        const int i = q0 + r;
+        lse_s[r] = i < Lq ? lseb[i] : LSE_MASKED;
+        dl_s[r] = i < Lq ? dlb[i] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
+      float sacc[NTILE][4], pacc[NTILE][4];
+#pragma unroll
+      for (int nt = 0; nt < NTILE; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        uint32_t ka[4], va[4];
+        load_a(ka, Ks, S::RST, wr, ks * 16 + tig * 2);
+        load_a(va, Vs, S::RST, wr, ks * 16 + tig * 2);
+#pragma unroll
+        for (int nt = 0; nt < NTILE; ++nt) {
+          const int off = (nt * 8 + g) * S::RST + ks * 16 + tig * 2;
+          mma_bf16(sacc[nt], ka, ld32(Qs + off), ld32(Qs + off + 8));
+          mma_bf16(pacc[nt], va, ld32(dOs + off), ld32(dOs + off + 8));
+        }
+      }
+
+      // P^T in sacc, dS^T in pacc
+#pragma unroll
+      for (int nt = 0; nt < NTILE; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = nt * 8 + tig * 2 + e, row = q0 + qc;
+          const bool qok = row < Lq;
+          const bool ok0 = qok && c0 < Lk && (!causal || row + shift >= c0);
+          const bool ok1 = qok && c1 < Lk && (!causal || row + shift >= c1);
+          const float ls = lse_s[qc], dl = dl_s[qc];
+          const float p0 = ok0 ? expf(sacc[nt][e] * sm_scale - ls) : 0.f;
+          const float p1 = ok1 ? expf(sacc[nt][2 + e] * sm_scale - ls) : 0.f;
+          sacc[nt][e] = p0;
+          sacc[nt][2 + e] = p1;
+          pacc[nt][e] = p0 * (pacc[nt][e] - dl) * sm_scale;
+          pacc[nt][2 + e] = p1 * (pacc[nt][2 + e] - dl) * sm_scale;
+        }
+
+      // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t pa[4], sa[4];
+        pack_a(pa, sacc[2 * kk], sacc[2 * kk + 1]);
+        pack_a(sa, pacc[2 * kk], pacc[2 * kk + 1]);
+#pragma unroll
+        for (int dt = 0; dt < DTILE; ++dt) {
+          const int off = (dt * 8 + g) * S::TST + kk * 16 + tig * 2;
+          mma_bf16(dv_acc[dt], pa, ld32(dOt + off), ld32(dOt + off + 8));
+          mma_bf16(dk_acc[dt], sa, ld32(Qt + off), ld32(Qt + off + 8));
+        }
+      }
+    }
+  }
+
+  __nv_bfloat16* dkb = dk + ((long)b * Lk * Hkv + kvh) * D;
+  __nv_bfloat16* dvb = dv + ((long)b * Lk * Hkv + kvh) * D;
+#pragma unroll
+  for (int dt = 0; dt < DTILE; ++dt) {
+    const int col = dt * 8 + tig * 2;
+    if (c0 < Lk) {
+      *reinterpret_cast<uint32_t*>(dkb + (long)c0 * kv_stride + col) =
+          pack_bf16(dk_acc[dt][0], dk_acc[dt][1]);
+      *reinterpret_cast<uint32_t*>(dvb + (long)c0 * kv_stride + col) =
+          pack_bf16(dv_acc[dt][0], dv_acc[dt][1]);
+    }
+    if (c1 < Lk) {
+      *reinterpret_cast<uint32_t*>(dkb + (long)c1 * kv_stride + col) =
+          pack_bf16(dk_acc[dt][2], dk_acc[dt][3]);
+      *reinterpret_cast<uint32_t*>(dvb + (long)c1 * kv_stride + col) =
+          pack_bf16(dv_acc[dt][2], dv_acc[dt][3]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t tc_bwd_dq_smem() {
+  return (size_t)(2 * BN * TcBwdSmem<D>::RST + D * TcBwdSmem<D>::TST) *
+         sizeof(__nv_bfloat16);
+}
+
+template <int D>
+constexpr size_t tc_bwd_dkv_smem() {
+  return (size_t)(4 * BN * TcBwdSmem<D>::RST + 2 * D * TcBwdSmem<D>::TST) *
+             sizeof(__nv_bfloat16) + 2 * BN * sizeof(float);
+}
+
+template <typename K>
+cudaError_t set_smem(K kern, size_t smem) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// DKV = false: dq into out0. DKV = true: dk into out0, dv into out1.
+template <bool DKV, int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* out0, void* out1, int B, int Lq, int Lk, int H,
+                       int Hkv, int dtype, int causal, float sm_scale,
+                       cudaStream_t st) {
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaError_t err;
+  if (dtype == 0) {
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
+    if (!DKV) {
+      auto kern = flash_bwd_dq_kernel<D>;
+      if ((err = set_smem(kern, bwd_dq_smem<D>())) != cudaSuccess) return err;
+      kern<<<dim3((Lq + BM - 1) / BM, B * H), NT, bwd_dq_smem<D>(), st>>>(
+          qf, kf, vf, df, ls, dl, static_cast<float*>(out0), Lq, Lk, H, Hkv,
+          causal, sm_scale);
+    } else {
+      auto kern = flash_bwd_dkv_kernel<D>;
+      if ((err = set_smem(kern, bwd_dkv_smem<D>())) != cudaSuccess) return err;
+      kern<<<dim3((Lk + BN - 1) / BN, B * Hkv), NT, bwd_dkv_smem<D>(), st>>>(
+          qf, kf, vf, df, ls, dl, static_cast<float*>(out0),
+          static_cast<float*>(out1), Lq, Lk, H, Hkv, causal, sm_scale);
+    }
+    return cudaGetLastError();
+  }
+  using bf = __nv_bfloat16;
+  const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
+           *vb = static_cast<const bf*>(v), *db = static_cast<const bf*>(dout);
+  if (!DKV) {
+    auto kern = flash_bwd_dq_tc_kernel<D>;
+    if ((err = set_smem(kern, tc_bwd_dq_smem<D>())) != cudaSuccess) return err;
+    kern<<<dim3((Lq + BM - 1) / BM, B * H), TC_NT, tc_bwd_dq_smem<D>(), st>>>(
+        qb, kb, vb, db, ls, dl, static_cast<bf*>(out0), Lq, Lk, H, Hkv, causal,
+        sm_scale);
+  } else {
+    auto kern = flash_bwd_dkv_tc_kernel<D>;
+    if ((err = set_smem(kern, tc_bwd_dkv_smem<D>())) != cudaSuccess) return err;
+    kern<<<dim3((Lk + BN - 1) / BN, B * Hkv), TC_NT, tc_bwd_dkv_smem<D>(), st>>>(
+        qb, kb, vb, db, ls, dl, static_cast<bf*>(out0), static_cast<bf*>(out1),
+        Lq, Lk, H, Hkv, causal, sm_scale);
+  }
+  return cudaGetLastError();
+}
+
+template <bool DKV>
+cudaError_t bwd_dispatch(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* out0, void* out1, int B, int Lq, int Lk, int H,
+                         int Hkv, int D, int dtype, int causal, float sm_scale,
+                         cudaStream_t s) {
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  if (D == 128)
+    return launch_bwd<DKV, 128>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
+                                Lk, H, Hkv, dtype, causal, sm_scale, s);
+  if (D == 64)
+    return launch_bwd<DKV, 64>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
+                               Lk, H, Hkv, dtype, causal, sm_scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. Each entry point returns a cudaError_t
+// (0 on success). q/dout/dq (B, Lq, H, D); k/v/dk/dv (B, Lk, Hkv, D);
+// lse/delta (B, H, Lq) fp32.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int B, int Lq, int Lk, int H, int Hkv, int D,
                          int dtype, int causal, float sm_scale, void* stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || Hkv <= 0 || H % Hkv != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128)
-    return (int)launch<float, 128>(q, k, v, o, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
-  if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(q, k, v, o, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
-  if (dtype == 1 && D == 128)
-    return (int)launch_tc<128>(q, k, v, o, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
-  if (dtype == 1 && D == 64)
-    return (int)launch_tc<64>(q, k, v, o, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)fwd_dispatch<false>(q, k, v, o, nullptr, B, Lq, Lk, H, Hkv, D,
+                                  dtype, causal, sm_scale,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int B, int Lq, int Lk, int H,
+                             int Hkv, int D, int dtype, int causal,
+                             float sm_scale, void* stream) {
+  return (int)fwd_dispatch<true>(q, k, v, o, static_cast<float*>(lse), B, Lq,
+                                 Lk, H, Hkv, D, dtype, causal, sm_scale,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int B, int Lq,
+                            int Lk, int H, int Hkv, int D, int dtype,
+                            int causal, float sm_scale, void* stream) {
+  return (int)bwd_dispatch<false>(q, k, v, dout, lse, delta, dq, nullptr,
+                                  B, Lq, Lk, H, Hkv, D, dtype, causal,
+                                  sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int B,
+                             int Lq, int Lk, int H, int Hkv, int D, int dtype,
+                             int causal, float sm_scale, void* stream) {
+  return (int)bwd_dispatch<true>(q, k, v, dout, lse, delta, dk, dv, B, Lq,
+                                 Lk, H, Hkv, D, dtype, causal, sm_scale,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -2,14 +2,26 @@
 
 State-dict keys and parameter layouts are those of ``paddle_tpu``
 (``Linear`` weights ``(in, out)``), so ``convert.state_dict_from_paddle_tpu``
-carries a JAX checkpoint across by copying. Attention runs through
-``nn.functional.scaled_dot_product_attention``, which on a card is the
-flash kernel; cached decode in the serving engine runs the paged kernel
-(``serving_callables``). RoPE is the half-split form, computed in fp32 and
+carries a JAX checkpoint across by copying (a ``scan_layers=True`` one
+through ``convert.scan_to_layered_state_dict``). Attention runs through
+``nn.functional.scaled_dot_product_attention``: on a card the flash
+kernels, with the flash backward when autograd records; cached decode in
+the serving engine runs the paged kernel (``serving_callables``). RoPE is
+the half-split form, computed in fp32 from cos/sin in the dtype that
+``amp.auto_cast`` gives the op (bf16 under O2, as in the JAX package) and
 cast back to the activations' dtype.
 
-Left for later slices: ``scan_layers``, ``recompute``, sampling in
-``generate`` and the dense stacked-cache decode tier.
+Training: ``forward(input_ids, labels=ids)`` returns ``(loss, logits)``
+with shifted labels; ``config.recompute`` checkpoints each decoder layer
+(``torch.utils.checkpoint``, non-reentrant, the forward's ``auto_cast``
+state carried into the recomputation). ``config.scan_layers`` is accepted
+so that a JAX package config carries across, and ignored: the port always
+runs its per-layer modules in a loop (PyTorch has no ``scan``), and a scan
+checkpoint's stacked weights load through
+``convert.scan_to_layered_state_dict``.
+
+Left for later slices: sampling in ``generate`` and the dense
+stacked-cache decode tier.
 """
 
 from __future__ import annotations
@@ -20,7 +32,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..amp import cast_inputs, recompute_context
 from ..device import resolve_device
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
@@ -44,6 +58,11 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "float32"
+    # checkpoint each decoder layer (recomputed in the backward)
+    recompute: bool = False
+    # accepted for the JAX package's configs and ignored: the port runs its
+    # per-layer modules in a loop either way (see the module docstring)
+    scan_layers: bool = False
 
     @staticmethod
     def llama2_7b() -> "LlamaConfig":
@@ -86,6 +105,7 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     """x: (B, L, H, D) at positions [offset, offset + L). cos/sin:
     (max_len, D/2) fp32."""
     n = x.shape[1]
+    x, cos, sin = cast_inputs("rope", x, cos, sin)
     c = cos[position_offset:position_offset + n][None, :, None, :]
     s = sin[position_offset:position_offset + n][None, :, None, :]
     return _rotate(x, c, s)
@@ -143,8 +163,7 @@ class LlamaMLP(nn.Module):
         self.down_proj = Linear(i, h, bias_attr=False, **kw)
 
     def forward(self, x):
-        return self.down_proj(nn.functional.silu(self.gate_proj(x))
-                              * self.up_proj(x))
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -188,8 +207,14 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, caches: Optional[List[KVPair]] = None):
         x = self.embed_tokens(input_ids)
         if caches is None:
+            remat = self.config.recompute and torch.is_grad_enabled()
             for layer in self.layers:
-                x = layer(x, self.rope_cos, self.rope_sin)
+                if remat:
+                    x = checkpoint(layer, x, self.rope_cos, self.rope_sin,
+                                   use_reentrant=False,
+                                   context_fn=recompute_context)
+                else:
+                    x = layer(x, self.rope_cos, self.rope_sin)
             return self.norm(x)
         new_caches = []
         for layer, c in zip(self.layers, caches):
@@ -202,7 +227,8 @@ class LlamaForCausalLM(nn.Module):
     """Llama with an LM head. Built on ``device`` (default ``cuda``; raises
     without a card unless ``device="cpu"``) in ``config.dtype``, weights
     drawn from ``generator`` (default: a generator on that device seeded
-    with 0): N(0, 0.02) for embeddings and projections, ones for norms."""
+    with 0): N(0, 0.02) for embeddings and projections, ones for norms.
+    Parameters train (``requires_grad``)."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -218,14 +244,21 @@ class LlamaForCausalLM(nn.Module):
         for m in self.modules():
             if isinstance(m, (Linear, Embedding)):
                 m.reset_parameters(generator)
-        self.eval()
 
     @property
     def device(self) -> torch.device:
         return self.model.embed_tokens.weight.device
 
-    def forward(self, input_ids):
-        return self._logits(self.model(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Logits ``(B, L, V)``; with ``labels`` ``(loss, logits)``, the loss
+        the mean cross entropy of token ``i + 1`` given tokens ``<= i``."""
+        logits = self._logits(self.model(input_ids))
+        if labels is None:
+            return logits
+        v = self.config.vocab_size
+        loss = F.cross_entropy(logits[:, :-1, :].reshape(-1, v),
+                               labels[:, 1:].reshape(-1))
+        return loss, logits
 
     def _logits(self, h):
         if self.lm_head is not None:
@@ -312,3 +345,10 @@ class LlamaForCausalLM(nn.Module):
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approximate training FLOPs per token: 6N plus the attention
+        products (the JAX package's formula)."""
+        c = self.config
+        return 6.0 * self.num_params() + \
+            12 * c.num_hidden_layers * c.hidden_size * seq_len

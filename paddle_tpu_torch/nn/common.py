@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..ops import nn_ops
 
 __all__ = ["Linear", "Embedding"]
@@ -15,11 +16,14 @@ __all__ = ["Linear", "Embedding"]
 
 class Linear(nn.Module):
     """``y = x @ W (+ b)`` with ``W`` of shape ``(in_features,
-    out_features)`` (paddle's layout, not ``torch.nn.Linear``'s)."""
+    out_features)`` (paddle's layout, not ``torch.nn.Linear``'s). Built on
+    ``device`` (default ``cuda``; raises without a card unless
+    ``device="cpu"``)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias_attr: bool = True, device=None, dtype=None):
         super().__init__()
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(
             in_features, out_features, device=device, dtype=dtype))
         self.bias: Optional[nn.Parameter] = nn.Parameter(torch.zeros(
@@ -37,9 +41,13 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
+    """Lookup table ``(num_embeddings, embedding_dim)``; ``device`` as for
+    :class:`Linear`."""
+
     def __init__(self, num_embeddings: int, embedding_dim: int, device=None,
                  dtype=None):
         super().__init__()
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(
             num_embeddings, embedding_dim, device=device, dtype=dtype))
 

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``paddle_tpu_torch``
-loads neither JAX nor ``paddle_tpu``; its entry points need a card unless
-the caller asks for the CPU; ``chip_smoke.py`` fails without a card or
+loads neither JAX nor ``paddle_tpu``; its entry points (model, engine,
+layers) need a card unless the caller asks for the CPU, and device tensors
+never take a plain CPU path; ``chip_smoke.py`` fails without a card or
 without the package; the kernel bindings match their C entry points."""
 
 import ctypes
@@ -14,10 +15,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from paddle_tpu_torch import NoDeviceError, resolve_device
+from paddle_tpu_torch import NoDeviceError, amp, resolve_device
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.ops import q8_adam as q8
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import Engine, ServingConfig
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -61,8 +65,30 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
         LlamaForCausalLM(cfg)
     with pytest.raises(NoDeviceError):
         Engine(lambda *a: None, lambda *a: None, scfg)
+    for layer in (lambda **kw: Linear(4, 4, **kw),
+                  lambda **kw: Embedding(8, 4, **kw),
+                  lambda **kw: RMSNorm(4, **kw)):
+        with pytest.raises(NoDeviceError):
+            layer()
+        assert all(p.device.type == "cpu"
+                   for p in layer(device="cpu").parameters())
     assert resolve_device("cpu").type == "cpu"
-    LlamaForCausalLM(cfg, device="cpu")
+    m = LlamaForCausalLM(cfg, device="cpu")
+    # amp.decorate casts in place where the parameters live
+    opt = AdamW(parameters=m.parameters(), moment_dtype="int8")
+    amp.decorate(m, opt, level="O2", dtype="bfloat16")
+    assert all(p.device.type == "cpu" and p.dtype == torch.bfloat16
+               for p in m.parameters())
+
+
+def test_adamw_over_device_parameters_never_takes_the_plain_path():
+    # a non-CPU parameter goes to the int8 kernel or raises: never a CPU
+    # detour (meta tensors stand in for a card's here)
+    p = torch.nn.Parameter(torch.empty(4096, device="meta"))
+    p.grad = torch.empty(4096, device="meta")
+    opt = AdamW(parameters=[p], moment_dtype="int8")
+    with pytest.raises(ValueError, match="CUDA"):
+        opt.step()
 
 
 def test_chip_smoke_fails_without_card_or_package(tmp_path):
@@ -88,14 +114,25 @@ def _c_params(source: str, fn: str):
     return [p.strip() for p in m.group(1).split(",")]
 
 
+_ARGTYPES_OF = {"flash_fwd": "_ARGTYPES", "flash_fwd_lse": "_ARGTYPES_LSE",
+                "flash_bwd_dq": "_ARGTYPES_BWD_DQ",
+                "flash_bwd_dkv": "_ARGTYPES_BWD_DKV",
+                "paged_decode": "_ARGTYPES", "q8_adam": "_ARGTYPES"}
+
+
 @pytest.mark.parametrize("mod,source,fn", [
     (fa, "flash_attention.cu", "flash_fwd"),
     (pa, "paged_attention.cu", "paged_decode"),
+    (fa, "flash_attention.cu", "flash_fwd_lse"),
+    (fa, "flash_attention.cu", "flash_bwd_dq"),
+    (fa, "flash_attention.cu", "flash_bwd_dkv"),
+    (q8, "q8_adam.cu", "q8_adam"),
 ])
 def test_ctypes_bindings_match_c_signatures(mod, source, fn):
     params = _c_params(source, fn)
-    assert len(params) == len(mod._ARGTYPES)
-    for p, ty in zip(params, mod._ARGTYPES):
+    argtypes = getattr(mod, _ARGTYPES_OF[fn])
+    assert len(params) == len(argtypes)
+    for p, ty in zip(params, argtypes):
         if "*" in p:
             assert ty is ctypes.c_void_p, p
         elif p.startswith("int "):
