@@ -5,7 +5,8 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 ``nvcc``. It builds every kernel in ``paddle_tpu_torch/csrc`` from source
-and runs, printing one JSON line per phase:
+(and requires that the bf16 flash forward's SASS holds wgmma and TMA
+instructions) and runs, printing one JSON line per phase:
 
 * serving: holds the flash-prefill and paged-decode kernels against their
   plain PyTorch versions at the shapes the serving path gives them, serves
@@ -15,7 +16,8 @@ and runs, printing one JSON line per phase:
   token for token on a 2-layer full-width fp32 model;
 * training: holds the forward-with-lse, the flash backward (dq, dk/dv) and
   the int8 AdamW kernels against their plain versions (and shows that the
-  check rejects a copy of the backward kernels that skips a tile), trains
+  check rejects a copy of the flash kernels that skip a tile, and that
+  three forward launches on the same inputs agree bit for bit), trains
   the 1.59B Llama of ``bench.py`` (full width and depth, batch 6, seq 4096,
   AMP O2 bf16, int8 AdamW without master weights) for 2 warm-up and 4
   timed steps, profiles one more step, and trains a 2-layer full-width
@@ -34,10 +36,12 @@ import ctypes
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
@@ -65,9 +69,15 @@ TOL = {("paged", "bfloat16"): (2e-3, 4e-3),
 REL_TOL = {("flash", "bfloat16"): 1e-2,
            ("flash_bwd", "bfloat16"): 1e-2}
 # A copy of csrc/flash_attention.cu with one fault planted in each bf16
-# backward kernel: dq skips the K tile at Lk/2, dk/dv skip the Q tile at
-# Lq/2. flash_train_check requires that REL_TOL rejects both at L=4096.
+# kernel: the forward's consumers skip the K/V tile at Lk/2 (its scores are
+# masked), dq skips the K tile at Lk/2, dk/dv skip the Q tile at Lq/2.
+# flash_train_check requires that REL_TOL rejects all three at L=4096.
 PLANTED_FAULTS = (
+    ("  if (n0 + FW_BN > min(Lk, wg_end)) {\n",
+     "  if (n0 == (Lk / 2) / FW_BN * FW_BN) {\n"
+     "#pragma unroll\n"
+     "    for (int i = 0; i < FW_BN / 2; ++i) s[i] = -INFINITY;\n"
+     "  }\n"),
     ("    stage_tile<D>(kb, kv_stride, n0, Lk, Ks, Kt);\n",
      "    if (n0 == (Lk / 2) / BN * BN) continue;\n"),
     ("      stage_tile<D>(qb, q_stride, q0, Lq, Qs, Qt);\n",
@@ -96,6 +106,20 @@ def tile_rel_err(torch, out, ref, tile: int = 64) -> float:
               .square().sum((2, 4))
               for x in (out.float() - ref.float(), ref.float()))
     return float((e2 / r2.clamp_min(1e-30)).sqrt().max())
+
+
+def require_unseen_rows_zero(torch, fa, out, lse, lq: int, lk: int,
+                             causal: bool, what: str) -> None:
+    """Causal with Lq > Lk: the first Lq - Lk query rows see no key; they
+    must give out exactly 0 and (when given) lse exactly ``LSE_MASKED``."""
+    unseen = lq - lk if causal else 0
+    if unseen <= 0:
+        return
+    require(not bool(out[:, :unseen].any()),
+            f"{what}: rows that see no key are not 0")
+    require(lse is None or bool((lse[:, :, :unseen] == fa.LSE_MASKED).all()),
+            f"{what}: rows that see no key have an lse other than "
+            f"{fa.LSE_MASKED}")
 
 
 def check_close(torch, out, ref, kernel: str, what: str,
@@ -178,22 +202,28 @@ def check_flash(torch, fa):
     import torch.nn.functional as TF
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [  # name, B, H, Hkv, Lq, Lk, causal, dtype
-        ("causal_512", 1, 32, 32, 512, 512, True, bf),
-        ("causal_2048", 1, 32, 32, 2048, 2048, True, bf),
-        ("causal_1000_ragged", 1, 32, 32, 1000, 1000, True, bf),
-        ("gqa_causal_1024_h32_kv8", 1, 32, 8, 1024, 1024, True, bf),
-        ("causal_lq256_lk1024", 1, 32, 32, 256, 1024, True, bf),
-        ("full_512", 1, 32, 32, 512, 512, False, bf),
+    cases = [  # name, B, H, Hkv, Lq, Lk, causal, dtype, D
+        ("causal_512", 1, 32, 32, 512, 512, True, bf, 128),
+        ("causal_2048", 1, 32, 32, 2048, 2048, True, bf, 128),
+        ("causal_1000_ragged", 1, 32, 32, 1000, 1000, True, bf, 128),
+        ("gqa_causal_1024_h32_kv8", 1, 32, 8, 1024, 1024, True, bf, 128),
+        ("causal_lq256_lk1024", 1, 32, 32, 256, 1024, True, bf, 128),
+        ("full_512", 1, 32, 32, 512, 512, False, bf, 128),
+        # the edges of the 128-row tiles: generate's step (one query over a
+        # grown cache), rows that see no key (out 0), D=64, one row past a
+        # tile
+        ("causal_lq1_lk1064", 1, 32, 32, 1, 1064, True, bf, 128),
+        ("causal_lq256_lk128", 1, 32, 32, 256, 128, True, bf, 128),
+        ("d64_causal_1000", 1, 32, 32, 1000, 1000, True, bf, 64),
+        ("causal_129", 1, 32, 32, 129, 129, True, bf, 128),
         # the fp32 CUDA-core kernel, at the engine_vs_generate phase's
         # prefill lengths and its generate step (one query over the cache)
-        ("f32_causal_37", 1, 32, 32, 37, 37, True, f32),
-        ("f32_causal_513", 1, 32, 32, 513, 513, True, f32),
-        ("f32_lq1_lk528", 1, 32, 32, 1, 528, True, f32),
+        ("f32_causal_37", 1, 32, 32, 37, 37, True, f32, 128),
+        ("f32_causal_513", 1, 32, 32, 513, 513, True, f32, 128),
+        ("f32_lq1_lk528", 1, 32, 32, 1, 528, True, f32, 128),
     ]
-    d = 128
     rows = []
-    for name, b, h, hkv, lq, lk, causal, dt in cases:
+    for name, b, h, hkv, lq, lk, causal, dt, d in cases:
         q = torch.randn(b, lq, h, d, generator=gen, device="cuda", dtype=dt)
         k = torch.randn(b, lk, hkv, d, generator=gen, device="cuda", dtype=dt)
         v = torch.randn(b, lk, hkv, d, generator=gen, device="cuda", dtype=dt)
@@ -202,6 +232,7 @@ def check_flash(torch, fa):
         torch.cuda.synchronize()
         res = check_close(torch, out, ref, "flash", f"flash {name}")
         err = res["max_abs"]
+        require_unseen_rows_zero(torch, fa, out, None, lq, lk, causal, name)
         # library yardstick: torch SDPA in (B, H, L, D), K/V repeated for
         # GQA and the bottom-right causal mask given explicitly when lq != lk
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -215,7 +246,9 @@ def check_flash(torch, fa):
             lib_causal = False
         lib = lambda: TF.scaled_dot_product_attention(  # noqa: E731
             qh, kh, vh, attn_mask=mask, is_causal=lib_causal)
-        lib_err = (lib().transpose(1, 2).float() - ref.float()).abs().max().item()
+        # SDPA gives NaN on rows that see no key; the kernels give 0
+        lib_err = (lib().transpose(1, 2).float().nan_to_num(0.0)
+                   - ref.float()).abs().max().item()
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal), 10)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(
             q, k, v, causal=causal), 3, warmup=1)
@@ -520,6 +553,42 @@ def agree_2layer(torch, fa, pa):
 # training phase 1: forward with lse, flash backward against plain versions
 # ---------------------------------------------------------------------------
 
+def forward_kernels(native_build) -> dict:
+    """Each bf16 flash forward kernel of the built library: the ``HGMMA``
+    (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS
+    (``cuobjdump -sass``), and its registers and spills as ptxas reported
+    them when this run built it."""
+    bindir = Path(native_build.nvcc()).parent
+    sass = subprocess.run(
+        [str(bindir / "cuobjdump"), "-sass",
+         str(native_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    kernels, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1) if "flash_fwd_wgmma" in m.group(1) else None
+            if fn:
+                kernels[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in ("HGMMA", "UTMALDG"):
+                kernels[fn][op] += op in ln
+    fn = None
+    for ln in native_build.build_logs.get("flash_attention", "").splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1) if m.group(1) in kernels else None
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                    r"spill loads", ln)):
+            kernels[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            kernels[fn]["registers"] = int(m[1])
+    # flash_fwd_wgmma_kernel<D, LSE>, read from the mangled name's
+    # template arguments (ILi<D>ELb<LSE>E)
+    return {"flash_fwd_wgmma_kernel<%s, %s>" % re.search(
+        r"ILi(\d+)ELb([01])E", fn).groups(): v for fn, v in kernels.items()}
+
+
 def attention_pairs(lq: int, lk: int, causal: bool) -> int:
     """(query, key) pairs the attention computes: the causal rule's count
     where causal (bottom-right aligned), lq * lk where not."""
@@ -576,17 +645,37 @@ def bwd_launches(torch, fa, lib, q, k, v, out, lse, do):
     return grads, fns[0], fns[1]
 
 
+def fwd_lse_launch(torch, fa, lib, q, k, v):
+    """``flash_fwd_lse`` (bf16, causal) of the library ``lib`` as a closure
+    over fresh out and lse."""
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, lq, dtype=torch.float32, device="cuda")
+    fn = lib.flash_fwd_lse
+    fn.argtypes, fn.restype = fa._ARGTYPES_LSE, ctypes.c_int
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, lq, lk, h, hkv, d, 1, 1, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream)
+    return out, lse, lambda: fa._native.check(fn(*args), "flash_fwd_lse")
+
+
 def check_planted(torch, fa, planted_lib, q, k, v, rout, rlse, do, refs):
-    """Run the planted library's backward at the main path's shape and
-    require that REL_TOL rejects each of its gradients."""
+    """Run the planted library's forward and backward at the main path's
+    shape and require that REL_TOL rejects its out and each gradient."""
+    out, _, run_fwd = fwd_lse_launch(torch, fa, planted_lib, q, k, v)
     (dq, dk, dv), run_dq, run_dkv = bwd_launches(torch, fa, planted_lib, q, k,
                                                  v, rout, rlse, do)
+    run_fwd()
     run_dq()
     run_dkv()
     torch.cuda.synchronize()
-    limit = REL_TOL["flash_bwd", "bfloat16"]
     row = {}
-    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+    for name, got, ref, kernel in (("out", out, rout, "flash"),
+                                   *((n, g, r, "flash_bwd") for n, g, r in
+                                     zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                         refs))):
+        limit = REL_TOL[kernel, "bfloat16"]
         rel = tile_rel_err(torch, got, ref)
         # whether the elementwise limit that held these outputs before
         # REL_TOL would also reject the fault (PERF.md compares the two)
@@ -594,30 +683,36 @@ def check_planted(torch, fa, planted_lib, q, k, v, rout, rlse, do, refs):
                          <= 5e-2 + 2e-2 * ref.float().abs()).all())
         require(rel > limit, f"planted fault in {name} passed: tile "
                              f"error {rel} <= {limit}")
-        row[name] = {"tile_rel": rel, "old_abs_limit_passes": old_pass}
+        row[name] = {"tile_rel": rel, "limit": limit,
+                     "old_abs_limit_passes": old_pass}
     emit({"phase": "flash_train_check", "planted_faults": {
-        "shape": list(q.shape), "dq": "skips the K tile at Lk/2",
-        "dk_dv": "skip the Q tile at Lq/2", "limit": limit, **row}})
+        "shape": list(q.shape), "out": "skips the K/V tile at Lk/2",
+        "dq": "skips the K tile at Lk/2", "dk_dv": "skip the Q tile at Lq/2",
+        **row}})
 
 
 def check_flash_train(torch, fa, planted_lib):
     import torch.nn.functional as TF
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [  # name, B, H, Hkv, Lq, Lk, causal, dtype
-        ("causal_4096_h20", 1, 20, 20, 4096, 4096, True, bf),
-        ("gqa_causal_1024_h32_kv8", 1, 32, 8, 1024, 1024, True, bf),
-        ("causal_lq256_lk1024", 1, 20, 20, 256, 1024, True, bf),
-        ("full_512", 1, 20, 20, 512, 512, False, bf),
+    cases = [  # name, B, H, Hkv, Lq, Lk, causal, dtype, D
+        ("causal_4096_h20", 1, 20, 20, 4096, 4096, True, bf, 128),
+        ("gqa_causal_1024_h32_kv8", 1, 32, 8, 1024, 1024, True, bf, 128),
+        ("causal_lq256_lk1024", 1, 20, 20, 256, 1024, True, bf, 128),
+        ("full_512", 1, 20, 20, 512, 512, False, bf, 128),
+        # the edges of the forward's 128-row tiles (see check_flash)
+        ("causal_lq1_lk1064", 1, 20, 20, 1, 1064, True, bf, 128),
+        ("causal_lq256_lk128", 1, 20, 20, 256, 128, True, bf, 128),
+        ("d64_causal_1024", 1, 20, 20, 1024, 1024, True, bf, 64),
+        ("causal_129", 1, 20, 20, 129, 129, True, bf, 128),
         # the fp32 CUDA-core kernels at the train_vs_cpu phase's shape,
         # and ragged lengths
-        ("f32_causal_256_b2", 2, 20, 20, 256, 256, True, f32),
-        ("f32_causal_37", 1, 20, 20, 37, 37, True, f32),
-        ("f32_causal_513", 1, 20, 20, 513, 513, True, f32),
+        ("f32_causal_256_b2", 2, 20, 20, 256, 256, True, f32, 128),
+        ("f32_causal_37", 1, 20, 20, 37, 37, True, f32, 128),
+        ("f32_causal_513", 1, 20, 20, 513, 513, True, f32, 128),
     ]
-    d = 128
     errs = {"lse": 0.0, "out": 0.0, "dq": 0.0, "dkv": 0.0}
-    for name, b, h, hkv, lq, lk, causal, dt in cases:
+    for name, b, h, hkv, lq, lk, causal, dt, d in cases:
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda", dtype=dt)
         q, k, v = rnd(b, lq, h, d), rnd(b, lk, hkv, d), rnd(b, lk, hkv, d)
@@ -630,6 +725,7 @@ def check_flash_train(torch, fa, planted_lib):
         rq, rk, rv = fa.flash_attention_bwd_reference(q, k, v, rout, rlse,
                                                       do, causal=causal)
         torch.cuda.synchronize()
+        require_unseen_rows_zero(torch, fa, out, lse, lq, lk, causal, name)
         dn = dtype_name(dt)
         row = {"case": name, "dtype": dn,
                "out": check_close(torch, out, rout, "flash", f"{name} out"),
@@ -651,10 +747,21 @@ def check_flash_train(torch, fa, planted_lib):
     torch.cuda.empty_cache()
 
     # times at the main path's shape: bench.py's B=6, H=20, L=4096, D=128
-    b, h, L = 6, 20, 4096
+    b, h, L, d = 6, 20, 4096, 128
     q, k, v, do = (torch.randn(b, L, h, d, generator=gen, device="cuda",
                                dtype=bf) for _ in range(4))
-    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    # the forward has no atomics: launches that differ in any bit race in
+    # its pipeline
+    runs = [fa.flash_attention_lse(q, k, v, causal=True) for _ in range(3)]
+    same = all(torch.equal(o.view(torch.int16), runs[0][0].view(torch.int16))
+               and torch.equal(l.view(torch.int32), runs[0][1].view(torch.int32))
+               for o, l in runs[1:])
+    require(same, "flash_fwd_lse at B=6 H=20 L=4096: three launches on the "
+                  "same inputs differ")
+    emit({"phase": "flash_train_check", "determinism": {
+        "shape": [b, L, h, d], "launches": 3, "bit_identical": same}})
+    out, lse = runs[0]
+    del runs
     grads, run_dq, run_dkv = bwd_launches(
         torch, fa, fa._native.load("flash_attention"), q, k, v, out, lse, do)
     ms_fwd = cuda_ms(torch, lambda: fa.flash_attention_lse(q, k, v, causal=True), 5)
@@ -1060,13 +1167,19 @@ def main() -> int:
         native_build.build()
     finally:
         planted_lib = load_planted()
+    fwd_kernels = forward_kernels(native_build)
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "sources": native_build.sources(),
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in native_build.build_logs.items()},
+          "forward_kernels": fwd_kernels,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "card": smi})
+    require(len(fwd_kernels) == 4 and all(
+        k["HGMMA"] > 0 and k["UTMALDG"] > 0 for k in fwd_kernels.values()),
+        f"the bf16 forward kernels do not all run on wgmma and TMA: "
+        f"{fwd_kernels}")
     all_counters = (fa.launches, pa.launches, fa.launches_lse,
                     fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches)
 

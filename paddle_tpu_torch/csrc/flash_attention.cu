@@ -20,22 +20,19 @@
 // What bounds it on an H100: at prefill lengths (L >= 512, D = 128) the work
 // is 4 * Lq * Lk * D operations per head against 2 * (Lq + Lk) * D elements
 // moved, so the tensor-core rate bounds it (989 TFLOP/s bf16). Two kernels,
-// one block per (64-row Q tile, batch * head) in both, K tiles past the
-// causal diagonal never loaded:
+// K tiles past the causal diagonal never loaded:
 //
-// * bfloat16 (the serving path): tensor cores through mma.sync m16n8k16
-//   (bf16 in, fp32 accumulate). Four warps, 16 query rows each; a warp keeps
-//   its Q fragments in registers for the whole key loop; 64-key K tiles are
-//   staged row-major and V tiles transposed in shared memory (rows padded so
-//   the 8 row groups of a warp hit distinct banks); the scores come out in
-//   the accumulator layout, the online softmax runs on them in registers
-//   (row max and sum across the 4 lanes of a row by shuffles), and the
-//   probabilities are re-packed as bf16 A fragments for P.V, as in
-//   FlashAttention-2. wgmma, TMA and warp specialisation are later work.
-// * float32 (parity runs): the products on the CUDA cores in fp32; the Q
-//   tile staged once in shared memory pre-scaled by sm_scale, K transposed
-//   and padded; each thread owns a 4x4 block of scores and a 4 x (D/16)
-//   block of the accumulator; row statistics across 16 lanes by shuffles.
+// * bfloat16 (serving and training): one block per (128-row Q tile, batch
+//   * head), built for Hopper: a producer warp streams K/V tiles by TMA
+//   through a two-stage mbarrier ring while two consumer warpgroups run
+//   wgmma (S = Q K^T from shared memory, O += P V with P re-packed in
+//   registers and V read through the transpose flag) and the online
+//   softmax in registers. The design notes sit above the kernel.
+// * float32 (parity runs): the products on the CUDA cores in fp32, one
+//   block per (64-row Q tile, batch * head); the Q tile staged once in
+//   shared memory pre-scaled by sm_scale, K transposed and padded; each
+//   thread owns a 4x4 block of scores and a 4 x (D/16) block of the
+//   accumulator; row statistics across 16 lanes by shuffles.
 //
 // lse (forward with lse): per (batch, head, query row) the logsumexp of the
 // scaled logits, layout (B, H, Lq) fp32; a row that sees no key gets +1e30
@@ -55,7 +52,8 @@
 //   registers, where the TPU package repeated K/V and let AD sum) and over
 //   the Q tiles from the first one that can see the K tile, with Q, dO and
 //   their transposes, lse and delta staged in shared memory.
-// In bf16 both run mma.sync m16n8k16 as the forward does: a warp owns 16
+// In bf16 both run mma.sync m16n8k16 (bf16 in, fp32 accumulate) with 64-row
+// blocks of four warps: a warp owns 16
 // rows (queries for dq, keys for dk/dv), the score and dP tiles come out in
 // the accumulator layout, and P and dS are re-packed in registers as bf16
 // A operands of the second products (B operands transposed in shared
@@ -64,6 +62,8 @@
 // rows of stride D + 1 in shared memory so that neither the row-wise nor
 // the column-wise reads conflict.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -242,10 +242,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores through mma.sync
+// bfloat16 forward: TMA-fed, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int TC_NT = 128;  // 4 warps x 16 query rows
+// Helpers of the backward kernels (mma.sync m16n8k16, 32-bit fragment loads).
+constexpr int TC_NT = 128;  // 4 warps x 16 rows
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -265,193 +266,524 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// One block per (128 query rows, batch * head): consumer warpgroups 0 and 1
+// own 64 rows each, and one warp of warpgroup 2 (the producer) starts every
+// copy. The pieces:
+// * TMA. The producer loads the Q tile once, then streams 128-key K and V
+//   tiles through a ring of FW_STAGES stages in shared memory; a `full`
+//   mbarrier per tile counts the bytes in, an `empty` one counts the
+//   consumers out, for K as soon as its S is computed and for V once its
+//   P V is. The tensor maps are 4-D over (D, H, L, B), so the
+//   rows of a ragged last tile past L are zero-filled, never read from the
+//   next head or batch (zero keys still score 0, so the key mask stays).
+//   A tile lands as D/64 boxes of 64 columns (128-byte rows) in the 128-byte
+//   swizzle that wgmma reads: row r's 16-byte chunk c sits at chunk
+//   c ^ (r % 8), 8 rows (1024 bytes) to a swizzle atom.
+// * wgmma. S = Q K^T is m64n128k16 with both operands in shared memory,
+//   K-major (descriptor SBO 1024 bytes: the next 8 rows; a 16-column k-step
+//   advances the start address by 32 bytes inside the atom, the next 64
+//   columns are the next box). O += P V is m64nDk16 with P in registers (the
+//   score accumulators re-packed as bf16 A fragments: the accumulator
+//   layout of columns 16kk..16kk+15 is the A layout of k-step kk) and V read
+//   N-major from the same boxes through the transpose flag (LBO: the next
+//   64 columns of D, one box on; SBO: the next 8 keys). V is never
+//   transposed.
+// * Online softmax in registers on exp2, log2 e folded into the scale. Only
+//   tiles that cross the causal diagonal of the warpgroup's rows or the end
+//   of Lk are masked. Each thread keeps a partial row sum; the 4 lanes of a
+//   row add theirs once, at the end.
+// * Within a warpgroup, tile i's S = Q K^T starts with tile i-1's P V, and
+//   tile i's softmax runs while that P V is on the tensor cores (the two
+//   warpgroups also fill each other's softmax time).
+// * Key tiles run from the last to the first, so the masked tiles come
+//   first; causal Q tiles run heaviest first within each (batch, head), and
+//   the blocks of one head run side by side, sharing its K/V in L2.
+// * setmaxnreg gives the consumers 240 registers and the producer 24: S and O
+//   take 64 fp32 each per thread at D = 128, and P 32 for each of the two
+//   tiles in flight.
+constexpr int FW_BM = 128;       // query rows per block
+constexpr int FW_BN = 128;       // keys per K/V tile
+constexpr int FW_STAGES = 2;     // K/V ring depth
+constexpr int FW_CONSUMERS = 256;                 // two warpgroups
+constexpr int FW_THREADS = FW_CONSUMERS + 128;    // + the producer warpgroup
+constexpr uint32_t SW_ROW = 128;                  // bytes of a swizzled box row
+constexpr float LOG2E = 1.4426950408889634f;
+
 template <int D>
-struct TcSmem {
-  static constexpr int KST = D + 8;   // K row stride (bf16)
-  static constexpr int VST = BN + 8;  // transposed-V row stride (bf16)
-  static constexpr size_t bytes = (size_t)(BN * KST + D * VST) * sizeof(__nv_bfloat16);
+struct FwSmem {
+  static constexpr uint32_t QBOX = FW_BM * SW_ROW;    // one 64-column box of Q
+  static constexpr uint32_t KVBOX = FW_BN * SW_ROW;   // one of a K or V tile
+  static constexpr uint32_t Q = QBOX * (D / 64);
+  static constexpr uint32_t KV = KVBOX * (D / 64);
+  static constexpr uint32_t BARS = Q + FW_STAGES * 2 * KV;
+  // mbarriers: q_full, then per stage k_full, v_full, k_empty, v_empty
+  static constexpr size_t bytes = BARS + 8 * (1 + 4 * FW_STAGES) + 1024;  // + alignment
 };
 
-template <int D, bool LSE>
-__global__ void __launch_bounds__(TC_NT)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int Lq, int Lk, int H, int Hkv, int causal,
-                    float sm_scale) {
-  using S = TcSmem<D>;
-  constexpr int KSTEPS = D / 16;  // k-steps of q.k
-  constexpr int NTILE = BN / 8;   // 8-key tiles of the scores
-  constexpr int DTILE = D / 8;    // 8-column tiles of the output
-  constexpr int CPR = D / 8;      // 16-byte chunks per K/V row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][KST]
-  __nv_bfloat16* Vt = Ks + BN * S::KST;                             // [D][VST]
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, kvh = h / (H / Hkv);
-  const int m0 = blockIdx.x * BM;
-  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
-  const __nv_bfloat16* qb = q + ((long)b * Lq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((long)b * Lk * Hkv + kvh) * D;
-  const __nv_bfloat16* vb = v + ((long)b * Lk * Hkv + kvh) * D;
-  __nv_bfloat16* ob = o + ((long)b * Lq * H + h) * D;
-  const int r0 = m0 + warp * 16 + g;  // this lane's two rows: r0, r0 + 8
-  const int r1 = r0 + 8;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
 
-  uint32_t qa[KSTEPS][4];  // A fragments of the warp's 16 Q rows
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `phase` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(bar), "r"(phase) : "memory");
+}
+
+// One box of a 4-D tensor map into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N of this warpgroup's wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving the writes or reads of a wgmma's registers
+// (accumulators, A fragments) across the asynchronous wgmma that uses them:
+// called before wgmma.fence and after the wait that retires the wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int c = ks * 16 + tig * 2;
-    qa[ks][0] = r0 < Lq ? ld32(qb + (long)r0 * q_stride + c) : 0u;
-    qa[ks][1] = r1 < Lq ? ld32(qb + (long)r1 * q_stride + c) : 0u;
-    qa[ks][2] = r0 < Lq ? ld32(qb + (long)r0 * q_stride + c + 8) : 0u;
-    qa[ks][3] = r1 < Lq ? ld32(qb + (long)r1 * q_stride + c + 8) : 0u;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e]) :: "memory");
+}
+
+#define ACC8(d, i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128) (+)= A (64 x 16) B (128 x 16)^T, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N) += A (64 x 16, bf16 fragments in registers) B (16 x N, N-major
+// in shared memory, read through the transpose flag).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Start S = Q K^T for one tile (one wgmma group); q_rows is the warpgroup's
+// 64 rows of the Q tile, kt the K tile.
+template <int D>
+__device__ __forceinline__ void qk_async(float (&s)[FW_BN / 2], uint32_t q_rows,
+                                         uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t box = kk / 4, off = (kk % 4) * 32;  // 64-column box, k-step
+    wgmma_ss_n128(s, sw128_desc(q_rows + box * FwSmem<D>::QBOX + off, 16, 1024),
+                  sw128_desc(kt + box * FwSmem<D>::KVBOX + off, 16, 1024), kk > 0);
   }
+  wgmma_commit();
+}
 
-  const int shift = Lk - Lq;  // bottom-right causal alignment
-  int n_end = Lk;
-  if (causal) n_end = min(Lk, max(0, m0 + BM + shift));
+// Start O += P V for one tile (one wgmma group).
+template <int D>
+__device__ __forceinline__ void pv_async(float (&o)[D / 2],
+                                         const uint32_t (&p)[FW_BN / 16][4],
+                                         uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < FW_BN / 16; ++kk)
+    wgmma_rs(o, p[kk], sw128_desc(vt + kk * 16 * SW_ROW, FwSmem<D>::KVBOX, 1024));
+  wgmma_commit();
+}
 
-  float oacc[DTILE][4];
+// The online softmax of one tile of scores, in registers. A key is masked
+// for a row at or past min(Lk, the row's causal end); `wg_end` is the
+// smallest causal end of the warpgroup's rows, so a tile wholly before it is
+// not masked at all. Raises the running max m (raw scores) of the thread's
+// two rows, adds the tile's probabilities to the partial sums l, packs them
+// as bf16 A fragments into p and returns in alpha the factor by which O
+// rescales.
+__device__ __forceinline__ void softmax_tile(float (&s)[FW_BN / 2],
+                                             uint32_t (&p)[FW_BN / 16][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int n0, int Lk,
+                                             int wg_end, int end0, int end1,
+                                             int t, float scale_log2) {
+  if (n0 + FW_BN > min(Lk, wg_end)) {
+    const int lim0 = min(Lk, end0), lim1 = min(Lk, end1);
 #pragma unroll
-  for (int dt = 0; dt < DTILE; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
-  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
-
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int c = tid; c < BN * CPR; c += TC_NT) {
-      const int r = c / CPR, d = (c % CPR) * 8, j = n0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (j < Lk) val = *reinterpret_cast<const uint4*>(kb + (long)j * kv_stride + d);
-      *reinterpret_cast<uint4*>(Ks + r * S::KST + d) = val;
-    }
-    for (int c = tid; c < BN * CPR; c += TC_NT) {
-      const int r = c % BN, d = (c / BN) * 8, j = n0 + r;  // lanes: consecutive keys
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (j < Lk) val = *reinterpret_cast<const uint4*>(vb + (long)j * kv_stride + d);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(d + i) * S::VST + r] = e[i];
-    }
-    __syncthreads();
-
-    float sacc[NTILE][4];
-#pragma unroll
-    for (int nt = 0; nt < NTILE; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks)
-#pragma unroll
-      for (int nt = 0; nt < NTILE; ++nt) {
-        const __nv_bfloat16* kr = Ks + (nt * 8 + g) * S::KST + ks * 16 + tig * 2;
-        mma_bf16(sacc[nt], qa[ks], ld32(kr), ld32(kr + 8));
-      }
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < NTILE; ++nt)
+    for (int j = 0; j < FW_BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = n0 + nt * 8 + tig * 2 + e;
-        const bool ok0 = col < Lk && (!causal || r0 + shift >= col);
-        const bool ok1 = col < Lk && (!causal || r1 + shift >= col);
-        sacc[nt][e] = ok0 ? sacc[nt][e] * sm_scale : -INFINITY;
-        sacc[nt][2 + e] = ok1 ? sacc[nt][2 + e] * sm_scale : -INFINITY;
-        mx0 = fmaxf(mx0, sacc[nt][e]);
-        mx1 = fmaxf(mx1, sacc[nt][2 + e]);
+        const int col = n0 + j * 8 + t * 2 + e;
+        if (col >= lim0) s[j * 4 + e] = -INFINITY;
+        if (col >= lim1) s[j * 4 + 2 + e] = -INFINITY;
       }
+  }
+  // rows: the thread's first (elements 4j, 4j+1) and second (4j+2, 4j+3)
+  float mx0 = m[0], mx1 = m[1];
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m_i[0], mx0), mn1 = fmaxf(m_i[1], mx1);
-    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;  // no valid key yet
-    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float alpha0 = expf(m_i[0] - mu0), alpha1 = expf(m_i[1] - mu1);
-    float sum0 = 0.f, sum1 = 0.f;
+  for (int j = 0; j < FW_BN / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j * 4], s[j * 4 + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j * 4 + 2], s[j * 4 + 3]));
+  }
 #pragma unroll
-    for (int nt = 0; nt < NTILE; ++nt)
+  for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  // exponent base; 0 while a row has seen no key (its scores are -inf)
+  const float mb0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+  const float mb1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+  alpha[0] = fast_exp2(m[0] * scale_log2 - mb0);
+  alpha[1] = fast_exp2(m[1] * scale_log2 - mb1);
+  m[0] = mx0;
+  m[1] = mx1;
+  float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sacc[nt][e] = expf(sacc[nt][e] - mu0);
-        sacc[nt][2 + e] = expf(sacc[nt][2 + e] - mu1);
-        sum0 += sacc[nt][e];
-        sum1 += sacc[nt][2 + e];
-      }
+  for (int i = 0; i < FW_BN / 2; i += 4) {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l_i[0] = alpha0 * l_i[0] + sum0;
-    l_i[1] = alpha1 * l_i[1] + sum1;
-    m_i[0] = mn0;
-    m_i[1] = mn1;
-#pragma unroll
-    for (int dt = 0; dt < DTILE; ++dt) {
-      oacc[dt][0] *= alpha0;
-      oacc[dt][1] *= alpha0;
-      oacc[dt][2] *= alpha1;
-      oacc[dt][3] *= alpha1;
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      // the score accumulators of key tiles 2kk, 2kk+1 are the A fragment
-      const uint32_t pa[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-                              pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-                              pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-                              pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DTILE; ++dt) {
-        const __nv_bfloat16* vr = Vt + (dt * 8 + g) * S::VST + kk * 16 + tig * 2;
-        mma_bf16(oacc[dt], pa, ld32(vr), ld32(vr + 8));
-      }
+    for (int e = 0; e < 2; ++e) {
+      s[i + e] = fast_exp2(fmaf(s[i + e], scale_log2, -mb0));
+      s[i + 2 + e] = fast_exp2(fmaf(s[i + 2 + e], scale_log2, -mb1));
+      sum0 += s[i + e];
+      sum1 += s[i + 2 + e];
     }
   }
-
-  const float inv0 = 1.f / fmaxf(l_i[0], 1e-30f);
-  const float inv1 = 1.f / fmaxf(l_i[1], 1e-30f);
+  l[0] = l[0] * alpha[0] + sum0;
+  l[1] = l[1] * alpha[1] + sum1;
 #pragma unroll
-  for (int dt = 0; dt < DTILE; ++dt) {
-    const int col = dt * 8 + tig * 2;
-    if (r0 < Lq)
-      *reinterpret_cast<uint32_t*>(ob + (long)r0 * q_stride + col) =
-          pack_bf16(oacc[dt][0] * inv0, oacc[dt][1] * inv0);
-    if (r1 < Lq)
-      *reinterpret_cast<uint32_t*>(ob + (long)r1 * q_stride + col) =
-          pack_bf16(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
+  for (int kk = 0; kk < FW_BN / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
-  if (LSE && tig == 0) {  // the 4 lanes of a row hold the same m_i, l_i
-    if (r0 < Lq)
-      lse[(long)bh * Lq + r0] = l_i[0] > 0.f ? m_i[0] + logf(l_i[0]) : LSE_MASKED;
-    if (r1 < Lq)
-      lse[(long)bh * Lq + r1] = l_i[1] > 0.f ? m_i[1] + logf(l_i[1]) : LSE_MASKED;
+}
+
+template <int N>
+__device__ __forceinline__ void rescale_rows(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    o[i] *= alpha[0];
+    o[i + 1] *= alpha[0];
+    o[i + 2] *= alpha[1];
+    o[i + 3] *= alpha[1];
   }
 }
 
 template <int D, bool LSE>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int Lq, int Lk, int H, int Hkv,
-                      int causal, float sm_scale, cudaStream_t stream) {
-  auto kern = flash_fwd_tc_kernel<D, LSE>;
-  const size_t smem = TcSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int Lq, int Lk, int H, int Hkv, int causal,
+                       float sm_scale) {
+  using S = FwSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
+  const uint32_t bar_q = sq + S::BARS;
+  // stage s: the K tile, then the V tile; its barriers after q_full
+  auto k_tile = [&](int s) { return sq + S::Q + (uint32_t)s * 2 * S::KV; };
+  auto bar_kfull = [&](int s) { return bar_q + 8u * (1 + 4 * s); };
+  auto bar_vfull = [&](int s) { return bar_q + 8u * (2 + 4 * s); };
+  auto bar_kempty = [&](int s) { return bar_q + 8u * (3 + 4 * s); };
+  auto bar_vempty = [&](int s) { return bar_q + 8u * (4 + 4 * s); };
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / Hkv);
+  // causal: heaviest Q tile first
+  const int m0 = (int)(causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * FW_BM;
+  const int shift = Lk - Lq;  // bottom-right causal alignment
+  const int n_end = causal ? min(Lk, max(0, m0 + FW_BM + shift)) : Lk;
+  const int n_tiles = (n_end + FW_BN - 1) / FW_BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(bar_kfull(s), 1);
+      mbar_init(bar_vfull(s), 1);
+      mbar_init(bar_kempty(s), FW_CONSUMERS);
+      mbar_init(bar_vempty(s), FW_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= FW_CONSUMERS / 32) {
+    // producer warpgroup: one thread starts every copy, key tiles from the
+    // last to the first
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == FW_CONSUMERS / 32 && lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, S::Q);
+      for (int c = 0; c < D / 64; ++c)
+        tma_load(sq + c * S::QBOX, &tm_q, bar_q, c * 64, h, m0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % FW_STAGES;
+        const uint32_t free_phase = ((it / FW_STAGES) & 1) ^ 1;  // first pass: free
+        const int n0 = (n_tiles - 1 - it) * FW_BN;
+        const uint32_t kt = k_tile(s), vt = kt + S::KV;
+        mbar_wait(bar_kempty(s), free_phase);
+        mbar_expect_tx(bar_kfull(s), S::KV);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(kt + c * S::KVBOX, &tm_k, bar_kfull(s), c * 64, kvh, n0, b);
+        mbar_wait(bar_vempty(s), free_phase);
+        mbar_expect_tx(bar_vfull(s), S::KV);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(vt + c * S::KVBOX, &tm_v, bar_vfull(s), c * 64, kvh, n0, b);
+      }
+    }
+  } else {
+    // consumer warpgroups. Tile i's S = Q K^T starts together with tile
+    // i-1's O += P V, and tile i's softmax runs while that P V is still on
+    // the tensor cores; O is rescaled once it has landed.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4, t = lane % 4;
+    const int row_lo = m0 + wg * 64;                             // the warpgroup's
+    const int r0 = row_lo + (warp % 4) * 16 + lane / 4, r1 = r0 + 8;  // the thread's
+    // causal end of a row: keys at or past it are masked
+    const int wg_end = causal ? row_lo + shift + 1 : Lk;
+    const int end0 = causal ? r0 + shift + 1 : Lk, end1 = causal ? r1 + shift + 1 : Lk;
+    const float scale_log2 = sm_scale * LOG2E;
+    const uint32_t q_rows = sq + wg * 64 * SW_ROW;
+
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+    float sacc[FW_BN / 2];
+#pragma unroll
+    for (int i = 0; i < FW_BN / 2; ++i) sacc[i] = 0.f;
+    uint32_t pa[FW_BN / 16][4];
+
+    if (n_tiles > 0) {
+      mbar_wait(bar_q, 0);
+      mbar_wait(bar_kfull(0), 0);
+      fence_regs(sacc);
+      wgmma_fence();
+      qk_async<D>(sacc, q_rows, k_tile(0));
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      mbar_arrive(bar_kempty(0));
+      float alpha[2];  // O is still 0: nothing to rescale
+      softmax_tile(sacc, pa, m_i, l_i, alpha, (n_tiles - 1) * FW_BN, Lk, wg_end,
+                   end0, end1, t, scale_log2);
+    }
+    for (int it = 1; it < n_tiles; ++it) {
+      const int s = it % FW_STAGES, sp = (it - 1) % FW_STAGES;
+      mbar_wait(bar_kfull(s), (it / FW_STAGES) & 1);
+      mbar_wait(bar_vfull(sp), ((it - 1) / FW_STAGES) & 1);
+      fence_regs(sacc);
+      fence_regs(oacc);
+      fence_regs(pa);
+      wgmma_fence();
+      qk_async<D>(sacc, q_rows, k_tile(s));
+      pv_async<D>(oacc, pa, k_tile(sp) + S::KV);
+      wgmma_wait<1>();  // S of this tile is in
+      fence_regs(sacc);
+      mbar_arrive(bar_kempty(s));
+      float alpha[2];
+      uint32_t pa_next[FW_BN / 16][4];
+      softmax_tile(sacc, pa_next, m_i, l_i, alpha, (n_tiles - 1 - it) * FW_BN, Lk,
+                   wg_end, end0, end1, t, scale_log2);
+      wgmma_wait<0>();  // P V of the previous tile is in
+      fence_regs(oacc);
+      fence_regs(pa);   // P stays in its registers until then
+      mbar_arrive(bar_vempty(sp));
+      rescale_rows(oacc, alpha);
+#pragma unroll
+      for (int kk = 0; kk < FW_BN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pa_next[kk][e];
+    }
+    if (n_tiles > 0) {
+      const int sp = (n_tiles - 1) % FW_STAGES;
+      mbar_wait(bar_vfull(sp), ((n_tiles - 1) / FW_STAGES) & 1);
+      fence_regs(oacc);
+      fence_regs(pa);
+      wgmma_fence();
+      pv_async<D>(oacc, pa, k_tile(sp) + S::KV);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      mbar_arrive(bar_vempty(sp));
+    }
+
+    // epilogue: the 4 lanes of a row add their partial sums
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_i[0] += __shfl_xor_sync(0xffffffffu, l_i[0], off);
+      l_i[1] += __shfl_xor_sync(0xffffffffu, l_i[1], off);
+    }
+    const float inv0 = 1.f / fmaxf(l_i[0], 1e-30f);
+    const float inv1 = 1.f / fmaxf(l_i[1], 1e-30f);
+    const long q_stride = (long)H * D;
+    __nv_bfloat16* ob = o + ((long)b * Lq * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + t * 2;
+      if (r0 < Lq)
+        *reinterpret_cast<uint32_t*>(ob + (long)r0 * q_stride + col) =
+            pack_bf16(oacc[j * 4] * inv0, oacc[j * 4 + 1] * inv0);
+      if (r1 < Lq)
+        *reinterpret_cast<uint32_t*>(ob + (long)r1 * q_stride + col) =
+            pack_bf16(oacc[j * 4 + 2] * inv1, oacc[j * 4 + 3] * inv1);
+    }
+    if (LSE && t == 0) {  // the 4 lanes of a row hold the same m_i, l_i
+      if (r0 < Lq)
+        lse[(long)bh * Lq + r0] = l_i[0] > 0.f ? m_i[0] * sm_scale + logf(l_i[0]) : LSE_MASKED;
+      if (r1 < Lq)
+        lse[(long)bh * Lq + r1] = l_i[1] > 0.f ? m_i[1] * sm_scale + logf(l_i[1]) : LSE_MASKED;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// Tensor map of a contiguous bf16 (B, L, heads, D) tensor as 4-D (D, heads,
+// L, B), boxes of 64 columns x 1 head x `rows` rows, 128-byte swizzle; rows
+// past L read as zeros.
+cudaError_t encode_tiles(CUtensorMap* map, const void* ptr, int D, int heads,
+                         int L, int B, int rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)D * sizeof(__nv_bfloat16);
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * L};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(ptr), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, bool LSE>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int B, int Lq, int Lk, int H, int Hkv,
+                         int causal, float sm_scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = encode_tiles(&tq, q, D, H, Lq, B, FW_BM)) != cudaSuccess ||
+      (err = encode_tiles(&tk, k, D, Hkv, Lk, B, FW_BN)) != cudaSuccess ||
+      (err = encode_tiles(&tv, v, D, Hkv, Lk, B, FW_BN)) != cudaSuccess)
+    return err;
+  auto kern = flash_fwd_wgmma_kernel<D, LSE>;
+  const size_t smem = FwSmem<D>::bytes;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + BM - 1) / BM, B * H);
-  kern<<<grid, TC_NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, Lq, Lk, H, Hkv, causal, sm_scale);
+  dim3 grid((Lq + FW_BM - 1) / FW_BM, B * H);
+  kern<<<grid, FW_THREADS, smem, stream>>>(tq, tk, tv,
+                                           static_cast<__nv_bfloat16*>(o), lse,
+                                           Lq, Lk, H, Hkv, causal, sm_scale);
   return cudaGetLastError();
 }
 
@@ -484,9 +816,9 @@ cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0 && D == 64)
     return launch<float, 64, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
   if (dtype == 1 && D == 128)
-    return launch_tc<128, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+    return launch_wgmma<128, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
   if (dtype == 1 && D == 64)
-    return launch_tc<64, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+    return launch_wgmma<64, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -26,6 +26,7 @@ ported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -55,11 +56,18 @@ _ARGTYPES_LSE = [ctypes.c_void_p] * 5 + _DIMS
 _ARGTYPES_BWD_DQ = [ctypes.c_void_p] * 7 + _DIMS
 # flash_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, <as flash_fwd>)
 _ARGTYPES_BWD_DKV = [ctypes.c_void_p] * 8 + _DIMS
+_ARGTYPES_OF = {"flash_fwd": _ARGTYPES, "flash_fwd_lse": _ARGTYPES_LSE,
+                 "flash_bwd_dq": _ARGTYPES_BWD_DQ,
+                 "flash_bwd_dkv": _ARGTYPES_BWD_DKV}
 
 
-def _kernel(name: str = "flash_fwd", argtypes=None):
+@functools.cache
+def _kernel(name: str):
+    """The C entry point ``name``, bound once: a serving step launches the
+    kernels thousands of times, and a lookup that sets ``argtypes`` on every
+    launch is host time the card waits for."""
     fn = getattr(_native.load("flash_attention"), name)
-    fn.argtypes = _ARGTYPES if argtypes is None else argtypes
+    fn.argtypes = _ARGTYPES_OF[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -153,9 +161,9 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
         return out.zero_()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, lq, lk, h, hkv, d, code,
-                        int(causal), scale, stream)
+        err = _kernel("flash_fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   out.data_ptr(), b, lq, lk, h, hkv, d, code,
+                                   int(causal), scale, stream)
     _native.check(err, "flash_attention kernel launch")
     launches.count += 1
     return out
@@ -225,7 +233,7 @@ def flash_attention_lse(query: torch.Tensor, key: torch.Tensor,
         return out.zero_(), lse.fill_(LSE_MASKED)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernel("flash_fwd_lse", _ARGTYPES_LSE)(
+        err = _kernel("flash_fwd_lse")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, lq, lk, h, hkv, d, code, int(causal),
             _scale(d, sm_scale), stream)
@@ -265,11 +273,11 @@ def flash_attention_bwd(query, key, value, out, lse, dout,
             lse.data_ptr(), delta.data_ptr())
     dims = (b, lq, lk, h, hkv, d, code, int(causal), scale, stream)
     with torch.cuda.device(q.device):
-        err = _kernel("flash_bwd_dq", _ARGTYPES_BWD_DQ)(
+        err = _kernel("flash_bwd_dq")(
             *ptrs, dq.data_ptr(), *dims)
         _native.check(err, "flash_attention_bwd dq kernel launch")
         launches_bwd_dq.count += 1
-        err = _kernel("flash_bwd_dkv", _ARGTYPES_BWD_DKV)(
+        err = _kernel("flash_bwd_dkv")(
             *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
         _native.check(err, "flash_attention_bwd dk/dv kernel launch")
         launches_bwd_dkv.count += 1

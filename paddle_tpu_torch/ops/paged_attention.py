@@ -24,6 +24,7 @@ returns them, so the serving engine never holds two copies of the pool.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
@@ -76,6 +77,7 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
+@functools.cache
 def _kernel():
     fn = _native.load("paged_attention").paged_decode
     fn.argtypes = _ARGTYPES

@@ -25,6 +25,7 @@ bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -48,6 +49,7 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 9 \
     + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
+@functools.cache
 def _kernel():
     fn = _native.load("q8_adam").q8_adam
     fn.argtypes = _ARGTYPES

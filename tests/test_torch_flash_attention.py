@@ -6,6 +6,9 @@ kernel under the interpreter, as its own tests do on the CPU; ragged
 lengths run its XLA fallback. Same numpy inputs to both, fp32, atol 1e-5.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,12 @@ from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 D = 32
 
@@ -95,3 +104,50 @@ def test_cpu_path_launches_nothing():
     fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                        torch.from_numpy(v))
     assert fa.launches.count == before
+
+
+@pytest.mark.parametrize("anchor", [a for a, _ in chip_smoke.PLANTED_FAULTS],
+                         ids=lambda a: a.strip()[:40])
+def test_planted_fault_anchor_occurs_once_in_the_source(anchor):
+    # chip_smoke.py plants its faults into a copy of the source by text: a
+    # rewrite that loses or repeats an anchor fails here, not after a build
+    # on the card
+    src = (ROOT / "paddle_tpu_torch" / "csrc" / "flash_attention.cu").read_text()
+    assert src.count(anchor) == 1
+
+
+def test_build_phase_reads_each_forward_kernel(monkeypatch):
+    # chip_smoke.py's build phase fails unless the SASS of all four bf16
+    # forward instantiations holds wgmma (HGMMA) and TMA (UTMALDG): its
+    # parser must keep the four apart and pick up ptxas's registers/spills
+    names = [f"_ZN51_GLOBAL__N__4af27cb8_18_flash_attention_cu_b294bfd022"
+             f"flash_fwd_wgmma_kernelILi{d}ELb{lse}EEEv14CUtensorMap_stS1_S1_"
+             f"P13__nv_bfloat16Pfiiiiif" for d in (64, 128) for lse in (1, 0)]
+    other = "_ZN51_GLOBAL__N__x16flash_fwd_kernelIfLi64ELb1EEEvPKT_S3_"
+    sass = "".join(f"\t\tFunction : {n}\n  /*0010*/ HGMMA.64x128x16.F32.BF16 R24, "
+                   f"gdesc[UR4], RZ ;\n  /*0020*/ UTMALDG.4D [UR8], [UR4] ;\n"
+                   for n in names) + f"\t\tFunction : {other}\n  FFMA R1 ;\n"
+    log = "".join(f"ptxas info    : Function properties for {n}\n"
+                  f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                  f"spill loads\nptxas info    : Used 168 registers, used 1 "
+                  f"barriers\n" for n in names + [other])
+
+    class Build:
+        build_logs = {"flash_attention": log}
+
+        @staticmethod
+        def nvcc():
+            return "/cuda/bin/nvcc"
+
+        @staticmethod
+        def library_path(name):
+            return f"/build/lib{name}.so"
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda *a, **k: type("Done", (), {"stdout": sass})())
+    got = chip_smoke.forward_kernels(Build)
+    assert sorted(got) == [f"flash_fwd_wgmma_kernel<{d}, {lse}>"
+                           for d in (128, 64) for lse in (0, 1)]
+    assert all(k == {"HGMMA": 1, "UTMALDG": 1, "spill_stores": 0,
+                     "spill_loads": 0, "registers": 168}
+               for k in got.values())
