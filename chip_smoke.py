@@ -5,8 +5,9 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 ``nvcc``. It builds every kernel in ``paddle_tpu_torch/csrc`` from source
-(and requires that the bf16 flash forward's SASS holds wgmma and TMA
-instructions) and runs, printing one JSON line per phase:
+(and requires that the SASS of every bf16 flash kernel, forward, dq and
+dk/dv, holds wgmma and TMA instructions) and runs, printing one JSON line
+per phase:
 
 * serving: holds the flash-prefill and paged-decode kernels against their
   plain PyTorch versions at the shapes the serving path gives them, serves
@@ -17,7 +18,8 @@ instructions) and runs, printing one JSON line per phase:
 * training: holds the forward-with-lse, the flash backward (dq, dk/dv) and
   the int8 AdamW kernels against their plain versions (and shows that the
   check rejects a copy of the flash kernels that skip a tile, and that
-  three forward launches on the same inputs agree bit for bit), trains
+  three launches of the forward and of each backward kernel on the same
+  inputs agree bit for bit), trains
   the 1.59B Llama of ``bench.py`` (full width and depth, batch 6, seq 4096,
   AMP O2 bf16, int8 AdamW without master weights) for 2 warm-up and 4
   timed steps, profiles one more step, and trains a 2-layer full-width
@@ -69,19 +71,26 @@ TOL = {("paged", "bfloat16"): (2e-3, 4e-3),
 REL_TOL = {("flash", "bfloat16"): 1e-2,
            ("flash_bwd", "bfloat16"): 1e-2}
 # A copy of csrc/flash_attention.cu with one fault planted in each bf16
-# kernel: the forward's consumers skip the K/V tile at Lk/2 (its scores are
-# masked), dq skips the K tile at Lk/2, dk/dv skip the Q tile at Lq/2.
-# flash_train_check requires that REL_TOL rejects all three at L=4096.
+# kernel: the forward's consumers skip the K/V tile at Lk/2 and dq's skip
+# the K tile at Lk/2 (their scores are masked), dk/dv's skip the Q tile at
+# Lq/2. flash_train_check requires that REL_TOL rejects all three at
+# L=4096.
 PLANTED_FAULTS = (
     ("  if (n0 + FW_BN > min(Lk, wg_end)) {\n",
      "  if (n0 == (Lk / 2) / FW_BN * FW_BN) {\n"
      "#pragma unroll\n"
      "    for (int i = 0; i < FW_BN / 2; ++i) s[i] = -INFINITY;\n"
      "  }\n"),
-    ("    stage_tile<D>(kb, kv_stride, n0, Lk, Ks, Kt);\n",
-     "    if (n0 == (Lk / 2) / BN * BN) continue;\n"),
-    ("      stage_tile<D>(qb, q_stride, q0, Lq, Qs, Qt);\n",
-     "      if (q0 == (Lq / 2) / BQ * BQ) continue;\n"))
+    ("  if (n0 + BW_BN > min(Lk, wg_end)) {\n",
+     "  if (n0 == (Lk / 2) / BW_BN * BW_BN) {\n"
+     "#pragma unroll\n"
+     "    for (int i = 0; i < BW_BN / 2; ++i) s[i] = -INFINITY;\n"
+     "  }\n"),
+    ("      if (causal && q0 + BW_BN - 1 + shift < kw) {\n",
+     "      if (q0 == (Lq / 2) / BW_BN * BW_BN) {\n"
+     "        mbar_arrive(bar_empty(s));\n"
+     "        continue;\n"
+     "      }\n"))
 
 
 def emit(obj) -> None:
@@ -553,9 +562,15 @@ def agree_2layer(torch, fa, pa):
 # training phase 1: forward with lse, flash backward against plain versions
 # ---------------------------------------------------------------------------
 
-def forward_kernels(native_build) -> dict:
-    """Each bf16 flash forward kernel of the built library: the ``HGMMA``
-    (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS
+# the bf16 flash kernels (forward, dq, dk/dv): each must run on wgmma and TMA
+WGMMA_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)"
+                          r"I((?:L[ib]\d+E)+)E")
+N_WGMMA_KERNELS = 8     # forward <D, LSE>, dq <D>, dk/dv <D>; D in 64, 128
+
+
+def wgmma_kernels(native_build) -> dict:
+    """Each bf16 flash kernel of the built library (forward, dq, dk/dv): the
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS
     (``cuobjdump -sass``), and its registers and spills as ptxas reported
     them when this run built it."""
     bindir = Path(native_build.nvcc()).parent
@@ -567,7 +582,7 @@ def forward_kernels(native_build) -> dict:
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            fn = m.group(1) if "flash_fwd_wgmma" in m.group(1) else None
+            fn = m.group(1) if WGMMA_KERNEL.search(m.group(1)) else None
             if fn:
                 kernels[fn] = {"HGMMA": 0, "UTMALDG": 0}
         elif fn:
@@ -583,10 +598,13 @@ def forward_kernels(native_build) -> dict:
             kernels[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
         elif fn and (m := re.search(r"Used (\d+) registers", ln)):
             kernels[fn]["registers"] = int(m[1])
-    # flash_fwd_wgmma_kernel<D, LSE>, read from the mangled name's
+    # e.g. flash_fwd_wgmma_kernel<D, LSE>, read from the mangled name's
     # template arguments (ILi<D>ELb<LSE>E)
-    return {"flash_fwd_wgmma_kernel<%s, %s>" % re.search(
-        r"ILi(\d+)ELb([01])E", fn).groups(): v for fn, v in kernels.items()}
+    named = {}
+    for fn, v in kernels.items():
+        m = WGMMA_KERNEL.search(fn)
+        named["%s<%s>" % (m[1], ", ".join(re.findall(r"L[ib](\d+)E", m[2])))] = v
+    return named
 
 
 def attention_pairs(lq: int, lk: int, causal: bool) -> int:
@@ -758,12 +776,27 @@ def check_flash_train(torch, fa, planted_lib):
                for o, l in runs[1:])
     require(same, "flash_fwd_lse at B=6 H=20 L=4096: three launches on the "
                   "same inputs differ")
-    emit({"phase": "flash_train_check", "determinism": {
-        "shape": [b, L, h, d], "launches": 3, "bit_identical": same}})
     out, lse = runs[0]
     del runs
     grads, run_dq, run_dkv = bwd_launches(
         torch, fa, fa._native.load("flash_attention"), q, k, v, out, lse, do)
+    # nor have the backward kernels (each gradient is one block's sum)
+    bwd_runs = []
+    for _ in range(3):
+        run_dq()
+        run_dkv()
+        bwd_runs.append([g.clone() for g in grads])
+    bwd_same = {name: all(torch.equal(r[i].view(torch.int16),
+                                      bwd_runs[0][i].view(torch.int16))
+                          for r in bwd_runs[1:])
+                for i, name in enumerate(("dq", "dk", "dv"))}
+    del bwd_runs
+    require(all(bwd_same.values()), f"flash backward at B=6 H=20 L=4096: "
+                                    f"three launches on the same inputs "
+                                    f"differ {bwd_same}")
+    emit({"phase": "flash_train_check", "determinism": {
+        "shape": [b, L, h, d], "launches": 3, "bit_identical": same,
+        "backward_bit_identical": bwd_same}})
     ms_fwd = cuda_ms(torch, lambda: fa.flash_attention_lse(q, k, v, causal=True), 5)
     ms_dq = cuda_ms(torch, run_dq, 5)
     ms_dkv = cuda_ms(torch, run_dkv, 5)
@@ -1167,19 +1200,19 @@ def main() -> int:
         native_build.build()
     finally:
         planted_lib = load_planted()
-    fwd_kernels = forward_kernels(native_build)
+    tc_kernels = wgmma_kernels(native_build)
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "sources": native_build.sources(),
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in native_build.build_logs.items()},
-          "forward_kernels": fwd_kernels,
+          "wgmma_kernels": tc_kernels,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "card": smi})
-    require(len(fwd_kernels) == 4 and all(
-        k["HGMMA"] > 0 and k["UTMALDG"] > 0 for k in fwd_kernels.values()),
-        f"the bf16 forward kernels do not all run on wgmma and TMA: "
-        f"{fwd_kernels}")
+    require(len(tc_kernels) == N_WGMMA_KERNELS and all(
+        k["HGMMA"] > 0 and k["UTMALDG"] > 0 for k in tc_kernels.values()),
+        f"the bf16 flash kernels do not all run on wgmma and TMA: "
+        f"{tc_kernels}")
     all_counters = (fa.launches, pa.launches, fa.launches_lse,
                     fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches)
 

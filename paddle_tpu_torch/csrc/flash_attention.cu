@@ -44,23 +44,27 @@
 // 2.5x the forward's products (S, dP, dq in one kernel; S, dP, dv, dk in
 // the other), so the tensor-core rate bounds it too. Two kernels, as on the
 // TPU, so that neither needs atomics:
-// * dq: one block per (64-row Q tile, batch * head); it streams 64-key K/V
-//   tiles over the causal range only (the forward's rule) and keeps dq in
-//   fp32 registers.
-// * dk/dv: one block per (64-key K tile, batch * kv head); it loops over the
+// * dq: one block per (Q tile, batch * head); it streams 64-key K/V tiles
+//   over the causal range only (the forward's rule) and keeps dq in fp32
+//   registers.
+// * dk/dv: one block per (K tile, batch * kv head); it loops over the
 //   H / Hkv query heads of its group (GQA: the group's sum is taken in
 //   registers, where the TPU package repeated K/V and let AD sum) and over
-//   the Q tiles from the first one that can see the K tile, with Q, dO and
-//   their transposes, lse and delta staged in shared memory.
-// In bf16 both run mma.sync m16n8k16 (bf16 in, fp32 accumulate) with 64-row
-// blocks of four warps: a warp owns 16
-// rows (queries for dq, keys for dk/dv), the score and dP tiles come out in
-// the accumulator layout, and P and dS are re-packed in registers as bf16
-// A operands of the second products (B operands transposed in shared
-// memory). In fp32 they run on the CUDA cores, 256 threads, each owning a
-// 4x4 block of the score tile and a 4 x (D/16) block of the gradient, with
-// rows of stride D + 1 in shared memory so that neither the row-wise nor
-// the column-wise reads conflict.
+//   the 64-query Q/dO tiles from the first one that can see the K tile.
+// In bf16 both are built for Hopper like the forward: 128-row blocks (query
+// rows for dq, keys for dk/dv) of two consumer warpgroups, 64 rows each,
+// fed by one producer warp through a TMA/mbarrier ring. The score and dP
+// products (S = Q K^T, dP = dO V^T for dq; S^T = K Q^T, dP^T = V dO^T for
+// dk/dv) are wgmma with both operands in shared memory; P and dS come out
+// of them in the accumulator layout of the warpgroup's own rows, so they
+// are re-packed in registers as the bf16 A operands of the second products
+// (dq += dS K; dv += P^T dO, dk += dS^T Q), whose B operand (K, dO, Q) is
+// read N-major through the transpose flag: nothing is transposed in shared
+// memory. The design notes sit above the two kernels. In fp32 they run on
+// the CUDA cores, 256 threads, each owning a 4x4 block of the score tile
+// and a 4 x (D/16) block of the gradient, with rows of stride D + 1 in
+// shared memory so that neither the row-wise nor the column-wise reads
+// conflict.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -76,13 +80,9 @@ constexpr int BN = 64;   // keys per streamed tile
 constexpr int NT = 256;  // threads: 16 row groups x 16 lanes
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 struct Smem {
@@ -245,25 +245,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // bfloat16 forward: TMA-fed, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
-// Helpers of the backward kernels (mma.sync m16n8k16, 32-bit fragment loads).
-constexpr int TC_NT = 128;  // 4 warps x 16 rows
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // One block per (128 query rows, batch * head): consumer warpgroups 0 and 1
@@ -400,9 +384,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 128) (+)= A (64 x 16) B (128 x 16)^T, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
+// d (64 x N) (+)= A (64 x 16) B (N x 16)^T, A and B K-major in shared
+// memory; N = 128 (64 accumulators a thread) or 64 (32).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -416,6 +401,21 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "}\n"
       : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
         ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -462,17 +462,49 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// Issue d = A B^T over D columns (no commit): A (64 rows) and B, K-major in
+// shared memory, each stored as D/64 boxes of 64 columns (128-byte swizzled
+// rows), ABOX and BBOX bytes apart. A 16-column k-step advances the start
+// address by 32 bytes inside the swizzle atom; SBO 1024 is the next 8 rows.
+template <int D, uint32_t ABOX, uint32_t BBOX, int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t box = kk / 4, off = (kk % 4) * 32;  // 64-column box, k-step
+    wgmma_ss(d, sw128_desc(a + box * ABOX + off, 16, 1024),
+             sw128_desc(b + box * BBOX + off, 16, 1024), kk > 0);
+  }
+}
+
+// Issue d += A B (no commit): A (64 x 16 KS) as bf16 fragments in registers,
+// B (16 KS rows x N columns) N-major in shared memory, read through the
+// transpose flag: rows of 128 swizzled bytes, the N columns in boxes of 64
+// BBOX bytes apart (LBO), SBO 1024 the next 8 rows, a k-step 16 rows on.
+template <uint32_t BBOX, int KS, int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N], const uint32_t (&a)[KS][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs(d, a[kk], sw128_desc(b + kk * 16 * SW_ROW, BBOX, 1024));
+}
+
+// Re-pack a 64 x 16 KS accumulator tile as bf16 A fragments: the
+// accumulator layout of columns 16kk..16kk+15 is the A layout of k-step kk.
+template <int KS>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[KS][4],
+                                           const float (&s)[KS * 8]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
 // Start S = Q K^T for one tile (one wgmma group); q_rows is the warpgroup's
 // 64 rows of the Q tile, kt the K tile.
 template <int D>
 __device__ __forceinline__ void qk_async(float (&s)[FW_BN / 2], uint32_t q_rows,
                                          uint32_t kt) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t box = kk / 4, off = (kk % 4) * 32;  // 64-column box, k-step
-    wgmma_ss_n128(s, sw128_desc(q_rows + box * FwSmem<D>::QBOX + off, 16, 1024),
-                  sw128_desc(kt + box * FwSmem<D>::KVBOX + off, 16, 1024), kk > 0);
-  }
+  mma_ss<D, FwSmem<D>::QBOX, FwSmem<D>::KVBOX>(s, q_rows, kt);
   wgmma_commit();
 }
 
@@ -481,9 +513,7 @@ template <int D>
 __device__ __forceinline__ void pv_async(float (&o)[D / 2],
                                          const uint32_t (&p)[FW_BN / 16][4],
                                          uint32_t vt) {
-#pragma unroll
-  for (int kk = 0; kk < FW_BN / 16; ++kk)
-    wgmma_rs(o, p[kk], sw128_desc(vt + kk * 16 * SW_ROW, FwSmem<D>::KVBOX, 1024));
+  mma_rs<FwSmem<D>::KVBOX>(o, p, vt);
   wgmma_commit();
 }
 
@@ -543,13 +573,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[FW_BN / 2],
   }
   l[0] = l[0] * alpha[0] + sum0;
   l[1] = l[1] * alpha[1] + sum1;
-#pragma unroll
-  for (int kk = 0; kk < FW_BN / 16; ++kk) {
-    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
+  pack_frags(p, s);
 }
 
 template <int N>
@@ -1113,317 +1137,490 @@ constexpr size_t bwd_dkv_smem() {
 }
 
 // ---------------------------------------------------------------------------
-// backward, bfloat16: tensor cores through mma.sync
+// backward, bfloat16: TMA-fed, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
+constexpr int BW_BM = 128;    // rows a block owns: queries (dq), keys (dk/dv)
+constexpr int BW_BN = 64;     // rows of a streamed tile: keys (dq), queries (dk/dv)
+constexpr int BW_STAGES = 4;  // ring depth
+
+// dq: the Q and dO tiles (BW_BM rows each), then per stage the K tile and
+// the V tile (BW_BN rows each), every tile as D/64 boxes of 64 columns;
+// then the mbarriers.
 template <int D>
-struct TcBwdSmem {
-  static constexpr int RST = D + 8;   // row-major tile stride (bf16)
-  static constexpr int TST = BN + 8;  // transposed tile stride (bf16)
+struct DqSmem {
+  static constexpr uint32_t QBOX = BW_BM * SW_ROW;
+  static constexpr uint32_t KVBOX = BW_BN * SW_ROW;
+  static constexpr uint32_t Q = QBOX * (D / 64);
+  static constexpr uint32_t KV = KVBOX * (D / 64);
+  static constexpr uint32_t RING = 2 * Q;
+  static constexpr uint32_t BARS = RING + BW_STAGES * 2 * KV;
+  // mbarriers: q_full, then per stage full, empty
+  static constexpr size_t bytes = BARS + 8 * (1 + 2 * BW_STAGES) + 1024;  // + alignment
 };
 
-// Copy rows [r0, r0 + 64) of a (rows, D) bf16 matrix with row stride
-// `stride` into shared memory, row-major at stride RST and, if Tt is not
-// null, transposed ([D][TST]) too. Rows past `rows` are zero.
+// dk/dv: the K and V tiles (BW_BM rows each), then per stage the Q tile and
+// the dO tile (BW_BN rows each), then per stage the tile's BW_BN lse values
+// (times log2 e) and BW_BN delta values, then the mbarriers.
 template <int D>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ src,
-                                           long stride, int r0, int rows,
-                                           __nv_bfloat16* Rs, __nv_bfloat16* Tt) {
-  using S = TcBwdSmem<D>;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < BN * CPR; c += TC_NT) {
-    const int r = c % BN, d = (c / BN) * 8, j = r0 + r;  // lanes: consecutive rows
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (j < rows) val = *reinterpret_cast<const uint4*>(src + (long)j * stride + d);
-    *reinterpret_cast<uint4*>(Rs + r * S::RST + d) = val;
-    if (Tt != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+struct DkvSmem {
+  static constexpr uint32_t KBOX = BW_BM * SW_ROW;
+  static constexpr uint32_t QBOX = BW_BN * SW_ROW;
+  static constexpr uint32_t K = KBOX * (D / 64);
+  static constexpr uint32_t Q = QBOX * (D / 64);
+  static constexpr uint32_t RING = 2 * K;
+  static constexpr uint32_t ROWS = RING + BW_STAGES * 2 * Q;
+  static constexpr uint32_t BARS = ROWS + BW_STAGES * 2 * BW_BN * sizeof(float);
+  // mbarriers: kv_full, then per stage full, empty
+  static constexpr size_t bytes = BARS + 8 * (1 + 2 * BW_STAGES) + 1024;  // + alignment
+};
+
+// dS = P (dP - delta) of one 64 x 64 tile of a warpgroup's rows (dq), from
+// its scores s and dP in the accumulator layout, packed as the A fragments
+// of dq += dS K. P = exp2(s scale log2e - lse log2e); a key is masked for a
+// row at or past min(Lk, the row's causal end), and a tile wholly before
+// `wg_end` (the smallest causal end of the warpgroup's rows) is not masked.
+__device__ __forceinline__ void dq_tile_ds(float (&s)[BW_BN / 2],
+                                           const float (&dp)[BW_BN / 2],
+                                           uint32_t (&ds)[BW_BN / 16][4], int n0,
+                                           int Lk, int wg_end, int end0, int end1,
+                                           int t, float scale_log2,
+                                           const float (&lse2)[2],
+                                           const float (&dl)[2]) {
+  if (n0 + BW_BN > min(Lk, wg_end)) {
+    const int lim0 = min(Lk, end0), lim1 = min(Lk, end1);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Tt[(d + i) * S::TST + r] = e[i];
-    }
-  }
-}
-
-// A fragment (16 rows x 16) at row `row` (this lane's g) of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* t,
-                                       int stride, int row, int col) {
-  a[0] = ld32(t + row * stride + col);
-  a[1] = ld32(t + (row + 8) * stride + col);
-  a[2] = ld32(t + row * stride + col + 8);
-  a[3] = ld32(t + (row + 8) * stride + col + 8);
-}
-
-// Re-pack two 8-column accumulator tiles as one bf16 A fragment.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// dq: four warps, 16 query rows each; dO and Q fragments in registers.
-template <int D>
-__global__ void __launch_bounds__(TC_NT)
-flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int H,
-                       int Hkv, int causal, float sm_scale) {
-  using S = TcBwdSmem<D>;
-  constexpr int KSTEPS = D / 16, NTILE = BN / 8, DTILE = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][RST]
-  __nv_bfloat16* Vs = Ks + BN * S::RST;                             // [BN][RST]
-  __nv_bfloat16* Kt = Vs + BN * S::RST;                             // [D][TST]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / Hkv);
-  const int m0 = blockIdx.x * BM;
-  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
-  const __nv_bfloat16* qb = q + ((long)b * Lq * H + h) * D;
-  const __nv_bfloat16* dob = dout + ((long)b * Lq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((long)b * Lk * Hkv + kvh) * D;
-  const __nv_bfloat16* vb = v + ((long)b * Lk * Hkv + kvh) * D;
-  __nv_bfloat16* dqb = dq + ((long)b * Lq * H + h) * D;
-  const int r0 = m0 + warp * 16 + g, r1 = r0 + 8;
-
-  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int c = ks * 16 + tig * 2;
-    qa[ks][0] = r0 < Lq ? ld32(qb + (long)r0 * q_stride + c) : 0u;
-    qa[ks][1] = r1 < Lq ? ld32(qb + (long)r1 * q_stride + c) : 0u;
-    qa[ks][2] = r0 < Lq ? ld32(qb + (long)r0 * q_stride + c + 8) : 0u;
-    qa[ks][3] = r1 < Lq ? ld32(qb + (long)r1 * q_stride + c + 8) : 0u;
-    da[ks][0] = r0 < Lq ? ld32(dob + (long)r0 * q_stride + c) : 0u;
-    da[ks][1] = r1 < Lq ? ld32(dob + (long)r1 * q_stride + c) : 0u;
-    da[ks][2] = r0 < Lq ? ld32(dob + (long)r0 * q_stride + c + 8) : 0u;
-    da[ks][3] = r1 < Lq ? ld32(dob + (long)r1 * q_stride + c + 8) : 0u;
-  }
-  const float lse0 = r0 < Lq ? lse[(long)bh * Lq + r0] : LSE_MASKED;
-  const float lse1 = r1 < Lq ? lse[(long)bh * Lq + r1] : LSE_MASKED;
-  const float dl0 = r0 < Lq ? delta[(long)bh * Lq + r0] : 0.f;
-  const float dl1 = r1 < Lq ? delta[(long)bh * Lq + r1] : 0.f;
-
-  const int shift = Lk - Lq;
-  int n_end = Lk;
-  if (causal) n_end = min(Lk, max(0, m0 + BM + shift));
-
-  float acc[DTILE][4];
-#pragma unroll
-  for (int dt = 0; dt < DTILE; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile<D>(kb, kv_stride, n0, Lk, Ks, Kt);
-    stage_tile<D>(vb, kv_stride, n0, Lk, Vs, nullptr);
-    __syncthreads();
-
-    float sacc[NTILE][4], pacc[NTILE][4];
-#pragma unroll
-    for (int nt = 0; nt < NTILE; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks)
-#pragma unroll
-      for (int nt = 0; nt < NTILE; ++nt) {
-        const int off = (nt * 8 + g) * S::RST + ks * 16 + tig * 2;
-        mma_bf16(sacc[nt], qa[ks], ld32(Ks + off), ld32(Ks + off + 8));
-        mma_bf16(pacc[nt], da[ks], ld32(Vs + off), ld32(Vs + off + 8));
-      }
-
-    // dS = P o (dP - delta) * scale, in place of the scores
-#pragma unroll
-    for (int nt = 0; nt < NTILE; ++nt)
+    for (int j = 0; j < BW_BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = n0 + nt * 8 + tig * 2 + e;
-        const bool ok0 = r0 < Lq && col < Lk && (!causal || r0 + shift >= col);
-        const bool ok1 = r1 < Lq && col < Lk && (!causal || r1 + shift >= col);
-        const float p0 = ok0 ? expf(sacc[nt][e] * sm_scale - lse0) : 0.f;
-        const float p1 = ok1 ? expf(sacc[nt][2 + e] * sm_scale - lse1) : 0.f;
-        sacc[nt][e] = p0 * (pacc[nt][e] - dl0) * sm_scale;
-        sacc[nt][2 + e] = p1 * (pacc[nt][2 + e] - dl1) * sm_scale;
+        const int col = n0 + j * 8 + t * 2 + e;
+        if (col >= lim0) s[j * 4 + e] = -INFINITY;
+        if (col >= lim1) s[j * 4 + 2 + e] = -INFINITY;
       }
-
+  }
+  // rows: the thread's first (elements 4j, 4j+1) and second (4j+2, 4j+3)
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, sacc[2 * kk], sacc[2 * kk + 1]);
+  for (int i = 0; i < BW_BN / 2; i += 4)
 #pragma unroll
-      for (int dt = 0; dt < DTILE; ++dt) {
-        const __nv_bfloat16* kr = Kt + (dt * 8 + g) * S::TST + kk * 16 + tig * 2;
-        mma_bf16(acc[dt], a, ld32(kr), ld32(kr + 8));
-      }
+    for (int e = 0; e < 2; ++e) {
+      s[i + e] = fast_exp2(fmaf(s[i + e], scale_log2, -lse2[0])) * (dp[i + e] - dl[0]);
+      s[i + 2 + e] =
+          fast_exp2(fmaf(s[i + 2 + e], scale_log2, -lse2[1])) * (dp[i + 2 + e] - dl[1]);
     }
-  }
-
-#pragma unroll
-  for (int dt = 0; dt < DTILE; ++dt) {
-    const int col = dt * 8 + tig * 2;
-    if (r0 < Lq)
-      *reinterpret_cast<uint32_t*>(dqb + (long)r0 * q_stride + col) =
-          pack_bf16(acc[dt][0], acc[dt][1]);
-    if (r1 < Lq)
-      *reinterpret_cast<uint32_t*>(dqb + (long)r1 * q_stride + col) =
-          pack_bf16(acc[dt][2], acc[dt][3]);
-  }
+  pack_frags(ds, s);
 }
 
-// dk, dv: four warps, 16 keys each; K and V fragments read from shared
-// memory per step, dk and dv in fp32 registers across the whole group.
+// B3: dq, the port of _flash_bwd_dq_kernel (paddle_tpu/ops/flash_attention.py:228).
+// What bounds it on an H100: three products (S, dP, dq) of 2 * 64 * 64 * D
+// operations for each 64 x 64 (query, key) tile against Q, dO and dq moved
+// once and K, V once per Q tile (from L2): at L = 4096, D = 128 the
+// tensor-core rate (989 TFLOP/s bf16) bounds it. The design keeps the tensor
+// cores fed, as the forward does:
+// * One block per (128 query rows, batch * head): consumer warpgroups 0 and
+//   1 own 64 rows each; one warp of warpgroup 2 (the producer) loads the Q
+//   and dO tiles once and streams 64-key K and V tiles through a ring of
+//   BW_STAGES stages by TMA (4-D maps, so rows past L read as zeros); a
+//   `full` mbarrier per stage counts the bytes in, an `empty` one the 256
+//   consumer threads out once the stage's last product (dq += dS K) is done.
+// * S = Q K^T and dP = dO V^T are wgmma m64n64k16 with both operands in
+//   shared memory, K-major, read as they land. P = exp2(S scale log2e - lse
+//   log2e) with lse log2e formed once per row; dS = P (dP - delta) is
+//   re-packed in registers as bf16 A fragments, and dq += dS K is wgmma
+//   m64nDk16 with K read N-major through the transpose flag (as the forward
+//   reads V): K is never transposed.
+// * Within a warpgroup, tile i's S and dP are issued together with tile
+//   i-1's dq product, and tile i's dS is formed while that product is on
+//   the tensor cores; the two warpgroups also fill each other's gaps.
+// * Only tiles that cross the causal diagonal of the warpgroup's rows or the
+//   end of Lk are masked; K tiles past the block's diagonal are never
+//   loaded. sm_scale multiplies dq once, at the store. Causal Q tiles run
+//   heaviest first.
+// * setmaxnreg gives the consumers 240 registers and the producer 24: at
+//   D = 128 S and dP take 32 fp32 each, dq 64, the dS fragments 16 for each
+//   of the two tiles in flight.
 template <int D>
-__global__ void __launch_bounds__(TC_NT)
-flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dk,
-                        __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int H,
-                        int Hkv, int causal, float sm_scale) {
-  using S = TcBwdSmem<D>;
-  constexpr int BQ = BN;  // queries per streamed tile
-  constexpr int KSTEPS = D / 16, NTILE = BQ / 8, DTILE = D / 8;
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int H,
+                          int Hkv, int causal, float sm_scale) {
+  using S = DqSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][RST]
-  __nv_bfloat16* Vs = Ks + BN * S::RST;                             // [BN][RST]
-  __nv_bfloat16* Qs = Vs + BN * S::RST;                             // [BQ][RST]
-  __nv_bfloat16* dOs = Qs + BQ * S::RST;                            // [BQ][RST]
-  __nv_bfloat16* Qt = dOs + BQ * S::RST;                            // [D][TST]
-  __nv_bfloat16* dOt = Qt + D * S::TST;                             // [D][TST]
-  float* lse_s = reinterpret_cast<float*>(dOt + D * S::TST);        // [BQ]
-  float* dl_s = lse_s + BQ;                                         // [BQ]
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
+  const uint32_t sdo = sq + S::Q;
+  const uint32_t bar_q = sq + S::BARS;
+  // stage s: the K tile, then the V tile; its barriers after q_full
+  auto k_tile = [&](int s) { return sq + S::RING + (uint32_t)s * 2 * S::KV; };
+  auto bar_full = [&](int s) { return bar_q + 8u * (1 + 2 * s); };
+  auto bar_empty = [&](int s) { return bar_q + 8u * (2 + 2 * s); };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int bkv = blockIdx.y, b = bkv / Hkv, kvh = bkv % Hkv;
-  const int rep = H / Hkv;
-  const int k0 = blockIdx.x * BN;
-  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
-  const int wr = warp * 16 + g;  // this lane's key rows in the tile: wr, wr + 8
-  const int c0 = k0 + wr, c1 = c0 + 8;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / Hkv);
+  // causal: heaviest Q tile first
+  const int m0 = (int)(causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BW_BM;
+  const int shift = Lk - Lq;  // bottom-right causal alignment
+  const int n_end = causal ? min(Lk, max(0, m0 + BW_BM + shift)) : Lk;
+  const int n_tiles = (n_end + BW_BN - 1) / BW_BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  stage_tile<D>(k + ((long)b * Lk * Hkv + kvh) * D, kv_stride, k0, Lk, Ks, nullptr);
-  stage_tile<D>(v + ((long)b * Lk * Hkv + kvh) * D, kv_stride, k0, Lk, Vs, nullptr);
-
-  const int shift = Lk - Lq;
-  const int q_begin = causal ? (max(0, k0 - shift) / BQ) * BQ : 0;
-
-  float dk_acc[DTILE][4], dv_acc[DTILE][4];
-#pragma unroll
-  for (int dt = 0; dt < DTILE; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  for (int hq = kvh * rep; hq < kvh * rep + rep; ++hq) {
-    const __nv_bfloat16* qb = q + ((long)b * Lq * H + hq) * D;
-    const __nv_bfloat16* dob = dout + ((long)b * Lq * H + hq) * D;
-    const float* lseb = lse + ((long)b * H + hq) * Lq;
-    const float* dlb = delta + ((long)b * H + hq) * Lq;
-    for (int q0 = q_begin; q0 < Lq; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done
-      stage_tile<D>(qb, q_stride, q0, Lq, Qs, Qt);
-      stage_tile<D>(dob, q_stride, q0, Lq, dOs, dOt);
-      for (int r = tid; r < BQ; r += TC_NT) {
-        const int i = q0 + r;
-        lse_s[r] = i < Lq ? lseb[i] : LSE_MASKED;
-        dl_s[r] = i < Lq ? dlb[i] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-      float sacc[NTILE][4], pacc[NTILE][4];
-#pragma unroll
-      for (int nt = 0; nt < NTILE; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t ka[4], va[4];
-        load_a(ka, Ks, S::RST, wr, ks * 16 + tig * 2);
-        load_a(va, Vs, S::RST, wr, ks * 16 + tig * 2);
-#pragma unroll
-        for (int nt = 0; nt < NTILE; ++nt) {
-          const int off = (nt * 8 + g) * S::RST + ks * 16 + tig * 2;
-          mma_bf16(sacc[nt], ka, ld32(Qs + off), ld32(Qs + off + 8));
-          mma_bf16(pacc[nt], va, ld32(dOs + off), ld32(dOs + off + 8));
-        }
-      }
-
-      // P^T in sacc, dS^T in pacc
-#pragma unroll
-      for (int nt = 0; nt < NTILE; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = nt * 8 + tig * 2 + e, row = q0 + qc;
-          const bool qok = row < Lq;
-          const bool ok0 = qok && c0 < Lk && (!causal || row + shift >= c0);
-          const bool ok1 = qok && c1 < Lk && (!causal || row + shift >= c1);
-          const float ls = lse_s[qc], dl = dl_s[qc];
-          const float p0 = ok0 ? expf(sacc[nt][e] * sm_scale - ls) : 0.f;
-          const float p1 = ok1 ? expf(sacc[nt][2 + e] * sm_scale - ls) : 0.f;
-          sacc[nt][e] = p0;
-          sacc[nt][2 + e] = p1;
-          pacc[nt][e] = p0 * (pacc[nt][e] - dl) * sm_scale;
-          pacc[nt][2 + e] = p1 * (pacc[nt][2 + e] - dl) * sm_scale;
-        }
-
-      // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        pack_a(pa, sacc[2 * kk], sacc[2 * kk + 1]);
-        pack_a(sa, pacc[2 * kk], pacc[2 * kk + 1]);
-#pragma unroll
-        for (int dt = 0; dt < DTILE; ++dt) {
-          const int off = (dt * 8 + g) * S::TST + kk * 16 + tig * 2;
-          mma_bf16(dv_acc[dt], pa, ld32(dOt + off), ld32(dOt + off + 8));
-          mma_bf16(dk_acc[dt], sa, ld32(Qt + off), ld32(Qt + off + 8));
-        }
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), FW_CONSUMERS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  __nv_bfloat16* dkb = dk + ((long)b * Lk * Hkv + kvh) * D;
-  __nv_bfloat16* dvb = dv + ((long)b * Lk * Hkv + kvh) * D;
-#pragma unroll
-  for (int dt = 0; dt < DTILE; ++dt) {
-    const int col = dt * 8 + tig * 2;
-    if (c0 < Lk) {
-      *reinterpret_cast<uint32_t*>(dkb + (long)c0 * kv_stride + col) =
-          pack_bf16(dk_acc[dt][0], dk_acc[dt][1]);
-      *reinterpret_cast<uint32_t*>(dvb + (long)c0 * kv_stride + col) =
-          pack_bf16(dv_acc[dt][0], dv_acc[dt][1]);
+  if (warp >= FW_CONSUMERS / 32) {
+    // producer warpgroup: one thread starts every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == FW_CONSUMERS / 32 && lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, 2 * S::Q);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sq + c * S::QBOX, &tm_q, bar_q, c * 64, h, m0, b);
+        tma_load(sdo + c * S::QBOX, &tm_do, bar_q, c * 64, h, m0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % BW_STAGES;
+        const uint32_t kt = k_tile(s), vt = kt + S::KV;
+        mbar_wait(bar_empty(s), ((it / BW_STAGES) & 1) ^ 1);  // first pass: free
+        mbar_expect_tx(bar_full(s), 2 * S::KV);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(kt + c * S::KVBOX, &tm_k, bar_full(s), c * 64, kvh, it * BW_BN, b);
+          tma_load(vt + c * S::KVBOX, &tm_v, bar_full(s), c * 64, kvh, it * BW_BN, b);
+        }
+      }
     }
-    if (c1 < Lk) {
-      *reinterpret_cast<uint32_t*>(dkb + (long)c1 * kv_stride + col) =
-          pack_bf16(dk_acc[dt][2], dk_acc[dt][3]);
-      *reinterpret_cast<uint32_t*>(dvb + (long)c1 * kv_stride + col) =
-          pack_bf16(dv_acc[dt][2], dv_acc[dt][3]);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4, t = lane % 4;
+    const int row_lo = m0 + wg * 64;                             // the warpgroup's
+    const int r0 = row_lo + (warp % 4) * 16 + lane / 4, r1 = r0 + 8;  // the thread's
+    // causal end of a row: keys at or past it are masked
+    const int wg_end = causal ? row_lo + shift + 1 : Lk;
+    const int end0 = causal ? r0 + shift + 1 : Lk, end1 = causal ? r1 + shift + 1 : Lk;
+    const float scale_log2 = sm_scale * LOG2E;
+    // rows past Lq take the lse of a row that sees no key: their P is 0
+    const float lse2[2] = {(r0 < Lq ? lse[(long)bh * Lq + r0] : LSE_MASKED) * LOG2E,
+                           (r1 < Lq ? lse[(long)bh * Lq + r1] : LSE_MASKED) * LOG2E};
+    const float dl[2] = {r0 < Lq ? delta[(long)bh * Lq + r0] : 0.f,
+                         r1 < Lq ? delta[(long)bh * Lq + r1] : 0.f};
+    const uint32_t q_rows = sq + wg * 64 * SW_ROW, do_rows = sdo + wg * 64 * SW_ROW;
+
+    float dqacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+    float sacc[BW_BN / 2], pacc[BW_BN / 2];
+#pragma unroll
+    for (int i = 0; i < BW_BN / 2; ++i) sacc[i] = pacc[i] = 0.f;
+    uint32_t ds[BW_BN / 16][4];
+
+    if (n_tiles > 0) {
+      mbar_wait(bar_q, 0);
+      mbar_wait(bar_full(0), 0);
+      fence_regs(sacc);
+      fence_regs(pacc);
+      wgmma_fence();
+      mma_ss<D, S::QBOX, S::KVBOX>(sacc, q_rows, k_tile(0));
+      mma_ss<D, S::QBOX, S::KVBOX>(pacc, do_rows, k_tile(0) + S::KV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(pacc);
+      dq_tile_ds(sacc, pacc, ds, 0, Lk, wg_end, end0, end1, t, scale_log2, lse2, dl);
+    }
+    for (int it = 1; it < n_tiles; ++it) {
+      const int s = it % BW_STAGES, sp = (it - 1) % BW_STAGES;
+      mbar_wait(bar_full(s), (it / BW_STAGES) & 1);
+      fence_regs(sacc);
+      fence_regs(pacc);
+      fence_regs(dqacc);
+      fence_regs(ds);
+      wgmma_fence();
+      mma_ss<D, S::QBOX, S::KVBOX>(sacc, q_rows, k_tile(s));
+      mma_ss<D, S::QBOX, S::KVBOX>(pacc, do_rows, k_tile(s) + S::KV);
+      wgmma_commit();
+      mma_rs<S::KVBOX>(dqacc, ds, k_tile(sp));
+      wgmma_commit();
+      wgmma_wait<1>();  // S and dP of this tile are in
+      fence_regs(sacc);
+      fence_regs(pacc);
+      uint32_t ds_next[BW_BN / 16][4];
+      dq_tile_ds(sacc, pacc, ds_next, it * BW_BN, Lk, wg_end, end0, end1, t,
+                 scale_log2, lse2, dl);
+      wgmma_wait<0>();  // dq of the previous tile is in
+      fence_regs(dqacc);
+      fence_regs(ds);   // dS stays in its registers until then
+      mbar_arrive(bar_empty(sp));
+#pragma unroll
+      for (int kk = 0; kk < BW_BN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[kk][e] = ds_next[kk][e];
+    }
+    if (n_tiles > 0) {
+      const int sp = (n_tiles - 1) % BW_STAGES;
+      fence_regs(dqacc);
+      fence_regs(ds);
+      wgmma_fence();
+      mma_rs<S::KVBOX>(dqacc, ds, k_tile(sp));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqacc);
+      fence_regs(ds);
+      mbar_arrive(bar_empty(sp));
+    }
+
+    const long q_stride = (long)H * D;
+    __nv_bfloat16* dqb = dq + ((long)b * Lq * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + t * 2;
+      if (r0 < Lq)
+        *reinterpret_cast<uint32_t*>(dqb + (long)r0 * q_stride + col) =
+            pack_bf16(dqacc[j * 4] * sm_scale, dqacc[j * 4 + 1] * sm_scale);
+      if (r1 < Lq)
+        *reinterpret_cast<uint32_t*>(dqb + (long)r1 * q_stride + col) =
+            pack_bf16(dqacc[j * 4 + 2] * sm_scale, dqacc[j * 4 + 3] * sm_scale);
     }
   }
 }
 
-template <int D>
-constexpr size_t tc_bwd_dq_smem() {
-  return (size_t)(2 * BN * TcBwdSmem<D>::RST + D * TcBwdSmem<D>::TST) *
-         sizeof(__nv_bfloat16);
+// P^T = exp2(S^T scale log2e - lse log2e) of one 64-key x 64-query tile of a
+// warpgroup's keys (dk/dv), in place of the scores in the accumulator
+// layout: rows are the thread's keys k0 and k1, columns the tile's queries,
+// whose lse log2e lie in `lse2`. With `masked`, a (key, query) pair is 0
+// where the query is past Lq or, causal, does not see the key.
+__device__ __forceinline__ void dkv_tile_p(float (&s)[BW_BN / 2],
+                                           const float* lse2, bool masked,
+                                           int q0, int Lq, int k0, int k1,
+                                           int shift, int causal, int t,
+                                           float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < BW_BN / 8; ++j) {
+    const int col = j * 8 + t * 2;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+    s[j * 4] = fast_exp2(fmaf(s[j * 4], scale_log2, -l2.x));
+    s[j * 4 + 1] = fast_exp2(fmaf(s[j * 4 + 1], scale_log2, -l2.y));
+    s[j * 4 + 2] = fast_exp2(fmaf(s[j * 4 + 2], scale_log2, -l2.x));
+    s[j * 4 + 3] = fast_exp2(fmaf(s[j * 4 + 3], scale_log2, -l2.y));
+    if (masked) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q0 + col + e;
+        if (q >= Lq || (causal && q + shift < k0)) s[j * 4 + e] = 0.f;
+        if (q >= Lq || (causal && q + shift < k1)) s[j * 4 + 2 + e] = 0.f;
+      }
+    }
+  }
 }
 
+// dS^T = P^T (dP^T - delta) of the same tile, in place of dP^T.
+__device__ __forceinline__ void dkv_tile_ds(float (&dp)[BW_BN / 2],
+                                            const float (&p)[BW_BN / 2],
+                                            const float* dl, int t) {
+#pragma unroll
+  for (int j = 0; j < BW_BN / 8; ++j) {
+    const float2 d = *reinterpret_cast<const float2*>(dl + j * 8 + t * 2);
+    dp[j * 4] = p[j * 4] * (dp[j * 4] - d.x);
+    dp[j * 4 + 1] = p[j * 4 + 1] * (dp[j * 4 + 1] - d.y);
+    dp[j * 4 + 2] = p[j * 4 + 2] * (dp[j * 4 + 2] - d.x);
+    dp[j * 4 + 3] = p[j * 4 + 3] * (dp[j * 4 + 3] - d.y);
+  }
+}
+
+// B4: dk and dv, the port of _flash_bwd_dkv_kernel
+// (paddle_tpu/ops/flash_attention.py:288). What bounds it on an H100: four
+// products (S^T, dP^T, dv, dk) of 2 * 64 * 64 * D operations for each 64 x
+// 64 (key, query) tile against K, V, dk and dv moved once and Q, dO, lse
+// and delta once per K tile (from L2): the tensor-core rate bounds it. The
+// design:
+// * One block per (128 keys, batch * kv head): consumer warpgroups 0 and 1
+//   own 64 keys each and keep their dk and dv in fp32 registers across the
+//   whole GQA group (64 + 64 a thread at D = 128; the group's sum is taken
+//   there, without atomics). One warp of warpgroup 2 (the producer) loads
+//   the K and V tiles once by TMA, then streams 64-query Q and dO tiles of
+//   each query head of the group through a ring of BW_STAGES stages, from
+//   the first Q tile that can see the block. Its 32 lanes put each tile's
+//   64 lse (times log2 e, formed once per row) and delta values beside it
+//   by plain loads: the (B, H, Lq) fp32 rows start Lq * 4 bytes apart,
+//   which TMA (strides in multiples of 16 bytes) cannot take for every Lq.
+//   The stage's `full` mbarrier counts the TMA bytes and the 32 lanes.
+// * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both operands in
+//   shared memory. Their accumulators come out key-row-major, so P^T and
+//   dS^T are already the A fragments of dv += P^T dO and dk += dS^T Q
+//   (wgmma m64nDk16, dO and Q read N-major through the transpose flag):
+//   nothing is transposed. dv's product is issued before dS^T is formed,
+//   so the two overlap; the two warpgroups fill each other's gaps.
+// * Only tiles that cross the causal diagonal or the end of Lq are masked
+//   (rows past Lq also get lse 1e30 from the producer, so nothing rests on
+//   a zero-filled row); a warpgroup skips a tile that no query of which
+//   sees its keys. sm_scale multiplies dk once, at the store. Key blocks
+//   run in order of k0, so causal blocks with the most Q tiles start first.
+// * setmaxnreg gives the consumers 240 registers and the producer 24.
 template <int D>
-constexpr size_t tc_bwd_dkv_smem() {
-  return (size_t)(4 * BN * TcBwdSmem<D>::RST + 2 * D * TcBwdSmem<D>::TST) *
-             sizeof(__nv_bfloat16) + 2 * BN * sizeof(float);
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int H,
+                           int Hkv, int causal, float sm_scale) {
+  using S = DkvSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
+  unsigned char* base = smem_raw + (sk - smem_u32(smem_raw));
+  const uint32_t sv = sk + S::K;
+  const uint32_t bar_kv = sk + S::BARS;
+  // stage s: the Q tile, then the dO tile; its lse and delta rows; its
+  // barriers after kv_full
+  auto q_tile = [&](int s) { return sk + S::RING + (uint32_t)s * 2 * S::Q; };
+  auto rows = [&](int s) {
+    return reinterpret_cast<float*>(base + S::ROWS) + s * 2 * BW_BN;
+  };
+  auto bar_full = [&](int s) { return bar_kv + 8u * (1 + 2 * s); };
+  auto bar_empty = [&](int s) { return bar_kv + 8u * (2 + 2 * s); };
+
+  const int bkv = blockIdx.y, b = bkv / Hkv, kvh = bkv % Hkv, rep = H / Hkv;
+  const int k0 = blockIdx.x * BW_BM;
+  const int shift = Lk - Lq;  // query i sees key j <= i + shift
+  // the first Q tile that can see the block, and the Q tiles of one head
+  const int q_begin = causal ? (max(0, k0 - shift) / BW_BN) * BW_BN : 0;
+  const int nq = (Lq - q_begin + BW_BN - 1) / BW_BN;
+  const int n_iters = rep * nq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(bar_full(s), 1 + 32);  // the TMA's thread, then the 32 lanes
+      mbar_init(bar_empty(s), FW_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= FW_CONSUMERS / 32) {
+    // producer warpgroup: lane 0 of its first warp starts every copy, the
+    // warp's 32 lanes load lse and delta
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == FW_CONSUMERS / 32) {
+      if (lane == 0) {
+        mbar_expect_tx(bar_kv, 2 * S::K);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sk + c * S::KBOX, &tm_k, bar_kv, c * 64, kvh, k0, b);
+          tma_load(sv + c * S::KBOX, &tm_v, bar_kv, c * 64, kvh, k0, b);
+        }
+      }
+      for (int it = 0; it < n_iters; ++it) {
+        const int s = it % BW_STAGES;
+        const int hq = kvh * rep + it / nq, q0 = q_begin + (it % nq) * BW_BN;
+        mbar_wait(bar_empty(s), ((it / BW_STAGES) & 1) ^ 1);  // first pass: free
+        if (lane == 0) {
+          const uint32_t qt = q_tile(s);
+          mbar_expect_tx(bar_full(s), 2 * S::Q);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load(qt + c * S::QBOX, &tm_q, bar_full(s), c * 64, hq, q0, b);
+            tma_load(qt + S::Q + c * S::QBOX, &tm_do, bar_full(s), c * 64, hq, q0, b);
+          }
+        }
+        float* r = rows(s);
+        const long row0 = ((long)b * H + hq) * Lq;
+        for (int i = lane; i < BW_BN; i += 32) {
+          const int qi = q0 + i;
+          r[i] = (qi < Lq ? lse[row0 + qi] : LSE_MASKED) * LOG2E;
+          r[BW_BN + i] = qi < Lq ? delta[row0 + qi] : 0.f;
+        }
+        mbar_arrive(bar_full(s));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4, t = lane % 4;
+    const int kw = k0 + wg * 64;                                     // the warpgroup's
+    const int kr0 = kw + (warp % 4) * 16 + lane / 4, kr1 = kr0 + 8;  // the thread's
+    const float scale_log2 = sm_scale * LOG2E;
+    const uint32_t k_rows = sk + wg * 64 * SW_ROW, v_rows = sv + wg * 64 * SW_ROW;
+
+    float dkacc[D / 2], dvacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+    float sacc[BW_BN / 2], pacc[BW_BN / 2];
+#pragma unroll
+    for (int i = 0; i < BW_BN / 2; ++i) sacc[i] = pacc[i] = 0.f;
+
+    mbar_wait(bar_kv, 0);
+    for (int it = 0; it < n_iters; ++it) {
+      const int s = it % BW_STAGES;
+      const int q0 = q_begin + (it % nq) * BW_BN;
+      mbar_wait(bar_full(s), (it / BW_STAGES) & 1);
+      // no query of the tile sees a key of the warpgroup
+      if (causal && q0 + BW_BN - 1 + shift < kw) {
+        mbar_arrive(bar_empty(s));
+        continue;
+      }
+      const uint32_t qt = q_tile(s), dot = qt + S::Q;
+      const float* r = rows(s);
+      fence_regs(sacc);
+      fence_regs(pacc);
+      wgmma_fence();
+      mma_ss<D, S::KBOX, S::QBOX>(sacc, k_rows, qt);
+      mma_ss<D, S::KBOX, S::QBOX>(pacc, v_rows, dot);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(pacc);
+      const bool masked = q0 + BW_BN > Lq || (causal && q0 + shift < kw + 63);
+      dkv_tile_p(sacc, r, masked, q0, Lq, kr0, kr1, shift, causal, t, scale_log2);
+      uint32_t pa[BW_BN / 16][4], da[BW_BN / 16][4];
+      pack_frags(pa, sacc);
+      fence_regs(dvacc);
+      fence_regs(pa);
+      wgmma_fence();
+      mma_rs<S::QBOX>(dvacc, pa, dot);
+      wgmma_commit();
+      dkv_tile_ds(pacc, sacc, r + BW_BN, t);  // under dv's product
+      pack_frags(da, pacc);
+      fence_regs(dkacc);
+      fence_regs(da);
+      wgmma_fence();
+      mma_rs<S::QBOX>(dkacc, da, qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dvacc);
+      fence_regs(dkacc);
+      fence_regs(pa);  // the fragments stay in their registers until then
+      fence_regs(da);
+      mbar_arrive(bar_empty(s));
+    }
+
+    const long kv_stride = (long)Hkv * D;
+    __nv_bfloat16* dkb = dk + ((long)b * Lk * Hkv + kvh) * D;
+    __nv_bfloat16* dvb = dv + ((long)b * Lk * Hkv + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + t * 2;
+      if (kr0 < Lk) {
+        *reinterpret_cast<uint32_t*>(dkb + (long)kr0 * kv_stride + col) =
+            pack_bf16(dkacc[j * 4] * sm_scale, dkacc[j * 4 + 1] * sm_scale);
+        *reinterpret_cast<uint32_t*>(dvb + (long)kr0 * kv_stride + col) =
+            pack_bf16(dvacc[j * 4], dvacc[j * 4 + 1]);
+      }
+      if (kr1 < Lk) {
+        *reinterpret_cast<uint32_t*>(dkb + (long)kr1 * kv_stride + col) =
+            pack_bf16(dkacc[j * 4 + 2] * sm_scale, dkacc[j * 4 + 3] * sm_scale);
+        *reinterpret_cast<uint32_t*>(dvb + (long)kr1 * kv_stride + col) =
+            pack_bf16(dvacc[j * 4 + 2], dvacc[j * 4 + 3]);
+      }
+    }
+  }
 }
 
 template <typename K>
@@ -1460,20 +1657,29 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     }
     return cudaGetLastError();
   }
+  // bf16: tensor maps of q and dO with tiles of the rows a dq block owns or
+  // a dk/dv block streams, and of k and v the other way round
+  CUtensorMap tq, tk, tv, tdo;
+  const int q_rows = DKV ? BW_BN : BW_BM, kv_rows = DKV ? BW_BM : BW_BN;
+  if ((err = encode_tiles(&tq, q, D, H, Lq, B, q_rows)) != cudaSuccess ||
+      (err = encode_tiles(&tdo, dout, D, H, Lq, B, q_rows)) != cudaSuccess ||
+      (err = encode_tiles(&tk, k, D, Hkv, Lk, B, kv_rows)) != cudaSuccess ||
+      (err = encode_tiles(&tv, v, D, Hkv, Lk, B, kv_rows)) != cudaSuccess)
+    return err;
   using bf = __nv_bfloat16;
-  const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
-           *vb = static_cast<const bf*>(v), *db = static_cast<const bf*>(dout);
   if (!DKV) {
-    auto kern = flash_bwd_dq_tc_kernel<D>;
-    if ((err = set_smem(kern, tc_bwd_dq_smem<D>())) != cudaSuccess) return err;
-    kern<<<dim3((Lq + BM - 1) / BM, B * H), TC_NT, tc_bwd_dq_smem<D>(), st>>>(
-        qb, kb, vb, db, ls, dl, static_cast<bf*>(out0), Lq, Lk, H, Hkv, causal,
+    auto kern = flash_bwd_dq_wgmma_kernel<D>;
+    const size_t smem = DqSmem<D>::bytes;
+    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<dim3((Lq + BW_BM - 1) / BW_BM, B * H), FW_THREADS, smem, st>>>(
+        tq, tk, tv, tdo, ls, dl, static_cast<bf*>(out0), Lq, Lk, H, Hkv, causal,
         sm_scale);
   } else {
-    auto kern = flash_bwd_dkv_tc_kernel<D>;
-    if ((err = set_smem(kern, tc_bwd_dkv_smem<D>())) != cudaSuccess) return err;
-    kern<<<dim3((Lk + BN - 1) / BN, B * Hkv), TC_NT, tc_bwd_dkv_smem<D>(), st>>>(
-        qb, kb, vb, db, ls, dl, static_cast<bf*>(out0), static_cast<bf*>(out1),
+    auto kern = flash_bwd_dkv_wgmma_kernel<D>;
+    const size_t smem = DkvSmem<D>::bytes;
+    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<dim3((Lk + BW_BM - 1) / BW_BM, B * Hkv), FW_THREADS, smem, st>>>(
+        tq, tk, tv, tdo, ls, dl, static_cast<bf*>(out0), static_cast<bf*>(out1),
         Lq, Lk, H, Hkv, causal, sm_scale);
   }
   return cudaGetLastError();

@@ -7,6 +7,7 @@ lengths run its XLA fallback. Same numpy inputs to both, fp32, atol 1e-5.
 """
 
 import importlib.util
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -117,13 +118,19 @@ def test_planted_fault_anchor_occurs_once_in_the_source(anchor):
 
 
 def test_build_phase_reads_each_forward_kernel(monkeypatch):
-    # chip_smoke.py's build phase fails unless the SASS of all four bf16
-    # forward instantiations holds wgmma (HGMMA) and TMA (UTMALDG): its
-    # parser must keep the four apart and pick up ptxas's registers/spills
-    names = [f"_ZN51_GLOBAL__N__4af27cb8_18_flash_attention_cu_b294bfd022"
-             f"flash_fwd_wgmma_kernelILi{d}ELb{lse}EEEv14CUtensorMap_stS1_S1_"
-             f"P13__nv_bfloat16Pfiiiiif" for d in (64, 128) for lse in (1, 0)]
-    other = "_ZN51_GLOBAL__N__x16flash_fwd_kernelIfLi64ELb1EEEvPKT_S3_"
+    # chip_smoke.py's build phase fails unless the SASS of all eight bf16
+    # flash instantiations (forward <D, LSE>, dq <D>, dk/dv <D>) holds wgmma
+    # (HGMMA) and TMA (UTMALDG): its parser must keep the eight apart and
+    # pick up ptxas's registers/spills
+    pre = "_ZN51_GLOBAL__N__4af27cb8_18_flash_attention_cu_b294bfd0"
+    names = [f"{pre}22flash_fwd_wgmma_kernelILi{d}ELb{lse}EEEv14CUtensorMap_st"
+             f"S1_S1_P13__nv_bfloat16Pfiiiiif" for d in (64, 128) for lse in (1, 0)]
+    names += [f"{pre}{len(k)}{k}ILi{d}EEEv14CUtensorMap_stS1_S1_S1_PKfS3_"
+              f"P13__nv_bfloat16{'S4_' if k.endswith('dkv_wgmma_kernel') else ''}"
+              f"iiiiif"
+              for k in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+              for d in (64, 128)]
+    other = "_ZN51_GLOBAL__N__x19flash_bwd_dq_kernelILi64EEEvPKfS3_"
     sass = "".join(f"\t\tFunction : {n}\n  /*0010*/ HGMMA.64x128x16.F32.BF16 R24, "
                    f"gdesc[UR4], RZ ;\n  /*0020*/ UTMALDG.4D [UR8], [UR4] ;\n"
                    for n in names) + f"\t\tFunction : {other}\n  FFMA R1 ;\n"
@@ -145,9 +152,21 @@ def test_build_phase_reads_each_forward_kernel(monkeypatch):
 
     monkeypatch.setattr(chip_smoke.subprocess, "run",
                         lambda *a, **k: type("Done", (), {"stdout": sass})())
-    got = chip_smoke.forward_kernels(Build)
-    assert sorted(got) == [f"flash_fwd_wgmma_kernel<{d}, {lse}>"
-                           for d in (128, 64) for lse in (0, 1)]
+    got = chip_smoke.wgmma_kernels(Build)
+    assert sorted(got) == sorted(
+        [f"flash_fwd_wgmma_kernel<{d}, {lse}>" for d in (128, 64) for lse in (0, 1)]
+        + [f"flash_bwd_{k}_wgmma_kernel<{d}>" for k in ("dq", "dkv")
+           for d in (64, 128)])
+    assert len(got) == chip_smoke.N_WGMMA_KERNELS
     assert all(k == {"HGMMA": 1, "UTMALDG": 1, "spill_stores": 0,
                      "spill_loads": 0, "registers": 168}
                for k in got.values())
+
+
+def test_ab_tool_needs_a_card(monkeypatch):
+    # the A/B tool builds and times the kernels on a card only: without one
+    # it exits 2 before it builds anything
+    from paddle_tpu_torch.tools import ab_flash
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["ab_flash", "--other", "other.cu"])
+    assert ab_flash.main() == 2
