@@ -70,27 +70,35 @@ TOL = {("paged", "bfloat16"): (2e-3, 4e-3),
 # a typical element of out or of a gradient is about 0.03 to 0.06.
 REL_TOL = {("flash", "bfloat16"): 1e-2,
            ("flash_bwd", "bfloat16"): 1e-2}
-# A copy of csrc/flash_attention.cu with one fault planted in each bf16
-# kernel: the forward's consumers skip the K/V tile at Lk/2 and dq's skip
-# the K tile at Lk/2 (their scores are masked), dk/dv's skip the Q tile at
-# Lq/2. flash_train_check requires that REL_TOL rejects all three at
-# L=4096.
+# Copies of the kernel sources with faults planted, each inserted before
+# its anchor (source, anchor, fault). In csrc/flash_attention.cu one fault
+# in each bf16 kernel: the forward's consumers skip the K/V tile at Lk/2 and
+# dq's skip the K tile at Lk/2 (their scores are masked), dk/dv's skip the
+# Q tile at Lq/2; flash_train_check requires that REL_TOL rejects all three
+# at L=4096. In csrc/paged_attention.cu the combine skips each row's second
+# live split; paged_check requires that TOL rejects it at bf16_h32.
 PLANTED_FAULTS = (
-    ("  if (n0 + FW_BN > min(Lk, wg_end)) {\n",
+    ("flash_attention",
+     "  if (n0 + FW_BN > min(Lk, wg_end)) {\n",
      "  if (n0 == (Lk / 2) / FW_BN * FW_BN) {\n"
      "#pragma unroll\n"
      "    for (int i = 0; i < FW_BN / 2; ++i) s[i] = -INFINITY;\n"
      "  }\n"),
-    ("  if (n0 + BW_BN > min(Lk, wg_end)) {\n",
+    ("flash_attention",
+     "  if (n0 + BW_BN > min(Lk, wg_end)) {\n",
      "  if (n0 == (Lk / 2) / BW_BN * BW_BN) {\n"
      "#pragma unroll\n"
      "    for (int i = 0; i < BW_BN / 2; ++i) s[i] = -INFINITY;\n"
      "  }\n"),
-    ("      if (causal && q0 + BW_BN - 1 + shift < kw) {\n",
+    ("flash_attention",
+     "      if (causal && q0 + BW_BN - 1 + shift < kw) {\n",
      "      if (q0 == (Lq / 2) / BW_BN * BW_BN) {\n"
      "        mbar_arrive(bar_empty(s));\n"
      "        continue;\n"
-     "      }\n"))
+     "      }\n"),
+    ("paged_attention",
+     "      const float a = exp2f(pp[0] - mx);\n",
+     "      if (sp == 1) continue;\n"))
 
 
 def emit(obj) -> None:
@@ -284,95 +292,172 @@ def check_flash(torch, fa):
 # phase 3: paged decode kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_paged(torch, pa, kvc):
+# the main contexts of the paged cases: every length from 0 to the full
+# slot, page edges among them
+PAGED_T = (0, 1, 63, 64, 65, 127, 300, 500, 700, 1000, 1023, 1024, 1234,
+           1500, 2000, 2047)
+
+
+def split_edges(pa, b: int, hkv: int, ps: int, s: int) -> list:
+    """``b`` contexts at the edges of the split kernel's chunks of pages
+    (``split_plan`` for this shape) and of its pages, with 0, 1 and the
+    full slot."""
+    pps, _ = pa.split_plan(s, b * hkv)
+    edges = [k * pps * ps + d for k in range(1, s // pps + 1)
+             for d in (-1, 0, 1)] + [ps - 1, ps + 1, 0, 1]
+    edges = sorted({e for e in edges if 0 <= e < s * ps} | {s * ps - 1})
+    return [edges[i % len(edges)] for i in range(b)]
+
+
+def paged_case(torch, kvc, gen, rng, t_host, h, hkv, leg, qdt, d=128, ps=64,
+               s=32, layers=2, layer=1) -> dict:
+    """Inputs of one paged-decode case, on the card: a pool of every row's
+    own pages in random order (``leg``: "f32", "bf16" or "int8" with
+    scales), q and the current token in ``qdt``, and the case's byte and
+    operation counts for the bound (live K/V, q, out, the current token,
+    tables and t, and the live pages' scales)."""
     import numpy as np
-    import torch.nn.functional as TF
-    rng = np.random.default_rng(2)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    b, ps, s, layers, d, layer = 16, 64, 32, 2, 128, 1
-    t_host = np.array([0, 1, 63, 64, 65, 127, 300, 500, 700, 1000, 1023,
-                       1024, 1234, 1500, 2000, 2047], np.int32)
+    t_host = np.asarray(t_host, np.int32)
+    b = len(t_host)
     p = b * s + 1
     tables_host = np.zeros((b, s), np.int32)
     perm = rng.permutation(np.arange(1, p))
     for i, tv in enumerate(t_host):
-        n = tv // ps + 1                          # pages up to position t
+        n = min(s, tv // ps + 1)                  # pages up to position t
         tables_host[i, :n] = perm[i * s:i * s + n]
-    tables = torch.as_tensor(tables_host, device="cuda")
-    t = torch.as_tensor(t_host, device="cuda")
-    rows = []
+    poolf = torch.randn(p, layers, 2, hkv, ps, d, generator=gen, device="cuda")
+    if leg == "int8":
+        pool, scales = kvc.quantize_pages(poolf)
+    elif leg == "bf16":
+        pool, scales = poolf.to(torch.bfloat16), None
+    else:
+        pool, scales = poolf, None
+    del poolf
+    q = torch.randn(b, h, d, generator=gen, device="cuda", dtype=qdt)
+    kn = torch.randn(b, hkv, d, generator=gen, device="cuda", dtype=qdt)
+    vn = torch.randn(b, hkv, d, generator=gen, device="cuda", dtype=qdt)
+    args = (q, kn, vn, pool, scales, torch.as_tensor(tables_host, device="cuda"),
+            torch.as_tensor(t_host, device="cuda"), layer)
+    npages = int(sum(-(-int(tv) // ps) for tv in t_host))
+    nbytes = (2.0 * int(t_host.sum()) * hkv * d * pool.element_size()
+              + q.element_size() * (2 * b * h * d + 2 * b * hkv * d)
+              + 4.0 * (b * s + b)
+              + (8.0 * npages * hkv if scales is not None else 0.0))
+    flops = 4.0 * h * d * float((t_host + 1).sum())
+    return dict(args=args, ps=ps, t_host=t_host, nbytes=nbytes, flops=flops,
+                rep=h // hkv)
+
+
+def paged_sdpa(torch, case):
+    """The library yardstick of a paged case: SDPA over the gathered dense
+    K/V (gather and current-token insert done here, before timing), span
+    mask pos <= t. Returns the call as a closure."""
+    import torch.nn.functional as TF
+    q, kn, vn, pool, scales, tables, t, layer = case["args"]
+    p, layers, _, hkv, ps, d = pool.shape
+    b, s = tables.shape
+    m = s * ps
+    idx = tables.long() * layers + layer
+    taken = pool.reshape(p * layers, 2, hkv, ps, d)[idx].to(q.dtype)
+    if scales is not None:
+        sc = scales.reshape(p * layers, 2, hkv)[idx]
+        taken = (taken.float() * sc[..., None, None]).to(q.dtype)
+    kd = taken[:, :, 0].permute(0, 2, 1, 3, 4).reshape(b, hkv, m, d).clone()
+    vd = taken[:, :, 1].permute(0, 2, 1, 3, 4).reshape(b, hkv, m, d).clone()
+    del taken
+    ar = torch.arange(b, device="cuda")
+    kd[ar, :, t.long()] = kn
+    vd[ar, :, t.long()] = vn
+    if case["rep"] > 1:
+        kd = kd.repeat_interleave(case["rep"], dim=1)
+        vd = vd.repeat_interleave(case["rep"], dim=1)
+    span = (torch.arange(m, device="cuda")[None, :]
+            <= t.long()[:, None])[:, None, None, :]
+    qd = q[:, :, None, :]
+    return lambda: TF.scaled_dot_product_attention(qd, kd, vd, attn_mask=span)
+
+
+def within_tol(out, ref, kernel: str) -> bool:
+    """Whether every element of out lies within TOL of ref."""
+    atol, rtol = TOL[kernel, dtype_name(out.dtype)]
+    diff = (out.float() - ref.float()).abs()
+    return bool((diff <= atol + rtol * ref.float().abs()).all())
+
+
+def check_paged(torch, pa, kvc, planted_lib):
+    import numpy as np
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
-    # the fp32 leg is the engine's default (compute_dtype float32, native
-    # pool), which the engine_vs_generate phase runs
-    for name, h, hkv, leg, qdt in (("bf16_h32", 32, 32, "bf16", bf),
-                                   ("int8_h32", 32, 32, "int8", bf),
-                                   ("bf16_gqa_h32_kv8", 32, 8, "bf16", bf),
-                                   ("f32_h32", 32, 32, "f32", f32)):
-        poolf = torch.randn(p, layers, 2, hkv, ps, d, generator=gen,
-                            device="cuda")
-        if leg == "int8":
-            pool, scales = kvc.quantize_pages(poolf)
-        elif leg == "bf16":
-            pool, scales = poolf.to(torch.bfloat16), None
-        else:
-            pool, scales = poolf.clone(), None
-        del poolf
-        q = torch.randn(b, h, d, generator=gen, device="cuda", dtype=qdt)
-        kn = torch.randn(b, hkv, d, generator=gen, device="cuda", dtype=qdt)
-        vn = torch.randn(b, hkv, d, generator=gen, device="cuda", dtype=qdt)
-        args = (q, kn, vn, pool, scales, tables, t, layer)
+    edges = split_edges(pa, 16, 32, 64, 32)
+    # name, q heads, kv heads, pool, q dtype, D, page size, table width,
+    # contexts; the first four are timed. The fp32 leg is the engine's
+    # default (compute_dtype float32, native pool), which the
+    # engine_vs_generate phase runs. The rest hold the split bookkeeping:
+    # contexts at and beside the edges of the chunks of pages, every row
+    # at t = 0, the smallest and largest pages (D=64, so that two staged
+    # pages of 256 fit), and 8 q heads on one kv head of an int8 pool.
+    cases = (("bf16_h32", 32, 32, "bf16", bf, 128, 64, 32, PAGED_T),
+             ("int8_h32", 32, 32, "int8", bf, 128, 64, 32, PAGED_T),
+             ("bf16_gqa_h32_kv8", 32, 8, "bf16", bf, 128, 64, 32, PAGED_T),
+             ("f32_h32", 32, 32, "f32", f32, 128, 64, 32, PAGED_T),
+             ("bf16_split_edges", 32, 32, "bf16", bf, 128, 64, 32, edges),
+             ("bf16_all_t0", 32, 32, "bf16", bf, 128, 64, 32, (0,) * 16),
+             ("bf16_ps16_d64", 32, 32, "bf16", bf, 64, 16, 64,
+              split_edges(pa, 16, 32, 16, 64)),
+             ("bf16_ps256_d64", 32, 32, "bf16", bf, 64, 256, 8,
+              split_edges(pa, 16, 32, 256, 8)),
+             ("int8_rep8_h32_kv4", 32, 4, "int8", bf, 128, 64, 32, PAGED_T))
+    rows = []
+    for i, (name, h, hkv, leg, qdt, d, ps, s, t_host) in enumerate(cases):
+        case = paged_case(torch, kvc, gen, rng, t_host, h, hkv, leg, qdt,
+                          d=d, ps=ps, s=s)
+        args = case["args"]
         out = pa.paged_attention(*args, page_size=ps)
         ref = pa.paged_attention_dense(*args, page_size=ps)
         torch.cuda.synchronize()
         err = check_close(torch, out, ref, "paged", f"paged {name}")["max_abs"]
-        t0_err = (out[0].float() - vn[0].float().repeat_interleave(
-            h // hkv, dim=0)).abs().max().item()
-        require(t0_err == 0.0, f"paged {name}: t=0 row is not v_new "
+        # rows at t = 0 attend only the current token: exactly v_new
+        zero = torch.as_tensor(case["t_host"] == 0, device="cuda")
+        t0_err = (out[zero].float() - args[2][zero].float().repeat_interleave(
+            case["rep"], dim=1)).abs().max().item() if bool(zero.any()) else 0.0
+        require(t0_err == 0.0, f"paged {name}: t=0 rows are not v_new "
                                f"({t0_err})")
-        # library yardstick: SDPA over the gathered dense K/V (gather and
-        # current-token insert done before timing), span mask pos <= t
-        m = s * ps
-        idx = tables.long() * layers + layer
-        taken = pool.reshape(p * layers, 2, hkv, ps, d)[idx].to(qdt)
-        if scales is not None:
-            sc = scales.reshape(p * layers, 2, hkv)[idx]
-            taken = (taken.float() * sc[..., None, None]).to(qdt)
-        kd = taken[:, :, 0].permute(0, 2, 1, 3, 4).reshape(b, hkv, m, d)
-        vd = taken[:, :, 1].permute(0, 2, 1, 3, 4).reshape(b, hkv, m, d)
-        kd = kd.clone()
-        vd = vd.clone()
-        ar = torch.arange(b, device="cuda")
-        kd[ar, :, t.long()] = kn
-        vd[ar, :, t.long()] = vn
-        if hkv != h:
-            kd = kd.repeat_interleave(h // hkv, dim=1)
-            vd = vd.repeat_interleave(h // hkv, dim=1)
-        span = (torch.arange(m, device="cuda")[None, :]
-                <= t.long()[:, None])[:, None, None, :]
-        qd = q[:, :, None, :]
-        lib = lambda: TF.scaled_dot_product_attention(  # noqa: E731
-            qd, kd, vd, attn_mask=span)
-        ms = cuda_ms(torch, lambda: pa.paged_attention(*args, page_size=ps), 20)
-        plain_ms = cuda_ms(torch, lambda: pa.paged_attention_dense(
-            *args, page_size=ps), 3, warmup=1)
-        library_ms = cuda_ms(torch, lib, 20)
-        live = int(t_host.sum())
-        item = pool.element_size()
-        npages = int(sum(-(-int(tv) // ps) for tv in t_host))
-        qitem = q.element_size()
-        nbytes = (2.0 * live * hkv * d * item                 # live K/V
-                  + qitem * (2 * b * h * d + 2 * b * hkv * d)  # q, out, k/v_new
-                  + 4.0 * (b * s + b)                          # tables, t
-                  + (8.0 * npages * hkv if scales is not None else 0.0))
-        flops = 4.0 * h * d * float((t_host + 1).sum())
-        bms, by = bound(flops, nbytes, dtype_name(qdt))
-        row = dict(case=name, dtype=dtype_name(qdt), max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bms, bound_by=by,
-                   gbytes_per_s=nbytes / ms / 1e6)
+        row = dict(case=name, dtype=dtype_name(qdt), pool=leg, D=d, ps=ps,
+                   rep=case["rep"], split_plan=pa.split_plan(s, 16 * hkv),
+                   max_abs_err=err, t0_rows=int(zero.sum()))
+        if name == "bf16_h32":
+            # the kernels have no atomics and fold splits in order
+            runs = [pa.paged_attention(*args, page_size=ps) for _ in range(3)]
+            same = all(torch.equal(r.view(torch.int16), runs[0].view(torch.int16))
+                       for r in runs[1:])
+            require(same, "paged bf16_h32: three launches on the same inputs "
+                          "differ")
+            fn = planted_lib.paged_decode
+            fn.argtypes, fn.restype = pa._ARGTYPES, ctypes.c_int
+            bad = pa.call_kernel(fn, *args, page_size=ps)
+            torch.cuda.synchronize()
+            require(not within_tol(bad, ref, "paged"),
+                    "paged bf16_h32: the planted fault (the combine skips "
+                    "the second live split) passed TOL")
+            row.update(bit_identical_launches=3, planted_fault_max_abs=(
+                bad.float() - ref.float()).abs().max().item())
+        if i < 4:
+            lib = paged_sdpa(torch, case)
+            row.update(ms=cuda_ms(torch, lambda: pa.paged_attention(
+                           *args, page_size=ps), 20),
+                       plain_ms=cuda_ms(torch, lambda: pa.paged_attention_dense(
+                           *args, page_size=ps), 3, warmup=1),
+                       library_ms=cuda_ms(torch, lib, 20))
+            bms, by = bound(case["flops"], case["nbytes"], dtype_name(qdt))
+            row.update(bound_ms=bms, bound_by=by,
+                       gbytes_per_s=case["nbytes"] / row["ms"] / 1e6)
+            del lib
         emit({"phase": "paged_check", **row})
         rows.append(row)
-        del pool, scales, taken, kd, vd
+        del case, args, out, ref
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -568,28 +653,28 @@ WGMMA_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)"
 N_WGMMA_KERNELS = 8     # forward <D, LSE>, dq <D>, dk/dv <D>; D in 64, 128
 
 
-def wgmma_kernels(native_build) -> dict:
-    """Each bf16 flash kernel of the built library (forward, dq, dk/dv): the
-    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS
-    (``cuobjdump -sass``), and its registers and spills as ptxas reported
-    them when this run built it."""
+def sass_functions(native_build, name: str, pattern, ops) -> dict:
+    """Each function of the built library of ``csrc/<name>.cu`` whose
+    (mangled) name ``pattern`` finds: how many lines of its SASS
+    (``cuobjdump -sass``) hold each of ``ops``, and its registers and
+    spills as ptxas reported them when this run built it."""
     bindir = Path(native_build.nvcc()).parent
     sass = subprocess.run(
         [str(bindir / "cuobjdump"), "-sass",
-         str(native_build.library_path("flash_attention"))],
+         str(native_build.library_path(name))],
         capture_output=True, text=True, check=True, timeout=300).stdout
     kernels, fn = {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            fn = m.group(1) if WGMMA_KERNEL.search(m.group(1)) else None
+            fn = m.group(1) if pattern.search(m.group(1)) else None
             if fn:
-                kernels[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                kernels[fn] = dict.fromkeys(ops, 0)
         elif fn:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in ops:
                 kernels[fn][op] += op in ln
     fn = None
-    for ln in native_build.build_logs.get("flash_attention", "").splitlines():
+    for ln in native_build.build_logs.get(name, "").splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
             fn = m.group(1) if m.group(1) in kernels else None
@@ -598,13 +683,35 @@ def wgmma_kernels(native_build) -> dict:
             kernels[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
         elif fn and (m := re.search(r"Used (\d+) registers", ln)):
             kernels[fn]["registers"] = int(m[1])
-    # e.g. flash_fwd_wgmma_kernel<D, LSE>, read from the mangled name's
-    # template arguments (ILi<D>ELb<LSE>E)
+    return kernels
+
+
+def wgmma_kernels(native_build) -> dict:
+    """Each bf16 flash kernel of the built library (forward, dq, dk/dv): the
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS,
+    and its registers and spills, keyed e.g.
+    ``flash_fwd_wgmma_kernel<D, LSE>``."""
+    kernels = sass_functions(native_build, "flash_attention", WGMMA_KERNEL,
+                             ("HGMMA", "UTMALDG"))
     named = {}
     for fn, v in kernels.items():
         m = WGMMA_KERNEL.search(fn)
         named["%s<%s>" % (m[1], ", ".join(re.findall(r"L[ib](\d+)E", m[2])))] = v
     return named
+
+
+# the paged split kernel (pool type, D, q heads per kv head bucket): each
+# must copy its pages by cp.async.bulk, whose SASS is UBLKCP
+PAGED_SPLIT_KERNEL = re.compile(r"paged_decode_split_kernel")
+BULK_COPY_OP = "UBLKCP"
+N_PAGED_SPLIT_KERNELS = 24     # f32, bf16, int8 pools x D 64, 128 x rep 1, 2, 4, 8
+
+
+def paged_kernels(native_build) -> dict:
+    """Each paged split kernel of the built library: its bulk copies
+    (``BULK_COPY_OP``) in SASS, registers and spills, by mangled name."""
+    return sass_functions(native_build, "paged_attention", PAGED_SPLIT_KERNEL,
+                          (BULK_COPY_OP,))
 
 
 def attention_pairs(lq: int, lk: int, causal: bool) -> int:
@@ -617,26 +724,33 @@ def attention_pairs(lq: int, lk: int, causal: bool) -> int:
 
 
 def build_planted(native_build):
-    """Start ``nvcc`` on a copy of ``csrc/flash_attention.cu`` with
-    PLANTED_FAULTS applied, into the git-ignored build directory; return a
-    function that waits for it and loads the library."""
-    src = (native_build.CSRC / "flash_attention.cu").read_text()
-    for anchor, fault in PLANTED_FAULTS:
-        require(src.count(anchor) == 1, f"planted fault: anchor {anchor!r} "
-                                        f"not found once")
-        src = src.replace(anchor, fault + anchor)
+    """Start ``nvcc`` on a copy of each source that PLANTED_FAULTS names,
+    with its faults applied, into the git-ignored build directory (one
+    process each, in parallel); return a function that waits for them and
+    returns the loaded libraries by source name."""
     out_dir = native_build.BUILD_DIR / "planted"
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu, so = out_dir / "flash_attention.cu", out_dir / "libflash_attention.so"
-    cu.write_text(src)
-    proc = subprocess.Popen([native_build.nvcc(), *native_build.NVCC_FLAGS,
-                             "-o", str(so), str(cu)], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    procs = {}
+    for name in dict.fromkeys(n for n, _, _ in PLANTED_FAULTS):
+        src = (native_build.CSRC / f"{name}.cu").read_text()
+        for _, anchor, fault in (f for f in PLANTED_FAULTS if f[0] == name):
+            require(src.count(anchor) == 1, f"planted fault: anchor "
+                                            f"{anchor!r} not found once")
+            src = src.replace(anchor, fault + anchor)
+        cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+        cu.write_text(src)
+        procs[name] = (subprocess.Popen(
+            [native_build.nvcc(), *native_build.NVCC_FLAGS, "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), so)
 
     def load():
-        log, _ = proc.communicate()
-        require(proc.returncode == 0, f"planted build failed:\n{log}")
-        return ctypes.CDLL(str(so))
+        libs = {}
+        for name, (proc, so) in procs.items():
+            log, _ = proc.communicate()
+            require(proc.returncode == 0, f"planted {name} build failed:\n{log}")
+            libs[name] = ctypes.CDLL(str(so))
+        return libs
     return load
 
 
@@ -1199,30 +1313,36 @@ def main() -> int:
     try:
         native_build.build()
     finally:
-        planted_lib = load_planted()
+        planted = load_planted()
     tc_kernels = wgmma_kernels(native_build)
+    bulk_kernels = paged_kernels(native_build)
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "sources": native_build.sources(),
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in native_build.build_logs.items()},
-          "wgmma_kernels": tc_kernels,
+          "wgmma_kernels": tc_kernels, "paged_kernels": bulk_kernels,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "card": smi})
     require(len(tc_kernels) == N_WGMMA_KERNELS and all(
         k["HGMMA"] > 0 and k["UTMALDG"] > 0 for k in tc_kernels.values()),
         f"the bf16 flash kernels do not all run on wgmma and TMA: "
         f"{tc_kernels}")
+    require(len(bulk_kernels) == N_PAGED_SPLIT_KERNELS and all(
+        k[BULK_COPY_OP] > 0 for k in bulk_kernels.values()),
+        f"the paged split kernels do not all copy by {BULK_COPY_OP}: "
+        f"{bulk_kernels}")
     all_counters = (fa.launches, pa.launches, fa.launches_lse,
                     fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches)
 
     flash_rows = check_flash(torch, fa)
-    paged_rows = check_paged(torch, pa, kvc)
+    paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
     for c in all_counters:
         c.reset()
     serve_launches = serve_7b(torch, smi, fa, pa)
     agree_2layer(torch, fa, pa)
-    flash_errs, flash_times = check_flash_train(torch, fa, planted_lib)
+    flash_errs, flash_times = check_flash_train(torch, fa,
+                                                planted["flash_attention"])
     q8_err, q8_time = check_q8_adam(torch, q8)
     train_launches = train_1p6b(torch, smi, fa, q8, all_counters)
     train_vs_cpu(torch, fa, q8)

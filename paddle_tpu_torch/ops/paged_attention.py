@@ -34,7 +34,8 @@ import torch
 from .. import _native
 
 __all__ = ["PagedDecodeCache", "paged_attention", "paged_attention_dense",
-           "scatter_token_inplace", "paged_decode_attention", "launches"]
+           "scatter_token_inplace", "paged_decode_attention", "launches",
+           "split_plan"]
 
 launches = _native.LaunchCounter("paged_decode_attention")
 
@@ -44,7 +45,10 @@ _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8
 _MAX_PAGE = 256
-_MAX_STAGED_BYTES = 192 * 1024   # shared memory for 2 x (K, V) pages
+# the split kernel's ring holds at least two stages of a K and a V page
+# (next to at most 16.6 KB of merge area, within 227 KB)
+_MAX_STAGED_BYTES = 192 * 1024
+_SPLIT_BLOCKS = 4096   # split blocks a launch aims at: >= 2 waves on 132 SMs
 
 
 @dataclass
@@ -71,9 +75,10 @@ class PagedDecodeCache:
         return replace(self, layer=layer)
 
 
-# paged_decode(q, k_new, v_new, pool, scales, tables, t, out, B, H, Hkv, D,
-#              L, ps, S, layer, q_dtype, pool_dtype, sm_scale, stream)
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
+# paged_decode(q, k_new, v_new, pool, scales, tables, t, part, out, B, H,
+#              Hkv, D, L, ps, S, layer, pps, nsplit, q_dtype, pool_dtype,
+#              sm_scale, stream)
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -117,6 +122,15 @@ def paged_attention_dense(q, k_new, v_new, pool, scales, tables, t, layer,
     return torch.einsum("bhl,bhld->bhd", p, v).to(q.dtype)
 
 
+def split_plan(pages_per_row: int, rows: int) -> Tuple[int, int]:
+    """``(pps, nsplit)``: pages per split and splits per row for a table of
+    ``pages_per_row`` pages and ``rows = B * H_kv`` (row, kv head) pairs,
+    so that a launch has about :data:`_SPLIT_BLOCKS` split blocks. Reads
+    no ``t``: the launch needs no sync."""
+    pps = max(1, -(-pages_per_row * rows // _SPLIT_BLOCKS))
+    return pps, -(-pages_per_row // pps)
+
+
 def paged_attention(q, k_new, v_new, pool, scales, tables, t, layer: int, *,
                     page_size: int) -> torch.Tensor:
     """Decode attention for one layer: the kernel for CUDA tensors, the
@@ -126,6 +140,18 @@ def paged_attention(q, k_new, v_new, pool, scales, tables, t, layer: int, *,
     if q.device.type == "cpu":
         return paged_attention_dense(q, k_new, v_new, pool, scales, tables,
                                      t, layer, page_size)
+    out = call_kernel(_kernel(), q, k_new, v_new, pool, scales, tables, t,
+                      layer, page_size=page_size)
+    launches.count += 1
+    return out
+
+
+def call_kernel(fn, q, k_new, v_new, pool, scales, tables, t, layer: int,
+                *, page_size: int) -> torch.Tensor:
+    """Check the arguments, allocate ``out`` and the split partials, and
+    launch the C entry point ``fn`` (``paged_decode`` of a built library)
+    on the current stream. :func:`paged_attention` passes this checkout's
+    library; a check may pass another build of the same source."""
     b, h, d = q.shape
     p_, l_, two, h_kv, ps, pd = pool.shape
     if two != 2 or ps != page_size or pd != d or h % h_kv != 0 \
@@ -158,32 +184,35 @@ def paged_attention(q, k_new, v_new, pool, scales, tables, t, layer: int, *,
         raise TypeError("tables and t must be int32")
     if d not in _HEAD_DIMS or h // h_kv > _MAX_REP or ps > _MAX_PAGE \
             or 4 * ps * d * pool.element_size() > _MAX_STAGED_BYTES \
-            or not 0 <= int(layer) < l_:
+            or tables.shape[1] == 0 or not 0 <= int(layer) < l_:
         raise ValueError(
             f"paged kernel needs head_dim in {_HEAD_DIMS}, at most "
             f"{_MAX_REP} q heads per kv head, page_size <= {_MAX_PAGE}, "
-            f"two staged K/V pages within {_MAX_STAGED_BYTES} bytes and "
-            f"0 <= layer < {l_}; got D={d}, rep={h // h_kv}, ps={ps}, "
-            f"pool {pool.dtype}, layer={layer}")
+            f"two staged K/V pages within {_MAX_STAGED_BYTES} bytes, a "
+            f"page table of at least one page and 0 <= layer < {l_}; got "
+            f"D={d}, rep={h // h_kv}, ps={ps}, pool {pool.dtype}, table "
+            f"width {tables.shape[1]}, layer={layer}")
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     pool, tables, t = pool.contiguous(), tables.contiguous(), t.contiguous()
     if pool.data_ptr() % 16:
-        raise ValueError("paged kernel copies 16-byte chunks: the pool must "
-                         "start on a 16-byte boundary")
+        raise ValueError("paged kernel copies whole pages in 16-byte units: "
+                         "the pool must start on a 16-byte boundary")
     scales_ptr = scales.contiguous().data_ptr() if scales is not None \
         else None
     out = torch.empty_like(q)
     if b == 0:
         return out
+    pps, nsplit = split_plan(tables.shape[1], b * h_kv)
+    part = torch.empty(b, h, nsplit, d + 2, dtype=torch.float32,
+                       device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernel()(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                        pool.data_ptr(), scales_ptr, tables.data_ptr(),
-                        t.data_ptr(), out.data_ptr(), b, h, h_kv, d, l_, ps,
-                        tables.shape[1], int(layer), qc, pc,
-                        1.0 / math.sqrt(d), stream)
+        err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 pool.data_ptr(), scales_ptr, tables.data_ptr(), t.data_ptr(),
+                 part.data_ptr(), out.data_ptr(), b, h, h_kv, d, l_, ps,
+                 tables.shape[1], int(layer), pps, nsplit, qc, pc,
+                 1.0 / math.sqrt(d), stream)
     _native.check(err, "paged_attention kernel launch")
-    launches.count += 1
     return out
 
 

@@ -43,9 +43,10 @@ WORK = {"flash_fwd": (2, 4, 0), "flash_fwd_lse": (2, 4, 1),
         "flash_bwd_dq": (3, 5, 2), "flash_bwd_dkv": (4, 6, 2)}
 
 
-def start_build(nb, src: Path, tag: str):
+def start_build(nb, src: Path, tag: str, keys=("flash_fwd", "flash_bwd")):
     """Start ``nvcc`` on ``src``; return a function that waits for it and
-    returns the loaded library and the flash kernels' ptxas lines."""
+    returns the loaded library and the ptxas lines of the kernels whose
+    names hold one of ``keys``."""
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out_dir = nb.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -58,7 +59,7 @@ def start_build(nb, src: Path, tag: str):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {src} failed:\n{log}")
-        return ctypes.CDLL(str(so)), ptxas_lines(log, ("flash_fwd", "flash_bwd"))
+        return ctypes.CDLL(str(so)), ptxas_lines(log, keys)
     return wait
 
 

@@ -107,13 +107,14 @@ def test_cpu_path_launches_nothing():
     assert fa.launches.count == before
 
 
-@pytest.mark.parametrize("anchor", [a for a, _ in chip_smoke.PLANTED_FAULTS],
-                         ids=lambda a: a.strip()[:40])
-def test_planted_fault_anchor_occurs_once_in_the_source(anchor):
-    # chip_smoke.py plants its faults into a copy of the source by text: a
+@pytest.mark.parametrize("source,anchor", [
+    pytest.param(n, a, id=a.strip()[:40])
+    for n, a, _ in chip_smoke.PLANTED_FAULTS])
+def test_planted_fault_anchor_occurs_once_in_the_source(source, anchor):
+    # chip_smoke.py plants its faults into a copy of each source by text: a
     # rewrite that loses or repeats an anchor fails here, not after a build
     # on the card
-    src = (ROOT / "paddle_tpu_torch" / "csrc" / "flash_attention.cu").read_text()
+    src = (ROOT / "paddle_tpu_torch" / "csrc" / f"{source}.cu").read_text()
     assert src.count(anchor) == 1
 
 

@@ -207,3 +207,30 @@ def test_cpu_path_launches_nothing_and_device_tensors_raise():
     with pytest.raises(ValueError, match="CUDA"):
         q8.q8_adam_update(*meta, torch.ones(100, device="meta"), lr=1e-3,
                           c1=0.1, c2=0.001, eps=1e-8, beta1=0.9, beta2=0.999)
+
+
+def test_ab_q8_adam_variants(monkeypatch):
+    # the arithmetic-only variant puts every global store of base and codes
+    # behind a test that never holds; the division check's divisors are
+    # AdamW's fp32 bias corrections; the tool exits 2 without a card
+    import sys
+    from pathlib import Path
+    from paddle_tpu_torch.tools import ab_q8_adam as ab
+    src = (Path(q8.__file__).resolve().parent.parent / "csrc"
+           / "q8_adam.cu").read_text()
+    arith = ab.arith_only(src)
+    assert arith.count(ab._NEVER) == src.count(ab._NEVER) + 2
+    for store in ("*reinterpret_cast<uint4*>(p + i0) =",
+                  "*reinterpret_cast<uint2*>(mq + i0) = mout;",
+                  "*reinterpret_cast<uint2*>(vq + i0) = vout;"):
+        assert src.count(store) == 1
+        assert ab._NEVER in arith[arith.index(store) - 120:arith.index(store)]
+    with pytest.raises(ValueError):
+        ab.arith_only("no kernel here")
+    c = ab.divisors()
+    assert len(c) == 2 * len(ab.STEPS)
+    assert c[0] == float(np.float32(1.0) - np.float32(0.9))
+    assert all(0.0 < x <= 1.0 for x in c)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["ab_q8_adam", "--other", "other.cu"])
+    assert ab.main() == 2
