@@ -23,7 +23,17 @@ per phase:
   the 1.59B Llama of ``bench.py`` (full width and depth, batch 6, seq 4096,
   AMP O2 bf16, int8 AdamW without master weights) for 2 warm-up and 4
   timed steps, profiles one more step, and trains a 2-layer full-width
-  fp32 model on the card and on the CPU side by side.
+  fp32 model on the card and on the CPU side by side;
+* segment ids and dropout: holds the SEGS, DROP and SEGS+DROP
+  instantiations of B1-B4 against their plain versions, reads the dropout
+  mask (B0) back out of every kernel and holds it against
+  ``keep_mask_reference`` bit for bit, requires three identical launches
+  and the rejection of a planted dk/dv that keys the mask on the kv head,
+  times the variants at ERNIE's attention shape, runs
+  ``flash_attn_unpadded`` on packed lengths, trains ERNIE-3.0-base at
+  full size (``bench_ernie.py``'s traffic, then B=8 L=512; 2 warm-up, 10
+  timed and one profiled step each), and compares two full-width fp32
+  ERNIE layers with attention dropout on the card and on the CPU.
 
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound; the last line is ``{"ok": true, "device":
@@ -36,6 +46,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import gc
+import itertools
 import json
 import math
 import re
@@ -71,12 +82,17 @@ TOL = {("paged", "bfloat16"): (2e-3, 4e-3),
 REL_TOL = {("flash", "bfloat16"): 1e-2,
            ("flash_bwd", "bfloat16"): 1e-2}
 # Copies of the kernel sources with faults planted, each inserted before
-# its anchor (source, anchor, fault). In csrc/flash_attention.cu one fault
-# in each bf16 kernel: the forward's consumers skip the K/V tile at Lk/2 and
-# dq's skip the K tile at Lk/2 (their scores are masked), dk/dv's skip the
-# Q tile at Lq/2; flash_train_check requires that REL_TOL rejects all three
-# at L=4096. In csrc/paged_attention.cu the combine skips each row's second
-# live split; paged_check requires that TOL rejects it at bf16_h32.
+# its anchor (copy, anchor, fault); a copy is named "<source>" or
+# "<source>:<tag>", one build of csrc/<source>.cu with its faults. In the
+# copy of csrc/flash_attention.cu one fault in each bf16 kernel: the
+# forward's consumers skip the K/V tile at Lk/2 and dq's skip the K tile at
+# Lk/2 (their scores are masked), dk/dv's skip the Q tile at Lq/2;
+# flash_train_check requires that REL_TOL rejects all three at L=4096. In
+# "flash_attention:b0" the dropout variant of dk/dv keys B0 on the kv head
+# instead of the query head; flash_segs_dropout_check requires that
+# REL_TOL rejects it at a GQA case. In csrc/paged_attention.cu the combine
+# skips each row's second live split; paged_check requires that TOL rejects
+# it at bf16_h32.
 PLANTED_FAULTS = (
     ("flash_attention",
      "  if (n0 + FW_BN > min(Lk, wg_end)) {\n",
@@ -96,6 +112,9 @@ PLANTED_FAULTS = (
      "        mbar_arrive(bar_empty(s));\n"
      "        continue;\n"
      "      }\n"),
+    ("flash_attention:b0",
+     "        const uint32_t keep = dkv_keep_bits(keep_base(sd.seed, bh), q0, kr0, kr1, t,\n",
+     "        bh = b * Hkv + kvh;  // planted: keyed on the kv head\n"),
     ("paged_attention",
      "      const float a = exp2f(pp[0] - mx);\n",
      "      if (sp == 1) continue;\n"))
@@ -244,7 +263,7 @@ def check_flash(torch, fa):
         q = torch.randn(b, lq, h, d, generator=gen, device="cuda", dtype=dt)
         k = torch.randn(b, lk, hkv, d, generator=gen, device="cuda", dtype=dt)
         v = torch.randn(b, lk, hkv, d, generator=gen, device="cuda", dtype=dt)
-        out = fa.flash_attention(q, k, v, causal=causal)
+        out = fa.flash_attention_fwd(q, k, v, causal=causal)
         ref = fa.flash_attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         res = check_close(torch, out, ref, "flash", f"flash {name}")
@@ -266,7 +285,7 @@ def check_flash(torch, fa):
         # SDPA gives NaN on rows that see no key; the kernels give 0
         lib_err = (lib().transpose(1, 2).float().nan_to_num(0.0)
                    - ref.float()).abs().max().item()
-        ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal), 10)
+        ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal), 10)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(
             q, k, v, causal=causal), 3, warmup=1)
         library_ms = cuda_ms(torch, lib, 10)
@@ -650,7 +669,9 @@ def agree_2layer(torch, fa, pa):
 # the bf16 flash kernels (forward, dq, dk/dv): each must run on wgmma and TMA
 WGMMA_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)"
                           r"I((?:L[ib]\d+E)+)E")
-N_WGMMA_KERNELS = 8     # forward <D, LSE>, dq <D>, dk/dv <D>; D in 64, 128
+# forward <D, LSE, SEGS, DROP>, dq and dk/dv <D, SEGS, DROP>; D in 64, 128;
+# (SEGS, DROP) in (0, 0), (1, 0), (1, 1): dropout always carries ids
+N_WGMMA_KERNELS = 24
 
 
 def sass_functions(native_build, name: str, pattern, ops) -> dict:
@@ -724,20 +745,21 @@ def attention_pairs(lq: int, lk: int, causal: bool) -> int:
 
 
 def build_planted(native_build):
-    """Start ``nvcc`` on a copy of each source that PLANTED_FAULTS names,
+    """Start ``nvcc`` on each copy that PLANTED_FAULTS names, its source
     with its faults applied, into the git-ignored build directory (one
     process each, in parallel); return a function that waits for them and
-    returns the loaded libraries by source name."""
+    returns the loaded libraries by copy name."""
     out_dir = native_build.BUILD_DIR / "planted"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in dict.fromkeys(n for n, _, _ in PLANTED_FAULTS):
-        src = (native_build.CSRC / f"{name}.cu").read_text()
+        src = (native_build.CSRC / f"{name.split(':')[0]}.cu").read_text()
         for _, anchor, fault in (f for f in PLANTED_FAULTS if f[0] == name):
             require(src.count(anchor) == 1, f"planted fault: anchor "
                                             f"{anchor!r} not found once")
             src = src.replace(anchor, fault + anchor)
-        cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+        stem = name.replace(":", "_")
+        cu, so = out_dir / f"{stem}.cu", out_dir / f"lib{stem}.so"
         cu.write_text(src)
         procs[name] = (subprocess.Popen(
             [native_build.nvcc(), *native_build.NVCC_FLAGS, "-o", str(so),
@@ -754,42 +776,63 @@ def build_planted(native_build):
     return load
 
 
-def bwd_launches(torch, fa, lib, q, k, v, out, lse, do):
-    """The two launches of ``flash_attention_bwd`` (bf16, causal) from the
-    library ``lib``, as closures over fresh dq, dk, dv: for timing the
-    kernels alone and for running the planted library."""
+def entry_tail(torch, fa, q, k, causal: bool, var):
+    """The arguments of a flash entry point after its pointers: the dims,
+    dtype code, causal and sm_scale; for a variant ``var = (q_segs,
+    kv_segs, dropout_p, seed)`` the ``*_segdrop`` arguments too. Returns
+    ``(entry suffix, arguments, tensors to keep alive)``; the stream is
+    last."""
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
+    tail = (b, lq, lk, h, hkv, d, fa._DTYPE_CODES[q.dtype], int(causal),
+            1.0 / math.sqrt(d))
+    extra, keep, suffix = (), (), ""
+    if var is not None:
+        extra, keep = fa._segdrop_args(*var, b, lq, lk, q.device)
+        suffix = "_segdrop"
+    return suffix, (*tail, *extra, torch.cuda.current_stream().cuda_stream), keep
+
+
+def bind_entry(fa, lib, name: str):
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = fa._ARGTYPES_OF[name], ctypes.c_int
+    return lambda *a: fa._native.check(fn(*a), name)
+
+
+def bwd_launches(torch, fa, lib, q, k, v, out, lse, do, causal: bool = True,
+                 var=None):
+    """The two launches of ``flash_attention_bwd`` (causal unless said,
+    ``var`` a variant as for :func:`entry_tail`) from the library ``lib``,
+    as closures over fresh dq, dk, dv: for timing the kernels alone and for
+    running the planted libraries."""
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     grads = tuple(torch.empty_like(x) for x in (q, k, v))
-    dims = (b, lq, lk, h, hkv, d, 1, 1, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream)
+    suffix, tail, keep = entry_tail(torch, fa, q, k, causal, var)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     fns = []
-    for name, argtypes, outs in (("flash_bwd_dq", fa._ARGTYPES_BWD_DQ, grads[:1]),
-                                 ("flash_bwd_dkv", fa._ARGTYPES_BWD_DKV, grads[1:])):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        args = (*ptrs, *(x.data_ptr() for x in outs), *dims)
-        fns.append(lambda fn=fn, args=args, name=name:
-                   fa._native.check(fn(*args), name))
+    for name, outs in (("flash_bwd_dq", grads[:1]),
+                       ("flash_bwd_dkv", grads[1:])):
+        fn = bind_entry(fa, lib, name + suffix)
+        args = (*ptrs, *(x.data_ptr() for x in outs), *tail)
+        fns.append(lambda fn=fn, args=args, keep=(keep, delta): fn(*args))
     return grads, fns[0], fns[1]
 
 
-def fwd_lse_launch(torch, fa, lib, q, k, v):
-    """``flash_fwd_lse`` (bf16, causal) of the library ``lib`` as a closure
-    over fresh out and lse."""
+def fwd_lse_launch(torch, fa, lib, q, k, v, causal: bool = True, var=None,
+                   with_lse: bool = True):
+    """``flash_fwd_lse`` (``flash_fwd`` without ``with_lse``; causal unless
+    said, ``var`` as for :func:`entry_tail`) of the library ``lib`` as a
+    closure over fresh out and lse."""
     b, lq, h, d = q.shape
-    lk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device="cuda")
-    fn = lib.flash_fwd_lse
-    fn.argtypes, fn.restype = fa._ARGTYPES_LSE, ctypes.c_int
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, lq, lk, h, hkv, d, 1, 1, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream)
-    return out, lse, lambda: fa._native.check(fn(*args), "flash_fwd_lse")
+    suffix, tail, keep = entry_tail(torch, fa, q, k, causal, var)
+    fn = bind_entry(fa, lib, ("flash_fwd_lse" if with_lse else "flash_fwd")
+                    + suffix)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) + (
+        (lse.data_ptr(),) if with_lse else ())
+    return out, lse, lambda keep=keep: fn(*ptrs, *tail)
 
 
 def check_planted(torch, fa, planted_lib, q, k, v, rout, rlse, do, refs):
@@ -1174,8 +1217,15 @@ def train_family(name: str) -> str:
 
 
 def profile_train(torch, card, step, unprofiled_step_s: float) -> None:
+    profile_step(torch, card, step, unprofiled_step_s, "train_profile",
+                 train_family)
+
+
+def profile_step(torch, card, step, unprofiled_step_s: float, phase: str,
+                 family, extra=None) -> None:
     """One more training step under ``torch.profiler``: device time and
-    launches per kernel family and the busy share."""
+    launches per kernel family (``family`` of a kernel's name) and the
+    busy share."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1196,11 +1246,11 @@ def profile_train(torch, card, step, unprofiled_step_s: float) -> None:
     require(total_s > 0, "profiler recorded no device time")
     fams = {}
     for e in kernels:
-        f = fams.setdefault(train_family(e.key), {"device_ms": 0.0, "calls": 0})
+        f = fams.setdefault(family(e.key), {"device_ms": 0.0, "calls": 0})
         f["device_ms"] += device_us(e) / 1e3
         f["calls"] += e.count
     top = sorted(kernels, key=device_us, reverse=True)[:12]
-    emit({"phase": "train_profile", "card": card, "wall_s": wall,
+    emit({"phase": phase, "card": card, **(extra or {}), "wall_s": wall,
           "device_ms": total_s * 1e3, "device_busy_share": total_s / wall,
           "unprofiled_step_s": unprofiled_step_s,
           "device_busy_share_est_unprofiled": total_s / unprofiled_step_s,
@@ -1288,6 +1338,640 @@ def train_vs_cpu(torch, fa, q8):
               "launches_card": kernel_launches})
 
 
+# ---------------------------------------------------------------------------
+# training phase 5: the segment-id and dropout variants of B1-B4 (B0)
+# ---------------------------------------------------------------------------
+
+# the TPU kernels' branches each variant ports (paddle_tpu/ops/
+# flash_attention.py): segment ids, and segment ids with dropout (B0,
+# _keep_tile at :47); dropout always carries ids, as _flash_core_drop
+VARIANT_LINES = {
+    "fwd": {"segs": ":106-109, 135",
+            "segs_drop": ":47, 106-109, 135, 145-148"},
+    "fwd_lse": {"segs": ":172-175, 200",
+                "segs_drop": ":47, 172-175, 200, 208-211"},
+    "bwd_dq": {"segs": ":239-242, 265",
+               "segs_drop": ":47, 239-242, 265, 271-274"},
+    "bwd_dkv": {"segs": ":300-303, 329",
+                "segs_drop": ":47, 300-303, 329, 335-338"},
+}
+# the ids each variant is timed with at ERNIE_SHAPE, as its path gives them:
+# packed sequences (flash_attn_unpadded) and none, dropout alone (ERNIE's
+# attention, which the wrapper runs on zero ids)
+VARIANT_IDS = {"segs": "packed", "segs_drop": "none"}
+VARIANT_KERNEL = {"fwd": ("flash_prefill", 82), "fwd_lse": ("flash_fwd_lse", 163),
+                  "bwd_dq": ("flash_bwd_dq", 228), "bwd_dkv": ("flash_bwd_dkv", 288)}
+DROPOUT_P = 0.1
+
+
+def packed_segs(torch, gen, b: int, length: int):
+    """(B, L) int32 ids of a few packed sequences a row (random boundaries,
+    ids rising): every row sees at least its own key."""
+    cuts = torch.randint(1, length, (b, 3), generator=gen, device="cuda")
+    pos = torch.arange(length, device="cuda")
+    return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(torch.int32)
+
+
+def variant_var(torch, gen, variant: str, b: int, lq: int, lk: int,
+                ids: str = "packed", seed: int = 1234):
+    """``(q_segs, kv_segs, dropout_p, seed)`` of a variant. ``ids``:
+    "packed" (with lq != lk the key ids are drawn apart and shifted by one,
+    so the rows of the first query segment see no key), "zeros" (one
+    segment), or "none" (dropout alone: the wrappers pass zero ids)."""
+    segs = (None, None)
+    if ids == "packed":
+        qs = packed_segs(torch, gen, b, lq)
+        segs = (qs, qs if lk == lq else packed_segs(torch, gen, b, lk) + 1)
+    elif ids == "zeros":
+        segs = tuple(torch.zeros(b, n, dtype=torch.int32, device="cuda")
+                     for n in (lq, lk))
+    return (*segs, DROPOUT_P if variant == "segs_drop" else 0.0, seed)
+
+
+def check_segs_dropout_cases(torch, fa, gen):
+    """Every variant of B1-B4 (forward, forward with lse, dq, dk/dv)
+    against its plain version on one set of inputs per case; the two
+    ERNIE cases are the attention of its two training legs as the model
+    calls it (dropout, no ids)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, B, H, Hkv, L, causal, dtype, D, variant, ids
+        ("segs_causal_512", 2, 8, 8, 512, True, bf, 128, "segs", "packed"),
+        ("drop_causal_512", 2, 8, 8, 512, True, bf, 128, "segs_drop", "none"),
+        ("segs_drop_causal_512", 2, 8, 8, 512, True, bf, 128, "segs_drop",
+         "packed"),
+        ("segs_drop_full_128", 2, 8, 8, 128, False, bf, 128, "segs_drop",
+         "packed"),
+        ("segs_drop_causal_1000_ragged", 2, 8, 8, 1000, True, bf, 128,
+         "segs_drop", "packed"),
+        ("gqa_segs_drop_causal_512_h8_kv2", 2, 8, 2, 512, True, bf, 128,
+         "segs_drop", "packed"),
+        ("d64_segs_drop_full_128", 4, 12, 12, 128, False, bf, 64, "segs_drop",
+         "packed"),
+        ("ernie_leg1_drop_full_128", 32, 12, 12, 128, False, bf, 64,
+         "segs_drop", "none"),
+        ("ernie_leg2_drop_full_512", 8, 12, 12, 512, False, bf, 64,
+         "segs_drop", "none"),
+        ("d64_zero_ids_drop_full_512", 2, 12, 12, 512, False, bf, 64,
+         "segs_drop", "zeros"),
+        ("d64_segs_causal_1000_ragged", 2, 12, 12, 1000, True, bf, 64, "segs",
+         "packed"),
+        ("f32_segs_causal_128", 2, 8, 8, 128, True, f32, 128, "segs",
+         "packed"),
+        ("f32_drop_full_512", 2, 8, 8, 512, False, f32, 128, "segs_drop",
+         "none"),
+        ("f32_gqa_segs_drop_causal_1000", 2, 8, 2, 1000, True, f32, 128,
+         "segs_drop", "packed"),
+        ("f32_d64_segs_drop_full_128", 2, 12, 12, 128, False, f32, 64,
+         "segs_drop", "packed"),
+        # Lq != Lk, the two id layouts drawn apart: some rows see no key
+        # (out 0, lse 1e30, no gradient)
+        ("segs_drop_causal_lq256_lk640", 2, 8, 8, (256, 640), True, bf, 128,
+         "segs_drop", "packed"),
+        ("f32_segs_full_lq200_lk333", 2, 8, 4, (200, 333), False, f32, 64,
+         "segs", "packed"),
+    ]
+    errs = {}
+    for name, b, h, hkv, L, causal, dt, d, variant, ids in cases:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda", dtype=dt)
+        lq, lk = L if isinstance(L, tuple) else (L, L)
+        q, k, v, do = rnd(b, lq, h, d), rnd(b, lk, hkv, d), \
+            rnd(b, lk, hkv, d), rnd(b, lq, h, d)
+        var = variant_var(torch, gen, variant, b, lq, lk, ids)
+        row, _ = check_variant(torch, fa, name, q, k, v, do, causal, var)
+        emit({"phase": "flash_segs_dropout_check", "case": name,
+              "shape": [b, lq, lk, h, hkv, d], "causal": causal,
+              "variant": variant, "ids": ids, **row})
+        errs[name] = entry_errs(row)
+        del q, k, v, do
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_variant(torch, fa, name: str, q, k, v, do, causal: bool, var,
+                  runs: int = 1):
+    """The four variant wrappers (forward, forward with lse, dq, dk/dv; the
+    backward from the plain forward's out and lse) on one set of inputs,
+    ``runs`` times, each output held against its plain version. Returns
+    the check_close row and each run's ``(out_fwd, out, lse, dq, dk,
+    dv)``."""
+    rout, rlse = fa.flash_attention_lse_reference(q, k, v, causal, None, *var)
+    refs = (rout, rout, rlse, *fa.flash_attention_bwd_reference(
+        q, k, v, rout, rlse, do, causal, None, *var))
+    got = [(fa.flash_attention_fwd(q, k, v, causal, None, *var),
+            *fa.flash_attention_lse(q, k, v, causal, None, *var),
+            *fa.flash_attention_bwd(q, k, v, rout, rlse, do, causal, None,
+                                    *var))
+           for _ in range(runs)]
+    torch.cuda.synchronize()
+    dn = dtype_name(q.dtype)
+    row = {}
+    for i, (key, kernel) in enumerate((
+            ("out_fwd", "flash"), ("out", "flash"), ("lse", "lse"),
+            ("dq", "flash_bwd"), ("dk", "flash_bwd"), ("dv", "flash_bwd"))):
+        row[key] = max((check_close(torch, g[i], refs[i], kernel,
+                                    f"{name} {key}", dn) for g in got),
+                       key=lambda r: r["max_abs"])
+    return row, got
+
+
+# the check_close keys each entry point's error is read from
+ENTRY_KEYS = {"fwd": ("out_fwd",), "fwd_lse": ("out", "lse"),
+              "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
+
+
+def entry_errs(row) -> dict:
+    """The largest error of each entry point in a row of check_close
+    results keyed as ENTRY_KEYS."""
+    return {e: max(row[x]["max_abs"] for x in keys)
+            for e, keys in ENTRY_KEYS.items()}
+
+
+def check_keep_mask_exact(torch, fa, dt, ids: str, seed: int) -> dict:
+    """B0's mask as each kernel reveals it, against keep_mask_reference in
+    every bit, at B=2, H=4 over 2 kv heads, Lq = Lk = D = 128 (identity
+    inputs, so each output element is one kept or dropped probability):
+
+    * B1, B2: q = 0 (P = 1/L), V = I, so out[i, j] = keep(i, j) inv / L;
+    * B3: q = 0, K = I, V = 1, dO = I, out = 0, lse = log L, so dq[i, j] =
+      scale keep(i, j) inv / L;
+    * B4: Q = I, K = 0, V = 1, dO = 2^r I on the r-th query head of each kv
+      group, out = 0, lse = log L: dv[j, d] (dk[j, d] / scale) =
+      inv / L * sum_r 2^r keep_r(d, j), whose bits give each head's mask.
+
+    ``ids``: "zeros" passes zero segment ids, "none" none (the wrappers
+    pass zeros: the call ERNIE's attention makes)."""
+    b, h, hkv, L = 2, 4, 2, 128
+    rep = h // hkv
+    dev = "cuda"
+    keep_prob, inv = fa.dropout_constants(DROPOUT_P)
+    ar = lambda n: torch.arange(n, device=dev)  # noqa: E731
+    ref = fa.keep_mask_reference(seed, ar(b * h).view(b, h, 1, 1),
+                                 ar(L).view(1, 1, L, 1), ar(L).view(1, 1, 1, L),
+                                 keep_prob)
+    zeros = torch.zeros(b, L, dtype=torch.int32, device=dev)
+    var = ((zeros, zeros) if ids == "zeros" else (None, None)) + (
+        DROPOUT_P, seed)
+    eye = torch.eye(L, device=dev, dtype=dt)
+
+    def heads(x, n):  # (L, D) -> (B, L, n, D)
+        return x[None, :, None, :].expand(b, L, n, L).contiguous()
+    zq, zk = (torch.zeros(b, L, n, L, device=dev, dtype=dt) for n in (h, hkv))
+    ones_kv = torch.ones(b, L, hkv, L, device=dev, dtype=dt)
+    k_rand = torch.randn(b, L, hkv, L, device=dev, dtype=dt)
+    got = {}
+    out = fa.flash_attention_fwd(zq, k_rand, heads(eye, hkv), False, None, *var)
+    got["B1"] = out.permute(0, 2, 1, 3) != 0
+    out, _ = fa.flash_attention_lse(zq, k_rand, heads(eye, hkv), False, None,
+                                    *var)
+    got["B2"] = out.permute(0, 2, 1, 3) != 0
+    lse = torch.full((b, h, L), math.log(L), device=dev)
+    zo = torch.zeros_like(zq)
+    dq, _, _ = fa.flash_attention_bwd(zq, heads(eye, hkv), ones_kv, zo, lse,
+                                      heads(eye, h), False, None, *var)
+    got["B3"] = dq.permute(0, 2, 1, 3) != 0
+    scaled = torch.stack([eye * 2 ** (i % rep) for i in range(h)], 1)[None]
+    _, dk, dv = fa.flash_attention_bwd(heads(eye, h), zk, ones_kv, zo, lse,
+                                       scaled.expand(b, L, h, L).contiguous(),
+                                       False, None, *var)
+    unit = inv / L
+    for name, g, u in (("B4_dv", dv, unit), ("B4_dk", dk, unit / math.sqrt(L))):
+        n = torch.round(g.float() / u).long()          # (B, L keys, Hkv, D)
+        bits = torch.stack([(n >> r) & 1 for r in range(rep)], 3)
+        # -> (B, H, query d, key j)
+        got[name] = bits.reshape(b, L, h, L).permute(0, 2, 3, 1) == 1
+    torch.cuda.synchronize()
+    res = {}
+    for name, m in got.items():
+        wrong = int((m != ref).sum())
+        require(wrong == 0, f"B0 via {name} ({dtype_name(dt)}, ids {ids}, "
+                            f"seed {seed}): {wrong} of {ref.numel()} keep "
+                            f"bits differ from keep_mask_reference")
+        res[name] = wrong
+    return {"dtype": dtype_name(dt), "ids": ids, "seed": seed,
+            "kept_share": float(ref.float().mean()), "bits": ref.numel(),
+            "wrong_bits": res}
+
+
+def time_variants(torch, fa, b: int, h: int, L: int, d: int) -> dict:
+    """Times of every variant entry point (raw launches) at one shape, bf16,
+    not causal, on the ids VARIANT_IDS names, with the bound, the plain
+    version and the library yardstick: SDPA with a boolean key-padding mask
+    (segs), with dropout_p=0.1 (segs_drop: no ids, as ERNIE calls it); for
+    dq and dk/dv SDPA's whole backward and the whole plain backward. Each
+    variant's wrappers are held against the plain version on the timed
+    inputs (``max_abs_err``). The flag-free kernels ("none") are timed too,
+    as the variants' baseline; they are not returned."""
+    import torch.nn.functional as TF
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lib = fa._native.load("flash_attention")
+    q, k, v, do = (torch.randn(b, L, h, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    rows = {}
+    pairs = b * h * L * L
+    item = 2
+    qbytes = b * L * h * d * item
+    rowbytes = b * h * L * 4
+    # the flag-free kernels at the same shape first, for the variants' cost
+    for variant in ("none",) + fa.VARIANTS:
+        var, errs = None, {}
+        if variant != "none":
+            var = variant_var(torch, gen, variant, b, L, L,
+                              VARIANT_IDS[variant])
+            row, _ = check_variant(torch, fa, f"timing {variant}", q, k, v,
+                                   do, False, var)
+            errs = entry_errs(row)
+        args = var or (None, None, 0.0, 0)
+        seg_bytes = 2 * b * L * 4 if args[0] is not None else 0
+        out, lse = fa.flash_attention_lse(q, k, v, False, None, *args)
+        _, _, run_fwd = fwd_lse_launch(torch, fa, lib, q, k, v, False, var,
+                                       with_lse=False)
+        _, _, run_lse = fwd_lse_launch(torch, fa, lib, q, k, v, False, var)
+        _, run_dq, run_dkv = bwd_launches(torch, fa, lib, q, k, v, out, lse,
+                                          do, False, var)
+        plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_lse_reference(
+            q, k, v, False, None, *args), 3, warmup=1)
+        plain_bwd = cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, False, None, *args), 3, warmup=1)
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        mask = None
+        if args[0] is not None:   # the key-padding form SDPA takes
+            mask = (args[1][:, None, None, :] == args[1][:, None, None, :1])
+        p = args[2]
+        torch.manual_seed(0)
+        lib_fwd = cuda_ms(torch, lambda: TF.scaled_dot_product_attention(
+            qh.detach(), kh.detach(), vh.detach(), attn_mask=mask,
+            dropout_p=p), 10)
+        lib_out = TF.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  dropout_p=p)
+        doh = do.transpose(1, 2).contiguous()
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qh, kh, vh), doh, retain_graph=True), 10)
+        for entry, run, plain, libms, products, nbytes in (
+                ("fwd", run_fwd, plain_fwd, lib_fwd, 2, 4 * qbytes),
+                ("fwd_lse", run_lse, plain_fwd, lib_fwd, 2,
+                 4 * qbytes + rowbytes),
+                ("bwd_dq", run_dq, plain_bwd, lib_bwd, 3,
+                 5 * qbytes + 2 * rowbytes),
+                ("bwd_dkv", run_dkv, plain_bwd, lib_bwd, 4,
+                 6 * qbytes + 2 * rowbytes)):
+            ms = cuda_ms(torch, run, 20)
+            flops = products * 2.0 * d * pairs
+            bms, by = bound(flops, nbytes + seg_bytes, "bfloat16")
+            rows[entry, variant] = dict(ms=ms, plain_ms=plain, library_ms=libms,
+                                        bound_ms=bms, bound_by=by,
+                                        tflops=flops / ms / 1e9,
+                                        max_abs_err=errs.get(entry),
+                                        ids=VARIANT_IDS.get(variant))
+        del out, lse, qh, kh, vh, lib_out, doh, run_fwd, run_lse, run_dq, \
+            run_dkv
+    emit({"phase": "flash_segs_dropout_timing", "shape": [b, L, h, d],
+          "dtype": "bfloat16", "causal": False, "dropout_p": DROPOUT_P,
+          **{f"{e}[{v}]": r for (e, v), r in rows.items()},
+          "plain_note": "plain_ms of dq and dkv is the whole plain backward",
+          "library_note": "SDPA: a boolean key mask (segs), dropout_p=0.1 "
+                          "(segs_drop), neither (none); of dq and dkv its "
+                          "whole backward"})
+    del q, k, v, do
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: r for k, r in rows.items() if k[1] != "none"}
+
+
+def check_flash_segs_dropout(torch, fa, planted_b0):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs = check_segs_dropout_cases(torch, fa, gen)
+    # B0 exactly, through every kernel, both dtypes, with and without ids
+    masks = [check_keep_mask_exact(torch, fa, dt, ids, seed)
+             for dt in (torch.bfloat16, torch.float32)
+             for ids in ("none", "zeros")
+             for seed in (2024, -7)]
+    emit({"phase": "flash_segs_dropout_check", "keep_mask_exact": masks})
+    # three launches of each variant kernel at the second ERNIE leg's
+    # shape, as ERNIE calls it (dropout, no ids), each against the plain
+    # version and all three bit for bit
+    b, h, L, d = 8, 12, 512, 64
+    q, k, v, do = (torch.randn(b, L, h, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    var = variant_var(torch, gen, "segs_drop", b, L, L, "none")
+    det_row, runs = check_variant(torch, fa, "determinism", q, k, v, do,
+                                  False, var, runs=3)
+
+    def bits(x):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    same = {n: all(torch.equal(bits(r[i]), bits(runs[0][i])) for r in runs[1:])
+            for i, n in enumerate(det_row)}
+    require(all(same.values()),
+            f"segs_drop at B={b} H={h} L={L}: three launches differ: {same}")
+    del runs, q, k, v, do
+    # the planted fault: B4's dropout keyed on the kv head, at GQA 8/2
+    b, h, hkv, L = 2, 8, 2, 512
+    q, do = (torch.randn(b, L, h, 128, generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, L, hkv, 128, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    var = variant_var(torch, gen, "segs_drop", b, L, L)
+    rout, rlse = fa.flash_attention_lse_reference(q, k, v, True, None, *var)
+    _, rk, rv = fa.flash_attention_bwd_reference(q, k, v, rout, rlse, do, True,
+                                                 None, *var)
+    (_, dk, dv), _, run_dkv = bwd_launches(torch, fa, planted_b0, q, k, v,
+                                           rout, rlse, do, True, var)
+    run_dkv()
+    torch.cuda.synchronize()
+    planted = {n: tile_rel_err(torch, g, r) for n, g, r in
+               (("dk", dk, rk), ("dv", dv, rv))}
+    limit = REL_TOL["flash_bwd", "bfloat16"]
+    require(all(e > limit for e in planted.values()),
+            f"the planted fault (B4 dropout keyed on the kv head) passed "
+            f"REL_TOL {limit}: {planted}")
+    emit({"phase": "flash_segs_dropout_check", "determinism": {
+        "shape": [8, 512, 12, 64], "variant": "segs_drop", "ids": "none",
+        "launches": 3, "bit_identical": same, **det_row},
+        "planted_fault": {"fault": "B4 dropout keyed on the kv head",
+                          "shape": [b, L, h, hkv, 128], "tile_rel": planted,
+                          "limit": limit}})
+    del q, k, v, do, rout, rlse, rk, rv, dk, dv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs, masks
+
+
+# ---------------------------------------------------------------------------
+# training phase 6: flash_attn_unpadded (packed variable-length batches)
+# ---------------------------------------------------------------------------
+
+UNPADDED_LENS = (1, 127, 128, 300, 500)
+
+
+def check_unpadded(torch, fa, counters) -> dict:
+    """``flash_attn_unpadded`` on packed lengths 1..500 (8 tail tokens past
+    cu_seqlens[-1]), bf16, 12 heads of 64: forward under no_grad and
+    forward + backward, with and without dropout, causal and not, against
+    the plain version (the same seg ids through the plain functions,
+    autograd for the gradients). The four configurations run first, as the
+    phase's path, with the counts set to 0 just before and read just
+    after; the launches are returned. The plain versions run after."""
+    from paddle_tpu_torch.nn import functional as TF
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h, d = 12, 64
+    total = sum(UNPADDED_LENS) + 8
+    cu = torch.tensor([0, *itertools.accumulate(UNPADDED_LENS)],
+                      dtype=torch.int32, device="cuda")
+    qs = fa._unpadded_seg_ids(cu, total, fa.TAIL_Q_SEG)
+    ks = fa._unpadded_seg_ids(cu, total, fa.TAIL_KV_SEG)
+    seed = 99
+    configs = ((False, 0.0), (True, 0.0), (True, DROPOUT_P),
+               (False, DROPOUT_P))
+    inputs = [tuple(torch.randn(total, h, d, generator=gen, device="cuda",
+                                dtype=torch.bfloat16) for _ in range(4))
+              for _ in configs]
+    for c in counters.values():
+        c.reset()
+    results = []
+    for (causal, p), (q, k, v, do) in zip(configs, inputs):
+        with torch.no_grad():
+            fwd_only = TF.flash_attn_unpadded(q, k, v, cu, cu, 512, 512,
+                                              dropout=p, causal=causal,
+                                              fixed_seed_offset=seed)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = TF.flash_attn_unpadded(qg, kg, vg, cu, cu, 512, 512, dropout=p,
+                                     causal=causal, fixed_seed_offset=seed)
+        results.append((fwd_only, out.detach(),
+                        torch.autograd.grad(out, (qg, kg, vg), do)))
+    torch.cuda.synchronize()
+    launches = {f"{e}[{v}]": c.count for (e, v), c in counters.items()}
+    for (causal, p), (q, k, v, do), (fwd_only, out, grads) in zip(
+            configs, inputs, results):
+        qr, kr, vr = (x.float()[None].requires_grad_() for x in (q, k, v))
+        ref = fa.flash_attention_reference(qr, kr, vr, causal, None, qs, ks,
+                                           p, seed)
+        rgrads = torch.autograd.grad(ref, (qr, kr, vr), do.float()[None])
+        torch.cuda.synchronize()
+        name = f"{'causal' if causal else 'full'}_p{p}"
+        ref_bf = ref[0].to(torch.bfloat16)
+        row = {"case": name, "lens": list(UNPADDED_LENS), "tail": 8,
+               "fwd_no_grad": check_close(torch, fwd_only[None], ref_bf[None],
+                                          "flash", f"unpadded {name} fwd"),
+               "out": check_close(torch, out[None], ref_bf[None], "flash",
+                                  f"unpadded {name} out")}
+        for n, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
+            row[n] = check_close(torch, g[None], r.to(torch.bfloat16),
+                                 "flash_bwd", f"unpadded {name} {n}")
+        require(not bool(out[-8:].any()), f"unpadded {name}: tail rows not 0")
+        emit({"phase": "unpadded_check", **row})
+        del qr, kr, vr, ref, rgrads
+    del inputs, results
+    require(all(n > 0 for n in launches.values()),
+            f"unpadded: a variant was not launched: {launches}")
+    emit({"phase": "unpadded_check", "launches": launches})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# training phase 7: train ERNIE-3.0-base (bench_ernie.py's traffic)
+# ---------------------------------------------------------------------------
+
+ERNIE_LEGS = ((32, 128), (8, 512))   # (batch, seq): bench_ernie.py's, then long
+# (B, H, L, D) of the first leg's attention: where the variants are timed
+ERNIE_SHAPE = (32, 12, 128, 64)
+
+
+def variant_path(entry: str, variant: str) -> str:
+    """The path whose run gives a variant row its ``launches``: ERNIE's
+    first leg (bench_ernie.py's traffic) for the training kernels with
+    dropout, flash_attn_unpadded for the rest (segment ids alone, and the
+    forward without lse, which ERNIE's training never calls)."""
+    if variant == "segs_drop" and entry != "fwd":
+        return "ernie_leg1"
+    return "unpadded"
+
+
+def train_ernie3_base(torch, card, fa, all_counters) -> dict:
+    """ERNIE-3.0-base (vocab 40000, hidden 768, 12 layers, 12 heads,
+    intermediate 3072) for sequence classification, random weights from
+    seed 0, AMP O2 bf16 with fp32 masters, AdamW lr 5e-5 wd 0.01 with fp32
+    moments (the per-tensor update; the fused multi-tensor one is not
+    ported), dropout on (hidden 0.1, attention 0.1 in the kernels). Leg 1
+    is bench_ernie.py's traffic (B = 32, L = 128, 2 classes, ids and labels
+    from numpy seed 0, no mask), leg 2 B = 8, L = 512; each 2 warm-up and 10
+    timed steps, then one profiled step. The loss on the fixed batch in
+    eval mode (no dropout) must fall over each leg."""
+    import numpy as np
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                               ErnieForSequenceClassification)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = ErnieConfig.ernie3_base()
+    warmup, timed = 2, 10
+    t0 = time.monotonic()
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0), seed=0)
+    opt = AdamW(learning_rate=5e-5, weight_decay=0.01,
+                parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    params = model.num_params()
+    path = {e: fa.launches_variant[e, "segs_drop"]
+            for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
+    legs = []
+    for batch, seq in ERNIE_LEGS:
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq),
+                                           dtype=np.int32), device="cuda")
+        labels = torch.as_tensor(rng.integers(0, 2, (batch,)).astype(np.int64),
+                                 device="cuda")
+
+        def step():
+            with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+                loss, _ = model(ids, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        def eval_loss():
+            model.eval()
+            with torch.no_grad(), amp.auto_cast(enable=True, level="O2",
+                                                dtype="bfloat16"):
+                loss, _ = model(ids, labels=labels)
+            model.train()
+            return float(loss)
+
+        before = eval_loss()
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in all_counters:
+            c.reset()
+        stop_sampler = sample_card()
+        try:
+            for _ in range(warmup + timed):
+                t1 = time.monotonic()
+                loss = step()
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t1)
+                losses.append(float(loss.detach()))
+        finally:
+            card_samples = stop_sampler()
+        steps = warmup + timed
+        launches = {f"{e}[segs_drop]": c.count for e, c in path.items()}
+        others = {c.name: c.count for c in all_counters
+                  if c not in path.values() and c.count}
+        after = eval_loss()
+        require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        require(all(n == cfg.num_hidden_layers * steps
+                    for n in launches.values()) and not others,
+                f"ERNIE B={batch} L={seq}: launches {launches} (want "
+                f"{cfg.num_hidden_layers} a step), others {others}")
+        require(after < before, f"ERNIE B={batch} L={seq}: eval loss on the "
+                                f"fixed batch {before} -> {after}, not falling")
+        timed_s = times[warmup:]
+        p50 = statistics.median(timed_s)
+        tok_s = batch * seq / p50
+        fpt = model.flops_per_token(seq)
+        row = {"phase": "train_ernie3_base", "card": card,
+               "config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+                          "layers": cfg.num_hidden_layers,
+                          "heads": cfg.num_attention_heads,
+                          "intermediate": cfg.intermediate_size,
+                          "hidden_dropout": cfg.hidden_dropout_prob,
+                          "attention_dropout":
+                              cfg.attention_probs_dropout_prob},
+               "params": params, "batch": batch, "seq": seq,
+               "warmup_steps": warmup, "timed_steps": timed,
+               "step_s": times, "step_p50_s": p50,
+               "step_spread_s": max(timed_s) - min(timed_s),
+               "tokens_per_s": tok_s, "examples_per_s": batch / p50,
+               "flops_per_token": fpt, "mfu_vs_989tflops": fpt * tok_s / 989e12,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": losses, "eval_loss_before": before,
+               "eval_loss_after": after, "init_s": init_s,
+               "card_during_steps": card_samples, "launches": launches,
+               "launches_per_step": {k: n / steps for k, n in launches.items()}}
+        emit(row)
+        profile_step(torch, card, step, p50, "train_ernie_profile",
+                     train_family, {"batch": batch, "seq": seq})
+        legs.append(row)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each leg's launches, counted from 0 over its own steps
+    return {f"ernie_leg{i}": r["launches"] for i, r in enumerate(legs, 1)}
+
+
+def ernie_vs_cpu(torch, fa) -> None:
+    """Two full-width ERNIE-3.0-base layers in fp32, training mode, on the
+    card (the fp32 kernels' SEGS+DROP variants) and on the CPU (their plain
+    versions), from one state dict: attention dropout draws the same seeds
+    on both (each model's DropoutRNG, seed 5) and B0 gives the same mask;
+    hidden dropout is 0 (its masks come from each device's own generator).
+    Logits, loss and every gradient must agree."""
+    import numpy as np
+    from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                               ErnieForSequenceClassification)
+    cfg = ErnieConfig.ernie3_base()
+    cfg.num_hidden_layers = 2
+    cfg.hidden_dropout_prob = 0.0
+    batch, seq = 4, 128
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = torch.as_tensor(rng.integers(0, 2, (batch,)))
+    init = None
+    runs = {}
+    counters = {e: fa.launches_variant[e, "segs_drop"]
+                for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
+    for dev in ("cuda", "cpu"):
+        model = ErnieForSequenceClassification(cfg, device=dev, seed=5)
+        if init is None:
+            init = {k: v.cpu() for k, v in model.state_dict().items()}
+        model.load_state_dict(init)
+        for c in counters.values():
+            c.reset()
+        loss, logits = model(ids.to(dev), labels=labels.to(dev))
+        loss.backward()
+        runs[dev] = dict(loss=float(loss), logits=logits.detach().cpu(),
+                         grads={k: p.grad.detach().cpu()
+                                for k, p in model.named_parameters()},
+                         launches={e: c.count for e, c in counters.items()})
+        del model, loss, logits
+    a, b = runs["cuda"], runs["cpu"]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    logit_err = float((a["logits"] - b["logits"]).abs().max())
+    # each gradient's max-abs difference over its own largest element,
+    # floored at 1e-3 of the largest gradient element of the model: the k
+    # biases' exact gradient is 0 (softmax ignores a shift common to every
+    # key), so both sides hold rounding noise there
+    floor = 1e-3 * max(float(g.abs().max()) for g in b["grads"].values())
+    grad_rel = max(float((a["grads"][k] - b["grads"][k]).abs().max())
+                   / max(float(b["grads"][k].abs().max()), floor)
+                   for k in b["grads"])
+    # fp32 on both; the sums run in another order (1e-4 relative seen for
+    # the Llama layers of train_vs_cpu)
+    require(loss_rel < 1e-4 and logit_err < 1e-4 and grad_rel < 1e-3,
+            f"ERNIE card vs CPU: loss rel {loss_rel}, logits {logit_err}, "
+            f"grad rel {grad_rel}")
+    require(all(n == cfg.num_hidden_layers for n in a["launches"].values())
+            and not any(b["launches"].values()),
+            f"ERNIE card vs CPU launches: card {a['launches']}, cpu "
+            f"{b['launches']}")
+    emit({"phase": "ernie_vs_cpu", "layers": 2, "dtype": "float32",
+          "batch": batch, "seq": seq, "attention_dropout":
+              cfg.attention_probs_dropout_prob,
+          "loss_card": a["loss"], "loss_cpu": b["loss"], "loss_rel": loss_rel,
+          "logits_max_abs": logit_err, "grad_max_rel": grad_rel,
+          "tolerance": {"loss_rel": 1e-4, "logits_abs": 1e-4,
+                        "grad_rel": 1e-3},
+          "launches_card": a["launches"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     import torch
@@ -1333,7 +2017,8 @@ def main() -> int:
         f"the paged split kernels do not all copy by {BULK_COPY_OP}: "
         f"{bulk_kernels}")
     all_counters = (fa.launches, pa.launches, fa.launches_lse,
-                    fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches)
+                    fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches,
+                    *fa.launches_variant.values())
 
     flash_rows = check_flash(torch, fa)
     paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
@@ -1346,6 +2031,13 @@ def main() -> int:
     q8_err, q8_time = check_q8_adam(torch, q8)
     train_launches = train_1p6b(torch, smi, fa, q8, all_counters)
     train_vs_cpu(torch, fa, q8)
+    check_flash_segs_dropout(torch, fa, planted["flash_attention:b0"])
+    var_times = time_variants(torch, fa, *ERNIE_SHAPE)
+    # each path's variant launches, counted from 0 just before its own run
+    path_launches = {"unpadded": check_unpadded(torch, fa,
+                                                fa.launches_variant)}
+    path_launches.update(train_ernie3_base(torch, smi, fa, all_counters))
+    ernie_vs_cpu(torch, fa)
 
     k1 = next(r for r in flash_rows if r["case"] == "causal_1000_ragged")
     k2 = next(r for r in paged_rows if r["case"] == "bf16_h32")
@@ -1383,6 +2075,19 @@ def main() -> int:
          "launches": train_launches[name], "max_abs_err": err,
          "case": case, **{k: t[k] for k in keys}}
         for name, src, rep, err, t, case in train_rows
+    ] + [
+        {"name": f"{VARIANT_KERNEL[e][0]}[{v}]", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py" + VARIANT_LINES[e][v],
+         "launches": path_launches[variant_path(e, v)].get(f"{e}[{v}]", 0),
+         "launches_path": variant_path(e, v),
+         **{f"launches_{p}": n.get(f"{e}[{v}]", 0)
+            for p, n in path_launches.items()},
+         "max_abs_err": var_times[e, v]["max_abs_err"],
+         "case": "B=%d H=%d L=%d D=%d bf16 not causal, ids %s" % (
+             *ERNIE_SHAPE, var_times[e, v]["ids"]),
+         **{k: var_times[e, v][k] for k in keys}}
+        for e in VARIANT_LINES for v in fa.VARIANTS
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@
 does (``core/tensor.py::_autocast_targets``): under ``O2`` every op takes
 the low dtype except those on the black list, which take fp32; under
 ``O1`` only white-listed ops go low and black-listed ops go fp32. The ops
-of the Llama path ask :func:`cast_inputs` by their JAX op names (``linear``,
-``embedding``, ``rope``, ``silu``, ``scaled_dot_product_attention``,
-``rms_norm``, ``cross_entropy``), so under O2 ``rms_norm`` and
-``cross_entropy`` run and return fp32 and RoPE rotates with bf16 cos/sin,
-as in the JAX package. The state is per thread and is carried into
+of the Llama and ERNIE paths ask :func:`cast_inputs` by their JAX op names
+(``linear``, ``embedding``, ``rope``, ``silu``, ``gelu``, ``relu``,
+``tanh``, ``add``, ``dropout``, ``scaled_dot_product_attention``,
+``rms_norm``, ``layer_norm``, ``cross_entropy``), so under O2 ``rms_norm``,
+``layer_norm`` and ``cross_entropy`` run and return fp32, every other op
+(the residual adds and dropout included) runs bf16, and RoPE rotates with
+bf16 cos/sin, as in the JAX package. The state is per thread and is carried into
 activation recomputation (:func:`recompute_context`).
 """
 

@@ -7,6 +7,12 @@
 // The forward with lse is the same kernel template as the forward, with the
 // lse store switched on at compile time.
 //
+// Every kernel also takes the `with_segs` and `dropout_p > 0` branches of its
+// Pallas kernel as compile-time flags SEGS and DROP (see SegDrop), entered
+// through the *_segdrop entry points; DROP draws B0, the port of _keep_tile
+// (keep_elem). The flag-free instantiations compile as before: the flags
+// only add code, and the extra argument comes last.
+//
 // What it computes: out = softmax(q k^T * sm_scale [+ causal mask]) v per
 // (batch, head), online softmax in fp32, output in q's dtype. Causal masking
 // is bottom-right aligned (query row i sees keys j <= i + Lk - Lq); rows that
@@ -95,12 +101,54 @@ struct Smem {
 
 constexpr float LSE_MASKED = 1e30f;  // lse of a row that sees no key
 
-template <typename T, int D, bool LSE>
+// The segment ids and the dropout of the variant kernels (the `with_segs`
+// and `dropout_p > 0` branches of the Pallas kernels), compile-time flags
+// SEGS and DROP of every kernel below; the flag-free instantiations never
+// read it.
+// * SEGS: query row i of batch b sees key j only where qseg[b * Lq + i] ==
+//   kseg[b * Lk + j] (ids (B, L) int32, shared by the heads), on top of the
+//   causal rule.
+// * DROP: a probability P_ij that multiplies V (forward, dv) or a dP_ij
+//   (dq, dk) is kept where keep_elem() says, and then scaled by inv_keep;
+//   the normaliser and the lse take the undropped P. keep_prob = fp32(1 -
+//   p) and inv_keep = fp32(1 / (1 - p)), each rounded once from a double
+//   on the host, as JAX rounds the Python floats against fp32 arrays.
+struct SegDrop {
+  const int* qseg;
+  const int* kseg;
+  uint32_t seed;
+  float keep_prob;
+  float inv_keep;
+};
+
+// B0, the port of _keep_tile (paddle_tpu/ops/flash_attention.py:47): the
+// stateless lowbias32 hash of (seed, bh, absolute query row, absolute key
+// column), bh = b * H + h the flat (batch, query head) index; the element is
+// kept where its top 24 bits times 2^-24 (exact in fp32) are below
+// keep_prob. Keyed on absolute coordinates, it is the same mask under every
+// kernel's tiling. keep_base() folds the seed and bh terms, taken once per
+// (block, head).
+__device__ __forceinline__ uint32_t keep_base(uint32_t seed, int bh) {
+  return (seed * 0xC2B2AE3Du) ^ ((uint32_t)bh * 0x27D4EB2Fu);
+}
+
+__device__ __forceinline__ bool keep_elem(uint32_t base, int row, int col,
+                                          float keep_prob) {
+  uint32_t h = ((uint32_t)row * 0x9E3779B1u) ^ ((uint32_t)col * 0x85EBCA77u) ^ base;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return (float)(h >> 8) * (1.0f / 16777216.0f) < keep_prob;
+}
+
+template <typename T, int D, bool LSE, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Lq, int Lk, int H, int Hkv,
-                 int causal, float sm_scale) {
+                 int causal, float sm_scale, SegDrop sd) {
   using S = Smem<D>;
   constexpr int DJ = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -134,13 +182,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) n_end = min(Lk, max(0, m0 + BM + shift));
 
   float m_i[4], l_i[4], acc[4][DJ];
+  int qs[4];  // SEGS: the segment ids of the thread's rows
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m_i[r] = -INFINITY;
     l_i[r] = 0.f;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[r][j] = 0.f;
+    const int row = m0 + ty * 4 + r;
+    qs[r] = SEGS && row < Lq ? sd.qseg[(long)b * Lq + row] : 0;
   }
+  const int* ks = SEGS ? sd.kseg + (long)b * Lk : nullptr;
+  const uint32_t kbase = DROP ? keep_base(sd.seed, bh) : 0u;
 
   for (int n0 = 0; n0 < n_end; n0 += BN) {
     __syncthreads();  // the previous tile's readers are done
@@ -187,7 +240,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = n0 + tx + 16 * c;
-        const bool ok = col < Lk && (!causal || row + shift >= col);
+        bool ok = col < Lk && (!causal || row + shift >= col);
+        if (SEGS && ok) ok = ks[col] == qs[r];
         s[r][c] = ok ? s[r][c] : -INFINITY;
         mx = fmaxf(mx, s[r][c]);
       }
@@ -201,7 +255,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float p = expf(s[r][c] - m_use);
-        Ps[(ty * 4 + r) * S::PS + tx + 16 * c] = p;
+        // the normaliser takes the undropped p, P V the dropped one
+        Ps[(ty * 4 + r) * S::PS + tx + 16 * c] =
+            !DROP ? p
+                  : keep_elem(kbase, row, n0 + tx + 16 * c, sd.keep_prob) ? p * sd.inv_keep
+                                                                          : 0.f;
         sum += p;
       }
 #pragma unroll
@@ -524,12 +582,38 @@ __device__ __forceinline__ void pv_async(float (&o)[D / 2],
 // two rows, adds the tile's probabilities to the partial sums l, packs them
 // as bf16 A fragments into p and returns in alpha the factor by which O
 // rescales.
+//
+// The variants (see SegDrop): with SEGS every tile is masked where a key's
+// id `ks[col]` differs from the row's (qs0, qs1); with DROP the
+// probabilities are dropped and scaled after the sums and before they are
+// packed, so P V takes the dropped bf16 values and l the undropped ones.
+// r0, r1 are the thread's two absolute query rows, kbase keep_base().
+struct RowVar {
+  const int* ks;
+  int qs0, qs1, r0, r1;
+  uint32_t kbase;
+  float keep_prob, inv_keep;
+};
+
+template <bool SEGS, bool DROP>
 __device__ __forceinline__ void softmax_tile(float (&s)[FW_BN / 2],
                                              uint32_t (&p)[FW_BN / 16][4],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int n0, int Lk,
                                              int wg_end, int end0, int end1,
-                                             int t, float scale_log2) {
+                                             int t, float scale_log2,
+                                             const RowVar& rv) {
+  if (SEGS) {  // every tile: a key of another segment is masked
+#pragma unroll
+    for (int j = 0; j < FW_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + j * 8 + t * 2 + e;
+        const int kid = col < Lk ? rv.ks[col] : 0;  // past Lk: masked below
+        if (kid != rv.qs0) s[j * 4 + e] = -INFINITY;
+        if (kid != rv.qs1) s[j * 4 + 2 + e] = -INFINITY;
+      }
+  }
   if (n0 + FW_BN > min(Lk, wg_end)) {
     const int lim0 = min(Lk, end0), lim1 = min(Lk, end1);
 #pragma unroll
@@ -573,6 +657,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[FW_BN / 2],
   }
   l[0] = l[0] * alpha[0] + sum0;
   l[1] = l[1] * alpha[1] + sum1;
+  if (DROP) {
+#pragma unroll
+    for (int j = 0; j < FW_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + j * 8 + t * 2 + e;
+        s[j * 4 + e] = keep_elem(rv.kbase, rv.r0, col, rv.keep_prob)
+                           ? s[j * 4 + e] * rv.inv_keep : 0.f;
+        s[j * 4 + 2 + e] = keep_elem(rv.kbase, rv.r1, col, rv.keep_prob)
+                               ? s[j * 4 + 2 + e] * rv.inv_keep : 0.f;
+      }
+  }
   pack_frags(p, s);
 }
 
@@ -587,14 +683,14 @@ __device__ __forceinline__ void rescale_rows(float (&o)[N], const float (&alpha)
   }
 }
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int Lq, int Lk, int H, int Hkv, int causal,
-                       float sm_scale) {
+                       float sm_scale, SegDrop sd) {
   using S = FwSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
@@ -662,6 +758,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int end0 = causal ? r0 + shift + 1 : Lk, end1 = causal ? r1 + shift + 1 : Lk;
     const float scale_log2 = sm_scale * LOG2E;
     const uint32_t q_rows = sq + wg * 64 * SW_ROW;
+    RowVar rv{};
+    if (SEGS) {
+      rv.ks = sd.kseg + (long)b * Lk;
+      rv.qs0 = r0 < Lq ? sd.qseg[(long)b * Lq + r0] : 0;
+      rv.qs1 = r1 < Lq ? sd.qseg[(long)b * Lq + r1] : 0;
+    }
+    if (DROP) {
+      rv.r0 = r0;
+      rv.r1 = r1;
+      rv.kbase = keep_base(sd.seed, bh);
+      rv.keep_prob = sd.keep_prob;
+      rv.inv_keep = sd.inv_keep;
+    }
 
     float oacc[D / 2];
 #pragma unroll
@@ -682,8 +791,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sacc);
       mbar_arrive(bar_kempty(0));
       float alpha[2];  // O is still 0: nothing to rescale
-      softmax_tile(sacc, pa, m_i, l_i, alpha, (n_tiles - 1) * FW_BN, Lk, wg_end,
-                   end0, end1, t, scale_log2);
+      softmax_tile<SEGS, DROP>(sacc, pa, m_i, l_i, alpha, (n_tiles - 1) * FW_BN, Lk,
+                               wg_end, end0, end1, t, scale_log2, rv);
     }
     for (int it = 1; it < n_tiles; ++it) {
       const int s = it % FW_STAGES, sp = (it - 1) % FW_STAGES;
@@ -700,8 +809,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive(bar_kempty(s));
       float alpha[2];
       uint32_t pa_next[FW_BN / 16][4];
-      softmax_tile(sacc, pa_next, m_i, l_i, alpha, (n_tiles - 1 - it) * FW_BN, Lk,
-                   wg_end, end0, end1, t, scale_log2);
+      softmax_tile<SEGS, DROP>(sacc, pa_next, m_i, l_i, alpha, (n_tiles - 1 - it) * FW_BN,
+                               Lk, wg_end, end0, end1, t, scale_log2, rv);
       wgmma_wait<0>();  // P V of the previous tile is in
       fence_regs(oacc);
       fence_regs(pa);   // P stays in its registers until then
@@ -789,17 +898,18 @@ cudaError_t encode_tiles(CUtensorMap* map, const void* ptr, int D, int heads,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool SEGS, bool DROP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int Lq, int Lk, int H, int Hkv,
-                         int causal, float sm_scale, cudaStream_t stream) {
+                         int causal, float sm_scale, SegDrop sd,
+                         cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err;
   if ((err = encode_tiles(&tq, q, D, H, Lq, B, FW_BM)) != cudaSuccess ||
       (err = encode_tiles(&tk, k, D, Hkv, Lk, B, FW_BN)) != cudaSuccess ||
       (err = encode_tiles(&tv, v, D, Hkv, Lk, B, FW_BN)) != cudaSuccess)
     return err;
-  auto kern = flash_fwd_wgmma_kernel<D, LSE>;
+  auto kern = flash_fwd_wgmma_kernel<D, LSE, SEGS, DROP>;
   const size_t smem = FwSmem<D>::bytes;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -807,15 +917,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Lq + FW_BM - 1) / FW_BM, B * H);
   kern<<<grid, FW_THREADS, smem, stream>>>(tq, tk, tv,
                                            static_cast<__nv_bfloat16*>(o), lse,
-                                           Lq, Lk, H, Hkv, causal, sm_scale);
+                                           Lq, Lk, H, Hkv, causal, sm_scale, sd);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool LSE>
+template <typename T, int D, bool LSE, bool SEGS, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Lq, int Lk, int H, int Hkv,
-                   int causal, float sm_scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D, LSE>;
+                   int causal, float sm_scale, SegDrop sd, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<T, D, LSE, SEGS, DROP>;
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -824,26 +934,51 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Lq, Lk, H, Hkv,
-      causal, sm_scale);
+      causal, sm_scale, sd);
   return cudaGetLastError();
 }
 
-template <bool LSE>
+template <bool LSE, bool SEGS = false, bool DROP = false>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int Lq, int Lk, int H, int Hkv,
                          int D, int dtype, int causal, float sm_scale,
-                         cudaStream_t s) {
+                         cudaStream_t s, SegDrop sd = {}) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || Hkv <= 0 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   if (dtype == 0 && D == 128)
-    return launch<float, 128, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+    return launch<float, 128, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal,
+                                               sm_scale, sd, s);
   if (dtype == 0 && D == 64)
-    return launch<float, 64, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+    return launch<float, 64, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal,
+                                              sm_scale, sd, s);
   if (dtype == 1 && D == 128)
-    return launch_wgmma<128, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+    return launch_wgmma<128, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal,
+                                              sm_scale, sd, s);
   if (dtype == 1 && D == 64)
-    return launch_wgmma<64, LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal, sm_scale, s);
+    return launch_wgmma<64, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal,
+                                             sm_scale, sd, s);
   return cudaErrorInvalidValue;
+}
+
+// The variant instantiation that `sd` asks for: SEGS where it carries ids,
+// SEGS and DROP where `drop` is set too. Dropout always carries ids (zeros
+// where there is no mask), as _flash_core_drop runs it, so no DROP-only
+// instantiation is built.
+template <bool LSE>
+cudaError_t fwd_dispatch_var(const void* q, const void* k, const void* v, void* o,
+                             float* lse, int B, int Lq, int Lk, int H, int Hkv,
+                             int D, int dtype, int causal, float sm_scale,
+                             cudaStream_t s, SegDrop sd, int drop) {
+  if ((sd.qseg == nullptr) != (sd.kseg == nullptr) || (drop && sd.qseg == nullptr))
+    return cudaErrorInvalidValue;
+  if (sd.qseg != nullptr && drop)
+    return fwd_dispatch<LSE, true, true>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, D, dtype,
+                                         causal, sm_scale, s, sd);
+  if (sd.qseg != nullptr)
+    return fwd_dispatch<LSE, true, false>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, D, dtype,
+                                          causal, sm_scale, s, sd);
+  return fwd_dispatch<LSE>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, D, dtype, causal,
+                           sm_scale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -858,14 +993,14 @@ struct BwdSmem {
 
 // dq for one (64-row Q tile, batch * head). Thread (ty, tx) owns query rows
 // ty*4 + r, key columns tx + 16c of the score tile and dq columns tx + 16j.
-template <int D>
+template <int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Lq, int Lk, int H, int Hkv, int causal,
-                    float sm_scale) {
+                    float sm_scale, SegDrop sd) {
   using S = BwdSmem<D>;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -892,12 +1027,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     dOs[r * S::RS + d] = in ? dob[(long)i * q_stride + d] : 0.f;
   }
   float lse_r[4], dl_r[4];
+  int qs[4];  // SEGS: the segment ids of the thread's rows
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = m0 + ty * 4 + r;
     lse_r[r] = row < Lq ? lse[(long)bh * Lq + row] : LSE_MASKED;
     dl_r[r] = row < Lq ? delta[(long)bh * Lq + row] : 0.f;
+    qs[r] = SEGS && row < Lq ? sd.qseg[(long)b * Lq + row] : 0;
   }
+  const int* ks = SEGS ? sd.kseg + (long)b * Lk : nullptr;
+  const uint32_t kbase = DROP ? keep_base(sd.seed, bh) : 0u;
 
   const int shift = Lk - Lq;
   int n_end = Lk;
@@ -949,9 +1088,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = n0 + tx + 16 * c;
-        const bool ok = row < Lq && col < Lk && (!causal || row + shift >= col);
+        bool ok = row < Lq && col < Lk && (!causal || row + shift >= col);
+        if (SEGS && ok) ok = ks[col] == qs[r];
         const float p = ok ? expf(s[r][c] * sm_scale - lse_r[r]) : 0.f;
-        dSs[(ty * 4 + r) * S::PS + tx + 16 * c] = p * (dp[r][c] - dl_r[r]) * sm_scale;
+        // dropout: dS = P (dP' - delta) with dP' the dropped, scaled dP
+        const float dpv = !DROP ? dp[r][c]
+                          : keep_elem(kbase, row, col, sd.keep_prob) ? dp[r][c] * sd.inv_keep
+                                                                     : 0.f;
+        dSs[(ty * 4 + r) * S::PS + tx + 16 * c] = p * (dpv - dl_r[r]) * sm_scale;
       }
     }
     __syncthreads();
@@ -982,7 +1126,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dk, dv for one (64-key K tile, batch * kv head). Thread (ty, tx) owns key
 // rows ty*4 + r, query columns tx + 16c of the transposed score tile and
 // dk/dv columns tx + 16j.
-template <int D>
+template <int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -990,7 +1134,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int Lq, int Lk, int H, int Hkv,
-                     int causal, float sm_scale) {
+                     int causal, float sm_scale, SegDrop sd) {
   using S = BwdSmem<D>;
   constexpr int DJ = D / 16;
   constexpr int BQ = BM;
@@ -1023,12 +1167,19 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_begin = causal ? (max(0, k0 - shift) / BQ) * BQ : 0;
 
   float dk_acc[4][DJ], dv_acc[4][DJ];
+  int kid[4];  // SEGS: the segment ids of the thread's keys
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 4; ++r) {
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dk_acc[r][j] = dv_acc[r][j] = 0.f;
+    const int key = k0 + ty * 4 + r;
+    kid[r] = SEGS && key < Lk ? sd.kseg[(long)b * Lk + key] : 0;
+  }
+  const int* qsb = SEGS ? sd.qseg + (long)b * Lq : nullptr;
 
   for (int hq = kvh * rep; hq < kvh * rep + rep; ++hq) {
+    // dropout is keyed on the query head: bh = b * H + hq
+    const uint32_t kbase = DROP ? keep_base(sd.seed, b * H + hq) : 0u;
     const float* qb = q + ((long)b * Lq * H + hq) * D;
     const float* dob = dout + ((long)b * Lq * H + hq) * D;
     const float* lseb = lse + ((long)b * H + hq) * Lq;
@@ -1078,10 +1229,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int qc = tx + 16 * c, row = q0 + qc;
-          const bool ok = row < Lq && key < Lk && (!causal || row + shift >= key);
+          bool ok = row < Lq && key < Lk && (!causal || row + shift >= key);
+          if (SEGS && ok) ok = qsb[row] == kid[r];
           const float p = ok ? expf(s[r][c] * sm_scale - lse_s[qc]) : 0.f;
-          Ps[(ty * 4 + r) * S::PS + qc] = p;
-          dSs[(ty * 4 + r) * S::PS + qc] = p * (dp[r][c] - dl_s[qc]) * sm_scale;
+          // dropout: dv takes the dropped P, dS the dropped dP
+          const bool keep = !DROP || keep_elem(kbase, row, key, sd.keep_prob);
+          Ps[(ty * 4 + r) * S::PS + qc] = !DROP ? p : keep ? p * sd.inv_keep : 0.f;
+          const float dpv = !DROP ? dp[r][c] : keep ? dp[r][c] * sd.inv_keep : 0.f;
+          dSs[(ty * 4 + r) * S::PS + qc] = p * (dpv - dl_s[qc]) * sm_scale;
         }
       }
       __syncthreads();
@@ -1180,13 +1335,27 @@ struct DkvSmem {
 // of dq += dS K. P = exp2(s scale log2e - lse log2e); a key is masked for a
 // row at or past min(Lk, the row's causal end), and a tile wholly before
 // `wg_end` (the smallest causal end of the warpgroup's rows) is not masked.
+// The variants as in softmax_tile: with SEGS every tile is masked by the
+// ids; with DROP dS = P (dP' - delta), dP' the dropped, scaled dP.
+template <bool SEGS, bool DROP>
 __device__ __forceinline__ void dq_tile_ds(float (&s)[BW_BN / 2],
                                            const float (&dp)[BW_BN / 2],
                                            uint32_t (&ds)[BW_BN / 16][4], int n0,
                                            int Lk, int wg_end, int end0, int end1,
                                            int t, float scale_log2,
                                            const float (&lse2)[2],
-                                           const float (&dl)[2]) {
+                                           const float (&dl)[2], const RowVar& rv) {
+  if (SEGS) {  // every tile: a key of another segment is masked
+#pragma unroll
+    for (int j = 0; j < BW_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + j * 8 + t * 2 + e;
+        const int kid = col < Lk ? rv.ks[col] : 0;  // past Lk: masked below
+        if (kid != rv.qs0) s[j * 4 + e] = -INFINITY;
+        if (kid != rv.qs1) s[j * 4 + 2 + e] = -INFINITY;
+      }
+  }
   if (n0 + BW_BN > min(Lk, wg_end)) {
     const int lim0 = min(Lk, end0), lim1 = min(Lk, end1);
 #pragma unroll
@@ -1203,9 +1372,14 @@ __device__ __forceinline__ void dq_tile_ds(float (&s)[BW_BN / 2],
   for (int i = 0; i < BW_BN / 2; i += 4)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      s[i + e] = fast_exp2(fmaf(s[i + e], scale_log2, -lse2[0])) * (dp[i + e] - dl[0]);
-      s[i + 2 + e] =
-          fast_exp2(fmaf(s[i + 2 + e], scale_log2, -lse2[1])) * (dp[i + 2 + e] - dl[1]);
+      float dp0 = dp[i + e], dp1 = dp[i + 2 + e];
+      if (DROP) {
+        const int col = n0 + (i / 4) * 8 + t * 2 + e;
+        dp0 = keep_elem(rv.kbase, rv.r0, col, rv.keep_prob) ? dp0 * rv.inv_keep : 0.f;
+        dp1 = keep_elem(rv.kbase, rv.r1, col, rv.keep_prob) ? dp1 * rv.inv_keep : 0.f;
+      }
+      s[i + e] = fast_exp2(fmaf(s[i + e], scale_log2, -lse2[0])) * (dp0 - dl[0]);
+      s[i + 2 + e] = fast_exp2(fmaf(s[i + 2 + e], scale_log2, -lse2[1])) * (dp1 - dl[1]);
     }
   pack_frags(ds, s);
 }
@@ -1238,7 +1412,7 @@ __device__ __forceinline__ void dq_tile_ds(float (&s)[BW_BN / 2],
 // * setmaxnreg gives the consumers 240 registers and the producer 24: at
 //   D = 128 S and dP take 32 fp32 each, dq 64, the dS fragments 16 for each
 //   of the two tiles in flight.
-template <int D>
+template <int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -1247,7 +1421,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int H,
-                          int Hkv, int causal, float sm_scale) {
+                          int Hkv, int causal, float sm_scale, SegDrop sd) {
   using S = DqSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
@@ -1311,6 +1485,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float dl[2] = {r0 < Lq ? delta[(long)bh * Lq + r0] : 0.f,
                          r1 < Lq ? delta[(long)bh * Lq + r1] : 0.f};
     const uint32_t q_rows = sq + wg * 64 * SW_ROW, do_rows = sdo + wg * 64 * SW_ROW;
+    RowVar rv{};
+    if (SEGS) {
+      rv.ks = sd.kseg + (long)b * Lk;
+      rv.qs0 = r0 < Lq ? sd.qseg[(long)b * Lq + r0] : 0;
+      rv.qs1 = r1 < Lq ? sd.qseg[(long)b * Lq + r1] : 0;
+    }
+    if (DROP) {
+      rv.r0 = r0;
+      rv.r1 = r1;
+      rv.kbase = keep_base(sd.seed, bh);
+      rv.keep_prob = sd.keep_prob;
+      rv.inv_keep = sd.inv_keep;
+    }
 
     float dqacc[D / 2];
 #pragma unroll
@@ -1332,7 +1519,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs(sacc);
       fence_regs(pacc);
-      dq_tile_ds(sacc, pacc, ds, 0, Lk, wg_end, end0, end1, t, scale_log2, lse2, dl);
+      dq_tile_ds<SEGS, DROP>(sacc, pacc, ds, 0, Lk, wg_end, end0, end1, t, scale_log2,
+                             lse2, dl, rv);
     }
     for (int it = 1; it < n_tiles; ++it) {
       const int s = it % BW_STAGES, sp = (it - 1) % BW_STAGES;
@@ -1351,8 +1539,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sacc);
       fence_regs(pacc);
       uint32_t ds_next[BW_BN / 16][4];
-      dq_tile_ds(sacc, pacc, ds_next, it * BW_BN, Lk, wg_end, end0, end1, t,
-                 scale_log2, lse2, dl);
+      dq_tile_ds<SEGS, DROP>(sacc, pacc, ds_next, it * BW_BN, Lk, wg_end, end0, end1,
+                             t, scale_log2, lse2, dl, rv);
       wgmma_wait<0>();  // dq of the previous tile is in
       fence_regs(dqacc);
       fence_regs(ds);   // dS stays in its registers until then
@@ -1394,12 +1582,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // warpgroup's keys (dk/dv), in place of the scores in the accumulator
 // layout: rows are the thread's keys k0 and k1, columns the tile's queries,
 // whose lse log2e lie in `lse2`. With `masked`, a (key, query) pair is 0
-// where the query is past Lq or, causal, does not see the key.
+// where the query is past Lq or, causal, does not see the key. With SEGS
+// every tile is masked, a pair also where the query's id qs[q] differs from
+// the key's (kid0, kid1).
+template <bool SEGS>
 __device__ __forceinline__ void dkv_tile_p(float (&s)[BW_BN / 2],
                                            const float* lse2, bool masked,
                                            int q0, int Lq, int k0, int k1,
                                            int shift, int causal, int t,
-                                           float scale_log2) {
+                                           float scale_log2, const int* qs,
+                                           int kid0, int kid1) {
 #pragma unroll
   for (int j = 0; j < BW_BN / 8; ++j) {
     const int col = j * 8 + t * 2;
@@ -1408,15 +1600,49 @@ __device__ __forceinline__ void dkv_tile_p(float (&s)[BW_BN / 2],
     s[j * 4 + 1] = fast_exp2(fmaf(s[j * 4 + 1], scale_log2, -l2.y));
     s[j * 4 + 2] = fast_exp2(fmaf(s[j * 4 + 2], scale_log2, -l2.x));
     s[j * 4 + 3] = fast_exp2(fmaf(s[j * 4 + 3], scale_log2, -l2.y));
-    if (masked) {
+    if (SEGS || masked) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int q = q0 + col + e;
-        if (q >= Lq || (causal && q + shift < k0)) s[j * 4 + e] = 0.f;
-        if (q >= Lq || (causal && q + shift < k1)) s[j * 4 + 2 + e] = 0.f;
+        const int qid = SEGS && q < Lq ? qs[q] : 0;
+        if (q >= Lq || (causal && q + shift < k0) || (SEGS && qid != kid0)) s[j * 4 + e] = 0.f;
+        if (q >= Lq || (causal && q + shift < k1) || (SEGS && qid != kid1))
+          s[j * 4 + 2 + e] = 0.f;
       }
     }
   }
+}
+
+// DROP in dk/dv: the keep bits of one 64-key x 64-query tile in the
+// accumulator layout (bit i for element i: rows the thread's keys k0, k1,
+// columns the tile's queries), from B0 keyed (query, key).
+__device__ __forceinline__ uint32_t dkv_keep_bits(uint32_t kbase, int q0, int k0,
+                                                  int k1, int t, float keep_prob) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < BW_BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = q0 + j * 8 + t * 2 + e;
+      bits |= (uint32_t)keep_elem(kbase, q, k0, keep_prob) << (j * 4 + e);
+      bits |= (uint32_t)keep_elem(kbase, q, k1, keep_prob) << (j * 4 + 2 + e);
+    }
+  return bits;
+}
+
+// pack_frags of the kept elements of s, scaled by inv; the dropped ones 0.
+template <int KS>
+__device__ __forceinline__ void pack_frags_kept(uint32_t (&a)[KS][4],
+                                                const float (&s)[KS * 8],
+                                                uint32_t keep, float inv) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 8 * kk + 2 * e;
+      a[kk][e] = pack_bf16((keep >> i) & 1u ? s[i] * inv : 0.f,
+                           (keep >> (i + 1)) & 1u ? s[i + 1] * inv : 0.f);
+    }
 }
 
 // dS^T = P^T (dP^T - delta) of the same tile, in place of dP^T.
@@ -1462,7 +1688,7 @@ __device__ __forceinline__ void dkv_tile_ds(float (&dp)[BW_BN / 2],
 //   sees its keys. sm_scale multiplies dk once, at the store. Key blocks
 //   run in order of k0, so causal blocks with the most Q tiles start first.
 // * setmaxnreg gives the consumers 240 registers and the producer 24.
-template <int D>
+template <int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -1472,7 +1698,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int H,
-                           int Hkv, int causal, float sm_scale) {
+                           int Hkv, int causal, float sm_scale, SegDrop sd) {
   using S = DkvSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
@@ -1548,6 +1774,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int kr0 = kw + (warp % 4) * 16 + lane / 4, kr1 = kr0 + 8;  // the thread's
     const float scale_log2 = sm_scale * LOG2E;
     const uint32_t k_rows = sk + wg * 64 * SW_ROW, v_rows = sv + wg * 64 * SW_ROW;
+    const int* qs = SEGS ? sd.qseg + (long)b * Lq : nullptr;
+    const int kid0 = SEGS && kr0 < Lk ? sd.kseg[(long)b * Lk + kr0] : 0;
+    const int kid1 = SEGS && kr1 < Lk ? sd.kseg[(long)b * Lk + kr1] : 0;
 
     float dkacc[D / 2], dvacc[D / 2];
 #pragma unroll
@@ -1578,9 +1807,20 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sacc);
       fence_regs(pacc);
       const bool masked = q0 + BW_BN > Lq || (causal && q0 + shift < kw + 63);
-      dkv_tile_p(sacc, r, masked, q0, Lq, kr0, kr1, shift, causal, t, scale_log2);
+      dkv_tile_p<SEGS>(sacc, r, masked, q0, Lq, kr0, kr1, shift, causal, t, scale_log2,
+                       qs, kid0, kid1);
       uint32_t pa[BW_BN / 16][4], da[BW_BN / 16][4];
-      pack_frags(pa, sacc);
+      if (DROP) {
+        int bh = b * H + kvh * rep + it / nq;  // keyed on the tile's query head
+        const uint32_t keep = dkv_keep_bits(keep_base(sd.seed, bh), q0, kr0, kr1, t,
+                                            sd.keep_prob);
+        pack_frags_kept(pa, sacc, keep, sd.inv_keep);  // dv takes the dropped P
+#pragma unroll
+        for (int i = 0; i < BW_BN / 2; ++i)  // dS the dropped dP
+          pacc[i] = (keep >> i) & 1u ? pacc[i] * sd.inv_keep : 0.f;
+      } else {
+        pack_frags(pa, sacc);
+      }
       fence_regs(dvacc);
       fence_regs(pa);
       wgmma_fence();
@@ -1630,12 +1870,12 @@ cudaError_t set_smem(K kern, size_t smem) {
 }
 
 // DKV = false: dq into out0. DKV = true: dk into out0, dv into out1.
-template <bool DKV, int D>
+template <bool DKV, int D, bool SEGS, bool DROP>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* out0, void* out1, int B, int Lq, int Lk, int H,
                        int Hkv, int dtype, int causal, float sm_scale,
-                       cudaStream_t st) {
+                       SegDrop sd, cudaStream_t st) {
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaError_t err;
@@ -1643,17 +1883,17 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
     if (!DKV) {
-      auto kern = flash_bwd_dq_kernel<D>;
+      auto kern = flash_bwd_dq_kernel<D, SEGS, DROP>;
       if ((err = set_smem(kern, bwd_dq_smem<D>())) != cudaSuccess) return err;
       kern<<<dim3((Lq + BM - 1) / BM, B * H), NT, bwd_dq_smem<D>(), st>>>(
           qf, kf, vf, df, ls, dl, static_cast<float*>(out0), Lq, Lk, H, Hkv,
-          causal, sm_scale);
+          causal, sm_scale, sd);
     } else {
-      auto kern = flash_bwd_dkv_kernel<D>;
+      auto kern = flash_bwd_dkv_kernel<D, SEGS, DROP>;
       if ((err = set_smem(kern, bwd_dkv_smem<D>())) != cudaSuccess) return err;
       kern<<<dim3((Lk + BN - 1) / BN, B * Hkv), NT, bwd_dkv_smem<D>(), st>>>(
           qf, kf, vf, df, ls, dl, static_cast<float*>(out0),
-          static_cast<float*>(out1), Lq, Lk, H, Hkv, causal, sm_scale);
+          static_cast<float*>(out1), Lq, Lk, H, Hkv, causal, sm_scale, sd);
     }
     return cudaGetLastError();
   }
@@ -1668,39 +1908,58 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     return err;
   using bf = __nv_bfloat16;
   if (!DKV) {
-    auto kern = flash_bwd_dq_wgmma_kernel<D>;
+    auto kern = flash_bwd_dq_wgmma_kernel<D, SEGS, DROP>;
     const size_t smem = DqSmem<D>::bytes;
     if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
     kern<<<dim3((Lq + BW_BM - 1) / BW_BM, B * H), FW_THREADS, smem, st>>>(
         tq, tk, tv, tdo, ls, dl, static_cast<bf*>(out0), Lq, Lk, H, Hkv, causal,
-        sm_scale);
+        sm_scale, sd);
   } else {
-    auto kern = flash_bwd_dkv_wgmma_kernel<D>;
+    auto kern = flash_bwd_dkv_wgmma_kernel<D, SEGS, DROP>;
     const size_t smem = DkvSmem<D>::bytes;
     if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
     kern<<<dim3((Lk + BW_BM - 1) / BW_BM, B * Hkv), FW_THREADS, smem, st>>>(
         tq, tk, tv, tdo, ls, dl, static_cast<bf*>(out0), static_cast<bf*>(out1),
-        Lq, Lk, H, Hkv, causal, sm_scale);
+        Lq, Lk, H, Hkv, causal, sm_scale, sd);
   }
   return cudaGetLastError();
 }
 
-template <bool DKV>
+template <bool DKV, bool SEGS = false, bool DROP = false>
 cudaError_t bwd_dispatch(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* out0, void* out1, int B, int Lq, int Lk, int H,
                          int Hkv, int D, int dtype, int causal, float sm_scale,
-                         cudaStream_t s) {
+                         cudaStream_t s, SegDrop sd = {}) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   if (D == 128)
-    return launch_bwd<DKV, 128>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
-                                Lk, H, Hkv, dtype, causal, sm_scale, s);
+    return launch_bwd<DKV, 128, SEGS, DROP>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
+                                            Lk, H, Hkv, dtype, causal, sm_scale, sd, s);
   if (D == 64)
-    return launch_bwd<DKV, 64>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
-                               Lk, H, Hkv, dtype, causal, sm_scale, s);
+    return launch_bwd<DKV, 64, SEGS, DROP>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
+                                           Lk, H, Hkv, dtype, causal, sm_scale, sd, s);
   return cudaErrorInvalidValue;
+}
+
+// The variant instantiation that `sd` and `drop` ask for (fwd_dispatch_var).
+template <bool DKV>
+cudaError_t bwd_dispatch_var(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* delta,
+                             void* out0, void* out1, int B, int Lq, int Lk, int H,
+                             int Hkv, int D, int dtype, int causal, float sm_scale,
+                             cudaStream_t s, SegDrop sd, int drop) {
+  if ((sd.qseg == nullptr) != (sd.kseg == nullptr) || (drop && sd.qseg == nullptr))
+    return cudaErrorInvalidValue;
+  if (sd.qseg != nullptr && drop)
+    return bwd_dispatch<DKV, true, true>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
+                                         Lk, H, Hkv, D, dtype, causal, sm_scale, s, sd);
+  if (sd.qseg != nullptr)
+    return bwd_dispatch<DKV, true, false>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
+                                          Lk, H, Hkv, D, dtype, causal, sm_scale, s, sd);
+  return bwd_dispatch<DKV>(q, k, v, dout, lse, delta, out0, out1, B, Lq, Lk, H, Hkv, D,
+                           dtype, causal, sm_scale, s);
 }
 
 }  // namespace
@@ -1743,4 +2002,64 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)bwd_dispatch<true>(q, k, v, dout, lse, delta, dk, dv, B, Lq,
                                  Lk, H, Hkv, D, dtype, causal, sm_scale,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// The segment-id and dropout variants of the four entry points: the same
+// arguments, then q_segs (B, Lq) and kv_segs (B, Lk) int32 (both or
+// neither null; both with drop), drop (0 or 1), seed (its bits as uint32), keep_prob =
+// fp32(1 - p) and inv_keep = fp32(1 / (1 - p)) (see SegDrop), then the
+// stream.
+extern "C" int flash_fwd_segdrop(const void* q, const void* k, const void* v,
+                                 void* o, int B, int Lq, int Lk, int H, int Hkv,
+                                 int D, int dtype, int causal, float sm_scale,
+                                 const void* q_segs, const void* kv_segs, int drop,
+                                 int seed, float keep_prob, float inv_keep,
+                                 void* stream) {
+  const SegDrop sd{static_cast<const int*>(q_segs), static_cast<const int*>(kv_segs),
+                   (uint32_t)seed, keep_prob, inv_keep};
+  return (int)fwd_dispatch_var<false>(q, k, v, o, nullptr, B, Lq, Lk, H, Hkv, D, dtype,
+                                      causal, sm_scale, static_cast<cudaStream_t>(stream),
+                                      sd, drop);
+}
+
+extern "C" int flash_fwd_lse_segdrop(const void* q, const void* k, const void* v,
+                                     void* o, void* lse, int B, int Lq, int Lk,
+                                     int H, int Hkv, int D, int dtype, int causal,
+                                     float sm_scale, const void* q_segs,
+                                     const void* kv_segs, int drop, int seed,
+                                     float keep_prob, float inv_keep, void* stream) {
+  const SegDrop sd{static_cast<const int*>(q_segs), static_cast<const int*>(kv_segs),
+                   (uint32_t)seed, keep_prob, inv_keep};
+  return (int)fwd_dispatch_var<true>(q, k, v, o, static_cast<float*>(lse), B, Lq, Lk, H,
+                                     Hkv, D, dtype, causal, sm_scale,
+                                     static_cast<cudaStream_t>(stream), sd, drop);
+}
+
+extern "C" int flash_bwd_dq_segdrop(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse,
+                                    const void* delta, void* dq, int B, int Lq,
+                                    int Lk, int H, int Hkv, int D, int dtype,
+                                    int causal, float sm_scale, const void* q_segs,
+                                    const void* kv_segs, int drop, int seed,
+                                    float keep_prob, float inv_keep, void* stream) {
+  const SegDrop sd{static_cast<const int*>(q_segs), static_cast<const int*>(kv_segs),
+                   (uint32_t)seed, keep_prob, inv_keep};
+  return (int)bwd_dispatch_var<false>(q, k, v, dout, lse, delta, dq, nullptr, B, Lq, Lk,
+                                      H, Hkv, D, dtype, causal, sm_scale,
+                                      static_cast<cudaStream_t>(stream), sd, drop);
+}
+
+extern "C" int flash_bwd_dkv_segdrop(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse,
+                                     const void* delta, void* dk, void* dv, int B,
+                                     int Lq, int Lk, int H, int Hkv, int D,
+                                     int dtype, int causal, float sm_scale,
+                                     const void* q_segs, const void* kv_segs,
+                                     int drop, int seed, float keep_prob,
+                                     float inv_keep, void* stream) {
+  const SegDrop sd{static_cast<const int*>(q_segs), static_cast<const int*>(kv_segs),
+                   (uint32_t)seed, keep_prob, inv_keep};
+  return (int)bwd_dispatch_var<true>(q, k, v, dout, lse, delta, dk, dv, B, Lq, Lk, H,
+                                     Hkv, D, dtype, causal, sm_scale,
+                                     static_cast<cudaStream_t>(stream), sd, drop);
 }

@@ -1,5 +1,7 @@
 """Models of the port."""
 
+from .ernie import ErnieConfig, ErnieForSequenceClassification, ErnieModel
 from .llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM"]
+__all__ = ["ErnieConfig", "ErnieForSequenceClassification", "ErnieModel",
+           "LlamaConfig", "LlamaForCausalLM"]

@@ -1,4 +1,5 @@
-"""``RMSNorm`` (paddle's layer; weight key ``weight``)."""
+"""``RMSNorm`` and ``LayerNorm`` (paddle's layers; keys ``weight`` and
+``bias``)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import nn_ops
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
 class RMSNorm(nn.Module):
@@ -25,3 +26,22 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return nn_ops.rms_norm(x, self.weight, self.epsilon)
+
+
+class LayerNorm(nn.Module):
+    """``paddle.nn.LayerNorm`` (``paddle_tpu/nn/norm.py:93``): weight 1 and
+    bias 0 over ``normalized_shape``; ``device`` as for :class:`RMSNorm`."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5, device=None,
+                 dtype=None):
+        super().__init__()
+        shape = [normalized_shape] if isinstance(normalized_shape, int) \
+            else list(normalized_shape)
+        self.normalized_shape, self.epsilon = shape, epsilon
+        dev = resolve_device(device)
+        self.weight = nn.Parameter(torch.ones(shape, device=dev, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(shape, device=dev, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn_ops.layer_norm(x, self.normalized_shape, self.weight,
+                                 self.bias, self.epsilon)

@@ -1,2 +1,3 @@
-"""Ops of the port: the two Hopper kernels of the serving path and the
-functional nn ops around them."""
+"""Ops of the port: the Hopper kernels (flash attention and its variants,
+paged decode attention, int8 AdamW) and the functional nn ops around
+them."""

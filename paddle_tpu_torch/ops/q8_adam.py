@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _native
+from ._u32 import M32, mul32
 
 __all__ = ["Q8_BLOCK", "launches", "q8_adam_update",
            "q8_adam_update_reference", "q8_dequantize", "q8_quantize",
@@ -41,7 +42,6 @@ Q8_BLOCK = 2048
 launches = _native.LaunchCounter("q8_adam")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_M32 = 0xFFFFFFFF
 # q8_adam(m_q, m_s, v_q, v_s, base, grad, n, nb, base_dtype, grad_dtype,
 #         lr, decay, c1, c2, eps, b1, b2, omb1, omb2, has_wd, use_sr, seed,
 #         stream)
@@ -76,24 +76,16 @@ def q8_dequantize(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     return (q.float() * scale[:, None]).reshape(-1)[:n].reshape(shape)
 
 
-def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
-    """``h * c mod 2^32`` for ``h`` in [0, 2^32) held in int64, in two
-    16-bit halves of ``c`` so that no product leaves int64."""
-    lo = h * (c & 0xFFFF)
-    hi = ((h * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
 def sr_bits(seed: int, n: int, device=None) -> torch.Tensor:
     """The 16 rounding bits of elements ``0 .. n-1`` under ``seed``: the
     lowbias32 finalizer over ``idx * 0x9E3779B1 ^ seed * 0xC2B2AE3D``, top
     16 bits (``csrc/q8_adam.cu: sr_bits``). int64 values in [0, 2^16)."""
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    h = _mul32(idx, 0x9E3779B1) ^ ((int(seed) * 0xC2B2AE3D) & _M32)
+    h = mul32(idx, 0x9E3779B1) ^ ((int(seed) * 0xC2B2AE3D) & M32)
     h = h ^ (h >> 16)
-    h = _mul32(h, 0x7FEB352D)
+    h = mul32(h, 0x7FEB352D)
     h = h ^ (h >> 15)
-    h = _mul32(h, 0x846CA68B)
+    h = mul32(h, 0x846CA68B)
     h = h ^ (h >> 16)
     return h >> 16
 
@@ -109,8 +101,8 @@ def stochastic_round_bf16(x32: torch.Tensor, bits: torch.Tensor
     given, computed on bit patterns so that the CUDA kernel matches it bit
     for bit."""
     x32 = x32.float().contiguous()
-    xb = x32.view(torch.int32).to(torch.int64) & _M32
-    hi = ((xb + (bits.to(torch.int64) & 0xFFFF)) & _M32) >> 16
+    xb = x32.view(torch.int32).to(torch.int64) & M32
+    hi = ((xb + (bits.to(torch.int64) & 0xFFFF)) & M32) >> 16
     hi = torch.where(torch.isinf(x32), xb >> 16, hi)
     hi = torch.where(torch.isnan(x32), (xb >> 16) & 0x8000 | 0x7FC0, hi)
     hi = torch.where(hi >= 2 ** 15, hi - 2 ** 16, hi)

@@ -89,12 +89,18 @@ def test_masked_sdpa_on_cpu_matches_paddle_tpu():
 
 
 def test_device_tensor_with_mask_raises():
-    # any non-CPU tensor with a mask: no kernel for it, never a CPU detour
+    # a non-CPU tensor with a key-padding mask goes to the flash kernel,
+    # which wants a CUDA tensor and raises (never a CPU detour); any other
+    # mask takes the plain masked softmax on the tensor's own device, as the
+    # JAX package's XLA path does
     q = torch.empty(1, 4, 2, 64, device="meta")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA"):
         TF.scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.ones(4, 4, dtype=torch.bool,
+            q, q, q, attn_mask=torch.ones(1, 1, 1, 4, dtype=torch.bool,
                                           device="meta"))
+    out = TF.scaled_dot_product_attention(
+        q, q, q, attn_mask=torch.ones(4, 4, dtype=torch.bool, device="meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(q, q, q, causal=True)
 
@@ -111,26 +117,32 @@ def test_cpu_path_launches_nothing():
     pytest.param(n, a, id=a.strip()[:40])
     for n, a, _ in chip_smoke.PLANTED_FAULTS])
 def test_planted_fault_anchor_occurs_once_in_the_source(source, anchor):
-    # chip_smoke.py plants its faults into a copy of each source by text: a
-    # rewrite that loses or repeats an anchor fails here, not after a build
-    # on the card
-    src = (ROOT / "paddle_tpu_torch" / "csrc" / f"{source}.cu").read_text()
+    # chip_smoke.py plants its faults into copies of each source by text
+    # (a copy "<source>:<tag>" is another build of <source>.cu): a rewrite
+    # that loses or repeats an anchor fails here, not after a build on the
+    # card
+    src = (ROOT / "paddle_tpu_torch" / "csrc"
+           / f"{source.split(':')[0]}.cu").read_text()
     assert src.count(anchor) == 1
 
 
 def test_build_phase_reads_each_forward_kernel(monkeypatch):
-    # chip_smoke.py's build phase fails unless the SASS of all eight bf16
-    # flash instantiations (forward <D, LSE>, dq <D>, dk/dv <D>) holds wgmma
-    # (HGMMA) and TMA (UTMALDG): its parser must keep the eight apart and
-    # pick up ptxas's registers/spills
+    # chip_smoke.py's build phase fails unless the SASS of all 24 bf16
+    # flash instantiations (forward <D, LSE, SEGS, DROP>, dq and dk/dv <D,
+    # SEGS, DROP>; dropout always with ids) holds wgmma (HGMMA) and TMA
+    # (UTMALDG): its parser must keep them apart and pick up ptxas's
+    # registers/spills
     pre = "_ZN51_GLOBAL__N__4af27cb8_18_flash_attention_cu_b294bfd0"
-    names = [f"{pre}22flash_fwd_wgmma_kernelILi{d}ELb{lse}EEEv14CUtensorMap_st"
-             f"S1_S1_P13__nv_bfloat16Pfiiiiif" for d in (64, 128) for lse in (1, 0)]
-    names += [f"{pre}{len(k)}{k}ILi{d}EEEv14CUtensorMap_stS1_S1_S1_PKfS3_"
-              f"P13__nv_bfloat16{'S4_' if k.endswith('dkv_wgmma_kernel') else ''}"
-              f"iiiiif"
+    flags = [(0, 0), (1, 0), (1, 1)]
+    names = [f"{pre}22flash_fwd_wgmma_kernelILi{d}ELb{lse}ELb{sg}ELb{dr}EEEv"
+             f"14CUtensorMap_stS1_S1_P13__nv_bfloat16PfiiiiifNS_7SegDropE"
+             for d in (64, 128) for lse in (1, 0) for sg, dr in flags]
+    names += [f"{pre}{len(k)}{k}ILi{d}ELb{sg}ELb{dr}EEEv14CUtensorMap_stS1_S1_"
+              f"S1_PKfS3_P13__nv_bfloat16"
+              f"{'S4_' if k.endswith('dkv_wgmma_kernel') else ''}"
+              f"iiiiifNS_7SegDropE"
               for k in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
-              for d in (64, 128)]
+              for d in (64, 128) for sg, dr in flags]
     other = "_ZN51_GLOBAL__N__x19flash_bwd_dq_kernelILi64EEEvPKfS3_"
     sass = "".join(f"\t\tFunction : {n}\n  /*0010*/ HGMMA.64x128x16.F32.BF16 R24, "
                    f"gdesc[UR4], RZ ;\n  /*0020*/ UTMALDG.4D [UR8], [UR4] ;\n"
@@ -155,9 +167,10 @@ def test_build_phase_reads_each_forward_kernel(monkeypatch):
                         lambda *a, **k: type("Done", (), {"stdout": sass})())
     got = chip_smoke.wgmma_kernels(Build)
     assert sorted(got) == sorted(
-        [f"flash_fwd_wgmma_kernel<{d}, {lse}>" for d in (128, 64) for lse in (0, 1)]
-        + [f"flash_bwd_{k}_wgmma_kernel<{d}>" for k in ("dq", "dkv")
-           for d in (64, 128)])
+        [f"flash_fwd_wgmma_kernel<{d}, {lse}, {sg}, {dr}>" for d in (128, 64)
+         for lse in (0, 1) for sg, dr in flags]
+        + [f"flash_bwd_{k}_wgmma_kernel<{d}, {sg}, {dr}>" for k in ("dq", "dkv")
+           for d in (64, 128) for sg, dr in flags])
     assert len(got) == chip_smoke.N_WGMMA_KERNELS
     assert all(k == {"HGMMA": 1, "UTMALDG": 1, "spill_stores": 0,
                      "spill_loads": 0, "registers": 168}

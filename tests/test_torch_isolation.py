@@ -16,8 +16,12 @@ import pytest
 import torch
 
 from paddle_tpu_torch import NoDeviceError, amp, resolve_device
+from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                           ErnieForSequenceClassification,
+                                           ErnieModel)
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
+from paddle_tpu_torch.nn import (Dropout, DropoutRNG, Embedding, LayerNorm,
+                                 Linear, RMSNorm)
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import q8_adam as q8
@@ -81,6 +85,42 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
                for p in m.parameters())
 
 
+def test_ernie_entry_points_need_a_card_unless_cpu_is_asked():
+    cfg = ErnieConfig.tiny(vocab=16, hidden=16, layers=1, heads=2, inter=16,
+                           max_pos=16)
+    if torch.cuda.is_available():
+        return
+    for build in (lambda **kw: LayerNorm(4, **kw),
+                  lambda **kw: Dropout(0.1, **kw),
+                  lambda **kw: DropoutRNG(**kw),
+                  lambda **kw: ErnieModel(cfg, **kw),
+                  lambda **kw: ErnieForSequenceClassification(cfg, **kw)):
+        with pytest.raises(NoDeviceError):
+            build()
+        assert build(device="cpu") is not None
+    m = ErnieForSequenceClassification(cfg, device="cpu")
+    assert all(p.device.type == "cpu" for p in m.parameters())
+    assert m.ernie.rng.device.device.type == "cpu"
+
+
+def test_device_tensors_never_take_the_plain_variant_path():
+    # a non-CPU tensor with segment ids or dropout goes to a variant kernel
+    # or raises: never a CPU detour (meta tensors stand in for a card's)
+    q = torch.empty(1, 4, 2, 64, device="meta")
+    segs = torch.zeros(1, 4, dtype=torch.int32, device="meta")
+    lse = torch.empty(1, 2, 4, device="meta")
+    for call in (lambda: fa.flash_attention_fwd(q, q, q, True, None, segs,
+                                                segs),
+                 lambda: fa.flash_attention_lse(q, q, q, True, None, None,
+                                                None, 0.1, 3),
+                 lambda: fa.flash_attention_bwd(q, q, q, q, lse, q, True, None,
+                                                segs, segs, 0.1, 3),
+                 lambda: fa.flash_attention(q, q, q, 0.1,
+                                            fixed_seed_offset=3)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
 def test_adamw_over_device_parameters_never_takes_the_plain_path():
     # a non-CPU parameter goes to the int8 kernel or raises: never a CPU
     # detour (meta tensors stand in for a card's here)
@@ -127,10 +167,16 @@ _ARGTYPES_OF = {"flash_fwd": "_ARGTYPES", "flash_fwd_lse": "_ARGTYPES_LSE",
     (fa, "flash_attention.cu", "flash_bwd_dq"),
     (fa, "flash_attention.cu", "flash_bwd_dkv"),
     (q8, "q8_adam.cu", "q8_adam"),
+    (fa, "flash_attention.cu", "flash_fwd_segdrop"),
+    (fa, "flash_attention.cu", "flash_fwd_lse_segdrop"),
+    (fa, "flash_attention.cu", "flash_bwd_dq_segdrop"),
+    (fa, "flash_attention.cu", "flash_bwd_dkv_segdrop"),
 ])
 def test_ctypes_bindings_match_c_signatures(mod, source, fn):
     params = _c_params(source, fn)
-    argtypes = getattr(mod, _ARGTYPES_OF[fn])
+    # the segment-id / dropout variants are bound from the module's table
+    argtypes = (getattr(mod, _ARGTYPES_OF[fn]) if fn in _ARGTYPES_OF
+                else mod._ARGTYPES_OF[fn])
     assert len(params) == len(argtypes)
     for p, ty in zip(params, argtypes):
         if "*" in p:
