@@ -10,11 +10,19 @@ dk/dv, holds wgmma and TMA instructions) and runs, printing one JSON line
 per phase:
 
 * serving: holds the flash-prefill and paged-decode kernels against their
-  plain PyTorch versions at the shapes the serving path gives them, serves
-  Llama-2-7B at full width (random bf16 weights from a seed, 32 layers)
-  through the continuous-batching engine, serves the same traffic again
-  under ``torch.profiler``, and checks that engine and ``generate`` agree
-  token for token on a 2-layer full-width fp32 model;
+  plain PyTorch versions at the shapes the serving path gives them (the
+  tail prefill's Lq < Lk among them); holds each bucket's decode CUDA graph
+  against an eager step on a 2-layer full-width fp32 model, native and
+  int8 pools (equal tokens, bit-equal pools, launches counted per replay,
+  and a replay with a stale ``t`` rejected); serves Llama-2-7B at full
+  width (random bf16 weights from a seed, 32 layers) through the
+  continuous-batching engine three times, every decode step a graph
+  replay, then once more under ``torch.profiler``, and profiles one decode
+  step eager and replayed; serves 16 requests sharing a 1024-token prefix
+  with prefix sharing on and off (shared pages unchanged, tail K/V against
+  the unshared run's); and checks that engine and ``generate`` agree token
+  for token on a 2-layer full-width fp32 model, a shared-prefix pair
+  among the prompts;
 * training: holds the forward-with-lse, the flash backward (dq, dk/dv) and
   the int8 AdamW kernels against their plain versions (and shows that the
   check rejects a copy of the flash kernels that skip a tile, and that
@@ -81,6 +89,16 @@ TOL = {("paged", "bfloat16"): (2e-3, 4e-3),
 # a typical element of out or of a gradient is about 0.03 to 0.06.
 REL_TOL = {("flash", "bfloat16"): 1e-2,
            ("flash_bwd", "bfloat16"): 1e-2}
+# serve_prefix_7b holds each request's tail K/V, written by a tail prefill
+# over the shared prefix, against the unshared run's, per layer as
+# ||shared - unshared|| / ||unshared||. Layer 0 depends on the tail's own
+# tokens and positions only: bit-equal. Above it the runs differ only by
+# rounding: cuBLAS takes other algorithms at M = tail than at M = prompt
+# (seen at tails under 128 rows; from 121 rows up every layer was
+# bit-equal), and the difference compounds through the residual stream, so
+# layer l may be l bf16 roundings (2^-8 relative) off. A wrong prefix read
+# or RoPE offset is off by order 1 at layer 0 or 1.
+KV_ROUNDING_PER_LAYER = 2.0 ** -8
 # Copies of the kernel sources with faults planted, each inserted before
 # its anchor (copy, anchor, fault); a copy is named "<source>" or
 # "<source>:<tag>", one build of csrc/<source>.cu with its faults. In the
@@ -244,6 +262,10 @@ def check_flash(torch, fa):
         ("causal_1000_ragged", 1, 32, 32, 1000, 1000, True, bf, 128),
         ("gqa_causal_1024_h32_kv8", 1, 32, 8, 1024, 1024, True, bf, 128),
         ("causal_lq256_lk1024", 1, 32, 32, 256, 1024, True, bf, 128),
+        # serve_prefix_7b's tail prefills: 16-256 new rows over a resident
+        # 1024-token prefix
+        ("causal_lq16_lk1040", 1, 32, 32, 16, 1040, True, bf, 128),
+        ("causal_lq200_lk1224", 1, 32, 32, 200, 1224, True, bf, 128),
         ("full_512", 1, 32, 32, 512, 512, False, bf, 128),
         # the edges of the 128-row tiles: generate's step (one query over a
         # grown cache), rows that see no key (out 0), D=64, one row past a
@@ -257,6 +279,8 @@ def check_flash(torch, fa):
         ("f32_causal_37", 1, 32, 32, 37, 37, True, f32, 128),
         ("f32_causal_513", 1, 32, 32, 513, 513, True, f32, 128),
         ("f32_lq1_lk528", 1, 32, 32, 1, 528, True, f32, 128),
+        # and its tail prefill over a shared 2-page prefix
+        ("f32_causal_lq40_lk168", 1, 32, 32, 40, 168, True, f32, 128),
     ]
     rows = []
     for name, b, h, hkv, lq, lk, causal, dt, d in cases:
@@ -481,87 +505,255 @@ def check_paged(torch, pa, kvc, planted_lib):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve Llama-2-7B at full width
+# phase 4: the engine's decode graphs against eager steps (2 layers, fp32)
 # ---------------------------------------------------------------------------
 
-def serve_7b(torch, card, fa, pa):
+def decode_case(rng, bucket: int, s: int, ps: int, num_pages: int,
+                vocab: int):
+    """Host arrays of one decode step of ``bucket`` rows: every row but the
+    last of a bucket above 1 is live, on pages of its own (covering ``t``
+    and ``t + 1``) at a random context; the last row is padding (scratch
+    page, t = 0)."""
+    import numpy as np
+    live = bucket - 1 if bucket > 1 else 1
+    tok = np.zeros((bucket, 1), np.int64)
+    tables = np.zeros((bucket, s), np.int32)
+    t = np.zeros((bucket,), np.int32)
+    perm = rng.permutation(np.arange(1, num_pages))
+    for i in range(live):
+        t[i] = rng.integers(0, s * ps - 1)
+        n = min(s, (int(t[i]) + 1) // ps + 1)
+        tables[i, :n] = perm[i * s:i * s + n]
+        tok[i, 0] = rng.integers(0, vocab)
+    return tok, tables, t
+
+
+def graph_vs_eager(torch, pa, eng, step_fn, tok, tables, t,
+                   stale_t: bool = False) -> dict:
+    """One decode step of ``eng`` as a replay of its bucket's graph against
+    an eager ``step_fn`` call over a clone of the pool. The replay goes
+    through the engine's own step (``_decode``: copy in, replay, read
+    back); with ``stale_t`` (the planted fault) ``tok`` and ``tables`` are
+    copied into the graph's buffers and ``t`` is not. Page 0 is left out of
+    the pool comparison: padded rows all write it, in no fixed order."""
+    from paddle_tpu_torch.ops.paged_attention import PagedDecodeCache
+    kv = eng.kv
+    ref_pool = kv.pool.clone()
+    ref_scales = kv.scales.clone() if kv.scales is not None else None
+    t_d = torch.as_tensor(t, device="cuda")
+    with torch.no_grad():
+        want, _ = step_fn(torch.as_tensor(tok, device="cuda"),
+                          PagedDecodeCache(ref_pool, torch.as_tensor(
+                              tables, device="cuda"), t_d,
+                              kv.config.page_size, ref_scales), t_d)
+    want = want.reshape(-1).cpu().numpy()
+    pa.launches.reset()
+    if stale_t:
+        g = eng.decode_graph(len(t))
+        g.tok.copy_(torch.as_tensor(tok, device="cuda"))
+        g.tables.copy_(torch.as_tensor(tables, device="cuda"))
+        got = g.replay().reshape(-1).cpu().numpy()
+    else:
+        got = eng._decode(tok, tables, t)
+    launches = pa.launches.count
+    pages_equal = torch.equal(kv.pool[1:], ref_pool[1:]) and (
+        ref_scales is None or torch.equal(kv.scales[1:], ref_scales[1:]))
+    diff = (kv.pool[1:].float() - ref_pool[1:].float()).abs().amax(
+        dim=(1, 2, 3, 4, 5))
+    return {"tokens_equal": bool((got == want).all()),
+            "pools_equal": bool(pages_equal),
+            "pages_differing": int((diff > 0).sum()), "launches": launches}
+
+
+def decode_graph_check(torch, pa, kvc) -> None:
+    """For each bucket and for a native and an int8 pool: a replay of the
+    engine's decode graph and an eager step over a clone of the same pool
+    give equal next tokens and bit-equal pools (page 0 aside), and the
+    replay counts one paged launch per layer. A replay whose ``t`` was not
+    copied in must fail that check."""
     import numpy as np
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.serving import (Engine, GenerationRequest,
-                                          ServingConfig)
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = 2
+    model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1))
+    prefill_fn, step_fn = model.serving_callables(1024)
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for leg in ("native", "int8"):
+        t0 = time.monotonic()
+        eng = Engine(prefill_fn, step_fn, ServingConfig(
+            num_layers=2, num_heads=cfg.num_key_value_heads,
+            head_dim=cfg.head_dim, max_len=1024, max_batch=16,
+            buckets=(1, 4, 16), page_size=64, compute_dtype="float32",
+            kv_dtype=leg, device="cuda")).warmup()
+        capture_s = time.monotonic() - t0
+        kv = eng.kv
+        with torch.no_grad():
+            x = torch.randn(kv.pool.shape, generator=gen, device="cuda")
+            if leg == "int8":
+                q8, sc = kvc.quantize_pages(x)
+                kv.pool.copy_(q8)
+                kv.scales.copy_(sc)
+            else:
+                kv.pool.copy_(x)
+            del x
+        s, ps = kv.config.pages_per_slot, kv.config.page_size
+        for b in eng.config.buckets:
+            tok, tables, t = decode_case(rng, b, s, ps, kv.config.num_pages,
+                                         cfg.vocab_size)
+            res = graph_vs_eager(torch, pa, eng, step_fn, tok, tables, t)
+            require(res["tokens_equal"] and res["pools_equal"]
+                    and res["launches"] == cfg.num_hidden_layers,
+                    f"decode graph {leg} bucket {b}: replay and eager step "
+                    f"differ or miscount: {res}")
+            emit({"phase": "decode_graph_check", "pool": leg, "bucket": b,
+                  "live_rows": int((tables[:, 0] > 0).sum()),
+                  "t": [int(x) for x in t], **res})
+        # the planted fault: the next step at t + 1 with t left stale
+        t_next = np.where(tables[:, 0] > 0, t + 1, 0).astype(np.int32)
+        bad = graph_vs_eager(torch, pa, eng, step_fn, tok, tables, t_next,
+                             stale_t=True)
+        require(not (bad["tokens_equal"] and bad["pools_equal"]),
+                f"decode graph {leg}: a replay with a stale t passed the "
+                f"check: {bad}")
+        emit({"phase": "decode_graph_check", "pool": leg, "planted":
+              "stale_t", "caught": True, **bad,
+              "capture_s_3_buckets": capture_s})
+        del eng, kv
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve Llama-2-7B at full width, through the decode graphs
+# ---------------------------------------------------------------------------
+
+SERVE_RUNS = 3
+
+
+def build_7b(torch):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b()
     cfg.dtype = "bfloat16"
     t0 = time.monotonic()
     model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
-    prefill_fn, step_fn = model.serving_callables(2048)
-    batches = []
+    return model, time.monotonic() - t0
 
-    def counted_step(tok, cache, t):
-        batches.append(int(tok.shape[0]))
-        return step_fn(tok, cache, t)
 
-    scfg = ServingConfig(
+def engine_7b(model, prefill_fn, prefix_sharing: str):
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+    cfg = model.config
+    return Engine(prefill_fn, model.serving_callables(2048)[1], ServingConfig(
         num_layers=cfg.num_hidden_layers, num_heads=cfg.num_key_value_heads,
         head_dim=cfg.head_dim, max_len=2048, max_batch=16, page_size=64,
         compute_dtype="bfloat16", kv_dtype="native", policy="budget",
-        prefill_token_budget=2048, device="cuda")
-    eng = Engine(prefill_fn, counted_step, scfg).warmup([128])
+        prefill_token_budget=2048, prefix_sharing=prefix_sharing,
+        device="cuda")).warmup([128])
+
+
+def stats_delta(before: dict, after: dict) -> dict:
+    """``Engine.decode_stats()`` counts between two reads."""
+    return {k: {n: c - before[k].get(n, 0) for n, c in after[k].items()
+                if c != before[k].get(n, 0)} for k in after}
+
+
+def run_traffic(torch, eng, prompts, new_tokens: int, between=None):
+    """Submit every prompt, drive the step loop to the drain and return
+    wall time, results and the engine's step counts over the run.
+    ``between(eng)`` runs after the first step, inside the timed window."""
+    from paddle_tpu_torch.serving import GenerationRequest
+    before = eng.decode_stats()
+    t0 = time.monotonic()
+    futs = [eng.submit(GenerationRequest(pr, max_new_tokens=new_tokens))
+            for pr in prompts]
+    if between is not None:
+        eng.step()
+        between(eng)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return wall, [f.result(timeout=0) for f in futs], stats_delta(
+        before, eng.decode_stats())
+
+
+def serving_numbers(results, wall: float) -> dict:
+    ntok = sum(len(r.tokens) for r in results)
+    return {"wall_s": wall, "tokens_per_s": ntok / wall,
+            "ttft_median_s": statistics.median(r.ttft_s for r in results),
+            "tpot_median_s": statistics.median(r.tpot_s for r in results)}
+
+
+def require_served(eng, results, stats, launches, vocab: int, layers: int,
+                   new_tokens: int, prefills: int, what: str) -> None:
+    for r in results:
+        require(len(r.tokens) == new_tokens and r.finish_reason == "length",
+                f"{what}: request {r.request_id}: {len(r.tokens)} tokens, "
+                f"{r.finish_reason}")
+        require(all(0 <= x < vocab for x in r.tokens),
+                f"{what}: request {r.request_id}: token out of range")
+    steps = sum(stats["steps"].values())
+    require(sum(stats["replays"].values()) == steps and steps > 0,
+            f"{what}: {steps} decode steps but replays {stats['replays']}")
+    require(launches["flash_prefill"] == prefills * layers,
+            f"{what}: flash launches {launches['flash_prefill']} != "
+            f"{prefills} prefills x {layers}")
+    require(launches["paged_decode"] == steps * layers,
+            f"{what}: paged launches {launches['paged_decode']} != {steps} "
+            f"steps x {layers}")
+    require(eng.kv.outstanding_pages == 0
+            and eng.kv.free_pages == eng.kv.config.num_pages - 1,
+            f"{what}: pages leaked after the drain")
+
+
+def serve_7b(torch, card, fa, pa, model, init_s: float):
+    import numpy as np
+    cfg = model.config
+    prefill_fn, step_fn = model.serving_callables(2048)
+    eng = engine_7b(model, prefill_fn, "off")
     rng = np.random.default_rng(0)
     lens = rng.permutation(np.linspace(128, 1000, 16).astype(int))
     prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
                for n in lens]
-
-    def serve():
-        t0 = time.monotonic()
-        futs = [eng.submit(GenerationRequest(pr, max_new_tokens=64))
-                for pr in prompts]
-        eng.run()
+    runs = []
+    for i in range(SERVE_RUNS):
         torch.cuda.synchronize()
-        return time.monotonic() - t0, [f.result(timeout=0) for f in futs]
-
-    batches.clear()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches.reset()
-    pa.launches.reset()
-    wall, results = serve()
-    launches = {"flash_prefill": fa.launches.count,
-                "paged_decode": pa.launches.count}
-    for r in results:
-        require(len(r.tokens) == 64 and r.finish_reason == "length",
-                f"request {r.request_id}: {len(r.tokens)} tokens, "
-                f"{r.finish_reason}")
-        require(all(0 <= x < cfg.vocab_size for x in r.tokens),
-                f"request {r.request_id}: token out of range")
-    require(launches["flash_prefill"] == 16 * cfg.num_hidden_layers,
-            f"flash launches {launches['flash_prefill']} != 16 prefills x 32")
-    require(launches["paged_decode"] == len(batches) * cfg.num_hidden_layers
-            and launches["paged_decode"] > 0,
-            f"paged launches {launches['paged_decode']} != "
-            f"{len(batches)} steps x 32")
-    require(eng.kv.outstanding_pages == 0
-            and eng.kv.free_pages == eng.kv.config.num_pages - 1,
-            "pages leaked after the drain")
-    ntok = sum(len(r.tokens) for r in results)
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches.reset()
+        pa.launches.reset()
+        wall, results, stats = run_traffic(torch, eng, prompts, 64)
+        launches = {"flash_prefill": fa.launches.count,
+                    "paged_decode": pa.launches.count}
+        require_served(eng, results, stats, launches, cfg.vocab_size,
+                       cfg.num_hidden_layers, 64, 16,
+                       f"serve_llama2_7b run {i + 1}")
+        runs.append({**serving_numbers(results, wall),
+                     "decode_steps": sum(stats["steps"].values()),
+                     "batch_sizes": stats["steps"],
+                     "graph_replays": stats["replays"],
+                     "launches": launches,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if i == 0:
+            main_launches = launches
+    spread = {k: [min(r[k] for r in runs), max(r[k] for r in runs)]
+              for k in ("tokens_per_s", "ttft_median_s", "tpot_median_s")}
     emit({"phase": "serve_llama2_7b", "card": card, "layers": 32,
           "dtype": "bfloat16", "requests": 16,
           "prompt_lens": [int(x) for x in lens], "new_tokens": 64,
-          "wall_s": wall, "tokens_per_s": ntok / wall,
-          "ttft_median_s": statistics.median(r.ttft_s for r in results),
-          "tpot_median_s": statistics.median(r.tpot_s for r in results),
-          "decode_steps": len(batches),
-          "batch_sizes": {str(k): batches.count(k)
-                          for k in sorted(set(batches))},
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "weights_init_s": init_s, "launches": launches})
-    profile_serving(torch, card, serve, wall)
-    del eng, model
+          "decode": "cuda_graph_per_bucket", "runs": runs,
+          "spread_min_max": spread, "weights_init_s": init_s})
+    profile_serving(torch, card, eng, prompts, runs[0]["wall_s"])
+    profile_decode_step(torch, card, eng, step_fn)
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return main_launches
 
 
 def kernel_family(name: str) -> str:
@@ -575,23 +767,59 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_serving(torch, card, serve, unprofiled_wall_s: float) -> None:
+def device_us(evt) -> float:
+    v = getattr(evt, "self_device_time_total", None)
+    return float(v if v is not None else evt.self_cuda_time_total)
+
+
+def total_us(evt) -> float:
+    v = getattr(evt, "device_time_total", None)
+    return float(v if v is not None else evt.cuda_time_total)
+
+
+# host-side names of the work a step puts on the card: kernel launches,
+# graph launches, copies and fills
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)"
+                         r"|^cuLaunch")
+# the engine's host spans, recorded by the wrappers of profile_serving
+SPANS = ("serving.prefill", "serving.decode")
+
+
+def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float):
     """Serve the same traffic again under ``torch.profiler``; emit where the
-    device time goes. The busy share is kernel time over this pass's wall
-    time, which the profiler's host overhead inflates; kernel time over the
-    unprofiled pass's wall is the estimate for the run without it."""
+    device time goes, and how the host's wall time splits between the
+    prefills and the decode steps. The busy share is kernel time over this
+    pass's wall time, which the profiler's host overhead inflates; kernel
+    time over the unprofiled pass's wall is the estimate for the run
+    without it."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall, _ = serve()
+    host_s = {name: 0.0 for name in SPANS}
+    calls = {name: 0 for name in SPANS}
+    real = {name: getattr(eng, "_" + name.split(".")[1]) for name in SPANS}
 
-    def device_us(evt) -> float:
-        v = getattr(evt, "self_device_time_total", None)
-        return float(v if v is not None else evt.self_cuda_time_total)
+    def spanned(name):
+        def call(*args):
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(name):
+                out = real[name](*args)
+            host_s[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return out
+        return call
 
-    kernels = [e for e in prof.key_averages()
+    for name in SPANS:
+        setattr(eng, "_" + name.split(".")[1], spanned(name))
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            wall, _, stats = run_traffic(torch, eng, prompts, 64)
+    finally:
+        for name in SPANS:
+            delattr(eng, "_" + name.split(".")[1])
+    evts = prof.key_averages()
+    kernels = [e for e in evts
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and device_us(e) > 0]
+               and device_us(e) > 0 and e.key not in SPANS]
     total_s = sum(device_us(e) for e in kernels) / 1e6
     require(total_s > 0, "profiler recorded no device time")
     fams = {}
@@ -599,18 +827,207 @@ def profile_serving(torch, card, serve, unprofiled_wall_s: float) -> None:
         f = fams.setdefault(kernel_family(e.key), {"device_ms": 0.0, "calls": 0})
         f["device_ms"] += device_us(e) / 1e3
         f["calls"] += e.count
+    steps = sum(stats["steps"].values())
+    spans = {}
+    for name in SPANS:
+        cpu = [e for e in evts if e.key == name
+               and e.device_type == torch.autograd.DeviceType.CPU]
+        dev_ms = sum(total_us(e) for e in cpu) / 1e3
+        spans[name] = {"calls": calls[name], "host_wall_ms": host_s[name] * 1e3,
+                       "share_of_wall": host_s[name] / wall,
+                       "device_ms_attributed": dev_ms,
+                       "device_share_of_span": dev_ms / (host_s[name] * 1e3)}
     top = sorted(kernels, key=device_us, reverse=True)[:12]
     emit({"phase": "serve_profile", "card": card, "wall_s": wall,
           "device_ms": total_s * 1e3, "device_busy_share": total_s / wall,
           "unprofiled_wall_s": unprofiled_wall_s,
           "device_busy_share_est_unprofiled": total_s / unprofiled_wall_s,
-          "families": fams,
+          "decode_steps": steps, "families": fams,
+          # kernels replayed from a graph keep their names in the trace:
+          # two paged kernels (split, combine) a layer a step
+          "paged_calls_per_step_layer":
+              fams.get("paged_decode", {"calls": 0})["calls"] / (steps * 32),
+          "spans": spans,
           "top": [{"kernel": e.key[:90], "device_ms": device_us(e) / 1e3,
                    "calls": e.count} for e in top]})
 
 
+def profile_decode_step(torch, card, eng, step_fn) -> None:
+    """One decode step of the largest bucket, over the scratch page only
+    (all rows padding), eager and as a replay of its graph, each under
+    ``torch.profiler``: the device operations each puts on the card and
+    the host calls that put them there."""
+    import numpy as np
+    from paddle_tpu_torch.ops.paged_attention import PagedDecodeCache
+    b = eng.config.buckets[-1]
+    s = eng.kv.config.pages_per_slot
+    tok = np.zeros((b, 1), np.int64)
+    tables = np.zeros((b, s), np.int32)
+    t = np.zeros((b,), np.int32)
+    t_d = torch.as_tensor(t, device="cuda")
+    view = PagedDecodeCache(eng.kv.pool, torch.as_tensor(tables, device="cuda"),
+                            t_d, eng.kv.config.page_size, eng.kv.scales)
+    tok_d = torch.as_tensor(tok, device="cuda")
+
+    def eager():
+        with torch.no_grad():
+            return step_fn(tok_d, view, t_d)[0].reshape(-1).cpu().numpy()
+
+    out = {}
+    for name, fn in (("eager", eager),
+                     ("graph", lambda: eng._decode(tok, tables, t))):
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+        wall = time.perf_counter() - t0
+        evts = prof.key_averages()
+        dev = [e for e in evts
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0]
+        host = {e.key: e.count for e in evts
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and HOST_LAUNCH.search(e.key)}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = {
+            "device_ops": sum(e.count for e in dev),
+            "device_kernels": sum(e.count for e in dev if not
+                                  e.key.startswith(("Memcpy", "Memset"))),
+            "device_ms": sum(device_us(e) for e in dev) / 1e3,
+            "host_launch_calls": sum(host.values()), "host_calls": host,
+            "profiled_wall_ms": wall * 1e3,
+            "step_ms_unprofiled": (time.perf_counter() - t1) * 100,
+            "step_ms_cuda_events": start.elapsed_time(end) / 10}
+    require(out["graph"]["host_launch_calls"] < 10
+            and out["eager"]["host_launch_calls"] > 100,
+            f"decode step: host calls, eager against replay: {out}")
+    emit({"phase": "decode_step_profile", "card": card, "bucket": b,
+          "rows": "padding only (scratch page)", **out})
+
+
 # ---------------------------------------------------------------------------
-# phase 5: engine tokens == generate tokens (full width, 2 layers, fp32)
+# phase 6: a shared 1024-token prefix, with and without prefix sharing
+# ---------------------------------------------------------------------------
+
+def layer_rel_err(a, b):
+    """Per layer of two ``(L, 2, H, n, D)`` K/V blocks: ``||a - b|| /
+    ||b||``, on the card (no host read)."""
+    d = (a.float() - b.float()).flatten(1).norm(dim=1)
+    return d / b.float().flatten(1).norm(dim=1)
+
+
+def serve_prefix_7b(torch, card, fa, pa, kvc, model):
+    """16 requests that share one 1024-token prefix (a system prompt), each
+    with its own tail of 16-256 tokens, served with prefix sharing on and
+    then off by engines of serve_7b's settings. The flash launches of full
+    and tail prefills are counted apart, and each prefill's K/V at the
+    tail's positions [1024, Lp) is kept to hold the two runs against each
+    other."""
+    import numpy as np
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, (1024,), dtype=np.int32)
+    tails = rng.integers(16, 257, (16,))
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, (n,), dtype=np.int32)]) for n in tails]
+    prefill_fn, _ = model.serving_callables(2048)
+    out, tail_kv = {}, {}
+    for mode in ("on", "off"):
+        flash = {"full": 0, "tail": 0}
+        kept = tail_kv[mode] = []
+
+        def counted_prefill(ids, cache, start=0):
+            n0 = fa.launches.count
+            res = prefill_fn(ids, cache, start)
+            flash["tail" if start else "full"] += fa.launches.count - n0
+            # FIFO admission: the k-th prefill is the k-th request's
+            kept.append(cache[:, :, 0, :, 1024:start + ids.shape[1]].clone())
+            return res
+
+        eng = engine_7b(model, counted_prefill, mode)
+        chain = {}
+
+        def snapshot(eng):
+            pages = [eng.kv._index[h] for h in
+                     kvc.prefix_chain_digests(prefix, 64)]
+            chain.update(pages=pages, before=eng.kv.pool[pages].clone())
+
+        torch.cuda.synchronize()
+        fa.launches.reset()
+        pa.launches.reset()
+        flash.update(full=0, tail=0)
+        kept.clear()
+        wall, results, stats = run_traffic(
+            torch, eng, prompts, 64, snapshot if mode == "on" else None)
+        launches = {"flash_prefill": fa.launches.count,
+                    "paged_decode": pa.launches.count, "flash_by_prefill":
+                    dict(flash)}
+        require_served(eng, results, stats, launches, cfg.vocab_size, layers,
+                       64, 16, f"serve_prefix_7b {mode}")
+        requested, computed = eng.prefill_token_stats()
+        row = {**serving_numbers(results, wall),
+               "prefill_tokens_requested": requested,
+               "prefill_tokens_computed": computed,
+               "prefills": stats["prefills"],
+               "decode_steps": sum(stats["steps"].values()),
+               "batch_sizes": stats["steps"], "graph_replays": stats["replays"],
+               "launches": launches, "prefix_stats": eng.kv.prefix_stats(),
+               "tokens": [r.tokens for r in results]}
+        require(flash["full"] + flash["tail"] == launches["flash_prefill"],
+                f"serve_prefix_7b {mode}: flash launches by prefill {flash}")
+        if mode == "on":
+            require(computed < requested and stats["prefills"].get("tail", 0)
+                    == 15 and flash["tail"] == 15 * layers,
+                    f"serve_prefix_7b on: prefill tokens {computed} of "
+                    f"{requested}, prefills {stats['prefills']}")
+            require(torch.equal(eng.kv.pool[chain["pages"]], chain["before"]),
+                    "serve_prefix_7b on: a page of the shared chain changed")
+            row["shared_chain_pages_bit_equal"] = len(chain["pages"])
+        else:
+            require(computed == requested and flash["tail"] == 0,
+                    f"serve_prefix_7b off: prefill tokens {computed} of "
+                    f"{requested}")
+        out[mode] = row
+        del eng, chain
+        gc.collect()
+        torch.cuda.empty_cache()
+    # each request's tail K/V, shared run against unshared, per layer:
+    # ||shared - unshared|| / ||unshared|| over the tail's positions
+    rel = torch.stack([layer_rel_err(a, b) for a, b in
+                       zip(tail_kv["on"], tail_kv["off"])]).cpu()
+    limit = torch.arange(layers) * KV_ROUNDING_PER_LAYER
+    require(bool((rel[:, 0] == 0).all()) and bool((rel <= limit).all()),
+            f"serve_prefix_7b: tail K/V of the shared run off the unshared "
+            f"run's beyond rounding: per layer {rel.amax(dim=0).tolist()}")
+    pairs = list(zip(out["on"].pop("tokens"), out["off"].pop("tokens")))
+    same = sum(x == y for a, b in pairs for x, y in zip(a, b))
+    emit({"phase": "serve_prefix_7b", "card": card, "requests": 16,
+          "prefix_len": 1024, "tail_lens": [int(x) for x in tails],
+          "new_tokens": 64, "shared": out["on"], "unshared": out["off"],
+          "tail_kv_rel_err_by_layer": rel.amax(dim=0).tolist(),
+          "tail_kv_rel_err_by_request": rel.amax(dim=1).tolist(),
+          "tail_kv_rel_err_limit_per_layer": KV_ROUNDING_PER_LAYER,
+          "equal_token_share": same / (16 * 64),
+          "first_tokens_equal": sum(a[0] == b[0] for a, b in pairs)})
+    del tail_kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {m: out[m]["launches"] for m in out}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: engine tokens == generate tokens (full width, 2 layers, fp32)
 # ---------------------------------------------------------------------------
 
 def agree_2layer(torch, fa, pa):
@@ -625,42 +1042,60 @@ def agree_2layer(torch, fa, pa):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
                for n in (37, 128, 300, 513)]
+    # a pair with a shared 2-page prefix: the second prefills its tail only
+    shared = rng.integers(0, cfg.vocab_size, (128,), dtype=np.int32)
+    pair = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, (n,), dtype=np.int32)]) for n in (40, 77)]
     fa.launches.reset()
     pa.launches.reset()
     refs = []
-    for pr in prompts:
+    for pr in prompts + pair:
         ids = torch.as_tensor(pr[None, :].astype(np.int64), device="cuda")
         refs.append(model.generate(ids, max_new_tokens=16)[0, pr.size:]
                     .tolist())
     gen_launches = {"flash_prefill": fa.launches.count,
                     "paged_decode": pa.launches.count}
     prefill_fn, step_fn = model.serving_callables(1024)
+    # no warmup(): each bucket is captured at its first step
     eng = Engine(prefill_fn, step_fn, ServingConfig(
         num_layers=2, num_heads=cfg.num_key_value_heads,
         head_dim=cfg.head_dim, max_len=1024, max_batch=4, buckets=(1, 4),
-        page_size=64, compute_dtype="float32", device="cuda"))
+        page_size=64, compute_dtype="float32", prefix_sharing="on",
+        device="cuda"))
     fa.launches.reset()
     pa.launches.reset()
-    futs = [eng.submit(GenerationRequest(pr, max_new_tokens=16))
-            for pr in prompts]
-    eng.run()
-    got = [f.result(timeout=0).tokens for f in futs]
+    got = []
+    for batch in (prompts, pair):
+        futs = [eng.submit(GenerationRequest(pr, max_new_tokens=16))
+                for pr in batch]
+        eng.run()
+        got += [f.result(timeout=0).tokens for f in futs]
     eng_launches = {"flash_prefill": fa.launches.count,
                     "paged_decode": pa.launches.count}
+    stats = eng.decode_stats()
     require(got == refs, f"engine tokens {got} != generate tokens {refs}")
-    require(gen_launches["flash_prefill"] == 4 * 16 * 2
+    require(gen_launches["flash_prefill"] == 6 * 16 * 2
             and gen_launches["paged_decode"] == 0,
             f"generate launches {gen_launches}")
-    require(eng_launches["flash_prefill"] == 4 * 2
+    require(eng_launches["flash_prefill"] == 6 * 2
             and eng_launches["paged_decode"] > 0,
             f"engine launches {eng_launches}")
+    require(stats["prefills"] == {"full": 5, "tail": 1}
+            and sum(stats["replays"].values())
+            == sum(stats["steps"].values()) > 0
+            and eng.kv.prefix_stats()["prefix_pages_shared_total"] == 2,
+            f"engine_vs_generate: prefills {stats['prefills']}, replays "
+            f"{stats['replays']}, {eng.kv.prefix_stats()}")
     emit({"phase": "engine_vs_generate", "layers": 2, "dtype": "float32",
-          "prompts": [int(p.size) for p in prompts], "new_tokens": 16,
-          "identical": True, "generate_launches": gen_launches,
+          "prompts": [int(p.size) for p in prompts + pair],
+          "shared_prefix": 128, "new_tokens": 16, "identical": True,
+          "decode": "cuda_graph_per_bucket", "graph_replays": stats["replays"],
+          "prefills": stats["prefills"], "generate_launches": gen_launches,
           "engine_launches": eng_launches})
     del eng, model
     gc.collect()
     torch.cuda.empty_cache()
+
 
 # ---------------------------------------------------------------------------
 # training phase 1: forward with lse, flash backward against plain versions
@@ -1234,11 +1669,6 @@ def profile_step(torch, card, step, unprofiled_step_s: float, phase: str,
         step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-
-    def device_us(evt) -> float:
-        v = getattr(evt, "self_device_time_total", None)
-        return float(v if v is not None else evt.self_cuda_time_total)
-
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and device_us(e) > 0]
@@ -2022,9 +2452,15 @@ def main() -> int:
 
     flash_rows = check_flash(torch, fa)
     paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
+    decode_graph_check(torch, pa, kvc)
     for c in all_counters:
         c.reset()
-    serve_launches = serve_7b(torch, smi, fa, pa)
+    model, init_s = build_7b(torch)
+    serve_launches = serve_7b(torch, smi, fa, pa, model, init_s)
+    prefix_launches = serve_prefix_7b(torch, smi, fa, pa, kvc, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     agree_2layer(torch, fa, pa)
     flash_errs, flash_times = check_flash_train(torch, fa,
                                                 planted["flash_attention"])
@@ -2062,12 +2498,18 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/flash_attention.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:82",
          "launches": serve_launches["flash_prefill"],
+         "launches_path": "serve_llama2_7b run 1",
+         **{f"launches_prefix_{m}": v["flash_by_prefill"]
+            for m, v in prefix_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
          "case": k1["case"], **{k: k1[k] for k in keys}},
         {"name": "paged_decode", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_attention.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:178",
          "launches": serve_launches["paged_decode"],
+         "launches_path": "serve_llama2_7b run 1, graph replays",
+         **{f"launches_prefix_{m}": v["paged_decode"]
+            for m, v in prefix_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
          "case": k2["case"], **{k: k2[k] for k in keys}},
     ] + [

@@ -2,6 +2,6 @@
 ``nvcc`` on first use and bound through ``ctypes`` (see ``build.py``)."""
 
 from . import build
-from .build import LaunchCounter, check, load
+from .build import LaunchCounter, check, load, recorded_launches
 
-__all__ = ["LaunchCounter", "build", "check", "load"]
+__all__ = ["LaunchCounter", "build", "check", "load", "recorded_launches"]

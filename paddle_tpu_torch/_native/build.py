@@ -12,6 +12,7 @@ sources at once, one ``nvcc`` process for each, all started together.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -104,11 +105,39 @@ def check(err: int, what: str) -> None:
 class LaunchCounter:
     """Counts a kernel's launches: its wrapper adds one where it launches
     the kernel and nowhere else, so a run can show that its main path went
-    through the kernel."""
+    through the kernel. A CUDA graph launches the kernels its capture
+    recorded without passing through the wrappers: its replays count them
+    with :meth:`add`, by the amounts :func:`recorded_launches` took at
+    capture."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        _counters.append(self)
 
     def reset(self) -> None:
         self.count = 0
+
+    def add(self, n: int) -> None:
+        """Count ``n`` launches made by a replay of a captured graph."""
+        self.count += n
+
+
+_counters: List[LaunchCounter] = []
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[Dict[LaunchCounter, int]]:
+    """Around a CUDA graph capture: yields a dict that is filled on exit
+    with how far the region advanced each counter, and puts every count
+    back, since a capture records the launches without making them."""
+    counters = list(_counters)
+    before = [c.count for c in counters]
+    recorded: Dict[LaunchCounter, int] = {}
+    try:
+        yield recorded
+    finally:
+        for c, n in zip(counters, before):
+            if c.count != n:
+                recorded[c] = c.count - n
+                c.count = n

@@ -288,10 +288,16 @@ class LlamaForCausalLM(nn.Module):
         """``(prefill_fn, step_fn)`` over the serving engine's cache
         contract.
 
-        * ``prefill_fn(ids (1, Lp), cache (L, 2, 1, H_kv, M, D))`` with
-          ``M >= Lp`` runs the full-sequence forward (flash prefill) and
-          writes each layer's K/V into ``cache`` at positions ``[0, Lp)``,
-          in place; returns ``(first_token (1, 1) int32, cache)``.
+        * ``prefill_fn(ids (1, n), cache (L, 2, 1, H_kv, M, D), start=0)``
+          with ``M >= start + n`` runs the forward over the ``n`` prompt
+          tokens at positions ``[start, start + n)`` and writes each
+          layer's K/V into ``cache`` there, in place; returns
+          ``(first_token (1, 1) int32, cache)``. ``start > 0`` is a prefix
+          already in ``cache`` (read, never written): the tokens attend to
+          it as concat caches, RoPE at offset ``start`` and the flash
+          kernel at ``Lq = n < Lk = start + n`` with the bottom-right causal
+          diagonal, so the tail's K/V and token are those of a full prefill
+          up to rounding.
         * ``step_fn(tok (B, 1), cache, t (B,))`` decodes one token per row.
           ``cache`` is a ``PagedDecodeCache``: every layer's attention runs
           the paged decode kernel and writes position ``t`` into its page,
@@ -332,13 +338,23 @@ class LlamaForCausalLM(nn.Module):
             nxt = self._logits(model.norm(x)).argmax(dim=-1)
             return nxt.to(torch.int32), cache
 
-        def prefill_fn(ids, cache):
+        def prefill_fn(ids, cache, start=0):
             lp = int(ids.shape[1])
-            h, new_caches = model(ids, caches=self._empty_caches(1))
+            dt = model.embed_tokens.weight.dtype
+            if start:
+                caches = [tuple(cache[i, kv, :, :, :start].transpose(1, 2)
+                                .to(dt) for kv in (0, 1))
+                          for i in range(len(layers))]
+            else:
+                caches = self._empty_caches(1)
+            h, new_caches = model(ids, caches=caches)
             nxt = self._logits(h[:, -1:]).argmax(dim=-1)
             for i, (k, v) in enumerate(new_caches):
-                cache[i, 0, :, :, :lp] = k.transpose(1, 2).to(cache.dtype)
-                cache[i, 1, :, :, :lp] = v.transpose(1, 2).to(cache.dtype)
+                # the concat caches hold prefix + tail: store the tail only
+                cache[i, 0, :, :, start:start + lp] = \
+                    k[:, start:].transpose(1, 2).to(cache.dtype)
+                cache[i, 1, :, :, start:start + lp] = \
+                    v[:, start:].transpose(1, 2).to(cache.dtype)
             return nxt.to(torch.int32), cache
 
         return prefill_fn, step_fn

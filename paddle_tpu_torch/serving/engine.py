@@ -3,8 +3,11 @@ port of ``paddle_tpu/serving/engine.py``.
 
 * The model enters as two callables (``LlamaForCausalLM.serving_callables``):
 
-  - ``prefill_fn(ids (1, Lp), cache (L, 2, 1, H, M, D)) -> (first_token
-    (1, 1), cache)``, filling positions ``[0, Lp)`` of ``cache`` in place;
+  - ``prefill_fn(ids (1, n), cache (L, 2, 1, H, M, D), start=0) ->
+    (first_token (1, 1), cache)``, filling positions ``[start, start + n)``
+    of ``cache`` in place; ``[0, start)`` is a resident shared prefix. A
+    2-argument ``prefill_fn(ids, cache)`` (``start`` always 0) works too,
+    with prefix sharing off;
   - ``step_fn(tok (B, 1), cache: PagedDecodeCache, t (B,)) -> (next_token
     (B, 1), cache)``, whose attention reads the pool through the page
     tables and writes position ``t`` into it.
@@ -14,40 +17,64 @@ port of ``paddle_tpu/serving/engine.py``.
   compact. It is padded up to a bucket size (default {1, 4, 16}); padded
   rows read and write only the scratch page.
 
+* On a card each bucket's decode step is one CUDA graph (the port's form of
+  the JAX engine's one compiled program per bucket): ``step_fn`` captured
+  over static ``tok``/``tables``/``t`` buffers, the pool and the weights.
+  :meth:`Engine.warmup` captures every bucket; a bucket first met without
+  it is captured at its first step. A step copies the host arrays into the
+  static buffers, replays, and reads the next tokens back: one host sync.
+  A capture or replay that fails raises; there is no eager fallback. On
+  the CPU (``device="cpu"``) the step runs eagerly.
+
 * Admission happens at step boundaries by prefill-into-slot: the scheduler
   pops what fits (a slot, and pages for the request's whole lifetime), the
   prompt is prefilled into a buffer of the prompt's pages
   (``M = pages * page_size``), the buffer is stored into the pool
   (``kv_cache.scatter_prefill_pages``), and the first token is emitted.
+  With prefix sharing (``ServingConfig.prefix_sharing``) the admission
+  first maps the longest resident chain of full prompt pages read-only
+  (``PagedKVCache.acquire_prefix``), gathers it into the buffer, prefills
+  only the tail from ``start`` and stores only the tail's pages; then it
+  publishes its own full prompt pages. The scheduler's budget charges the
+  tail only.
 
 * A slot is evicted on eos, on length, or on cancel; its pages return to
-  the pool.
+  the pool (shared ones lose one reference).
 
-The pool is updated **in place** (the JAX engine threads it through its
-compiled programs as functional state). The JAX engine's fault sites,
-watchdog, replay, prefix sharing, metrics and traces are later slices.
+The pool is updated **in place** and never reallocated (the JAX engine
+threads it through its compiled programs as functional state); a replay
+checks that it has not moved. The JAX engine's fault sites, watchdog,
+replay, metrics and traces are later slices.
 """
 
 from __future__ import annotations
 
+import inspect
 import threading
 import time
+from collections import Counter
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import _native
 from ..device import resolve_device
 from ..ops.paged_attention import PagedDecodeCache
 from . import kv_cache as _kv
 from .scheduler import (GenerationRequest, GenerationResult, Scheduler,
                         _Pending)
 
-__all__ = ["ServingConfig", "Engine", "EngineStopped", "DrainTimeout"]
+__all__ = ["ServingConfig", "Engine", "EngineStopped", "DrainTimeout",
+           "DecodeGraph"]
 
 # bound on joining the loop thread when stop() was given no drain budget
 _STOP_JOIN_S = 30.0
+# eager decode steps on a side stream before a bucket's capture (PyTorch's
+# graph API wants the step's lazy work, here the kernels' first build and
+# load and cuBLAS's handles, done before it records)
+_WARM_STEPS = 3
 
 
 class EngineStopped(RuntimeError):
@@ -59,6 +86,19 @@ class EngineStopped(RuntimeError):
 class DrainTimeout(EngineStopped):
     """An admitted request was still decoding when the drain budget ran
     out."""
+
+
+def _prefill_accepts_start(fn: Callable) -> bool:
+    """Whether ``prefill_fn`` takes the ``start`` offset (its third
+    positional argument) and can prefill only a prompt's unshared tail."""
+    try:
+        params = list(inspect.signature(fn).parameters.values())
+    except (TypeError, ValueError):
+        return False
+    if any(p.kind == p.VAR_POSITIONAL for p in params):
+        return True
+    return len([p for p in params if p.kind in (
+        p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]) >= 3
 
 
 @dataclass
@@ -80,19 +120,31 @@ class ServingConfig:
     policy: str = "fifo"
     prefill_token_budget: Optional[int] = None
     device: Optional[str] = None         # None -> cuda (raises without one)
+    # prefix-cache page sharing: auto = share when prefill_fn takes a start
+    # offset, on = require that (a 2-argument prefill_fn raises), off =
+    # never consult the index
+    prefix_sharing: str = "auto"
+    min_shared_pages: int = 1            # shortest chain worth mapping
 
     def __post_init__(self):
         self.buckets = tuple(sorted(set(int(b) for b in self.buckets)))
         if not self.buckets or self.buckets[-1] < self.max_batch:
             raise ValueError(f"buckets {self.buckets} must cover max_batch "
                              f"{self.max_batch}")
+        if self.prefix_sharing not in ("auto", "on", "off"):
+            raise ValueError(f"prefix_sharing must be auto|on|off, got "
+                             f"{self.prefix_sharing!r}")
+        if self.min_shared_pages < 1:
+            raise ValueError(f"min_shared_pages must be >= 1, got "
+                             f"{self.min_shared_pages}")
 
     def kv_config(self) -> _kv.KVCacheConfig:
         cfg = _kv.KVCacheConfig(
             num_layers=self.num_layers, num_heads=self.num_heads,
             head_dim=self.head_dim, max_len=self.max_len,
             page_size=self.page_size, num_pages=self.num_pages,
-            compute_dtype=self.compute_dtype, kv_dtype=self.kv_dtype)
+            compute_dtype=self.compute_dtype, kv_dtype=self.kv_dtype,
+            min_shared_pages=self.min_shared_pages)
         if cfg.num_pages is None:
             cfg.num_pages = self.max_batch * cfg.pages_per_slot + 1
         return cfg
@@ -110,10 +162,85 @@ class _Slot:
     tokens: List[int] = field(default_factory=list)
     first_token_time: float = 0.0
     last_token_time: float = 0.0
+    # leading pages mapped read-only from the prefix index: this slot holds
+    # one reference on each, which free() hands back
+    shared_pages: int = 0
 
     @property
     def request(self) -> GenerationRequest:
         return self.pending.request
+
+
+class DecodeGraph:
+    """One bucket's decode step as a CUDA graph.
+
+    ``tok (b, 1)`` int64, ``tables (b, S)`` int32 and ``t (b,)`` int32 are
+    static device buffers, ``next (b, 1)`` the graph's output. The capture
+    bakes in their addresses and those of the pool, its scales and the
+    model's weights, so the pool must never be reallocated: :meth:`replay`
+    raises if it moved. Replays count the kernel launches the capture
+    recorded (``_native.recorded_launches``)."""
+
+    def __init__(self, step_fn: Callable, kv: _kv.PagedKVCache, bucket: int,
+                 mempool):
+        dev = kv.device
+        if dev.type != "cuda":
+            raise ValueError(f"a decode graph needs a pool on a CUDA "
+                             f"device, not {dev}")
+        S = kv.config.pages_per_slot
+        self.bucket = bucket
+        self.tok = torch.zeros((bucket, 1), dtype=torch.int64, device=dev)
+        self.tables = torch.zeros((bucket, S), dtype=torch.int32, device=dev)
+        self.t = torch.zeros((bucket,), dtype=torch.int32, device=dev)
+        # pinned staging, so the host-to-card copies are asynchronous
+        self._staging = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                         for x in (self.tok, self.tables, self.t)]
+        self._kv = kv
+        self._pool_ptrs = self._pointers()
+        view = PagedDecodeCache(pool=kv.pool, tables=self.tables, t=self.t,
+                                page_size=kv.config.page_size,
+                                scales=kv.scales)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.no_grad():
+            for _ in range(_WARM_STEPS):        # writes page 0 only
+                step_fn(self.tok, view, self.t)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with _native.recorded_launches() as self.launches, torch.no_grad(), \
+                torch.cuda.graph(self.graph, pool=mempool):
+            nxt, _ = step_fn(self.tok, view, self.t)
+        self.next = nxt
+        self.replays = 0
+
+    def _pointers(self) -> Tuple[int, int]:
+        sc = self._kv.scales
+        return (self._kv.pool.data_ptr(),
+                sc.data_ptr() if sc is not None else 0)
+
+    def load(self, tok: np.ndarray, tables: np.ndarray,
+             t: np.ndarray) -> None:
+        """Copy one step's host arrays into the static buffers (queued on
+        the current stream; the previous step's read of ``next`` has
+        retired the previous copies, so the staging is free)."""
+        for host, dev, arr in zip(self._staging,
+                                  (self.tok, self.tables, self.t),
+                                  (tok, tables, t)):
+            host.numpy()[...] = arr
+            dev.copy_(host, non_blocking=True)
+
+    def replay(self) -> torch.Tensor:
+        """Launch the captured step on the current buffers; returns
+        ``next``."""
+        if self._pointers() != self._pool_ptrs:
+            raise RuntimeError(
+                f"decode graph of bucket {self.bucket}: the KV pool moved "
+                f"since its capture; the pool must be updated in place")
+        self.graph.replay()
+        for counter, n in self.launches.items():
+            counter.add(n)
+        self.replays += 1
+        return self.next
 
 
 class Engine:
@@ -130,9 +257,29 @@ class Engine:
         self._prefill_fn = prefill_fn
         self._step_fn = step_fn
         self.kv = _kv.PagedKVCache(config.kv_config(), self.device)
+        capable = _prefill_accepts_start(prefill_fn)
+        if config.prefix_sharing == "on" and not capable:
+            raise ValueError(
+                "prefix_sharing='on' needs a prefill callable that takes a "
+                "start offset (prefill_fn(ids, cache, start)); this one "
+                "takes 2 arguments: pass 'auto' or 'off', or extend it")
+        self._share_prefix = config.prefix_sharing != "off" and capable
+        # prompt tokens asked for and computed (guarded by _slot_lock)
+        self._prefill_tokens_requested = 0
+        self._prefill_tokens_computed = 0
         self.scheduler = Scheduler(
             max_queue=config.max_queue, policy=config.policy,
-            prefill_token_budget=config.prefill_token_budget)
+            prefill_token_budget=config.prefill_token_budget,
+            prefill_cost=self._prefill_cost if self._share_prefix else None)
+        # decode graphs by bucket (a card only), sharing one memory pool;
+        # replays run one at a time on the step thread
+        self._graphs: Dict[int, DecodeGraph] = {}
+        self._graph_lock = threading.Lock()
+        self._graph_pool = None
+        # the step loop's own counts: decode steps by live rows, prefills
+        # by kind (guarded by _slot_lock)
+        self._batch_sizes: Counter = Counter()
+        self._prefills: Counter = Counter()
         self._slots: List[_Slot] = []    # admission order == batch row order
         self._slot_lock = threading.Lock()
         # orders submit's draining check + enqueue against stop's latch, so
@@ -144,28 +291,43 @@ class Engine:
         self._thread: Optional[threading.Thread] = None
 
     # -- device calls -------------------------------------------------------
-    def _prefill(self, prompt: np.ndarray, row: np.ndarray) -> int:
+    def _prefill(self, prompt: np.ndarray, row: np.ndarray,
+                 start: int = 0) -> int:
         """Prefill ``prompt`` into the pages of ``row``; returns the first
-        token (one host sync)."""
+        token (one host sync). With ``start > 0`` the pages covering
+        ``[0, start)`` are a shared prefix: they are read into the buffer,
+        and only the tail is computed and stored."""
         cfg = self.kv.config
+        ps = cfg.page_size
         n = self.kv.pages_for(int(prompt.size))
+        dtype = cfg.torch_compute_dtype
         dense = torch.zeros(
-            (cfg.num_layers, 2, 1, cfg.num_heads, n * cfg.page_size,
-             cfg.head_dim), dtype=cfg.torch_compute_dtype, device=self.device)
-        ids = torch.as_tensor(prompt[None, :], dtype=torch.int64,
+            (cfg.num_layers, 2, 1, cfg.num_heads, n * ps, cfg.head_dim),
+            dtype=dtype, device=self.device)
+        ids = torch.as_tensor(prompt[None, start:], dtype=torch.int64,
                               device=self.device)
+        pages = torch.as_tensor(row[:n], device=self.device)
         with torch.no_grad():
-            nxt, dense = self._prefill_fn(ids, dense)
+            if start:
+                dense[:, :, :, :, :start] = _kv.gather_pages(
+                    self.kv.pool, self.kv.scales, pages[:start // ps], dtype)
+                nxt, dense = self._prefill_fn(ids, dense, start)
+            else:
+                nxt, dense = self._prefill_fn(ids, dense)
             _kv.scatter_prefill_pages(
-                dense, self.kv.pool, self.kv.scales,
-                torch.as_tensor(row[:n], device=self.device),
-                int(prompt.size), cfg.page_size)
+                dense, self.kv.pool, self.kv.scales, pages[start // ps:],
+                int(prompt.size), ps, start=start)
         return int(nxt.reshape(-1)[0])
 
     def _decode(self, tok: np.ndarray, tables: np.ndarray,
                 t: np.ndarray) -> np.ndarray:
         """One batched decode step over the pool; returns next tokens
-        (bucket,) (one host sync)."""
+        (bucket,) (one host sync). A replay of the bucket's graph on a
+        card, an eager ``step_fn`` call on the CPU."""
+        if self.device.type == "cuda":
+            g = self.decode_graph(int(tok.shape[0]))
+            g.load(tok, tables, t)
+            return g.replay().reshape(-1).cpu().numpy()
         dev = self.device
         t_d = torch.as_tensor(t, device=dev)
         view = PagedDecodeCache(
@@ -176,24 +338,79 @@ class Engine:
                                    t_d)
         return nxt.reshape(-1).cpu().numpy()
 
+    def decode_graph(self, bucket: int) -> DecodeGraph:
+        """The CUDA graph of ``bucket``'s decode step, captured on first
+        use (a card only)."""
+        if self.device.type != "cuda":
+            raise RuntimeError("decode graphs need a CUDA device; the CPU "
+                               "engine decodes eagerly")
+        if bucket not in self.config.buckets:
+            raise ValueError(f"{bucket} is not one of the buckets "
+                             f"{self.config.buckets}")
+        with self._graph_lock:
+            g = self._graphs.get(bucket)
+            if g is None:
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                g = DecodeGraph(self._step_fn, self.kv, bucket,
+                                self._graph_pool)
+                self._graphs[bucket] = g
+        return g
+
     def warmup(self, prompt_lens: Sequence[int] = ()) -> "Engine":
-        """Run every batch bucket (and optional prefill lengths) once on the
-        scratch page only: the kernels are built and loaded before the
-        first request. Writes nothing outside page 0."""
+        """Make every batch bucket ready before the first request: on a
+        card capture its decode graph, on the CPU run it once; then prefill
+        the optional ``prompt_lens`` once. Writes nothing outside page 0."""
         S = self.kv.config.pages_per_slot
         for b in self.config.buckets:
-            self._decode(np.zeros((b, 1), np.int64), np.zeros((b, S), np.int32),
-                         np.zeros((b,), np.int32))
+            if self.device.type == "cuda":
+                self.decode_graph(b)
+            else:
+                self._decode(np.zeros((b, 1), np.int64),
+                             np.zeros((b, S), np.int32),
+                             np.zeros((b,), np.int32))
         for lp in prompt_lens:
             self._prefill(np.zeros((int(lp),), np.int32),
                           np.zeros((S,), np.int32))
         return self
+
+    def decode_stats(self) -> Dict[str, Dict[int, int]]:
+        """The step loop's counts so far: ``steps`` (decode steps by their
+        live rows), ``replays`` (graph replays by bucket; none on the CPU)
+        and ``prefills`` (``"full"`` and ``"tail"`` admissions)."""
+        with self._graph_lock:
+            replays = {b: g.replays for b, g in sorted(self._graphs.items())}
+        with self._slot_lock:
+            return {"steps": dict(self._batch_sizes), "replays": replays,
+                    "prefills": dict(self._prefills)}
 
     # -- request surface ----------------------------------------------------
     def _pages_needed(self, request: GenerationRequest) -> int:
         last = min(self.config.max_len,
                    int(request.prompt.size) + request.max_new_tokens)
         return self.kv.pages_for(last)
+
+    def _prefill_cost(self, request: GenerationRequest) -> int:
+        """The scheduler's admission cost: prompt tokens the prefill will
+        compute, the full prompt less the resident prefix chain (a peek:
+        admission claims the chain itself)."""
+        shared = self.kv.peek_prefix_pages(request.prompt) \
+            * self.config.page_size
+        return max(1, int(request.prompt.size) - shared)
+
+    def prefix_summary(self) -> frozenset:
+        """The pool's resident chain digests."""
+        return self.kv.prefix_summary()
+
+    @property
+    def prefix_sharing_enabled(self) -> bool:
+        return self._share_prefix
+
+    def prefill_token_stats(self) -> Tuple[int, int]:
+        """``(requested, computed)`` prompt tokens over all admissions."""
+        with self._slot_lock:
+            return (self._prefill_tokens_requested,
+                    self._prefill_tokens_computed)
 
     def submit(self, request: GenerationRequest):
         """Enqueue; returns a Future resolving to GenerationResult. Raises
@@ -334,30 +551,69 @@ class Engine:
             return True
 
         admitted = False
-        for p in self.scheduler.next_admissions(free_slots, can_fit):
-            admitted |= self._admit_one(p)
+        pending = self.scheduler.next_admissions(free_slots, can_fit)
+        for i, p in enumerate(pending):
+            try:
+                status = self._admit_one(p)
+            except BaseException as exc:
+                # the popped requests behind this one go back in order;
+                # this one fails, and the error surfaces
+                self.scheduler.requeue(pending[i + 1:])
+                if not p.future.done():
+                    p.future.set_exception(exc)
+                raise
+            if status == "noroom":
+                # the pool could not cover what can_fit reserved (single
+                # consumer: not expected); put this one and the rest back
+                self.scheduler.requeue(pending[i:])
+                break
+            admitted |= status == "ok"
         return admitted
 
-    def _admit_one(self, pending: _Pending) -> bool:
+    def _admit_one(self, pending: _Pending) -> str:
+        """Admit one popped request: ``"ok"``, ``"failed"`` (its future
+        holds the error) or ``"noroom"`` (untouched; the caller requeues
+        it)."""
         req = pending.request
-        pages = self.kv.alloc(self._pages_needed(req))
-        if pages is None:     # can_fit reserved them: unreachable
-            raise RuntimeError("page pool raced out from under admission")
+        prompt = req.prompt
+        shared: List[int] = []
+        if self._share_prefix:
+            shared = self.kv.acquire_prefix(prompt)
+        try:
+            pages = self.kv.alloc(self._pages_needed(req) - len(shared))
+        except BaseException:
+            if shared:
+                self.kv.free(shared)
+            raise
+        if pages is None:
+            if shared:
+                self.kv.free(shared)
+            return "noroom"
+        pages = shared + pages
+        start = len(shared) * self.config.page_size
         row = self.kv.table_row(pages)
         try:
-            first_tok = self._prefill(req.prompt, row)
+            first_tok = self._prefill(prompt, row, start)
+            if self._share_prefix:
+                # full prompt pages are frozen now: decode writes land at
+                # t >= prompt length, past every one of them
+                self.kv.publish(prompt, pages)
         except Exception as exc:
-            self.kv.free(pages)
+            self.kv.free(pages)     # shared pages lose one reference
             pending.future.set_exception(exc)
-            return False
+            return "failed"
         now = time.monotonic()
         slot = _Slot(pending=pending, page_ids=pages, table_row=row,
-                     t=int(req.prompt.size), last_tok=first_tok,
-                     first_token_time=now, last_token_time=now)
+                     t=int(prompt.size), last_tok=first_tok,
+                     first_token_time=now, last_token_time=now,
+                     shared_pages=len(shared))
         with self._slot_lock:
             self._slots.append(slot)
+            self._prefill_tokens_requested += int(prompt.size)
+            self._prefill_tokens_computed += int(prompt.size) - start
+            self._prefills["tail" if start else "full"] += 1
         self._emit_token(slot, first_tok, now)
-        return True
+        return "ok"
 
     def _bucket_for(self, n: int) -> int:
         for b in self.config.buckets:
@@ -376,6 +632,8 @@ class Engine:
             t[i] = slot.t
             tables[i] = slot.table_row
         next_np = self._decode(tok, tables, t)
+        with self._slot_lock:
+            self._batch_sizes[len(included)] += 1
         now = time.monotonic()
         for i, slot in enumerate(included):
             slot.t += 1

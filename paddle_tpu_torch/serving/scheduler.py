@@ -15,7 +15,9 @@ Policies:
 * ``budget`` -- FIFO plus a per-boundary prefill-token budget
   (``prefill_token_budget``): admission also stops once the prompt tokens
   admitted at this boundary would exceed it. Bounds the prefill stall a
-  decode step can suffer (the TTFT/TPOT trade).
+  decode step can suffer (the TTFT/TPOT trade). A request's cost is
+  ``prefill_cost(request)`` when the engine gives one (a prefix-sharing
+  engine charges only the unshared tail), else its prompt length.
 
 A request with ``deadline_s`` / ``ttft_budget_s`` that expires while queued
 resolves with :class:`DeadlineExceeded`; one whose estimated queue wait
@@ -104,7 +106,9 @@ class Scheduler:
     ``cancel`` threads."""
 
     def __init__(self, max_queue: int = 64, policy: str = "fifo",
-                 prefill_token_budget: Optional[int] = None):
+                 prefill_token_budget: Optional[int] = None,
+                 prefill_cost: Optional[
+                     Callable[[GenerationRequest], int]] = None):
         if policy not in ("fifo", "budget"):
             raise ValueError(f"unknown admission policy: {policy!r}")
         if policy == "budget" and not prefill_token_budget:
@@ -112,6 +116,7 @@ class Scheduler:
         self.max_queue = max_queue
         self.policy = policy
         self.prefill_token_budget = prefill_token_budget
+        self.prefill_cost = prefill_cost
         self._lock = threading.Lock()
         self._queue: List[_Pending] = []
         self._ewma_interval: Optional[float] = None
@@ -219,7 +224,9 @@ class Scheduler:
                 head = self._queue[0]
                 if not can_fit(head.request):
                     break
-                cost = int(head.request.prompt.size)
+                cost = (int(self.prefill_cost(head.request))
+                        if self.prefill_cost is not None
+                        else int(head.request.prompt.size))
                 if budget is not None and taken and spent + cost > budget:
                     break
                 spent += cost
@@ -235,6 +242,12 @@ class Scheduler:
             if not self._queue:
                 self._reset_wait_model_locked()
         return taken
+
+    def requeue(self, pendings: List[_Pending]) -> None:
+        """Put popped requests back at the head, in order (an admission
+        that found no room after all)."""
+        with self._lock:
+            self._queue[:0] = list(pendings)
 
     def drain_queue(self) -> List[_Pending]:
         """Pop every queued request (engine shutdown: the caller resolves

@@ -26,7 +26,9 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import q8_adam as q8
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.serving import Engine, ServingConfig
+from paddle_tpu_torch.serving import (DecodeGraph, Engine, KVCacheConfig,
+                                      PagedKVCache, ServingConfig,
+                                      prefix_chain_digests)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -69,6 +71,19 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
         LlamaForCausalLM(cfg)
     with pytest.raises(NoDeviceError):
         Engine(lambda *a: None, lambda *a: None, scfg)
+    # prefix sharing and the decode graphs add no way round the card
+    with pytest.raises(NoDeviceError):
+        Engine(lambda ids, cache, start=0: None, lambda *a: None,
+               ServingConfig(num_layers=1, num_heads=2, head_dim=8,
+                             max_len=32, page_size=16, prefix_sharing="on"))
+    # the new serving names import without JAX (the walk above) and run
+    # no device work of their own on the CPU
+    assert len(prefix_chain_digests(list(range(40)), 16)) == 2
+    kv = PagedKVCache(KVCacheConfig(
+        num_layers=1, num_heads=2, head_dim=8, max_len=32, page_size=16,
+        num_pages=3), torch.device("cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        DecodeGraph(lambda *a: None, kv, 1, None)
     for layer in (lambda **kw: Linear(4, 4, **kw),
                   lambda **kw: Embedding(8, 4, **kw),
                   lambda **kw: RMSNorm(4, **kw)):

@@ -2,7 +2,10 @@
 paged-attention kernel tier on (``paged_attention="on"``: the Pallas decode
 kernel under the interpreter), on the same tiny Llama and the same prompts,
 on the float and int8 kv legs. Greedy transcripts must be identical and
-every page must be back after the drain.
+every page must be back after the drain. On the CPU the engine decodes
+eagerly (a card replays one CUDA graph per bucket, ``chip_smoke.py``); the
+graphs' launch accounting and the engine's own step counts are checked
+here without one.
 
 One prompt is 128 tokens long and the JAX SDPA routing seam is opened for
 the reference engine, so its prefill reaches the Pallas flash kernel
@@ -24,6 +27,7 @@ from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 from paddle_tpu.ops import flash_attention as jflash
 from paddle_tpu.ops import nn_ops as jnn_ops
 from paddle_tpu_torch import serving
+from paddle_tpu_torch._native import LaunchCounter, recorded_launches
 from paddle_tpu_torch.convert import state_dict_from_paddle_tpu
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -172,3 +176,39 @@ def test_submit_limits(port_callables):
         eng.submit(serving.GenerationRequest(_prompts()[1]))
     eng.run()
     assert eng.kv.outstanding_pages == 0
+
+
+def test_launch_counter_replay_accounting():
+    from paddle_tpu_torch.ops import paged_attention as pa
+    a, b = LaunchCounter("capture_a"), LaunchCounter("capture_b")
+    a.count, b.count = 5, 2
+    before = pa.launches.count
+    with recorded_launches() as rec:
+        a.count += 3          # what the wrappers count while a graph records
+    # the capture launched nothing: every count is back where it was
+    assert rec == {a: 3}
+    assert (a.count, b.count, pa.launches.count) == (5, 2, before)
+    for _ in range(4):        # four replays
+        for counter, n in rec.items():
+            counter.add(n)
+    assert (a.count, b.count) == (17, 2)
+    with pytest.raises(RuntimeError):
+        with recorded_launches() as rec2:
+            b.count += 1
+            raise RuntimeError("capture failed")
+    assert rec2 == {b: 1} and b.count == 2
+
+
+def test_engine_counts_its_own_decode_steps(port_callables):
+    eng = serving.Engine(*port_callables,
+                         _cfg(serving, "native", device="cpu"))
+    got = _drain(eng, serving, _prompts())
+    stats = eng.decode_stats()
+    # every token after the first is one decode row
+    assert sum(n * k for n, k in stats["steps"].items()) \
+        == sum(len(t) - 1 for t in got)
+    assert set(stats["steps"]) <= {1, 2}
+    assert stats["replays"] == {}          # the CPU decodes eagerly
+    assert stats["prefills"] == {"full": len(got)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eng.decode_graph(1)
