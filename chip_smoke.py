@@ -41,7 +41,20 @@ per phase:
   ``flash_attn_unpadded`` on packed lengths, trains ERNIE-3.0-base at
   full size (``bench_ernie.py``'s traffic, then B=8 L=512; 2 warm-up, 10
   timed and one profiled step each), and compares two full-width fp32
-  ERNIE layers with attention dropout on the card and on the CPU.
+  ERNIE layers with attention dropout on the card and on the CPU;
+* the train step as one CUDA graph: holds the multi-tensor AdamW kernel
+  against its plain version at ERNIE-3.0-base's 117,946,370 parameters
+  (and a closed NaN gate that must write nothing), timed beside
+  ``torch._fused_adamw_``; checks ``jit.capture_step``'s contract on two
+  full-width fp32 ERNIE layers (eager and captured trajectories agree, a
+  graph with frozen attention seeds must not, the LR follows the
+  scheduler with no recapture, a NaN batch changes no state,
+  ``scheduler.step()`` in the update raises, a new shape captures again,
+  launches per replay, a host-reading step runs eagerly); trains
+  ERNIE-3.0-base captured with the fine-tune recipe (multi-tensor AdamW,
+  warm-up and linear decay, global-norm clip, NaN gate) on both legs
+  beside the same recipe's eager tier, and runs the Llama step of
+  ``bench.py`` captured with ``iters_per_call=4`` after its eager steps.
 
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound; the last line is ``{"ok": true, "device":
@@ -57,6 +70,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1465,7 +1479,10 @@ def check_q8_adam(torch, q8):
             st_k = [x.clone() for x in (m0, ms0, v0, vs0, base32.to(dt))]
             st_r = [x.clone() for x in st_k]
             g = g32.to(dt)
-            kw = dict(hp, c1=c1, c2=c2, decay=decay, seed=1234, use_sr=sr)
+            kw = dict(eps=hp["eps"], beta1=hp["beta1"], beta2=hp["beta2"],
+                      scalars=q8.scalar_block(hp["lr"], c1, c2, decay,
+                                              device="cuda"),
+                      has_wd=decay is not None, seed=1234, use_sr=sr)
             q8.q8_adam_update(*st_k, g, **kw)
             q8.q8_adam_update_reference(*st_r, g, **kw)
             torch.cuda.synchronize()
@@ -1496,8 +1513,25 @@ def check_q8_adam(torch, q8):
             emit({"phase": "q8_adam_check", **row})
             rows.append(row)
             if n == 17694720 and sr:
-                # the main path's case: bf16 base and grad, SR, wd
+                # the main path's case: bf16 base and grad, SR, wd, the
+                # scalars and the seed in device memory as the optimizer
+                # gives them (no host copy in the timed launches)
                 nb = st_k[0].shape[0]
+                kw = dict(eps=hp["eps"], beta1=hp["beta1"],
+                          beta2=hp["beta2"], has_wd=True, use_sr=True,
+                          scalars=q8.scalar_block(hp["lr"], c1, c2, decay,
+                                                  device="cuda"),
+                          seed=torch.tensor(1234, device="cuda"))
+                # a gate of 0 (the NaN gate withholding the step) writes
+                # nothing
+                held = [x.clone() for x in st_k]
+                closed = dict(kw, scalars=kw["scalars"].clone())
+                closed["scalars"][4] = 0.0
+                q8.q8_adam_update(*st_k, g, **closed)
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, b) for a, b in zip(st_k, held)),
+                        "q8: a closed gate wrote state")
+                del held
                 ms = cuda_ms(torch, lambda: q8.q8_adam_update(*st_k, g, **kw), 20)
                 plain = cuda_ms(torch, lambda: q8.q8_adam_update_reference(
                     *st_r, g, **kw), 3, warmup=1)
@@ -1505,7 +1539,8 @@ def check_q8_adam(torch, q8):
                 bms, by = bound(25.0 * n, nbytes, "float32")
                 timing = dict(n=n, ms=ms, plain_ms=plain, bound_ms=bms,
                               bound_by=by, library_ms=None,
-                              gbytes_per_s=nbytes / ms / 1e6)
+                              gbytes_per_s=nbytes / ms / 1e6,
+                              closed_gate_writes_nothing=True)
             del st_k, st_r, g
         del m0, ms0, v0, vs0, base32, g32
     # stochastic rounding is unbiased: base 1.0 decayed to f32(0.9997) with
@@ -1523,8 +1558,10 @@ def check_q8_adam(torch, q8):
               torch.ones(n, dtype=torch.bfloat16, device="cuda")]
         q8.q8_adam_update(*st, torch.zeros(n, dtype=torch.bfloat16,
                                            device="cuda"),
-                          lr=1e-3, c1=0.1, c2=0.001, eps=1e-8, beta1=0.9,
-                          beta2=0.999, decay=0.9997, seed=seed, use_sr=True)
+                          scalars=q8.scalar_block(1e-3, 0.1, 0.001, 0.9997,
+                                                  device="cuda"),
+                          has_wd=True, eps=1e-8, beta1=0.9, beta2=0.999,
+                          seed=seed, use_sr=True)
         total += float(st[4].double().mean())
     mean = total / 16
     require(abs(mean - target) < 2e-6,
@@ -1632,10 +1669,97 @@ def train_1p6b(torch, card, fa, q8, all_counters):
            "launches_per_step": {k: n / steps for k, n in launches.items()}}
     emit(row)
     profile_train(torch, card, step, p50)
-    del model, opt, ids
+    # nothing may keep an eager step's autograd graph alive: its gradient
+    # accumulators would run on the stream they were made on, which a
+    # capture cannot record
+    del opt, step, loss
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    captured = train_1p6b_captured(torch, card, fa, q8, model, cfg, batch,
+                                   seq, p50)
+    del model, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, captured
+
+
+LLAMA_ITERS = 4   # bench.py's scan_k: steps per captured call
+
+
+def train_1p6b_captured(torch, card, fa, q8, model, cfg, batch: int,
+                        seq: int, eager_p50: float) -> dict:
+    """The bench.py step through ``jit.capture_step(..., iters_per_call=4)``
+    (its K-stacked batches, one graph of 4 steps), on the model the eager
+    phase trained, with a fresh int8 AdamW: one capturing call, then 2
+    timed calls (8 steps). Losses must be finite and no call may bypass the
+    graph."""
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.optimizer import AdamW
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                use_multi_tensor=False, moment_dtype="int8",
+                use_master_weights=False)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                              master_weight=False)
+    ids = torch.randint(0, cfg.vocab_size, (LLAMA_ITERS, batch, seq),
+                        device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+
+    def body(ids):
+        with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+            loss, _ = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    cap = jit.capture_step(body, iters_per_call=LLAMA_ITERS)
+    counters = train_counters(fa, q8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    losses = cap(ids).tolist()
+    torch.cuda.synchronize()
+    first_s = time.monotonic() - t0
+    for c in counters.values():
+        c.reset()
+    times = []
+    stop_sampler = sample_card()
+    try:
+        for _ in range(2):
+            t0 = time.monotonic()
+            out = cap(ids)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) / LLAMA_ITERS)
+            losses += out.tolist()
+    finally:
+        card_samples = stop_sampler()
+    launches = {k: c.count for k, c in counters.items()}
+    graph = next(iter(cap._graphs.values()))
+    per_replay = {c.name: n for c, n in graph.recorded.items()}
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(cap.stats == {"hits": 2, "retraces": 1, "bypasses": {}},
+            f"Llama captured: {cap.stats}")
+    require(all(n == 2 * per_replay[counters[k].name] > 0
+                for k, n in launches.items()),
+            f"Llama captured: launches {launches}, per replay {per_replay}")
+    p50 = statistics.median(times)
+    tok_s = batch * seq / p50
+    fpt = model.flops_per_token(seq)
+    row = {"phase": "train_llama_1p6b_captured", "card": card,
+           "batch": batch, "seq": seq, "iters_per_call": LLAMA_ITERS,
+           "first_call_s": first_s, "timed_calls": 2,
+           "step_s": times, "step_p50_s": p50, "eager_step_p50_s": eager_p50,
+           "captured_over_eager": p50 / eager_p50,
+           "tokens_per_s": tok_s, "mfu_vs_989tflops": fpt * tok_s / 989e12,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": launches,
+           "launches_per_replay": per_replay, "stats": cap.stats,
+           "card_during_steps": card_samples}
+    emit(row)
+    del opt, cap, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def train_family(name: str) -> str:
@@ -1659,8 +1783,10 @@ def profile_train(torch, card, step, unprofiled_step_s: float) -> None:
 def profile_step(torch, card, step, unprofiled_step_s: float, phase: str,
                  family, extra=None) -> None:
     """One more training step under ``torch.profiler``: device time and
-    launches per kernel family (``family`` of a kernel's name) and the
-    busy share."""
+    launches per kernel family (``family`` of a kernel's name), the busy
+    share, the device operations (kernels, copies and fills) and the host
+    calls that put work on the card (kernel and graph launches, copies,
+    fills); returns the row."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1669,9 +1795,13 @@ def profile_step(torch, card, step, unprofiled_step_s: float, phase: str,
         step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kernels = [e for e in prof.key_averages()
+    evts = prof.key_averages()
+    kernels = [e for e in evts
                if e.device_type == torch.autograd.DeviceType.CUDA
                and device_us(e) > 0]
+    host = {e.key: e.count for e in evts
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and HOST_LAUNCH.search(e.key)}
     total_s = sum(device_us(e) for e in kernels) / 1e6
     require(total_s > 0, "profiler recorded no device time")
     fams = {}
@@ -1680,13 +1810,19 @@ def profile_step(torch, card, step, unprofiled_step_s: float, phase: str,
         f["device_ms"] += device_us(e) / 1e3
         f["calls"] += e.count
     top = sorted(kernels, key=device_us, reverse=True)[:12]
-    emit({"phase": phase, "card": card, **(extra or {}), "wall_s": wall,
-          "device_ms": total_s * 1e3, "device_busy_share": total_s / wall,
-          "unprofiled_step_s": unprofiled_step_s,
-          "device_busy_share_est_unprofiled": total_s / unprofiled_step_s,
-          "families": fams,
-          "top": [{"kernel": e.key[:90], "device_ms": device_us(e) / 1e3,
-                   "calls": e.count} for e in top]})
+    row = {"phase": phase, "card": card, **(extra or {}), "wall_s": wall,
+           "device_ms": total_s * 1e3, "device_busy_share": total_s / wall,
+           "unprofiled_step_s": unprofiled_step_s,
+           "device_busy_share_est_unprofiled": total_s / unprofiled_step_s,
+           "device_ops": sum(e.count for e in kernels),
+           "device_kernels": sum(e.count for e in kernels if not
+                                 e.key.startswith(("Memcpy", "Memset"))),
+           "host_launch_calls": sum(host.values()), "host_calls": host,
+           "families": fams,
+           "top": [{"kernel": e.key[:90], "device_ms": device_us(e) / 1e3,
+                    "calls": e.count} for e in top]}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2402,6 +2538,543 @@ def ernie_vs_cpu(torch, fa) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the train step as one CUDA graph: the multi-tensor AdamW kernel, the
+# capture contract, ERNIE-3.0-base and the Llama step captured
+# ---------------------------------------------------------------------------
+
+ERNIE3_BASE_PARAMS = 117946370   # ErnieConfig.ernie3_base() with 2 classes
+ADAM_HP = dict(eps=1e-8, beta1=0.9, beta2=0.999)
+# the multi-tensor update: per element 14 bytes read (bf16 grad, fp32
+# master, m, v) and 14 written (master, m, v, bf16 parameter); 18 fp32
+# operations (clip scale 1, m 3, v 4, two bias divisions, decay 1, lr 1,
+# sqrt, eps add, division, subtraction)
+MT_BYTES, MT_FLOPS = 28.0, 18.0
+
+
+def ulps32(torch, a, b) -> int:
+    """Largest distance in fp32 units in the last place between a and b."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def check_multi_tensor_adam(torch, q8, mta) -> dict:
+    """The multi-tensor AdamW kernel against its plain version at
+    ERNIE-3.0-base's 117,946,370 parameters (bf16 parameters and
+    gradients, fp32 master and moments, the global-norm scale and weight
+    decay on): master, m and v within one fp32 ulp (max-abs reported),
+    bf16 parameters equal; a planted closed gate writes nothing; its time
+    against its byte bound, the plain version and ``torch._fused_adamw_``
+    on the fp32 masters (a yardstick, never the path)."""
+    n = ERNIE3_BASE_PARAMS
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    master = torch.randn(n, generator=gen, device="cuda") * 0.02
+    m = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    v = torch.rand(n, generator=gen, device="cuda") * 1e-4
+    grad = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(
+        torch.bfloat16)
+    param = master.to(torch.bfloat16)
+    t = 3
+    c1, c2 = (float(torch.tensor(1.0 - b ** t, dtype=torch.float32))
+              for b in (0.9, 0.999))
+    lr, wd = 5e-5, 0.01
+    sc = q8.scalar_block(lr, c1, c2, 1.0 - lr * wd, grad_scale=0.8,
+                         device="cuda")
+    kw = dict(ADAM_HP, scalars=sc, has_wd=True, grad_scale=True)
+    st_k = [x.clone() for x in (master, m, v, param)]
+    st_r = [x.clone() for x in (master, m, v, param)]
+    launches0 = mta.launches.count
+    mta.multi_tensor_adam_update(*st_k, grad, **kw)
+    mta.multi_tensor_adam_update_reference(*st_r, grad, **kw)
+    torch.cuda.synchronize()
+    require(mta.launches.count == launches0 + 1,
+            "multi_tensor_adam: not one launch")
+    errs = {name: float((a - b).abs().max())
+            for name, a, b in zip(("master", "m", "v"), st_k, st_r)}
+    ulps = {name: ulps32(torch, a, b)
+            for name, a, b in zip(("master", "m", "v"), st_k, st_r)}
+    param_diff = int((st_k[3] != st_r[3]).sum())
+    moved = int((st_k[0] != master).sum())      # the update reached them
+    require(max(ulps.values()) <= 1 and param_diff == 0 and moved > n // 2,
+            f"multi_tensor_adam kernel vs plain: max-abs {errs}, ulps "
+            f"{ulps}, bf16 parameters differing {param_diff}, masters moved "
+            f"{moved}")
+    closed = sc.clone()
+    closed[4] = 0.0
+    st_g = [x.clone() for x in (master, m, v, param)]
+    mta.multi_tensor_adam_update(*st_g, grad, **dict(kw, scalars=closed))
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in
+                zip(st_g, (master, m, v, param))),
+            "multi_tensor_adam: a closed gate wrote state")
+    del st_g
+    ms = cuda_ms(torch, lambda: mta.multi_tensor_adam_update(
+        *st_k, grad, **kw), 20)
+    plain = cuda_ms(torch, lambda: mta.multi_tensor_adam_update_reference(
+        *st_r, grad, **kw), 3, warmup=1)
+    del st_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the library yardstick: one fused PyTorch AdamW over the fp32 masters
+    # (its gradient fp32 too: it takes the parameters' dtype)
+    p32, g32 = master.clone(), grad.float()
+    m32, v32 = m.clone(), v.clone()
+    step_t = torch.tensor(float(t), device="cuda")
+    library = cuda_ms(torch, lambda: torch._fused_adamw_(
+        [p32], [g32], [m32], [v32], [], [step_t], lr=lr, beta1=0.9,
+        beta2=0.999, weight_decay=wd, eps=1e-8, amsgrad=False,
+        maximize=False), 20)
+    bms, by = bound(MT_FLOPS * n, MT_BYTES * n, "float32")
+    row = {"phase": "multi_tensor_adam_check", "n": n,
+           "param_dtype": "bfloat16", "grad_dtype": "bfloat16",
+           "max_abs_err": errs, "max_ulps": ulps,
+           "bf16_params_differing": param_diff,
+           "closed_gate_writes_nothing": True, "ms": ms, "plain_ms": plain,
+           "bound_ms": bms, "bound_by": by, "library_ms": library,
+           "library": "torch._fused_adamw_ on fp32 masters and fp32 grads",
+           "gbytes_per_s": MT_BYTES * n / ms / 1e6}
+    emit(row)
+    del master, m, v, grad, param, st_k, p32, g32, m32, v32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+CAPTURE_STEPS = 6
+CAPTURE_RTOL, CAPTURE_ATOL = 1e-5, 1e-6   # tests/test_step_capture.py:212-221
+
+
+def ernie_recipe(torch, model, decay_steps: int, warmup_steps: int,
+                 peak: float = 5e-5):
+    """The fine-tune recipe: AdamW(use_multi_tensor, wd 0.01),
+    LinearWarmup over PolynomialDecay(power 1, to 0), global-norm clip 1."""
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    sched = lr_mod.LinearWarmup(
+        lr_mod.PolynomialDecay(peak, decay_steps, end_lr=0.0, power=1.0),
+        warmup_steps, 0.0, peak)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                weight_decay=0.01, use_multi_tensor=True,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return sched, opt
+
+
+def carried_state(model, opt) -> list:
+    """Clones of every state tensor a step writes: the parameters, the flat
+    master, m and v, the step count and the dropout seed counter."""
+    fs = opt._flat
+    return ([p.detach().clone() for p in model.parameters()]
+            + [fs.master.clone(), fs.m.clone(), fs.v.clone(),
+               opt._step_t.clone(), model.ernie.rng.counter.clone()])
+
+
+def within(torch, a, b) -> bool:
+    return bool(torch.allclose(a.float(), b.float(), rtol=CAPTURE_RTOL,
+                               atol=CAPTURE_ATOL))
+
+
+def captured_step(jit, step, mode: str, **kw):
+    """``jit.CapturedStep(step, **kw)`` built under
+    ``PADDLE_TPU_STEP_CAPTURE=mode`` (``off``: the eager tier), as a user
+    selects the tier."""
+    prev = os.environ.get("PADDLE_TPU_STEP_CAPTURE")
+    os.environ["PADDLE_TPU_STEP_CAPTURE"] = mode
+    try:
+        return jit.CapturedStep(step, **kw)
+    finally:
+        if prev is None:
+            del os.environ["PADDLE_TPU_STEP_CAPTURE"]
+        else:
+            os.environ["PADDLE_TPU_STEP_CAPTURE"] = prev
+
+
+def capture_check(torch, fa, mta) -> dict:
+    """The capture contract on two full-width ERNIE-3.0-base layers in
+    fp32, dropout on (hidden and attention 0.1), the fine-tune recipe and
+    the NaN gate: an eager run (``PADDLE_TPU_STEP_CAPTURE=off`` tier) and a
+    captured one go 6 steps from the same state and must agree (step 1's
+    loss bit-equal, every loss and parameter within rtol 1e-5, atol 1e-6);
+    a captured run whose attention seeds are frozen into the graph as
+    constants must not; the dropout counter advances layers x steps; the LR
+    follows the scheduler with one capture and 5 replays; a NaN batch
+    leaves every state tensor bitwise unchanged; ``scheduler.step()`` in
+    the update raises ``HostStateWriteError``; a new shape captures a
+    second graph; a replay launches the flash kernels layers x 3 times and
+    the multi-tensor kernel once; a step with a host read runs eagerly
+    (bypass ``untraceable``)."""
+    import warnings
+    import numpy as np
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                               ErnieForSequenceClassification)
+    from paddle_tpu_torch.nn import common as nn_common
+    from paddle_tpu_torch.ops._u32 import M32
+    cfg = ErnieConfig.ernie3_base()
+    cfg.num_hidden_layers = 2
+    layers = cfg.num_hidden_layers
+    batch, seq = 8, 128
+    rng = np.random.default_rng(3)
+    data = [(torch.as_tensor(rng.integers(1, cfg.vocab_size, (batch, seq)),
+                             device="cuda"),
+             torch.as_tensor(rng.integers(0, 2, (batch,)), device="cuda"))
+            for _ in range(CAPTURE_STEPS)]
+    one = torch.ones((), device="cuda")
+    init = {}
+    counters = {e: fa.launches_variant[e, "segs_drop"]
+                for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
+
+    def build(mode):
+        model = ErnieForSequenceClassification(cfg, device="cuda", seed=5)
+        if not init:
+            init.update({k: v.clone() for k, v in model.state_dict().items()})
+        model.load_state_dict(init)
+        sched, opt = ernie_recipe(torch, model, decay_steps=8,
+                                  warmup_steps=2)
+
+        def step(ids, labels, scale):
+            loss, _ = model(ids, labels=labels)
+            loss = loss * scale
+            loss.backward()
+            return loss
+
+        def update():
+            opt.step()
+            opt.clear_grad()
+        cap = captured_step(jit, step, mode, update_fn=update,
+                            clear_fn=opt.clear_grad, nan_gate=True)
+        return model, sched, opt, cap
+
+    def run(mode):
+        model, sched, opt, cap = build(mode)
+        losses = []
+        for ids, labels in data:
+            losses.append(cap(ids, labels, one))
+            sched.step()
+            require(float(opt._lr_t) == float(np.float32(sched())),
+                    f"capture ({mode}): _lr_t {float(opt._lr_t)} is not the "
+                    f"scheduler's {sched()}")
+        torch.cuda.synchronize()
+        return model, sched, opt, cap, torch.stack(losses)
+
+    def agree(a, b) -> dict:
+        (ma, _, oa, _, la), (mb, _, ob, _, lb) = a, b
+        params = [within(torch, x, y) for x, y in
+                  zip(carried_state(ma, oa)[:-2], carried_state(mb, ob)[:-2])]
+        la, lb = la.detach(), lb.detach()
+        return {"step1_loss_bit_equal": bool(torch.equal(la[0], lb[0])),
+                "losses_within": within(torch, la, lb),
+                "state_tensors_within": sum(params),
+                "state_tensors": len(params),
+                "loss_max_rel": float(((la - lb).abs() / lb.abs()).max())}
+
+    eager = run("off")
+    captured = run("auto")
+    verdict = agree(eager, captured)
+    require(verdict["step1_loss_bit_equal"] and verdict["losses_within"]
+            and verdict["state_tensors_within"] == verdict["state_tensors"],
+            f"capture: eager and captured trajectories differ: {verdict}")
+    model, sched, opt, cap, _ = captured
+    require(cap.stats == {"hits": CAPTURE_STEPS - 1, "retraces": 1,
+                          "bypasses": {}},
+            f"capture: stats {cap.stats}")
+    for name, (m_, *_rest) in (("eager", eager), ("captured", captured)):
+        require(int(m_.ernie.rng.counter) == layers * CAPTURE_STEPS,
+                f"capture ({name}): dropout counter "
+                f"{int(m_.ernie.rng.counter)}, want {layers * CAPTURE_STEPS}")
+    graph = next(iter(cap._graphs.values()))
+    per_replay = {c.name: n for c, n in graph.recorded.items()}
+    flash = sum(graph.recorded.get(c, 0) for c in counters.values())
+    require(flash == layers * 3 and graph.recorded.get(mta.launches) == 1,
+            f"capture: launches per replay {per_replay}")
+    # the counters follow the replays
+    for c in (*counters.values(), mta.launches):
+        c.reset()
+    cap(*data[0], one)
+    torch.cuda.synchronize()
+    counted = {c.name: c.count for c in (*counters.values(), mta.launches)}
+    require(counted == {c.name: graph.recorded[c]
+                        for c in (*counters.values(), mta.launches)},
+            f"capture: a replay counted {counted}, recorded {per_replay}")
+    # a NaN batch: the gate withholds the update on the device
+    before = carried_state(model, opt)
+    nan_loss = cap(*data[1], torch.full((), float("nan"), device="cuda"))
+    torch.cuda.synchronize()
+    changed = sum(not torch.equal(a, b)
+                  for a, b in zip(carried_state(model, opt), before))
+    require(not math.isfinite(float(nan_loss)) and changed == 0,
+            f"capture: a NaN batch changed {changed} state tensors")
+    # a new shape: a second graph
+    cap(data[0][0][:4], data[0][1][:4], one)
+    require(cap.stats["retraces"] == 2 and cap.num_graphs == 2,
+            f"capture: a new shape gave {cap.stats}")
+    # scheduler.step() inside the captured update
+    trap = captured_step(
+        jit, lambda ids, labels: model(ids, labels=labels)[0].backward(),
+        "auto",
+        update_fn=lambda: (opt.step(), opt.clear_grad(), sched.step()))
+    try:
+        trap(*data[2])
+        raised = False
+    except jit.HostStateWriteError:
+        raised = True
+    require(raised, "capture: scheduler.step() inside the captured update "
+                    "did not raise HostStateWriteError")
+    opt.clear_grad()
+    # a graph holds and writes only the RNGs its step draws from: an
+    # unrelated model and a CPU DropoutRNG alive at capture, the model
+    # freed (its memory handed to new tensors) before the replays
+    other = ErnieForSequenceClassification(cfg, device="cuda", seed=9)
+    cpu_rng = nn_common.DropoutRNG("cpu", seed=9)
+    iso_model, _, _, iso = build("auto")
+    iso_losses = [iso(*data[0], one)]
+    iso_graph = next(iter(iso._graphs.values()))
+    iso_rngs = iso_graph.rngs
+    del other
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = [torch.full((1,), -1, dtype=torch.int64, device="cuda")
+            for _ in range(8192)]
+    iso_losses += [iso(ids, labels, one) for ids, labels in data[1:4]]
+    torch.cuda.synchronize()
+    junk_intact = bool(torch.cat(junk).eq(-1).all())
+    isolation = {"rngs_kept": len(iso_rngs),
+                 "kept_is_the_model_rng": iso_rngs == (iso_model.ernie.rng,),
+                 "stats": iso.stats, "junk_intact": junk_intact,
+                 "cpu_rng_counter": int(cpu_rng.counter),
+                 "counter": int(iso_model.ernie.rng.counter),
+                 "losses_finite": all(math.isfinite(float(x))
+                                      for x in iso_losses)}
+    require(isolation["kept_is_the_model_rng"] and junk_intact
+            and isolation["cpu_rng_counter"] == 0
+            and isolation["counter"] == layers * 4
+            and isolation["losses_finite"]
+            and iso.stats == {"hits": 3, "retraces": 1, "bypasses": {}},
+            f"capture: a graph touched RNGs its step does not draw from: "
+            f"{isolation}")
+    del iso_model, iso, iso_graph, iso_rngs, junk, cpu_rng
+    # the planted fault: attention seeds frozen into the graph as by-value
+    # constants (what passing the seed by value did); eager runs draw them
+    # as the real scheme does, so only the replays go wrong
+    real = nn_common.DropoutRNG.next_seed
+    host_count = {}
+
+    def frozen(self):
+        k = host_count.setdefault(id(self), 0)
+        host_count[id(self)] = k + 1
+        self.counter.add_(1)
+        return torch.full((), (5 + k * 0x9E3779B1) & M32,
+                          dtype=torch.int64, device=self.seed_t.device)
+    nn_common.DropoutRNG.next_seed = frozen
+    try:
+        planted = run("auto")
+    finally:
+        nn_common.DropoutRNG.next_seed = real
+    planted_verdict = agree(eager, planted)
+    require(not (planted_verdict["losses_within"]
+                 and planted_verdict["state_tensors_within"]
+                 == planted_verdict["state_tensors"]),
+            f"capture: the frozen-seed graph passed the comparison: "
+            f"{planted_verdict}")
+    # a step that reads the host cannot be captured: eager, counted
+    lin = torch.nn.Linear(64, 64, device="cuda")
+    x = torch.randn(16, 64, device="cuda")
+
+    def host_read(x):
+        loss = lin(x).square().mean()
+        loss.backward()
+        return torch.tensor(float(loss), device="cuda")
+    reader = captured_step(jit, host_read, "auto")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        outs = [float(reader(x)) for _ in range(2)]
+    require(reader.stats["bypasses"] == {"untraceable": 2}
+            and all(math.isfinite(o) for o in outs) and len(caught) == 1,
+            f"capture: host-read step gave {reader.stats}, {outs}, "
+            f"{[str(w.message)[:80] for w in caught]}")
+    torch.cuda.synchronize()
+    row = {"phase": "capture_check", "layers": layers, "dtype": "float32",
+           "batch": batch, "seq": seq, "steps": CAPTURE_STEPS,
+           "hidden_dropout": cfg.hidden_dropout_prob,
+           "attention_dropout": cfg.attention_probs_dropout_prob,
+           "eager_vs_captured": verdict,
+           "losses_eager": eager[4].tolist(),
+           "losses_captured": captured[4].tolist(),
+           "tolerance": {"rtol": CAPTURE_RTOL, "atol": CAPTURE_ATOL},
+           "planted_frozen_seed": planted_verdict,
+           "losses_planted": planted[4].tolist(),
+           "dropout_counter": int(model.ernie.rng.counter),
+           "stats": cap.stats, "launches_per_replay": per_replay,
+           "nan_batch_state_changed": changed,
+           "scheduler_step_in_update_raises": raised,
+           "rng_isolation": isolation,
+           "host_read_step": reader.stats}
+    emit(row)
+    del eager, captured, planted, model, opt, cap, trap, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_ernie3_base_captured(torch, card, fa, mta) -> dict:
+    """The main path: ERNIE-3.0-base fine-tuning (full width and depth,
+    random weights from seed 0) with the recipe (AMP O2 bf16 with fp32
+    masters, dropout 0.1, multi-tensor AdamW, LinearWarmup over
+    PolynomialDecay, global-norm clip 1.0) through
+    ``jit.capture_step(..., nan_gate=True)``, ``scheduler.step()``
+    between calls; bench_ernie.py's traffic (B=32, L=128), then B=8,
+    L=512, each 2 warm-up (the first captures) and 10 timed calls, then one
+    profiled call. Leg 1 also runs the same recipe on the eager tier
+    (``PADDLE_TPU_STEP_CAPTURE=off``), timed and profiled, for the side-by-side. The eval
+    loss on the fixed batch must fall over each leg, and no call may
+    bypass the graph."""
+    import numpy as np
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                               ErnieForSequenceClassification)
+    cfg = ErnieConfig.ernie3_base()
+    warmup, timed, eager_timed = 2, 10, 5
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0), seed=0)
+    params = model.num_params()
+    require(params == ERNIE3_BASE_PARAMS, f"ERNIE-3.0-base has {params} "
+                                          f"parameters")
+    total = 2 * (warmup + timed + 1) + warmup + eager_timed + 1
+    sched, opt = ernie_recipe(torch, model, decay_steps=total,
+                              warmup_steps=max(1, total // 10))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    path = {e: fa.launches_variant[e, "segs_drop"]
+            for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
+    path["multi_tensor_adam"] = mta.launches
+
+    def step(ids, labels):
+        with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+            loss, _ = model(ids, labels=labels)
+        loss.backward()
+        return loss
+
+    def update():
+        opt.step()
+        opt.clear_grad()
+    cap = jit.capture_step(step, update_fn=update, clear_fn=opt.clear_grad,
+                           nan_gate=True)
+    legs = []
+    for leg, (batch, seq) in enumerate(ERNIE_LEGS, 1):
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq),
+                                           dtype=np.int32), device="cuda")
+        labels = torch.as_tensor(rng.integers(0, 2, (batch,)).astype(np.int64),
+                                 device="cuda")
+
+        def eval_loss():
+            model.eval()
+            with torch.no_grad(), amp.auto_cast(enable=True, level="O2",
+                                                dtype="bfloat16"):
+                loss, _ = model(ids, labels=labels)
+            model.train()
+            return float(loss)
+
+        def timed_calls(fn, n):
+            losses, times = [], []
+            for _ in range(n):
+                t1 = time.monotonic()
+                loss = fn(ids, labels)
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t1)
+                losses.append(float(loss))
+                sched.step()
+            return losses, times
+
+        before = eval_loss()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in path.values():
+            c.reset()
+        stats0 = dict(cap.stats, bypasses=dict(cap.stats["bypasses"]))
+        stop_sampler = sample_card()
+        try:
+            losses, times = timed_calls(cap, warmup + timed)
+        finally:
+            card_samples = stop_sampler()
+        launches = {k: c.count for k, c in path.items()}
+        after = eval_loss()
+        graph = cap._graphs[next(reversed(cap._graphs))]
+        per_replay = {c.name: n for c, n in graph.recorded.items()}
+        require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        require(not cap.stats["bypasses"], f"ERNIE captured: bypasses "
+                                           f"{cap.stats}")
+        require(cap.stats["retraces"] == stats0["retraces"] + 1
+                and cap.stats["hits"] == stats0["hits"] + warmup + timed - 1,
+                f"ERNIE captured B={batch} L={seq}: {cap.stats} after "
+                f"{stats0}")
+        require(after < before, f"ERNIE captured B={batch} L={seq}: eval "
+                                f"loss {before} -> {after}, not falling")
+        require(all(launches[f"{e}"] == cfg.num_hidden_layers * (warmup + timed)
+                    for e in ("fwd_lse", "bwd_dq", "bwd_dkv"))
+                and launches["multi_tensor_adam"] == warmup + timed,
+                f"ERNIE captured B={batch} L={seq}: launches {launches}")
+        timed_s = times[warmup:]
+        p50 = statistics.median(timed_s)
+        tok_s = batch * seq / p50
+        fpt = model.flops_per_token(seq)
+        row = {"phase": "train_ernie3_base_captured", "card": card,
+               "leg": leg, "params": params, "batch": batch, "seq": seq,
+               "recipe": {"amp": "O2 bf16, fp32 masters",
+                          "optimizer": "AdamW(use_multi_tensor=True, wd 0.01)",
+                          "lr": "LinearWarmup(PolynomialDecay(5e-5, %d, 0.0,"
+                                " 1.0), %d, 0.0, 5e-5)" % (
+                                    total, max(1, total // 10)),
+                          "grad_clip": "ClipGradByGlobalNorm(1.0)",
+                          "dropout": [cfg.hidden_dropout_prob,
+                                      cfg.attention_probs_dropout_prob],
+                          "nan_gate": True},
+               "warmup_calls": warmup, "timed_calls": timed,
+               "step_s": times, "step_p50_s": p50,
+               "step_spread_s": max(timed_s) - min(timed_s),
+               "tokens_per_s": tok_s, "examples_per_s": batch / p50,
+               "flops_per_token": fpt,
+               "mfu_vs_989tflops": fpt * tok_s / 989e12,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": losses, "eval_loss_before": before,
+               "eval_loss_after": after, "card_during_steps": card_samples,
+               "launches": launches, "launches_per_replay": per_replay,
+               "stats": cap.stats, "lr_end": sched()}
+        emit(row)
+        prof = profile_step(torch, card, lambda: cap(ids, labels), p50,
+                            "train_ernie_captured_profile", train_family,
+                            {"batch": batch, "seq": seq, "tier": "captured"})
+        sched.step()
+        if leg == 1:
+            # the same recipe on the eager tier, for the side-by-side
+            eager_cap = captured_step(jit, step, "off", update_fn=update,
+                                      clear_fn=opt.clear_grad, nan_gate=True)
+            e_losses, e_times = timed_calls(eager_cap, warmup + eager_timed)
+            e_p50 = statistics.median(e_times[warmup:])
+            e_prof = profile_step(torch, card, lambda: eager_cap(ids, labels),
+                                  e_p50, "train_ernie_captured_profile",
+                                  train_family, {"batch": batch, "seq": seq,
+                                                 "tier": "eager (off)"})
+            sched.step()
+            pair = {"captured": prof, "eager": e_prof}
+            emit({"phase": "train_ernie3_base_captured_vs_eager",
+                  "card": card, "batch": batch, "seq": seq,
+                  "step_p50_s": {"captured": p50, "eager": e_p50},
+                  "speedup": e_p50 / p50,
+                  **{k: {t: r[k] for t, r in pair.items()} for k in (
+                      "host_launch_calls", "device_kernels",
+                      "device_busy_share_est_unprofiled")},
+                  "eager_step_s": e_times, "eager_losses": e_losses})
+        legs.append(row)
+    del model, opt, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"ernie_captured_leg{r['leg']}": {
+        f"{e}[segs_drop]": r["launches"][e]
+        for e in ("fwd_lse", "bwd_dq", "bwd_dkv")} | {
+        "multi_tensor_adam": r["launches"]["multi_tensor_adam"]}
+        for r in legs}
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     import torch
@@ -2410,6 +3083,7 @@ def main() -> int:
         return 2
     from paddle_tpu_torch._native import build as native_build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import multi_tensor_adam as mta
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import q8_adam as q8
     from paddle_tpu_torch.serving import kv_cache as kvc
@@ -2448,7 +3122,7 @@ def main() -> int:
         f"{bulk_kernels}")
     all_counters = (fa.launches, pa.launches, fa.launches_lse,
                     fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches,
-                    *fa.launches_variant.values())
+                    mta.launches, *fa.launches_variant.values())
 
     flash_rows = check_flash(torch, fa)
     paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
@@ -2465,7 +3139,8 @@ def main() -> int:
     flash_errs, flash_times = check_flash_train(torch, fa,
                                                 planted["flash_attention"])
     q8_err, q8_time = check_q8_adam(torch, q8)
-    train_launches = train_1p6b(torch, smi, fa, q8, all_counters)
+    mt_row = check_multi_tensor_adam(torch, q8, mta)
+    train_launches, _ = train_1p6b(torch, smi, fa, q8, all_counters)
     train_vs_cpu(torch, fa, q8)
     check_flash_segs_dropout(torch, fa, planted["flash_attention:b0"])
     var_times = time_variants(torch, fa, *ERNIE_SHAPE)
@@ -2474,6 +3149,11 @@ def main() -> int:
                                                 fa.launches_variant)}
     path_launches.update(train_ernie3_base(torch, smi, fa, all_counters))
     ernie_vs_cpu(torch, fa)
+    capture_check(torch, fa, mta)
+    captured_launches = train_ernie3_base_captured(torch, smi, fa, mta)
+    path_launches.update({k: {e: n for e, n in v.items()
+                              if e != "multi_tensor_adam"}
+                          for k, v in captured_launches.items()})
 
     k1 = next(r for r in flash_rows if r["case"] == "causal_1000_ragged")
     k2 = next(r for r in paged_rows if r["case"] == "bf16_h32")
@@ -2530,6 +3210,22 @@ def main() -> int:
              *ERNIE_SHAPE, var_times[e, v]["ids"]),
          **{k: var_times[e, v][k] for k in keys}}
         for e in VARIANT_LINES for v in fa.VARIANTS
+    ] + [
+        {"name": "multi_tensor_adam", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/multi_tensor_adam.cu",
+         "replaces": "paddle_tpu/optimizer/__init__.py:976",
+         "replaces_pallas_call": False,
+         "note": "the port's own kernel: the JAX package's Adam._fused_step "
+                 "is XLA-fused jnp, no pallas_call",
+         "launches": captured_launches["ernie_captured_leg1"][
+             "multi_tensor_adam"],
+         "launches_path": "ernie_captured_leg1",
+         **{f"launches_{p}": n["multi_tensor_adam"]
+            for p, n in captured_launches.items()},
+         "max_abs_err": max(mt_row["max_abs_err"].values()),
+         "case": "n=%d (ERNIE-3.0-base) bf16 params and grads, fp32 master "
+                 "and moments, global-norm scale, wd" % mt_row["n"],
+         **{k: mt_row[k] for k in keys}},
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -125,7 +125,9 @@ def decorate(models, optimizers=None, level: str = "O2",
     over them keeps them); set each optimizer's master-weight mode
     (``None``: fp32 masters for low-precision parameters; ``False``: none,
     bf16 written back with stochastic rounding) and rebuild its state for
-    the new dtypes."""
+    the new dtypes. A multi-tensor optimizer keeps its flat fp32 master
+    (built from the values before the cast) and makes the cast parameters
+    views of one flat buffer rounded from it."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
                          f"{dtype!r}")

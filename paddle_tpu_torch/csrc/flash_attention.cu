@@ -113,9 +113,13 @@ constexpr float LSE_MASKED = 1e30f;  // lse of a row that sees no key
 //   the normaliser and the lse take the undropped P. keep_prob = fp32(1 -
 //   p) and inv_keep = fp32(1 / (1 - p)), each rounded once from a double
 //   on the host, as JAX rounds the Python floats against fp32 arrays.
+// The seed is read from device memory (seed_ptr, its 32 bits), once per
+// block into `seed` at the top of each DROP kernel, so a captured CUDA graph
+// draws the seed each replay's own step wrote there.
 struct SegDrop {
   const int* qseg;
   const int* kseg;
+  const uint32_t* seed_ptr;
   uint32_t seed;
   float keep_prob;
   float inv_keep;
@@ -149,6 +153,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Lq, int Lk, int H, int Hkv,
                  int causal, float sm_scale, SegDrop sd) {
+  if constexpr (DROP) sd.seed = *sd.seed_ptr;
   using S = Smem<D>;
   constexpr int DJ = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -691,6 +696,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int Lq, int Lk, int H, int Hkv, int causal,
                        float sm_scale, SegDrop sd) {
+  if constexpr (DROP) sd.seed = *sd.seed_ptr;
   using S = FwSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
@@ -1001,6 +1007,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Lq, int Lk, int H, int Hkv, int causal,
                     float sm_scale, SegDrop sd) {
+  if constexpr (DROP) sd.seed = *sd.seed_ptr;
   using S = BwdSmem<D>;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -1135,6 +1142,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int Lq, int Lk, int H, int Hkv,
                      int causal, float sm_scale, SegDrop sd) {
+  if constexpr (DROP) sd.seed = *sd.seed_ptr;
   using S = BwdSmem<D>;
   constexpr int DJ = D / 16;
   constexpr int BQ = BM;
@@ -1422,6 +1430,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int H,
                           int Hkv, int causal, float sm_scale, SegDrop sd) {
+  if constexpr (DROP) sd.seed = *sd.seed_ptr;
   using S = DqSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
@@ -1699,6 +1708,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int H,
                            int Hkv, int causal, float sm_scale, SegDrop sd) {
+  if constexpr (DROP) sd.seed = *sd.seed_ptr;
   using S = DkvSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024
@@ -2006,17 +2016,18 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // The segment-id and dropout variants of the four entry points: the same
 // arguments, then q_segs (B, Lq) and kv_segs (B, Lk) int32 (both or
-// neither null; both with drop), drop (0 or 1), seed (its bits as uint32), keep_prob =
+// neither null; both with drop), drop (0 or 1), seed (a device pointer to its
+// 32 bits, read by each block of a DROP kernel), keep_prob =
 // fp32(1 - p) and inv_keep = fp32(1 / (1 - p)) (see SegDrop), then the
 // stream.
 extern "C" int flash_fwd_segdrop(const void* q, const void* k, const void* v,
                                  void* o, int B, int Lq, int Lk, int H, int Hkv,
                                  int D, int dtype, int causal, float sm_scale,
                                  const void* q_segs, const void* kv_segs, int drop,
-                                 int seed, float keep_prob, float inv_keep,
+                                 const void* seed, float keep_prob, float inv_keep,
                                  void* stream) {
   const SegDrop sd{static_cast<const int*>(q_segs), static_cast<const int*>(kv_segs),
-                   (uint32_t)seed, keep_prob, inv_keep};
+                   static_cast<const uint32_t*>(seed), 0u, keep_prob, inv_keep};
   return (int)fwd_dispatch_var<false>(q, k, v, o, nullptr, B, Lq, Lk, H, Hkv, D, dtype,
                                       causal, sm_scale, static_cast<cudaStream_t>(stream),
                                       sd, drop);
@@ -2026,10 +2037,10 @@ extern "C" int flash_fwd_lse_segdrop(const void* q, const void* k, const void* v
                                      void* o, void* lse, int B, int Lq, int Lk,
                                      int H, int Hkv, int D, int dtype, int causal,
                                      float sm_scale, const void* q_segs,
-                                     const void* kv_segs, int drop, int seed,
+                                     const void* kv_segs, int drop, const void* seed,
                                      float keep_prob, float inv_keep, void* stream) {
   const SegDrop sd{static_cast<const int*>(q_segs), static_cast<const int*>(kv_segs),
-                   (uint32_t)seed, keep_prob, inv_keep};
+                   static_cast<const uint32_t*>(seed), 0u, keep_prob, inv_keep};
   return (int)fwd_dispatch_var<true>(q, k, v, o, static_cast<float*>(lse), B, Lq, Lk, H,
                                      Hkv, D, dtype, causal, sm_scale,
                                      static_cast<cudaStream_t>(stream), sd, drop);
@@ -2040,10 +2051,10 @@ extern "C" int flash_bwd_dq_segdrop(const void* q, const void* k, const void* v,
                                     const void* delta, void* dq, int B, int Lq,
                                     int Lk, int H, int Hkv, int D, int dtype,
                                     int causal, float sm_scale, const void* q_segs,
-                                    const void* kv_segs, int drop, int seed,
+                                    const void* kv_segs, int drop, const void* seed,
                                     float keep_prob, float inv_keep, void* stream) {
   const SegDrop sd{static_cast<const int*>(q_segs), static_cast<const int*>(kv_segs),
-                   (uint32_t)seed, keep_prob, inv_keep};
+                   static_cast<const uint32_t*>(seed), 0u, keep_prob, inv_keep};
   return (int)bwd_dispatch_var<false>(q, k, v, dout, lse, delta, dq, nullptr, B, Lq, Lk,
                                       H, Hkv, D, dtype, causal, sm_scale,
                                       static_cast<cudaStream_t>(stream), sd, drop);
@@ -2055,10 +2066,10 @@ extern "C" int flash_bwd_dkv_segdrop(const void* q, const void* k, const void* v
                                      int Lq, int Lk, int H, int Hkv, int D,
                                      int dtype, int causal, float sm_scale,
                                      const void* q_segs, const void* kv_segs,
-                                     int drop, int seed, float keep_prob,
+                                     int drop, const void* seed, float keep_prob,
                                      float inv_keep, void* stream) {
   const SegDrop sd{static_cast<const int*>(q_segs), static_cast<const int*>(kv_segs),
-                   (uint32_t)seed, keep_prob, inv_keep};
+                   static_cast<const uint32_t*>(seed), 0u, keep_prob, inv_keep};
   return (int)bwd_dispatch_var<true>(q, k, v, dout, lse, delta, dk, dv, B, Lq, Lk, H,
                                      Hkv, D, dtype, causal, sm_scale,
                                      static_cast<cudaStream_t>(stream), sd, drop);

@@ -1,11 +1,15 @@
-"""Layers of the port with paddle's parameter names and layouts."""
+"""Layers of the port with paddle's parameter names and layouts, and the
+gradient clips (``paddle.nn.ClipGradBy*``, from ``optimizer``)."""
 
 from . import functional
 from .common import Dropout, DropoutRNG, Embedding, Linear
 from .norm import LayerNorm, RMSNorm
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
+from ..optimizer import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: E402
+                         ClipGradByValue)
 
-__all__ = ["Dropout", "DropoutRNG", "Embedding", "LayerNorm", "Linear",
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "Dropout", "DropoutRNG", "Embedding", "LayerNorm", "Linear",
            "MultiHeadAttention", "RMSNorm", "TransformerEncoder",
            "TransformerEncoderLayer", "functional"]

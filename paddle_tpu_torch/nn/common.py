@@ -4,15 +4,18 @@ shape; ``DropoutRNG``, the random streams a model hands its dropouts."""
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from ..ops import nn_ops
+from ..ops._u32 import M32, derive_seed
 
-__all__ = ["Dropout", "DropoutRNG", "Embedding", "Linear"]
+__all__ = ["Dropout", "DropoutRNG", "Embedding", "Linear", "recording_draws"]
 
 
 class Linear(nn.Module):
@@ -69,17 +72,63 @@ class Embedding(nn.Module):
 
 
 class DropoutRNG:
-    """The random streams of one model's dropouts, both seeded with
-    ``seed``: ``device``, a generator on the model's device, draws the
-    element masks of :class:`Dropout`; ``host``, a CPU generator, draws the
-    int seeds of attention dropout (the keep mask B0 in the flash kernels)
-    with no device sync. The counterpart of the JAX package's global
-    generator, owned by the model instead."""
+    """The random streams of one model's dropouts, both from ``seed``:
+
+    * ``device``, a ``torch.Generator`` on the model's device, draws the
+      element masks of :class:`Dropout` (a captured step registers it with
+      its graph, so each replay draws fresh masks);
+    * the attention-dropout seeds (the keep mask B0 of the flash kernels)
+      come from device state, ``seed_t`` (the base seed) and ``counter``:
+      :meth:`next_seed` derives one seed on the device and advances the
+      counter in-stream, with no host read. Eager and captured steps then
+      draw the same sequence of seeds, and a graph replay draws fresh
+      ones.
+
+    The counterpart of the JAX package's global generator, owned by the
+    model instead."""
 
     def __init__(self, device=None, seed: int = 0):
-        self.device = torch.Generator(
-            device=resolve_device(device)).manual_seed(seed)
-        self.host = torch.Generator().manual_seed(seed)
+        dev = resolve_device(device)
+        self.device = torch.Generator(device=dev).manual_seed(seed)
+        self.seed_t = torch.tensor(int(seed) & M32, dtype=torch.int64,
+                                   device=dev)
+        self.counter = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def note_draw(self) -> None:
+        """Tell an open :func:`recording_draws` that this RNG is drawn
+        from (``next_seed`` and :class:`Dropout` call it)."""
+        log = getattr(_draws, "log", None)
+        if log is not None and self not in log:
+            log[self] = self.counter.clone() if _draws.keep else None
+
+    def next_seed(self) -> torch.Tensor:
+        """The next attention-dropout seed, a 0-d int64 tensor in [0, 2^32)
+        on the device (``ops._u32.derive_seed`` of the base seed and the
+        counter), after which ``counter`` advances by one."""
+        self.note_draw()
+        s = derive_seed(self.seed_t, self.counter)
+        self.counter.add_(1)
+        return s
+
+
+_draws = threading.local()
+
+
+@contextlib.contextmanager
+def recording_draws(keep_counters: bool = False
+                    ) -> Iterator[Dict[DropoutRNG, Optional[torch.Tensor]]]:
+    """Record the ``DropoutRNG`` objects drawn from in this region (on this
+    thread): yields a dict from each to a copy of its ``counter`` from
+    before its first draw here (``keep_counters``; else None). A captured
+    step registers these generators with its graph and keeps the objects,
+    and its NaN gate puts these counters back."""
+    prev = getattr(_draws, "log", None), getattr(_draws, "keep", False)
+    log: Dict[DropoutRNG, Optional[torch.Tensor]] = {}
+    _draws.log, _draws.keep = log, keep_counters
+    try:
+        yield log
+    finally:
+        _draws.log, _draws.keep = prev
 
 
 class Dropout(nn.Module):
@@ -96,6 +145,8 @@ class Dropout(nn.Module):
         self.rng = rng if rng is not None else DropoutRNG(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.p > 0.0:
+            self.rng.note_draw()
         return nn_ops.dropout(x, self.p, self.training,
                               generator=self.rng.device)
 

@@ -30,8 +30,8 @@ _ACTIVATIONS = {"gelu": nn_ops.gelu, "relu": nn_ops.relu}
 class MultiHeadAttention(nn.Module):
     """Self or cross attention over ``(B, L, E)`` with ``num_heads`` heads;
     ``dropout`` is the attention-probability dropout, drawn in the flash
-    kernels with seeds from ``rng.host`` (a model's ``DropoutRNG``, by
-    default one of its own on ``device``)."""
+    kernels with seeds from ``rng.next_seed()`` (a model's ``DropoutRNG``,
+    by default one of its own on ``device``)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  kdim=None, vdim=None, bias_attr=None, device=None,
@@ -60,7 +60,7 @@ class MultiHeadAttention(nn.Module):
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.dropout if self.training else 0.0,
             training=self.training,
-            generator=self.rng.host)
+            generator=self.rng)
         return self.out_proj(out.reshape(b, lq, self.embed_dim))
 
 

@@ -22,7 +22,9 @@ the JAX kernels:
 
 * segment ids ``q_segs (B, Lq)``, ``kv_segs (B, Lk)`` int: row ``i`` sees
   key ``j`` only where the ids are equal (and the causal rule allows);
-* attention dropout ``dropout_p`` with an int ``seed``: the keep mask is
+* attention dropout ``dropout_p`` with a ``seed`` (an int, or a 0-d
+  integer tensor whose low 32 bits the kernels read from device memory,
+  so a captured graph draws each replay's own): the keep mask is
   :func:`keep_mask_reference`, the lowbias32 hash of ``(seed, b * H + h,
   row, col)`` that ``_keep_tile`` draws, bit for bit; kept probabilities
   are scaled by ``1 / (1 - p)``, the normaliser and the lse stay undropped.
@@ -36,8 +38,8 @@ with lse and the backward, the counterpart of the JAX package's
 GQA keeps K/V ungrouped and the dk/dv kernel sums a group's query heads.
 :func:`flash_attention` and :func:`flash_attn_unpadded` are the paddle
 functions of the JAX package: with dropout (training) the seed is
-``fixed_seed_offset`` or a draw from the caller's ``generator``, never
-from a global RNG.
+``fixed_seed_offset``, a draw from the caller's ``torch.Generator``, or
+the next device-side seed of a ``DropoutRNG``, never from a global RNG.
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ from typing import Optional
 import torch
 
 from .. import _native
-from ._u32 import M32, mul32
+from ._u32 import M32, mul32, seed_tensor, seed_term
 
 __all__ = ["FlashAttention", "VARIANTS", "dropout_constants", "dropout_seed",
+           "seed_tensor",
            "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_fwd", "flash_attention_lse",
@@ -87,9 +90,10 @@ _ARGTYPES_BWD_DQ = [ctypes.c_void_p] * 7 + _DIMS
 # flash_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, <as flash_fwd>)
 _ARGTYPES_BWD_DKV = [ctypes.c_void_p] * 8 + _DIMS
 # <entry>_segdrop(<as entry, without the stream>, q_segs, kv_segs, drop,
-# seed, keep_prob, inv_keep, stream)
-_SEGDROP_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+# seed (a device pointer to its 32 bits), keep_prob, inv_keep, stream)
+_SEGDROP_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+                 ctypes.c_void_p]
 _ARGTYPES_OF = {"flash_fwd": _ARGTYPES, "flash_fwd_lse": _ARGTYPES_LSE,
                 "flash_bwd_dq": _ARGTYPES_BWD_DQ,
                 "flash_bwd_dkv": _ARGTYPES_BWD_DKV}
@@ -162,12 +166,13 @@ def dropout_constants(dropout_p: float):
     return _f32(1.0 - dropout_p), _f32(1.0 / (1.0 - dropout_p))
 
 
-def keep_mask_reference(seed: int, bh, rows, cols,
+def keep_mask_reference(seed, bh, rows, cols,
                         keep_prob: float) -> torch.Tensor:
     """B0, the plain version of ``_keep_tile``
     (``paddle_tpu/ops/flash_attention.py:47``): the lowbias32 hash of
     ``(seed, bh, row, col)`` (``bh = b * H + h``, rows and columns absolute),
     kept where its top 24 bits times 2^-24 are below ``keep_prob`` (fp32).
+    ``seed`` is an int or a 0-d integer tensor (its low 32 bits).
     ``bh``, ``rows`` and ``cols`` are ints or integer tensors that
     broadcast; the result is a bool tensor of their broadcast shape, equal
     bit for bit to what ``_keep_tile`` and the kernels draw."""
@@ -177,7 +182,7 @@ def keep_mask_reference(seed: int, bh, rows, cols,
     def u32(x):
         return torch.as_tensor(x, dtype=torch.int64, device=dev) & M32
     h = mul32(u32(rows), 0x9E3779B1) ^ mul32(u32(cols), 0x85EBCA77)
-    h = h ^ (((int(seed) & M32) * 0xC2B2AE3D) & M32)
+    h = h ^ seed_term(seed, 0xC2B2AE3D, h.device)
     h = h ^ mul32(u32(bh), 0x27D4EB2F)
     h = h ^ (h >> 16)
     h = mul32(h, 0x7FEB352D)
@@ -325,8 +330,8 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout,
 
 def _segdrop_args(q_segs, kv_segs, dropout_p, seed, b, lq, lk, dev):
     """The trailing C arguments of a ``*_segdrop`` entry point (the stream
-    excepted) and the id tensors they point into (kept alive by the
-    caller until the launch is queued)."""
+    excepted) and the tensors they point into, the id tensors and then the
+    seed (kept alive by the caller until the launch is queued)."""
     if q_segs is None:   # dropout alone: zeros, one segment, no masking
         q_segs = torch.zeros(b, lq, dtype=torch.int32, device=dev)
         kv_segs = torch.zeros(b, lk, dtype=torch.int32, device=dev)
@@ -338,9 +343,10 @@ def _segdrop_args(q_segs, kv_segs, dropout_p, seed, b, lq, lk, dev):
                          f"{tuple(segs[0].shape)}, {tuple(segs[1].shape)}")
     keep_prob, inv_keep = (dropout_constants(dropout_p) if dropout_p > 0.0
                            else (1.0, 1.0))
-    seed32 = (int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31   # its bits, as int32
+    seed_t = seed_tensor(seed, dev)
     ptrs = tuple(s.data_ptr() for s in segs)
-    return (*ptrs, int(dropout_p > 0.0), seed32, keep_prob, inv_keep), segs
+    return (*ptrs, int(dropout_p > 0.0), seed_t.data_ptr(), keep_prob,
+            inv_keep), (*segs, seed_t)
 
 
 def flash_attention_fwd(query: torch.Tensor, key: torch.Tensor,
@@ -473,7 +479,8 @@ def flash_attention_bwd(query, key, value, out, lse, dout,
 
 class FlashAttention(torch.autograd.Function):
     """Attention with a flash backward: the forward saves ``(q, k, v, out,
-    lse)`` (and the segment ids; the seed as an int); the backward runs the
+    lse)`` (and the segment ids; the seed, an int or a device tensor that
+    the backward reads again); the backward runs the
     dq kernel, then the dk/dv kernel (their plain versions on the CPU).
     ``FlashAttention.apply(q, k, v, causal, sm_scale[, q_segs, kv_segs,
     dropout_p, seed])``."""
@@ -500,20 +507,24 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
-def dropout_seed(fixed_seed_offset, generator: Optional[torch.Generator]
-                 ) -> int:
+def dropout_seed(fixed_seed_offset, generator):
     """The dropout seed, the counterpart of ``_dropout_seed``
     (``paddle_tpu/ops/flash_attention.py:561``): ``fixed_seed_offset`` when
-    given (an int or a one-element tensor), else one draw from
-    ``generator``. A CPU generator draws without a device sync."""
+    given (an int, or a one-element tensor kept as a tensor: no host
+    read), else the next device-side seed of a ``DropoutRNG``
+    (``generator.next_seed()``: a 0-d tensor, no host read, what a
+    captured step needs), else one draw from a ``torch.Generator`` (an
+    int; a CPU generator draws without a device sync)."""
     if fixed_seed_offset is not None:
         if isinstance(fixed_seed_offset, torch.Tensor):
-            return int(fixed_seed_offset.reshape(-1)[0])
+            return fixed_seed_offset.reshape(-1)[0].to(torch.int64) & M32
         return int(fixed_seed_offset)
     if generator is None:
         raise ValueError("attention dropout needs fixed_seed_offset or a "
-                         "torch.Generator: the port never draws from a "
-                         "global RNG")
+                         "torch.Generator / DropoutRNG: the port never "
+                         "draws from a global RNG")
+    if hasattr(generator, "next_seed"):
+        return generator.next_seed()
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=generator.device))
 
@@ -524,15 +535,16 @@ def flash_attention(query, key, value, dropout: float = 0.0,
                     training: bool = True, q_segment_ids=None,
                     kv_segment_ids=None, name=None, *,
                     sm_scale: Optional[float] = None,
-                    generator: Optional[torch.Generator] = None):
+                    generator=None):
     """``paddle.nn.functional.flash_attention`` with the JAX package's
     signature (``paddle_tpu/ops/flash_attention.py:833``). Inputs ``(B, L,
     H, D)``; ``q_segment_ids`` / ``kv_segment_ids`` ``(B, L)`` restrict
     row ``i`` to the keys of its own segment. With ``dropout > 0`` and
     ``training`` the probabilities are dropped in the kernels (B0), always
     with segment ids, zeros where none are given, as ``_flash_core_drop``
-    takes them; the seed is ``fixed_seed_offset`` or a draw from
-    ``generator`` (port extension, like ``sm_scale``). When autograd
+    takes them; the seed is ``fixed_seed_offset`` or comes from
+    ``generator``, a ``DropoutRNG`` or a ``torch.Generator`` (port
+    extension, like ``sm_scale``; see :func:`dropout_seed`). When autograd
     records the call it goes through :class:`FlashAttention`, otherwise to
     the forward-only kernel."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
@@ -570,7 +582,7 @@ def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                         causal: bool = False, return_softmax: bool = False,
                         fixed_seed_offset=None, rng_name: str = "",
                         training: bool = True, name=None, *,
-                        generator: Optional[torch.Generator] = None):
+                        generator=None):
     """``paddle.nn.functional.flash_attn_unpadded`` as the JAX package runs
     it (``paddle_tpu/ops/flash_attention.py:917``): the packed ``(total, H,
     D)`` tokens are one batch row whose segment ids come from

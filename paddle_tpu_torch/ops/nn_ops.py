@@ -17,10 +17,11 @@ materialised softmax, the counterpart of the JAX package's XLA path, which
 is no Pallas kernel either.
 
 Randomness comes from the caller: ``dropout`` draws its mask from a
-``torch.Generator`` on the tensor's device, and attention dropout draws
-an int seed from ``generator`` (a CPU generator draws without a device
-sync) for the keep mask B0 of ``ops/flash_attention.py``, which the plain
-path applies too.
+``torch.Generator`` on the tensor's device, and attention dropout takes
+its seed from ``generator``, a model's ``DropoutRNG`` (a seed derived on
+the device, no host read) or a ``torch.Generator`` (an int draw), for the
+keep mask B0 of ``ops/flash_attention.py``, which the plain path applies
+too.
 """
 
 from __future__ import annotations
@@ -150,11 +151,11 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
                                  training: bool = True, name=None, *,
-                                 generator: Optional[torch.Generator] = None
-                                 ) -> torch.Tensor:
+                                 generator=None) -> torch.Tensor:
     """Paddle SDPA over ``(B, L, H, D)`` q and ``(B, L, H_kv, D)`` k/v,
-    routed as the module docstring says. ``generator`` (port extension)
-    gives attention dropout its seeds."""
+    routed as the module docstring says. ``generator`` (port extension, a
+    ``DropoutRNG`` or a ``torch.Generator``) gives attention dropout its
+    seeds."""
     query, key, value, attn_mask = cast_inputs(
         "scaled_dot_product_attention", query, key, value, attn_mask)
     p = dropout_p if training else 0.0

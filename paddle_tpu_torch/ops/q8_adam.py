@@ -18,6 +18,15 @@ counter-based hash of ``(seed, element index)`` that the CUDA source
 computes identically, so the plain version reproduces the kernel bit for
 bit.
 
+The step's scalars, lr, ``decay = 1 - lr * wd``, the bias corrections
+``c1``, ``c2`` and the NaN gate, are a block of fp32 on the device
+(:func:`scalar_block`, layout ``SCALARS``) that the kernel reads from
+memory, as it reads the rounding seed (a 0-d integer tensor): the
+optimizer fills the block each step from its step-count and LR tensors, so
+a captured CUDA graph reads each replay's own values. Where the gate is 0
+the update writes nothing. A caller with plain floats builds the block
+with :func:`scalar_block`.
+
 :func:`q8_adam_update` launches the kernel for CUDA tensors and runs
 :func:`q8_adam_update_reference` only for CPU tensors.
 """
@@ -32,21 +41,24 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _native
-from ._u32 import M32, mul32
+from ._u32 import M32, mul32, seed_tensor, seed_term
 
-__all__ = ["Q8_BLOCK", "launches", "q8_adam_update",
+__all__ = ["Q8_BLOCK", "SCALARS", "launches", "q8_adam_update",
            "q8_adam_update_reference", "q8_dequantize", "q8_quantize",
-           "sr_bits", "stochastic_round_bf16"]
+           "scalar_block", "sr_bits", "stochastic_round_bf16"]
 
 Q8_BLOCK = 2048
 launches = _native.LaunchCounter("q8_adam")
 
+# the device scalar block of an AdamW step, in this order: this kernel
+# reads the first five, the multi-tensor one (ops/multi_tensor_adam.py) all
+SCALARS = ("lr", "decay", "c1", "c2", "gate", "grad_scale")
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # q8_adam(m_q, m_s, v_q, v_s, base, grad, n, nb, base_dtype, grad_dtype,
-#         lr, decay, c1, c2, eps, b1, b2, omb1, omb2, has_wd, use_sr, seed,
-#         stream)
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 9 \
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+#         scalars, eps, b1, b2, omb1, omb2, has_wd, use_sr, seed, stream)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] \
+    + [ctypes.c_float] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 
 
 @functools.cache
@@ -76,12 +88,13 @@ def q8_dequantize(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     return (q.float() * scale[:, None]).reshape(-1)[:n].reshape(shape)
 
 
-def sr_bits(seed: int, n: int, device=None) -> torch.Tensor:
-    """The 16 rounding bits of elements ``0 .. n-1`` under ``seed``: the
+def sr_bits(seed, n: int, device=None) -> torch.Tensor:
+    """The 16 rounding bits of elements ``0 .. n-1`` under ``seed`` (an int
+    or a 0-d integer tensor, its low 32 bits): the
     lowbias32 finalizer over ``idx * 0x9E3779B1 ^ seed * 0xC2B2AE3D``, top
     16 bits (``csrc/q8_adam.cu: sr_bits``). int64 values in [0, 2^16)."""
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    h = mul32(idx, 0x9E3779B1) ^ ((int(seed) * 0xC2B2AE3D) & M32)
+    h = mul32(idx, 0x9E3779B1) ^ seed_term(seed, 0xC2B2AE3D, device)
     h = h ^ (h >> 16)
     h = mul32(h, 0x7FEB352D)
     h = h ^ (h >> 15)
@@ -116,14 +129,37 @@ def _scalar(x: float, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
-def q8_adam_update_reference(m_q, m_s, v_q, v_s, base, grad, *, lr: float,
-                             c1: float, c2: float, eps: float, beta1: float,
-                             beta2: float, decay: Optional[float] = None,
-                             seed: int = 0, use_sr: bool = False) -> None:
+def scalar_block(lr: float, c1: float, c2: float,
+                 decay: Optional[float] = None, gate: float = 1.0,
+                 grad_scale: float = 1.0, device=None) -> torch.Tensor:
+    """The device scalar block (``SCALARS`` order) of plain floats, each
+    rounded once to fp32 (``decay`` None: 1, unused without weight
+    decay)."""
+    return torch.tensor([lr, 1.0 if decay is None else decay, c1, c2, gate,
+                         grad_scale], dtype=torch.float32, device=device)
+
+
+def _check_scalars(scalars: torch.Tensor, device) -> torch.Tensor:
+    if scalars.dtype != torch.float32 or scalars.numel() < 5:
+        raise ValueError(f"q8_adam_update: scalars must be fp32 with the "
+                         f"{SCALARS[:5]} at least, got {scalars.dtype} "
+                         f"{tuple(scalars.shape)}")
+    return scalars.to(device)
+
+
+def q8_adam_update_reference(m_q, m_s, v_q, v_s, base, grad, *,
+                             scalars: torch.Tensor, has_wd: bool, eps: float,
+                             beta1: float, beta2: float, seed=0,
+                             use_sr: bool = False) -> None:
     """Plain version of the int8 AdamW step, in place, with the kernel's
-    operations in the kernel's order. ``decay`` is ``1 - lr * wd`` (None:
-    no weight decay); ``c1 = 1 - beta1^t``, ``c2 = 1 - beta2^t``."""
+    operations in the kernel's order. The step's scalars are the block
+    ``scalars`` (``SCALARS`` order: ``lr``, ``decay = 1 - lr * wd``, read
+    only where ``has_wd``, ``c1 = 1 - beta1^t``, ``c2 = 1 - beta2^t``, the
+    gate). Where the gate is 0 nothing changes (decided on the device)."""
     dev = base.device
+    sc = _check_scalars(scalars, dev)
+    lr_t, decay_t, c1_t, c2_t = sc[0], sc[1], sc[2], sc[3]
+    keep = sc[4] == 0.0
     s = lambda x: _scalar(x, dev)  # noqa: E731
     nb = m_q.shape[0]
     n = base.numel()
@@ -141,30 +177,36 @@ def q8_adam_update_reference(m_q, m_s, v_q, v_s, base, grad, *, lr: float,
     msc = torch.where(msc == 0, one, msc)
     vsc = sq.amax(dim=1) / c127
     vsc = torch.where(vsc == 0, one, vsc)
-    m_q.copy_(torch.round(nm / msc[:, None]).clamp(-127, 127).to(torch.int8))
-    v_q.copy_(torch.round(sq / vsc[:, None]).clamp(-127, 127).to(torch.int8))
-    m_s.copy_(msc)
-    v_s.copy_(vsc)
+    for dst, new in (
+            (m_q, torch.round(nm / msc[:, None]).clamp(-127, 127)
+             .to(torch.int8)),
+            (v_q, torch.round(sq / vsc[:, None]).clamp(-127, 127)
+             .to(torch.int8)),
+            (m_s, msc), (v_s, vsc)):
+        dst.copy_(torch.where(keep, dst, new))
     nm, nv = nm.view(-1)[:n], nv.view(-1)[:n]
     upd = base.reshape(-1).float()
-    if decay is not None:
-        upd = upd * s(decay)
-    upd = upd - s(lr) * (nm / s(c1)) / (torch.sqrt(nv / s(c2)) + s(eps))
+    if has_wd:
+        upd = upd * decay_t
+    upd = upd - lr_t * (nm / c1_t) / (torch.sqrt(nv / c2_t) + s(eps))
     flat = base.view(-1)
     if use_sr:
-        flat.copy_(stochastic_round_bf16(upd, sr_bits(seed, n, dev)))
+        new = stochastic_round_bf16(upd, sr_bits(seed, n, dev))
     else:
-        flat.copy_(upd)
+        new = upd.to(flat.dtype)
+    flat.copy_(torch.where(keep, flat, new))
 
 
-def q8_adam_update(m_q, m_s, v_q, v_s, base, grad, *, lr: float, c1: float,
-                   c2: float, eps: float, beta1: float, beta2: float,
-                   decay: Optional[float] = None, seed: int = 0,
+def q8_adam_update(m_q, m_s, v_q, v_s, base, grad, *,
+                   scalars: torch.Tensor, has_wd: bool, eps: float,
+                   beta1: float, beta2: float, seed=0,
                    use_sr: bool = False) -> None:
     """One int8 AdamW step in place: the kernel (CUDA) or its plain
     version (CPU). ``base`` and ``grad`` are contiguous with ``n`` elements
     each (fp32 or bf16), ``m_q``/``v_q`` int8 ``(ceil(n / 2048), 2048)``,
-    ``m_s``/``v_s`` fp32; ``use_sr`` needs a bf16 ``base``."""
+    ``m_s``/``v_s`` fp32; ``use_sr`` needs a bf16 ``base``. The scalars
+    and ``seed`` (an int or a 0-d integer tensor) as for
+    :func:`q8_adam_update_reference`."""
     n = base.numel()
     nb = -(-n // Q8_BLOCK)
     if grad.numel() != n or n == 0:
@@ -180,10 +222,11 @@ def q8_adam_update(m_q, m_s, v_q, v_s, base, grad, *, lr: float, c1: float,
     if use_sr and base.dtype != torch.bfloat16:
         raise TypeError("q8_adam_update: stochastic rounding writes a "
                         "bfloat16 base")
-    scalars = dict(lr=lr, c1=c1, c2=c2, eps=eps, beta1=beta1, beta2=beta2,
-                   decay=decay, seed=seed, use_sr=use_sr)
+    sc = _check_scalars(scalars, base.device)
+    hp = dict(eps=eps, beta1=beta1, beta2=beta2, scalars=sc,
+              has_wd=bool(has_wd), seed=seed, use_sr=use_sr)
     if base.device.type == "cpu":
-        q8_adam_update_reference(m_q, m_s, v_q, v_s, base, grad, **scalars)
+        q8_adam_update_reference(m_q, m_s, v_q, v_s, base, grad, **hp)
         return
     xs = (m_q, m_s, v_q, v_s, base, grad)
     if base.device.type != "cuda" or any(t.device != base.device for t in xs):
@@ -199,13 +242,13 @@ def q8_adam_update(m_q, m_s, v_q, v_s, base, grad, *, lr: float, c1: float,
     if any(t.data_ptr() % 16 for t in xs):
         raise ValueError("q8 kernel reads 16-byte vectors: tensors must "
                          "start on a 16-byte boundary")
+    seed_t = seed_tensor(seed, base.device)
     stream = torch.cuda.current_stream(base.device).cuda_stream
     with torch.cuda.device(base.device):
         err = _kernel()(
             m_q.data_ptr(), m_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
             base.data_ptr(), grad.data_ptr(), n, nb, bcode, gcode,
-            lr, 1.0 if decay is None else decay, c1, c2, eps, beta1, beta2,
-            1.0 - beta1, 1.0 - beta2, int(decay is not None),
-            int(use_sr), int(seed), stream)
+            sc.data_ptr(), eps, beta1, beta2, 1.0 - beta1, 1.0 - beta2,
+            int(has_wd), int(use_sr), seed_t.data_ptr(), stream)
     _native.check(err, "q8_adam kernel launch")
     launches.count += 1

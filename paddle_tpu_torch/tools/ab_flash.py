@@ -11,7 +11,9 @@ build directory and, at the shapes the port's paths give the bf16 kernels
 outputs against the plain versions and times the two with CUDA events in
 the order other, this, this, other. Prints the card's name and power
 limit, one JSON line for the build (what ptxas said about each flash
-kernel, registers and spills, of both builds) and one per case: each
+kernel, registers and spills, of both builds; and, per bf16 flash kernel,
+its SASS instruction count, its HGMMA and UTMALDG counts and whether its
+SASS text is the same in both builds) and one per case: each
 version's times, its TFLOP/s and share of the bound, and SDPA's time as a
 yardstick (for the backward cases SDPA's whole backward). Both versions
 must export the four entry points with the C signatures that
@@ -26,6 +28,7 @@ import hashlib
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -75,6 +78,36 @@ def ptxas_lines(log: str, keys) -> list:
     return keep
 
 
+def sass_summary(nb, cs, so: str) -> dict:
+    """Per bf16 flash kernel of the library ``so`` (``cuobjdump -sass``),
+    keyed as chip_smoke.py's ``wgmma_kernels`` keys it: its instruction
+    count, its HGMMA and UTMALDG counts and a digest of its instruction
+    text (addresses and encodings left out)."""
+    sass = subprocess.run(
+        [str(Path(nb.nvcc()).parent / "cuobjdump"), "-sass", so],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    out, text, key = {}, {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            w = cs.WGMMA_KERNEL.search(m.group(1))
+            key = None if w is None else "%s<%s>" % (
+                w[1], ", ".join(re.findall(r"L[ib](\d+)E", w[2])))
+            if key:
+                out[key] = {"instructions": 0, "HGMMA": 0, "UTMALDG": 0}
+                text[key] = hashlib.sha256()
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", ln)
+        if key and ins:
+            out[key]["instructions"] += 1
+            out[key]["HGMMA"] += "HGMMA" in ins.group(1)
+            out[key]["UTMALDG"] += "UTMALDG" in ins.group(1)
+            text[key].update(ins.group(1).encode() + b"\n")
+    for key, h in text.items():
+        out[key]["sass_digest"] = h.hexdigest()[:16]
+    return out
+
+
 def chip_smoke_module():
     """``chip_smoke.py`` of this checkout, for its error, timing and bound
     helpers (the bf16 kernels are held and timed here as they are there)."""
@@ -115,8 +148,13 @@ def main() -> int:
     libs, ptxas = {}, {}
     for tag, wait in waits.items():
         libs[tag], ptxas[tag] = wait()
+    sass = {tag: sass_summary(nb, cs, lib._name) for tag, lib in libs.items()}
+    flag_free = sorted(k for k in sass["this"] if k.endswith("0, 0>"))
     print(json.dumps({"phase": "ab_build", "other": str(args.other),
-                      "ptxas": ptxas}), flush=True)
+                      "ptxas": ptxas, "sass": sass,
+                      "flag_free_sass_identical": {
+                          k: sass["this"][k] == sass["other"].get(k)
+                          for k in flag_free}}), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     inputs = {}     # (B, H, L, D) -> q, k, v, dO, plain out, lse, grads

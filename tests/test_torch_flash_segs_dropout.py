@@ -184,10 +184,13 @@ def test_dropout_without_ids_runs_the_segs_drop_variant_on_zero_ids():
     assert fa.VARIANTS == ("segs", "segs_drop")
     assert fa._variant(None, None, 0.1) == "segs_drop"
     assert fa._variant(None, None, 0.0) is None
-    args, segs = fa._segdrop_args(None, None, 0.1, 3, 2, 4, 5, "cpu")
+    # the seed reaches the kernels as a pointer to its bits on the device
+    args, (*segs, seed_t) = fa._segdrop_args(None, None, 0.1, 3, 2, 4, 5,
+                                             "cpu")
     assert [tuple(x.shape) for x in segs] == [(2, 4), (2, 5)]
     assert all(x.dtype == torch.int32 and not x.any() for x in segs)
-    assert args[2:] == (1, 3, *fa.dropout_constants(0.1))
+    assert int(seed_t) == 3 and args[3] == seed_t.data_ptr()
+    assert args[2] == 1 and args[4:] == fa.dropout_constants(0.1)
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(2, 128, 128, 2, 2))
     zeros = torch.zeros(2, 128, dtype=torch.int32)
     for a, b in zip(fa.flash_attention_lse(q, k, v, True, None, None, None,

@@ -22,10 +22,13 @@ from paddle_tpu_torch.models.ernie import (ErnieConfig,
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import (Dropout, DropoutRNG, Embedding, LayerNorm,
                                  Linear, RMSNorm)
+from paddle_tpu_torch.jit import capture_step
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import multi_tensor_adam as mta
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import q8_adam as q8
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.serving import (DecodeGraph, Engine, KVCacheConfig,
                                       PagedKVCache, ServingConfig,
                                       prefix_chain_digests)
@@ -146,6 +149,49 @@ def test_adamw_over_device_parameters_never_takes_the_plain_path():
         opt.step()
 
 
+def test_multi_tensor_adamw_over_device_parameters_never_takes_the_plain_path():
+    # the flat layout over non-CPU parameters goes to the kernel or raises
+    ps = [torch.nn.Parameter(torch.empty(n, device="meta"))
+          for n in (100, 4096)]
+    opt = AdamW(parameters=ps, use_multi_tensor=True,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    for p in ps:
+        p.grad = torch.empty_like(p)
+    with pytest.raises(ValueError, match="CUDA"):
+        opt.step()
+
+
+def test_captured_step_of_a_cpu_model_runs_eagerly(monkeypatch):
+    # capture_step and the carried optimizer state need a card unless the
+    # model is on the CPU: there the step runs eagerly (bypass "cpu")
+    monkeypatch.setenv("PADDLE_TPU_STEP_CAPTURE", "auto")
+    cfg = ErnieConfig.tiny(vocab=16, hidden=16, layers=1, heads=2, inter=16,
+                           max_pos=16)
+    m = ErnieForSequenceClassification(cfg, device="cpu")
+    sched = tlr.LinearWarmup(tlr.PolynomialDecay(1e-3, 4, end_lr=0.0), 2,
+                             0.0, 1e-3)
+    opt = AdamW(learning_rate=sched, parameters=m.parameters(),
+                use_multi_tensor=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    assert opt._step_t.device.type == "cpu" and opt._lr_t.device.type == "cpu"
+    ids = torch.randint(1, 16, (2, 8))
+    labels = torch.randint(0, 2, (2,))
+
+    def step(ids, labels):
+        loss, _ = m(ids, labels=labels)
+        loss.backward()
+        return loss
+
+    def update():
+        opt.step()
+        opt.clear_grad()
+    cap = capture_step(step, update_fn=update, nan_gate=True)
+    for _ in range(2):
+        cap(ids, labels)
+        sched.step()
+    assert cap.stats == {"hits": 0, "retraces": 0, "bypasses": {"cpu": 2}}
+    assert opt.t == 2 and cap.num_graphs == 0
+
+
 def test_chip_smoke_fails_without_card_or_package(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: chip_smoke.py would run for real")
@@ -172,7 +218,8 @@ def _c_params(source: str, fn: str):
 _ARGTYPES_OF = {"flash_fwd": "_ARGTYPES", "flash_fwd_lse": "_ARGTYPES_LSE",
                 "flash_bwd_dq": "_ARGTYPES_BWD_DQ",
                 "flash_bwd_dkv": "_ARGTYPES_BWD_DKV",
-                "paged_decode": "_ARGTYPES", "q8_adam": "_ARGTYPES"}
+                "paged_decode": "_ARGTYPES", "q8_adam": "_ARGTYPES",
+                "multi_tensor_adam": "_ARGTYPES"}
 
 
 @pytest.mark.parametrize("mod,source,fn", [
@@ -186,6 +233,7 @@ _ARGTYPES_OF = {"flash_fwd": "_ARGTYPES", "flash_fwd_lse": "_ARGTYPES_LSE",
     (fa, "flash_attention.cu", "flash_fwd_lse_segdrop"),
     (fa, "flash_attention.cu", "flash_bwd_dq_segdrop"),
     (fa, "flash_attention.cu", "flash_bwd_dkv_segdrop"),
+    (mta, "multi_tensor_adam.cu", "multi_tensor_adam"),
 ])
 def test_ctypes_bindings_match_c_signatures(mod, source, fn):
     params = _c_params(source, fn)
@@ -198,5 +246,7 @@ def test_ctypes_bindings_match_c_signatures(mod, source, fn):
             assert ty is ctypes.c_void_p, p
         elif p.startswith("int "):
             assert ty is ctypes.c_int, p
+        elif p.startswith("long long "):
+            assert ty is ctypes.c_longlong, p
         else:
             assert p.startswith("float ") and ty is ctypes.c_float, p

@@ -148,8 +148,12 @@ def test_clear_grad_and_default_weight_decay_on_every_parameter():
 
 
 def test_unported_options_raise():
+    # use_multi_tensor and grad_clip are ported (tests/test_torch_
+    # multi_tensor_adam.py, tests/test_torch_grad_clip.py)
     p = [torch.nn.Parameter(torch.zeros(4))]
-    for kw in (dict(use_multi_tensor=True), dict(lazy_mode=True),
-               dict(grad_clip=object()), dict(lr_ratio=lambda q: 1.0)):
+    for kw in (dict(apply_decay_param_fun=lambda n: True),
+               dict(lazy_mode=True), dict(lr_ratio=lambda q: 1.0)):
         with pytest.raises(NotImplementedError):
             AdamW(parameters=p, **kw)
+    with pytest.raises(NotImplementedError):
+        AdamW(parameters=[{"params": p, "learning_rate": 1.0}])

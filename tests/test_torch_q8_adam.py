@@ -77,9 +77,9 @@ def test_plain_update_matches_pallas_interpret(wd, dtype):
     st = [m_q.clone(), m_s.clone(), v_q.clone(), v_s.clone(),
           torch.from_numpy(base).to(tdt).reshape(-1).clone()]
     q8.q8_adam_update(*st, torch.from_numpy(grad).to(tdt).reshape(-1),
-                      lr=LR, c1=float(np.float32(c1)), c2=float(np.float32(c2)),
-                      eps=EPS, beta1=B1, beta2=B2,
-                      decay=1.0 - LR * WD if wd else None)
+                      scalars=q8.scalar_block(LR, c1, c2,
+                                              1.0 - LR * WD if wd else None),
+                      has_wd=wd, eps=EPS, beta1=B1, beta2=B2)
     assert np.abs(st[0].numpy().astype(int) - mq_j.astype(int)).max() <= 1
     assert np.abs(st[2].numpy().astype(int) - vq_j.astype(int)).max() <= 1
     np.testing.assert_allclose(st[1].numpy(), ms_j[:, 0], rtol=2e-5)
@@ -200,13 +200,15 @@ def test_cpu_path_launches_nothing_and_device_tensors_raise():
     st = [torch.zeros(1, B, dtype=torch.int8), torch.ones(1),
           torch.zeros(1, B, dtype=torch.int8), torch.ones(1),
           torch.ones(100)]
-    q8.q8_adam_update(*st, torch.ones(100), lr=1e-3, c1=0.1, c2=0.001,
-                      eps=1e-8, beta1=0.9, beta2=0.999)
+    hp = dict(has_wd=False, eps=1e-8, beta1=0.9, beta2=0.999)
+    q8.q8_adam_update(*st, torch.ones(100),
+                      scalars=q8.scalar_block(1e-3, 0.1, 0.001), **hp)
     assert q8.launches.count == before
     meta = [t.to("meta") for t in st]
     with pytest.raises(ValueError, match="CUDA"):
-        q8.q8_adam_update(*meta, torch.ones(100, device="meta"), lr=1e-3,
-                          c1=0.1, c2=0.001, eps=1e-8, beta1=0.9, beta2=0.999)
+        q8.q8_adam_update(*meta, torch.ones(100, device="meta"),
+                          scalars=q8.scalar_block(1e-3, 0.1, 0.001,
+                                                  device="meta"), **hp)
 
 
 def test_ab_q8_adam_variants(monkeypatch):
