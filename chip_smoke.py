@@ -54,7 +54,15 @@ per phase:
   ERNIE-3.0-base captured with the fine-tune recipe (multi-tensor AdamW,
   warm-up and linear decay, global-norm clip, NaN gate) on both legs
   beside the same recipe's eager tier, and runs the Llama step of
-  ``bench.py`` captured with ``iters_per_call=4`` after its eager steps.
+  ``bench.py`` captured with ``iters_per_call=4`` after its eager steps;
+* the fused small ops (``fused_ops_check``): holds the norm (RMSNorm and
+  LayerNorm with the residual add), RoPE, SwiGLU and cross-entropy
+  kernels, forward and backward, against their plain versions at the
+  Llama, ERNIE and serving shapes in fp32 and bf16, requires three
+  bit-equal launches of each and the rejection of a planted copy of each,
+  and times them beside their bound, plain version and library call; the
+  Llama, ERNIE and serving phases then count their launches (the Llama
+  step's against the per-step counts of ``llama_fused_per_step``).
 
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound; the last line is ``{"ok": true, "device":
@@ -149,7 +157,19 @@ PLANTED_FAULTS = (
      "        bh = b * Hkv + kvh;  // planted: keyed on the kv head\n"),
     ("paged_attention",
      "      const float a = exp2f(pp[0] - mx);\n",
-     "      if (sp == 1) continue;\n"))
+     "      if (sp == 1) continue;\n"),
+    ("fused_norm",
+     "      s2 += v * v;\n",
+     "      if (c + j >= a.cols - 256) continue;\n"),
+    ("rope",
+     "  const long long cs = pos * a.cs_stride;\n",
+     "  if (pos == 5) pos = 6;\n"),
+    ("swiglu",
+     "  stv<V>(a.y, row * a.d + c, a.y_dt, y);\n",
+     "  if (row == a.rows / 2) y[0] = 0.f;\n"),
+    ("softmax_cross_entropy",
+     "    float v[V];\n    ldv<V>(a.x, xo + c, a.x_dt, v);\n",
+     "    if (c / (THREADS * V) == 1) continue;\n"))
 
 
 def emit(obj) -> None:
@@ -721,6 +741,13 @@ def require_served(eng, results, stats, launches, vocab: int, layers: int,
     require(launches["paged_decode"] == steps * layers,
             f"{what}: paged launches {launches['paged_decode']} != {steps} "
             f"steps x {layers}")
+    # K1-K3 in every prefill and decode step: two norms a layer and the
+    # final one, RoPE of q and k and SwiGLU once a layer
+    per = {"fused_norm": 2 * layers + 1, "rope": layers, "swiglu": layers}
+    calls = prefills + steps
+    require(all(launches[k] == n * calls for k, n in per.items()
+                if k in launches),
+            f"{what}: fused launches {launches} != {per} x {calls} calls")
     require(eng.kv.outstanding_pages == 0
             and eng.kv.free_pages == eng.kv.config.num_pages - 1,
             f"{what}: pages leaked after the drain")
@@ -736,14 +763,17 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
     prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
                for n in lens]
     runs = []
+    fused = {k: v for k, v in fused_counters().items()
+             if k != "softmax_cross_entropy"}
     for i in range(SERVE_RUNS):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.launches.reset()
-        pa.launches.reset()
+        for ctr in (fa.launches, pa.launches, *fused.values()):
+            ctr.reset()
         wall, results, stats = run_traffic(torch, eng, prompts, 64)
         launches = {"flash_prefill": fa.launches.count,
-                    "paged_decode": pa.launches.count}
+                    "paged_decode": pa.launches.count,
+                    **{k: ctr.count for k, ctr in fused.items()}}
         require_served(eng, results, stats, launches, cfg.vocab_size,
                        cfg.num_hidden_layers, 64, 16,
                        f"serve_llama2_7b run {i + 1}")
@@ -770,12 +800,28 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
     return main_launches
 
 
+# the kernels of K1-K4 by the names the profiler gives them
+FUSED_FAMILY = (("norm_fwd_kernel", "fused_norm"),
+                ("norm_bwd_kernel", "fused_norm"),
+                ("partial_fold_kernel", "fused_norm"),
+                ("rope_kernel", "rope"), ("swiglu_", "swiglu"),
+                ("ce_fwd_kernel", "softmax_cross_entropy"),
+                ("ce_mean_kernel", "softmax_cross_entropy"),
+                ("ce_bwd_kernel", "softmax_cross_entropy"))
+
+
+def fused_family(low: str):
+    return next((fam for key, fam in FUSED_FAMILY if key in low), None)
+
+
 def kernel_family(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "flash_prefill"
     if "paged_decode" in low:
         return "paged_decode"
+    if fused_family(low):
+        return fused_family(low)
     if any(s in low for s in ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")):
         return "matmul"
     return "other"
@@ -1583,7 +1629,8 @@ TRAIN_COUNTERS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "q8_adam")
 
 def train_counters(fa, q8):
     return {"flash_fwd_lse": fa.launches_lse, "flash_bwd_dq": fa.launches_bwd_dq,
-            "flash_bwd_dkv": fa.launches_bwd_dkv, "q8_adam": q8.launches}
+            "flash_bwd_dkv": fa.launches_bwd_dkv, "q8_adam": q8.launches,
+            **fused_counters()}
 
 
 def bench_config():
@@ -1648,6 +1695,10 @@ def train_1p6b(torch, card, fa, q8, all_counters):
             f"step-1 loss {losses[0]} not within 0.5 of {expect}")
     require(all(n > 0 for n in launches.values()), f"launches {launches}")
     require(fa.launches.count == 0, "the forward-only kernel ran in training")
+    per_step = llama_fused_per_step(cfg.num_hidden_layers)
+    require(all(launches[k] == n * steps for k, n in per_step.items()
+                if k in launches),
+            f"Llama fused launches {launches}, expected {per_step} a step")
     timed_s = times[warmup:]
     p50 = statistics.median(timed_s)
     tok_s = batch * seq / p50
@@ -1742,6 +1793,11 @@ def train_1p6b_captured(torch, card, fa, q8, model, cfg, batch: int,
     require(all(n == 2 * per_replay[counters[k].name] > 0
                 for k, n in launches.items()),
             f"Llama captured: launches {launches}, per replay {per_replay}")
+    per_step = llama_fused_per_step(cfg.num_hidden_layers)
+    require(all(per_replay[k] == n * LLAMA_ITERS for k, n in per_step.items()
+                if k in per_replay),
+            f"Llama captured: fused launches a replay {per_replay}, expected "
+            f"{per_step} a step")
     p50 = statistics.median(times)
     tok_s = batch * seq / p50
     fpt = model.flops_per_token(seq)
@@ -1767,7 +1823,9 @@ def train_family(name: str) -> str:
     for key, fam in (("flash_fwd", "flash_fwd_lse"),
                      ("flash_bwd_dq", "flash_bwd_dq"),
                      ("flash_bwd_dkv", "flash_bwd_dkv"),
-                     ("q8_adam", "q8_adam")):
+                     ("q8_adam", "q8_adam"),
+                     ("multi_tensor_adam", "multi_tensor_adam")) + \
+            FUSED_FAMILY:
         if key in low:
             return fam
     if any(s in low for s in ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")):
@@ -2427,14 +2485,20 @@ def train_ernie3_base(torch, card, fa, all_counters) -> dict:
             card_samples = stop_sampler()
         steps = warmup + timed
         launches = {f"{e}[segs_drop]": c.count for e, c in path.items()}
+        fused_step = ernie_fused_per_step(cfg.num_hidden_layers)
+        fused = {k: c.count for k, c in fused_counters().items()
+                 if k in fused_step}
         others = {c.name: c.count for c in all_counters
-                  if c not in path.values() and c.count}
+                  if c not in path.values() and c.name not in fused_step
+                  and c.count}
         after = eval_loss()
         require(all(math.isfinite(x) for x in losses), f"losses {losses}")
         require(all(n == cfg.num_hidden_layers * steps
-                    for n in launches.values()) and not others,
+                    for n in launches.values()) and not others
+                and all(fused[k] == fused_step[k] * steps for k in fused),
                 f"ERNIE B={batch} L={seq}: launches {launches} (want "
-                f"{cfg.num_hidden_layers} a step), others {others}")
+                f"{cfg.num_hidden_layers} a step), fused {fused} (want "
+                f"{fused_step} a step), others {others}")
         require(after < before, f"ERNIE B={batch} L={seq}: eval loss on the "
                                 f"fixed batch {before} -> {after}, not falling")
         timed_s = times[warmup:]
@@ -2946,6 +3010,9 @@ def train_ernie3_base_captured(torch, card, fa, mta) -> dict:
     path = {e: fa.launches_variant[e, "segs_drop"]
             for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
     path["multi_tensor_adam"] = mta.launches
+    fused_step = ernie_fused_per_step(cfg.num_hidden_layers)
+    path.update({k: ctr for k, ctr in fused_counters().items()
+                 if k in fused_step})
 
     def step(ids, labels):
         with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
@@ -3011,7 +3078,9 @@ def train_ernie3_base_captured(torch, card, fa, mta) -> dict:
                                 f"loss {before} -> {after}, not falling")
         require(all(launches[f"{e}"] == cfg.num_hidden_layers * (warmup + timed)
                     for e in ("fwd_lse", "bwd_dq", "bwd_dkv"))
-                and launches["multi_tensor_adam"] == warmup + timed,
+                and launches["multi_tensor_adam"] == warmup + timed
+                and all(launches[k] == n * (warmup + timed)
+                        for k, n in fused_step.items() if k in launches),
                 f"ERNIE captured B={batch} L={seq}: launches {launches}")
         timed_s = times[warmup:]
         p50 = statistics.median(timed_s)
@@ -3071,8 +3140,521 @@ def train_ernie3_base_captured(torch, card, fa, mta) -> dict:
     return {f"ernie_captured_leg{r['leg']}": {
         f"{e}[segs_drop]": r["launches"][e]
         for e in ("fwd_lse", "bwd_dq", "bwd_dkv")} | {
-        "multi_tensor_adam": r["launches"]["multi_tensor_adam"]}
+        k: n for k, n in r["launches"].items()
+        if k == "multi_tensor_adam" or k in fused_step}
         for r in legs}
+
+
+# ---------------------------------------------------------------------------
+# the fused small-op kernels: K1 norm, K2 RoPE, K3 SwiGLU, K4 cross-entropy
+# ---------------------------------------------------------------------------
+
+# kernel vs plain version, elementwise |out - ref| <= rtol |ref| + arel
+# rms(ref), keyed by (what, output dtype). The kernels do their plain
+# versions' operations in the same order, so a bf16 (fp16) output is at most
+# one rounding off where a row sum differs in its last fp32 bit: an ulp is at
+# most 2^-7 of |ref|. fp32 outputs differ by the order of the row sums
+# (statistics, log-sum-exp) and, for dx, of the row means that cancel (the
+# RMS term). "out2": two roundings after the sums (the plain-order norm
+# rounds n, then n * w), so two ulps. A value rounded, then added to
+# another and rounded again (the norm's dx plus the residual's gradient) is
+# held against the size of the value before the add as well: |ref| there
+# is |ref| + |ref - addend|. "sum": the weight and bias gradients, each a
+# sum over up to 24,576 rows taken in another order.
+FUSED_TOL = {("out", "bfloat16"): (2.0 ** -7, 1e-6),
+             ("out", "float16"): (2.0 ** -10, 1e-6),
+             ("out", "float32"): (1e-5, 1e-5),
+             ("out2", "bfloat16"): (2.0 ** -6, 1e-6),
+             ("out2", "float32"): (1e-5, 1e-5),
+             ("sum", "bfloat16"): (2.0 ** -7, 1e-4),
+             ("sum", "float32"): (1e-4, 1e-4)}
+FUSED_KERNELS = ("fused_norm", "rope", "swiglu", "softmax_cross_entropy")
+# the JAX function each replaces: XLA-fused jnp, no pallas_call
+FUSED_REPLACES = {"fused_norm": "paddle_tpu/ops/nn_ops.py:192",
+                  "rope": "paddle_tpu/models/llama.py:78",
+                  "swiglu": "paddle_tpu/models/llama.py:142",
+                  "softmax_cross_entropy": "paddle_tpu/ops/loss_ops.py:25"}
+FUSED_SOURCES = {k: f"paddle_tpu_torch/csrc/{k}.cu" for k in FUSED_KERNELS}
+FUSED_ITERS = 20
+
+
+def fused_counters() -> dict:
+    """The launch counters of K1-K4 by kernel name."""
+    from paddle_tpu_torch.ops import fused_norm, rope, softmax_cross_entropy
+    from paddle_tpu_torch.ops import swiglu
+    return {"fused_norm": fused_norm.launches, "rope": rope.launches,
+            "swiglu": swiglu.launches,
+            "softmax_cross_entropy": softmax_cross_entropy.launches}
+
+
+def llama_fused_per_step(layers: int) -> dict:
+    """K1-K4 launches of one Llama training step with recompute: the norms
+    (two a layer, the second with the residual add, and the final one)
+    forward, again in the recomputation and backward; RoPE of q and k and
+    SwiGLU once a layer in each of the three; the loss forward and
+    backward."""
+    return {"fused_norm": 3 * (2 * layers + 1) - 1, "rope": 3 * layers,
+            "swiglu": 3 * layers, "softmax_cross_entropy": 2}
+
+
+def ernie_fused_per_step(layers: int) -> dict:
+    """K1 and K4 launches of one ERNIE training step: the embeddings' norm
+    and two a layer, forward and backward; the loss forward and
+    backward."""
+    return {"fused_norm": 2 * (2 * layers + 1), "softmax_cross_entropy": 2}
+
+
+def fused_close(torch, out, ref, kind: str, mag=None):
+    """``(ok, max-abs)`` of out against ref under FUSED_TOL (``mag``: the
+    size the relative part scales, default |ref|)."""
+    if out.shape != ref.shape:
+        return False, float("inf")
+    o, r = out.float(), ref.float()
+    if o.numel() == 0:
+        return True, 0.0
+    d = (o - r).abs()
+    rtol, arel = FUSED_TOL[kind, dtype_name(out.dtype)]
+    lim = rtol * (r.abs() if mag is None else mag) \
+        + arel * float(r.square().mean().sqrt())
+    ok = bool(torch.isfinite(o).all()) and bool((d <= lim).all())
+    return ok, float(d.max())
+
+
+def fused_compare(torch, pairs: dict):
+    """``(all ok, max-abs, {name: [ok, max-abs]})`` over named
+    ``(out, ref, kind[, mag])`` tuples (None outputs skipped)."""
+    res = {n: fused_close(torch, *p) for n, p in pairs.items()
+           if p[0] is not None}
+    return (all(ok for ok, _ in res.values()),
+            max((e for _, e in res.values()), default=0.0),
+            {n: list(v) for n, v in res.items()})
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def fused_timing(torch, kernel, plain, library=None, iters=FUSED_ITERS):
+    return {"ms": cuda_ms(torch, kernel, iters),
+            "plain_ms": cuda_ms(torch, plain, max(2, iters // 4)),
+            "library_ms": None if library is None else cuda_ms(torch, library,
+                                                               iters)}
+
+
+def fused_planted_rejected(torch, run, refs: dict, what: str) -> dict:
+    """Run ``run`` (a planted copy's launch, returning outputs by name) and
+    require that FUSED_TOL rejects it against ``refs``."""
+    outs = run()
+    ok, err, errs = fused_compare(torch, {n: (outs[n], *refs[n])
+                                          for n in refs})
+    require(not ok, f"{what}: the planted fault passed the check {errs}")
+    return {"max_abs_err": err}
+
+
+def fused_repeat_equal(torch, run, what: str) -> None:
+    """Three launches on the same inputs give the same bits."""
+    first = run()
+    for _ in range(2):
+        again = run()
+        require(all(torch.equal(first[k], again[k]) for k in first
+                    if first[k] is not None),
+                f"{what}: three launches on the same inputs differ")
+
+
+def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
+    f32, bf = torch.float32, torch.bfloat16
+    S = fn.NormSpec
+
+    def rn(shape, dt, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(dt)
+    # (name, rows, cols, x, residual, pre-bias, weight, bias dtypes, spec)
+    cases = [
+        ("llama_o2_residual", 24576, 2560, bf, bf, None, bf, None,
+         S("rms", 1e-5, f32, f32, bf, f32)),
+        ("llama_o2", 24576, 2560, bf, None, None, bf, None,
+         S("rms", 1e-5, f32, f32, None, f32)),
+        ("ernie_o2_residual", 4096, 768, bf, f32, None, bf, bf,
+         S("ln", 1e-12, f32, f32, bf, f32, f32)),
+        ("serve_decode_bf16_residual", 16, 4096, bf, bf, None, bf, None,
+         S("rms", 1e-5, bf, bf, bf, bf)),
+        ("serve_prefill_bf16", 1000, 4096, bf, None, None, bf, None,
+         S("rms", 1e-5, bf, bf, None, bf)),
+        ("llama_fp32_residual", 24576, 2560, f32, f32, None, f32, None,
+         S("rms", 1e-5, f32, f32, f32, f32)),
+        ("ernie_fp32_residual", 4096, 768, f32, f32, None, f32, f32,
+         S("ln", 1e-12, f32, f32, f32, f32, f32)),
+        ("incubate_fused_bf16", 4096, 4096, bf, bf, bf, bf, bf,
+         S("rms", 1e-6, bf, bf, bf, bf, bf, True)),
+        ("incubate_fused_ln_fp32", 1000, 768, f32, None, None, None, f32,
+         S("ln", 1e-5, f32, f32, None, None, f32, True)),
+    ]
+    results, err, timing = [], 0.0, None
+    for name, rows, cols, xd, rd, pbd, wd, bd, spec in cases:
+        x = rn((rows, cols), xd)
+        res = None if rd is None else rn((rows, cols), rd)
+        pb = None if pbd is None else rn((cols,), pbd, 0.1)
+        w = None if wd is None else rn((cols,), wd, 0.1, 1.0)
+        b = None if bd is None else rn((cols,), bd, 0.1)
+        dy = rn((rows, cols), spec.out)
+        dres = None if spec.add is None else rn((rows, cols), spec.add)
+        dx_dtype = xd if spec.add is None else spec.add
+
+        def fwd(fns=None):
+            out, h, mean, rstd = fn._launch_fwd(x, w, b, res, pb, spec,
+                                                fns=fns)
+            return {"out": out, "h": h, "mean": mean, "rstd": rstd}
+
+        def bwd(fns=None, h=None, stats=None):
+            dx, dw, db, dpb = fn._launch_bwd(
+                dy, dres, h, *stats, w, spec, dx_dtype=dx_dtype,
+                want_w=w is not None, bias_dtype=bd, pre_bias_dtype=pbd,
+                fns=fns)
+            return {"dx": dx, "dw": dw, "db": db, "dpb": dpb}
+
+        ref_out, ref_h = fn.fused_norm_reference(x, w, b, res, pb, spec=spec)
+        got = fwd()
+        h = x if got["h"] is None else got["h"]
+        stats = (got["mean"], got["rstd"])
+        two = not spec.fused and w is not None and spec.out != f32
+        refs_f = {"out": (ref_out, "out2" if two else "out")}
+        if ref_h is not None:
+            refs_f["h"] = (ref_h, "out")
+        ok_f, err_f, errs_f = fused_compare(
+            torch, {n: (got[n], *refs_f[n]) for n in refs_f})
+        g = bwd(h=h, stats=stats)
+        r_dx, r_dw, r_db, r_dpb = fn.fused_norm_bwd_reference(
+            dy, dres, h, w, spec=spec, dx_dtype=dx_dtype, bias_dtype=bd,
+            pre_bias_dtype=pbd)
+        mag = None if dres is None else \
+            r_dx.float().abs() + (r_dx.float() - dres.float()).abs()
+        refs_b = {"dx": (r_dx, "out", mag), "dw": (r_dw, "sum"),
+                  "db": (r_db, "sum"), "dpb": (r_dpb, "sum")}
+        ok_b, err_b, errs_b = fused_compare(
+            torch, {n: (g[n], *refs_b[n]) for n in refs_b
+                    if refs_b[n][0] is not None})
+        require(ok_f and ok_b, f"fused_norm {name}: beyond FUSED_TOL: "
+                               f"{errs_f} {errs_b}")
+        err = max(err, err_f, err_b)
+        results.append({"case": name, "rows": rows, "cols": cols,
+                        "fwd": errs_f, "bwd": errs_b})
+        if name != "llama_o2_residual":
+            continue
+        fused_repeat_equal(torch, lambda: {**fwd(), **bwd(h=h, stats=stats)},
+                           f"fused_norm {name}")
+        planted = fused_planted_rejected(
+            torch, lambda: fwd(fn.bind(planted_lib)), refs_f,
+            f"fused_norm {name}")
+        hh = ref_h.detach()
+        lib = getattr(torch.nn.functional, "rms_norm", None)
+        timing = fused_timing(
+            torch, fwd, lambda: fn.fused_norm_reference(x, w, b, res, pb,
+                                                        spec=spec),
+            None if lib is None else lambda: lib(hh, (cols,), w, spec.eps))
+        bwd_t = fused_timing(
+            torch, lambda: bwd(h=h, stats=stats),
+            lambda: fn.fused_norm_bwd_reference(
+                dy, dres, h, w, spec=spec, dx_dtype=dx_dtype))
+        timing.update({"bwd_" + k: v for k, v in bwd_t.items()
+                       if k != "library_ms"})
+        fb = nbytes(x, res, w) + nbytes(got["out"], got["h"], got["rstd"])
+        bb = nbytes(dy, dres, h, w, got["rstd"]) + nbytes(g["dx"], g["dw"])
+        timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
+        timing["bwd_bound_ms"], _ = bound(0, bb, "float32")
+        timing["planted_max_abs_err"] = planted["max_abs_err"]
+        timing["case"] = (f"N={rows} C={cols} RMS, bf16 x and residual, "
+                          f"fp32 out (O2); library: rms_norm of the bf16 sum")
+    # ERNIE's LayerNorm beside torch's
+    x = rn((4096, 768), bf)
+    w, b = rn((768,), bf, 0.1, 1.0), rn((768,), bf, 0.1)
+    spec = S("ln", 1e-12, f32, f32, None, f32, f32)
+    timing["ernie_ln_ms"] = cuda_ms(
+        torch, lambda: fn._launch_fwd(x, w, b, None, None, spec),
+        FUSED_ITERS)
+    timing["ernie_ln_library_ms"] = cuda_ms(
+        torch, lambda: torch.nn.functional.layer_norm(x, (768,), w, b,
+                                                      1e-12), FUSED_ITERS)
+    return {"cases": results, "max_abs_err": err, **timing}
+
+
+def check_rope(torch, rp, planted_lib, gen) -> dict:
+    f32, bf = torch.float32, torch.bfloat16
+
+    def table(n, width, dt=f32):
+        ang = torch.rand((n, width), generator=gen, device="cuda") * 6.3
+        return ang.cos().to(dt), ang.sin().to(dt)
+    cs_llama = table(4096, 64)
+    cs_7b = table(4096, 64)
+    # (name, shapes, dtype, tables, offset, positions dtype, neox, dtype,
+    #  table_dtype)
+    cases = [
+        ("llama_o2", [(6, 4096, 20, 128)] * 2, bf, cs_llama, 0, None, True,
+         bf, bf),
+        ("serve_decode", [(16, 1, 32, 128)] * 2, bf, cs_7b, 0, torch.int32,
+         True, None, None),
+        ("serve_prefill_tail", [(1, 1000, 32, 128)] * 2, bf, cs_7b, 24,
+         None, True, None, None),
+        ("fp32_gqa", [(2, 512, 8, 128), (2, 512, 2, 128)], f32, cs_llama, 3,
+         None, True, None, None),
+        ("incubate_interleaved_qkv", [(2, 256, 4, 64)] * 3, bf,
+         table(256, 64), 0, torch.int64, False, bf, bf),
+        ("incubate_neox_full_table_fp32", [(2, 256, 4, 64)] * 2, f32,
+         table(256, 64), 0, None, True, None, None),
+    ]
+    results, err, timing = [], 0.0, None
+    for name, shapes, xd, (cos, sin), off, pdt, neox, dt, tdt in cases:
+        xs = [torch.randn(s, generator=gen, device="cuda").to(xd)
+              for s in shapes]
+        b, n = shapes[0][:2]
+        pos = None if pdt is None else torch.randint(
+            0, cos.shape[0], (b, n), generator=gen, device="cuda", dtype=pdt)
+        kw = dict(offset=off, positions=pos, neox=neox, dtype=dt,
+                  table_dtype=tdt)
+        out_dt = dt or xd
+        gs = [torch.randn(s, generator=gen, device="cuda").to(out_dt)
+              for s in shapes]
+
+        def run(fns=None, back=False, xs=xs, gs=gs, kw=kw, out_dt=out_dt):
+            src = gs if back else xs
+            outs = rp._launch(src, cos, sin, backward=back,
+                              out_dtypes=[xd if back else out_dt] * len(src),
+                              fns=fns, **dict(kw, dtype=out_dt if back
+                                              else kw["dtype"]))
+            return {f"{'d' if back else ''}x{i}": o
+                    for i, o in enumerate(outs)}
+        ref = rp.rope_reference(xs, cos, sin, **kw)
+        ref_b = rp.rope_reference(gs, cos, sin, backward=True,
+                                  **dict(kw, dtype=out_dt))
+        got, got_b = run(), run(back=True)
+        refs = {f"x{i}": (r, "out") for i, r in enumerate(ref)}
+        refs_b = {f"dx{i}": (r.to(xd), "out") for i, r in enumerate(ref_b)}
+        ok_f, err_f, errs_f = fused_compare(
+            torch, {k: (got[k], *refs[k]) for k in refs})
+        ok_b, err_b, errs_b = fused_compare(
+            torch, {k: (got_b[k], *refs_b[k]) for k in refs_b})
+        bits = {k: int((got[k] != refs[k][0]).sum()) for k in refs}
+        require(ok_f and ok_b, f"rope {name}: beyond FUSED_TOL: {errs_f} "
+                               f"{errs_b}")
+        err = max(err, err_f, err_b)
+        results.append({"case": name, "shapes": shapes, "fwd": errs_f,
+                        "bwd": errs_b, "elements_not_bit_equal": bits})
+        if name != "llama_o2":
+            continue
+        fused_repeat_equal(torch, lambda: {**run(), **run(back=True)},
+                           f"rope {name}")
+        planted = fused_planted_rejected(
+            torch, lambda: run(rp.bind(planted_lib)), refs, f"rope {name}")
+        timing = fused_timing(torch, run,
+                              lambda: rp.rope_reference(xs, cos, sin, **kw))
+        bwd_t = fused_timing(
+            torch, lambda: run(back=True),
+            lambda: rp.rope_reference(gs, cos, sin, backward=True,
+                                      **dict(kw, dtype=out_dt)))
+        timing.update({"bwd_" + k: v for k, v in bwd_t.items()
+                       if k != "library_ms"})
+        fb = nbytes(*xs, cos, sin) + nbytes(*got.values())
+        timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
+        timing["bwd_bound_ms"] = timing["bound_ms"]
+        timing["planted_max_abs_err"] = planted["max_abs_err"]
+        timing["case"] = ("q and k (6, 4096, 20, 128) bf16, fp32 tables "
+                          "cast to bf16 (O2), one launch")
+    return {"cases": results, "max_abs_err": err, **timing}
+
+
+def check_swiglu(torch, sw, planted_lib, gen) -> dict:
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [("llama", (24576, 6912), bf, False), ("serve", (16, 11008), bf,
+                                                     False),
+             ("fp32", (4096, 1024), f32, False),
+             ("packed_bf16", (4096, 1024), bf, True)]
+    results, err, timing = [], 0.0, None
+    for name, (rows, d), dt, packed in cases:
+        if packed:
+            x = (torch.randn((rows, 2 * d), generator=gen, device="cuda")
+                 * 2).to(dt)
+            g, u = x, None
+        else:
+            g, u = ((torch.randn((rows, d), generator=gen, device="cuda")
+                     * 2).to(dt) for _ in range(2))
+        dy = torch.randn((rows, d), generator=gen, device="cuda").to(dt)
+
+        def run(fns=None, g=g, u=u, packed=packed):
+            return {"y": sw._launch_fwd(g, u, packed, fns=fns)}
+
+        def run_b(g=g, u=u, dy=dy, packed=packed):
+            outs = sw._launch_bwd(g, u, dy, packed)
+            return dict(zip(("dx",) if packed else ("dg", "du"), outs))
+
+        def plain_b(g=g, u=u, dy=dy, packed=packed):
+            leaves = [t.detach().requires_grad_() for t in
+                      ((g,) if packed else (g, u))]
+            y = sw.swiglu_reference(*leaves) if not packed else \
+                sw.swiglu_reference(leaves[0])
+            return dict(zip(("dx",) if packed else ("dg", "du"),
+                            torch.autograd.grad(y, leaves, dy)))
+        ref = {"y": (sw.swiglu_reference(g, u), "out")}
+        got = run()
+        ok_f, err_f, errs_f = fused_compare(
+            torch, {k: (got[k], *ref[k]) for k in ref})
+        gb, rb = run_b(), plain_b()
+        ok_b, err_b, errs_b = fused_compare(
+            torch, {k: (gb[k], rb[k], "out") for k in gb})
+        bits = {"y": int((got["y"] != ref["y"][0]).sum()),
+                **{k: int((gb[k] != rb[k]).sum()) for k in gb}}
+        require(ok_f and ok_b, f"swiglu {name}: beyond FUSED_TOL: {errs_f} "
+                               f"{errs_b}")
+        err = max(err, err_f, err_b)
+        results.append({"case": name, "rows": rows, "d": d, "fwd": errs_f,
+                        "bwd": errs_b, "elements_not_bit_equal": bits})
+        if name != "llama":
+            continue
+        fused_repeat_equal(torch, lambda: {**run(), **run_b()},
+                           f"swiglu {name}")
+        planted = fused_planted_rejected(
+            torch, lambda: run(sw.bind(planted_lib)), ref, f"swiglu {name}")
+        timing = fused_timing(torch, run, lambda: sw.swiglu_reference(g, u))
+        both = cuda_ms(torch, plain_b, max(2, FUSED_ITERS // 4))
+        timing.update({"bwd_ms": cuda_ms(torch, run_b, FUSED_ITERS),
+                       "bwd_plain_ms": both - timing["plain_ms"]})
+        fb = nbytes(g, u, got["y"])
+        timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
+        timing["bwd_bound_ms"], _ = bound(0, nbytes(g, u, dy, *gb.values()),
+                                          "float32")
+        timing["planted_max_abs_err"] = planted["max_abs_err"]
+        timing["case"] = "g, u (24576, 6912) bf16"
+    return {"cases": results, "max_abs_err": err, **timing}
+
+
+def check_cross_entropy(torch, ce, planted_lib, gen) -> dict:
+    f32, bf = torch.float32, torch.bfloat16
+    i64, i32 = torch.int64, torch.int32
+    # (name, logits shape, dtype, labels dtype, ignore_index, shift,
+    #  labels: "random", "some_ignored", "all_ignored", "n1"; view)
+    cases = [("llama_shift", (6, 4096, 32000), bf, i64, -100, True,
+              "random", None),
+             ("ernie", (32, 2), bf, i64, -100, False, "random", None),
+             ("ignore_n1_fp32", (512, 1000), f32, i32, 0, False, "n1", None),
+             ("all_ignored", (64, 128), bf, i64, 5, False, "all_ignored",
+              None),
+             ("strided_view_fp32", (4, 64, 1024), f32, i64, 3, False,
+              "some_ignored", "every_other_row")]
+    results, err, timing = [], 0.0, None
+    for name, shape, dt, ldt, ign, shift, lab_kind, view in cases:
+        base = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dt)
+        logits = base[:, 1::2, :] if view == "every_other_row" else base
+        v = shape[-1]
+        lab_shape = logits.shape[:-1]
+        labels = torch.randint(0, v, lab_shape, generator=gen,
+                               device="cuda").to(ldt)
+        if lab_kind == "all_ignored":
+            labels.fill_(ign)
+        elif lab_kind in ("some_ignored", "n1"):
+            labels[..., ::4] = ign
+        if lab_kind == "n1":
+            labels = labels[..., None]
+        xc = f32
+        g = torch.tensor(0.75, device="cuda")
+        if shift:
+            x3 = logits
+            lab2 = labels[:, 1:]
+            lu = x3.shape[1] - 1
+        else:
+            x3 = ce._as_3d(logits)
+            lab2 = ce._labels_2d(ce._flat_labels(labels, logits.dim()),
+                                 x3.shape[:2])
+            lu = x3.shape[1]
+
+        def run(fns=None, x3=x3, lab2=lab2, lu=lu, ign=ign):
+            out, m, logs, valid = ce._launch_fwd(x3, lab2, lu, ign, xc,
+                                                 fns=fns)
+            return {"loss": out[0], "count": out[1], "m": m, "logs": logs,
+                    "state": (m, logs, valid, out)}
+
+        def run_b(state, x3=x3, lab2=lab2, lu=lu, ign=ign):
+            return {"dx": ce._launch_bwd(x3, lab2, lu, ign, xc, *state, g)}
+
+        def plain(logits=logits, labels=labels, ign=ign, shift=shift):
+            return ce.softmax_cross_entropy_reference(
+                logits, labels, ign, dtype=xc, shift=shift)
+
+        def plain_b(logits=logits, labels=labels, ign=ign, shift=shift):
+            leaf = logits.detach().requires_grad_()
+            loss = ce.softmax_cross_entropy_reference(leaf, labels, ign,
+                                                      dtype=xc, shift=shift)
+            return torch.autograd.grad(loss, leaf, g)[0]
+        got = run()
+        gb = run_b(got["state"])
+        ref_loss, ref_dx = plain(), plain_b()
+        ok_f, err_f, errs_f = fused_compare(
+            torch, {"loss": (got["loss"], ref_loss, "out")})
+        ok_b, err_b, errs_b = fused_compare(
+            torch, {"dx": (gb["dx"].view(logits.shape), ref_dx, "out")})
+        require(ok_f and ok_b, f"softmax_cross_entropy {name}: beyond "
+                               f"FUSED_TOL: {errs_f} {errs_b}")
+        err = max(err, err_f, err_b)
+        results.append({"case": name, "shape": list(shape), "fwd": errs_f,
+                        "bwd": errs_b, "loss": float(got["loss"]),
+                        "count": float(got["count"])})
+        if name != "llama_shift":
+            continue
+        fused_repeat_equal(torch, lambda: (lambda f: {
+            "loss": f["loss"], "m": f["m"], "logs": f["logs"],
+            **run_b(f["state"])})(run()), f"softmax_cross_entropy {name}")
+        planted = fused_planted_rejected(
+            torch, lambda: run(ce.bind(planted_lib)),
+            {"loss": (ref_loss, "out")}, f"softmax_cross_entropy {name}")
+        state = got["state"]
+        flat = logits[:, :-1, :].reshape(-1, v)
+        flat_lab = labels[:, 1:].reshape(-1)
+        timing = fused_timing(
+            torch, run, plain,
+            lambda: torch.nn.functional.cross_entropy(flat, flat_lab))
+        both = cuda_ms(torch, plain_b, max(2, FUSED_ITERS // 4))
+        leaf = flat.detach().requires_grad_()
+
+        def library_fb():
+            leaf.grad = None
+            torch.nn.functional.cross_entropy(leaf, flat_lab).backward()
+        lib_both = cuda_ms(torch, library_fb, FUSED_ITERS)
+        timing.update({"bwd_ms": cuda_ms(torch, lambda: run_b(state),
+                                         FUSED_ITERS),
+                       "bwd_plain_ms": both - timing["plain_ms"],
+                       "bwd_library_ms": lib_both - timing["library_ms"]})
+        rows = shape[0] * (shape[1] - 1)
+        fb = rows * v * logits.element_size() + nbytes(labels)
+        timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
+        timing["bwd_bound_ms"], _ = bound(
+            0, fb + nbytes(gb["dx"]), "float32")
+        timing["planted_max_abs_err"] = planted["max_abs_err"]
+        timing["case"] = ("logits (6, 4096, 32000) bf16, rows l < 4095 read "
+                          "in place; library: F.cross_entropy on the sliced "
+                          "bf16 logits (copied)")
+    return {"cases": results, "max_abs_err": err, **timing}
+
+
+def fused_ops_check(torch, planted) -> dict:
+    """K1-K4 against their plain versions, forward and backward, at the
+    Llama, ERNIE and serving shapes, fp32 and bf16; three launches of each
+    on the same inputs bit-equal; a planted copy of each rejected; times
+    beside the bound, the plain version and the library call. Returns the
+    kernels-line numbers by kernel."""
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import rope as rp
+    from paddle_tpu_torch.ops import softmax_cross_entropy as ce
+    from paddle_tpu_torch.ops import swiglu as sw
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = {"fused_norm": check_fused_norm(torch, fn, planted["fused_norm"],
+                                           gen),
+            "rope": check_rope(torch, rp, planted["rope"], gen),
+            "swiglu": check_swiglu(torch, sw, planted["swiglu"], gen),
+            "softmax_cross_entropy": check_cross_entropy(
+                torch, ce, planted["softmax_cross_entropy"], gen)}
+    emit({"phase": "fused_ops_check", "seconds": time.monotonic() - t0,
+          **rows})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -3122,7 +3704,8 @@ def main() -> int:
         f"{bulk_kernels}")
     all_counters = (fa.launches, pa.launches, fa.launches_lse,
                     fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches,
-                    mta.launches, *fa.launches_variant.values())
+                    mta.launches, *fa.launches_variant.values(),
+                    *fused_counters().values())
 
     flash_rows = check_flash(torch, fa)
     paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
@@ -3140,7 +3723,9 @@ def main() -> int:
                                                 planted["flash_attention"])
     q8_err, q8_time = check_q8_adam(torch, q8)
     mt_row = check_multi_tensor_adam(torch, q8, mta)
-    train_launches, _ = train_1p6b(torch, smi, fa, q8, all_counters)
+    fused_rows = fused_ops_check(torch, planted)
+    train_launches, llama_captured = train_1p6b(torch, smi, fa, q8,
+                                                all_counters)
     train_vs_cpu(torch, fa, q8)
     check_flash_segs_dropout(torch, fa, planted["flash_attention:b0"])
     var_times = time_variants(torch, fa, *ERNIE_SHAPE)
@@ -3226,6 +3811,23 @@ def main() -> int:
          "case": "n=%d (ERNIE-3.0-base) bf16 params and grads, fp32 master "
                  "and moments, global-norm scale, wd" % mt_row["n"],
          **{k: mt_row[k] for k in keys}},
+    ] + [
+        {"name": k, "route": "cuda", "source": FUSED_SOURCES[k],
+         "replaces": FUSED_REPLACES[k], "replaces_pallas_call": False,
+         "note": "the port's own kernel, forward and backward: the JAX "
+                 "package computes it with XLA-fused jnp, no pallas_call",
+         "launches": train_launches[k],
+         "launches_path": "train_llama_1p6b (6 eager steps)",
+         "launches_llama_captured": llama_captured["launches"][k],
+         "launches_ernie_captured_leg1":
+             captured_launches["ernie_captured_leg1"].get(k, 0),
+         "launches_serve_run1": serve_launches.get(k, 0),
+         "max_abs_err": fused_rows[k]["max_abs_err"],
+         "case": fused_rows[k]["case"],
+         **{key: fused_rows[k].get(key) for key in keys},
+         **{key: fused_rows[k][key] for key in fused_rows[k]
+            if key.startswith("bwd_")}}
+        for k in FUSED_KERNELS
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,12 @@ It mirrors ``paddle_tpu``'s module names. Ported: Llama
 ERNIE 3.0 (``models.ernie``) trained for sequence classification, on
 hand-written Hopper kernels for flash attention (``ops.flash_attention``,
 with segment ids and in-kernel dropout), paged decode attention
-(``ops.paged_attention``) and the int8 AdamW update (``ops.q8_adam``). It imports neither JAX nor
-``paddle_tpu``. Entry points run on ``cuda`` unless given ``device="cpu"``.
+(``ops.paged_attention``), the int8 and multi-tensor AdamW updates
+(``ops.q8_adam``, ``ops.multi_tensor_adam``) and the fused small ops
+(``ops.fused_norm``, ``ops.rope``, ``ops.swiglu``,
+``ops.softmax_cross_entropy``, under ``incubate``'s fused functions). It
+imports neither JAX nor ``paddle_tpu``. Entry points run on ``cuda``
+unless given ``device="cpu"``.
 """
 
 from .device import NoDeviceError, resolve_device

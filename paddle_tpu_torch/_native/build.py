@@ -4,8 +4,8 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and loaded
 with ``ctypes``: no PyTorch headers are compiled, so a build takes seconds.
 Libraries go into ``paddle_tpu_torch/_native/_build/`` under a name that
-carries a digest of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. Nothing is built at import: the first call
+carries a digest of the source, the headers of ``csrc/`` and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused. Nothing is built at import: the first call
 of a kernel's wrapper builds its library, and :func:`build` compiles several
 sources at once, one ``nvcc`` process for each, all started together.
 """
@@ -24,8 +24,11 @@ from typing import Dict, Iterable, Iterator, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# -I csrc: a copy of a source elsewhere (a planted fault, an A/B build)
+# still finds the headers of csrc/ (fused_io.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
+              str(CSRC))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,6 +58,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):   # what the sources include
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -24,7 +24,8 @@ from typing import FrozenSet, Optional
 
 import torch
 
-__all__ = ["auto_cast", "cast_inputs", "decorate", "recompute_context"]
+__all__ = ["auto_cast", "cast_dtype", "cast_inputs", "decorate",
+           "recompute_context"]
 
 # the JAX package's lists (paddle_tpu/amp/__init__.py)
 WHITE_LIST = frozenset({
@@ -92,23 +93,37 @@ def auto_cast(enable: bool = True, custom_white_list=None,
                            frozenset(bl)))
 
 
+def _target(op_name: str) -> Optional[torch.dtype]:
+    st = _current()
+    if st is None:
+        return None
+    if st.level == "O2":
+        return torch.float32 if op_name in st.black else st.dtype
+    if op_name in st.white:
+        return st.dtype
+    if op_name in st.black:
+        return torch.float32
+    return None
+
+
 def cast_inputs(op_name: str, *xs):
     """``xs`` cast as op ``op_name`` takes them under the active
     ``auto_cast`` (unchanged outside one; ``None`` and non-float tensors
     pass through)."""
-    st = _current()
-    if st is None:
-        return xs
-    if st.level == "O2":
-        target = torch.float32 if op_name in st.black else st.dtype
-    elif op_name in st.white:
-        target = st.dtype
-    elif op_name in st.black:
-        target = torch.float32
-    else:
+    target = _target(op_name)
+    if target is None:
         return xs
     return tuple(x.to(target) if x is not None and x.is_floating_point()
                  else x for x in xs)
+
+
+def cast_dtype(op_name: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype :func:`cast_inputs` gives a float tensor of ``dtype`` for
+    op ``op_name``: the fused kernels take their inputs as they lie and do
+    the cast as they load them."""
+    target = _target(op_name)
+    return dtype if target is None or not dtype.is_floating_point \
+        else target
 
 
 def recompute_context():

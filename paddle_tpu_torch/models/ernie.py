@@ -92,14 +92,17 @@ class ErnieEmbeddings(nn.Module):
                                         device=input_ids.device)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = nn_ops.add(nn_ops.add(self.word_embeddings(input_ids),
-                                  self.position_embeddings(position_ids)),
-                       self.token_type_embeddings(token_type_ids))
+        x = nn_ops.add(self.word_embeddings(input_ids),
+                       self.position_embeddings(position_ids))
+        last = self.token_type_embeddings(token_type_ids)
         if self.use_task_id:
             if task_type_ids is None:
                 task_type_ids = torch.zeros_like(input_ids)
-            x = nn_ops.add(x, self.task_type_embeddings(task_type_ids))
-        return self.dropout(self.layer_norm(x))
+            x = nn_ops.add(x, last)
+            last = self.task_type_embeddings(task_type_ids)
+        # the last add is the norm's residual add (one kernel on a card)
+        out, _ = self.layer_norm(last, x)
+        return self.dropout(out)
 
 
 class ErniePooler(nn.Module):

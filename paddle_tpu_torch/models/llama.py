@@ -9,7 +9,11 @@ kernels, with the flash backward when autograd records; cached decode in
 the serving engine runs the paged kernel (``serving_callables``). RoPE is
 the half-split form, computed in fp32 from cos/sin in the dtype that
 ``amp.auto_cast`` gives the op (bf16 under O2, as in the JAX package) and
-cast back to the activations' dtype.
+cast back to the activations' dtype. On a card the small ops run the
+port's fused kernels: RoPE of q and k in one launch (``ops/rope.py``),
+SwiGLU (``ops/swiglu.py``), the residual add with the norm after it
+(``ops/fused_norm.py``) and the loss on the logits where they lie
+(``ops/softmax_cross_entropy.py``).
 
 Training: ``forward(input_ids, labels=ids)`` returns ``(loss, logits)``
 with shifted labels; ``config.recompute`` checkpoints each decoder layer
@@ -34,11 +38,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..amp import cast_inputs, recompute_context
+from ..amp import cast_dtype, cast_inputs, recompute_context
 from ..device import resolve_device
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from ..ops.paged_attention import PagedDecodeCache, paged_decode_attention
+from ..ops.rope import rope
+from ..ops.softmax_cross_entropy import softmax_cross_entropy
+from ..ops.swiglu import swiglu
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "apply_rotary"]
 
@@ -95,27 +102,27 @@ def _rope_cache(max_len: int, head_dim: int, theta: float):
     return np.cos(freqs), np.sin(freqs)
 
 
-def _rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
-
-
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                  position_offset: int = 0) -> torch.Tensor:
     """x: (B, L, H, D) at positions [offset, offset + L). cos/sin:
     (max_len, D/2) fp32."""
-    n = x.shape[1]
-    x, cos, sin = cast_inputs("rope", x, cos, sin)
-    c = cos[position_offset:position_offset + n][None, :, None, :]
-    s = sin[position_offset:position_offset + n][None, :, None, :]
-    return _rotate(x, c, s)
+    return _rotary([x], cos, sin, position_offset)[0]
 
 
-def _rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-               t: torch.Tensor) -> torch.Tensor:
-    """Rotary at per-row positions: x (B, H, D), t (B,)."""
-    idx = t.long()
-    return _rotate(x, cos[idx][:, None, :], sin[idx][:, None, :])
+def _rotary(xs, cos, sin, offset: int = 0):
+    """Each (B, L, H, D) tensor of ``xs`` at positions [offset, offset +
+    L), half-split, cast as the JAX package's ``rope`` op casts (one launch
+    of the RoPE kernel on a card)."""
+    return rope(xs, cos, sin, offset=offset, neox=True,
+                dtype=cast_dtype("rope", xs[0].dtype),
+                table_dtype=cast_dtype("rope", cos.dtype))
+
+
+def _rope_rows(xs, cos: torch.Tensor, sin: torch.Tensor, t: torch.Tensor):
+    """Rotary at per-row positions: each x (B, H, D), t (B,) on the
+    device (one launch on a card)."""
+    outs = rope([x[:, None] for x in xs], cos, sin, positions=t[:, None])
+    return tuple(o[:, 0] for o in outs)
 
 
 KVPair = Tuple[torch.Tensor, torch.Tensor]
@@ -140,8 +147,7 @@ class LlamaAttention(nn.Module):
         k = self.k_proj(x).reshape(b, n, -1, self.head_dim)
         v = self.v_proj(x).reshape(b, n, -1, self.head_dim)
         offset = 0 if cache is None else cache[0].shape[1]
-        q = apply_rotary(q, cos, sin, offset)
-        k = apply_rotary(k, cos, sin, offset)
+        q, k = _rotary([q, k], cos, sin, offset)
         if cache is not None:
             k = torch.cat([cache[0], k], dim=1)
             v = torch.cat([cache[1], v], dim=1)
@@ -163,7 +169,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = Linear(i, h, bias_attr=False, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        (g,) = cast_inputs("silu", self.gate_proj(x))
+        return self.down_proj(swiglu(g, self.up_proj(x)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -180,8 +187,10 @@ class LlamaDecoderLayer(nn.Module):
         h = self.self_attn(self.input_layernorm(x), cos, sin, cache)
         if cache is not None:
             h, new_cache = h
-        x = x + h
-        x = x + self.mlp(self.post_attention_layernorm(x))
+        # the residual add and the norm after it: one kernel on a card; the
+        # add that ends the layer stays (recompute cuts there)
+        normed, x = self.post_attention_layernorm(h, x)
+        x = x + self.mlp(normed)
         if cache is not None:
             return x, new_cache
         return x
@@ -255,9 +264,10 @@ class LlamaForCausalLM(nn.Module):
         logits = self._logits(self.model(input_ids))
         if labels is None:
             return logits
-        v = self.config.vocab_size
-        loss = F.cross_entropy(logits[:, :-1, :].reshape(-1, v),
-                               labels[:, 1:].reshape(-1))
+        # rows l < L - 1 of the logits against labels[:, 1:], read in place
+        loss = softmax_cross_entropy(
+            logits, labels, shift=True,
+            dtype=cast_dtype("cross_entropy", logits.dtype))
         return loss, logits
 
     def _logits(self, h):
@@ -329,12 +339,12 @@ class LlamaForCausalLM(nn.Module):
                 q = att.q_proj(h).reshape(b, nh, hd)
                 k = att.k_proj(h).reshape(b, nkv, hd)
                 v = att.v_proj(h).reshape(b, nkv, hd)
-                q = _rope_rows(q, model.rope_cos, model.rope_sin, t)
-                k = _rope_rows(k, model.rope_cos, model.rope_sin, t)
+                q, k = _rope_rows([q, k], model.rope_cos, model.rope_sin, t)
                 out, cache = paged_decode_attention(q, k, v,
                                                     cache.at_layer(i))
-                x = res + att.o_proj(out.reshape(b, 1, nh * hd))
-                x = x + layer.mlp(layer.post_attention_layernorm(x))
+                normed, x = layer.post_attention_layernorm(
+                    att.o_proj(out.reshape(b, 1, nh * hd)), res)
+                x = x + layer.mlp(normed)
             nxt = self._logits(model.norm(x)).argmax(dim=-1)
             return nxt.to(torch.int32), cache
 

@@ -24,8 +24,10 @@ class RMSNorm(nn.Module):
                                               device=resolve_device(device),
                                               dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn_ops.rms_norm(x, self.weight, self.epsilon)
+    def forward(self, x: torch.Tensor, residual=None):
+        """``rms_norm(x)``; with ``residual``, ``(rms_norm(h), h)`` for ``h
+        = add(x, residual)`` (one kernel on a card)."""
+        return nn_ops.rms_norm(x, self.weight, self.epsilon, residual)
 
 
 class LayerNorm(nn.Module):
@@ -42,6 +44,8 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(shape, device=dev, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(shape, device=dev, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual=None):
+        """``layer_norm(x)``; with ``residual``, ``(layer_norm(h), h)`` for
+        ``h = add(x, residual)`` (one kernel on a card)."""
         return nn_ops.layer_norm(x, self.normalized_shape, self.weight,
-                                 self.bias, self.epsilon)
+                                 self.bias, self.epsilon, residual)

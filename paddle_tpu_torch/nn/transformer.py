@@ -99,17 +99,18 @@ class TransformerEncoderLayer(nn.Module):
         if self.normalize_before:
             src = self.norm1(src)
         src = self.self_attn(src, src, src, src_mask)
-        src = nn_ops.add(residual, self.dropout1(src))
-        if not self.normalize_before:
-            src = self.norm1(src)
+        if self.normalize_before:
+            src = nn_ops.add(residual, self.dropout1(src))
+        else:   # norm(add(residual, dropout(src))): the add in the norm
+            src, _ = self.norm1(self.dropout1(src), residual)
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
         src = self.linear2(self.act_dropout(self.activation(
             self.linear1(src))))
-        src = nn_ops.add(residual, self.dropout2(src))
-        if not self.normalize_before:
-            src = self.norm2(src)
+        if self.normalize_before:
+            return nn_ops.add(residual, self.dropout2(src))
+        src, _ = self.norm2(self.dropout2(src), residual)
         return src
 
 

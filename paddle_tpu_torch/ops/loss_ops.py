@@ -1,13 +1,15 @@
 """Loss ops, the port of ``paddle_tpu/ops/loss_ops.py``: ``cross_entropy``
 over hard labels (paddle semantics: log-softmax in fp32 over the last
 axis, ``ignore_index`` honoured when it is >= 0, the mean over the rows
-that count)."""
+that count). On a card it runs the kernel of
+``ops/softmax_cross_entropy.py``, which reads the logits where they lie."""
 
 from __future__ import annotations
 
 import torch
 
-from ..amp import cast_inputs
+from ..amp import cast_dtype
+from .softmax_cross_entropy import softmax_cross_entropy
 
 __all__ = ["cross_entropy"]
 
@@ -28,15 +30,6 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
         raise NotImplementedError(
             "cross_entropy: the port covers the mean over hard labels on the "
             "last axis with softmax, no class weights, no label smoothing")
-    (input,) = cast_inputs("cross_entropy", input)
-    logp = torch.log_softmax(input.float(), dim=-1)
-    li = label.long()
-    if li.dim() == logp.dim() and li.shape[-1] == 1:
-        li = li.squeeze(-1)
-    valid = li != ignore_index if ignore_index >= 0 else None
-    idx = li if valid is None else torch.where(valid, li, 0)
-    loss = -logp.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
-    if valid is None:
-        return loss.mean()
-    loss = torch.where(valid, loss, 0.0)
-    return loss.sum() / valid.sum().float().clamp(min=1.0)
+    return softmax_cross_entropy(input, label, ignore_index,
+                                 dtype=cast_dtype("cross_entropy",
+                                                  input.dtype))

@@ -2,7 +2,9 @@
 rms_norm, layer_norm, silu, relu, gelu, tanh, add, dropout and
 scaled_dot_product_attention (paddle's signatures and layouts). Each
 casts its inputs as the active ``amp.auto_cast`` says (see ``amp``), by the
-JAX package's op name.
+JAX package's op name. ``rms_norm`` and ``layer_norm`` run the fused norm
+kernel (``ops/fused_norm.py``) on a card, which does those casts as it
+loads its inputs and can take the residual add before the norm.
 
 ``linear`` keeps paddle's weight layout ``(in_features, out_features)``,
 ``y = x @ W``, so a ``paddle_tpu`` state dict loads without a transpose.
@@ -31,9 +33,10 @@ from typing import Optional
 
 import torch
 
-from ..amp import cast_inputs
+from ..amp import cast_dtype, cast_inputs
 from .flash_attention import (dropout_seed, flash_attention,
                               keep_mask_reference)
+from .fused_norm import NormSpec, fused_norm
 
 __all__ = ["add", "dropout", "embedding", "gelu", "layer_norm", "linear",
            "relu", "rms_norm", "scaled_dot_product_attention", "silu",
@@ -88,33 +91,51 @@ def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x + y
 
 
+def _norm_spec(op: str, kind: str, x, weight, bias, residual, epsilon,
+               naxes: int) -> NormSpec:
+    """The casts of the plain ``rms_norm`` / ``layer_norm``: the residual
+    add as the port's ``add`` op, the norm's inputs as ``op``'s."""
+    add = None
+    if residual is not None:
+        add = torch.promote_types(cast_dtype("add", x.dtype),
+                                  cast_dtype("add", residual.dtype))
+    norm = cast_dtype(op, add or x.dtype)
+    wd = None if weight is None else cast_dtype(op, weight.dtype)
+    bd = None if bias is None else cast_dtype(op, bias.dtype)
+    out = norm
+    for d in (wd, bd):
+        if d is not None:
+            out = torch.promote_types(out, d)
+    return NormSpec(kind, float(epsilon), norm, out, add, wd, bd, False,
+                    naxes)
+
+
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-             epsilon: float = 1e-6) -> torch.Tensor:
+             epsilon: float = 1e-6, residual: Optional[torch.Tensor] = None):
     """Normalise in fp32, cast back to x's dtype, then scale by the weight
-    (the order of the JAX reference)."""
-    x, weight = cast_inputs("rms_norm", x, weight)
-    xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    out = (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
-    return out if weight is None else out * weight
+    (the order of the JAX reference). With ``residual`` (the port's
+    pre-norm fusion), ``h = add(x, residual)`` is normalised and ``(out,
+    h)`` returned. The kernel ``ops/fused_norm.py`` on a card."""
+    spec = _norm_spec("rms_norm", "rms", x, weight, None, residual, epsilon,
+                      1)
+    out, h = fused_norm(x, weight, residual=residual, spec=spec)
+    return out if residual is None else (out, h)
 
 
 def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
-               epsilon: float = 1e-5) -> torch.Tensor:
+               epsilon: float = 1e-5,
+               residual: Optional[torch.Tensor] = None):
     """Mean and (population) variance over the trailing
     ``normalized_shape`` axes in fp32, the normalised value cast back to
     x's dtype, then ``* weight + bias`` (the JAX package's order). On the
-    AMP black list: fp32 in and out under O2."""
+    AMP black list: fp32 in and out under O2. With ``residual``, ``h =
+    add(x, residual)`` is normalised and ``(out, h)`` returned (post-LN's
+    ``norm(add(residual, dropout(src)))`` in one kernel on a card)."""
     n = 1 if isinstance(normalized_shape, int) else len(normalized_shape)
-    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
-    dims = tuple(range(x.dim() - n, x.dim()))
-    xf = x.float()
-    mu = xf.mean(dim=dims, keepdim=True)
-    var = xf.var(dim=dims, unbiased=False, keepdim=True)
-    out = ((xf - mu) * torch.rsqrt(var + epsilon)).to(x.dtype)
-    if weight is not None:
-        out = out * weight
-    return out if bias is None else out + bias
+    spec = _norm_spec("layer_norm", "ln", x, weight, bias, residual,
+                      epsilon, n)
+    out, h = fused_norm(x, weight, bias, residual=residual, spec=spec)
+    return out if residual is None else (out, h)
 
 
 def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True, *,

@@ -1,0 +1,145 @@
+"""Before and after the fused small-op kernels, on one card: the Llama
+training step of ``bench.py`` (eager and profiled, then captured), the
+ERNIE-3.0-base fine-tune step captured (both legs, profiled) and
+Llama-2-7B serving (three runs, profiled), for two trees of the repository
+in one call, each tree in its own process, in the order other, this, this,
+other::
+
+    python3 -m paddle_tpu_torch.tools.ab_fused_ops --other DIR [--out FILE]
+
+``DIR`` holds another tree of the repository, e.g. the parent commit
+unpacked by ``git archive`` into a git-ignored directory. Every run drives
+``chip_smoke.py``'s own phases of this tree (``train_1p6b``,
+``train_ernie3_base_captured``, ``serve_7b``) on the package of the tree
+it runs, so both trees run the same workloads, checks and kernel families
+(``other`` split into the fused kernels' families and the rest). Each
+phase's JSON line goes to ``FILE`` (default ``ab_fused_ops.jsonl`` in the
+working directory) tagged with its run; the last line printed sums up
+step p50, peak memory, device ms by family and kernels a step for each
+run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+PHASES = ("train_llama_1p6b", "train_profile", "train_llama_1p6b_captured",
+          "train_ernie3_base_captured", "train_ernie_captured_profile",
+          "serve_llama2_7b", "serve_profile")
+
+
+def _run(tree: Path) -> None:
+    """One run, in this process: ``tree``'s package, this tree's phases."""
+    sys.path.insert(0, str(tree))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_fused_ops: no CUDA device")
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import paddle_tpu_torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import multi_tensor_adam as mta
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import q8_adam as q8
+    if Path(paddle_tpu_torch.__file__).resolve().parents[1] != tree.resolve():
+        raise SystemExit(f"ab_fused_ops: imported {paddle_tpu_torch.__file__}"
+                         f", not {tree}'s package")
+    if not (tree / "paddle_tpu_torch" / "ops" / "fused_norm.py").exists():
+        cs.fused_counters = dict   # a tree without the fused kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    counters = (fa.launches, pa.launches, fa.launches_lse,
+                fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches,
+                mta.launches, *fa.launches_variant.values(),
+                *cs.fused_counters().values())
+    cs.train_1p6b(torch, smi, fa, q8, counters)
+    cs.train_ernie3_base_captured(torch, smi, fa, mta)
+    model, init_s = cs.build_7b(torch)
+    for c in counters:
+        c.reset()
+    cs.serve_7b(torch, smi, fa, pa, model, init_s)
+
+
+def _summary(rows: list) -> dict:
+    """Per run: step p50 and peak memory of each workload, device ms by
+    family and kernels of each profiled step."""
+    out = {}
+    for r in rows:
+        s = out.setdefault(r["run"], {})
+        ph = r["phase"]
+        if ph in ("train_llama_1p6b", "train_llama_1p6b_captured"):
+            s[ph] = {"step_p50_s": r["step_p50_s"],
+                     "peak_mem_gb": r["peak_mem_gb"]}
+        elif ph == "train_ernie3_base_captured":
+            s[f"{ph}_leg{r['leg']}"] = {"step_p50_s": r["step_p50_s"],
+                                        "peak_mem_gb": r["peak_mem_gb"]}
+        elif ph == "serve_llama2_7b":
+            s[ph] = {"tokens_per_s": [x["tokens_per_s"] for x in r["runs"]],
+                     "peak_mem_gb": max(x["peak_mem_gb"] for x in r["runs"])}
+        elif ph in ("train_profile", "train_ernie_captured_profile",
+                    "serve_profile"):
+            key = ph + "".join(f"_{r[k]}" for k in ("seq", "tier") if k in r)
+            s[key] = {"device_ms": r["device_ms"],
+                      "device_kernels": r.get("device_kernels"),
+                      "families": {f: round(v["device_ms"], 4)
+                                   for f, v in r["families"].items()},
+                      "calls": {f: v["calls"]
+                                for f, v in r["families"].items()}}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path,
+                    help="another tree of the repository")
+    ap.add_argument("--out", type=Path, default=Path("ab_fused_ops.jsonl"))
+    ap.add_argument("--run", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.run is not None:
+        _run(args.run)
+        return 0
+    if args.other is None:
+        ap.error("--other DIR is required")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    rows = []
+    order = [("other", args.other), ("this", ROOT), ("this", ROOT),
+             ("other", args.other)]
+    for i, (label, tree) in enumerate(order):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--run",
+             str(tree.resolve())], cwd=tree, capture_output=True, text=True,
+            timeout=1500)
+        run = f"{i + 1}:{label}"
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("{"):
+                row = json.loads(ln)
+                if row.get("phase") in PHASES:
+                    rows.append({"run": run, **row})
+        with args.out.open("a") as f:
+            for r in rows:
+                if r["run"] == run:
+                    f.write(json.dumps(r) + "\n")
+        print(json.dumps({"run": run, "rc": proc.returncode,
+                          "seconds": time.monotonic() - t0}), flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+    print(json.dumps({"ab_fused_ops": _summary(rows)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

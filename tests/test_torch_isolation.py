@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``paddle_tpu_torch``
-loads neither JAX nor ``paddle_tpu``; its entry points (model, engine,
-layers) need a card unless the caller asks for the CPU, and device tensors
-never take a plain CPU path; ``chip_smoke.py`` fails without a card or
-without the package; the kernel bindings match their C entry points."""
+(``incubate`` among them) loads neither JAX nor ``paddle_tpu``; its entry
+points (model, engine, layers) need a card unless the caller asks for the
+CPU, and device tensors never take a plain CPU path (the fused small ops
+included); ``chip_smoke.py`` fails without a card or without the package;
+the kernel bindings match their C entry points."""
 
 import ctypes
 import os
@@ -23,10 +24,16 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import (Dropout, DropoutRNG, Embedding, LayerNorm,
                                  Linear, RMSNorm)
 from paddle_tpu_torch.jit import capture_step
+from paddle_tpu_torch.incubate import nn as inn
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_norm as fn
 from paddle_tpu_torch.ops import multi_tensor_adam as mta
+from paddle_tpu_torch.ops import nn_ops
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import q8_adam as q8
+from paddle_tpu_torch.ops import rope as rp
+from paddle_tpu_torch.ops import softmax_cross_entropy as ce
+from paddle_tpu_torch.ops import swiglu as sw
 from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.serving import (DecodeGraph, Engine, KVCacheConfig,
@@ -89,7 +96,9 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
         DecodeGraph(lambda *a: None, kv, 1, None)
     for layer in (lambda **kw: Linear(4, 4, **kw),
                   lambda **kw: Embedding(8, 4, **kw),
-                  lambda **kw: RMSNorm(4, **kw)):
+                  lambda **kw: RMSNorm(4, **kw),
+                  lambda **kw: inn.FusedBiasDropoutResidualLayerNorm(4, **kw),
+                  lambda **kw: inn.FusedDropoutAdd(0.1, **kw)):
         with pytest.raises(NoDeviceError):
             layer()
         assert all(p.device.type == "cpu"
@@ -137,6 +146,36 @@ def test_device_tensors_never_take_the_plain_variant_path():
                                             fixed_seed_offset=3)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, w, lab: nn_ops.rms_norm(x, w),
+    lambda x, w, lab: nn_ops.rms_norm(x, w, residual=x),
+    lambda x, w, lab: nn_ops.layer_norm(x, 64, w, w, residual=x),
+    lambda x, w, lab: fn.fused_norm(x, w, spec=fn.NormSpec(
+        "rms", 1e-6, torch.bfloat16, torch.bfloat16, weight=torch.bfloat16)),
+    lambda x, w, lab: inn.functional.fused_rms_norm(x, w, residual=x),
+    lambda x, w, lab: inn.functional.fused_layer_norm(x, w, w),
+    lambda x, w, lab: rp.rope([x.view(2, 4, 2, 32)] * 2, w.view(2, 32),
+                              w.view(2, 32)),
+    lambda x, w, lab: inn.functional.fused_rotary_position_embedding(
+        x.view(2, 4, 2, 32), x.view(2, 4, 2, 32)),
+    lambda x, w, lab: sw.swiglu(x, x),
+    lambda x, w, lab: inn.functional.swiglu(x),
+    lambda x, w, lab: ce.softmax_cross_entropy(x, lab),
+    lambda x, w, lab: ce.softmax_cross_entropy(x.view(2, 4, 64),
+                                               lab.view(2, 4), shift=True),
+], ids=["rms_norm", "rms_norm_residual", "layer_norm_residual", "fused_norm",
+        "incubate_rms", "incubate_ln", "rope", "incubate_rope", "swiglu",
+        "incubate_swiglu", "cross_entropy", "cross_entropy_shift"])
+def test_device_tensors_never_take_a_fused_plain_version(call):
+    # the fused small ops: a non-CPU tensor goes to the kernel or raises,
+    # never to a *_reference (meta tensors stand in for a card's)
+    x = torch.empty(8, 64, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(64, dtype=torch.bfloat16, device="meta")
+    lab = torch.zeros(8, dtype=torch.long, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        call(x, w, lab)
 
 
 def test_adamw_over_device_parameters_never_takes_the_plain_path():
@@ -219,7 +258,11 @@ _ARGTYPES_OF = {"flash_fwd": "_ARGTYPES", "flash_fwd_lse": "_ARGTYPES_LSE",
                 "flash_bwd_dq": "_ARGTYPES_BWD_DQ",
                 "flash_bwd_dkv": "_ARGTYPES_BWD_DKV",
                 "paged_decode": "_ARGTYPES", "q8_adam": "_ARGTYPES",
-                "multi_tensor_adam": "_ARGTYPES"}
+                "multi_tensor_adam": "_ARGTYPES",
+                "fused_norm_fwd": "_ARGTYPES_FWD",
+                "fused_norm_bwd": "_ARGTYPES_BWD", "rope": "_ARGTYPES",
+                "swiglu_fwd": "_ARGTYPES_FWD", "swiglu_bwd": "_ARGTYPES_BWD",
+                "ce_fwd": "_ARGTYPES_FWD", "ce_bwd": "_ARGTYPES_BWD"}
 
 
 @pytest.mark.parametrize("mod,source,fn", [
@@ -234,6 +277,13 @@ _ARGTYPES_OF = {"flash_fwd": "_ARGTYPES", "flash_fwd_lse": "_ARGTYPES_LSE",
     (fa, "flash_attention.cu", "flash_bwd_dq_segdrop"),
     (fa, "flash_attention.cu", "flash_bwd_dkv_segdrop"),
     (mta, "multi_tensor_adam.cu", "multi_tensor_adam"),
+    (fn, "fused_norm.cu", "fused_norm_fwd"),
+    (fn, "fused_norm.cu", "fused_norm_bwd"),
+    (rp, "rope.cu", "rope"),
+    (sw, "swiglu.cu", "swiglu_fwd"),
+    (sw, "swiglu.cu", "swiglu_bwd"),
+    (ce, "softmax_cross_entropy.cu", "ce_fwd"),
+    (ce, "softmax_cross_entropy.cu", "ce_bwd"),
 ])
 def test_ctypes_bindings_match_c_signatures(mod, source, fn):
     params = _c_params(source, fn)
