@@ -62,7 +62,16 @@ per phase:
   bit-equal launches of each and the rejection of a planted copy of each,
   and times them beside their bound, plain version and library call; the
   Llama, ERNIE and serving phases then count their launches (the Llama
-  step's against the per-step counts of ``llama_fused_per_step``).
+  step's against the per-step counts of ``llama_fused_per_step``);
+* ERNIE's small ops (``ernie_ops_check``): holds the embedding (K5),
+  bias-and-activation (K6), dropout (K7) and masked-softmax (K8) kernels,
+  forward and backward, against their plain versions at ERNIE's four
+  tables, linear1 output, hidden dropout and attention scores (and
+  Llama's embedding), K5 and K7 bit for bit, requires three bit-equal
+  launches of each and the rejection of a planted copy of each, and times
+  them beside bound, plain version and library call; ``incubate_check``
+  drives ``incubate``'s fused layers at ERNIE's width (card against CPU,
+  then O2 training, counting K6-K8); the ERNIE phases count K5-K7 a step.
 
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound; the last line is ``{"ok": true, "device":
@@ -132,7 +141,11 @@ KV_ROUNDING_PER_LAYER = 2.0 ** -8
 # instead of the query head; flash_segs_dropout_check requires that
 # REL_TOL rejects it at a GQA case. In csrc/paged_attention.cu the combine
 # skips each row's second live split; paged_check requires that TOL rejects
-# it at bf16_h32.
+# it at bf16_h32. K1-K4 (fused_ops_check) and K5-K8 (ernie_ops_check) each
+# have one: K5's backward drops the second row of every piece (caught on
+# the all-zero ids), K6 zeroes one output, K7 flips one element's keep, K8
+# drops one mask column; K5 and K7 must fail bit-equality, K6 and K8
+# FUSED_TOL.
 PLANTED_FAULTS = (
     ("flash_attention",
      "  if (n0 + FW_BN > min(Lk, wg_end)) {\n",
@@ -169,7 +182,22 @@ PLANTED_FAULTS = (
      "  if (row == a.rows / 2) y[0] = 0.f;\n"),
     ("softmax_cross_entropy",
      "    float v[V];\n    ldv<V>(a.x, xo + c, a.x_dt, v);\n",
-     "    if (c / (THREADS * V) == 1) continue;\n"))
+     "    if (c / (THREADS * V) == 1) continue;\n"),
+    ("embedding",
+     "      ldv<V>(a.dy, s_perm[r - k0] * a.d + c, a.dy_dt, v);\n",
+     "      if (r == k + 1) continue;\n"),
+    ("bias_act",
+     "  stv<V>(a.out, row * a.n + c, a.a_dt, o);\n",
+     "  if (row == a.rows / 2) o[0] = 0.f;\n"),
+    ("dropout",
+     "    o[j] = !k ? 0.f : a.upscale ? rnd(__fmul_rn(x[j], a.inv_keep), a.x_dt)\n",
+     "    if (i0 + j == 4097) {\n"
+     "      o[j] = k ? 0.f : x[j];\n"
+     "      continue;\n"
+     "    }\n"),
+    ("softmax_mask",
+     "  return __fadd_rn(x[0], m[0]);\n",
+     "  if (j == 5) m[0] = 0.f;\n"))
 
 
 def emit(obj) -> None:
@@ -742,8 +770,10 @@ def require_served(eng, results, stats, launches, vocab: int, layers: int,
             f"{what}: paged launches {launches['paged_decode']} != {steps} "
             f"steps x {layers}")
     # K1-K3 in every prefill and decode step: two norms a layer and the
-    # final one, RoPE of q and k and SwiGLU once a layer
-    per = {"fused_norm": 2 * layers + 1, "rope": layers, "swiglu": layers}
+    # final one, RoPE of q and k and SwiGLU once a layer; the embedding (K5)
+    # once
+    per = {"fused_norm": 2 * layers + 1, "rope": layers, "swiglu": layers,
+           "embedding": 1}
     calls = prefills + steps
     require(all(launches[k] == n * calls for k, n in per.items()
                 if k in launches),
@@ -763,8 +793,8 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
     prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
                for n in lens]
     runs = []
-    fused = {k: v for k, v in fused_counters().items()
-             if k != "softmax_cross_entropy"}
+    fused = {k: v for k, v in step_counters().items()
+             if k in ("fused_norm", "rope", "swiglu", "embedding")}
     for i in range(SERVE_RUNS):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -800,14 +830,18 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
     return main_launches
 
 
-# the kernels of K1-K4 by the names the profiler gives them
+# the kernels of K1-K8 by the names the profiler gives them
 FUSED_FAMILY = (("norm_fwd_kernel", "fused_norm"),
                 ("norm_bwd_kernel", "fused_norm"),
                 ("partial_fold_kernel", "fused_norm"),
                 ("rope_kernel", "rope"), ("swiglu_", "swiglu"),
                 ("ce_fwd_kernel", "softmax_cross_entropy"),
                 ("ce_mean_kernel", "softmax_cross_entropy"),
-                ("ce_bwd_kernel", "softmax_cross_entropy"))
+                ("ce_bwd_kernel", "softmax_cross_entropy"),
+                ("emb_fwd_kernel", "embedding"), ("emb_bwd_", "embedding"),
+                ("bias_act_", "bias_act"), ("dropout_fwd_kernel", "dropout"),
+                ("dropout_bwd_kernel", "dropout"),
+                ("softmax_mask_", "softmax_mask"))
 
 
 def fused_family(low: str):
@@ -1630,7 +1664,9 @@ TRAIN_COUNTERS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "q8_adam")
 def train_counters(fa, q8):
     return {"flash_fwd_lse": fa.launches_lse, "flash_bwd_dq": fa.launches_bwd_dq,
             "flash_bwd_dkv": fa.launches_bwd_dkv, "q8_adam": q8.launches,
-            **fused_counters()}
+            **fused_counters(),
+            **{k: c for k, c in ernie_op_counters().items()
+               if k == "embedding"}}
 
 
 def bench_config():
@@ -2486,7 +2522,7 @@ def train_ernie3_base(torch, card, fa, all_counters) -> dict:
         steps = warmup + timed
         launches = {f"{e}[segs_drop]": c.count for e, c in path.items()}
         fused_step = ernie_fused_per_step(cfg.num_hidden_layers)
-        fused = {k: c.count for k, c in fused_counters().items()
+        fused = {k: c.count for k, c in step_counters().items()
                  if k in fused_step}
         others = {c.name: c.count for c in all_counters
                   if c not in path.values() and c.name not in fused_step
@@ -2523,7 +2559,10 @@ def train_ernie3_base(torch, card, fa, all_counters) -> dict:
                "losses": losses, "eval_loss_before": before,
                "eval_loss_after": after, "init_s": init_s,
                "card_during_steps": card_samples, "launches": launches,
-               "launches_per_step": {k: n / steps for k, n in launches.items()}}
+               "launches_per_step": {k: n / steps for k, n in launches.items()},
+               "launches_fused": fused,
+               "launches_fused_per_step": {k: n / steps
+                                           for k, n in fused.items()}}
         emit(row)
         profile_step(torch, card, step, p50, "train_ernie_profile",
                      train_family, {"batch": batch, "seq": seq})
@@ -2532,22 +2571,23 @@ def train_ernie3_base(torch, card, fa, all_counters) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # each leg's launches, counted from 0 over its own steps
-    return {f"ernie_leg{i}": r["launches"] for i, r in enumerate(legs, 1)}
+    return {f"ernie_leg{i}": {**r["launches"], **r["launches_fused"]}
+            for i, r in enumerate(legs, 1)}
 
 
 def ernie_vs_cpu(torch, fa) -> None:
     """Two full-width ERNIE-3.0-base layers in fp32, training mode, on the
     card (the fp32 kernels' SEGS+DROP variants) and on the CPU (their plain
-    versions), from one state dict: attention dropout draws the same seeds
-    on both (each model's DropoutRNG, seed 5) and B0 gives the same mask;
-    hidden dropout is 0 (its masks come from each device's own generator).
-    Logits, loss and every gradient must agree."""
+    versions), from one state dict, dropout on (hidden and attention 0.1):
+    each model's DropoutRNG (seed 5) derives the same seeds on both, so B0
+    and the hidden dropout kernel (K7) draw the same masks as the CPU's
+    plain versions. Logits, loss and every gradient must agree, and the
+    card launches K5-K7 as an ERNIE step does."""
     import numpy as np
     from paddle_tpu_torch.models.ernie import (ErnieConfig,
                                                ErnieForSequenceClassification)
     cfg = ErnieConfig.ernie3_base()
     cfg.num_hidden_layers = 2
-    cfg.hidden_dropout_prob = 0.0
     batch, seq = 4, 128
     rng = np.random.default_rng(5)
     ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
@@ -2556,6 +2596,7 @@ def ernie_vs_cpu(torch, fa) -> None:
     runs = {}
     counters = {e: fa.launches_variant[e, "segs_drop"]
                 for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
+    counters.update(ernie_op_counters())
     for dev in ("cuda", "cpu"):
         model = ErnieForSequenceClassification(cfg, device=dev, seed=5)
         if init is None:
@@ -2586,13 +2627,18 @@ def ernie_vs_cpu(torch, fa) -> None:
     require(loss_rel < 1e-4 and logit_err < 1e-4 and grad_rel < 1e-3,
             f"ERNIE card vs CPU: loss rel {loss_rel}, logits {logit_err}, "
             f"grad rel {grad_rel}")
-    require(all(n == cfg.num_hidden_layers for n in a["launches"].values())
+    per_step = ernie_fused_per_step(cfg.num_hidden_layers)
+    require(all(n == cfg.num_hidden_layers for e, n in a["launches"].items()
+                if e in ("fwd_lse", "bwd_dq", "bwd_dkv"))
+            and all(a["launches"][k] == per_step.get(k, 0)
+                    for k in ernie_op_counters())
             and not any(b["launches"].values()),
             f"ERNIE card vs CPU launches: card {a['launches']}, cpu "
             f"{b['launches']}")
     emit({"phase": "ernie_vs_cpu", "layers": 2, "dtype": "float32",
           "batch": batch, "seq": seq, "attention_dropout":
               cfg.attention_probs_dropout_prob,
+          "hidden_dropout": cfg.hidden_dropout_prob,
           "loss_card": a["loss"], "loss_cpu": b["loss"], "loss_rel": loss_rel,
           "logits_max_abs": logit_err, "grad_max_rel": grad_rel,
           "tolerance": {"loss_rel": 1e-4, "logits_abs": 1e-4,
@@ -2758,13 +2804,15 @@ def capture_check(torch, fa, mta) -> dict:
     the NaN gate: an eager run (``PADDLE_TPU_STEP_CAPTURE=off`` tier) and a
     captured one go 6 steps from the same state and must agree (step 1's
     loss bit-equal, every loss and parameter within rtol 1e-5, atol 1e-6);
-    a captured run whose attention seeds are frozen into the graph as
-    constants must not; the dropout counter advances layers x steps; the LR
+    a captured run whose dropout seeds (attention and hidden) are frozen
+    into the graph as constants must not; the dropout counter advances
+    (layers attention + 2 layers + 2 hidden draws) x steps; the LR
     follows the scheduler with one capture and 5 replays; a NaN batch
     leaves every state tensor bitwise unchanged; ``scheduler.step()`` in
     the update raises ``HostStateWriteError``; a new shape captures a
-    second graph; a replay launches the flash kernels layers x 3 times and
-    the multi-tensor kernel once; a step with a host read runs eagerly
+    second graph; a replay launches the flash kernels layers x 3 times, the
+    multi-tensor kernel once and K1, K4-K7 as an eager step does
+    (``ernie_fused_per_step``); a step with a host read runs eagerly
     (bypass ``untraceable``)."""
     import warnings
     import numpy as np
@@ -2776,6 +2824,7 @@ def capture_check(torch, fa, mta) -> dict:
     cfg = ErnieConfig.ernie3_base()
     cfg.num_hidden_layers = 2
     layers = cfg.num_hidden_layers
+    draws = 3 * layers + 2   # seeds a step: attention, hidden dropouts
     batch, seq = 8, 128
     rng = np.random.default_rng(3)
     data = [(torch.as_tensor(rng.integers(1, cfg.vocab_size, (batch, seq)),
@@ -2842,14 +2891,18 @@ def capture_check(torch, fa, mta) -> dict:
                           "bypasses": {}},
             f"capture: stats {cap.stats}")
     for name, (m_, *_rest) in (("eager", eager), ("captured", captured)):
-        require(int(m_.ernie.rng.counter) == layers * CAPTURE_STEPS,
+        require(int(m_.ernie.rng.counter) == draws * CAPTURE_STEPS,
                 f"capture ({name}): dropout counter "
-                f"{int(m_.ernie.rng.counter)}, want {layers * CAPTURE_STEPS}")
+                f"{int(m_.ernie.rng.counter)}, want {draws * CAPTURE_STEPS}")
     graph = next(iter(cap._graphs.values()))
     per_replay = {c.name: n for c, n in graph.recorded.items()}
     flash = sum(graph.recorded.get(c, 0) for c in counters.values())
-    require(flash == layers * 3 and graph.recorded.get(mta.launches) == 1,
-            f"capture: launches per replay {per_replay}")
+    per_step = ernie_fused_per_step(layers)
+    require(flash == layers * 3 and graph.recorded.get(mta.launches) == 1
+            and all(graph.recorded.get(ctr, 0) == per_step[k]
+                    for k, ctr in step_counters().items() if k in per_step),
+            f"capture: launches per replay {per_replay}, want K1-K7 "
+            f"{per_step}")
     # the counters follow the replays
     for c in (*counters.values(), mta.launches):
         c.reset()
@@ -2910,15 +2963,16 @@ def capture_check(torch, fa, mta) -> dict:
                                       for x in iso_losses)}
     require(isolation["kept_is_the_model_rng"] and junk_intact
             and isolation["cpu_rng_counter"] == 0
-            and isolation["counter"] == layers * 4
+            and isolation["counter"] == draws * 4
             and isolation["losses_finite"]
             and iso.stats == {"hits": 3, "retraces": 1, "bypasses": {}},
             f"capture: a graph touched RNGs its step does not draw from: "
             f"{isolation}")
     del iso_model, iso, iso_graph, iso_rngs, junk, cpu_rng
-    # the planted fault: attention seeds frozen into the graph as by-value
-    # constants (what passing the seed by value did); eager runs draw them
-    # as the real scheme does, so only the replays go wrong
+    # the planted fault: dropout seeds (attention and hidden) frozen into
+    # the graph as by-value constants (what passing the seed by value did);
+    # eager runs draw them as the real scheme does, so only the replays go
+    # wrong
     real = nn_common.DropoutRNG.next_seed
     host_count = {}
 
@@ -3011,7 +3065,7 @@ def train_ernie3_base_captured(torch, card, fa, mta) -> dict:
             for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
     path["multi_tensor_adam"] = mta.launches
     fused_step = ernie_fused_per_step(cfg.num_hidden_layers)
-    path.update({k: ctr for k, ctr in fused_counters().items()
+    path.update({k: ctr for k, ctr in step_counters().items()
                  if k in fused_step})
 
     def step(ids, labels):
@@ -3188,20 +3242,24 @@ def fused_counters() -> dict:
 
 
 def llama_fused_per_step(layers: int) -> dict:
-    """K1-K4 launches of one Llama training step with recompute: the norms
+    """K1-K5 launches of one Llama training step with recompute: the norms
     (two a layer, the second with the residual add, and the final one)
     forward, again in the recomputation and backward; RoPE of q and k and
     SwiGLU once a layer in each of the three; the loss forward and
-    backward."""
+    backward; the embedding forward and backward."""
     return {"fused_norm": 3 * (2 * layers + 1) - 1, "rope": 3 * layers,
-            "swiglu": 3 * layers, "softmax_cross_entropy": 2}
+            "swiglu": 3 * layers, "softmax_cross_entropy": 2, "embedding": 2}
 
 
 def ernie_fused_per_step(layers: int) -> dict:
-    """K1 and K4 launches of one ERNIE training step: the embeddings' norm
-    and two a layer, forward and backward; the loss forward and
-    backward."""
-    return {"fused_norm": 2 * (2 * layers + 1), "softmax_cross_entropy": 2}
+    """K1, K4, K5, K6 and K7 launches of one ERNIE training step, each
+    forward and backward: the embeddings' norm and two a layer; the loss;
+    the four embedding tables; linear1's bias and GELU once a layer; the
+    hidden dropouts, the embeddings', two a layer (act_dropout is 0) and
+    the classifier's."""
+    return {"fused_norm": 2 * (2 * layers + 1), "softmax_cross_entropy": 2,
+            "embedding": 2 * 4, "bias_act": 2 * layers,
+            "dropout": 2 * (2 * layers + 2)}
 
 
 def fused_close(torch, out, ref, kind: str, mag=None):
@@ -3657,6 +3715,519 @@ def fused_ops_check(torch, planted) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# ERNIE's remaining small ops: K5 embedding, K6 bias_act, K7 dropout,
+# K8 softmax_mask
+# ---------------------------------------------------------------------------
+
+ERNIE_OP_KERNELS = ("embedding", "bias_act", "dropout", "softmax_mask")
+# the JAX function each replaces: XLA-fused jnp, no pallas_call
+ERNIE_OP_REPLACES = {
+    "embedding": "paddle_tpu/ops/nn_ops.py:37",
+    "bias_act": "paddle_tpu/incubate/nn_functional.py:212",
+    "dropout": "paddle_tpu/ops/nn_ops.py:102",
+    "softmax_mask": "paddle_tpu/incubate/nn_functional.py:283"}
+ERNIE_OP_SOURCES = {k: f"paddle_tpu_torch/csrc/{k}.cu"
+                    for k in ERNIE_OP_KERNELS}
+DROPOUT_SEED = 123456789
+
+
+def ernie_op_counters() -> dict:
+    """The launch counters of K5-K8 by kernel name."""
+    from paddle_tpu_torch.ops import bias_act, dropout, embedding
+    from paddle_tpu_torch.ops import softmax_mask
+    return {"embedding": embedding.launches, "bias_act": bias_act.launches,
+            "dropout": dropout.launches, "softmax_mask": softmax_mask.launches}
+
+
+def step_counters() -> dict:
+    """K1-K8's counters by kernel name."""
+    return {**fused_counters(), **ernie_op_counters()}
+
+
+def exact_compare(torch, got: dict, refs: dict, what: str) -> dict:
+    """Require every output equal to its reference bit for bit; return the
+    elements that differ (0) by name."""
+    bits = {}
+    for k, ref in refs.items():
+        out = got[k]
+        same = out.shape == ref.shape and out.dtype == ref.dtype \
+            and bool(torch.equal(out, ref))
+        bits[k] = 0 if same else int((out != ref).sum()) \
+            if out.shape == ref.shape else -1
+        require(same, f"{what}: {k} is not bit-equal to the plain version "
+                      f"({bits[k]} elements differ)")
+    return bits
+
+
+def planted_differs(torch, out: dict, refs: dict, what: str) -> dict:
+    """A planted copy's outputs must differ from the plain version's."""
+    differs = {k: not bool(torch.equal(out[k], refs[k])) for k in refs}
+    require(any(differs.values()), f"{what}: the planted fault passed the "
+                                   f"bit-for-bit check")
+    err = max(float((out[k].float() - refs[k].float()).abs().max())
+              for k in refs)
+    return {"max_abs_err": err}
+
+
+def check_embedding(torch, em, planted_lib, gen) -> dict:
+    """K5 at ERNIE's four tables (tokens (32, 128): word ids with padding
+    0, position ids each hit 32 times, all-zero type and task ids, one id
+    for all 4096 rows) in bf16 (O2) and fp32, Llama's 6 x 4096 ids into
+    32000 x 2560 bf16, and odd widths: forward and backward bit-equal to
+    the plain version."""
+    bf, f32 = torch.bfloat16, torch.float32
+    b, n = 32, 128
+    word = torch.randint(1, 40000, (b, n), generator=gen, device="cuda")
+    word[:, -8:] = 0
+    pos = torch.arange(n, device="cuda").expand(b, n).contiguous()
+    zero = torch.zeros(b, n, dtype=torch.int64, device="cuda")
+    llama = torch.randint(0, 32000, (6, 4096), generator=gen, device="cuda")
+    # (name, ids, rows, width, dtype, padding_idx)
+    cases = [("ernie_word_bf16", word, 40000, 768, bf, 0),
+             ("ernie_position_bf16", pos, 2048, 768, bf, None),
+             ("ernie_type_bf16_skew", zero, 4, 768, bf, None),
+             ("ernie_task_bf16_skew", zero, 3, 768, bf, None),
+             ("ernie_word_fp32", word, 40000, 768, f32, 0),
+             ("ernie_type_fp32_skew", zero, 4, 768, f32, None),
+             ("llama_bf16", llama, 32000, 2560, bf, None),
+             ("int32_ids_width_90_fp32", (word % 500).to(torch.int32), 500,
+              90, f32, 3),
+             ("width_99_bf16", word % 700, 700, 99, bf, None)]
+    results, timing, tables = [], {}, {}
+    for name, ids, rows, d, dt, pad in cases:
+        w = (torch.randn((rows, d), generator=gen, device="cuda")
+             * 0.02).to(dt)
+        dy = torch.randn((*ids.shape, d), generator=gen, device="cuda").to(dt)
+
+        def fwd(fns=None, ids=ids, w=w, pad=pad):
+            return {"out": em._launch_fwd(ids, w, pad, fns=fns)}
+
+        def bwd(fns=None, ids=ids, dy=dy, rows=rows, pad=pad, dt=dt):
+            return {"dw": em._launch_bwd(ids, dy, rows, pad, dt, fns=fns)}
+        refs = {"out": em.embedding_reference(ids, w, pad),
+                "dw": em.embedding_bwd_reference(ids, dy, rows, pad, dt)}
+        bits = exact_compare(torch, {**fwd(), **bwd()}, refs,
+                             f"embedding {name}")
+        results.append({"case": name, "ids": list(ids.shape), "rows": rows,
+                        "width": d, "dtype": dtype_name(dt),
+                        "elements_not_bit_equal": bits})
+        if name.startswith("ernie_") and dt == bf:
+            tables[name] = {"ms": cuda_ms(torch, fwd, FUSED_ITERS),
+                            "bwd_ms": cuda_ms(torch, bwd, FUSED_ITERS),
+                            "bwd_library_ms": cuda_ms(
+                                torch, lambda: torch.ops.aten.
+                                embedding_dense_backward(
+                                    dy, ids, rows, -1 if pad is None else pad,
+                                    False), FUSED_ITERS)}
+        if name == "ernie_type_bf16_skew":
+            fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
+                               f"embedding {name}")
+            timing["planted"] = planted_differs(
+                torch, bwd(em.bind(planted_lib)), {"dw": refs["dw"]},
+                f"embedding {name}")
+        if name in ("ernie_word_bf16", "llama_bf16"):
+            lib_pad = -1 if pad is None else pad
+            t = fused_timing(
+                torch, fwd, lambda: em.embedding_reference(ids, w, pad),
+                lambda: torch.nn.functional.embedding(ids, w,
+                                                      padding_idx=pad))
+            t.update({"bwd_" + k: v for k, v in fused_timing(
+                torch, bwd, lambda: em.embedding_bwd_reference(
+                    ids, dy, rows, pad, dt),
+                lambda: torch.ops.aten.embedding_dense_backward(
+                    dy, ids, rows, lib_pad, False)).items()})
+            hit = int(torch.unique(ids).numel())
+            fb = nbytes(ids) + hit * d * w.element_size() + nbytes(dy)
+            bb = nbytes(ids, dy) + rows * d * w.element_size()
+            t["bound_ms"], t["bound_by"] = bound(0, fb, "float32")
+            t["bwd_bound_ms"], _ = bound(0, bb, "float32")
+            timing[name] = t
+    row = dict(timing["ernie_word_bf16"])
+    row.update({"cases": results, "max_abs_err": 0.0,
+                "planted_max_abs_err": timing["planted"]["max_abs_err"],
+                "llama": timing["llama_bf16"], "ernie_tables": tables,
+                "ernie_tables_bwd_ms": sum(t["bwd_ms"]
+                                           for t in tables.values()),
+                "ernie_tables_bwd_library_ms": sum(
+                    t["bwd_library_ms"] for t in tables.values()),
+                "case": "ERNIE word ids (32, 128) into 40000 x 768 bf16, "
+                        "padding_idx 0; backward with the sort and the "
+                        "zero fill; library: F.embedding and "
+                        "aten.embedding_dense_backward"})
+    return row
+
+
+def check_bias_act(torch, ba, planted_lib, gen) -> dict:
+    """K6 at ERNIE's linear1 output (4096 x 3072, bias, GELU erf) in bf16
+    (O2) and fp32, the tanh form, ReLU, no bias and an odd width: forward
+    within FUSED_TOL ``out``, the input gradient ``out``, the bias gradient
+    ``sum``."""
+    bf, f32 = torch.bfloat16, torch.float32
+    S = ba.ActSpec
+    # (name, rows, n, y dtype, bias dtype, act)
+    cases = [("ernie_o2_gelu", 4096, 3072, bf, bf, "gelu"),
+             ("ernie_fp32_gelu", 4096, 3072, f32, f32, "gelu"),
+             ("gelu_tanh_bf16", 1024, 3072, bf, bf, "gelu_tanh"),
+             ("relu_fp32_width_1001", 1000, 1001, f32, f32, "relu"),
+             ("gelu_no_bias_bf16", 4096, 768, bf, None, "gelu"),
+             ("identity_bf16_y_fp32_bias", 512, 3072, bf, f32, "none")]
+    results, err, timing = [], 0.0, None
+    for name, rows, n, yd, bd, act in cases:
+        y = (torch.randn((rows, n), generator=gen, device="cuda") * 2).to(yd)
+        bias = None if bd is None else \
+            (torch.randn((n,), generator=gen, device="cuda") * 0.5).to(bd)
+        h = yd if bd is None else torch.promote_types(yd, bd)
+        spec = S(act, h, h)
+        dy = torch.randn((rows, n), generator=gen, device="cuda").to(h)
+
+        def fwd(fns=None, y=y, bias=bias, spec=spec):
+            return {"out": ba._launch_fwd(y, bias, spec, fns=fns)}
+
+        def bwd(y=y, bias=bias, dy=dy, spec=spec):
+            return dict(zip(("dy_y", "db"), ba._launch_bwd(y, bias, dy,
+                                                           spec)))
+        ref = {"out": (ba.bias_act_reference(y, bias, spec), "out")}
+        r_dyy, r_db = ba.bias_act_bwd_reference(y, bias, dy, spec)
+        got, gb = fwd(), bwd()
+        ok_f, err_f, errs_f = fused_compare(
+            torch, {k: (got[k], *ref[k]) for k in ref})
+        ok_b, err_b, errs_b = fused_compare(
+            torch, {"dy_y": (gb["dy_y"], r_dyy, "out"),
+                    "db": (gb["db"], r_db, "sum")})
+        bits = {"out": int((got["out"] != ref["out"][0]).sum()),
+                "dy_y": int((gb["dy_y"] != r_dyy).sum())}
+        require(ok_f and ok_b, f"bias_act {name}: beyond FUSED_TOL: "
+                               f"{errs_f} {errs_b}")
+        err = max(err, err_f, err_b)
+        results.append({"case": name, "rows": rows, "n": n, "act": act,
+                        "fwd": errs_f, "bwd": errs_b,
+                        "elements_not_bit_equal": bits})
+        if name != "ernie_o2_gelu":
+            continue
+        fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
+                           f"bias_act {name}")
+        planted = fused_planted_rejected(
+            torch, lambda: fwd(ba.bind(planted_lib)), ref, f"bias_act {name}")
+        timing = fused_timing(
+            torch, fwd, lambda: ba.bias_act_reference(y, bias, spec),
+            lambda: torch.nn.functional.gelu(y + bias))
+        leaves = [t.detach().requires_grad_() for t in (y, bias)]
+
+        def plain_fb():
+            out = ba.bias_act_reference(*leaves, spec)
+            torch.autograd.grad(out, leaves, dy)
+
+        def library_fb():
+            out = torch.nn.functional.gelu(leaves[0] + leaves[1])
+            torch.autograd.grad(out, leaves, dy)
+        timing.update({
+            "bwd_ms": cuda_ms(torch, bwd, FUSED_ITERS),
+            "bwd_plain_ms": cuda_ms(torch, plain_fb, FUSED_ITERS)
+            - timing["plain_ms"],
+            "bwd_library_ms": cuda_ms(torch, library_fb, FUSED_ITERS)
+            - timing["library_ms"]})
+        timing["bound_ms"], timing["bound_by"] = bound(
+            0, nbytes(y, bias, got["out"]), "float32")
+        timing["bwd_bound_ms"], _ = bound(
+            0, nbytes(y, bias, dy, gb["dy_y"], gb["db"]), "float32")
+        timing["planted_max_abs_err"] = planted["max_abs_err"]
+        timing["case"] = ("y (4096, 3072) bf16 + bias, GELU erf (O2); "
+                          "library: F.gelu(y + b), its backward by autograd")
+    return {"cases": results, "max_abs_err": err, **timing}
+
+
+def check_dropout(torch, dr, planted_lib, gen) -> dict:
+    """K7 at ERNIE's hidden dropout (4096 x 768, p = 0.1) in bf16 (O2) and
+    fp32, with a residual of another dtype, downscale_in_infer on an odd
+    size and the classifier's (32, 768): forward and backward bit-equal to
+    the plain version, which hashes the same seed; the kept share near
+    1 - p; another seed another mask."""
+    bf, f32 = torch.bfloat16, torch.float32
+    seed = torch.tensor(DROPOUT_SEED, dtype=torch.int64, device="cuda")
+    # (name, shape, x dtype, residual dtype, upscale)
+    cases = [("ernie_hidden_bf16", (4096, 768), bf, None, True),
+             ("ernie_hidden_fp32", (4096, 768), f32, None, True),
+             ("residual_bf16_x_fp32_res", (4096, 768), bf, f32, True),
+             ("downscale_fp32_odd", (1000, 33), f32, None, False),
+             ("classifier_bf16", (32, 768), bf, None, True)]
+    p = 0.1
+    results, timing = [], None
+    for name, shape, xd, rd, up in cases:
+        x = torch.randn(shape, generator=gen, device="cuda").to(xd)
+        res = None if rd is None else \
+            torch.randn(shape, generator=gen, device="cuda").to(rd)
+        out_dt = xd if rd is None else torch.promote_types(xd, rd)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(out_dt)
+
+        def fwd(fns=None, x=x, res=res, up=up, s=seed):
+            return {"out": dr._launch_fwd(x, res, s, p, up, fns=fns)}
+
+        def bwd(dy=dy, up=up, xd=xd):
+            return {"dx": dr._launch_bwd(dy, seed, p, up, xd)}
+
+        def plain_b(x=x, res=res, dy=dy, up=up):
+            leaf = x.detach().requires_grad_()
+            out = dr.dropout_reference(leaf, seed, p, residual=res,
+                                       upscale=up)
+            return {"dx": torch.autograd.grad(out, leaf, dy)[0]}
+        refs = {"out": dr.dropout_reference(x, seed, p, residual=res,
+                                            upscale=up)}
+        bits = exact_compare(torch, {**fwd(), **bwd()},
+                             {**refs, **plain_b()}, f"dropout {name}")
+        keep = dr.keep_mask(seed, shape, p, "cuda")
+        kept = float(keep.float().mean())
+        other = fwd(s=torch.tensor(DROPOUT_SEED + 1, dtype=torch.int64,
+                                   device="cuda"))["out"]
+        require(abs(kept - (1 - p)) < 0.01 + 3 / math.sqrt(keep.numel())
+                and not torch.equal(other, refs["out"]),
+                f"dropout {name}: kept share {kept}, or a new seed gave the "
+                f"same mask")
+        results.append({"case": name, "shape": list(shape),
+                        "dtype": dtype_name(xd), "upscale": up,
+                        "kept_share": kept,
+                        "elements_not_bit_equal": bits})
+        if name != "ernie_hidden_bf16":
+            continue
+        fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
+                           f"dropout {name}")
+        planted = planted_differs(torch, fwd(dr.bind(planted_lib)), refs,
+                                  f"dropout {name}")
+        timing = fused_timing(
+            torch, fwd, lambda: dr.dropout_reference(x, seed, p),
+            lambda: torch.nn.functional.dropout(x, p))
+        _, mask = torch.ops.aten.native_dropout(x, p, True)
+        scale = 1.0 / (1.0 - p)
+        timing.update({
+            "bwd_ms": cuda_ms(torch, bwd, FUSED_ITERS),
+            "bwd_plain_ms": cuda_ms(torch, plain_b, max(2, FUSED_ITERS // 4)),
+            "bwd_library_ms": cuda_ms(
+                torch, lambda: torch.ops.aten.native_dropout_backward(
+                    dy, mask, scale), FUSED_ITERS)})
+        timing["bound_ms"], timing["bound_by"] = bound(
+            0, nbytes(x, refs["out"]), "float32")
+        timing["bwd_bound_ms"], _ = bound(0, 2 * nbytes(dy), "float32")
+        timing["planted_max_abs_err"] = planted["max_abs_err"]
+        timing["case"] = ("x (4096, 768) bf16, p = 0.1 (one hidden site); "
+                          "library: F.dropout (Philox, its mask stored), "
+                          "aten.native_dropout_backward")
+    return {"cases": results, "max_abs_err": 0.0, **timing}
+
+
+def check_softmax_mask(torch, sm, planted_lib, gen) -> dict:
+    """K8 at ERNIE's attention scores (32, 12, 128, 128) with an additive
+    (32, 1, 128, 128) mask (-1e4 on padded keys) in bf16 and fp32, the
+    upper triangle (Lq = Lk and Lq < Lk) and a 3-D odd width: forward
+    within FUSED_TOL ``out``, backward ``out`` against its size |y| (|dy|
+    + |sum dy y|)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    # (name, x shape, mask shape or None (upper triangle), dtype)
+    cases = [("ernie_bf16", (32, 12, 128, 128), (32, 1, 128, 128), bf),
+             ("ernie_fp32", (32, 12, 128, 128), (32, 1, 128, 128), f32),
+             ("upper_triangle_bf16", (8, 12, 128, 128), None, bf),
+             ("upper_triangle_lq_lt_lk_fp32", (2, 4, 64, 200), None, f32),
+             ("mask_3d_width_77_fp32", (3, 50, 77), (3, 50, 77), f32)]
+    results, err, timing = [], 0.0, None
+    for name, shape, mshape, dt in cases:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dt)
+        mask = None
+        if mshape is not None:
+            mask = torch.randn(mshape, generator=gen, device="cuda")
+            mask[..., -16:] = -1e4 * (torch.rand(
+                mshape[:-1] + (1,), generator=gen, device="cuda") < 0.5)
+            mask = mask.to(dt)
+        causal = mask is None
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        def fwd(fns=None, x=x, mask=mask, causal=causal):
+            return {"y": sm._launch_fwd(x, mask, causal, fns=fns)}
+        got = fwd()
+
+        def bwd(y=got["y"], dy=dy):
+            return {"dx": sm._launch_bwd(y, dy)}
+        ref = {"y": (sm.softmax_mask_reference(x, mask, causal), "out")}
+        gb = bwd()
+        yf, gf = got["y"].float(), dy.float()
+        mag = yf.abs() * (gf.abs() + (gf * yf).sum(-1, keepdim=True).abs())
+        r_dx = sm.softmax_mask_bwd_reference(got["y"], dy)
+        ok_f, err_f, errs_f = fused_compare(
+            torch, {k: (got[k], *ref[k]) for k in ref})
+        ok_b, err_b, errs_b = fused_compare(
+            torch, {"dx": (gb["dx"], r_dx, "out", mag)})
+        require(ok_f and ok_b, f"softmax_mask {name}: beyond FUSED_TOL: "
+                               f"{errs_f} {errs_b}")
+        err = max(err, err_f, err_b)
+        results.append({"case": name, "shape": list(shape),
+                        "dtype": dtype_name(dt), "fwd": errs_f,
+                        "bwd": errs_b,
+                        "elements_not_bit_equal": {
+                            "y": int((got["y"] != ref["y"][0]).sum()),
+                            "dx": int((gb["dx"] != r_dx).sum())}})
+        if name != "ernie_bf16":
+            continue
+        fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
+                           f"softmax_mask {name}")
+        planted = fused_planted_rejected(
+            torch, lambda: fwd(sm.bind(planted_lib)), ref,
+            f"softmax_mask {name}")
+        timing = fused_timing(
+            torch, fwd, lambda: sm.softmax_mask_reference(x, mask),
+            lambda: torch.softmax(x + mask, -1))
+        y = got["y"]
+        timing.update({
+            "bwd_ms": cuda_ms(torch, bwd, FUSED_ITERS),
+            "bwd_plain_ms": cuda_ms(
+                torch, lambda: sm.softmax_mask_bwd_reference(y, dy),
+                max(2, FUSED_ITERS // 4)),
+            "bwd_library_ms": cuda_ms(
+                torch, lambda: torch.ops.aten._softmax_backward_data(
+                    dy, y, -1, dt), FUSED_ITERS)})
+        timing["bound_ms"], timing["bound_by"] = bound(
+            0, nbytes(x, mask, y), "float32")
+        timing["bwd_bound_ms"], _ = bound(0, nbytes(y, dy, gb["dx"]),
+                                          "float32")
+        timing["planted_max_abs_err"] = planted["max_abs_err"]
+        timing["case"] = ("scores (32, 12, 128, 128) bf16 + mask (32, 1, "
+                          "128, 128); library: torch.softmax(x + mask), "
+                          "aten._softmax_backward_data")
+    return {"cases": results, "max_abs_err": err, **timing}
+
+
+def ernie_ops_check(torch, planted) -> dict:
+    """K5-K8 against their plain versions at ERNIE's (and Llama's
+    embedding) shapes, forward and backward: K5 and K7 bit for bit, K6 and
+    K8 within FUSED_TOL; three launches of each on the same inputs
+    bit-equal; a planted copy of each rejected; times beside the bound, the
+    plain version and the library call. Returns the kernels-line numbers
+    by kernel."""
+    from paddle_tpu_torch.ops import bias_act as ba
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import embedding as em
+    from paddle_tpu_torch.ops import softmax_mask as sm
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = {"embedding": check_embedding(torch, em, planted["embedding"],
+                                         gen),
+            "bias_act": check_bias_act(torch, ba, planted["bias_act"], gen),
+            "dropout": check_dropout(torch, dr, planted["dropout"], gen),
+            "softmax_mask": check_softmax_mask(torch, sm,
+                                               planted["softmax_mask"], gen)}
+    emit({"phase": "ernie_ops_check", "seconds": time.monotonic() - t0,
+          **rows})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def incubate_check(torch) -> dict:
+    """The incubate surface on the card at ERNIE-3.0-base's width (hidden
+    768, 12 heads, intermediate 3072): ``FusedMultiHeadAttention``,
+    ``FusedFeedForward`` and ``FusedTransformerEncoderLayer`` in fp32, eval
+    mode, on the card and on the CPU with the same weights (B = 2, L =
+    128), ``variable_length_memory_efficient_attention`` and
+    ``fused_linear_activation`` likewise; then the layers in training with
+    dropout 0.1 under AMP O2 at B = 32, L = 128 and ``softmax_mask_fuse`` /
+    ``softmax_mask_fuse_upper_triangle`` with their gradients at ERNIE's
+    attention shape, counting K6-K8 launches from 0: the path whose run
+    gives K8 its launches."""
+    import numpy as np
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.nn import DropoutRNG
+    t0 = time.monotonic()
+    h, heads, inter = 768, 12, 3072
+
+    def build(device, dropout):
+        return (inn.FusedMultiHeadAttention(h, heads, dropout, dropout,
+                                            device=device),
+                inn.FusedFeedForward(h, inter, dropout, activation="gelu",
+                                     device=device),
+                inn.FusedTransformerEncoderLayer(h, heads, inter, dropout,
+                                                 activation="gelu",
+                                                 device=device))
+    gen = torch.Generator().manual_seed(12)
+    card, cpu = build("cuda", 0.1), build("cpu", 0.1)
+    for lc, lp in zip(card, cpu):
+        for (k, pc), (_, pp) in zip(lc.named_parameters(),
+                                    lp.named_parameters()):
+            with torch.no_grad():
+                pp.copy_(torch.randn(pp.shape, generator=gen) * 0.05
+                         + (1.0 if "ln" in k and "weight" in k else 0.0))
+                pc.copy_(pp)
+        lc.eval()
+        lp.eval()
+    x = torch.randn((2, 128, h), generator=gen)
+    agree = {}
+    for name, lc, lp in zip(("mha", "ffn", "encoder"), card, cpu):
+        with torch.no_grad():
+            out_c, out_p = lc(x.cuda()).cpu(), lp(x)
+        agree[name] = float((out_c - out_p).abs().max()
+                            / out_p.abs().max())
+    f = inn.functional
+    q, k, v = (torch.randn((2, heads, 128, 64), generator=gen)
+               for _ in range(3))
+    sl, kvl = torch.tensor([128, 77]), torch.tensor([128, 100])
+    var_c = f.variable_length_memory_efficient_attention(
+        q.cuda(), k.cuda(), v.cuda(), sl.cuda(), kvl.cuda(), causal=True)
+    var_p = f.variable_length_memory_efficient_attention(q, k, v, sl, kvl,
+                                                         causal=True)
+    agree["varlen_mea"] = float((var_c.cpu() - var_p).abs().max()
+                                / var_p.abs().max())
+    w1 = torch.randn((h, inter), generator=gen) * 0.05
+    b1 = torch.randn((inter,), generator=gen) * 0.05
+    fla_c = f.fused_linear_activation(x.cuda(), w1.cuda(), b1.cuda())
+    fla_p = f.fused_linear_activation(x, w1, b1)
+    agree["fused_linear_activation"] = float(
+        (fla_c.cpu() - fla_p).abs().max() / fla_p.abs().max())
+    require(all(e <= 1e-4 for e in agree.values()),
+            f"incubate: card and CPU disagree (max |diff| / max |ref|) "
+            f"{agree}")
+    # training under O2 at B = 32, L = 128: launches from 0
+    counters = ernie_op_counters()
+    for c in counters.values():
+        c.reset()
+    rng = DropoutRNG("cuda", seed=3)
+    mha, ffn, enc = build("cuda", 0.1)
+    for m in (mha, ffn, enc):
+        m.rng = rng
+        for mod in m.modules():
+            if hasattr(mod, "rng"):
+                mod.rng = rng
+    amp.decorate([mha, ffn, enc], level="O2", dtype="bfloat16")
+    xb = torch.randn((32, 128, h), device="cuda").requires_grad_()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        out = enc(ffn(mha(xb)))
+    out.float().square().mean().backward()
+    s = torch.randn((32, 12, 128, 128), device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    mask = torch.zeros((32, 1, 128, 128), device="cuda", dtype=torch.bfloat16)
+    mask[..., 120:] = -1e4
+    probs = f.softmax_mask_fuse(s, mask)
+    probs_causal = f.softmax_mask_fuse_upper_triangle(s)
+    (probs.float().square().sum() + probs_causal.float().square().sum()
+     ).backward()
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    # forward and backward: MHA's output dropout; FFN's two dropouts and
+    # two epilogues (linear1's activation, fused_linear's bias); the
+    # encoder's three dropouts (act_dropout defaults to the rate) and its
+    # epilogue; two masked softmaxes
+    want = {"embedding": 0, "bias_act": 2 * (2 + 1),
+            "dropout": 2 * (1 + 2 + 3), "softmax_mask": 4}
+    finite = bool(torch.isfinite(out.float()).all()) and bool(
+        torch.isfinite(xb.grad).all()) and bool(torch.isfinite(s.grad).all())
+    require(launches == want and finite,
+            f"incubate: launches {launches} (want {want}), finite {finite}")
+    row = {"phase": "incubate_check", "seconds": time.monotonic() - t0,
+           "card_vs_cpu_rel": agree, "launches": launches,
+           "dropout_counter": int(rng.counter)}
+    emit(row)
+    del mha, ffn, enc, card, xb, s, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     import torch
@@ -3705,7 +4276,7 @@ def main() -> int:
     all_counters = (fa.launches, pa.launches, fa.launches_lse,
                     fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches,
                     mta.launches, *fa.launches_variant.values(),
-                    *fused_counters().values())
+                    *step_counters().values())
 
     flash_rows = check_flash(torch, fa)
     paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
@@ -3724,6 +4295,8 @@ def main() -> int:
     q8_err, q8_time = check_q8_adam(torch, q8)
     mt_row = check_multi_tensor_adam(torch, q8, mta)
     fused_rows = fused_ops_check(torch, planted)
+    ernie_rows = ernie_ops_check(torch, planted)
+    incubate_row = incubate_check(torch)
     train_launches, llama_captured = train_1p6b(torch, smi, fa, q8,
                                                 all_counters)
     train_vs_cpu(torch, fa, q8)
@@ -3828,6 +4401,25 @@ def main() -> int:
          **{key: fused_rows[k][key] for key in fused_rows[k]
             if key.startswith("bwd_")}}
         for k in FUSED_KERNELS
+    ] + [
+        {"name": k, "route": "cuda", "source": ERNIE_OP_SOURCES[k],
+         "replaces": ERNIE_OP_REPLACES[k], "replaces_pallas_call": False,
+         "note": "the port's own kernel, forward and backward: the JAX "
+                 "package computes it with XLA-fused jnp, no pallas_call",
+         **({"launches": incubate_row["launches"][k],
+             "launches_path": "incubate_check"} if k == "softmax_mask" else
+            {"launches": captured_launches["ernie_captured_leg1"][k],
+             "launches_path": "ernie_captured_leg1 (12 calls)"}),
+         "launches_ernie_leg1": path_launches["ernie_leg1"].get(k, 0),
+         "launches_llama_eager": train_launches.get(k, 0),
+         "launches_serve_run1": serve_launches.get(k, 0),
+         "launches_incubate_check": incubate_row["launches"][k],
+         "max_abs_err": ernie_rows[k]["max_abs_err"],
+         "case": ernie_rows[k]["case"],
+         **{key: ernie_rows[k].get(key) for key in keys},
+         **{key: ernie_rows[k][key] for key in ernie_rows[k]
+            if key.startswith("bwd_")}}
+        for k in ERNIE_OP_KERNELS
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,13 @@ Both packages use the same state-dict keys and the same layouts (paddle's
 ``Linear`` weight is ``(in, out)`` in both), so conversion is a copy of each
 array: no transpose, no renaming. That holds for Llama and for ERNIE
 (``ernie.encoder.layers.<i>.self_attn.q_proj.weight``, ...), whose
-``state_dict_from_paddle_tpu`` output loads with ``strict=True``. A ``scan_layers=True`` Llama of the JAX
-package stacks its decoder layers into ``model.scan_<name>`` arrays of
+``state_dict_from_paddle_tpu`` output loads with ``strict=True``, and for
+``incubate``'s layers (``FusedLinear``, ``FusedFeedForward``,
+``FusedMultiHeadAttention`` with its ``(E, 3E)`` ``qkv`` weight,
+``FusedTransformerEncoderLayer`` under ``inner.``,
+``FusedBiasDropoutResidualLayerNorm``): a JAX layer's ``state_dict`` as
+numpy arrays loads into the port's layer. A ``scan_layers=True`` Llama of
+the JAX package stacks its decoder layers into ``model.scan_<name>`` arrays of
 shape ``(L, ...)``; :func:`scan_to_layered_state_dict` splits them into the
 per-layer keys the port uses, and :func:`layered_to_scan_state_dict` stacks
 them back (the port's copies of the JAX package's converters).

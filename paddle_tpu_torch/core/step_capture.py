@@ -14,9 +14,9 @@ launch per op.
 * **Capture.** The first call of a key copies the arguments into static
   buffers and runs the step eagerly on a side stream: that warm-up is the
   call's real step. Then the step is captured (nothing runs) into a graph
-  whose memory comes from this object's own pool, with the generator of
-  each ``DropoutRNG`` the warm-up drew from registered (the graph keeps
-  those objects: it writes their counters). Later calls copy their arguments
+  whose memory comes from this object's own pool; the graph keeps each
+  ``DropoutRNG`` the warm-up drew from (it writes their counters). Later
+  calls copy their arguments
   into the static buffers and replay. The loss comes back as a clone of
   the static output. Kernel launches recorded at capture are added to
   their wrappers' counters on each replay. Nothing may keep the autograd
@@ -26,7 +26,8 @@ launch per op.
 * **State on the device.** Everything a replay must advance lives in
   device memory: the optimizer's step count and LR (``_step_t``,
   ``_lr_t``), the bias corrections and rounding seeds derived from them,
-  and the attention-dropout seed counter of each ``DropoutRNG``. A
+  and the dropout seed counter of each ``DropoutRNG`` (hidden and
+  attention dropout draw every seed from it). A
   host-computed value written to ``_lr_t`` or ``_step_t`` while capturing
   raises :class:`HostStateWriteError`
   and is never demoted to the eager tier: e.g. ``scheduler.step()`` inside
@@ -37,8 +38,7 @@ launch per op.
   and the seed counters of the ``DropoutRNG`` objects the step drew from
   are put back (no other RNG is touched): a skipped step leaves
   parameters, moments, masters, ``_step_t`` and the counters bitwise
-  unchanged. (The hidden dropout's ``torch.Generator`` offset still
-  advances: it is host state that a replay moves.)
+  unchanged, so the next step draws the skipped step's dropout masks.
 * **``iters_per_call``.** K steps over K-stacked arguments (leading axis
   K) captured into one graph; the losses come back stacked. Incompatible
   with ``nan_gate``, as in the reference.
@@ -495,9 +495,6 @@ class CapturedStep:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        for r in drawn:
-            if r.seed_t.device == dev:
-                graph.register_generator_state(r.device)
         try:
             with _native.recorded_launches() as recorded, capture_context(), \
                     torch.cuda.device(dev), \

@@ -1,5 +1,5 @@
 """``paddle.incubate.nn.functional``, the port of the fused-op surface of
-``paddle_tpu/incubate/nn_functional.py:23-197``: the same signatures,
+``paddle_tpu/incubate/nn_functional.py:23-433``: the same signatures,
 casts by the same op names under ``amp.auto_cast``, on the port's kernels
 where the JAX package leaves the fusion to XLA (upstream Paddle backs
 these with CUDA kernels of its own, ``paddle/phi/kernels/fusion/``):
@@ -16,12 +16,26 @@ these with CUDA kernels of its own, ``paddle/phi/kernels/fusion/``):
 * ``swiglu``: the SwiGLU kernel (``ops/swiglu.py``), silu rounded once and
   the product once;
 * ``fused_dropout_add`` and ``fused_bias_dropout_residual_layer_norm``:
-  dropout drawn from the caller's ``torch.Generator`` (``generator=``, as
-  the port's ``dropout``; the JAX package draws from its global key, so
-  the masks differ by design), then the add, or the add fused into the
-  layer norm.
+  the dropout kernel (``ops/dropout.py``; the add in it, or in the layer
+  norm's kernel), its seed drawn from ``generator=`` (a ``DropoutRNG`` or
+  a ``torch.Generator``, as the port's ``dropout``; the JAX package draws
+  from its global key, so the masks differ by design);
+* ``fused_linear``, ``fused_matmul_bias`` and ``fused_linear_activation``:
+  the product in ``torch.matmul``, the bias add and activation in the
+  epilogue kernel (``ops/bias_act.py``; ``"gelu"`` is ``jax.nn.gelu``'s
+  default tanh form there);
+* ``fused_feedforward`` and ``fused_multi_head_attention``: the fused
+  encoder blocks on those kernels, the flash kernels behind the
+  attention and the norm kernel taking the post-norm residual add;
+* ``memory_efficient_attention`` and
+  ``variable_length_memory_efficient_attention``: the port's SDPA routing,
+  and the flash kernels' segment-id variant for lengths without a mask;
+* ``softmax_mask_fuse`` and ``softmax_mask_fuse_upper_triangle``: the
+  masked-softmax kernel (``ops/softmax_mask.py``);
+* ``identity_loss`` and ``blha_get_max_len``: plain PyTorch.
 
-The CPU runs the kernels' plain versions.
+The CPU runs the kernels' plain versions. ``masked_multihead_attention``
+and the MoE op ``fused_ec_moe`` are not ported (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -33,13 +47,21 @@ import torch
 
 from ..amp import cast_dtype, cast_inputs
 from ..ops import nn_ops
+from ..ops.bias_act import ActSpec, bias_act
+from ..ops.flash_attention import flash_attention
 from ..ops.fused_norm import NormSpec, fused_norm
 from ..ops.rope import rope
+from ..ops.softmax_mask import softmax_mask
 from ..ops.swiglu import swiglu as _swiglu
 
-__all__ = ["fused_bias_dropout_residual_layer_norm", "fused_dropout_add",
-           "fused_layer_norm", "fused_rms_norm",
-           "fused_rotary_position_embedding", "swiglu"]
+__all__ = ["blha_get_max_len", "fused_bias_dropout_residual_layer_norm",
+           "fused_dropout_add", "fused_feedforward", "fused_layer_norm",
+           "fused_linear", "fused_linear_activation", "fused_matmul_bias",
+           "fused_multi_head_attention", "fused_rms_norm",
+           "fused_rotary_position_embedding", "identity_loss",
+           "memory_efficient_attention", "softmax_mask_fuse",
+           "softmax_mask_fuse_upper_triangle", "swiglu",
+           "variable_length_memory_efficient_attention"]
 
 
 def _fused_norm(op: str, kind: str, x, norm_weight, norm_bias, epsilon,
@@ -127,26 +149,26 @@ def swiglu(x, y=None, name=None):
     return _swiglu(x, y)
 
 
-def _dropout(x, p: float, training: bool, mode: str,
-             generator: Optional[torch.Generator]):
+def _dropout(x, p: float, training: bool, mode: str, generator,
+             residual=None):
+    """paddle's dropout modes on the dropout kernel, then ``+ residual``
+    (cast as the ``add`` op) in the same launch: ``upscale_in_train``
+    scales kept values by ``1 / (1 - p)``, ``downscale_in_infer`` keeps
+    them as they are; outside training both are the identity (the JAX
+    package's)."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"mode must be 'upscale_in_train' or "
                          f"'downscale_in_infer', got {mode!r}")
-    if mode == "upscale_in_train" or not training or p == 0.0:
-        return nn_ops.dropout(x, p, training, generator=generator)
-    (x,) = cast_inputs("dropout", x)
-    if generator is None:
-        raise ValueError("dropout draws from the caller's torch.Generator: "
-                         "pass generator=")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x, 0.0).to(x.dtype)
+    return nn_ops.dropout(x, p, training, generator=generator,
+                          residual=residual,
+                          upscale=mode == "upscale_in_train")
 
 
 def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
                       name=None, *, generator=None):
-    """dropout(x) + y, the mask drawn from ``generator`` (a
-    ``torch.Generator`` on x's device)."""
-    return nn_ops.add(_dropout(x, p, training, mode, generator), y)
+    """dropout(x) + y in one launch of the dropout kernel, the seed drawn
+    from ``generator`` (a ``DropoutRNG`` or a ``torch.Generator``)."""
+    return _dropout(x, p, training, mode, generator, residual=y)
 
 
 def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
@@ -161,3 +183,229 @@ def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
     out, _ = nn_ops.layer_norm(h, h.shape[-1:], ln_scale, ln_bias,
                                ln_epsilon, residual)
     return out
+
+
+# fused_linear_activation's names: jax.nn's activations, gelu's default
+# being the tanh form
+_LINEAR_ACTS = {"gelu": "gelu_tanh", "relu": "relu", "none": "none",
+                "": "none"}
+
+
+def _matmul_epilogue(op, x, w, bias, trans_x, trans_y, act="none"):
+    """``act(x @ w + bias)`` cast as op ``op``: the product in
+    ``torch.matmul``, the epilogue in the bias_act kernel (none without a
+    bias or an activation)."""
+    x, w, bias = cast_inputs(op, x, w, bias)
+    if trans_x:
+        x = x.transpose(-1, -2)
+    if trans_y:
+        w = w.transpose(-1, -2)
+    y = torch.matmul(x, w)
+    if bias is None and act == "none":
+        return y
+    h = y.dtype if bias is None else torch.promote_types(y.dtype, bias.dtype)
+    return bias_act(y, bias, ActSpec(act, h, h))
+
+
+def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
+    """x @ weight (+ bias); ``transpose_weight``: weight is (out, in)."""
+    return _matmul_epilogue("fused_linear", x, weight, bias, False,
+                            transpose_weight)
+
+
+def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
+                      name=None):
+    """matmul + bias epilogue (the cublasLt-fused op upstream)."""
+    return _matmul_epilogue("fused_matmul_bias", x, y, bias, transpose_x,
+                            transpose_y)
+
+
+def fused_linear_activation(x, y, bias=None, trans_x=False, trans_y=False,
+                            activation="gelu", name=None):
+    """act(x @ y + bias), act one of ``gelu`` (the tanh form, as
+    ``jax.nn.gelu``), ``relu``, ``none``."""
+    return _matmul_epilogue("fused_linear_activation", x, y, bias, trans_x,
+                            trans_y, _LINEAR_ACTS[activation])
+
+
+def _layer_norm(x, weight, bias, epsilon, residual=None):
+    return nn_ops.layer_norm(x, x.shape[-1], weight, bias, epsilon, residual)
+
+
+def _residual_tail(out, residual, p, training, mode, generator,
+                   add_residual, pre_layer_norm, ln_scale, ln_bias,
+                   ln_epsilon):
+    """dropout, the residual add and (post-norm) the layer norm of a fused
+    block: pre-norm adds in the dropout kernel, post-norm in the norm's."""
+    if pre_layer_norm or not add_residual:
+        out = _dropout(out, p, training, mode, generator,
+                       residual=residual if add_residual else None)
+        return out if pre_layer_norm else _layer_norm(out, ln_scale,
+                                                      ln_bias, ln_epsilon)
+    out = _dropout(out, p, training, mode, generator)
+    return _layer_norm(out, ln_scale, ln_bias, ln_epsilon, residual)[0]
+
+
+def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
+                      linear2_bias=None, ln1_scale=None, ln1_bias=None,
+                      ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
+                      dropout2_rate=0.5, activation="relu",
+                      ln1_epsilon=1e-5, ln2_epsilon=1e-5,
+                      pre_layer_norm=False, training=True,
+                      mode="upscale_in_train", ring_id=-1, add_residual=True,
+                      name=None, *, generator=None):
+    """The reference's fused FFN: LN + linear + act + dropout + linear +
+    dropout + residual (+ LN). ``activation``: ``relu`` or ``gelu`` (the
+    erf form, paddle's ``F.gelu``). Dropout seeds come from
+    ``generator``."""
+    if activation not in ("relu", "gelu"):
+        raise ValueError(f"activation must be 'relu' or 'gelu', got "
+                         f"{activation!r}")
+    residual = x
+    if pre_layer_norm:
+        x = _layer_norm(x, ln1_scale, ln1_bias, ln1_epsilon)
+    x, w1, b1 = cast_inputs("fused_linear", x, linear1_weight, linear1_bias)
+    y = torch.matmul(x, w1)
+    h = y.dtype if b1 is None else torch.promote_types(y.dtype, b1.dtype)
+    out = bias_act(y, b1, nn_ops.act_spec(activation, h))
+    out = _dropout(out, dropout1_rate, training, mode, generator)
+    out = fused_linear(out, linear2_weight, linear2_bias)
+    return _residual_tail(out, residual, dropout2_rate, training, mode,
+                          generator, add_residual, pre_layer_norm, ln2_scale,
+                          ln2_bias, ln2_epsilon)
+
+
+def fused_multi_head_attention(x, qkv_weight, linear_weight,
+                               pre_layer_norm=False, pre_ln_scale=None,
+                               pre_ln_bias=None, ln_scale=None, ln_bias=None,
+                               pre_ln_epsilon=1e-5, qkv_bias=None,
+                               linear_bias=None, cache_kv=None,
+                               attn_mask=None, dropout_rate=0.0,
+                               attn_dropout_rate=0.0, ln_epsilon=1e-5,
+                               training=True, mode="upscale_in_train",
+                               ring_id=-1, add_residual=True, num_heads=None,
+                               name=None, *, generator=None):
+    """The reference's fused attention block: (pre-LN) + qkv projection
+    (``qkv_weight`` (3, H, D, embed), ``qkv_bias`` (3, H, D)) + attention
+    (the port's SDPA routing: the flash kernels without a mask, attention
+    dropout in them) + out projection + dropout + residual (+ post-LN).
+    ``cache_kv`` (2, B, H, L, D) is prepended to k and v and ``(out,
+    cache_out)`` returned. Dropout seeds come from ``generator``."""
+    residual = x
+    if pre_layer_norm:
+        x = _layer_norm(x, pre_ln_scale, pre_ln_bias, pre_ln_epsilon)
+    b, s, h = x.shape
+    nh, hd = qkv_weight.shape[1], qkv_weight.shape[2]
+    xa, w = cast_inputs("fused_qkv", x, qkv_weight)
+    qkv = torch.einsum("bsh,tndh->tbsnd", xa, w)
+    if qkv_bias is not None:
+        qkv = nn_ops.add(qkv, qkv_bias.reshape(3, 1, 1, nh, hd))
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    cache_out = None
+    if cache_kv is not None:
+        k = torch.cat([cache_kv[0].transpose(1, 2), k], dim=1)
+        v = torch.cat([cache_kv[1].transpose(1, 2), v], dim=1)
+        cache_out = torch.stack([k.transpose(1, 2), v.transpose(1, 2)])
+    out = nn_ops.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask,
+        dropout_p=attn_dropout_rate if training else 0.0, training=training,
+        generator=generator)
+    out = out.reshape(b, s, h)
+    oa, lw = cast_inputs("fused_out_proj", out, linear_weight)
+    out = torch.matmul(oa, lw)
+    if linear_bias is not None:
+        out = nn_ops.add(out, linear_bias)
+    out = _residual_tail(out, residual, dropout_rate, training, mode,
+                         generator, add_residual, pre_layer_norm, ln_scale,
+                         ln_bias, ln_epsilon)
+    return out if cache_out is None else (out, cache_out)
+
+
+def memory_efficient_attention(query, key, value, attn_bias=None, p=0.0,
+                               scale=None, training=True, name=None, *,
+                               generator=None):
+    """Memory-efficient attention over ``(B, L, H, D)``: the port's SDPA
+    (the flash kernels when there is no bias). A custom ``scale`` is folded
+    into the query, so the net scaling equals ``scale``."""
+    if scale is not None:
+        query = query * (float(scale) * (query.shape[-1] ** 0.5))
+    return nn_ops.scaled_dot_product_attention(
+        query, key, value, attn_mask=attn_bias,
+        dropout_p=p if training else 0.0, is_causal=False,
+        generator=generator)
+
+
+def variable_length_memory_efficient_attention(query, key, value, seq_lens,
+                                               kv_seq_lens, mask=None,
+                                               scale=None, causal=False,
+                                               pre_cache_length=0, name=None):
+    """Attention over a padded batch, ``(B, H, S, D)`` q/k/v and per-row
+    lengths ``seq_lens`` / ``kv_seq_lens`` ((B,) or (B, 1)); query rows at
+    or past ``seq_lens`` give 0, causal is bottom-right over the padded
+    lengths. Without ``mask``, at D = 64 or 128 in fp32 or bf16, it runs the
+    flash kernels' segment-id variant (keys at or past ``kv_seq_lens`` take
+    id 0, the queries id 1; a row that sees no key gives 0, where the JAX
+    package's dense softmax gives the mean of V). Otherwise the plain
+    composition the JAX package computes: ``-1e30`` outside the lengths and
+    the causal triangle, the mask added, fp32 softmax."""
+    query, key, value, mask = cast_inputs("varlen_mea", query, key, value,
+                                          mask)
+    b, _, sq, d = query.shape
+    sk = key.shape[2]
+    sl = seq_lens.reshape(-1, 1).to(query.device)
+    kvl = kv_seq_lens.reshape(-1, 1).to(query.device)
+    qvalid = torch.arange(sq, device=query.device)[None, :] < sl
+    if mask is None and d in (64, 128) and \
+            query.dtype in (torch.float32, torch.bfloat16):
+        kv_ids = (torch.arange(sk, device=query.device)[None, :] < kvl)
+        q_ids = torch.ones(b, sq, dtype=torch.int32, device=query.device)
+        out = flash_attention(query.transpose(1, 2), key.transpose(1, 2),
+                              value.transpose(1, 2), causal=causal,
+                              q_segment_ids=q_ids,
+                              kv_segment_ids=kv_ids.to(torch.int32),
+                              sm_scale=scale).transpose(1, 2)
+    else:
+        sc = scale if scale is not None else 1.0 / (d ** 0.5)
+        logits = torch.einsum("bhqd,bhkd->bhqk", query, key) * sc
+        kvalid = torch.arange(sk, device=query.device)[None, :] < kvl
+        logits = torch.where(kvalid[:, None, None, :], logits, -1e30)
+        if causal:
+            keep = torch.ones(sq, sk, dtype=torch.bool,
+                              device=query.device).tril(sk - sq)
+            logits = torch.where(keep, logits, -1e30)
+        if mask is not None:
+            logits = logits + mask
+        probs = torch.softmax(logits.float(), dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs.to(query.dtype), value)
+    return out * qvalid[:, None, :, None].to(out.dtype)
+
+
+def softmax_mask_fuse(x, mask, name=None):
+    """softmax(x + mask) over the last axis, fp32 statistics, in x's dtype
+    (the masked-softmax kernel)."""
+    x, mask = cast_inputs("softmax_mask_fuse", x, mask)
+    return softmax_mask(x, mask)
+
+
+def softmax_mask_fuse_upper_triangle(x, name=None):
+    """Causal softmax over the last axis: keys above the bottom-right
+    diagonal masked to -1e30 (the masked-softmax kernel)."""
+    (x,) = cast_inputs("softmax_mask_fuse_upper_triangle", x)
+    return softmax_mask(x, causal=True)
+
+
+def identity_loss(x, reduction="none", name=None):
+    """Pass-through loss head: ``sum`` (0), ``mean`` (1) or ``none`` (2)."""
+    (x,) = cast_inputs("identity_loss", x)
+    red = {0: "sum", 1: "mean", 2: "none"}.get(reduction, reduction)
+    if red == "sum":
+        return torch.sum(x)
+    if red == "mean":
+        return torch.mean(x)
+    return x
+
+
+def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size=None,
+                     name=None):
+    """``(max(seq_lens_encoder), max(seq_lens_decoder))`` as 0-d tensors."""
+    return torch.max(seq_lens_encoder), torch.max(seq_lens_decoder)

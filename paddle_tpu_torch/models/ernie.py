@@ -7,8 +7,11 @@ State-dict keys and layouts are the JAX package's (``Linear`` weights
 checkpoint across key for key. The trunk is ``nn.TransformerEncoder``
 (post-norm, GELU): its attention runs the flash kernels, and while
 training their dropout variant (segment ids and the keep mask B0 in the
-kernels, ``attention_probs_dropout_prob``); hidden dropout draws from the
-model's ``DropoutRNG`` (``seed``). A 2-D ``attention_mask`` (B, L) of 1s
+kernels, ``attention_probs_dropout_prob``); the embedding tables, each
+layer's ``linear1`` bias and GELU and the hidden dropouts run on the
+port's embedding, epilogue and dropout kernels (``ops/embedding.py``,
+``ops/bias_act.py``, ``ops/dropout.py``), every dropout seed drawn from
+the model's ``DropoutRNG`` (``seed``). A 2-D ``attention_mask`` (B, L) of 1s
 and 0s becomes the additive ``(1 - m) * -1e4`` mask of the JAX package,
 which takes the plain masked softmax, as there. The token-classification,
 question-answering and masked-LM heads are not ported.

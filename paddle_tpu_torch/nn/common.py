@@ -72,37 +72,31 @@ class Embedding(nn.Module):
 
 
 class DropoutRNG:
-    """The random streams of one model's dropouts, both from ``seed``:
-
-    * ``device``, a ``torch.Generator`` on the model's device, draws the
-      element masks of :class:`Dropout` (a captured step registers it with
-      its graph, so each replay draws fresh masks);
-    * the attention-dropout seeds (the keep mask B0 of the flash kernels)
-      come from device state, ``seed_t`` (the base seed) and ``counter``:
-      :meth:`next_seed` derives one seed on the device and advances the
-      counter in-stream, with no host read. Eager and captured steps then
-      draw the same sequence of seeds, and a graph replay draws fresh
-      ones.
-
-    The counterpart of the JAX package's global generator, owned by the
-    model instead."""
+    """The random stream of one model's dropouts, from ``seed``: every
+    dropout seed, hidden (:class:`Dropout`, the hashed masks of
+    ``ops/dropout.py``) and attention (the keep mask B0 of the flash
+    kernels), comes from device state, ``seed_t`` (the base seed) and
+    ``counter``: :meth:`next_seed` derives one seed on the device and
+    advances the counter in-stream, with no host read. Eager and captured
+    steps then draw the same sequence of seeds, and a graph replay fresh
+    ones. The counterpart of the JAX package's global generator, owned by
+    the model instead."""
 
     def __init__(self, device=None, seed: int = 0):
         dev = resolve_device(device)
-        self.device = torch.Generator(device=dev).manual_seed(seed)
         self.seed_t = torch.tensor(int(seed) & M32, dtype=torch.int64,
                                    device=dev)
         self.counter = torch.zeros((), dtype=torch.int64, device=dev)
 
     def note_draw(self) -> None:
         """Tell an open :func:`recording_draws` that this RNG is drawn
-        from (``next_seed`` and :class:`Dropout` call it)."""
+        from (``next_seed`` calls it)."""
         log = getattr(_draws, "log", None)
         if log is not None and self not in log:
             log[self] = self.counter.clone() if _draws.keep else None
 
     def next_seed(self) -> torch.Tensor:
-        """The next attention-dropout seed, a 0-d int64 tensor in [0, 2^32)
+        """The next dropout seed, a 0-d int64 tensor in [0, 2^32)
         on the device (``ops._u32.derive_seed`` of the base seed and the
         counter), after which ``counter`` advances by one."""
         self.note_draw()
@@ -133,10 +127,9 @@ def recording_draws(keep_counters: bool = False
 
 class Dropout(nn.Module):
     """``paddle.nn.Dropout`` (``upscale_in_train``): ``nn_ops.dropout`` in
-    training mode, the identity in eval mode; masks drawn from
-    ``rng.device`` (a model's
-    ``DropoutRNG``; by default one of its own on ``device``, which is
-    ``cuda`` unless ``device="cpu"``)."""
+    training mode, the identity in eval mode; each call's seed drawn from
+    ``rng.next_seed()`` (a model's ``DropoutRNG``; by default one of its
+    own on ``device``, which is ``cuda`` unless ``device="cpu"``)."""
 
     def __init__(self, p: float = 0.5, rng: Optional[DropoutRNG] = None,
                  device=None):
@@ -145,10 +138,7 @@ class Dropout(nn.Module):
         self.rng = rng if rng is not None else DropoutRNG(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.p > 0.0:
-            self.rng.note_draw()
-        return nn_ops.dropout(x, self.p, self.training,
-                              generator=self.rng.device)
+        return nn_ops.dropout(x, self.p, self.training, generator=self.rng)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

@@ -3,9 +3,12 @@
 ``TransformerEncoder``) with its parameter names (``self_attn.q_proj``,
 ``linear1``, ``norm1``, ...), so a ``paddle_tpu`` state dict loads key for
 key. Attention runs through ``nn.functional.scaled_dot_product_attention``
-(the flash kernels, with dropout in them while training); every op casts as
-the JAX package's op of the same name does under ``amp.auto_cast``.
-Dropout draws from the :class:`~.common.DropoutRNG` the layers are given.
+(the flash kernels, with dropout in them while training); ``linear1``'s bias
+add and activation run in the epilogue kernel (``ops/bias_act.py``), the
+dropouts in the hashed-mask kernel (``ops/dropout.py``) and post-norm's
+residual add in the norm kernel; every op casts as the JAX package's op of
+the same name does under ``amp.auto_cast``. Dropout seeds come from the
+:class:`~.common.DropoutRNG` the layers are given.
 The decoder layers, attention caches and ``need_weights`` are not
 ported.
 """
@@ -23,8 +26,6 @@ from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoder",
            "TransformerEncoderLayer"]
-
-_ACTIVATIONS = {"gelu": nn_ops.gelu, "relu": nn_ops.relu}
 
 
 class MultiHeadAttention(nn.Module):
@@ -92,7 +93,10 @@ class TransformerEncoderLayer(nn.Module):
         self.dropout2 = Dropout(dropout, rng=rng)
         self.act_dropout = Dropout(
             act_dropout if act_dropout is not None else dropout, rng=rng)
-        self.activation = _ACTIVATIONS[activation]
+        if activation not in ("gelu", "relu"):
+            raise ValueError(f"activation must be 'gelu' or 'relu', got "
+                             f"{activation!r}")
+        self.activation = activation
 
     def forward(self, src, src_mask=None):
         residual = src
@@ -106,8 +110,9 @@ class TransformerEncoderLayer(nn.Module):
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
-        src = self.linear2(self.act_dropout(self.activation(
-            self.linear1(src))))
+        src = self.linear2(self.act_dropout(nn_ops.linear(
+            src, self.linear1.weight, self.linear1.bias,
+            activation=self.activation)))
         if self.normalize_before:
             return nn_ops.add(residual, self.dropout2(src))
         src, _ = self.norm2(self.dropout2(src), residual)

@@ -2,9 +2,14 @@
 rms_norm, layer_norm, silu, relu, gelu, tanh, add, dropout and
 scaled_dot_product_attention (paddle's signatures and layouts). Each
 casts its inputs as the active ``amp.auto_cast`` says (see ``amp``), by the
-JAX package's op name. ``rms_norm`` and ``layer_norm`` run the fused norm
-kernel (``ops/fused_norm.py``) on a card, which does those casts as it
-loads its inputs and can take the residual add before the norm.
+JAX package's op name. The small ops run the port's fused kernels on a
+card, which do those casts as they load their inputs: ``rms_norm`` and
+``layer_norm`` the norm kernel (``ops/fused_norm.py``, with the residual
+add before the norm), ``embedding`` the gather and its deterministic
+backward (``ops/embedding.py``), ``gelu``, ``relu`` and ``linear(...,
+activation=)``'s bias add and activation the epilogue kernel
+(``ops/bias_act.py``), ``dropout`` the hashed-mask kernel
+(``ops/dropout.py``).
 
 ``linear`` keeps paddle's weight layout ``(in_features, out_features)``,
 ``y = x @ W``, so a ``paddle_tpu`` state dict loads without a transpose.
@@ -18,12 +23,11 @@ every other mask (ERNIE's additive float mask among them) takes the plain
 materialised softmax, the counterpart of the JAX package's XLA path, which
 is no Pallas kernel either.
 
-Randomness comes from the caller: ``dropout`` draws its mask from a
-``torch.Generator`` on the tensor's device, and attention dropout takes
-its seed from ``generator``, a model's ``DropoutRNG`` (a seed derived on
-the device, no host read) or a ``torch.Generator`` (an int draw), for the
-keep mask B0 of ``ops/flash_attention.py``, which the plain path applies
-too.
+Randomness comes from the caller: ``dropout`` and attention dropout take
+their seeds from ``generator``, a model's ``DropoutRNG`` (a seed derived
+on the device, no host read) or a ``torch.Generator`` (one draw), for the
+hashed keep masks of ``ops/dropout.py`` and of B0 in
+``ops/flash_attention.py``, which the plain paths compute too.
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ from typing import Optional
 import torch
 
 from ..amp import cast_dtype, cast_inputs
+from . import dropout as _dropout
+from .bias_act import ActSpec, bias_act
+from .embedding import embedding as _embedding
 from .flash_attention import (dropout_seed, flash_attention,
                               keep_mask_reference)
 from .fused_norm import NormSpec, fused_norm
@@ -43,22 +50,44 @@ __all__ = ["add", "dropout", "embedding", "gelu", "layer_norm", "linear",
            "tanh"]
 
 
+# activation name -> (the bias_act kernel's act, the JAX op name it casts as)
+_ACTS = {"gelu": ("gelu", "gelu"), "gelu_tanh": ("gelu_tanh", "gelu"),
+         "relu": ("relu", "relu"), "none": ("none", None)}
+
+
+def act_spec(activation: str, dtype: torch.dtype) -> ActSpec:
+    """The bias_act spec of ``activation`` applied to a tensor of
+    ``dtype``: the kernel casts as the op of that name does."""
+    if activation not in _ACTS:
+        raise ValueError(f"activation must be one of {sorted(_ACTS)}, got "
+                         f"{activation!r}")
+    act, op = _ACTS[activation]
+    return ActSpec(act, dtype, dtype if op is None else cast_dtype(op, dtype))
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``y = x @ W + b`` with W stored ``(in_features, out_features)``."""
+           bias: Optional[torch.Tensor] = None,
+           activation: Optional[str] = None) -> torch.Tensor:
+    """``y = x @ W + b`` with W stored ``(in_features, out_features)``.
+    With ``activation`` (``"gelu"``, ``"gelu_tanh"``, ``"relu"`` or
+    ``"none"``), ``act(x @ W + b)`` with the bias add and the activation in
+    the epilogue kernel (``ops/bias_act.py``), cast as the ``gelu`` or
+    ``relu`` op would cast the sum."""
     x, weight, bias = cast_inputs("linear", x, weight, bias)
     y = torch.matmul(x, weight)
-    return y if bias is None else y + bias
+    if activation is None:
+        return y if bias is None else y + bias
+    h = y.dtype if bias is None else torch.promote_types(y.dtype, bias.dtype)
+    return bias_act(y, bias, act_spec(activation, h))
 
 
 def embedding(x: torch.Tensor, weight: torch.Tensor,
               padding_idx: Optional[int] = None) -> torch.Tensor:
-    """Rows of ``weight``; ids equal to ``padding_idx`` give 0."""
+    """Rows of ``weight``; ids equal to ``padding_idx`` give 0. The gather
+    and its deterministic backward kernel (``ops/embedding.py``) on a
+    card."""
     (weight,) = cast_inputs("embedding", weight)
-    out = weight[x.long()]
-    if padding_idx is not None:
-        out = torch.where((x == padding_idx)[..., None], 0.0, out)
-    return out
+    return _embedding(x, weight, padding_idx)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -67,15 +96,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    (x,) = cast_inputs("relu", x)
-    return torch.relu(x)
+    """ReLU, on the epilogue kernel (no bias) on a card."""
+    return bias_act(x, None, act_spec("relu", x.dtype))
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
-    """GELU: erf form by default, the tanh form with ``approximate``."""
-    (x,) = cast_inputs("gelu", x)
-    return torch.nn.functional.gelu(x, approximate="tanh" if approximate
-                                    else "none")
+    """GELU: erf form by default, the tanh form with ``approximate``; on
+    the epilogue kernel (no bias) on a card."""
+    return bias_act(x, None, act_spec("gelu_tanh" if approximate else "gelu",
+                                      x.dtype))
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
@@ -139,19 +168,27 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
 
 
 def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True, *,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """``paddle.nn.functional.dropout`` in its ``upscale_in_train`` mode,
-    as the JAX package computes it: outside training or at ``p == 0`` the
-    input; else each element is kept with probability ``1 - p``, drawn from
-    ``generator`` (on x's device), and divided by ``1 - p``."""
+            generator=None, residual: Optional[torch.Tensor] = None,
+            upscale: bool = True) -> torch.Tensor:
+    """``paddle.nn.functional.dropout`` in its ``upscale_in_train`` mode
+    (``upscale=False``: ``downscale_in_infer``'s training step, kept values
+    unscaled): outside training or at ``p == 0`` the input; else each
+    element is kept with probability ``1 - p`` and multiplied by ``1 / (1 -
+    p)`` (fp32), by the hashed mask of ``ops/dropout.py`` under one seed
+    from ``generator`` (a ``DropoutRNG``: ``next_seed()``, no host read; a
+    ``torch.Generator``: one draw on its device). With ``residual`` (port
+    extension, ``fused_dropout_add``): ``add(dropout(x), residual)`` in the
+    same kernel, cast as the ``add`` op."""
     (x,) = cast_inputs("dropout", x)
+    if residual is not None:
+        (residual,) = cast_inputs("add", residual)
     if not training or p == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout draws from the caller's torch.Generator: "
-                         "pass generator=")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+        return x if residual is None else x + residual
+    if p >= 1.0:
+        d = torch.where(torch.zeros_like(x, dtype=torch.bool), x, 0.0)
+        return d if residual is None else d + residual
+    seed = _dropout.draw_seed(generator, x.device)
+    return _dropout.dropout(x, p, seed, residual=residual, upscale=upscale)
 
 
 def _key_padding(mask: torch.Tensor) -> Optional[torch.Tensor]:

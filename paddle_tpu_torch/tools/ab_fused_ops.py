@@ -55,6 +55,8 @@ def _run(tree: Path) -> None:
                          f", not {tree}'s package")
     if not (tree / "paddle_tpu_torch" / "ops" / "fused_norm.py").exists():
         cs.fused_counters = dict   # a tree without the fused kernels
+    if not (tree / "paddle_tpu_torch" / "ops" / "embedding.py").exists():
+        cs.ernie_op_counters = dict   # a tree without K5-K8
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

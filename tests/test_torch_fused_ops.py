@@ -30,9 +30,11 @@ them on the card by ``chip_smoke.py``'s ``fused_ops_check``).
   turned back) against autograd of the forward ones: fp32 to summation
   order, bf16 within one rounding.
 
-Dropout masks come from a ``torch.Generator`` in the port and from
+Dropout masks come from the hashed keep mask of ``ops/dropout.py`` under a
+seed drawn from the caller's generator in the port, and from
 ``jax.random`` in the JAX package, so the two are compared at p = 0 or
-outside training, and the mask itself against the generator's draw.
+outside training, and the mask itself against the hash of the seed the
+generator gives.
 """
 
 import itertools
@@ -49,6 +51,7 @@ from paddle_tpu_torch.incubate import nn as tinn
 from paddle_tpu_torch.incubate import nn_functional as TF
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn import DropoutRNG
+from paddle_tpu_torch.ops import dropout as dr
 from paddle_tpu_torch.ops import fused_norm as fn
 from paddle_tpu_torch.ops import nn_ops
 from paddle_tpu_torch.ops import rope as rp
@@ -58,6 +61,13 @@ from paddle_tpu_torch.ops import swiglu as sw
 torch.set_num_threads(2)
 
 F32_ATOL = 1e-5
+
+
+def _keep(generator, shape, p):
+    """The hidden-dropout mask ``ops/dropout.py`` draws under the seed
+    ``generator`` gives, and the scale of the kept values."""
+    seed = dr.draw_seed(generator, "cpu")
+    return dr.keep_mask(seed, shape, p), float(np.float32(1.0 / (1.0 - p)))
 
 
 def _np(seed, *shape, scale=1.0, shift=0.0):
@@ -355,9 +365,8 @@ def test_fused_dropout_add_draws_its_mask_from_the_generator(mode):
     x, y = torch.randn(64, 32), torch.randn(64, 32)
     out = TF.fused_dropout_add(x, y, p=0.25, mode=mode,
                                generator=torch.Generator().manual_seed(3))
-    keep = torch.rand(x.shape, generator=torch.Generator().manual_seed(3)) \
-        >= 0.25
-    kept = x / 0.75 if mode == "upscale_in_train" else x
+    keep, inv = _keep(torch.Generator().manual_seed(3), x.shape, 0.25)
+    kept = x * inv if mode == "upscale_in_train" else x
     assert torch.equal(out, torch.where(keep, kept, 0.0) + y)
     assert 0.6 < keep.float().mean() < 0.9
     with pytest.raises(ValueError, match="generator"):
@@ -399,9 +408,8 @@ def test_fused_bias_dropout_residual_layer_norm_draws_from_the_generator():
     out = TF.fused_bias_dropout_residual_layer_norm(
         x, res, bias=b, dropout_rate=0.3,
         generator=torch.Generator().manual_seed(5))
-    keep = torch.rand(x.shape, generator=torch.Generator().manual_seed(5)) \
-        >= 0.3
-    h = torch.where(keep, (x + b) / 0.7, 0.0) + res
+    keep, inv = _keep(torch.Generator().manual_seed(5), x.shape, 0.3)
+    h = torch.where(keep, (x + b) * inv, 0.0) + res
     assert torch.equal(out, nn_ops.layer_norm(h, 32))
 
 
@@ -419,10 +427,11 @@ def test_fused_dropout_add_layer_matches_jax_and_draws_from_its_rng():
     rng = DropoutRNG("cpu", seed=11)
     tl = tinn.FusedDropoutAdd(p=0.5, rng=rng)
     out = tl(torch.from_numpy(x), torch.from_numpy(y))
-    keep = torch.rand(x.shape, generator=torch.Generator().manual_seed(11)) \
-        >= 0.5
-    assert torch.equal(out, torch.where(keep, torch.from_numpy(x) / 0.5, 0.0)
+    seed = DropoutRNG("cpu", seed=11).next_seed()
+    keep = dr.keep_mask(seed, x.shape, 0.5)
+    assert torch.equal(out, torch.where(keep, torch.from_numpy(x) * 2.0, 0.0)
                        + torch.from_numpy(y))
+    assert int(rng.counter) == 1
 
 
 def test_fused_bias_dropout_residual_layer_norm_layer_matches_jax():

@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``paddle_tpu_torch``
 (``incubate`` among them) loads neither JAX nor ``paddle_tpu``; its entry
-points (model, engine, layers) need a card unless the caller asks for the
-CPU, and device tensors never take a plain CPU path (the fused small ops
-included); ``chip_smoke.py`` fails without a card or without the package;
+points (model, engine, layers, ``incubate``'s fused layers) need a card
+unless the caller asks for the CPU, and device tensors never take a plain
+CPU path (the fused small ops and K5-K8 included); ``chip_smoke.py`` fails without a card or without the package;
 the kernel bindings match their C entry points."""
 
 import ctypes
@@ -25,6 +25,9 @@ from paddle_tpu_torch.nn import (Dropout, DropoutRNG, Embedding, LayerNorm,
                                  Linear, RMSNorm)
 from paddle_tpu_torch.jit import capture_step
 from paddle_tpu_torch.incubate import nn as inn
+from paddle_tpu_torch.ops import bias_act as ba
+from paddle_tpu_torch.ops import dropout as dr
+from paddle_tpu_torch.ops import embedding as em
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_norm as fn
 from paddle_tpu_torch.ops import multi_tensor_adam as mta
@@ -33,6 +36,7 @@ from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import q8_adam as q8
 from paddle_tpu_torch.ops import rope as rp
 from paddle_tpu_torch.ops import softmax_cross_entropy as ce
+from paddle_tpu_torch.ops import softmax_mask as sm
 from paddle_tpu_torch.ops import swiglu as sw
 from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import lr as tlr
@@ -98,7 +102,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
                   lambda **kw: Embedding(8, 4, **kw),
                   lambda **kw: RMSNorm(4, **kw),
                   lambda **kw: inn.FusedBiasDropoutResidualLayerNorm(4, **kw),
-                  lambda **kw: inn.FusedDropoutAdd(0.1, **kw)):
+                  lambda **kw: inn.FusedDropoutAdd(0.1, **kw),
+                  lambda **kw: inn.FusedLinear(4, 4, **kw),
+                  lambda **kw: inn.FusedFeedForward(4, 8, **kw),
+                  lambda **kw: inn.FusedMultiHeadAttention(4, 2, **kw),
+                  lambda **kw: inn.FusedTransformerEncoderLayer(4, 2, 8,
+                                                                **kw)):
         with pytest.raises(NoDeviceError):
             layer()
         assert all(p.device.type == "cpu"
@@ -127,7 +136,7 @@ def test_ernie_entry_points_need_a_card_unless_cpu_is_asked():
         assert build(device="cpu") is not None
     m = ErnieForSequenceClassification(cfg, device="cpu")
     assert all(p.device.type == "cpu" for p in m.parameters())
-    assert m.ernie.rng.device.device.type == "cpu"
+    assert m.ernie.rng.seed_t.device.type == "cpu"
 
 
 def test_device_tensors_never_take_the_plain_variant_path():
@@ -165,9 +174,32 @@ def test_device_tensors_never_take_the_plain_variant_path():
     lambda x, w, lab: ce.softmax_cross_entropy(x, lab),
     lambda x, w, lab: ce.softmax_cross_entropy(x.view(2, 4, 64),
                                                lab.view(2, 4), shift=True),
+    lambda x, w, lab: em.embedding(lab, x),
+    lambda x, w, lab: nn_ops.embedding(lab, x, padding_idx=0),
+    lambda x, w, lab: ba.bias_act(x, w, ba.ActSpec("gelu", x.dtype,
+                                                   x.dtype)),
+    lambda x, w, lab: nn_ops.linear(x, w.view(64, 1).expand(64, 64), w,
+                                    activation="gelu"),
+    lambda x, w, lab: nn_ops.gelu(x),
+    lambda x, w, lab: nn_ops.relu(x),
+    lambda x, w, lab: dr.dropout(x, 0.1, lab[0]),
+    lambda x, w, lab: dr.dropout(x, 0.1, lab[0], residual=x),
+    lambda x, w, lab: inn.functional.fused_dropout_add(
+        x, x, 0.1, generator=torch.Generator()),
+    lambda x, w, lab: sm.softmax_mask(x.view(2, 4, 64), x.view(2, 4, 64)),
+    lambda x, w, lab: inn.functional.softmax_mask_fuse(
+        x.view(1, 2, 4, 64), x.view(1, 2, 4, 64)[:, :1]),
+    lambda x, w, lab: inn.functional.softmax_mask_fuse_upper_triangle(
+        x.view(2, 4, 64)),
+    lambda x, w, lab: inn.functional.fused_linear(x, w.view(64, 1).expand(
+        64, 64), w),
 ], ids=["rms_norm", "rms_norm_residual", "layer_norm_residual", "fused_norm",
         "incubate_rms", "incubate_ln", "rope", "incubate_rope", "swiglu",
-        "incubate_swiglu", "cross_entropy", "cross_entropy_shift"])
+        "incubate_swiglu", "cross_entropy", "cross_entropy_shift",
+        "embedding", "nn_embedding", "bias_act", "linear_gelu", "gelu",
+        "relu", "dropout", "dropout_residual", "incubate_dropout_add",
+        "softmax_mask", "incubate_softmax_mask",
+        "incubate_softmax_mask_upper_triangle", "incubate_fused_linear"])
 def test_device_tensors_never_take_a_fused_plain_version(call):
     # the fused small ops: a non-CPU tensor goes to the kernel or raises,
     # never to a *_reference (meta tensors stand in for a card's)
@@ -284,6 +316,14 @@ _ARGTYPES_OF = {"flash_fwd": "_ARGTYPES", "flash_fwd_lse": "_ARGTYPES_LSE",
     (sw, "swiglu.cu", "swiglu_bwd"),
     (ce, "softmax_cross_entropy.cu", "ce_fwd"),
     (ce, "softmax_cross_entropy.cu", "ce_bwd"),
+    (em, "embedding.cu", "emb_fwd"),
+    (em, "embedding.cu", "emb_bwd"),
+    (ba, "bias_act.cu", "bias_act_fwd"),
+    (ba, "bias_act.cu", "bias_act_bwd"),
+    (dr, "dropout.cu", "dropout_fwd"),
+    (dr, "dropout.cu", "dropout_bwd"),
+    (sm, "softmax_mask.cu", "softmax_mask_fwd"),
+    (sm, "softmax_mask.cu", "softmax_mask_bwd"),
 ])
 def test_ctypes_bindings_match_c_signatures(mod, source, fn):
     params = _c_params(source, fn)
