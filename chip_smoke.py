@@ -23,6 +23,24 @@ per phase:
   the unshared run's); and checks that engine and ``generate`` agree token
   for token on a 2-layer full-width fp32 model, a shared-prefix pair
   among the prompts;
+* the fused inference stack (``FusedMultiTransformer``, the JAX package's
+  other serving model): ``fmt_check`` runs two layers at full width
+  (hidden 2560, 20 heads, inter 6912) in fp32 and holds every B1, K1 and
+  K6 launch of its bidirectional and causal prefills and every B6 launch
+  of eight eager decode steps over bf16 and int8 pools against their
+  plain versions, the prefill against the CPU's, the ``seq_offset`` tail
+  against the full causal prefill, engine tokens against the per-token
+  dense reference loop, and each bucket's decode graph against an eager
+  step with its launches per replay; ``fmt_kernel_times`` times B1, B6,
+  K1 and K6 at the FMT serving shapes; ``serve_fmt`` serves
+  ``bench_generation.py --serving`` at its defaults (22 layers, bf16, 16
+  requests of 512 tokens, 64 new, buckets 1, 4, 16) three times, times a
+  bucket-16 replay beside its byte bound, holds every request against
+  the bs=1 per-token reference (``serve_fmt_parity``: run free as the
+  bench does, and fed the engine's transcript, the engine's logits
+  against the reference's at each position, every differing pick a
+  tie), and runs the bench's 90% overlap prefix leg with sharing on and
+  off (equal transcripts);
 * training: holds the forward-with-lse, the flash backward (dq, dk/dv) and
   the int8 AdamW kernels against their plain versions (and shows that the
   check rejects a copy of the flash kernels that skip a tile, and that
@@ -82,6 +100,7 @@ card it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gc
 import itertools
@@ -861,6 +880,18 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
+def families(kernels, per: int = 1) -> dict:
+    """Device ms and calls by kernel family of profiler events, each
+    divided by ``per``."""
+    fams = {}
+    for e in kernels:
+        f = fams.setdefault(kernel_family(e.key), {"device_ms": 0.0,
+                                                   "calls": 0})
+        f["device_ms"] += device_us(e) / 1e3 / per
+        f["calls"] += e.count / per
+    return fams
+
+
 def device_us(evt) -> float:
     v = getattr(evt, "self_device_time_total", None)
     return float(v if v is not None else evt.self_cuda_time_total)
@@ -879,7 +910,9 @@ HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)"
 SPANS = ("serving.prefill", "serving.decode")
 
 
-def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float):
+def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float,
+                    new_tokens: int = 64, layers: int = 32,
+                    phase: str = "serve_profile"):
     """Serve the same traffic again under ``torch.profiler``; emit where the
     device time goes, and how the host's wall time splits between the
     prefills and the decode steps. The busy share is kernel time over this
@@ -906,7 +939,7 @@ def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float):
         setattr(eng, "_" + name.split(".")[1], spanned(name))
     try:
         with torch.profiler.profile(activities=acts) as prof:
-            wall, _, stats = run_traffic(torch, eng, prompts, 64)
+            wall, _, stats = run_traffic(torch, eng, prompts, new_tokens)
     finally:
         for name in SPANS:
             delattr(eng, "_" + name.split(".")[1])
@@ -916,11 +949,7 @@ def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float):
                and device_us(e) > 0 and e.key not in SPANS]
     total_s = sum(device_us(e) for e in kernels) / 1e6
     require(total_s > 0, "profiler recorded no device time")
-    fams = {}
-    for e in kernels:
-        f = fams.setdefault(kernel_family(e.key), {"device_ms": 0.0, "calls": 0})
-        f["device_ms"] += device_us(e) / 1e3
-        f["calls"] += e.count
+    fams = families(kernels)
     steps = sum(stats["steps"].values())
     spans = {}
     for name in SPANS:
@@ -932,7 +961,7 @@ def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float):
                        "device_ms_attributed": dev_ms,
                        "device_share_of_span": dev_ms / (host_s[name] * 1e3)}
     top = sorted(kernels, key=device_us, reverse=True)[:12]
-    emit({"phase": "serve_profile", "card": card, "wall_s": wall,
+    emit({"phase": phase, "card": card, "wall_s": wall,
           "device_ms": total_s * 1e3, "device_busy_share": total_s / wall,
           "unprofiled_wall_s": unprofiled_wall_s,
           "device_busy_share_est_unprofiled": total_s / unprofiled_wall_s,
@@ -940,7 +969,8 @@ def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float):
           # kernels replayed from a graph keep their names in the trace:
           # two paged kernels (split, combine) a layer a step
           "paged_calls_per_step_layer":
-              fams.get("paged_decode", {"calls": 0})["calls"] / (steps * 32),
+              fams.get("paged_decode", {"calls": 0})["calls"]
+              / (steps * layers),
           "spans": spans,
           "top": [{"kernel": e.key[:90], "device_ms": device_us(e) / 1e3,
                    "calls": e.count} for e in top]})
@@ -4228,6 +4258,728 @@ def incubate_check(torch) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the fused inference stack: FusedMultiTransformer served through the engine
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_generation.py's defaults: --hidden 2560 --heads 20
+# --inter 6912 --layers 22 --vocab 32000 --prompt 512 --tokens 64
+# --max-len 1024 --page-size 64, buckets (1, 4, 16), 16 requests from
+# default_rng(0), bf16 weights without AMP
+FMT = dict(vocab=32000, hidden=2560, heads=20, inter=6912)
+FMT_LAYERS, FMT_PROMPT, FMT_NEW, FMT_MAX_LEN, FMT_PS = 22, 512, 64, 1024, 64
+FMT_BUCKETS, FMT_REQUESTS = (1, 4, 16), 16
+# the bench's parity oracle (bench_generation.py:483-541) is the bs=1
+# per-token dense reference run for each request alone, and its gate is a
+# match on >= 0.75 of the request's tokens, since "a 1-ulp bf16 logit tie
+# may flip an argmax". Run free, the reference leaves the engine's
+# transcript at its first flip and follows another continuation, so the
+# match of the rest says nothing of the engine. serve_fmt reports that
+# free-running match and holds the engine to the same bs=1 reference fed
+# the engine's own transcript (teacher forcing): at every position of
+# every request the engine's logits, kept as it picked each token, against
+# the reference's at the same context. Each request's picks equal the
+# reference's on >= FMT_MATCH of its positions, and every pick that
+# differs is a tie: the two sides' margins for their own picks sum to at
+# most FMT_TIE_ULPS bf16 ulps of the row's largest logit. Each side rounds
+# its two logits to bf16, half an ulp each, so two rows that agree before
+# that rounding can prefer opposite tokens by 2 ulps in sum after it.
+FMT_MATCH = 0.75
+FMT_TIE_ULPS = 2
+# The two logit rows of one context differ by rounding only: bf16 products
+# in other orders (cuBLAS picks kernels by the batch, B6 against the dense
+# branch), compounded through the residual stream, one bf16 rounding a
+# layer as serve_prefix_7b's K/V check allows, and two more for the final
+# LayerNorm and the head. A wrong page, position or weight is off by order
+# 1. Held as ||engine - reference|| / ||reference|| at every position.
+FMT_LOGITS_REL = (FMT_LAYERS + 2) * KV_ROUNDING_PER_LAYER
+# fmt_check holds a 2-layer fp32 prefill's outputs and caches on the card
+# against the same weights on the CPU (plain versions), and the tail of a
+# seq_offset prefill against the full causal prefill, each as
+# ||a - b|| / ||b||: the card's and the CPU's fp32 sums differ by order
+FMT_FP32_REL = 1e-5
+
+
+def fmt_counters(fa, pa) -> dict:
+    """The counters of the kernels on the FMT path, by kernel name."""
+    c = step_counters()
+    return {"flash_prefill": fa.launches, "paged_decode": pa.launches,
+            **{k: c[k] for k in ("fused_norm", "bias_act", "embedding")}}
+
+
+def fmt_per_call(layers: int) -> dict:
+    """K1, K6 and K5 launches of one FMT prefill or decode step: two
+    LayerNorms a layer and the final one; once a layer each the out
+    projection's bias, linear1's bias with GELU and linear2's bias; the
+    embedding."""
+    return {"fused_norm": 2 * layers + 1, "bias_act": 3 * layers,
+            "embedding": 1}
+
+
+def require_fmt_launches(launches: dict, prefills: int, steps: int,
+                         layers: int, what: str) -> None:
+    want = {"flash_prefill": prefills * layers, "paged_decode": steps * layers,
+            **{k: n * (prefills + steps)
+               for k, n in fmt_per_call(layers).items()}}
+    require(launches == want, f"{what}: launches {launches}, want {want} "
+                              f"({prefills} prefills, {steps} steps)")
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@contextlib.contextmanager
+def shadow_kernels(torch, record: dict):
+    """Hold every eager launch of B1, B6, K1 and K6 against its plain
+    version on the same inputs as it happens (``check_close`` or
+    ``fused_close``, raising past the limit); ``record`` gathers each
+    kernel's calls and largest error. A graph replay runs no Python, so
+    only eager calls are held."""
+    from paddle_tpu_torch.incubate import nn_functional as IF
+    from paddle_tpu_torch.ops import bias_act as ba
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops import paged_attention as pa
+    saved = (fa.flash_attention_fwd, pa.paged_attention, nn_ops.fused_norm,
+             IF.bias_act)
+
+    def note(name, err, shape):
+        r = record.setdefault(name, {"calls": 0, "max_abs_err": 0.0,
+                                     "shapes": []})
+        r["calls"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if list(shape) not in r["shapes"]:
+            r["shapes"].append(list(shape))
+
+    def flash(*a, **k):
+        out = saved[0](*a, **k)
+        ref = fa.flash_attention_reference(*a, **k)
+        what = f"fmt flash {tuple(a[0].shape)} over {a[1].shape[1]}"
+        note("flash_prefill", check_close(torch, out, ref, "flash",
+                                          what)["max_abs"],
+             (*a[0].shape, a[1].shape[1]))
+        return out
+
+    def paged(*a, page_size):
+        out = saved[1](*a, page_size=page_size)
+        ref = pa.paged_attention_dense(*a, page_size)
+        what = f"fmt paged {tuple(a[0].shape)} pool {a[3].dtype}"
+        note("paged_decode", check_close(torch, out, ref, "paged",
+                                         what)["max_abs"],
+             (*a[0].shape, str(a[3].dtype)))
+        return out
+
+    def norm(x, weight=None, bias=None, residual=None, pre_bias=None, *,
+             spec):
+        out, h = saved[2](x, weight, bias, residual, pre_bias, spec=spec)
+        ref, _ = fn.fused_norm_reference(x, weight, bias, residual, pre_bias,
+                                         spec=spec)
+        ok, err = fused_close(torch, out, ref, "out")
+        require(ok, f"fmt layer norm {tuple(x.shape)}: {err} beyond "
+                    f"FUSED_TOL")
+        note("fused_norm", err, x.shape)
+        return out, h
+
+    def epilogue(y, b, spec):
+        out = saved[3](y, b, spec)
+        ok, err = fused_close(torch, out, ba.bias_act_reference(y, b, spec),
+                              "out")
+        require(ok, f"fmt bias_act {spec.act} {tuple(y.shape)}: {err} "
+                    f"beyond FUSED_TOL")
+        note(f"bias_act[{spec.act}]", err, y.shape)
+        return out
+
+    fa.flash_attention_fwd, pa.paged_attention = flash, paged
+    nn_ops.fused_norm, IF.bias_act = norm, epilogue
+    try:
+        yield record
+    finally:
+        (fa.flash_attention_fwd, pa.paged_attention, nn_ops.fused_norm,
+         IF.bias_act) = saved
+
+
+def fmt_stack(torch, layers: int, dtype, seed: int):
+    from paddle_tpu_torch.tools.fmt_stack import FMTStack
+    return FMTStack(FMT["vocab"], FMT["hidden"], FMT["heads"], FMT["inter"],
+                    layers, dtype=dtype, device="cuda", seed=seed)
+
+
+def fmt_engine(stack, max_len: int, max_batch: int, buckets, kv_dtype: str,
+               compute_dtype: str, causal: bool = False,
+               prefix_sharing: str = "auto", callables=None):
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+    L, _, H, D = stack.cache_shape
+    callables = callables or stack.serving_callables(causal=causal)
+    return Engine(*callables, ServingConfig(
+        num_layers=L, num_heads=H, head_dim=D, max_len=max_len,
+        max_batch=max_batch, buckets=buckets, page_size=FMT_PS,
+        kv_dtype=kv_dtype, compute_dtype=compute_dtype,
+        prefix_sharing=prefix_sharing, device="cuda"))
+
+
+def fmt_check(torch, fa, pa, kvc) -> dict:
+    """Two layers of the FMT stack at full width in fp32 on the card: the
+    bidirectional prefill with every B1, K1 and K6 launch held against its
+    plain version, its output and stacked cache against the CPU's;
+    a causal prefill resumed at ``seq_offset`` 448 (B1 at Lq 64 over Lk
+    512) against the full causal prefill; eight eager paged decode steps
+    over bf16 and int8 pools with every B6 launch held against
+    ``paged_attention_dense``; engine transcripts (decode graphs) against
+    the per-token dense reference loop for 4 prompts; and each bucket's
+    decode graph against an eager step (equal tokens, bit-equal pools),
+    with B6, K1, K5 and K6 launches per replay."""
+    import numpy as np
+    from paddle_tpu_torch.ops.paged_attention import PagedDecodeCache
+    from paddle_tpu_torch.tools.fmt_stack import FMTStack
+    t0 = time.monotonic()
+    L = 2
+    stack = fmt_stack(torch, L, torch.float32, seed=1)
+    _, _, H, D = stack.cache_shape
+    rng = np.random.default_rng(4)
+    n = FMT_PROMPT
+    ids = torch.as_tensor(rng.integers(0, FMT["vocab"], (1, n)),
+                          device="cuda")
+    shape = (L, 2, 1, H, n, D)
+    record = {}
+    row = {"phase": "fmt_check", "layers": L, "dtype": "float32"}
+    with torch.no_grad(), shadow_kernels(torch, record):
+        # the bidirectional prefill (the engine's 2-argument prefill_fn)
+        cache = torch.zeros(shape, device="cuda")
+        out, _ = stack.fmt(stack.embed(ids), caches=cache)
+        # the causal prefill, whole and resumed at a page-aligned offset
+        full = torch.zeros(shape, device="cuda")
+        out_full, _ = stack.fmt(stack.embed(ids), caches=full, seq_offset=0)
+        off = n - FMT_PS
+        tail = torch.zeros(shape, device="cuda")
+        stack.fmt(stack.embed(ids[:, :off]), caches=tail, seq_offset=0)
+        out_tail, _ = stack.fmt(stack.embed(ids[:, off:]), caches=tail,
+                                seq_offset=off)
+    torch.cuda.synchronize()
+    cpu = FMTStack(FMT["vocab"], FMT["hidden"], FMT["heads"], FMT["inter"],
+                   L, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in stack.state_dict().items()})
+    with torch.no_grad():
+        cache_cpu = torch.zeros(shape)
+        out_cpu, _ = cpu.fmt(cpu.embed(ids.cpu()), caches=cache_cpu)
+    del cpu
+    agree = {"prefill_out": rel_err(out.cpu(), out_cpu),
+             "prefill_cache": rel_err(cache.cpu(), cache_cpu),
+             "tail_out": rel_err(out_tail, out_full[:, off:]),
+             **{f"tail_kv_layer{i}": rel_err(tail[i, :, :, :, off:],
+                                             full[i, :, :, :, off:])
+                for i in range(L)}}
+    require(all(e <= FMT_FP32_REL for e in agree.values()),
+            f"fmt_check: prefill against the CPU or the tail against the full "
+            f"causal prefill beyond {FMT_FP32_REL}: {agree}")
+    held = {k: record.get(k, {}).get("calls") for k in (
+        "flash_prefill", "fused_norm", "bias_act[none]",
+        "bias_act[gelu_tanh]")}
+    # four prefills: B1 and the GELU epilogue once a layer, the two
+    # LayerNorms and the out projection's and linear2's biases twice
+    require(held == {"flash_prefill": 4 * L, "fused_norm": 4 * 2 * L,
+                     "bias_act[none]": 4 * 2 * L,
+                     "bias_act[gelu_tanh]": 4 * L},
+            f"fmt_check: prefill launches held {held}")
+    row["prefill"] = {"rel_err": agree, "held": dict(record)}
+    del cache, full, tail, cache_cpu, out_cpu
+    # eight eager decode steps over bf16 and int8 pools, B6 held each time
+    step_fn = stack.serving_callables()[1]
+    lens = (100, 300, 512, 700)
+    for leg in ("bf16", "int8"):
+        record.clear()
+        eng = fmt_engine(stack, FMT_MAX_LEN, 4, (4,), leg, "float32")
+        rows, toks = [], []
+        for ln in lens:
+            pages = eng.kv.alloc(eng.kv.pages_for(ln + 8))
+            rows.append(eng.kv.table_row(pages))
+            toks.append(eng._prefill(rng.integers(0, FMT["vocab"], (ln,)),
+                                     rows[-1]))
+        tok = torch.tensor(toks, device="cuda")[:, None]
+        tables = torch.as_tensor(np.stack(rows), device="cuda")
+        t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        with torch.no_grad(), shadow_kernels(torch, record):
+            for _ in range(8):
+                view = PagedDecodeCache(eng.kv.pool, tables, t, FMT_PS,
+                                        eng.kv.scales)
+                tok, _ = step_fn(tok, view, t)
+                t = t + 1
+        torch.cuda.synchronize()
+        held = {k: r["calls"] for k, r in record.items()}
+        # eight steps: the final LayerNorm too, once a step
+        require(held == {"paged_decode": 8 * L, "fused_norm": 8 * (2 * L + 1),
+                         "bias_act[none]": 8 * 2 * L,
+                         "bias_act[gelu_tanh]": 8 * L},
+                f"fmt_check {leg}: decode launches held {held}")
+        row[f"decode_{leg}"] = dict(record)
+        del eng
+    # the engine (decode graphs) against the per-token dense reference
+    eng = fmt_engine(stack, FMT_MAX_LEN, 4, (1, 4), "native",
+                     "float32").warmup()
+    prompts = [rng.integers(0, FMT["vocab"], (ln,), dtype=np.int32)
+               for ln in (64, 200, 512, 333)]
+    counters = fmt_counters(fa, pa)
+    for c in counters.values():
+        c.reset()
+    _, results, stats = run_traffic(torch, eng, prompts, 16)
+    launches = {k: c.count for k, c in counters.items()}
+    refs = [stack.reference(p, 16, FMT_MAX_LEN) for p in prompts]
+    same = [r.tokens == ref for r, ref in zip(results, refs)]
+    require(all(same), f"fmt_check: engine tokens differ from the dense "
+                       f"reference loop: {same}")
+    require_fmt_launches(launches, 4, sum(stats["steps"].values()), L,
+                         "fmt_check engine")
+    row["engine_vs_reference"] = {"prompt_lens": [len(p) for p in prompts],
+                                  "new_tokens": 16, "equal": same,
+                                  "decode_steps": stats["steps"],
+                                  "launches": launches}
+    del eng
+    # each bucket's decode graph against an eager step, native and int8
+    grng = np.random.default_rng(5)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    graphs = []
+    for leg in ("native", "int8"):
+        eng = fmt_engine(stack, FMT_MAX_LEN, 16, FMT_BUCKETS, leg,
+                         "float32").warmup()
+        kv = eng.kv
+        with torch.no_grad():
+            x = torch.randn(kv.pool.shape, generator=gen, device="cuda")
+            if leg == "int8":
+                q8, sc = kvc.quantize_pages(x)
+                kv.pool.copy_(q8)
+                kv.scales.copy_(sc)
+            else:
+                kv.pool.copy_(x)
+            del x
+        s = kv.config.pages_per_slot
+        for b in FMT_BUCKETS:
+            tok, tables, t = decode_case(grng, b, s, FMT_PS,
+                                         kv.config.num_pages, FMT["vocab"])
+            res = graph_vs_eager(torch, pa, eng, step_fn, tok, tables, t)
+            per_replay = {c.name: k for c, k in
+                          eng.decode_graph(b).launches.items()}
+            want = {"paged_decode_attention": L,
+                    **fmt_per_call(L)}
+            require(res["tokens_equal"] and res["pools_equal"]
+                    and res["launches"] == L and per_replay == want,
+                    f"fmt decode graph {leg} bucket {b}: {res}, launches "
+                    f"per replay {per_replay} (want {want})")
+            graphs.append({"pool": leg, "bucket": b, **res,
+                           "launches_per_replay": per_replay})
+        del eng, kv
+        gc.collect()
+        torch.cuda.empty_cache()
+    row["graph_vs_eager"] = graphs
+    row["seconds"] = time.monotonic() - t0
+    emit(row)
+    del stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def fmt_decode_bound(stack, rows: int, t: int):
+    """Least time of one decode step of ``rows`` rows at context ``t``:
+    every weight but the embedding's read once, and each row's live K/V
+    of every layer, over the card's memory rate (ms)."""
+    L, two, H, D = stack.cache_shape
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in stack.named_parameters()
+                  if not n.startswith("embed."))
+    kv = rows * (t + 1) * L * two * H * D * stack.embed.weight.element_size()
+    return (weights + kv) / HBM_BYTES_PER_S * 1e3, weights, kv
+
+
+def serve_fmt(torch, card, fa, pa) -> dict:
+    """``bench_generation.py --serving`` at its defaults on the port: the
+    22-layer bf16 FMT stack (random weights from seed 0) through the
+    engine, 16 requests of 512 prompt tokens and 64 new ones, buckets (1,
+    4, 16), page 64, max_len 1024. A warm pass, then three timed runs
+    (tok/s, TTFT, TPOT, peak memory, launches counted from 0 in each);
+    a bucket-16 replay timed at 16 live rows of 560 positions beside its
+    byte bound, with its device time by kernel family; the traffic once
+    more under ``torch.profiler`` (``serve_fmt_profile``); the first
+    run's transcripts against the bs=1 per-token dense reference
+    (:func:`fmt_parity`); then the bench's prefix leg at 90% overlap (8
+    requests of 512 tokens sharing 448, 8 new tokens), sharing on and
+    off: prompt tokens computed against requested, and equal
+    transcripts."""
+    import numpy as np
+    t0 = time.monotonic()
+    stack = fmt_stack(torch, FMT_LAYERS, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in stack.parameters())
+    eng = fmt_engine(stack, FMT_MAX_LEN, FMT_REQUESTS, FMT_BUCKETS,
+                     "native", "bfloat16").warmup([FMT_PROMPT])
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, FMT["vocab"], (FMT_PROMPT,), dtype=np.int32)
+               for _ in range(FMT_REQUESTS)]
+    counters = fmt_counters(fa, pa)
+    run_traffic(torch, eng, prompts, FMT_NEW)             # the warm pass
+    runs = []
+    for i in range(SERVE_RUNS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        wall, results, stats = run_traffic(torch, eng, prompts, FMT_NEW)
+        launches = {k: c.count for k, c in counters.items()}
+        steps = sum(stats["steps"].values())
+        for r in results:
+            require(len(r.tokens) == FMT_NEW and all(
+                0 <= x < FMT["vocab"] for x in r.tokens),
+                f"serve_fmt run {i + 1}: request {r.request_id}: "
+                f"{r.tokens}")
+        require(sum(stats["replays"].values()) == steps > 0,
+                f"serve_fmt run {i + 1}: {steps} steps, replays "
+                f"{stats['replays']}")
+        require_fmt_launches(launches, FMT_REQUESTS, steps, FMT_LAYERS,
+                             f"serve_fmt run {i + 1}")
+        require(eng.kv.outstanding_pages == 0,
+                f"serve_fmt run {i + 1}: pages leaked")
+        runs.append({**serving_numbers(results, wall), "decode_steps": steps,
+                     "batch_sizes": stats["steps"],
+                     "graph_replays": stats["replays"], "launches": launches,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if i == 0:
+            main_launches, main_results = launches, results
+    spread = {k: [min(r[k] for r in runs), max(r[k] for r in runs)]
+              for k in ("tokens_per_s", "ttft_median_s", "tpot_median_s")}
+    # one bucket-16 replay at 16 live rows of 560 positions
+    g = eng.decode_graph(16)
+    per_slot = -(-(560 + 1) // FMT_PS)
+    tables = np.zeros((16, eng.kv.config.pages_per_slot), np.int32)
+    tables[:, :per_slot] = 1 + np.arange(16 * per_slot).reshape(16, per_slot)
+    g.load(np.asarray(prompts)[:, :1].astype(np.int64), tables,
+           np.full((16,), 560, np.int32))
+    replay_ms = cuda_ms(torch, g.replay, 20)
+    bound_ms, wbytes, kvbytes = fmt_decode_bound(stack, 16, 560)
+    # where a replay's device time goes (replayed kernels keep their names)
+    n = 5
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            g.replay()
+        torch.cuda.synchronize()
+    replay_fams = families([e for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and device_us(e) > 0], per=n)
+    emit({"phase": "serve_fmt", "card": card, "layers": FMT_LAYERS,
+          "params": n_params, "dtype": "bfloat16", **FMT,
+          "requests": FMT_REQUESTS, "prompt_len": FMT_PROMPT,
+          "new_tokens": FMT_NEW, "max_len": FMT_MAX_LEN,
+          "page_size": FMT_PS, "buckets": list(FMT_BUCKETS),
+          "decode": "cuda_graph_per_bucket", "runs": runs,
+          "spread_min_max": spread,
+          "peak_mem_gb": max(r["peak_mem_gb"] for r in runs),
+          "replay_b16_t560": {"ms": replay_ms, "bound_ms": bound_ms,
+                              "weight_bytes": wbytes, "kv_bytes": kvbytes,
+                              "families_per_replay": replay_fams,
+                              "launches_per_replay": {
+                                  c.name: k for c, k in g.launches.items()}},
+          "weights_init_s": init_s})
+    profile_serving(torch, card, eng, prompts, runs[0]["wall_s"],
+                    new_tokens=FMT_NEW, layers=FMT_LAYERS,
+                    phase="serve_fmt_profile")
+    del eng, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    fmt_parity(torch, card, stack, prompts,
+               [r.tokens for r in main_results])
+    prefix = serve_fmt_prefix(torch, card, fa, pa, stack)
+    del stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve_run1": main_launches, **prefix}
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.frexp(abs(x))[1] - 8) if x else 2.0 ** -133
+
+
+def fmt_kept_logits(torch, stack, prompts, n_new: int):
+    """The traffic once more, through an engine whose callables keep the
+    logits each token is picked from (the decode graphs capture the
+    keeping: a bucket's kept logits are its graph's output). After each
+    prefill and replay the rows are copied out to their requests, a
+    replay's rows matched to the live slots by page table. Returns per
+    prompt the transcript and its logits ``(n_new, V)`` fp32."""
+    import numpy as np
+    kept = {}
+
+    def prefill_fn(ids, cache):
+        kept["prefill"], cache = stack.prefill_logits(ids, cache)
+        return stack.greedy(kept["prefill"]), cache
+
+    def step_fn(tok, cache, t):
+        kept[tok.shape[0]], cache = stack.step_logits(tok, cache, t)
+        return stack.greedy(kept[tok.shape[0]]), cache
+
+    eng = fmt_engine(stack, FMT_MAX_LEN, FMT_REQUESTS, FMT_BUCKETS,
+                     "native", "bfloat16", callables=(prefill_fn, step_fn))
+    eng.warmup([FMT_PROMPT])
+    index = {np.asarray(p, np.int64).tobytes(): i
+             for i, p in enumerate(prompts)}
+    rows = [[] for _ in prompts]
+    prefill, decode = eng._prefill, eng._decode
+
+    def keep_prefill(prompt, row, start=0):
+        tok = prefill(prompt, row, start)
+        rows[index[np.asarray(prompt, np.int64).tobytes()]].append(
+            kept["prefill"].reshape(-1).float())
+        return tok
+
+    def keep_decode(tok, tables, t):
+        nxt = decode(tok, tables, t)
+        out = kept[tok.shape[0]]
+        for slot in list(eng._slots):
+            hit = np.flatnonzero((tables == slot.table_row).all(axis=1))
+            if hit.size:
+                key = np.asarray(slot.request.prompt, np.int64).tobytes()
+                rows[index[key]].append(out[hit[0]].reshape(-1).float())
+        return nxt
+
+    eng._prefill, eng._decode = keep_prefill, keep_decode
+    _, results, _ = run_traffic(torch, eng, prompts, n_new)
+    del eng
+    return ([r.tokens for r in results],
+            [torch.stack(r) for r in rows])
+
+
+def fmt_parity(torch, card, stack, prompts, served) -> dict:
+    """``served`` (the first timed run's transcripts) against the bs=1
+    per-token dense reference: run free, as the bench compares
+    (match and first difference a request), and fed the engine's own
+    transcript, each position's logits against the engine's kept ones
+    (``FMT_MATCH``, ``FMT_LOGITS_REL`` and ``FMT_TIE_ULPS``). Every
+    pick that differs is listed with both sides' margins, the largest
+    difference of the two rows, and the bf16 ulp at the reference row's
+    largest logit."""
+    t0 = time.monotonic()
+    free = [stack.reference(p, FMT_NEW, FMT_MAX_LEN) for p in prompts]
+    tokens, engine = fmt_kept_logits(torch, stack, prompts, FMT_NEW)
+    require(tokens == served, "serve_fmt parity: the engine that keeps its "
+                              "logits gave other transcripts than run 1")
+    per_request, flips = [], []
+    for i, (p, toks, e_lg) in enumerate(zip(prompts, tokens, engine)):
+        r_lg = stack.reference_logits(p, toks, FMT_MAX_LEN)
+        require(e_lg.shape == r_lg.shape == (FMT_NEW, FMT["vocab"]),
+                f"serve_fmt parity: request {i}: logits {e_lg.shape}")
+        e = torch.tensor(toks, device=e_lg.device)
+        require(torch.equal(e_lg.argmax(dim=1), e),
+                f"serve_fmt parity: request {i}: the kept logits do not "
+                f"give the engine's tokens")
+        a = r_lg.argmax(dim=1)
+        diff = e_lg - r_lg
+        rel = (diff.norm(dim=1) / r_lg.norm(dim=1)).tolist()
+        spread = diff.abs().amax(dim=1).tolist()
+        first_free = next((j for j, (x, y) in enumerate(zip(toks, free[i]))
+                           if x != y), None)
+        for j in (a != e).nonzero().reshape(-1).tolist():
+            ai, ei = int(a[j]), int(e[j])
+            top = float(r_lg[j].max())
+            flips.append({
+                "request": i, "position": j, "engine_token": ei,
+                "reference_token": ai,
+                "reference_margin": float(r_lg[j, ai] - r_lg[j, ei]),
+                "engine_margin": float(e_lg[j, ei] - e_lg[j, ai]),
+                "largest_difference": spread[j],
+                "reference_max_logit": top, "bf16_ulp": bf16_ulp(top)})
+        mine = [f["position"] for f in flips if f["request"] == i]
+        per_request.append({
+            "free_match": sum(x == y for x, y in zip(toks, free[i]))
+            / FMT_NEW,
+            "free_first_difference": first_free,
+            "forced_match": 1 - len(mine) / FMT_NEW,
+            "forced_first_difference": mine[0] if mine else None,
+            "logits_rel_err_max": max(rel),
+            "logits_largest_difference_max": max(spread)})
+    for f in flips:
+        f["tie"] = f["reference_margin"] + f["engine_margin"] \
+            <= FMT_TIE_ULPS * f["bf16_ulp"]
+    row = {"phase": "serve_fmt_parity", "card": card,
+           "layers": FMT_LAYERS, "dtype": "bfloat16",
+           "match_limit": FMT_MATCH, "logits_rel_limit": FMT_LOGITS_REL,
+           "tie_limit_ulps": FMT_TIE_ULPS,
+           "requests": per_request, "flips": flips,
+           "seconds": time.monotonic() - t0}
+    emit(row)
+    for i, r in enumerate(per_request):
+        require(r["free_first_difference"] == r["forced_first_difference"],
+                f"serve_fmt parity: request {i}: the fed reference departs "
+                f"from the free one before the engine does: {r}")
+        require(r["forced_match"] >= FMT_MATCH
+                and r["logits_rel_err_max"] <= FMT_LOGITS_REL,
+                f"serve_fmt parity: request {i} against the bs=1 "
+                f"reference at the engine's context: {r}")
+    require(all(f["tie"] for f in flips),
+            f"serve_fmt parity: picks that differ by more than a tie: "
+            f"{[f for f in flips if not f['tie']]}")
+    return row
+
+
+def serve_fmt_prefix(torch, card, fa, pa, stack) -> dict:
+    """The bench's prefix-sharing leg at 90% overlap
+    (``bench_generation.py:970-1010``): 8 requests of 512 tokens, a common
+    448-token prefix and fresh tails, 8 new tokens, max_batch 4, through
+    the causal prefill; a warm drain (its own tails) seeds the index, the
+    measured drain shares the base chain. Sharing on, then off."""
+    import numpy as np
+    n_req, n_new = 8, 8
+    max_len = -(-(FMT_PROMPT + n_new + 2) // FMT_PS) * FMT_PS
+    rng = np.random.default_rng(3)
+    shared = int(0.9 * FMT_PROMPT) // FMT_PS * FMT_PS
+    base = rng.integers(0, FMT["vocab"], (shared,), dtype=np.int32)
+
+    def make_prompts():
+        return [np.concatenate([base, rng.integers(
+            0, FMT["vocab"], (FMT_PROMPT - shared,), dtype=np.int32)])
+            for _ in range(n_req)]
+    warm, measured = make_prompts(), make_prompts()
+    counters = fmt_counters(fa, pa)
+    legs, transcripts, launches_by = {}, {}, {}
+    for mode in ("on", "off"):
+        eng = fmt_engine(stack, max_len, 4, (1, 4), "native", "bfloat16",
+                         causal=True, prefix_sharing=mode).warmup(
+                             [FMT_PROMPT])
+        run_traffic(torch, eng, warm, n_new)
+        req0, comp0 = eng.prefill_token_stats()
+        for c in counters.values():
+            c.reset()
+        wall, results, stats = run_traffic(torch, eng, measured, n_new)
+        req1, comp1 = eng.prefill_token_stats()
+        launches = {k: c.count for k, c in counters.items()}
+        require_fmt_launches(launches, n_req, sum(stats["steps"].values()),
+                             FMT_LAYERS, f"serve_fmt prefix {mode}")
+        transcripts[mode] = [r.tokens for r in results]
+        launches_by[f"prefix_{mode}"] = launches
+        legs[mode] = {**serving_numbers(results, wall),
+                      "prompt_tokens_requested": req1 - req0,
+                      "prompt_tokens_computed": comp1 - comp0,
+                      "prefills": stats["prefills"], "launches": launches}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    equal = transcripts["on"] == transcripts["off"]
+    emit({"phase": "serve_fmt_prefix", "card": card, "overlap": 0.9,
+          "shared_tokens": shared, "requests": n_req, "new_tokens": n_new,
+          "max_len": max_len, "legs": legs, "transcripts_equal": equal,
+          "first_difference": [next((i for i, (a, b) in enumerate(zip(
+              x, y)) if a != b), None) for x, y in zip(
+              transcripts["on"], transcripts["off"])]})
+    require(legs["on"]["prefills"] == {"tail": n_req},
+            f"serve_fmt prefix: sharing on prefilled {legs['on']['prefills']}")
+    require(equal, "serve_fmt prefix: transcripts differ between prefix "
+                   "sharing on and off")
+    return launches_by
+
+
+def fmt_kernel_times(torch, fa, pa, kvc) -> dict:
+    """The path's kernels at the FMT serving shapes, each held against its
+    plain version and timed beside its bound, plain version and library
+    call: B1 over the 512-token bidirectional prefill (1, 512, 20, 128)
+    and the prefix leg's tail (Lq 64 over Lk 512, causal), B6 at bucket 16
+    with 20 heads (rep 1) at t = 560 on bf16 and int8 pools, K1's
+    LayerNorm over the prefill's (512, 2560) and K6's bias + GELU (tanh)
+    over its (512, 6912), all bf16."""
+    import numpy as np
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.ops import bias_act as ba
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import nn_ops
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    H, D, E, F = FMT["heads"], 128, FMT["hidden"], FMT["inter"]
+    rows = {}
+    for name, lq, lk, causal in (("flash_prefill", 512, 512, False),
+                                 ("flash_prefill_tail", 64, 512, True)):
+        q = torch.randn(1, lq, H, D, generator=gen, device="cuda", dtype=bf)
+        k, v = (torch.randn(1, lk, H, D, generator=gen, device="cuda",
+                            dtype=bf) for _ in range(2))
+        out = fa.flash_attention_fwd(q, k, v, causal=causal)
+        ref = fa.flash_attention_reference(q, k, v, causal=causal)
+        err = check_close(torch, out, ref, "flash", f"fmt {name}")
+        mask = torch.ones(lq, lk, dtype=torch.bool, device="cuda").tril(
+            lk - lq) if causal else None
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pairs = attention_pairs(lq, lk, causal)
+        bms, by = bound(4.0 * H * D * pairs,
+                        2.0 * D * (2 * lq * H + 2 * lk * H), "bfloat16")
+        rows[name] = {
+            "case": f"(1, {lq}, {H}, {D}) over {lk} bf16"
+                    f"{' causal' if causal else ''}",
+            "max_abs_err": err["max_abs"], "tile_rel_err": err["tile_rel"],
+            "ms": cuda_ms(torch, lambda: fa.flash_attention_fwd(
+                q, k, v, causal=causal), 20),
+            "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_reference(
+                q, k, v, causal=causal), 3, warmup=1),
+            "library_ms": cuda_ms(
+                torch, lambda: TF.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask), 20),
+            "bound_ms": bms, "bound_by": by}
+    rng = np.random.default_rng(6)
+    for leg in ("bf16", "int8"):
+        case = paged_case(torch, kvc, gen, rng, (560,) * 16, H, H, leg, bf,
+                          s=FMT_MAX_LEN // FMT_PS)
+        args = case["args"]
+        out = pa.paged_attention(*args, page_size=FMT_PS)
+        ref = pa.paged_attention_dense(*args, page_size=FMT_PS)
+        err = check_close(torch, out, ref, "paged", f"fmt paged {leg}")
+        lib = paged_sdpa(torch, case)
+        bms, by = bound(case["flops"], case["nbytes"], "bfloat16")
+        rows[f"paged_decode_{leg}"] = {
+            "case": f"bucket 16, {H} heads (rep 1), D {D}, t 560, page "
+                    f"{FMT_PS}, {leg} pool, bf16 q",
+            "max_abs_err": err["max_abs"],
+            "ms": cuda_ms(torch, lambda: pa.paged_attention(
+                *args, page_size=FMT_PS), 20),
+            "plain_ms": cuda_ms(torch, lambda: pa.paged_attention_dense(
+                *args, page_size=FMT_PS), 3, warmup=1),
+            "library_ms": cuda_ms(torch, lib, 20),
+            "bound_ms": bms, "bound_by": by}
+        del case, args, lib
+    x = torch.randn(512, E, generator=gen, device="cuda").to(bf)
+    w, b = (torch.randn(E, generator=gen, device="cuda").to(bf)
+            for _ in range(2))
+    spec = nn_ops._norm_spec("layer_norm", "ln", x, w, b, None, 1e-5, 1)
+    out = nn_ops.layer_norm(x, E, w, b)
+    ok, err = fused_close(torch, out, fn.fused_norm_reference(
+        x, w, b, spec=spec)[0], "out")
+    require(ok, f"fmt layer norm (512, {E}) bf16: {err}")
+    bms, by = bound(0, nbytes(x, w, b, out), "bfloat16")
+    rows["fused_norm"] = {
+        "case": f"LayerNorm (512, {E}) bf16, weight and bias",
+        "max_abs_err": err, **fused_timing(
+            torch, lambda: nn_ops.layer_norm(x, E, w, b),
+            lambda: fn.fused_norm_reference(x, w, b, spec=spec),
+            lambda: TF.layer_norm(x, (E,), w, b)),
+        "bound_ms": bms, "bound_by": by}
+    for n_rows in (512, 16):
+        y = torch.randn(n_rows, F, generator=gen, device="cuda").to(bf)
+        bias = torch.randn(F, generator=gen, device="cuda").to(bf)
+        aspec = ba.ActSpec("gelu_tanh", bf, bf)
+        out = ba.bias_act(y, bias, aspec)
+        ok, err = fused_close(torch, out, ba.bias_act_reference(
+            y, bias, aspec), "out")
+        require(ok, f"fmt bias_act ({n_rows}, {F}): {err}")
+        bms, by = bound(0, nbytes(y, bias, out), "bfloat16")
+        rows[f"bias_act_{n_rows}"] = {
+            "case": f"y ({n_rows}, {F}) bf16 + bias, GELU tanh",
+            "max_abs_err": err, **fused_timing(
+                torch, lambda: ba.bias_act(y, bias, aspec),
+                lambda: ba.bias_act_reference(y, bias, aspec),
+                lambda: TF.gelu(y + bias, approximate="tanh")),
+            "bound_ms": bms, "bound_by": by}
+    emit({"phase": "fmt_kernel_times", **rows})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     import torch
@@ -4289,6 +5041,9 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    fmt_check(torch, fa, pa, kvc)
+    fmt_times = fmt_kernel_times(torch, fa, pa, kvc)
+    fmt_launches = serve_fmt(torch, smi, fa, pa)
     agree_2layer(torch, fa, pa)
     flash_errs, flash_times = check_flash_train(torch, fa,
                                                 planted["flash_attention"])
@@ -4339,8 +5094,12 @@ def main() -> int:
          "launches_path": "serve_llama2_7b run 1",
          **{f"launches_prefix_{m}": v["flash_by_prefill"]
             for m, v in prefix_launches.items()},
+         **{f"launches_fmt_{p}": v["flash_prefill"]
+            for p, v in fmt_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
-         "case": k1["case"], **{k: k1[k] for k in keys}},
+         "case": k1["case"], **{k: k1[k] for k in keys},
+         "fmt_shapes": {k: fmt_times[k] for k in ("flash_prefill",
+                                                  "flash_prefill_tail")}},
         {"name": "paged_decode", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_attention.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:178",
@@ -4348,8 +5107,12 @@ def main() -> int:
          "launches_path": "serve_llama2_7b run 1, graph replays",
          **{f"launches_prefix_{m}": v["paged_decode"]
             for m, v in prefix_launches.items()},
+         **{f"launches_fmt_{p}": v["paged_decode"]
+            for p, v in fmt_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
-         "case": k2["case"], **{k: k2[k] for k in keys}},
+         "case": k2["case"], **{k: k2[k] for k in keys},
+         "fmt_shapes": {k: fmt_times[k] for k in ("paged_decode_bf16",
+                                                  "paged_decode_int8")}},
     ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": train_launches[name], "max_abs_err": err,
@@ -4395,6 +5158,9 @@ def main() -> int:
          "launches_ernie_captured_leg1":
              captured_launches["ernie_captured_leg1"].get(k, 0),
          "launches_serve_run1": serve_launches.get(k, 0),
+         **{f"launches_fmt_{p}": v.get(k, 0)
+            for p, v in fmt_launches.items()},
+         **({"fmt_shapes": {k: fmt_times[k]}} if k in fmt_times else {}),
          "max_abs_err": fused_rows[k]["max_abs_err"],
          "case": fused_rows[k]["case"],
          **{key: fused_rows[k].get(key) for key in keys},
@@ -4413,6 +5179,11 @@ def main() -> int:
          "launches_ernie_leg1": path_launches["ernie_leg1"].get(k, 0),
          "launches_llama_eager": train_launches.get(k, 0),
          "launches_serve_run1": serve_launches.get(k, 0),
+         **{f"launches_fmt_{p}": v.get(k, 0)
+            for p, v in fmt_launches.items()},
+         **({"fmt_shapes": {n: fmt_times[n] for n in ("bias_act_512",
+                                                      "bias_act_16")}}
+            if k == "bias_act" else {}),
          "launches_incubate_check": incubate_row["launches"][k],
          "max_abs_err": ernie_rows[k]["max_abs_err"],
          "case": ernie_rows[k]["case"],

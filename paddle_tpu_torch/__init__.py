@@ -9,9 +9,12 @@ with segment ids and in-kernel dropout), paged decode attention
 (``ops.paged_attention``), the int8 and multi-tensor AdamW updates
 (``ops.q8_adam``, ``ops.multi_tensor_adam``) and the fused small ops
 (``ops.fused_norm``, ``ops.rope``, ``ops.swiglu``,
-``ops.softmax_cross_entropy``, under ``incubate``'s fused functions). It
-imports neither JAX nor ``paddle_tpu``. Entry points run on ``cuda``
-unless given ``device="cpu"``.
+``ops.softmax_cross_entropy`` and the embedding, bias-activation,
+dropout and masked-softmax kernels, under ``incubate``'s fused functions).
+``incubate.FusedMultiTransformer`` with ``masked_multihead_attention``,
+the fused inference stack, is served by the same engine
+(``tools/fmt_stack.py``). It imports neither JAX nor ``paddle_tpu``. Entry
+points run on ``cuda`` unless given ``device="cpu"``.
 """
 
 from .device import NoDeviceError, resolve_device

@@ -14,6 +14,11 @@ the JAX package stacks its decoder layers into ``model.scan_<name>`` arrays of
 shape ``(L, ...)``; :func:`scan_to_layered_state_dict` splits them into the
 per-layer keys the port uses, and :func:`layered_to_scan_state_dict` stacks
 them back (the port's copies of the JAX package's converters).
+:func:`fmt_state_dict_from_paddle_tpu` does the same for a
+``FusedMultiTransformer`` (keys ``l{i}_{tag}``, qkv ``(3, H, D, E)`` in
+both) and, given them, the embedding, final LayerNorm and head of the
+serving stack built around it (``tools/fmt_stack.py``), after checking
+that every layer carries every tag in a consistent shape.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["layered_to_scan_state_dict", "scan_to_layered_state_dict",
-           "state_dict_from_paddle_tpu"]
+__all__ = ["fmt_state_dict_from_paddle_tpu", "layered_to_scan_state_dict",
+           "scan_to_layered_state_dict", "state_dict_from_paddle_tpu"]
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -41,6 +46,46 @@ def state_dict_from_paddle_tpu(np_state: Mapping[str, np.ndarray]
     numpy arrays) to ``{key: tensor}`` for ``load_state_dict`` of the
     port's counterpart module."""
     return {k: _to_tensor(v) for k, v in np_state.items()}
+
+
+def fmt_state_dict_from_paddle_tpu(fmt: Mapping[str, np.ndarray], *,
+                                   embed: Mapping = None,
+                                   final_ln: Mapping = None,
+                                   head: Mapping = None
+                                   ) -> Dict[str, torch.Tensor]:
+    """A ``paddle_tpu`` ``FusedMultiTransformer`` state dict (numpy
+    values) to the port's layer; with ``embed``, ``final_ln`` and ``head``
+    (the state dicts of the stack's ``nn.Embedding``, ``nn.LayerNorm`` and
+    bias-free ``nn.Linear``), to the whole serving stack, the layer's keys
+    under ``fmt.``. Raises ``ValueError`` on a missing, extra or
+    misshapen layer key."""
+    from .incubate.nn import _FMT_TAGS
+    layers = sorted({int(m.group(1)) for k in fmt
+                     if (m := re.match(r"l(\d+)_", k))})
+    want = {f"l{i}_{t}" for i in range(len(layers)) for t in _FMT_TAGS}
+    if set(fmt) != want:
+        raise ValueError(f"not a FusedMultiTransformer state dict: missing "
+                         f"{sorted(want - set(fmt))[:4]}, extra "
+                         f"{sorted(set(fmt) - want)[:4]}")
+    three, h, d, e = np.shape(fmt["l0_qkv_w"])
+    shapes = {"qkv_w": (3, h, d, e), "qkv_b": (3, h, d), "out_w": (e, e)}
+    for i in layers:
+        for tag, shape in shapes.items():
+            if tuple(np.shape(fmt[f"l{i}_{tag}"])) != shape or three != 3:
+                raise ValueError(f"l{i}_{tag} has shape "
+                                 f"{tuple(np.shape(fmt[f'l{i}_{tag}']))}, "
+                                 f"want {shape}")
+    out = state_dict_from_paddle_tpu(fmt)
+    parts = {"embed": embed, "final_ln": final_ln, "head": head}
+    if all(v is None for v in parts.values()):
+        return out
+    if any(v is None for v in parts.values()):
+        raise ValueError("pass embed, final_ln and head together")
+    out = {f"fmt.{k}": v for k, v in out.items()}
+    for name, sd in parts.items():
+        out.update({f"{name}.{k}": v
+                    for k, v in state_dict_from_paddle_tpu(sd).items()})
+    return out
 
 
 def _decoder_layer_keys() -> Dict[str, str]:

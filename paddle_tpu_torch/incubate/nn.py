@@ -8,11 +8,14 @@ with the same parameter keys, over ``incubate.nn.functional``:
 unless ``device="cpu"``); its linear weights start Xavier-uniform
 (paddle's default initializer) from ``generator`` (by default one seeded
 with 0 on that device), biases 0, norms 1 and 0.
-``FusedMultiTransformer`` and the MoE layers are not ported (ROADMAP
-Queue A)."""
+``FusedMultiTransformer`` (``:274``) is the pre-LN decoder stack of the
+fused inference path: prefill on the flash kernels, decode over a list of
+caches, a stacked dense cache or the paged pool (the paged decode kernel).
+The MoE layers are not ported (ROADMAP Queue A)."""
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 import torch
@@ -23,6 +26,7 @@ from ..nn.common import Dropout, DropoutRNG, Linear
 from ..nn.norm import LayerNorm
 from ..nn.transformer import TransformerEncoderLayer
 from ..ops import nn_ops
+from ..ops.paged_attention import PagedDecodeCache
 from . import nn_functional as functional
 from .nn_functional import memory_efficient_attention
 
@@ -45,8 +49,8 @@ def _init_linears(module: nn.Module, device,
 
 __all__ = ["FusedBiasDropoutResidualLayerNorm", "FusedDropoutAdd",
            "FusedFeedForward", "FusedLinear", "FusedMultiHeadAttention",
-           "FusedTransformerEncoderLayer", "functional",
-           "memory_efficient_attention"]
+           "FusedMultiTransformer", "FusedTransformerEncoderLayer",
+           "functional", "memory_efficient_attention"]
 
 
 class FusedMultiHeadAttention(nn.Module):
@@ -244,3 +248,227 @@ class FusedBiasDropoutResidualLayerNorm(nn.Module):
             ln_bias=self.ln_bias, dropout_rate=self.dropout_rate,
             ln_epsilon=self.epsilon, training=self.training,
             generator=self.rng)
+
+
+# the per-layer parameters of FusedMultiTransformer, in the JAX layer's
+# order: state-dict key ``l{i}_{tag}``
+_FMT_TAGS = ("ln_scale", "ln_bias", "qkv_w", "qkv_b", "out_w", "out_b",
+             "ffn_ln_scale", "ffn_ln_bias", "ffn1_w", "ffn1_b", "ffn2_w",
+             "ffn2_b")
+
+
+class FusedMultiTransformer(nn.Module):
+    """``num_layers`` fused pre-LN decoder layers with the JAX layer's
+    parameters: per layer ``l{i}_qkv_w`` ``(3, H, D, E)`` (``trans_qkvw``)
+    and ``l{i}_qkv_b`` ``(3, H, D)``, ``l{i}_out_w`` ``(E, E)``,
+    ``l{i}_ffn1_w`` ``(E, F)``, ``l{i}_ffn2_w`` ``(F, E)`` with their
+    biases, and the two LayerNorms' ``l{i}_ln_*`` and ``l{i}_ffn_ln_*``.
+    Weights start Xavier-uniform from ``generator`` (by default one seeded
+    with 0 on ``device``), biases 0, norm scales 1.
+
+    ``forward(src (B, S, E), ...)``:
+
+    * ``time_step`` given (an int, or a ``(B,)`` / scalar int tensor, read
+      on the device): one decode step of ``src (B, 1, E)`` through
+      ``functional.masked_multihead_attention`` on every layer, over a
+      list of ``(2, B, H, max_len, D)`` caches, a stacked ``(L, 2, B, H,
+      max_len, D)`` cache (layer ``i`` decodes on the view ``caches[i]``)
+      or a ``PagedDecodeCache`` (layer ``i`` on ``caches.at_layer(i)``,
+      whose ``t`` is ``time_step``). Caches are written in place; returns
+      ``(out, caches)``;
+    * otherwise a prefill over the whole sequence: bidirectional, or
+      ``attn_mask`` when given (SDPA: the flash kernels without a mask);
+      each layer's K/V written into the caches at ``[0, S)`` when caches
+      are given. With ``seq_offset`` (a stacked cache only) it is causal
+      and resumable: ``src`` holds positions ``[off, off + S)``, attends
+      the cache's resident ``[0, off)`` and itself (the flash kernel at
+      ``Lq < Lk``, bottom-right causal), and its K/V land at ``[off, off
+      + S)``. Returns ``out``, or ``(out, caches)`` with caches.
+
+    Dropout (``dropout_rate``, in training) draws from ``rng``. The
+    post-LN form, ``trans_qkvw=False``, ``rotary_embs``, ``pre_caches``
+    and ``seq_lens`` raise, as in the JAX package."""
+
+    def __init__(self, embed_dim, num_heads, dim_feedforward,
+                 dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 ln_scale_attrs=None, ln_bias_attrs=None,
+                 qkv_weight_attrs=None, qkv_bias_attrs=None,
+                 linear_weight_attrs=None, linear_bias_attrs=None,
+                 ffn_ln_scale_attrs=None, ffn_ln_bias_attrs=None,
+                 ffn1_weight_attrs=None, ffn1_bias_attrs=None,
+                 ffn2_weight_attrs=None, ffn2_bias_attrs=None,
+                 epsilon=1e-5, num_layers=-1, nranks=1, trans_qkvw=True,
+                 ring_id=-1, name=None, *, rng: Optional[DropoutRNG] = None,
+                 device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not normalize_before:
+            raise NotImplementedError(
+                "FusedMultiTransformer supports the pre-LN form only "
+                "(normalize_before=True), as the reference kernel does")
+        if not trans_qkvw:
+            raise NotImplementedError("trans_qkvw=False layout unsupported")
+        if num_layers == -1:
+            num_layers = len(qkv_weight_attrs) if isinstance(
+                qkv_weight_attrs, (list, tuple)) else 1
+        dev = resolve_device(device)
+        self.num_layers = num_layers
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.head_dim = embed_dim // num_heads
+        self.dim_feedforward = dim_feedforward
+        self.dropout_rate = dropout_rate
+        self.activation = activation
+        self.epsilon = epsilon
+        self.rng = rng if rng is not None else DropoutRNG(dev)
+        E, H, D, F = embed_dim, num_heads, self.head_dim, dim_feedforward
+        shapes = {"ln_scale": (E,), "ln_bias": (E,), "qkv_w": (3, H, D, E),
+                  "qkv_b": (3, H, D), "out_w": (E, E), "out_b": (E,),
+                  "ffn_ln_scale": (E,), "ffn_ln_bias": (E,),
+                  "ffn1_w": (E, F), "ffn1_b": (F,), "ffn2_w": (F, E),
+                  "ffn2_b": (E,)}
+        fans = {"qkv_w": (E, 3 * E), "out_w": (E, E), "ffn1_w": (E, F),
+                "ffn2_w": (F, E)}
+        g = generator if generator is not None else \
+            torch.Generator(device=dev).manual_seed(0)
+        for i in range(num_layers):
+            for tag in _FMT_TAGS:
+                p = torch.empty(shapes[tag], device=dev, dtype=dtype)
+                with torch.no_grad():
+                    if tag in fans:
+                        bound = (6.0 / sum(fans[tag])) ** 0.5
+                        p.uniform_(-bound, bound, generator=g)
+                    elif tag.endswith("scale"):
+                        p.fill_(1.0)
+                    else:
+                        p.zero_()
+                self.register_parameter(f"l{i}_{tag}", nn.Parameter(p))
+
+    def _w(self, i: int, tag: str) -> torch.Tensor:
+        return getattr(self, f"l{i}_{tag}")
+
+    def prepare_decode(self):
+        """Kept for the JAX layer's API; builds nothing and returns self.
+        The JAX package stacks the weights for its scan over layers; the
+        port decodes in a loop over the layers' own weights, so there is
+        no stack to build or to invalidate."""
+        return self
+
+    def _dropout(self, x, residual):
+        """``residual + dropout(x)`` (the dropout kernel's add in
+        training)."""
+        return nn_ops.dropout(x, self.dropout_rate, self.training,
+                              generator=self.rng, residual=residual)
+
+    def _ln(self, x, i: int, ffn: bool):
+        pre = "ffn_ln" if ffn else "ln"
+        return nn_ops.layer_norm(x, self.embed_dim, self._w(i, f"{pre}_scale"),
+                                 self._w(i, f"{pre}_bias"), self.epsilon)
+
+    def _qkv(self, h, i: int):
+        """The fused qkv ``(rows, 3E)`` of the normed ``h (rows, E)``."""
+        E = self.embed_dim
+        qkv = functional.fused_linear(h, self._w(i, "qkv_w").reshape(3 * E, E),
+                                      transpose_weight=True)
+        return qkv + self._w(i, "qkv_b").reshape(3 * E)
+
+    def _ffn(self, h, i: int):
+        """linear1 with its bias and activation in the epilogue kernel,
+        dropout, linear2 with its bias."""
+        h = functional.fused_linear_activation(
+            h, self._w(i, "ffn1_w"), bias=self._w(i, "ffn1_b"),
+            activation=self.activation)
+        h = nn_ops.dropout(h, self.dropout_rate, self.training,
+                           generator=self.rng)
+        return functional.fused_linear(h, self._w(i, "ffn2_w"),
+                                       bias=self._w(i, "ffn2_b"))
+
+    def _decode_layer(self, x, steps, attn_mask, i: int, cache):
+        """Layer ``i``'s one-token decode step; every cache kind takes
+        this one body, so the decode paths cannot drift apart."""
+        b = x.shape[0]
+        qkv = self._qkv(self._ln(x, i, False).reshape(b, self.embed_dim), i)
+        attn, cache = functional.masked_multihead_attention(
+            qkv, cache_kv=cache, sequence_lengths=steps, src_mask=attn_mask)
+        attn = functional.fused_linear(attn.reshape(b, 1, self.embed_dim),
+                                       self._w(i, "out_w"),
+                                       bias=self._w(i, "out_b"))
+        x = self._dropout(attn, x)
+        return self._dropout(self._ffn(self._ln(x, i, True), i), x), cache
+
+    def _decode(self, src, caches, time_step, attn_mask):
+        if isinstance(time_step, torch.Tensor):
+            steps = time_step.to(device=src.device, dtype=torch.int32)
+        else:
+            steps = torch.full((src.shape[0],), int(time_step),
+                               dtype=torch.int32, device=src.device)
+        x = src
+        if isinstance(caches, PagedDecodeCache):
+            if attn_mask is not None:
+                raise NotImplementedError(
+                    "FusedMultiTransformer: attn_mask is not supported on "
+                    "the paged decode path (span masking to <= t is the "
+                    "decode contract; use a dense cache for additive "
+                    "masks)")
+            view = replace(caches, t=steps.reshape(-1).expand(src.shape[0]))
+            for i in range(self.num_layers):
+                x, _ = self._decode_layer(x, None, None, i, view.at_layer(i))
+            return x, caches
+        for i in range(self.num_layers):
+            x, _ = self._decode_layer(x, steps, attn_mask, i, caches[i])
+        return x, caches
+
+    def forward(self, src, attn_mask=None, caches=None, pre_caches=None,
+                rotary_embs=None, rotary_emb_dims=0, seq_lens=None,
+                time_step=None, seq_offset=None):
+        for unsupported, label in ((rotary_embs, "rotary_embs"),
+                                   (pre_caches, "pre_caches"),
+                                   (seq_lens, "seq_lens")):
+            if unsupported is not None:
+                raise NotImplementedError(
+                    f"FusedMultiTransformer: {label} is not supported on "
+                    "this path (apply RoPE via "
+                    "fused_rotary_position_embedding before the stack)")
+        stacked = isinstance(caches, torch.Tensor)
+        if seq_offset is not None and time_step is not None:
+            raise ValueError(
+                "FusedMultiTransformer: seq_offset is a prefill-only "
+                "contract (time_step must be None)")
+        if seq_offset is not None and not stacked:
+            raise ValueError(
+                "FusedMultiTransformer: seq_offset needs the STACKED "
+                "cache (L, 2, B, H, max_len, D)")
+        if time_step is not None:
+            if caches is None:
+                raise ValueError("FusedMultiTransformer: a decode step "
+                                 "(time_step) needs caches")
+            return self._decode(src, caches, time_step, attn_mask)
+        causal = seq_offset is not None
+        off = int(seq_offset) if causal else 0
+        b, s = src.shape[0], src.shape[1]
+        E, nh, hd = self.embed_dim, self.num_heads, self.head_dim
+        x = src
+        for i in range(self.num_layers):
+            qkv = self._qkv(self._ln(x, i, False).reshape(b * s, E), i)
+            qkv = qkv.reshape(b, s, 3, nh, hd)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            k_in, v_in = k, v
+            if off:
+                # the resident prefix's K/V lead the keys and values
+                pre = caches[i, :, :, :, :off].transpose(2, 3)
+                k_in = torch.cat([pre[0].to(k.dtype), k], dim=1)
+                v_in = torch.cat([pre[1].to(v.dtype), v], dim=1)
+            attn = nn_ops.scaled_dot_product_attention(
+                q, k_in, v_in, attn_mask=attn_mask,
+                dropout_p=self.dropout_rate if self.training else 0.0,
+                is_causal=causal and attn_mask is None,
+                training=self.training, generator=self.rng)
+            attn = functional.fused_linear(attn.reshape(b, s, E),
+                                           self._w(i, "out_w"),
+                                           bias=self._w(i, "out_b"))
+            if caches is not None:
+                c = caches[i]
+                c[0, :, :, off:off + s] = k.transpose(1, 2).to(c.dtype)
+                c[1, :, :, off:off + s] = v.transpose(1, 2).to(c.dtype)
+            x = self._dropout(attn, x)
+            x = self._dropout(self._ffn(self._ln(x, i, True), i), x)
+        return x if caches is None else (x, caches)

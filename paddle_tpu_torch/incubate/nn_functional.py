@@ -32,10 +32,15 @@ these with CUDA kernels of its own, ``paddle/phi/kernels/fusion/``):
   and the flash kernels' segment-id variant for lengths without a mask;
 * ``softmax_mask_fuse`` and ``softmax_mask_fuse_upper_triangle``: the
   masked-softmax kernel (``ops/softmax_mask.py``);
+* ``masked_multihead_attention``: one decode step of attention over a
+  cache. Its dense branch (a ``(2, B, H, max_len, D)`` tensor) is plain
+  PyTorch, as it is jnp in the JAX package; its paged branch (a
+  ``PagedDecodeCache``) runs the paged decode kernel
+  (``ops/paged_attention.py``) and the in-place token write;
 * ``identity_loss`` and ``blha_get_max_len``: plain PyTorch.
 
-The CPU runs the kernels' plain versions. ``masked_multihead_attention``
-and the MoE op ``fused_ec_moe`` are not ported (ROADMAP Queue A).
+The CPU runs the kernels' plain versions. The MoE op ``fused_ec_moe`` is
+not ported (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..ops import nn_ops
 from ..ops.bias_act import ActSpec, bias_act
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_norm import NormSpec, fused_norm
+from ..ops.paged_attention import PagedDecodeCache, paged_decode_attention
 from ..ops.rope import rope
 from ..ops.softmax_mask import softmax_mask
 from ..ops.swiglu import swiglu as _swiglu
@@ -59,7 +65,8 @@ __all__ = ["blha_get_max_len", "fused_bias_dropout_residual_layer_norm",
            "fused_linear", "fused_linear_activation", "fused_matmul_bias",
            "fused_multi_head_attention", "fused_rms_norm",
            "fused_rotary_position_embedding", "identity_loss",
-           "memory_efficient_attention", "softmax_mask_fuse",
+           "masked_multihead_attention", "memory_efficient_attention",
+           "softmax_mask_fuse",
            "softmax_mask_fuse_upper_triangle", "swiglu",
            "variable_length_memory_efficient_attention"]
 
@@ -409,3 +416,102 @@ def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size=None,
                      name=None):
     """``(max(seq_lens_encoder), max(seq_lens_decoder))`` as 0-d tensors."""
     return torch.max(seq_lens_encoder), torch.max(seq_lens_decoder)
+
+
+def _paged_mmha(x, cache: PagedDecodeCache):
+    """The fused qkv ``(B, 3 * H * D)`` of one token over a paged view
+    (q heads == kv heads): the paged decode kernel for the view's layer,
+    then position ``t``'s K/V written into its page, in place. Returns
+    ``(out (B, H * D), cache)``."""
+    nh, hd = cache.pool.shape[3], cache.pool.shape[5]
+    b = x.shape[0]
+    qkv = x.reshape(b, 3, nh, hd)
+    out, cache = paged_decode_attention(qkv[:, 0], qkv[:, 1], qkv[:, 2],
+                                        cache)
+    return out.reshape(b, nh * hd), cache
+
+
+def masked_multihead_attention(x, bias=None, src_mask=None,
+                               sequence_lengths=None, rotary_tensor=None,
+                               beam_cache_offset=None, cache_kv=None,
+                               out_shift=None, out_smooth=None, seq_len=1,
+                               rotary_emb_dims=0, use_neox_rotary_style=False,
+                               compute_dtype="default", out_scale=-1,
+                               quant_round_type=1, quant_max_bound=127.0,
+                               quant_min_bound=-127.0, name=None):
+    """Single-token decode attention over a pre-allocated cache.
+
+    ``x`` is the fused qkv ``(B, 3 * H * D)`` of one new token (``bias``
+    added first). ``cache_kv`` is either
+
+    * a tensor ``(2, B, H, max_len, D)``: slot ``t = sequence_lengths``
+      (``(B,)`` or a scalar; zeros when absent) is overwritten in place
+      with the token's K/V, and attention spans positions ``<= t`` (the
+      rest ``-1e30``), plus the optional additive ``src_mask`` ``(B, 1|H,
+      1, Lm)`` zero-padded to ``max_len``; the attention is taken in fp32
+      and rounded once to ``x``'s dtype, as the paged kernel does. The
+      JAX package takes it in ``x``'s dtype: the two agree in fp32 and
+      differ by a rounding of the intermediates in bf16, so a bf16
+      reference loop over this branch rounds otherwise than the JAX
+      bench's (torch's own bf16 products land as far from JAX's on the
+      CPU). A ``t >= max_len`` raises
+      ``ValueError``; the check reads ``t`` on the host, so it is skipped
+      while a CUDA graph captures. Plain PyTorch;
+    * a ``PagedDecodeCache`` with its layer set: the paged decode kernel
+      (the plain version for CPU tensors) at the view's ``t``, then the
+      token write into its page. ``src_mask`` raises
+      ``NotImplementedError``.
+
+    Returns ``(out (B, H * D), cache)``, the cache written in place. The
+    rotary, beam and quantisation knobs raise ``NotImplementedError``, as
+    in the JAX package."""
+    for unsupported, label in ((rotary_tensor, "rotary_tensor"),
+                               (beam_cache_offset, "beam_cache_offset"),
+                               (out_shift, "out_shift"),
+                               (out_smooth, "out_smooth")):
+        if unsupported is not None:
+            raise NotImplementedError(
+                f"masked_multihead_attention: {label} is not supported "
+                "(quant/beam serving knobs)")
+    if cache_kv is None:
+        raise ValueError("masked_multihead_attention requires cache_kv")
+    if bias is not None:
+        x = x + bias
+    if isinstance(cache_kv, PagedDecodeCache):
+        if src_mask is not None:
+            raise NotImplementedError(
+                "masked_multihead_attention: src_mask is not supported on "
+                "the paged path (span masking to <= t is built in; use a "
+                "dense cache for additive masks)")
+        return _paged_mmha(x, cache_kv)
+    _, b, nh, max_len, hd = cache_kv.shape
+    if sequence_lengths is None:
+        t = torch.zeros(b, dtype=torch.int64, device=x.device)
+    else:
+        t = torch.as_tensor(sequence_lengths, device=x.device)
+        t = t.to(torch.int64).reshape(-1).expand(b)
+    capturing = torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+    if not capturing and bool((t >= max_len).any()):
+        raise ValueError(
+            f"masked_multihead_attention: sequence length >= cache max_len "
+            f"{max_len}: the write would be dropped")
+    qkv = x.reshape(b, 3, nh, hd)
+    rows = torch.arange(b, device=x.device)
+    # overwrite slot t, never add to it: a retried step replaces
+    cache_kv[0, rows, :, t] = qkv[:, 1].to(cache_kv.dtype)
+    cache_kv[1, rows, :, t] = qkv[:, 2].to(cache_kv.dtype)
+    # in fp32 (at least), rounded once: the paged kernel's precision
+    dt = torch.promote_types(torch.promote_types(x.dtype, cache_kv.dtype),
+                             torch.float32)
+    logits = torch.einsum("bhd,bhld->bhl", qkv[:, 0].to(dt),
+                          cache_kv[0].to(dt)) / (hd ** 0.5)
+    span = torch.arange(max_len, device=x.device)[None, :] <= t[:, None]
+    logits = torch.where(span[:, None, :], logits, -1e30)
+    if src_mask is not None:
+        m = src_mask.reshape(b, -1, src_mask.shape[-1])[:, :, :max_len]
+        logits = logits + torch.nn.functional.pad(
+            m, (0, max_len - m.shape[-1]))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhl,bhld->bhd", p, cache_kv[1].to(dt))
+    return out.reshape(b, nh * hd).to(x.dtype), cache_kv

@@ -1,7 +1,8 @@
 """What the wrappers of the fused small-op kernels share (``fused_norm``,
 ``rope``, ``swiglu``, ``softmax_cross_entropy``): the dtype codes of their C
 entry points, the device check and the test that lets them read 16-byte
-vectors."""
+vectors. The paged decode wrapper takes its route by :func:`plain_path`
+too."""
 
 from __future__ import annotations
 

@@ -205,10 +205,29 @@ def _variant(q_segs, kv_segs, dropout_p: float) -> Optional[str]:
     return "segs" if q_segs is not None else None
 
 
+def _plain_dtype(device) -> torch.dtype:
+    """The plain versions' arithmetic: fp64 on the CPU, fp32 on a card.
+
+    In fp32 a row's result could depend on which thread computed it:
+    torch's OpenMP workers keep the floating-point environment of the
+    thread that started them, and a worker started under a directed
+    rounding mode moved the rows it computed by up to 7.5e-6 (the lse by
+    2.9e-6) against the calling thread's. A larger per-row drift (about
+    3e-5) once seen with two threads on a loaded host was not reproduced,
+    so fp64 guards against this class of drift without being shown to
+    cure that case. In fp64 the two threads agree bit for bit once rounded
+    to fp32, under every rounding mode. On a card, where the plain
+    versions are the kernels' yardstick at sizes whose fp64 intermediates
+    would not fit, they stay fp32."""
+    return torch.float64 if device.type == "cpu" else torch.float32
+
+
 def _heads_first(q, k, v):
-    """(B, L, H, D) -> fp32 (B, H, L, D), K/V repeated to H heads."""
+    """(B, L, H, D) -> (B, H, L, D) in :func:`_plain_dtype`, K/V repeated
+    to H heads."""
     h, hkv = q.shape[2], k.shape[2]
-    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    dt = _plain_dtype(q.device)
+    qf, kf, vf = (x.to(dt).transpose(1, 2) for x in (q, k, v))
     if hkv != h:
         kf = kf.repeat_interleave(h // hkv, dim=1)
         vf = vf.repeat_interleave(h // hkv, dim=1)
@@ -247,10 +266,11 @@ def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
                                   sm_scale: Optional[float] = None,
                                   q_segs=None, kv_segs=None,
                                   dropout_p: float = 0.0, seed: int = 0):
-    """Plain version of the forward with lse: materialised fp32 softmax.
-    Returns ``(out (B, Lq, H, D) in q's dtype, lse (B, H, Lq) fp32)``; a row
-    that sees no key gets out 0 and lse ``+1e30``. With dropout, out takes
-    the dropped probabilities and the lse the undropped ones."""
+    """Plain version of the forward with lse: materialised softmax in
+    :func:`_plain_dtype`, rounded once. Returns ``(out (B, Lq, H, D) in
+    q's dtype, lse (B, H, Lq) fp32)``; a row that sees no key gets out 0
+    and lse ``+1e30``. With dropout, out takes the dropped probabilities
+    and the lse the undropped ones."""
     _variant(q_segs, kv_segs, dropout_p)
     b, lq, lk, h = q.shape[0], q.shape[1], k.shape[1], q.shape[2]
     qf, kf, vf = _heads_first(q, k, v)
@@ -266,7 +286,7 @@ def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(logits - lse[..., None])
     if dropout_p > 0.0:
         p = p * _drop_scale(b, h, lq, lk, dropout_p, seed, q.device)
-    return (p @ vf).transpose(1, 2).to(q.dtype), lse
+    return (p @ vf).transpose(1, 2).to(q.dtype), lse.float()
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -275,8 +295,9 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               q_segs=None, kv_segs=None,
                               dropout_p: float = 0.0,
                               seed: int = 0) -> torch.Tensor:
-    """Plain version: materialised fp32 softmax attention, same masking and
-    fully-masked-rows-emit-0 convention as the kernel (the variants through
+    """Plain version: materialised softmax attention in
+    :func:`_plain_dtype`, same masking and fully-masked-rows-emit-0
+    convention as the kernel (the variants through
     :func:`flash_attention_lse_reference`)."""
     if _variant(q_segs, kv_segs, dropout_p) is not None:
         return flash_attention_lse_reference(q, k, v, causal, sm_scale, q_segs,
@@ -299,19 +320,21 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout,
                                   q_segs=None, kv_segs=None,
                                   dropout_p: float = 0.0, seed: int = 0):
     """Plain version of the backward: recomputes ``P = exp(S - lse)``
-    densely in fp32 and returns ``(dq, dk, dv)`` in the inputs' dtypes
-    (dk, dv summed over each GQA group). With dropout, dv takes the dropped
-    P and dS the dropped dP, ``delta`` the (dropped) ``out``."""
+    densely in :func:`_plain_dtype` and returns ``(dq, dk, dv)`` in the
+    inputs' dtypes (dk, dv summed over each GQA group). With dropout, dv
+    takes the dropped P and dS the dropped dP, ``delta`` the (dropped)
+    ``out``."""
     _variant(q_segs, kv_segs, dropout_p)
     b, lq, lk, h, hkv, d = _shapes(q, k, v)
     scale = _scale(d, sm_scale)
     qf, kf, vf = _heads_first(q, k, v)
-    dof = dout.float().transpose(1, 2)
-    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lse[..., None])
+    dof = dout.to(qf.dtype).transpose(1, 2)
+    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale
+                  - lse.to(qf.dtype)[..., None])
     keep = _visible(lq, lk, causal, q_segs, kv_segs, q.device)
     if keep is not None:
         p = p.masked_fill(~keep, 0.0)
-    delta = (dof * out.float().transpose(1, 2)).sum(-1, keepdim=True)
+    delta = (dof * out.to(qf.dtype).transpose(1, 2)).sum(-1, keepdim=True)
     dp = dof @ vf.transpose(-1, -2)
     p_drop = p
     if dropout_p > 0.0:

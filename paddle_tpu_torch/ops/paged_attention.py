@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _native
+from ._fused_io import plain_path
 
 __all__ = ["PagedDecodeCache", "paged_attention", "paged_attention_dense",
            "scatter_token_inplace", "paged_decode_attention", "launches",
@@ -137,11 +138,12 @@ def paged_attention(q, k_new, v_new, pool, scales, tables, t, layer: int, *,
     plain version for CPU tensors. q ``(B, H, D)``, k/v_new
     ``(B, H_kv, D)`` in q's dtype, tables ``(B, S)`` and t ``(B,)`` int32;
     returns ``(B, H, D)`` in q's dtype."""
-    if q.device.type == "cpu":
+    if plain_path(q):
         return paged_attention_dense(q, k_new, v_new, pool, scales, tables,
                                      t, layer, page_size)
-    out = call_kernel(_kernel(), q, k_new, v_new, pool, scales, tables, t,
-                      layer, page_size=page_size)
+    # the library loads once the arguments have passed call_kernel's checks
+    out = call_kernel(lambda *a: _kernel()(*a), q, k_new, v_new, pool, scales,
+                      tables, t, layer, page_size=page_size)
     launches.count += 1
     return out
 
@@ -164,9 +166,10 @@ def call_kernel(fn, q, k_new, v_new, pool, scales, tables, t, layer: int,
             f"{tuple(tables.shape)}, t {tuple(t.shape)}")
     tensors = [q, k_new, v_new, pool, tables, t] + (
         [scales] if scales is not None else [])
-    if any(x.device != q.device for x in tensors):
-        raise ValueError("paged_attention: every tensor must be on "
-                         f"{q.device}")
+    devices = {str(x.device) for x in tensors}
+    if q.device.type != "cuda" or len(devices) != 1:
+        raise ValueError(f"paged_attention: every tensor must be on one "
+                         f"CUDA device, got {sorted(devices)}")
     qc, pc = _Q_CODES.get(q.dtype), _POOL_CODES.get(pool.dtype)
     if qc is None or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise TypeError(f"paged kernel takes float32/bfloat16 q, k_new, "

@@ -1,7 +1,9 @@
 """The serving step loop: continuous batching over a paged KV pool. The
 port of ``paddle_tpu/serving/engine.py``.
 
-* The model enters as two callables (``LlamaForCausalLM.serving_callables``):
+* The model enters as two callables (``LlamaForCausalLM.serving_callables``,
+  or ``tools/fmt_stack.py``'s ``FMTStack.serving_callables`` for the
+  ``FusedMultiTransformer`` stack); nothing here depends on the model:
 
   - ``prefill_fn(ids (1, n), cache (L, 2, 1, H, M, D), start=0) ->
     (first_token (1, 1), cache)``, filling positions ``[start, start + n)``

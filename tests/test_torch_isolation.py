@@ -1,8 +1,10 @@
 """The port stands alone: importing every module of ``paddle_tpu_torch``
-(``incubate`` among them) loads neither JAX nor ``paddle_tpu``; its entry
-points (model, engine, layers, ``incubate``'s fused layers) need a card
-unless the caller asks for the CPU, and device tensors never take a plain
-CPU path (the fused small ops and K5-K8 included); ``chip_smoke.py`` fails without a card or without the package;
+(``incubate`` and ``tools.fmt_stack`` among them) loads neither JAX nor
+``paddle_tpu``; its entry points (model, engine, layers, ``incubate``'s
+fused layers, ``FusedMultiTransformer`` and the FMT serving stack) need a
+card unless the caller asks for the CPU, and device tensors never take a
+plain CPU path (the fused small ops, K5-K8 and the FMT's paged decode
+included); ``chip_smoke.py`` fails without a card or without the package;
 the kernel bindings match their C entry points."""
 
 import ctypes
@@ -43,14 +45,19 @@ from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.serving import (DecodeGraph, Engine, KVCacheConfig,
                                       PagedKVCache, ServingConfig,
                                       prefix_chain_digests)
+from paddle_tpu_torch.tools.fmt_stack import FMTStack
 
 ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import paddle_tpu_torch
-for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                               "paddle_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert {"paddle_tpu_torch.tools.fmt_stack",
+        "paddle_tpu_torch.incubate.nn_functional"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print(bad)
@@ -137,6 +144,68 @@ def test_ernie_entry_points_need_a_card_unless_cpu_is_asked():
     m = ErnieForSequenceClassification(cfg, device="cpu")
     assert all(p.device.type == "cpu" for p in m.parameters())
     assert m.ernie.rng.seed_t.device.type == "cpu"
+
+
+def test_fmt_entry_points_need_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        return
+    for build in (lambda **kw: inn.FusedMultiTransformer(8, 2, 16,
+                                                         num_layers=2, **kw),
+                  lambda **kw: FMTStack(16, 8, 2, 16, 2, **kw)):
+        with pytest.raises(NoDeviceError):
+            build()
+        assert all(p.device.type == "cpu"
+                   for p in build(device="cpu").parameters())
+
+
+def _meta_view(b=2, h=2, d=64, ps=16):
+    return pa.PagedDecodeCache(
+        pool=torch.empty(5, 2, 2, h, ps, d, device="meta"),
+        tables=torch.zeros(b, 2, dtype=torch.int32, device="meta"),
+        t=torch.zeros(b, dtype=torch.int32, device="meta"), page_size=ps)
+
+
+def test_device_mmha_paged_never_takes_the_plain_version():
+    # a non-CPU fused qkv over a paged view goes to the kernel or raises
+    # (meta tensors stand in for a card's)
+    x = torch.empty(2, 3 * 2 * 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        inn.functional.masked_multihead_attention(
+            x, cache_kv=_meta_view().at_layer(0))
+
+
+def test_fmt_paged_decode_launches_the_kernel_once_a_layer(monkeypatch):
+    # the FMT's paged decode, with the CPU tensors sent down the kernel
+    # route: each step calls the kernel wrapper once a layer and never the
+    # plain version (the launch done here by the plain version's formula)
+    dense = pa.paged_attention_dense
+    calls = []
+
+    def fake_kernel(fn, q, k_new, v_new, pool, scales, tables, t, layer, *,
+                    page_size):
+        calls.append(int(layer))
+        return dense(q, k_new, v_new, pool, scales, tables, t, layer,
+                     page_size)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain paged version ran")
+    monkeypatch.setattr(pa, "plain_path", lambda t: False)
+    monkeypatch.setattr(pa, "_kernel", lambda: None)
+    monkeypatch.setattr(pa, "call_kernel", fake_kernel)
+    monkeypatch.setattr(pa, "paged_attention_dense", no_plain)
+    f = inn.FusedMultiTransformer(128, 2, 32, num_layers=3, device="cpu")
+    view = pa.PagedDecodeCache(pool=torch.zeros(5, 3, 2, 2, 16, 64),
+                               tables=torch.tensor([[1, 2], [3, 4]],
+                                                   dtype=torch.int32),
+                               t=torch.tensor([3, 17], dtype=torch.int32),
+                               page_size=16)
+    with torch.no_grad():
+        for step in range(2):
+            out, got = f(torch.randn(2, 1, 128), caches=view,
+                         time_step=view.t + step)
+    assert got is view and out.shape == (2, 1, 128)
+    assert calls == [0, 1, 2] * 2
+    assert view.pool[4, :, :, :, 1].abs().sum() > 0   # t = 17: page 4
 
 
 def test_device_tensors_never_take_the_plain_variant_path():
