@@ -41,6 +41,17 @@ per phase:
   against the reference's at each position, every differing pick a
   tie), and runs the bench's 90% overlap prefix leg with sharing on and
   off (equal transcripts);
+* the prefill graphs (every admission's prefill on a card is a replay of
+  the engine's CUDA graph of its key ``(start, n)``): ``serve_llama2_7b``
+  and ``serve_fmt`` capture theirs at warm-up, the prefix phases before
+  their timed runs, ``engine_vs_generate`` and ``fmt_check`` at first
+  use; ``prefill_graph_check`` holds replays against the eager prefill
+  body at full width (Llama-2-7B full prefills of 128, 564 and 1000
+  tokens and tails of 16 and 256 over a 1024-token prefix; the FMT
+  stack's 512-token prefills and a 64-token tail at 448; bf16 and int8
+  pools): first token and pages bit-equal, shared prefix pages
+  unchanged, a moved pool rejected, CUDA-event and host times and host
+  calls each way;
 * training: holds the forward-with-lse, the flash backward (dq, dk/dv) and
   the int8 AdamW kernels against their plain versions (and shows that the
   check rejects a copy of the flash kernels that skip a tile, and that
@@ -728,7 +739,9 @@ def build_7b(torch):
     return model, time.monotonic() - t0
 
 
-def engine_7b(model, prefill_fn, prefix_sharing: str):
+def engine_7b(model, prefill_fn, prefix_sharing: str, prompt_lens):
+    """serve_7b's engine, its decode buckets and the full prefills of
+    ``prompt_lens`` warmed (captured on the card)."""
     from paddle_tpu_torch.serving import Engine, ServingConfig
     cfg = model.config
     return Engine(prefill_fn, model.serving_callables(2048)[1], ServingConfig(
@@ -736,13 +749,55 @@ def engine_7b(model, prefill_fn, prefix_sharing: str):
         head_dim=cfg.head_dim, max_len=2048, max_batch=16, page_size=64,
         compute_dtype="bfloat16", kv_dtype="native", policy="budget",
         prefill_token_budget=2048, prefix_sharing=prefix_sharing,
-        device="cuda")).warmup([128])
+        device="cuda")).warmup([int(n) for n in prompt_lens])
 
 
 def stats_delta(before: dict, after: dict) -> dict:
     """``Engine.decode_stats()`` counts between two reads."""
-    return {k: {n: c - before[k].get(n, 0) for n, c in after[k].items()
-                if c != before[k].get(n, 0)} for k in after}
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, dict):
+            out[k] = {n: c - before[k].get(n, 0) for n, c in v.items()
+                      if c != before[k].get(n, 0)}
+        else:
+            out[k] = v - before.get(k, 0)
+    return out
+
+
+def keyed(replays: dict) -> dict:
+    """Prefill graph replays by ``(start, n)`` with JSON keys
+    ``"start+n"``."""
+    return {f"{s}+{n}": c for (s, n), c in sorted(replays.items())}
+
+
+# how the engine prefills on the card
+PREFILL = "cuda_graph_per_key"
+
+
+def prefill_graph_counts(stats: dict) -> dict:
+    """Prefill graphs captured and the seconds their warm-ups and captures
+    took, from ``Engine.decode_stats()`` or a delta of it."""
+    return {k: stats[k] for k in ("prefill_graphs", "prefill_capture_s")}
+
+
+def require_prefill_replays(stats: dict, prefills: int, captured: int,
+                            what: str, keys=None) -> None:
+    """Every admission one replay of a prefill graph (of ``keys`` when
+    given), ``captured`` of the graphs captured inside the run."""
+    replays = stats["prefill_replays"]
+    require(sum(replays.values()) == prefills
+            and stats["prefill_graphs"] == captured
+            and (keys is None or set(replays) <= set(keys)),
+            f"{what}: {prefills} prefills but prefill replays "
+            f"{keyed(replays)}, {stats['prefill_graphs']} captured during "
+            f"the run (want {captured})")
+
+
+def memory_gb(torch) -> dict:
+    """Peak allocated and reserved device memory since the last reset: a
+    graph's pool stays reserved between its replays."""
+    return {"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
 
 
 def run_traffic(torch, eng, prompts, new_tokens: int, between=None):
@@ -768,11 +823,18 @@ def serving_numbers(results, wall: float) -> dict:
     ntok = sum(len(r.tokens) for r in results)
     return {"wall_s": wall, "tokens_per_s": ntok / wall,
             "ttft_median_s": statistics.median(r.ttft_s for r in results),
+            "ttft_max_s": max(r.ttft_s for r in results),
             "tpot_median_s": statistics.median(r.tpot_s for r in results)}
 
 
 def require_served(eng, results, stats, launches, vocab: int, layers: int,
-                   new_tokens: int, prefills: int, what: str) -> None:
+                   new_tokens: int, prefills: int, what: str,
+                   captured: int = 0) -> None:
+    """The run's transcripts, replays and launches: every decode step a
+    replay, every admission a prefill replay, ``captured`` prefill graphs
+    captured inside the run (each after ``_WARM_STEPS`` eager calls, which
+    launch too), and no page leaked."""
+    from paddle_tpu_torch.serving.engine import _WARM_STEPS
     for r in results:
         require(len(r.tokens) == new_tokens and r.finish_reason == "length",
                 f"{what}: request {r.request_id}: {len(r.tokens)} tokens, "
@@ -782,9 +844,11 @@ def require_served(eng, results, stats, launches, vocab: int, layers: int,
     steps = sum(stats["steps"].values())
     require(sum(stats["replays"].values()) == steps and steps > 0,
             f"{what}: {steps} decode steps but replays {stats['replays']}")
-    require(launches["flash_prefill"] == prefills * layers,
+    require_prefill_replays(stats, prefills, captured, what)
+    calls = prefills + _WARM_STEPS * stats["prefill_graphs"]
+    require(launches["flash_prefill"] == calls * layers,
             f"{what}: flash launches {launches['flash_prefill']} != "
-            f"{prefills} prefills x {layers}")
+            f"{calls} prefill calls x {layers}")
     require(launches["paged_decode"] == steps * layers,
             f"{what}: paged launches {launches['paged_decode']} != {steps} "
             f"steps x {layers}")
@@ -793,7 +857,7 @@ def require_served(eng, results, stats, launches, vocab: int, layers: int,
     # once
     per = {"fused_norm": 2 * layers + 1, "rope": layers, "swiglu": layers,
            "embedding": 1}
-    calls = prefills + steps
+    calls += steps
     require(all(launches[k] == n * calls for k, n in per.items()
                 if k in launches),
             f"{what}: fused launches {launches} != {per} x {calls} calls")
@@ -806,11 +870,15 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
     import numpy as np
     cfg = model.config
     prefill_fn, step_fn = model.serving_callables(2048)
-    eng = engine_7b(model, prefill_fn, "off")
     rng = np.random.default_rng(0)
     lens = rng.permutation(np.linspace(128, 1000, 16).astype(int))
     prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
                for n in lens]
+    # warmed with the traffic's 16 prompt lengths, as the bench warms its
+    # prompt: on the card each is a prefill graph captured here
+    t0 = time.monotonic()
+    eng = engine_7b(model, prefill_fn, "off", lens)
+    warmup_s = time.monotonic() - t0
     runs = []
     fused = {k: v for k, v in step_counters().items()
              if k in ("fused_norm", "rope", "swiglu", "embedding")}
@@ -830,8 +898,8 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
                      "decode_steps": sum(stats["steps"].values()),
                      "batch_sizes": stats["steps"],
                      "graph_replays": stats["replays"],
-                     "launches": launches,
-                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+                     "prefill_replays": keyed(stats["prefill_replays"]),
+                     "launches": launches, **memory_gb(torch)})
         if i == 0:
             main_launches = launches
     spread = {k: [min(r[k] for r in runs), max(r[k] for r in runs)]
@@ -840,13 +908,50 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
           "dtype": "bfloat16", "requests": 16,
           "prompt_lens": [int(x) for x in lens], "new_tokens": 64,
           "decode": "cuda_graph_per_bucket", "runs": runs,
-          "spread_min_max": spread, "weights_init_s": init_s})
+          "spread_min_max": spread, "weights_init_s": init_s,
+          "prefill": PREFILL, "warmup_s": warmup_s,
+          **prefill_graph_counts(eng.decode_stats())})
     profile_serving(torch, card, eng, prompts, runs[0]["wall_s"])
     profile_decode_step(torch, card, eng, step_fn)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    serve_7b_first_use(torch, card, fa, pa, model, prompts, fused)
     return main_launches
+
+
+def serve_7b_first_use(torch, card, fa, pa, model, prompts, fused) -> None:
+    """serve_7b's traffic once on a fresh engine warmed with the 128-token
+    prompt only: the 15 other lengths are captured at the admissions that
+    first meet them, with the live slots waiting. The cost of traffic
+    whose prompt lengths were not warmed."""
+    cfg = model.config
+    prefill_fn, _ = model.serving_callables(2048)
+    t0 = time.monotonic()
+    eng = engine_7b(model, prefill_fn, "off", [128])
+    warmup_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for ctr in (fa.launches, pa.launches, *fused.values()):
+        ctr.reset()
+    wall, results, stats = run_traffic(torch, eng, prompts, 64)
+    launches = {"flash_prefill": fa.launches.count,
+                "paged_decode": pa.launches.count,
+                **{k: ctr.count for k, ctr in fused.items()}}
+    new_lens = len({int(p.size) for p in prompts} - {128})
+    require_served(eng, results, stats, launches, cfg.vocab_size,
+                   cfg.num_hidden_layers, 64, len(prompts),
+                   "serve_llama2_7b_first_use", captured=new_lens)
+    emit({"phase": "serve_llama2_7b_first_use", "card": card,
+          "warmed_prompt_lens": [128], "prefill": PREFILL,
+          **serving_numbers(results, wall),
+          "decode_steps": sum(stats["steps"].values()),
+          "prefill_replays": keyed(stats["prefill_replays"]),
+          "captured_in_run": prefill_graph_counts(stats),
+          "warmup_s": warmup_s, "launches": launches, **memory_gb(torch)})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # the kernels of K1-K8 by the names the profiler gives them
@@ -897,17 +1002,34 @@ def device_us(evt) -> float:
     return float(v if v is not None else evt.self_cuda_time_total)
 
 
-def total_us(evt) -> float:
-    v = getattr(evt, "device_time_total", None)
-    return float(v if v is not None else evt.cuda_time_total)
-
-
 # host-side names of the work a step puts on the card: kernel launches,
 # graph launches, copies and fills
 HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)"
                          r"|^cuLaunch")
 # the engine's host spans, recorded by the wrappers of profile_serving
 SPANS = ("serving.prefill", "serving.decode")
+
+
+def device_ms_in_spans(torch, prof, name: str) -> float:
+    """Device time of the operations that start inside a host span
+    ``name``. The engine's prefill and decode calls each end in a host
+    read of their tokens, so whatever the card starts inside a span is
+    that call's work, graph replays included (the profiler links no
+    replayed kernel to the span that launched it)."""
+    import bisect
+    evts = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evts
+                   if e.name == name and e.device_type == cpu)
+    starts = [a for a, _ in spans]
+    total = 0.0
+    for e in evts:
+        if e.device_type != cuda or e.name in SPANS:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= spans[i][1]:
+            total += e.time_range.elapsed_us()
+    return total / 1e3
 
 
 def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float,
@@ -953,13 +1075,11 @@ def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float,
     steps = sum(stats["steps"].values())
     spans = {}
     for name in SPANS:
-        cpu = [e for e in evts if e.key == name
-               and e.device_type == torch.autograd.DeviceType.CPU]
-        dev_ms = sum(total_us(e) for e in cpu) / 1e3
+        in_span = device_ms_in_spans(torch, prof, name)
         spans[name] = {"calls": calls[name], "host_wall_ms": host_s[name] * 1e3,
                        "share_of_wall": host_s[name] / wall,
-                       "device_ms_attributed": dev_ms,
-                       "device_share_of_span": dev_ms / (host_s[name] * 1e3)}
+                       "device_ms_in_span": in_span,
+                       "device_share_of_span": in_span / (host_s[name] * 1e3)}
     top = sorted(kernels, key=device_us, reverse=True)[:12]
     emit({"phase": phase, "card": card, "wall_s": wall,
           "device_ms": total_s * 1e3, "device_busy_share": total_s / wall,
@@ -974,6 +1094,32 @@ def profile_serving(torch, card, eng, prompts, unprofiled_wall_s: float,
           "spans": spans,
           "top": [{"kernel": e.key[:90], "device_ms": device_us(e) / 1e3,
                    "calls": e.count} for e in top]})
+
+
+def profile_call(torch, fn) -> dict:
+    """One call of ``fn`` (after one unprofiled) under ``torch.profiler``:
+    the device operations it puts on the card and the host calls that put
+    them there."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    wall = time.perf_counter() - t0
+    evts = prof.key_averages()
+    dev = [e for e in evts if e.device_type == torch.autograd.DeviceType.CUDA
+           and device_us(e) > 0]
+    host = {e.key: e.count for e in evts
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and HOST_LAUNCH.search(e.key)}
+    return {"device_ops": sum(e.count for e in dev),
+            "device_kernels": sum(e.count for e in dev if not
+                                  e.key.startswith(("Memcpy", "Memset"))),
+            "device_ms": sum(device_us(e) for e in dev) / 1e3,
+            "host_launch_calls": sum(host.values()), "host_calls": host,
+            "profiled_wall_ms": wall * 1e3}
 
 
 def profile_decode_step(torch, card, eng, step_fn) -> None:
@@ -1000,21 +1146,7 @@ def profile_decode_step(torch, card, eng, step_fn) -> None:
     out = {}
     for name, fn in (("eager", eager),
                      ("graph", lambda: eng._decode(tok, tables, t))):
-        fn()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        t0 = time.perf_counter()
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-        wall = time.perf_counter() - t0
-        evts = prof.key_averages()
-        dev = [e for e in evts
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and device_us(e) > 0]
-        host = {e.key: e.count for e in evts
-                if e.device_type == torch.autograd.DeviceType.CPU
-                and HOST_LAUNCH.search(e.key)}
+        out[name] = profile_call(torch, fn)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t1 = time.perf_counter()
@@ -1023,15 +1155,9 @@ def profile_decode_step(torch, card, eng, step_fn) -> None:
             fn()
         end.record()
         torch.cuda.synchronize()
-        out[name] = {
-            "device_ops": sum(e.count for e in dev),
-            "device_kernels": sum(e.count for e in dev if not
-                                  e.key.startswith(("Memcpy", "Memset"))),
-            "device_ms": sum(device_us(e) for e in dev) / 1e3,
-            "host_launch_calls": sum(host.values()), "host_calls": host,
-            "profiled_wall_ms": wall * 1e3,
-            "step_ms_unprofiled": (time.perf_counter() - t1) * 100,
-            "step_ms_cuda_events": start.elapsed_time(end) / 10}
+        out[name].update(
+            step_ms_unprofiled=(time.perf_counter() - t1) * 100,
+            step_ms_cuda_events=start.elapsed_time(end) / 10)
     require(out["graph"]["host_launch_calls"] < 10
             and out["eager"]["host_launch_calls"] > 100,
             f"decode step: host calls, eager against replay: {out}")
@@ -1053,10 +1179,12 @@ def layer_rel_err(a, b):
 def serve_prefix_7b(torch, card, fa, pa, kvc, model):
     """16 requests that share one 1024-token prefix (a system prompt), each
     with its own tail of 16-256 tokens, served with prefix sharing on and
-    then off by engines of serve_7b's settings. The flash launches of full
-    and tail prefills are counted apart, and each prefill's K/V at the
-    tail's positions [1024, Lp) is kept to hold the two runs against each
-    other."""
+    then off by engines of serve_7b's settings, every prefill key of the
+    traffic captured before the timed run. The flash launches of full and
+    tail prefills are counted apart from the replays of each prefill graph
+    and the launches its capture recorded, and each admission's K/V at the
+    tail's positions [1024, Lp) is read back from its pool pages to hold
+    the two runs against each other."""
     import numpy as np
     cfg = model.config
     layers = cfg.num_hidden_layers
@@ -1068,18 +1196,29 @@ def serve_prefix_7b(torch, card, fa, pa, kvc, model):
     prefill_fn, _ = model.serving_callables(2048)
     out, tail_kv = {}, {}
     for mode in ("on", "off"):
-        flash = {"full": 0, "tail": 0}
         kept = tail_kv[mode] = []
+        # sharing on, the first request prefills whole and the others only
+        # their tails over the 1024 shared positions
+        t0 = time.monotonic()
+        eng = engine_7b(model, prefill_fn, mode, [p.size for p in (
+            prompts[:1] if mode == "on" else prompts)])
+        if mode == "on":
+            for pr in prompts[1:]:
+                eng.prefill_graph(1024, pr.size - 1024)
+        warmup_s = time.monotonic() - t0
+        prefill = eng._prefill
 
-        def counted_prefill(ids, cache, start=0):
-            n0 = fa.launches.count
-            res = prefill_fn(ids, cache, start)
-            flash["tail" if start else "full"] += fa.launches.count - n0
+        def read_tail(prompt, row, start=0):
+            tok = prefill(prompt, row, start)
             # FIFO admission: the k-th prefill is the k-th request's
-            kept.append(cache[:, :, 0, :, 1024:start + ids.shape[1]].clone())
-            return res
+            pages = torch.as_tensor(
+                row[16:eng.kv.pages_for(int(prompt.size))], device="cuda")
+            kept.append(kvc.gather_pages(
+                eng.kv.pool, eng.kv.scales, pages,
+                torch.bfloat16)[:, :, 0, :, :prompt.size - 1024])
+            return tok
 
-        eng = engine_7b(model, counted_prefill, mode)
+        eng._prefill = read_tail
         chain = {}
 
         def snapshot(eng):
@@ -1088,12 +1227,15 @@ def serve_prefix_7b(torch, card, fa, pa, kvc, model):
             chain.update(pages=pages, before=eng.kv.pool[pages].clone())
 
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         fa.launches.reset()
         pa.launches.reset()
-        flash.update(full=0, tail=0)
-        kept.clear()
         wall, results, stats = run_traffic(
             torch, eng, prompts, 64, snapshot if mode == "on" else None)
+        flash = {"full": 0, "tail": 0}
+        for (start, n), c in stats["prefill_replays"].items():
+            flash["tail" if start else "full"] += c * eng.prefill_graph(
+                start, n).launches.get(fa.launches, 0)
         launches = {"flash_prefill": fa.launches.count,
                     "paged_decode": pa.launches.count, "flash_by_prefill":
                     dict(flash)}
@@ -1104,10 +1246,13 @@ def serve_prefix_7b(torch, card, fa, pa, kvc, model):
                "prefill_tokens_requested": requested,
                "prefill_tokens_computed": computed,
                "prefills": stats["prefills"],
+               "prefill_replays": keyed(stats["prefill_replays"]),
                "decode_steps": sum(stats["steps"].values()),
                "batch_sizes": stats["steps"], "graph_replays": stats["replays"],
                "launches": launches, "prefix_stats": eng.kv.prefix_stats(),
-               "tokens": [r.tokens for r in results]}
+               "warmup_s": warmup_s,
+               **prefill_graph_counts(eng.decode_stats()),
+               **memory_gb(torch), "tokens": [r.tokens for r in results]}
         require(flash["full"] + flash["tail"] == launches["flash_prefill"],
                 f"serve_prefix_7b {mode}: flash launches by prefill {flash}")
         if mode == "on":
@@ -1123,7 +1268,9 @@ def serve_prefix_7b(torch, card, fa, pa, kvc, model):
                     f"serve_prefix_7b off: prefill tokens {computed} of "
                     f"{requested}")
         out[mode] = row
-        del eng, chain
+        # the engine's last references (the closures' cells): its pool and
+        # graphs must be gone before the next mode's engine is measured
+        del eng, chain, prefill
         gc.collect()
         torch.cuda.empty_cache()
     # each request's tail K/V, shared run against unshared, per layer:
@@ -1148,6 +1295,269 @@ def serve_prefix_7b(torch, card, fa, pa, kvc, model):
     gc.collect()
     torch.cuda.empty_cache()
     return {m: out[m]["launches"] for m in out}
+
+
+# ---------------------------------------------------------------------------
+# the prefill graphs: replays against the eager body, at full width
+# ---------------------------------------------------------------------------
+
+PREFILL_ITERS = 5
+
+
+def prefill_graph_case(torch, eng, prompt, row, start: int,
+                       profile: bool) -> dict:
+    """One prefill key of ``eng``: its graph captured (timed), then one
+    admission's prefill through the engine (load, replay, read back)
+    against an eager ``prefill_body`` call over a clone of the pool. First
+    token and every page but the scratch page 0 (which the capture's
+    warm-up calls write) bit-equal; the shared prefix pages unchanged.
+    CUDA-event ms of the replay and of the eager body, and the host wall
+    of one admission's prefill each way; with ``profile`` the host calls
+    and device operations of one of each under the profiler."""
+    import types
+    from paddle_tpu_torch.serving.engine import prefill_body
+    kv = eng.kv
+    ps = kv.config.page_size
+    n = int(prompt.size) - start
+    shared = [int(x) for x in row[:start // ps]]
+    t0 = time.perf_counter()
+    g = eng.prefill_graph(start, n)
+    capture_s = time.perf_counter() - t0
+    ref = types.SimpleNamespace(
+        config=kv.config, pool=kv.pool.clone(),
+        scales=None if kv.scales is None else kv.scales.clone())
+    before = kv.pool[shared].clone()
+    ids = torch.as_tensor(prompt[None, start:], dtype=torch.int64,
+                          device="cuda")
+    pages = torch.as_tensor(row[:kv.pages_for(int(prompt.size))],
+                            device="cuda")
+
+    def eager():
+        return int(prefill_body(eng._prefill_fn, ref, ids, pages,
+                                start).reshape(-1)[0])
+
+    want = eager()
+    got = eng._prefill(prompt, row, start)
+    pools_equal = torch.equal(kv.pool[1:], ref.pool[1:]) and (
+        kv.scales is None or torch.equal(kv.scales[1:], ref.scales[1:]))
+    differing = int(((kv.pool[1:].float() - ref.pool[1:].float()).abs()
+                     .amax(dim=(1, 2, 3, 4, 5)) > 0).sum())
+    prefix_kept = torch.equal(kv.pool[shared], before)
+    res = {"key": f"{start}+{n}", "tokens_equal": got == want,
+           "pools_equal": bool(pools_equal), "pages_differing": differing,
+           "shared_pages": len(shared),
+           "shared_pages_unchanged": bool(prefix_kept),
+           "capture_s": capture_s, "graph_capture_s": g.capture_s,
+           "launches_per_replay": {c.name: k for c, k in g.launches.items()},
+           "replay_ms": cuda_ms(torch, g.replay, PREFILL_ITERS),
+           "eager_ms": cuda_ms(torch, eager, PREFILL_ITERS)}
+    for name, fn in (("replay", lambda: eng._prefill(prompt, row, start)),
+                     ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        res[f"{name}_host_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    if profile:
+        res["profile"] = {
+            "replay": profile_call(torch, lambda: eng._prefill(
+                prompt, row, start)),
+            "eager": profile_call(torch, eager)}
+    require(res["tokens_equal"] and res["pools_equal"] and prefix_kept,
+            f"prefill graph {res['key']}: replay and eager body differ: "
+            f"{res}")
+    return res
+
+
+def moved_pool_rejected(eng, key) -> bool:
+    """The planted fault: the pool reallocated under a captured prefill
+    graph; its replay must raise."""
+    kv = eng.kv
+    pool = kv.pool
+    kv.pool = pool.clone()
+    try:
+        eng.prefill_graph(*key).replay()
+        return False
+    except RuntimeError as exc:
+        return "moved" in str(exc)
+    finally:
+        kv.pool = pool
+
+
+def capture_beside_allocations(torch, eng, start: int, n: int) -> dict:
+    """A new prefill key captured while another thread of the process
+    allocates device memory (each block new, so a ``cudaMalloc``) and
+    launches on a stream of its own: the capture is thread-local, so
+    neither side fails."""
+    import threading
+    stop = threading.Event()
+    seen = {"allocations": 0, "during_capture": 0, "error": None}
+    window = []
+
+    def allocate():
+        side = torch.cuda.Stream()
+        held = []
+        try:
+            with torch.cuda.stream(side):
+                while not stop.is_set() and len(held) < 512:
+                    held.append(torch.empty(8 << 20, dtype=torch.uint8,
+                                            device="cuda").fill_(1))
+                    side.synchronize()
+                    seen["allocations"] += 1
+                    if window and not window[1:]:
+                        seen["during_capture"] += 1
+        except Exception as exc:  # noqa: BLE001 (reported and required)
+            seen["error"] = repr(exc)
+        del held
+
+    torch.cuda.empty_cache()
+    worker = threading.Thread(target=allocate)
+    worker.start()
+    while not seen["allocations"] and worker.is_alive():
+        time.sleep(0.001)
+    window.append(time.perf_counter())
+    try:
+        eng.prefill_graph(start, n)
+    finally:
+        window.append(time.perf_counter())
+        stop.set()
+        worker.join()
+    torch.cuda.empty_cache()
+    require(seen["error"] is None and seen["during_capture"] > 0,
+            f"prefill graph capture beside another thread's allocations: "
+            f"{seen}")
+    return {**seen, "capture_window_s": window[1] - window[0]}
+
+
+def evicted_key_recaptured(torch, eng, case) -> dict:
+    """The engine's memory check made short for one capture: the least
+    recently used prefill graph is dropped for a new key, and its own key,
+    met again, is captured anew and replays equal to the eager body."""
+    prompt, row, start = case
+    n = int(prompt.size) - start
+    lru = next(iter(eng._prefill_graphs))
+    require(lru == (start, n), f"eviction check: least recently used key "
+                               f"{lru}, not {(start, n)}")
+    live = len(eng._prefill_graphs)
+    eng._memory_short = lambda: len(eng._prefill_graphs) >= live
+    try:
+        eng.prefill_graph(0, 200)
+    finally:
+        del eng._memory_short
+    stats = eng.decode_stats()
+    require(lru not in eng._prefill_graphs and stats["prefill_evictions"] == 1
+            and stats["prefill_graphs_live"] == live,
+            f"eviction check: {list(eng._prefill_graphs)}, {stats}")
+    again = prefill_graph_case(torch, eng, prompt, row, start, profile=False)
+    return {"dropped": f"{lru[0]}+{lru[1]}", "recaptured": again}
+
+
+def prefill_graph_check(torch, card, model, kvc) -> None:
+    """Llama-2-7B (bf16, 32 layers) prefills as graph replays against the
+    eager body, on a bf16 and an int8 pool: full prefills of 128, 564 and
+    1000 tokens, a full prefill of a 1024-token prefix with 16 more, then
+    tails of 16 and 256 tokens over its 16 shared pages (the same row
+    prefix); host calls of each under the profiler on the bf16 pool; a
+    replay after the pool moved rejected."""
+    import numpy as np
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+    cfg = model.config
+    prefill_fn, step_fn = model.serving_callables(2048)
+    rng = np.random.default_rng(12)
+    prefix = rng.integers(0, cfg.vocab_size, (1024,), dtype=np.int32)
+
+    def prompt(n, head=()):
+        return np.concatenate([np.asarray(head, np.int32), rng.integers(
+            0, cfg.vocab_size, (n,), dtype=np.int32)])
+
+    for leg in ("bf16", "int8"):
+        t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(prefill_fn, step_fn, ServingConfig(
+            num_layers=cfg.num_hidden_layers,
+            num_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
+            max_len=2048, max_batch=1, buckets=(1,), page_size=64,
+            compute_dtype="bfloat16",
+            kv_dtype="native" if leg == "bf16" else "int8",
+            prefix_sharing="on", device="cuda"))
+        kv = eng.kv
+        own = list(range(1, kv.config.num_pages))
+        cases = [(prompt(n), kv.table_row(own[:kv.pages_for(n)]), 0)
+                 for n in (128, 564, 1000)]
+        cases.append((prompt(16, prefix), kv.table_row(own[:17]), 0))
+        cases += [(prompt(n, prefix), kv.table_row(
+            own[:16] + own[17 + i * 4:17 + i * 4 + kv.pages_for(n)]), 1024)
+            for i, n in enumerate((16, 256))]
+        rows = []
+        for pr, row, start in cases:
+            rows.append(prefill_graph_case(torch, eng, pr, row, start,
+                                           profile=leg == "bf16"))
+            emit({"phase": "prefill_graph_check", "model": "llama2_7b",
+                  "card": card, "pool": leg, "prompt_len": int(pr.size),
+                  **rows[-1]})
+        caught = moved_pool_rejected(eng, (1024, 16))
+        require(caught, f"prefill graph {leg}: a replay over a moved pool "
+                        f"was not rejected")
+        extra = {}
+        if leg == "bf16":
+            extra["beside_allocations"] = capture_beside_allocations(
+                torch, eng, 0, 300)
+            extra["beside_allocations"]["replay"] = prefill_graph_case(
+                torch, eng, prompt(300), kv.table_row(own[:5]), 0,
+                profile=False)
+            extra["eviction"] = evicted_key_recaptured(torch, eng, cases[0])
+        emit({"phase": "prefill_graph_check", "model": "llama2_7b",
+              "pool": leg, "planted": "pool_moved", "caught": caught,
+              **extra, "keys": [r["key"] for r in rows],
+              "seconds": time.monotonic() - t0,
+              **prefill_graph_counts(eng.decode_stats()),
+              **memory_gb(torch)})
+        del eng, kv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def fmt_prefill_graph_check(torch, card, stack) -> None:
+    """The FMT stack's prefills (22 layers, bf16) as graph replays against
+    the eager body, on a bf16 and an int8 pool: the bidirectional prefill
+    of 512 tokens, and the causal one of 512 tokens followed by a tail of
+    64 over its 7 shared pages (start 448); host calls under the profiler
+    on the bf16 pool; a replay after the pool moved rejected."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    base = rng.integers(0, FMT["vocab"], (448,), dtype=np.int32)
+    prompts = [np.concatenate([base, rng.integers(
+        0, FMT["vocab"], (64,), dtype=np.int32)]) for _ in range(2)]
+    for leg in ("bf16", "int8"):
+        t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for causal in (False, True):
+            eng = fmt_engine(stack, FMT_MAX_LEN, 1, (1,),
+                             "native" if leg == "bf16" else "int8",
+                             "bfloat16", causal=causal,
+                             prefix_sharing="on" if causal else "off")
+            kv = eng.kv
+            cases = [(prompts[0], kv.table_row(list(range(1, 9))), 0)]
+            if causal:
+                cases.append((prompts[1], kv.table_row(
+                    list(range(1, 8)) + [9]), 448))
+            for pr, row, start in cases:
+                rows.append(prefill_graph_case(torch, eng, pr, row, start,
+                                               profile=leg == "bf16"))
+                emit({"phase": "prefill_graph_check", "model": "fmt",
+                      "card": card, "pool": leg,
+                      "prefill": "causal" if causal else "bidirectional",
+                      "prompt_len": int(pr.size), **rows[-1]})
+            caught = moved_pool_rejected(eng, (start, int(pr.size) - start))
+            require(caught, f"fmt prefill graph {leg}: a replay over a "
+                            f"moved pool was not rejected")
+            del eng, kv
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit({"phase": "prefill_graph_check", "model": "fmt", "pool": leg,
+              "planted": "pool_moved", "caught": True,
+              "keys": [r["key"] for r in rows],
+              "seconds": time.monotonic() - t0, **memory_gb(torch)})
 
 
 # ---------------------------------------------------------------------------
@@ -1180,7 +1590,8 @@ def agree_2layer(torch, fa, pa):
     gen_launches = {"flash_prefill": fa.launches.count,
                     "paged_decode": pa.launches.count}
     prefill_fn, step_fn = model.serving_callables(1024)
-    # no warmup(): each bucket is captured at its first step
+    # no warmup(): each bucket is captured at its first step, each prefill
+    # key at the admission that first meets it
     eng = Engine(prefill_fn, step_fn, ServingConfig(
         num_layers=2, num_heads=cfg.num_key_value_heads,
         head_dim=cfg.head_dim, max_len=1024, max_batch=4, buckets=(1, 4),
@@ -1201,9 +1612,17 @@ def agree_2layer(torch, fa, pa):
     require(gen_launches["flash_prefill"] == 6 * 16 * 2
             and gen_launches["paged_decode"] == 0,
             f"generate launches {gen_launches}")
-    require(eng_launches["flash_prefill"] == 6 * 2
-            and eng_launches["paged_decode"] > 0,
-            f"engine launches {eng_launches}")
+    # six prefills, each a replay of a graph captured at its admission
+    # after _WARM_STEPS eager calls on the side stream; the first capture
+    # after the pool's primer's
+    from paddle_tpu_torch.serving.engine import _WARM_STEPS
+    warm = _WARM_STEPS * stats["prefill_graphs"]
+    require(eng_launches["flash_prefill"] == (6 + warm) * 2
+            and eng_launches["paged_decode"] > 0
+            and stats["prefill_graphs"] == 7
+            and sorted(stats["prefill_replays"].values()) == [1] * 6,
+            f"engine launches {eng_launches}, prefill graphs "
+            f"{keyed(stats['prefill_replays'])}")
     require(stats["prefills"] == {"full": 5, "tail": 1}
             and sum(stats["replays"].values())
             == sum(stats["steps"].values()) > 0
@@ -1214,7 +1633,9 @@ def agree_2layer(torch, fa, pa):
           "prompts": [int(p.size) for p in prompts + pair],
           "shared_prefix": 128, "new_tokens": 16, "identical": True,
           "decode": "cuda_graph_per_bucket", "graph_replays": stats["replays"],
-          "prefills": stats["prefills"], "generate_launches": gen_launches,
+          "prefills": stats["prefills"],
+          "prefill_replays": keyed(stats["prefill_replays"]),
+          "generate_launches": gen_launches,
           "engine_launches": eng_launches})
     del eng, model
     gc.collect()
@@ -4514,11 +4935,12 @@ def fmt_check(torch, fa, pa, kvc) -> dict:
                 f"fmt_check {leg}: decode launches held {held}")
         row[f"decode_{leg}"] = dict(record)
         del eng
-    # the engine (decode graphs) against the per-token dense reference
-    eng = fmt_engine(stack, FMT_MAX_LEN, 4, (1, 4), "native",
-                     "float32").warmup()
+    # the engine (decode and prefill graphs) against the per-token dense
+    # reference
     prompts = [rng.integers(0, FMT["vocab"], (ln,), dtype=np.int32)
                for ln in (64, 200, 512, 333)]
+    eng = fmt_engine(stack, FMT_MAX_LEN, 4, (1, 4), "native",
+                     "float32").warmup([p.size for p in prompts])
     counters = fmt_counters(fa, pa)
     for c in counters.values():
         c.reset()
@@ -4530,9 +4952,15 @@ def fmt_check(torch, fa, pa, kvc) -> dict:
                        f"reference loop: {same}")
     require_fmt_launches(launches, 4, sum(stats["steps"].values()), L,
                          "fmt_check engine")
+    require(sorted(stats["prefill_replays"].values()) == [1] * 4,
+            f"fmt_check engine: prefill replays "
+            f"{keyed(stats['prefill_replays'])}")
+    require_prefill_replays(stats, 4, 0, "fmt_check engine")
     row["engine_vs_reference"] = {"prompt_lens": [len(p) for p in prompts],
                                   "new_tokens": 16, "equal": same,
                                   "decode_steps": stats["steps"],
+                                  "prefill_replays":
+                                      keyed(stats["prefill_replays"]),
                                   "launches": launches}
     del eng
     # each bucket's decode graph against an eager step, native and int8
@@ -4611,8 +5039,10 @@ def serve_fmt(torch, card, fa, pa) -> dict:
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = sum(p.numel() for p in stack.parameters())
+    t0 = time.monotonic()
     eng = fmt_engine(stack, FMT_MAX_LEN, FMT_REQUESTS, FMT_BUCKETS,
                      "native", "bfloat16").warmup([FMT_PROMPT])
+    warmup_s = time.monotonic() - t0
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, FMT["vocab"], (FMT_PROMPT,), dtype=np.int32)
                for _ in range(FMT_REQUESTS)]
@@ -4635,14 +5065,18 @@ def serve_fmt(torch, card, fa, pa) -> dict:
         require(sum(stats["replays"].values()) == steps > 0,
                 f"serve_fmt run {i + 1}: {steps} steps, replays "
                 f"{stats['replays']}")
+        require_prefill_replays(stats, FMT_REQUESTS, 0,
+                                f"serve_fmt run {i + 1}",
+                                keys=[(0, FMT_PROMPT)])
         require_fmt_launches(launches, FMT_REQUESTS, steps, FMT_LAYERS,
                              f"serve_fmt run {i + 1}")
         require(eng.kv.outstanding_pages == 0,
                 f"serve_fmt run {i + 1}: pages leaked")
         runs.append({**serving_numbers(results, wall), "decode_steps": steps,
                      "batch_sizes": stats["steps"],
-                     "graph_replays": stats["replays"], "launches": launches,
-                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+                     "graph_replays": stats["replays"],
+                     "prefill_replays": keyed(stats["prefill_replays"]),
+                     "launches": launches, **memory_gb(torch)})
         if i == 0:
             main_launches, main_results = launches, results
     spread = {k: [min(r[k] for r in runs), max(r[k] for r in runs)]
@@ -4672,9 +5106,12 @@ def serve_fmt(torch, card, fa, pa) -> dict:
           "requests": FMT_REQUESTS, "prompt_len": FMT_PROMPT,
           "new_tokens": FMT_NEW, "max_len": FMT_MAX_LEN,
           "page_size": FMT_PS, "buckets": list(FMT_BUCKETS),
-          "decode": "cuda_graph_per_bucket", "runs": runs,
+          "decode": "cuda_graph_per_bucket", "prefill": PREFILL,
+          "warmup_s": warmup_s, **prefill_graph_counts(eng.decode_stats()),
+          "runs": runs,
           "spread_min_max": spread,
           "peak_mem_gb": max(r["peak_mem_gb"] for r in runs),
+          "peak_reserved_gb": max(r["peak_reserved_gb"] for r in runs),
           "replay_b16_t560": {"ms": replay_ms, "bound_ms": bound_ms,
                               "weight_bytes": wbytes, "kv_bytes": kvbytes,
                               "families_per_replay": replay_fams,
@@ -4687,13 +5124,52 @@ def serve_fmt(torch, card, fa, pa) -> dict:
     del eng, g
     gc.collect()
     torch.cuda.empty_cache()
+    serve_fmt_first_use(torch, card, fa, pa, stack, prompts)
     fmt_parity(torch, card, stack, prompts,
                [r.tokens for r in main_results])
     prefix = serve_fmt_prefix(torch, card, fa, pa, stack)
+    fmt_prefill_graph_check(torch, card, stack)
     del stack
     gc.collect()
     torch.cuda.empty_cache()
     return {"serve_run1": main_launches, **prefix}
+
+
+def serve_fmt_first_use(torch, card, fa, pa, stack, prompts) -> None:
+    """serve_fmt's traffic once on a fresh engine whose ``warmup()`` was
+    given no prompt length: the first admission captures the pool's primer
+    and the 512-token key, with the requests behind it waiting."""
+    from paddle_tpu_torch.serving.engine import _WARM_STEPS
+    t0 = time.monotonic()
+    eng = fmt_engine(stack, FMT_MAX_LEN, FMT_REQUESTS, FMT_BUCKETS,
+                     "native", "bfloat16").warmup()
+    warmup_s = time.monotonic() - t0
+    counters = fmt_counters(fa, pa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    wall, results, stats = run_traffic(torch, eng, prompts, FMT_NEW)
+    launches = {k: c.count for k, c in counters.items()}
+    steps = sum(stats["steps"].values())
+    require(all(len(r.tokens) == FMT_NEW for r in results)
+            and sum(stats["replays"].values()) == steps > 0,
+            f"serve_fmt_first_use: {steps} steps, replays {stats['replays']}")
+    require_prefill_replays(stats, FMT_REQUESTS, 2, "serve_fmt_first_use",
+                            keys=[(0, FMT_PROMPT)])
+    # the warm-up calls before the capture launch as prefills do
+    require_fmt_launches(
+        launches, FMT_REQUESTS + _WARM_STEPS * stats["prefill_graphs"],
+        steps, FMT_LAYERS, "serve_fmt_first_use")
+    emit({"phase": "serve_fmt_first_use", "card": card,
+          "warmed_prompt_lens": [], "prefill": PREFILL,
+          **serving_numbers(results, wall), "decode_steps": steps,
+          "prefill_replays": keyed(stats["prefill_replays"]),
+          "captured_in_run": prefill_graph_counts(stats),
+          "warmup_s": warmup_s, "launches": launches, **memory_gb(torch)})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bf16_ulp(x: float) -> float:
@@ -4703,17 +5179,19 @@ def bf16_ulp(x: float) -> float:
 
 def fmt_kept_logits(torch, stack, prompts, n_new: int):
     """The traffic once more, through an engine whose callables keep the
-    logits each token is picked from (the decode graphs capture the
-    keeping: a bucket's kept logits are its graph's output). After each
-    prefill and replay the rows are copied out to their requests, a
-    replay's rows matched to the live slots by page table. Returns per
-    prompt the transcript and its logits ``(n_new, V)`` fp32."""
+    logits each token is picked from (the graphs capture the keeping: a
+    bucket's or a prompt length's kept logits are its graph's output).
+    After each prefill and replay the rows are copied out to their
+    requests, a replay's rows matched to the live slots by page table.
+    Returns per prompt the transcript and its logits ``(n_new, V)``
+    fp32."""
     import numpy as np
     kept = {}
 
     def prefill_fn(ids, cache):
-        kept["prefill"], cache = stack.prefill_logits(ids, cache)
-        return stack.greedy(kept["prefill"]), cache
+        key = ("prefill", ids.shape[1])
+        kept[key], cache = stack.prefill_logits(ids, cache)
+        return stack.greedy(kept[key]), cache
 
     def step_fn(tok, cache, t):
         kept[tok.shape[0]], cache = stack.step_logits(tok, cache, t)
@@ -4730,7 +5208,7 @@ def fmt_kept_logits(torch, stack, prompts, n_new: int):
     def keep_prefill(prompt, row, start=0):
         tok = prefill(prompt, row, start)
         rows[index[np.asarray(prompt, np.int64).tobytes()]].append(
-            kept["prefill"].reshape(-1).float())
+            kept["prefill", prompt.size].reshape(-1).float())
         return tok
 
     def keep_decode(tok, tables, t):
@@ -4855,12 +5333,15 @@ def serve_fmt_prefix(torch, card, fa, pa, stack) -> dict:
         launches = {k: c.count for k, c in counters.items()}
         require_fmt_launches(launches, n_req, sum(stats["steps"].values()),
                              FMT_LAYERS, f"serve_fmt prefix {mode}")
+        require_prefill_replays(stats, n_req, 0, f"serve_fmt prefix {mode}")
         transcripts[mode] = [r.tokens for r in results]
         launches_by[f"prefix_{mode}"] = launches
         legs[mode] = {**serving_numbers(results, wall),
                       "prompt_tokens_requested": req1 - req0,
                       "prompt_tokens_computed": comp1 - comp0,
-                      "prefills": stats["prefills"], "launches": launches}
+                      "prefills": stats["prefills"],
+                      "prefill_replays": keyed(stats["prefill_replays"]),
+                      "launches": launches}
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -5038,6 +5519,7 @@ def main() -> int:
     model, init_s = build_7b(torch)
     serve_launches = serve_7b(torch, smi, fa, pa, model, init_s)
     prefix_launches = serve_prefix_7b(torch, smi, fa, pa, kvc, model)
+    prefill_graph_check(torch, smi, model, kvc)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5091,7 +5573,10 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/flash_attention.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:82",
          "launches": serve_launches["flash_prefill"],
-         "launches_path": "serve_llama2_7b run 1",
+         "launches_path": "serve_llama2_7b run 1, prefill graph replays",
+         "note": "every serving launch of B1 (Llama and FMT, full and tail "
+                 "prefills) is counted from the replays of the engine's "
+                 "prefill graphs, by the launches each capture recorded",
          **{f"launches_prefix_{m}": v["flash_by_prefill"]
             for m, v in prefix_launches.items()},
          **{f"launches_fmt_{p}": v["flash_prefill"]

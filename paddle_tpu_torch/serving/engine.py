@@ -28,6 +28,24 @@ port of ``paddle_tpu/serving/engine.py``.
   A capture or replay that fails raises; there is no eager fallback. On
   the CPU (``device="cpu"``) the step runs eagerly.
 
+* Likewise each prefill key ``(start, n)`` is one CUDA graph on a card
+  (:class:`PrefillGraph`, the JAX engine's ``prefill_program`` per prompt
+  length and tail program per ``start``): :func:`prefill_body` captured
+  over static ``ids (1, n)`` and page-row buffers. ``warmup(prompt_lens)``
+  captures the full prefills of those lengths; any other key is captured
+  at the admission that first meets it, which then costs an eager warm-up
+  call and the capture besides the replay, with every live slot waiting.
+  Prompts are not padded to a length bucket: padding would change the
+  attention. The CPU engine calls :func:`prefill_body` eagerly, so its
+  tests run the code a card replays. The engine's first prefill capture
+  is preceded by one of ``max_len`` tokens, dropped once the key's own
+  graph holds the pool: the shared pool then holds the largest prefill's
+  temporaries, which every later key reuses (met shortest first, each
+  longer key would add its whole footprint to the pool). The prefill
+  graphs are kept least recently used first out: before a new capture,
+  while the card has no room for a ``max_len`` prefill or the host is
+  short of memory (:meth:`Engine._memory_short`), the oldest are dropped.
+
 * Admission happens at step boundaries by prefill-into-slot: the scheduler
   pops what fits (a slot, and pages for the request's whole lifetime), the
   prompt is prefilled into a buffer of the prompt's pages
@@ -54,7 +72,7 @@ from __future__ import annotations
 import inspect
 import threading
 import time
-from collections import Counter
+from collections import Counter, OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -69,14 +87,17 @@ from .scheduler import (GenerationRequest, GenerationResult, Scheduler,
                         _Pending)
 
 __all__ = ["ServingConfig", "Engine", "EngineStopped", "DrainTimeout",
-           "DecodeGraph"]
+           "DecodeGraph", "PrefillGraph", "prefill_body"]
 
 # bound on joining the loop thread when stop() was given no drain budget
 _STOP_JOIN_S = 30.0
-# eager decode steps on a side stream before a bucket's capture (PyTorch's
-# graph API wants the step's lazy work, here the kernels' first build and
-# load and cuBLAS's handles, done before it records)
-_WARM_STEPS = 3
+# eager calls on a side stream before a decode or prefill capture (PyTorch's
+# graph API wants the call's lazy work, here the kernels' first build and
+# load and cuBLAS's handles, done before it records; one call does it all)
+_WARM_STEPS = 1
+# below this share of the host's memory available, the least recently used
+# prefill graphs are dropped before another is captured
+_HOST_AVAILABLE_SHARE = 1 / 8
 
 
 class EngineStopped(RuntimeError):
@@ -173,76 +194,185 @@ class _Slot:
         return self.pending.request
 
 
-class DecodeGraph:
-    """One bucket's decode step as a CUDA graph.
+def _host_memory() -> Optional[Tuple[int, int]]:
+    """``(available, total)`` bytes of host memory, from
+    ``/proc/meminfo``; None where there is none."""
+    try:
+        with open("/proc/meminfo") as f:
+            info = dict(ln.split(":", 1) for ln in f if ":" in ln)
+        return (int(info["MemAvailable"].split()[0]) * 1024,
+                int(info["MemTotal"].split()[0]) * 1024)
+    except (OSError, KeyError, ValueError):
+        return None
 
-    ``tok (b, 1)`` int64, ``tables (b, S)`` int32 and ``t (b,)`` int32 are
-    static device buffers, ``next (b, 1)`` the graph's output. The capture
-    bakes in their addresses and those of the pool, its scales and the
-    model's weights, so the pool must never be reallocated: :meth:`replay`
-    raises if it moved. Replays count the kernel launches the capture
-    recorded (``_native.recorded_launches``)."""
 
-    def __init__(self, step_fn: Callable, kv: _kv.PagedKVCache, bucket: int,
-                 mempool):
-        dev = kv.device
-        if dev.type != "cuda":
-            raise ValueError(f"a decode graph needs a pool on a CUDA "
-                             f"device, not {dev}")
-        S = kv.config.pages_per_slot
-        self.bucket = bucket
-        self.tok = torch.zeros((bucket, 1), dtype=torch.int64, device=dev)
-        self.tables = torch.zeros((bucket, S), dtype=torch.int32, device=dev)
-        self.t = torch.zeros((bucket,), dtype=torch.int32, device=dev)
+def prefill_body(prefill_fn: Callable, kv: _kv.PagedKVCache,
+                 ids: torch.Tensor, pages: torch.Tensor,
+                 start: int = 0) -> torch.Tensor:
+    """One admission's prefill on the card's (or the CPU's) tensors: the
+    JAX engine's ``prefill_body`` (``start == 0``) and ``tail_body``.
+
+    ``ids (1, n)`` int64 are the prompt's tokens from ``start`` on,
+    ``pages (k,)`` int32 the slot's pages covering ``[0, start + n)``;
+    ``start`` is a page-aligned Python int. Zeroes a dense ``(L, 2, 1, H,
+    k * page_size, D)`` buffer, gathers the shared prefix pages
+    ``pages[:start // page_size]`` into it, runs ``prefill_fn`` and stores
+    the pages from ``start`` on (positions past ``start + n`` zeroed);
+    returns the first token ``(1, 1)`` on the device. No host read: the
+    CPU engine calls it eagerly and :class:`PrefillGraph` captures it."""
+    cfg = kv.config
+    ps = cfg.page_size
+    dtype = cfg.torch_compute_dtype
+    dense = torch.zeros((cfg.num_layers, 2, 1, cfg.num_heads,
+                         pages.shape[0] * ps, cfg.head_dim),
+                        dtype=dtype, device=ids.device)
+    with torch.no_grad():
+        if start:
+            dense[:, :, :, :, :start] = _kv.gather_pages(
+                kv.pool, kv.scales, pages[:start // ps], dtype)
+            nxt, dense = prefill_fn(ids, dense, start)
+        else:
+            nxt, dense = prefill_fn(ids, dense)
+        _kv.scatter_prefill_pages(dense, kv.pool, kv.scales,
+                                  pages[start // ps:],
+                                  start + int(ids.shape[1]), ps, start=start)
+    return nxt
+
+
+class _EngineGraph:
+    """What the decode and prefill graphs share: static device buffers
+    filled through pinned staging, a capture after warm-up calls on a side
+    stream, and replays that check the pool and count launches.
+
+    The capture bakes in the addresses of the static buffers, the pool,
+    its scales and the model's weights, so the pool must never be
+    reallocated: :meth:`replay` raises if it moved. Replays count the
+    kernel launches the capture recorded (``_native.recorded_launches``).
+    Graphs of one engine share a memory pool, so a graph's output is valid
+    only until another graph replays."""
+
+    def __init__(self, kv: _kv.PagedKVCache, buffers: Tuple[torch.Tensor, ...],
+                 what: str):
+        if kv.device.type != "cuda":
+            raise ValueError(f"a {what} needs a pool on a CUDA device, not "
+                             f"{kv.device}")
+        self.what = what
+        self._kv = kv
+        self._buffers = buffers
         # pinned staging, so the host-to-card copies are asynchronous
         self._staging = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                         for x in (self.tok, self.tables, self.t)]
-        self._kv = kv
+                         for x in buffers]
         self._pool_ptrs = self._pointers()
-        view = PagedDecodeCache(pool=kv.pool, tables=self.tables, t=self.t,
-                                page_size=kv.config.page_size,
-                                scales=kv.scales)
-        side = torch.cuda.Stream(dev)
+        self.replays = 0
+
+    def _capture(self, fn: Callable, mempool,
+                 side: Optional[torch.cuda.Stream]) -> torch.Tensor:
+        """Run ``fn`` ``_WARM_STEPS`` times on the side stream ``side`` (a
+        stream of its own if None), then capture one call of it into
+        ``mempool``; returns the call's output (the graph's). Warm-up
+        memory stays cached for its stream, so the engine gives all its
+        graphs one side stream."""
+        dev = self._kv.device
+        t0 = time.perf_counter()
+        if side is None:
+            side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), torch.no_grad():
-            for _ in range(_WARM_STEPS):        # writes page 0 only
-                step_fn(self.tok, view, self.t)
+            for _ in range(_WARM_STEPS):
+                fn()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
+        # thread_local: CUDA calls of the process's other threads (a caller's
+        # tensors, another engine) neither fail nor spoil the capture; this
+        # thread makes none, and the engine's replays run one at a time
         with _native.recorded_launches() as self.launches, torch.no_grad(), \
-                torch.cuda.graph(self.graph, pool=mempool):
-            nxt, _ = step_fn(self.tok, view, self.t)
-        self.next = nxt
-        self.replays = 0
+                torch.cuda.graph(self.graph, pool=mempool,
+                                 capture_error_mode="thread_local"):
+            out = fn()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        return out
 
     def _pointers(self) -> Tuple[int, int]:
         sc = self._kv.scales
         return (self._kv.pool.data_ptr(),
                 sc.data_ptr() if sc is not None else 0)
 
-    def load(self, tok: np.ndarray, tables: np.ndarray,
-             t: np.ndarray) -> None:
-        """Copy one step's host arrays into the static buffers (queued on
-        the current stream; the previous step's read of ``next`` has
-        retired the previous copies, so the staging is free)."""
-        for host, dev, arr in zip(self._staging,
-                                  (self.tok, self.tables, self.t),
-                                  (tok, tables, t)):
+    def load(self, *arrays: np.ndarray) -> None:
+        """Copy one call's host arrays into the static buffers (queued on
+        the current stream; the previous replay's output read has retired
+        the previous copies, so the staging is free)."""
+        for host, dev, arr in zip(self._staging, self._buffers, arrays):
             host.numpy()[...] = arr
             dev.copy_(host, non_blocking=True)
 
     def replay(self) -> torch.Tensor:
-        """Launch the captured step on the current buffers; returns
-        ``next``."""
+        """Launch the captured call on the current buffers; returns its
+        output."""
         if self._pointers() != self._pool_ptrs:
             raise RuntimeError(
-                f"decode graph of bucket {self.bucket}: the KV pool moved "
-                f"since its capture; the pool must be updated in place")
+                f"{self.what}: the KV pool moved since its capture; the pool "
+                f"must be updated in place")
         self.graph.replay()
         for counter, n in self.launches.items():
             counter.add(n)
         self.replays += 1
         return self.next
+
+
+class DecodeGraph(_EngineGraph):
+    """One bucket's decode step as a CUDA graph.
+
+    ``tok (b, 1)`` int64, ``tables (b, S)`` int32 and ``t (b,)`` int32 are
+    static device buffers (:meth:`load` fills them), ``next (b, 1)`` the
+    graph's output. Warm-up calls write page 0 only."""
+
+    def __init__(self, step_fn: Callable, kv: _kv.PagedKVCache, bucket: int,
+                 mempool, side: Optional[torch.cuda.Stream] = None):
+        dev = kv.device
+        S = kv.config.pages_per_slot
+        self.bucket = bucket
+        self.tok = torch.zeros((bucket, 1), dtype=torch.int64, device=dev)
+        self.tables = torch.zeros((bucket, S), dtype=torch.int32, device=dev)
+        self.t = torch.zeros((bucket,), dtype=torch.int32, device=dev)
+        super().__init__(kv, (self.tok, self.tables, self.t),
+                         f"decode graph of bucket {bucket}")
+        view = PagedDecodeCache(pool=kv.pool, tables=self.tables, t=self.t,
+                                page_size=kv.config.page_size,
+                                scales=kv.scales)
+        self.next = self._capture(
+            lambda: step_fn(self.tok, view, self.t)[0], mempool, side)
+
+
+class PrefillGraph(_EngineGraph):
+    """One prefill key as a CUDA graph: :func:`prefill_body` over static
+    ``ids (1, n)`` int64 and ``pages (k,)`` int32 buffers, ``k`` the pages
+    covering ``start + n`` positions (:meth:`load` fills them); ``next (1,
+    1)`` is the first token. The key ``(start, n)`` fixes every shape and
+    the true length ``start + n``, as the JAX engine's program is fixed by
+    its input shapes and tail ``start``. Warm-up calls run with the page
+    row all 0: they write the scratch page only."""
+
+    def __init__(self, prefill_fn: Callable, kv: _kv.PagedKVCache,
+                 start: int, n: int, mempool,
+                 side: Optional[torch.cuda.Stream] = None):
+        dev = kv.device
+        cfg = kv.config
+        if start % cfg.page_size or start < 0 or n < 1 \
+                or start + n > cfg.max_len:
+            raise ValueError(
+                f"prefill key (start {start}, n {n}): start must be "
+                f"page-aligned ({cfg.page_size}), n >= 1 and start + n <= "
+                f"max_len {cfg.max_len}")
+        self.key = (start, n)
+        self.ids = torch.zeros((1, n), dtype=torch.int64, device=dev)
+        self.pages = torch.zeros((kv.pages_for(start + n),),
+                                 dtype=torch.int32, device=dev)
+        super().__init__(kv, (self.ids, self.pages),
+                         f"prefill graph of (start {start}, n {n})")
+        self.next = self._capture(
+            lambda: prefill_body(prefill_fn, kv, self.ids, self.pages, start),
+            mempool, side)
 
 
 class Engine:
@@ -273,11 +403,21 @@ class Engine:
             max_queue=config.max_queue, policy=config.policy,
             prefill_token_budget=config.prefill_token_budget,
             prefill_cost=self._prefill_cost if self._share_prefix else None)
-        # decode graphs by bucket (a card only), sharing one memory pool;
+        # decode graphs by bucket and prefill graphs by (start, n), least
+        # recently used first (a card only), sharing one memory pool;
         # replays run one at a time on the step thread
         self._graphs: Dict[int, DecodeGraph] = {}
+        self._prefill_graphs: "OrderedDict[Tuple[int, int], PrefillGraph]" \
+            = OrderedDict()
+        # prefill graphs captured and dropped, their capture seconds, and
+        # the replays of dropped ones (guarded by _graph_lock)
+        self._prefill_captures = 0
+        self._prefill_evictions = 0
+        self._pool_primed = False
+        self._prefill_capture_s = 0.0
+        self._evicted_replays: Counter = Counter()
         self._graph_lock = threading.Lock()
-        self._graph_pool = None
+        self._capture_pool = None
         # the step loop's own counts: decode steps by live rows, prefills
         # by kind (guarded by _slot_lock)
         self._batch_sizes: Counter = Counter()
@@ -298,27 +438,17 @@ class Engine:
         """Prefill ``prompt`` into the pages of ``row``; returns the first
         token (one host sync). With ``start > 0`` the pages covering
         ``[0, start)`` are a shared prefix: they are read into the buffer,
-        and only the tail is computed and stored."""
-        cfg = self.kv.config
-        ps = cfg.page_size
-        n = self.kv.pages_for(int(prompt.size))
-        dtype = cfg.torch_compute_dtype
-        dense = torch.zeros(
-            (cfg.num_layers, 2, 1, cfg.num_heads, n * ps, cfg.head_dim),
-            dtype=dtype, device=self.device)
+        and only the tail is computed and stored. A replay of the key's
+        graph on a card, an eager :func:`prefill_body` call on the CPU."""
+        pages = row[:self.kv.pages_for(int(prompt.size))]
+        if self.device.type == "cuda":
+            g = self.prefill_graph(start, int(prompt.size) - start)
+            g.load(prompt[None, start:], pages)
+            return int(g.replay().reshape(-1)[0])
         ids = torch.as_tensor(prompt[None, start:], dtype=torch.int64,
                               device=self.device)
-        pages = torch.as_tensor(row[:n], device=self.device)
-        with torch.no_grad():
-            if start:
-                dense[:, :, :, :, :start] = _kv.gather_pages(
-                    self.kv.pool, self.kv.scales, pages[:start // ps], dtype)
-                nxt, dense = self._prefill_fn(ids, dense, start)
-            else:
-                nxt, dense = self._prefill_fn(ids, dense)
-            _kv.scatter_prefill_pages(
-                dense, self.kv.pool, self.kv.scales, pages[start // ps:],
-                int(prompt.size), ps, start=start)
+        nxt = prefill_body(self._prefill_fn, self.kv, ids,
+                           torch.as_tensor(pages, device=self.device), start)
         return int(nxt.reshape(-1)[0])
 
     def _decode(self, tok: np.ndarray, tables: np.ndarray,
@@ -340,6 +470,14 @@ class Engine:
                                    t_d)
         return nxt.reshape(-1).cpu().numpy()
 
+    def _capture_args(self):
+        """The memory pool every graph of this engine captures into, and
+        the side stream of their warm-up calls."""
+        if self._capture_pool is None:
+            self._capture_pool = (torch.cuda.graph_pool_handle(),
+                                torch.cuda.Stream(self.device))
+        return self._capture_pool
+
     def decode_graph(self, bucket: int) -> DecodeGraph:
         """The CUDA graph of ``bucket``'s decode step, captured on first
         use (a card only)."""
@@ -352,39 +490,115 @@ class Engine:
         with self._graph_lock:
             g = self._graphs.get(bucket)
             if g is None:
-                if self._graph_pool is None:
-                    self._graph_pool = torch.cuda.graph_pool_handle()
                 g = DecodeGraph(self._step_fn, self.kv, bucket,
-                                self._graph_pool)
+                                *self._capture_args())
                 self._graphs[bucket] = g
         return g
 
+    def prefill_graph(self, start: int, n: int) -> PrefillGraph:
+        """The CUDA graph of the prefill of ``n`` tokens after a resident
+        prefix of ``start`` positions (0: a full prefill of an ``n``-token
+        prompt), captured on first use (a card only). Before a capture,
+        while :meth:`_memory_short`, the least recently used prefill graph
+        is dropped; the engine's first is preceded by the pool's primer, a
+        capture of ``max_len`` tokens (the module docstring), counted in
+        ``prefill_graphs`` and ``prefill_capture_s``."""
+        if self.device.type != "cuda":
+            raise RuntimeError("prefill graphs need a CUDA device; the CPU "
+                               "engine prefills eagerly")
+        if start and not self._share_prefix:
+            raise ValueError(f"a tail prefill (start {start}) needs prefix "
+                             f"sharing on and a prefill_fn that takes start")
+        key = (int(start), int(n))
+        with self._graph_lock:
+            g = self._prefill_graphs.get(key)
+            if g is not None:
+                self._prefill_graphs.move_to_end(key)
+                return g
+            while self._prefill_graphs and self._memory_short():
+                old_key, old = self._prefill_graphs.popitem(last=False)
+                self._evicted_replays[old_key] += old.replays
+                self._prefill_evictions += 1
+                del old
+            primer = None
+            if not self._pool_primed:
+                primer = self._count_capture(PrefillGraph(
+                    self._prefill_fn, self.kv, 0, self.config.max_len,
+                    *self._capture_args()))
+                self._pool_primed = True
+            g = self._count_capture(PrefillGraph(
+                self._prefill_fn, self.kv, *key, *self._capture_args()))
+            self._prefill_graphs[key] = g
+            del primer
+        return g
+
+    def _count_capture(self, g: PrefillGraph) -> PrefillGraph:
+        self._prefill_captures += 1
+        self._prefill_capture_s += g.capture_s
+        return g
+
+    def _memory_short(self) -> bool:
+        """Whether the card could not hold a ``max_len`` prefill's dense
+        buffer twice over (``cudaMemGetInfo``'s free memory and what the
+        caching allocator holds unused), or the host has less than
+        ``_HOST_AVAILABLE_SHARE`` of its memory available. A prefill graph
+        holds its executable on both, and the shared pool's temporaries are
+        reused by the next capture."""
+        cfg = self.kv.config
+        dense = (cfg.num_layers * 2 * cfg.num_heads * cfg.max_len
+                 * cfg.head_dim * cfg.torch_compute_dtype.itemsize)
+        free = torch.cuda.mem_get_info(self.device)[0] \
+            + torch.cuda.memory_reserved(self.device) \
+            - torch.cuda.memory_allocated(self.device)
+        host = _host_memory()
+        return free < 2 * dense or (
+            host is not None and host[0] < host[1] * _HOST_AVAILABLE_SHARE)
+
     def warmup(self, prompt_lens: Sequence[int] = ()) -> "Engine":
-        """Make every batch bucket ready before the first request: on a
-        card capture its decode graph, on the CPU run it once; then prefill
-        the optional ``prompt_lens`` once. Writes nothing outside page 0."""
+        """Make every batch bucket and the full prefill of each of
+        ``prompt_lens`` ready before the first request: on a card capture
+        their graphs, on the CPU run each once. Writes nothing outside
+        page 0."""
         S = self.kv.config.pages_per_slot
+        on_card = self.device.type == "cuda"
         for b in self.config.buckets:
-            if self.device.type == "cuda":
+            if on_card:
                 self.decode_graph(b)
             else:
                 self._decode(np.zeros((b, 1), np.int64),
                              np.zeros((b, S), np.int32),
                              np.zeros((b,), np.int32))
         for lp in prompt_lens:
-            self._prefill(np.zeros((int(lp),), np.int32),
-                          np.zeros((S,), np.int32))
+            if on_card:
+                self.prefill_graph(0, int(lp))
+            else:
+                self._prefill(np.zeros((int(lp),), np.int32),
+                              np.zeros((S,), np.int32))
         return self
 
-    def decode_stats(self) -> Dict[str, Dict[int, int]]:
+    def decode_stats(self) -> Dict[str, object]:
         """The step loop's counts so far: ``steps`` (decode steps by their
-        live rows), ``replays`` (graph replays by bucket; none on the CPU)
-        and ``prefills`` (``"full"`` and ``"tail"`` admissions)."""
+        live rows), ``replays`` (decode graph replays by bucket),
+        ``prefills`` (``"full"`` and ``"tail"`` admissions),
+        ``prefill_replays`` (prefill graph replays by ``(start, n)``, with
+        those of dropped graphs), ``prefill_graphs`` (prefill graphs
+        captured), ``prefill_graphs_live`` (those kept),
+        ``prefill_evictions`` (those dropped) and ``prefill_capture_s``
+        (seconds their warm-ups and captures took). The CPU engine replays
+        and captures nothing."""
         with self._graph_lock:
             replays = {b: g.replays for b, g in sorted(self._graphs.items())}
+            prefill_replays = dict(self._evicted_replays)
+            for k, g in self._prefill_graphs.items():
+                prefill_replays[k] = prefill_replays.get(k, 0) + g.replays
+            graphs = {"prefill_replays": dict(sorted(prefill_replays.items())),
+                      "prefill_graphs": self._prefill_captures,
+                      "prefill_graphs_live": len(self._prefill_graphs),
+                      "prefill_evictions": self._prefill_evictions,
+                      "prefill_capture_s": self._prefill_capture_s}
         with self._slot_lock:
             return {"steps": dict(self._batch_sizes), "replays": replays,
-                    "prefills": dict(self._prefills)}
+                    "prefills": dict(self._prefills), **graphs}
 
     # -- request surface ----------------------------------------------------
     def _pages_needed(self, request: GenerationRequest) -> int:

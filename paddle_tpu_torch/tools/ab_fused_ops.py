@@ -21,15 +21,14 @@ run.
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
-import json
-import subprocess
 import sys
-import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[2]
+if __package__:
+    from . import _ab
+else:   # a run's process: this file as a script, beside another package
+    import _ab
+
 PHASES = ("train_llama_1p6b", "train_profile", "train_llama_1p6b_captured",
           "train_ernie3_base_captured", "train_ernie_captured_profile",
           "serve_llama2_7b", "serve_profile")
@@ -37,41 +36,25 @@ PHASES = ("train_llama_1p6b", "train_profile", "train_llama_1p6b_captured",
 
 def _run(tree: Path) -> None:
     """One run, in this process: ``tree``'s package, this tree's phases."""
-    sys.path.insert(0, str(tree))
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("ab_fused_ops: no CUDA device")
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    import paddle_tpu_torch
+    torch, cs, card = _ab.load(tree, "ab_fused_ops")
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import multi_tensor_adam as mta
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import q8_adam as q8
-    if Path(paddle_tpu_torch.__file__).resolve().parents[1] != tree.resolve():
-        raise SystemExit(f"ab_fused_ops: imported {paddle_tpu_torch.__file__}"
-                         f", not {tree}'s package")
     if not (tree / "paddle_tpu_torch" / "ops" / "fused_norm.py").exists():
         cs.fused_counters = dict   # a tree without the fused kernels
     if not (tree / "paddle_tpu_torch" / "ops" / "embedding.py").exists():
         cs.ernie_op_counters = dict   # a tree without K5-K8
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
     counters = (fa.launches, pa.launches, fa.launches_lse,
                 fa.launches_bwd_dq, fa.launches_bwd_dkv, q8.launches,
                 mta.launches, *fa.launches_variant.values(),
                 *cs.fused_counters().values())
-    cs.train_1p6b(torch, smi, fa, q8, counters)
-    cs.train_ernie3_base_captured(torch, smi, fa, mta)
+    cs.train_1p6b(torch, card, fa, q8, counters)
+    cs.train_ernie3_base_captured(torch, card, fa, mta)
     model, init_s = cs.build_7b(torch)
     for c in counters:
         c.reset()
-    cs.serve_7b(torch, smi, fa, pa, model, init_s)
+    cs.serve_7b(torch, card, fa, pa, model, init_s)
 
 
 def _summary(rows: list) -> dict:
@@ -102,46 +85,6 @@ def _summary(rows: list) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", type=Path,
-                    help="another tree of the repository")
-    ap.add_argument("--out", type=Path, default=Path("ab_fused_ops.jsonl"))
-    ap.add_argument("--run", type=Path, help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.run is not None:
-        _run(args.run)
-        return 0
-    if args.other is None:
-        ap.error("--other DIR is required")
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    rows = []
-    order = [("other", args.other), ("this", ROOT), ("this", ROOT),
-             ("other", args.other)]
-    for i, (label, tree) in enumerate(order):
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--run",
-             str(tree.resolve())], cwd=tree, capture_output=True, text=True,
-            timeout=1500)
-        run = f"{i + 1}:{label}"
-        for ln in proc.stdout.splitlines():
-            if ln.startswith("{"):
-                row = json.loads(ln)
-                if row.get("phase") in PHASES:
-                    rows.append({"run": run, **row})
-        with args.out.open("a") as f:
-            for r in rows:
-                if r["run"] == run:
-                    f.write(json.dumps(r) + "\n")
-        print(json.dumps({"run": run, "rc": proc.returncode,
-                          "seconds": time.monotonic() - t0}), flush=True)
-        if proc.returncode != 0:
-            print(proc.stderr[-4000:], file=sys.stderr)
-            return proc.returncode
-    print(json.dumps({"ab_fused_ops": _summary(rows)}), flush=True)
-    return 0
-
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_ab.main(__file__, __doc__, PHASES, _run, _summary, 1500))
