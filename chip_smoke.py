@@ -100,7 +100,23 @@ per phase:
   launches of each and the rejection of a planted copy of each, and times
   them beside bound, plain version and library call; ``incubate_check``
   drives ``incubate``'s fused layers at ERNIE's width (card against CPU,
-  then O2 training, counting K6-K8); the ERNIE phases count K5-K7 a step.
+  then O2 training, counting K6-K8); the ERNIE phases count K5-K7 a step;
+* Mixture-of-Experts (``moe_check``): holds the routing kernel K9
+  (dispatch and combine, forward and backward, token choice at capacity
+  1536 with dropped routes and expert choice with a per-expert bias and
+  bf16 per-add rounding, 8192 tokens x 4096, 16 experts) bit for bit
+  against its plain version (the gate gradient within MOE_DGATE_RTOL),
+  requires three bit-equal launches and the rejection of a planted
+  combine, and holds K6 with a bias row period; ``train_moe_jamba2``
+  trains a pre-LN MoE block at AI21-Jamba2-Mini's expert widths (hidden
+  4096, 16 experts of 14336, top-2; 1.88 B parameters; 4 x 2048 tokens,
+  AMP O2, multi-tensor AdamW in two parameter groups with
+  ``apply_decay_param_fun``) eagerly and captured, the replay bit-equal
+  to the eager step on the same inputs; ``ec_moe_jamba2`` runs
+  ``FusedEcMoe`` at those widths beside its products' bound;
+  ``moe_vs_cpu`` holds a narrow block and an EC-MoE on the card against
+  the CPU; ``grad_scaler_check`` runs ``amp.GradScaler`` in an fp16 O1
+  step eager and captured with a planted ``inf``.
 
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound; the last line is ``{"ok": true, "device":
@@ -175,7 +191,8 @@ KV_ROUNDING_PER_LAYER = 2.0 ** -8
 # have one: K5's backward drops the second row of every piece (caught on
 # the all-zero ids), K6 zeroes one output, K7 flips one element's keep, K8
 # drops one mask column; K5 and K7 must fail bit-equality, K6 and K8
-# FUSED_TOL.
+# FUSED_TOL. K9 (moe_check): the token-major sum skips each token's second
+# route, so the combine must fail bit-equality.
 PLANTED_FAULTS = (
     ("flash_attention",
      "  if (n0 + FW_BN > min(Lk, wg_end)) {\n",
@@ -227,7 +244,10 @@ PLANTED_FAULTS = (
      "    }\n"),
     ("softmax_mask",
      "  return __fadd_rn(x[0], m[0]);\n",
-     "  if (j == 5) m[0] = 0.f;\n"))
+     "  if (j == 5) m[0] = 0.f;\n"),
+    ("moe",
+     "    if (s < 0) continue;  // a dropped route\n",
+     "    if (r == r0 + 1) continue;\n"))
 
 
 def emit(obj) -> None:
@@ -5461,6 +5481,735 @@ def fmt_kernel_times(torch, fa, pa, kvc) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts: K9 (moe_route), K6's bias period, at AI21-Jamba2-Mini's
+# expert widths
+# ---------------------------------------------------------------------------
+
+# https://huggingface.co/ai21labs/AI21-Jamba2-Mini/blob/main/config.json:
+# hidden 4096, intermediate_size 14336, 16 experts, 2 per token (its experts
+# are SiLU-gated; the JAX package's are Linear -> act -> Linear, so only the
+# widths, the expert count and top-2 are taken)
+JAMBA2 = dict(hidden=4096, inter=14336, experts=16, top_k=2)
+MOE_BATCH, MOE_SEQ = 4, 2048          # 8192 tokens: capacity 1536 (cf 1.5)
+MOE_WARM, MOE_TIMED = 2, 4
+MOE_ITERS = 10
+# K9 against its plain version: every output bit for bit (the same fp32
+# operations in the same order, the same roundings) except the gate
+# gradient, an fp32 dot over the row summed in another order: held within
+# MOE_DGATE_RTOL of the largest |dgate|.
+MOE_DGATE_RTOL = 1e-5
+# moe_vs_cpu: fp32 card against CPU; cuBLAS and MKL sum the products in
+# other orders: outputs and gradients within 1e-4 of each tensor's largest
+# element.
+MOE_CPU_RTOL = 1e-4
+MOE_REPLACES = {"moe_dispatch": "paddle_tpu/incubate/moe.py:153",
+                "moe_combine": "paddle_tpu/incubate/moe.py:169"}
+
+
+def moe_counters() -> dict:
+    from paddle_tpu_torch.ops import moe
+    return {"moe_dispatch": moe.launches_dispatch,
+            "moe_combine": moe.launches_combine}
+
+
+def moe_path_counters() -> dict:
+    """K1, K6, K9 and the multi-tensor AdamW: the MoE phases' kernels."""
+    from paddle_tpu_torch.ops import multi_tensor_adam
+    return {**moe_counters(), **step_counters(),
+            "multi_tensor_adam": multi_tensor_adam.launches}
+
+
+def counts_of(counters: dict) -> dict:
+    return {k: c.count for k, c in counters.items() if c.count}
+
+
+def reset_counts(counters: dict) -> None:
+    for c in counters.values():
+        c.reset()
+
+
+def moe_token_choice(torch, K9, gen, tokens: int, cap: int):
+    """A GShard top-2 routing of ``tokens`` over JAMBA2's experts at
+    capacity ``cap``, expert 0 favoured so that its queue overflows (some
+    routes dropped)."""
+    from paddle_tpu_torch.incubate.moe import top_k
+    e, k = JAMBA2["experts"], JAMBA2["top_k"]
+    logits = torch.randn(tokens, e, device="cuda", generator=gen)
+    logits[:, 0] += 1.5
+    probs = torch.softmax(logits, -1)
+    topv, topi = top_k(probs, k)
+    oh = torch.nn.functional.one_hot(topi.t().reshape(-1), e)
+    pos = ((torch.cumsum(oh, 0) - oh) * oh).sum(-1).reshape(k, tokens).t()
+    keep = pos < cap
+    gates = topv * keep
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return K9.token_choice_routes(topi, pos, keep, e, cap), gates.reshape(-1)
+
+
+def moe_expert_choice(torch, K9, gen, tokens: int, dt):
+    from paddle_tpu_torch.incubate.moe import top_k
+    e = JAMBA2["experts"]
+    probs = torch.softmax(torch.randn(tokens, e, device="cuda",
+                                      generator=gen), -1).to(dt)
+    w, sel = top_k(probs.t(), max(tokens // e, 1))
+    routes, perm = K9.expert_choice_routes(sel, tokens)
+    return routes, w.reshape(-1)[perm].float()
+
+
+def moe_case(torch, K9, gen, kind: str, dt):
+    """The routing, inputs and roundings of one K9 case at the MoE phases'
+    shapes: ``token_choice`` (MoELayer: fp32 sums, output in ``dt`` as O2
+    casts it or fp32) or ``expert_choice`` (FusedEcMoe: bias, every add
+    rounded to ``dt``)."""
+    h = JAMBA2["hidden"]
+    t = MOE_BATCH * MOE_SEQ
+    if kind == "token_choice":
+        routes, gate = moe_token_choice(torch, K9, gen, t, 1536)
+        gate = gate.to(dt).float()
+        bias, acc = None, torch.float32
+        spec = K9.CombineSpec(None, torch.float32, torch.float32, dt)
+    else:
+        routes, gate = moe_expert_choice(torch, K9, gen, t, dt)
+        bias = torch.randn(routes.experts, h, device="cuda",
+                           generator=gen).to(dt)
+        acc = dt
+        spec = K9.CombineSpec(dt, dt, dt, dt)
+    x = torch.randn(t, h, device="cuda", generator=gen).to(dt)
+    y = torch.randn(routes.slots, h, device="cuda", generator=gen).to(dt)
+    dout = torch.randn(t, h, device="cuda", generator=gen).to(spec.out)
+    dy = torch.randn(routes.slots, h, device="cuda", generator=gen).to(dt)
+    return dict(routes=routes, gate=gate, bias=bias, acc=acc, spec=spec,
+                x=x, y=y, dout=dout, dy=dy, dt=dt)
+
+
+def moe_dispatch_spec(K9, c):
+    """The dispatch backward's sum: fp32 or every add rounded (``acc``),
+    written in the tokens' dtype."""
+    return K9.CombineSpec(None, c["acc"], c["acc"], c["dt"])
+
+
+def moe_kernel_fns(K9, c, fns=None):
+    """The four K9 calls of a case, each returning its outputs by name."""
+    r, s = c["routes"], c["spec"]
+    return {
+        "dispatch_fwd": lambda: {"rows": K9._launch_rows(
+            c["x"], r, None, None, None, c["dt"], None, fns)[0]},
+        "dispatch_bwd": lambda: {"dx": K9._launch_gather(
+            c["dy"], r, None, None, moe_dispatch_spec(K9, c), fns)},
+        "combine_fwd": lambda: {"out": K9._launch_gather(
+            c["y"], r, c["gate"], c["bias"], s, fns)},
+        "combine_bwd": lambda: dict(zip(("dy", "dgate"), K9._launch_rows(
+            c["dout"], r, c["gate"], c["y"], c["bias"], c["dt"], s.h,
+            fns)))}
+
+
+def moe_plain_fns(K9, c):
+    r, s = c["routes"], c["spec"]
+    return {
+        "dispatch_fwd": lambda: {"rows": K9.slot_rows_reference(
+            c["x"], r, None, None, None, c["dt"])[0]},
+        "dispatch_bwd": lambda: {"dx": K9.gather_sum_reference(
+            c["dy"], r, None, None, moe_dispatch_spec(K9, c))},
+        "combine_fwd": lambda: {"out": K9.gather_sum_reference(
+            c["y"], r, c["gate"], c["bias"], s)},
+        "combine_bwd": lambda: dict(zip(("dy", "dgate"),
+                                        K9.slot_rows_reference(
+            c["dout"], r, c["gate"], c["y"], c["bias"], c["dt"], s.h)))}
+
+
+def moe_library_fns(torch, c):
+    """One PyTorch call beside each K9 call, a yardstick only (the port
+    never calls them): index_select of the routed rows, index_add_ of the
+    weighted rows (weighted beforehand, outside the timing), index_add_ of
+    the slots' rows, index_select of the output gradient's rows."""
+    r = c["routes"]
+    live = r.slot_route >= 0
+    slot_tok = torch.where(live, r.route_token.long()[
+        r.slot_route.long().clamp(min=0)], 0)
+    yw = c["y"].float() * torch.where(live, c["gate"][
+        r.slot_route.long().clamp(min=0)], 0.0)[:, None]
+    h = c["x"].shape[1]
+    out = torch.zeros(r.tokens, h, device="cuda")
+    dx = torch.zeros(r.tokens, h, device="cuda", dtype=c["dy"].dtype)
+    return {"dispatch_fwd": lambda: c["x"].index_select(0, slot_tok),
+            "dispatch_bwd": lambda: dx.index_add_(0, slot_tok, c["dy"]),
+            "combine_fwd": lambda: out.index_add_(0, slot_tok, yw),
+            "combine_bwd": lambda: c["dout"].index_select(0, slot_tok)}
+
+
+def moe_bytes(torch, c) -> dict:
+    """Bytes each K9 call must move for this routing: the token rows it
+    reads (tokens with a live route) or writes (all tokens), the live slot
+    rows it reads, the slot rows it writes, the routing table and gates."""
+    r = c["routes"]
+    h = c["x"].shape[1]
+    n_live = int((r.slot >= 0).sum())
+    toks = int((torch.bincount(r.route_token.long()[r.slot >= 0],
+                               minlength=r.tokens) > 0).sum())
+    it, ot = c["x"].element_size(), c["y"].element_size()
+    idx = 4 * (r.ptr.numel() + r.slot.numel() + r.slot_route.numel()
+               + r.route_token.numel())
+    g = 4 * r.slot.numel()
+    b = 0 if c["bias"] is None else nbytes(c["bias"])
+    so = c["spec"].out.itemsize
+    return {"dispatch_fwd": toks * h * it + r.slots * h * ot + idx,
+            "dispatch_bwd": n_live * h * ot + r.tokens * h * it + idx,
+            "combine_fwd": n_live * h * ot + b + g + r.tokens * h * so + idx,
+            "combine_bwd": toks * h * so + 2 * n_live * h * ot + b + 2 * g
+            + (r.slots - n_live) * h * ot + idx}
+
+
+def moe_compare(torch, got: dict, ref: dict, what: str) -> dict:
+    """Bit for bit, but dgate within MOE_DGATE_RTOL; returns the errors."""
+    errs = {}
+    for k, r in ref.items():
+        o = got[k]
+        require(o.shape == r.shape and o.dtype == r.dtype,
+                f"{what}: {k} is {o.dtype} {tuple(o.shape)}, want {r.dtype} "
+                f"{tuple(r.shape)}")
+        d = float((o.float() - r.float()).abs().max()) if o.numel() else 0.0
+        errs[k] = d
+        if k == "dgate":
+            lim = MOE_DGATE_RTOL * float(r.abs().max())
+            require(d <= lim and bool(torch.isfinite(o).all()),
+                    f"{what}: dgate off by {d} > {lim}")
+        else:
+            require(bool(torch.equal(o, r)), f"{what}: {k} is not bit-equal "
+                                             f"to the plain version ({d})")
+    return errs
+
+
+def check_moe_route(torch, K9, planted_lib, gen) -> dict:
+    """K9's four calls at the MoE phases' shapes, token choice (O2 bf16
+    and fp32) and expert choice (bf16 and fp32)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases, err, timing = [], 0.0, {}
+    for kind in ("token_choice", "expert_choice"):
+        for dt in (bf, f32):
+            c = moe_case(torch, K9, gen, kind, dt)
+            kfns, pfns = moe_kernel_fns(K9, c), moe_plain_fns(K9, c)
+            errs = {}
+            for name in kfns:
+                errs.update({f"{name}.{k}": v for k, v in moe_compare(
+                    torch, kfns[name](), pfns[name](),
+                    f"moe_route {kind} {dtype_name(dt)} {name}").items()})
+            err = max(err, *errs.values())
+            dropped = float((c["routes"].slot < 0).float().mean())
+            cases.append({"case": f"{kind}_{dtype_name(dt)}",
+                          "dropped_route_share": dropped, "errs": errs})
+            if dt != bf:
+                continue
+            for name, fn in kfns.items():
+                fused_repeat_equal(torch, fn, f"moe_route {kind} {name}")
+            libs = moe_library_fns(torch, c)
+            nb_ = moe_bytes(torch, c)
+            tm = {}
+            for name in kfns:
+                tm[name] = fused_timing(torch, kfns[name], pfns[name],
+                                        libs[name], MOE_ITERS)
+                tm[name]["bound_ms"], tm[name]["bound_by"] = bound(
+                    0, nb_[name], "bfloat16")
+            if kind == "token_choice":
+                # the planted copy skips each token's second route
+                ref = pfns["combine_fwd"]()
+                planted = planted_differs(torch, moe_kernel_fns(
+                    K9, c, K9.bind(planted_lib))["combine_fwd"](), ref,
+                    "moe_route planted combine")
+                tm["planted_max_abs_err"] = planted["max_abs_err"]
+            timing[kind] = tm
+    return {"cases": cases, "max_abs_err": err, "timing": timing}
+
+
+def check_bias_period(torch, ba, gen) -> dict:
+    """K6 with a bias period at FusedEcMoe's first product: y (E C, I) =
+    (8192, 14336) bf16, b (16, 1, 14336), GELU tanh, period C = 512:
+    forward and input gradient within FUSED_TOL ``out``, bias gradient
+    ``sum``; three launches bit-equal; times."""
+    e, i = JAMBA2["experts"], JAMBA2["inter"]
+    cap = MOE_BATCH * MOE_SEQ // e
+    y = (torch.randn(e * cap, i, device="cuda", generator=gen)).bfloat16()
+    b = (torch.randn(e, 1, i, device="cuda", generator=gen) * 0.5).bfloat16()
+    dy = torch.randn(e * cap, i, device="cuda", generator=gen).bfloat16()
+    spec = ba.ActSpec("gelu_tanh", torch.bfloat16, torch.bfloat16)
+
+    def fwd():
+        return {"out": ba._launch_fwd(y, b, spec, cap)}
+
+    def bwd():
+        return dict(zip(("dy_y", "db"), ba._launch_bwd(y, b, dy, spec, cap)))
+    got, gb = fwd(), bwd()
+    r_dyy, r_db = ba.bias_act_bwd_reference(y, b, dy, spec, cap)
+    ok, err, errs = fused_compare(torch, {
+        "out": (got["out"], ba.bias_act_reference(y, b, spec, cap), "out"),
+        "dy_y": (gb["dy_y"], r_dyy, "out"),
+        "db": (gb["db"], r_db.view(gb["db"].shape), "sum")})
+    require(ok, f"bias_act period: beyond FUSED_TOL: {errs}")
+    fused_repeat_equal(torch, lambda: {**fwd(), **bwd()}, "bias_act period")
+    y3 = y.view(e, cap, i)
+    t = fused_timing(
+        torch, fwd, lambda: ba.bias_act_reference(y, b, spec, cap),
+        lambda: torch.nn.functional.gelu(y3 + b, approximate="tanh"),
+        MOE_ITERS)
+    t["bwd_ms"] = cuda_ms(torch, bwd, MOE_ITERS)
+    t["bound_ms"], t["bound_by"] = bound(0, nbytes(y, b, got["out"]),
+                                         "float32")
+    t["bwd_bound_ms"], _ = bound(0, nbytes(y, b, dy, gb["dy_y"], gb["db"]),
+                                 "float32")
+    return {"max_abs_err": err, "errs": errs,
+            "case": "y (8192, 14336) bf16 + b (16, 1, 14336), period 512, "
+                    "GELU tanh; library: F.gelu(y + b, tanh) on (E, C, I)",
+            **t}
+
+
+def moe_check(torch, planted) -> dict:
+    """K9 and K6's bias period against their plain versions (see
+    check_moe_route, check_bias_period); a planted combine that skips each
+    token's second route must fail."""
+    from paddle_tpu_torch.ops import bias_act as ba
+    from paddle_tpu_torch.ops import moe as K9
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {"moe_route": check_moe_route(torch, K9, planted["moe"], gen),
+            "bias_act_period": check_bias_period(torch, ba, gen)}
+    emit({"phase": "moe_check", "seconds": time.monotonic() - t0, **rows})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_expert(torch, h: int, i: int, device, dtype=None):
+    """The JAX package's expert shape: Linear(h, i) -> GELU -> Linear(i, h),
+    the bias and GELU in K6."""
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.ops import nn_ops
+
+    class Expert(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = Linear(h, i, device=device, dtype=dtype)
+            self.fc2 = Linear(i, h, device=device, dtype=dtype)
+
+        def forward(self, x):
+            return self.fc2(nn_ops.linear(x, self.fc1.weight, self.fc1.bias,
+                                          activation="gelu"))
+    return Expert()
+
+
+def moe_block(torch, h: int, i: int, e: int, device, seed: int,
+              dtype=None):
+    """The pre-LN MoE block: LayerNorm -> MoELayer(GShardGate, top-2, e
+    experts) -> residual; weights normal(0, 0.02) and the gate
+    Xavier-uniform from ``seed``, biases 0."""
+    from paddle_tpu_torch.incubate.moe import MoELayer
+    from paddle_tpu_torch.nn import LayerNorm
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.norm = LayerNorm(h, device=device, dtype=dtype)
+            experts = [moe_expert(torch, h, i, device, dtype)
+                       for _ in range(e)]
+            for ex in experts:
+                for lin in (ex.fc1, ex.fc2):
+                    lin.reset_parameters(g)
+            self.moe = MoELayer(h, experts, gate={"type": "gshard",
+                                                  "top_k": 2},
+                                device=device, dtype=dtype, generator=g)
+
+        def forward(self, x):
+            return x + self.moe(self.norm(x))
+    return Block()
+
+
+def moe_optimizer(block, gate_lr: float = 0.5):
+    """AdamW on the multi-tensor path, two parameter groups (the gate and
+    norm at ``gate_lr`` of the LR, the experts), no decay on biases and
+    norms."""
+    from paddle_tpu_torch.optimizer import AdamW, set_parameter_names
+    set_parameter_names(block)
+    groups = [{"params": list(block.norm.parameters())
+               + list(block.moe.gate.parameters()),
+               "learning_rate": gate_lr},
+              {"params": list(block.moe.experts.parameters())}]
+    return AdamW(learning_rate=1e-4, parameters=groups, weight_decay=0.01,
+                 use_multi_tensor=True,
+                 apply_decay_param_fun=lambda n: not (
+                     n.endswith("bias") or n.startswith("norm.")))
+
+
+def digest(torch, t) -> int:
+    """A position-weighted integer sum of ``t``'s bits (chunked): equal
+    tensors give equal digests."""
+    v = t.detach().reshape(-1)
+    v = v.view(torch.int16 if v.element_size() == 2 else torch.int32)
+    total = 0
+    for off in range(0, v.numel(), 1 << 26):
+        c = v[off:off + (1 << 26)].long()
+        w = torch.arange(off, off + c.numel(), device=c.device) % 65521 + 1
+        total += int((c * w).sum())
+    return total
+
+
+def drop_aux_graph(moe):
+    """Keep ``l_aux`` detached once the step's backward has run: the live
+    tensor holds the step's autograd graph, whose gradient accumulators a
+    later capture cannot record (``jit.capture_step``'s docstring)."""
+    moe.l_aux = moe.gate.l_aux = moe.l_aux.detach()
+    return moe.l_aux
+
+
+def moe_state(block, opt) -> list:
+    fs = opt._flat
+    return [fs.master, fs.m, fs.v, fs.param, opt._step_t]
+
+
+def train_moe_jamba2(torch, card) -> dict:
+    """``train_moe_jamba2``: the pre-LN MoE block at Jamba2-Mini's expert
+    widths (about 1.88 B parameters), AMP O2 bf16, multi-tensor AdamW in
+    two groups, 4 x 2048 tokens; eager steps, then the same step captured
+    (``jit.capture_step``): the replay must be bit-equal to the eager step
+    on the same inputs (state put back from a host copy between them)."""
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.ops import multi_tensor_adam as mta
+    h, i, e, k = (JAMBA2[n] for n in ("hidden", "inter", "experts", "top_k"))
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    block = moe_block(torch, h, i, e, "cuda", seed=21)
+    n_params = sum(p.numel() for p in block.parameters())
+    opt = moe_optimizer(block)
+    block, opt = amp.decorate(block, opt, level="O2", dtype="bfloat16")
+    init_s = time.monotonic() - t0
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    tokens = MOE_BATCH * MOE_SEQ
+    xs = [torch.randn(MOE_BATCH, MOE_SEQ, h, device="cuda", generator=gen
+                      ).bfloat16() for _ in range(MOE_WARM + MOE_TIMED)]
+    target = torch.randn(MOE_BATCH, MOE_SEQ, h, device="cuda",
+                         generator=gen) * 0.5
+
+    def fwd_bwd(x):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            out = block(x)
+        aux = block.moe.l_aux
+        loss = (out.float() - target).square().mean() + 0.01 * aux
+        loss.backward()
+        return loss.detach(), drop_aux_graph(block.moe)
+
+    def update():
+        opt.step()
+        opt.clear_grad()
+    counters = moe_path_counters()
+    reset_counts(counters)
+    stop = sample_card()
+    times, losses = [], []
+    for j, x in enumerate(xs):
+        torch.cuda.synchronize()
+        ts = time.monotonic()
+        loss, aux = fwd_bwd(x)
+        update()
+        torch.cuda.synchronize()
+        if j >= MOE_WARM:
+            times.append(time.monotonic() - ts)
+        losses.append(float(loss))
+    clocks = stop()
+    eager_launches = counts_of(counters)
+    steps = len(xs)
+    want = {"moe_dispatch": 2 * steps, "moe_combine": 2 * steps,
+            "bias_act": 2 * e * steps, "fused_norm": 2 * steps,
+            "multi_tensor_adam": steps}
+    require(all(eager_launches.get(n, 0) == c for n, c in want.items()),
+            f"train_moe_jamba2: launches {eager_launches}, want {want}")
+    require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+        routes, _, _ = block.moe.gate.route(block.norm(xs[-1]).reshape(-1, h))
+        dropped = float((routes.slot < 0).float().mean())
+    mem = memory_gb(torch)
+    p50 = statistics.median(times)
+    routed_flops = 12 * h * i * k * tokens    # k T rows, both products, f+b
+    eager_calls = profile_call(torch, lambda: (fwd_bwd(xs[0]), update()))
+
+    # the captured step against the eager step on the same inputs
+    x = xs[0]
+    state = moe_state(block, opt)
+    saved = [s.detach().cpu() for s in state]
+
+    def restore():
+        with torch.no_grad():
+            for s, c in zip(state, saved):
+                s.copy_(c, non_blocking=False)
+        torch.cuda.synchronize()
+
+    def digests(loss):
+        return [digest(torch, loss.float())] + [digest(torch, s)
+                                                 for s in state]
+    loss_e, _ = fwd_bwd(x)
+    update()
+    d_eager = digests(loss_e)
+    restore()
+    step = captured_step(jit, fwd_bwd, "auto", update_fn=update,
+                         clear_fn=opt.clear_grad)
+    loss_w, _ = step(x)                     # warm-up: the real step, eager
+    d_warm = digests(loss_w)
+    restore()
+    reset_counts(counters)
+    loss_r, _ = step(x)                     # the replay
+    torch.cuda.synchronize()
+    d_replay = digests(loss_r)
+    replay_launches = counts_of(counters)
+    require(step.stats["hits"] == 1 and step.stats["retraces"] == 1,
+            f"train_moe_jamba2 captured: {step.stats}")
+    require(d_replay == d_eager and d_warm == d_eager,
+            f"train_moe_jamba2: replay not bit-equal to the eager step "
+            f"(loss, master, m, v, param, step: {d_eager} {d_warm} "
+            f"{d_replay})")
+    require(replay_launches == {n: c // steps for n, c in want.items()},
+            f"train_moe_jamba2 replay launches {replay_launches}")
+    rtimes = []
+    for xr in xs[1:]:
+        torch.cuda.synchronize()
+        ts = time.monotonic()
+        step(xr)
+        torch.cuda.synchronize()
+        rtimes.append(time.monotonic() - ts)
+    replay_calls = profile_call(torch, lambda: step(xs[1]))
+    mem_c = memory_gb(torch)
+    r50 = statistics.median(rtimes)
+    row = {"phase": "train_moe_jamba2", "card": card,
+           "config": {**JAMBA2, "batch": MOE_BATCH, "seq": MOE_SEQ,
+                      "capacity": block.moe.gate.capacity(tokens),
+                      "source": "ai21labs/AI21-Jamba2-Mini config.json "
+                                "(widths, experts, top-2)"},
+           "params": n_params, "init_s": init_s,
+           "free_gb_at_start": free_gb,
+           "eager": {"step_s_p50": p50, "step_s": times,
+                     "tokens_per_s": tokens / p50,
+                     "mfu_routed": routed_flops / p50 / PEAK_OPS_PER_S[
+                         "bfloat16"],
+                     "host_launch_calls": eager_calls["host_launch_calls"],
+                     "device_kernels": eager_calls["device_kernels"],
+                     "launches": eager_launches},
+           "captured": {"step_s_p50": r50, "step_s": rtimes,
+                        "tokens_per_s": tokens / r50,
+                        "mfu_routed": routed_flops / r50 / PEAK_OPS_PER_S[
+                            "bfloat16"],
+                        "host_launch_calls": replay_calls[
+                            "host_launch_calls"],
+                        "device_kernels": replay_calls["device_kernels"],
+                        "launches_per_replay": replay_launches,
+                        "replay_bit_equal_to_eager": True},
+           "mfu_note": "MFU over routed tokens: k T = 16384 rows through "
+                       "both expert products, forward and backward; the "
+                       "capacity padding (24576 slots) is not counted",
+           "losses": losses, "aux_loss": float(aux),
+           "dropped_route_share": dropped, **mem,
+           "captured_peak_mem_gb": mem_c["peak_mem_gb"],
+           "captured_peak_reserved_gb": mem_c["peak_reserved_gb"],
+           "card_during_steps": clocks,
+           "seconds": time.monotonic() - t0}
+    emit(row)
+    del step, block, opt, saved, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": eager_launches, "replay": replay_launches}
+
+
+def ec_moe_jamba2(torch, card) -> dict:
+    """``FusedEcMoe`` at H 4096, I 14336, 16 experts, 8192 tokens (C =
+    512), GELU tanh, bf16: one forward and backward counted (K9, K6), then
+    timed beside the bound of its two grouped products."""
+    from paddle_tpu_torch.incubate import nn as inn
+    h, i, e = (JAMBA2[n] for n in ("hidden", "inter", "experts"))
+    t0 = time.monotonic()
+    tokens = MOE_BATCH * MOE_SEQ
+    g = torch.Generator(device="cuda").manual_seed(31)
+    layer = inn.FusedEcMoe(h, i, e, "gelu", device="cuda",
+                           dtype=torch.bfloat16, generator=g)
+    x = torch.randn(MOE_BATCH, MOE_SEQ, h, device="cuda",
+                    generator=g).bfloat16().requires_grad_()
+    gate = torch.randn(MOE_BATCH, MOE_SEQ, e, device="cuda",
+                       generator=g).bfloat16().requires_grad_()
+    dout = torch.randn(MOE_BATCH, MOE_SEQ, h, device="cuda",
+                       generator=g).bfloat16()
+    counters = moe_path_counters()
+    reset_counts(counters)
+    out = layer(x, gate)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    launches = counts_of(counters)
+    require(launches == {"moe_dispatch": 2, "moe_combine": 2, "bias_act": 2},
+            f"ec_moe_jamba2 launches {launches}")
+    require(bool(torch.isfinite(out).all()) and all(
+        bool(torch.isfinite(p.grad).all()) for p in layer.parameters()),
+        "ec_moe_jamba2: a non-finite output or gradient")
+
+    def fwd():
+        with torch.no_grad():
+            layer(x, gate)
+
+    def fwd_bwd():
+        layer(x, gate).backward(dout)
+    fwd_ms = cuda_ms(torch, fwd, MOE_ITERS)
+    fb_ms = cuda_ms(torch, fwd_bwd, MOE_ITERS)
+    flops = 4 * tokens * h * i
+    row = {"phase": "ec_moe_jamba2", "card": card,
+           "config": {"hidden": h, "inter": i, "experts": e,
+                      "tokens": tokens, "capacity": tokens // e,
+                      "act": "gelu (tanh)", "dtype": "bfloat16"},
+           "launches": launches, "fwd_ms": fwd_ms,
+           "fwd_bound_ms": flops / PEAK_OPS_PER_S["bfloat16"] * 1e3,
+           "fwd_bound_by": "operations (4 T H I, the two grouped products)",
+           "fwd_bwd_ms": fb_ms,
+           "fwd_bwd_bound_ms": 3 * flops / PEAK_OPS_PER_S["bfloat16"] * 1e3,
+           **memory_gb(torch), "seconds": time.monotonic() - t0}
+    emit(row)
+    del layer, x, gate, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def grads_of(module) -> dict:
+    return {n: p.grad for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def moe_vs_cpu(torch) -> None:
+    """A narrow MoE block (H 256, I 512, 8 experts, 2 x 64 tokens) and an
+    EC-MoE from one seed, fp32, on the card (kernels) and on the CPU (plain
+    versions): outputs, aux loss and gradients within MOE_CPU_RTOL of each
+    tensor's largest element. The block again on the card with its gate
+    behind a dense-only object: K9 launched, output equal to the routed
+    gate's."""
+    from paddle_tpu_torch.incubate import nn as inn
+    t0 = time.monotonic()
+    h, i, e = 256, 512, 8
+    errs = {}
+
+    def close(name, a, b):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        err = float((a - b).abs().max())
+        errs[name] = err
+        require(err <= MOE_CPU_RTOL * max(float(b.abs().max()), 1e-12),
+                f"moe_vs_cpu: {name} off by {err}")
+    x = torch.randn(2, 64, h, generator=torch.Generator().manual_seed(40))
+    w = torch.randn(2, 64, h, generator=torch.Generator().manual_seed(41))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        blk = moe_block(torch, h, i, e, "cpu", seed=42).to(dev)
+        xd = x.to(dev, copy=True).requires_grad_()
+        out = blk(xd)
+        ((out * w.to(dev)).sum() + blk.moe.l_aux).backward()
+        outs[dev] = (out, blk.moe.l_aux, xd.grad, grads_of(blk))
+    (oc, ac, xc, gc_), (op, ap, xp, gp) = outs["cuda"], outs["cpu"]
+    close("moe_out", oc, op)
+    close("moe_aux", ac, ap)
+    close("moe_dx", xc, xp)
+    for n in gp:
+        close(f"moe_grad.{n}", gc_[n], gp[n])
+    # a gate object with only the dense contract (no ``route``): its
+    # tensors become K9's table on the card and take the same kernels
+    from paddle_tpu_torch.ops import moe as k9
+
+    class DenseOnly(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, t):
+            return self.inner(t)
+    blk = moe_block(torch, h, i, e, "cpu", seed=42).to("cuda")
+    blk.moe.gate = DenseOnly(blk.moe.gate)
+    before = (k9.launches_dispatch.count, k9.launches_combine.count)
+    xd = x.to("cuda", copy=True).requires_grad_()
+    out = blk(xd)
+    ((out * w.cuda()).sum() + blk.moe.l_aux).backward()
+    got = (k9.launches_dispatch.count - before[0],
+           k9.launches_combine.count - before[1])
+    require(got == (2, 2), f"moe_vs_cpu: a dense gate launched K9 {got}")
+    require(torch.equal(out, oc), "moe_vs_cpu: the dense gate's output "
+            "differs from the routed gate's on the card")
+    close("dense_gate_out", out, op)
+    close("dense_gate_dx", xd.grad, xp)
+    for n, t in grads_of(blk).items():
+        n = n.replace("gate.inner.", "gate.")
+        close(f"dense_gate_grad.{n}", t, gp[n])
+    g = torch.randn(2, 64, e, generator=torch.Generator().manual_seed(43))
+    for dev in ("cuda", "cpu"):
+        layer = inn.FusedEcMoe(h, i, e, device="cpu",
+                               generator=torch.Generator().manual_seed(44))
+        layer = layer.to(dev)
+        xd = x.to(dev, copy=True).requires_grad_()
+        gd = g.to(dev, copy=True).requires_grad_()
+        out = layer(xd, gd)
+        (out * w.to(dev)).sum().backward()
+        outs[dev] = (out, xd.grad, gd.grad, grads_of(layer))
+    (oc, xc, gc2, pc), (op, xp, gp2, pp) = outs["cuda"], outs["cpu"]
+    close("ec_out", oc, op)
+    close("ec_dx", xc, xp)
+    close("ec_dgate", gc2, gp2)
+    for n in pp:
+        close(f"ec_grad.{n}", pc[n], pp[n])
+    emit({"phase": "moe_vs_cpu", "rtol_of_max": MOE_CPU_RTOL,
+          "max_abs_err": errs, "seconds": time.monotonic() - t0})
+
+
+def grad_scaler_check(torch) -> dict:
+    """``amp.GradScaler`` in an fp16 O1 step of the narrow MoE block, eager
+    and captured, over three batches, the second with an ``inf``: that step
+    is skipped and the scale halved on both paths, and the two end with
+    the same parameters."""
+    from paddle_tpu_torch import amp, jit
+    t0 = time.monotonic()
+    h, i, e = 256, 512, 8
+    xs = [torch.randn(2, 64, h, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(50 + j)) for j in range(3)]
+    xs[1][0, 0, 0] = float("inf")
+    runs = {}
+    for path in ("eager", "captured"):
+        blk = moe_block(torch, h, i, e, "cuda", seed=51)
+        opt = moe_optimizer(blk)
+        scaler = amp.GradScaler(init_loss_scaling=2.0 ** 12)
+
+        def fwd_bwd(x, blk=blk, scaler=scaler):
+            with amp.auto_cast(level="O1", dtype="float16"):
+                loss = blk(x).float().square().mean() + 0.01 * blk.moe.l_aux
+            scaler.scale(loss).backward()
+            drop_aux_graph(blk.moe)
+            return loss.detach()
+
+        def update(opt=opt, scaler=scaler):
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+        step = captured_step(jit, fwd_bwd, "auto" if path == "captured"
+                             else "off", update_fn=update,
+                             clear_fn=opt.clear_grad)
+        scales = []
+        for x in xs:
+            step(x)
+            scales.append(scaler.get_loss_scaling())
+        runs[path] = dict(blk=blk, opt=opt, scales=scales, stats=step.stats,
+                          t=opt.t)
+    a, b = runs["eager"], runs["captured"]
+    require(a["t"] == b["t"] == 2, f"grad_scaler: steps {a['t']} {b['t']}")
+    require(a["scales"] == b["scales"] == [4096.0, 2048.0, 2048.0],
+            f"grad_scaler: scales {a['scales']} {b['scales']}")
+    require(b["stats"]["hits"] == 2, f"grad_scaler: {b['stats']}")
+    same = all(torch.equal(p, q) for p, q in zip(a["blk"].parameters(),
+                                                  b["blk"].parameters()))
+    require(same, "grad_scaler: the eager and captured runs differ")
+    row = {"phase": "grad_scaler_check", "scales": a["scales"],
+           "steps_applied": a["t"], "captured_stats": b["stats"],
+           "eager_equals_captured": same,
+           "seconds": time.monotonic() - t0}
+    emit(row)
+    return row
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     import torch
@@ -5549,6 +6298,11 @@ def main() -> int:
     path_launches.update({k: {e: n for e, n in v.items()
                               if e != "multi_tensor_adam"}
                           for k, v in captured_launches.items()})
+    moe_rows = moe_check(torch, planted)
+    moe_launches = train_moe_jamba2(torch, smi)
+    ec_launches = ec_moe_jamba2(torch, smi)
+    moe_vs_cpu(torch)
+    grad_scaler_check(torch)
 
     k1 = next(r for r in flash_rows if r["case"] == "causal_1000_ragged")
     k2 = next(r for r in paged_rows if r["case"] == "bf16_h32")
@@ -5676,6 +6430,45 @@ def main() -> int:
          **{key: ernie_rows[k][key] for key in ernie_rows[k]
             if key.startswith("bwd_")}}
         for k in ERNIE_OP_KERNELS
+    ] + [
+        {"name": k, "route": "cuda", "source": "paddle_tpu_torch/csrc/moe.cu",
+         "replaces": MOE_REPLACES[k], "replaces_pallas_call": False,
+         "note": "the port's own kernel (K9), forward and backward: the JAX "
+                 "package routes with one-hot einsums (moe.py:75-77) and a "
+                 "gather and scatter-add (nn.py:230, :236-238), no "
+                 "pallas_call; library_ms is index_select (dispatch) or "
+                 "index_add_ of pre-weighted rows (combine), a yardstick",
+         "launches": moe_launches["launches"][k],
+         "launches_path": "train_moe_jamba2 (6 eager steps)",
+         "launches_per_replay": moe_launches["replay"][k],
+         "launches_ec_moe_jamba2": ec_launches["launches"][k],
+         "max_abs_err": moe_rows["moe_route"]["max_abs_err"],
+         "case": "8192 tokens x 4096, 16 experts, top-2, capacity 1536, "
+                 "bf16 (O2)",
+         **{key: moe_rows["moe_route"]["timing"]["token_choice"][
+             k.replace("moe_", "") + "_fwd"][key] for key in keys},
+         **{f"bwd_{key}": moe_rows["moe_route"]["timing"]["token_choice"][
+             k.replace("moe_", "") + "_bwd"][key] for key in keys},
+         "ec_shapes": {n: moe_rows["moe_route"]["timing"]["expert_choice"][n]
+                       for n in moe_rows["moe_route"]["timing"][
+                           "expert_choice"] if n.startswith(
+                               k.replace("moe_", ""))}}
+        for k in MOE_REPLACES
+    ] + [
+        {"name": "bias_act[period]", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/bias_act.cu",
+         "replaces": "paddle_tpu/incubate/nn.py:231",
+         "replaces_pallas_call": False,
+         "note": "K6 with a bias row period (FusedEcMoe's per-expert b0): "
+                 "the JAX package adds the bias and applies GELU in XLA, no "
+                 "pallas_call",
+         "launches": ec_launches["launches"]["bias_act"],
+         "launches_path": "ec_moe_jamba2 (one forward and backward)",
+         "max_abs_err": moe_rows["bias_act_period"]["max_abs_err"],
+         "case": moe_rows["bias_act_period"]["case"],
+         **{key: moe_rows["bias_act_period"][key] for key in keys},
+         "bwd_ms": moe_rows["bias_act_period"]["bwd_ms"],
+         "bwd_bound_ms": moe_rows["bias_act_period"]["bwd_bound_ms"]},
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,16 @@ of the Llama and ERNIE paths ask :func:`cast_inputs` by their JAX op names
 (the residual adds and dropout included) runs bf16, and RoPE rotates with
 bf16 cos/sin, as in the JAX package. The state is per thread and is carried into
 activation recomputation (:func:`recompute_context`).
+
+:class:`GradScaler` is dynamic loss scaling (``paddle_tpu/amp/__init__.py:
+106-201``) with its state on the device: the scale, the good and bad step
+counts and the found-inf flag are 0-d tensors, ``unscale_`` decides
+found-inf on the device, ``step`` runs the optimizer under a device-side
+gate (``core.step_capture.gated``: a step with a non-finite gradient
+writes nothing and leaves the step count where it was) and ``update``
+moves the scale with ``torch.where``. No call reads the device, so a
+scaled step can be captured as one graph (``jit.capture_step``).
+``get_loss_scaling`` and ``state_dict`` read the state to the host.
 """
 
 from __future__ import annotations
@@ -24,8 +34,8 @@ from typing import FrozenSet, Optional
 
 import torch
 
-__all__ = ["auto_cast", "cast_dtype", "cast_inputs", "decorate",
-           "recompute_context"]
+__all__ = ["GradScaler", "auto_cast", "cast_dtype", "cast_inputs",
+           "decorate", "recompute_context"]
 
 # the JAX package's lists (paddle_tpu/amp/__init__.py)
 WHITE_LIST = frozenset({
@@ -163,3 +173,130 @@ def decorate(models, optimizers=None, level: str = "O2",
             o._use_master_weights = bool(master_weight)
         o._on_params_cast()
     return (models if is_list else model_list[0]), optimizers
+
+
+class GradScaler:
+    """Dynamic loss scaling (parity: ``paddle.amp.GradScaler``), its state
+    on the device (see the module docstring). The state tensors are made on
+    the device of the first loss :meth:`scale` sees."""
+
+    def __init__(self, enable: bool = True, init_loss_scaling: float = 65536.0,
+                 incr_ratio: float = 2.0, decr_ratio: float = 0.5,
+                 incr_every_n_steps: int = 2000,
+                 decr_every_n_nan_or_inf: int = 1,
+                 use_dynamic_loss_scaling: bool = True):
+        self._enable = enable
+        self._init = float(init_loss_scaling)
+        self._incr_ratio = incr_ratio
+        self._decr_ratio = decr_ratio
+        self._incr_every = incr_every_n_steps
+        self._decr_every = decr_every_n_nan_or_inf
+        self._dynamic = use_dynamic_loss_scaling
+        self._scale: Optional[torch.Tensor] = None    # fp32
+        self._good: Optional[torch.Tensor] = None     # int32
+        self._bad: Optional[torch.Tensor] = None      # int32
+        self._found_inf: Optional[torch.Tensor] = None  # bool
+        self._counts = (0, 0)   # good, bad steps before the state exists
+        self._unscaled = False
+
+    def _state(self, device) -> None:
+        if self._scale is None:
+            self._scale = torch.tensor(self._init, dtype=torch.float32,
+                                       device=device)
+            self._good, self._bad = (
+                torch.tensor(n, dtype=torch.int32, device=device)
+                for n in self._counts)
+            self._found_inf = torch.zeros((), dtype=torch.bool,
+                                          device=device)
+
+    def is_enable(self) -> bool:
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self) -> bool:
+        return self._dynamic
+
+    def get_loss_scaling(self) -> float:
+        """The current scale (a host read)."""
+        return self._init if self._scale is None else float(self._scale)
+
+    def scale(self, loss: torch.Tensor) -> torch.Tensor:
+        if not self._enable:
+            return loss
+        self._state(loss.device)
+        return loss * self._scale
+
+    @torch.no_grad()
+    def _unscale_grads(self, optimizer) -> None:
+        grads = [p.grad for p in optimizer._params if p.grad is not None]
+        if grads:
+            self._state(grads[0].device)
+            torch._foreach_mul_(grads, 1.0 / self._scale)
+            finite = torch.stack([torch.isfinite(g).all() for g in grads])
+            self._found_inf.copy_(~finite.all())
+        elif self._found_inf is not None:
+            self._found_inf.fill_(False)
+        self._unscaled = True
+
+    def unscale_(self, optimizer) -> None:
+        if self._enable and not self._unscaled:
+            self._unscale_grads(optimizer)
+
+    def step(self, optimizer) -> None:
+        """Unscale (once a step) and run ``optimizer.step()`` gated on a
+        finite gradient, decided on the device."""
+        if not self._enable:
+            optimizer.step()
+            return
+        if not self._unscaled:
+            self._unscale_grads(optimizer)
+        if self._found_inf is None:      # no gradient at all
+            optimizer.step()
+        else:
+            from ..core import step_capture
+            outer = step_capture.current_gate()
+            ok = ~self._found_inf
+            with step_capture.gated(ok if outer is None else outer & ok):
+                optimizer.step()
+        self._unscaled = False
+
+    @torch.no_grad()
+    def update(self) -> None:
+        if not (self._enable and self._dynamic) or self._scale is None:
+            return
+        found = self._found_inf
+        bad = torch.where(found, self._bad + 1, 0)
+        good = torch.where(found, 0, self._good + 1)
+        dec = found & (bad >= self._decr_every)
+        inc = ~found & (good >= self._incr_every)
+        self._scale.copy_(torch.where(
+            dec, torch.clamp(self._scale * self._decr_ratio, min=1.0),
+            torch.where(inc, self._scale * self._incr_ratio, self._scale)))
+        self._bad.copy_(torch.where(dec, 0, bad))
+        self._good.copy_(torch.where(inc, 0, good))
+
+    def minimize(self, optimizer, scaled_loss) -> None:
+        scaled_loss.backward()
+        self.step(optimizer)
+        self.update()
+
+    def state_dict(self) -> dict:
+        """The JAX package's keys, read to the host."""
+        good, bad = self._counts if self._scale is None else (
+            int(self._good), int(self._bad))
+        return {"scale": self.get_loss_scaling(),
+                "incr_ratio": self._incr_ratio,
+                "decr_ratio": self._decr_ratio,
+                "incr_every_n_steps": self._incr_every,
+                "decr_every_n_nan_or_inf": self._decr_every,
+                "good_steps": good, "bad_steps": bad}
+
+    def load_state_dict(self, state: dict) -> None:
+        scale = float(state.get("scale", self.get_loss_scaling()))
+        counts = (int(state.get("good_steps", 0)),
+                  int(state.get("bad_steps", 0)))
+        if self._scale is None:
+            self._init, self._counts = scale, counts
+            return
+        self._scale.fill_(scale)
+        self._good.fill_(counts[0])
+        self._bad.fill_(counts[1])

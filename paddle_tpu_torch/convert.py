@@ -8,8 +8,11 @@ array: no transpose, no renaming. That holds for Llama and for ERNIE
 ``incubate``'s layers (``FusedLinear``, ``FusedFeedForward``,
 ``FusedMultiHeadAttention`` with its ``(E, 3E)`` ``qkv`` weight,
 ``FusedTransformerEncoderLayer`` under ``inner.``,
-``FusedBiasDropoutResidualLayerNorm``): a JAX layer's ``state_dict`` as
-numpy arrays loads into the port's layer. A ``scan_layers=True`` Llama of
+``FusedBiasDropoutResidualLayerNorm``), and for the Mixture-of-Experts
+layers (``MoELayer``: ``gate.gate_proj.weight`` and ``experts.{i}.*``, the
+experts' own keys; ``FusedEcMoe``: ``w0`` ``(E, H, I)``, ``b0`` ``(E, 1,
+I)``, ``w1`` ``(E, I, H)``, ``b1`` ``(E, 1, H)``): a JAX layer's
+``state_dict`` as numpy arrays loads into the port's layer. A ``scan_layers=True`` Llama of
 the JAX package stacks its decoder layers into ``model.scan_<name>`` arrays of
 shape ``(L, ...)``; :func:`scan_to_layered_state_dict` splits them into the
 per-layer keys the port uses, and :func:`layered_to_scan_state_dict` stacks

@@ -21,6 +21,12 @@
 // partials in a fixed order (8 strided sums of a column's partials, then
 // those 8 in order), so every launch gives the same bits.
 //
+// With a bias row period P (the expert-choice MoE's per-expert bias, b of
+// shape (E, 1, I) over E x C rows: P = C), row r takes bias row r / P, and
+// the backward's row blocks never cross a period, so each bias row's
+// gradient folds its own blocks' partials in the same fixed order; P = 0
+// is one bias row for all rows (the blocks and the fold as without it).
+//
 // Bound: bytes (forward reads y and writes out; backward reads y and dy and
 // writes dy_y). Design: one pass, 8 elements a thread with 16-byte accesses
 // when the rows allow it, else 1.
@@ -42,7 +48,7 @@ struct Args {
   const void *y, *b, *dy;
   void *out, *dyy;
   float* part;
-  long long rows;
+  long long rows, period;  // period: rows a bias row serves (0: all)
   int n, act, y_dt, b_dt, h_dt, a_dt;
 };
 
@@ -96,7 +102,7 @@ __device__ __forceinline__ void pre_act(const Args& a, long long row, int c,
   ldv<V>(a.y, row * a.n + c, a.y_dt, v);
   if (a.b != nullptr) {
     float b[V];
-    ldv<V>(a.b, c, a.b_dt, b);
+    ldv<V>(a.b, (a.period ? row / a.period : 0) * a.n + c, a.b_dt, b);
 #pragma unroll
     for (int j = 0; j < V; ++j) v[j] = rnd(__fadd_rn(v[j], b[j]), a.h_dt);
   }
@@ -118,14 +124,18 @@ __global__ void __launch_bounds__(256) bias_act_fwd_kernel(Args a) {
   stv<V>(a.out, row * a.n + c, a.a_dt, o);
 }
 
-// grid (row blocks of ROWS, column blocks of THREADS * V): dy_y, and each
-// block's fp32 column sums of dy_y into part[row block][column]
+// grid (row blocks of ROWS within each bias period, column blocks of
+// THREADS * V): dy_y, and each block's fp32 column sums of dy_y into
+// part[row block][column]; bpp blocks a period of p rows
 template <int V>
-__global__ void __launch_bounds__(THREADS) bias_act_bwd_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS) bias_act_bwd_kernel(Args a,
+                                                               long long p,
+                                                               int bpp) {
   const int c = (blockIdx.y * THREADS + threadIdx.x) * V;
   if (c >= a.n) return;
-  const long long r0 = (long long)blockIdx.x * ROWS;
-  const long long r1 = min(r0 + ROWS, a.rows);
+  const long long e = blockIdx.x / bpp;
+  const long long r0 = e * p + (long long)(blockIdx.x % bpp) * ROWS;
+  const long long r1 = min(min(r0 + ROWS, e * p + p), a.rows);
   float acc[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[j] = 0.f;
@@ -148,14 +158,18 @@ __global__ void __launch_bounds__(THREADS) bias_act_bwd_kernel(Args a) {
   }
 }
 
-// db[c] = rnd(sum of the row blocks' partials, b's dtype): a block of 256
-// threads takes 32 columns; its 8 warps each sum the partials i = w, w + 8,
-// ... of their column in order, and warp 0 adds the 8 sums in order
+// db[e, c] = rnd(sum of bias row e's row blocks' partials, b's dtype): a
+// block of 256 threads takes 32 columns of one bias row (grid.y); its 8
+// warps each sum the partials i = w, w + 8, ... of their column in order,
+// and warp 0 adds the 8 sums in order
 __global__ void __launch_bounds__(256) bias_act_fold_kernel(
     const float* __restrict__ part, void* db, int blocks, int n, int b_dt) {
   __shared__ float sums[8][32];
   const int tx = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + tx;
+  part += (long long)blockIdx.y * blocks * n;
+  db = static_cast<char*>(db) +
+       (long long)blockIdx.y * n * (b_dt == F32 ? 4 : 2);
   float s = 0.f;
   if (c < n)
     for (int i = w; i < blocks; i += 8)
@@ -172,12 +186,14 @@ __global__ void __launch_bounds__(256) bias_act_fold_kernel(
 
 }  // namespace
 
+// period: rows a bias row serves (b holds rows / period bias rows), 0: one
+// bias row for all rows
 extern "C" int bias_act_fwd(const void* y, const void* b, void* out,
-                            long long rows, int n, int act, int y_dt,
-                            int b_dt, int h_dt, int a_dt, int vec,
+                            long long rows, long long period, int n, int act,
+                            int y_dt, int b_dt, int h_dt, int a_dt, int vec,
                             void* stream) {
-  Args a{y, b, nullptr, out, nullptr, nullptr, rows, n, act, y_dt, b_dt,
-         h_dt, a_dt};
+  Args a{y, b, nullptr, out, nullptr, nullptr, rows, period, n, act, y_dt,
+         b_dt, h_dt, a_dt};
   const long long threads = rows * (n / vec);
   if (threads == 0) return cudaSuccess;
   const unsigned grid = (unsigned)((threads + 255) / 256);
@@ -189,25 +205,29 @@ extern "C" int bias_act_fwd(const void* y, const void* b, void* out,
   return cudaGetLastError();
 }
 
-// part: fp32 scratch of ceil(rows / 16) x n (ops/bias_act.py ROWS; unused
-// without b)
+// part: fp32 scratch of (rows / p) x ceil(p / 16) x n, p = period or rows
+// (ops/bias_act.py ROWS; unused without b); db (rows / p, n)
 extern "C" int bias_act_bwd(const void* y, const void* b, const void* dy,
                             void* dyy, float* part, void* db, long long rows,
-                            int n, int act, int y_dt, int b_dt, int h_dt,
-                            int a_dt, int vec, void* stream) {
+                            long long period, int n, int act, int y_dt,
+                            int b_dt, int h_dt, int a_dt, int vec,
+                            void* stream) {
   if (rows == 0 || n == 0) return cudaSuccess;
-  Args a{y, b, dy, nullptr, dyy, b != nullptr ? part : nullptr, rows, n, act,
-         y_dt, b_dt, h_dt, a_dt};
-  const unsigned blocks = (unsigned)((rows + ROWS - 1) / ROWS);
-  const dim3 grid(blocks, (unsigned)((n / vec + THREADS - 1) / THREADS));
+  Args a{y, b, dy, nullptr, dyy, b != nullptr ? part : nullptr, rows, period,
+         n, act, y_dt, b_dt, h_dt, a_dt};
+  const long long p = period ? period : rows;
+  const int bpp = (int)((p + ROWS - 1) / ROWS);
+  const unsigned bias_rows = (unsigned)((rows + p - 1) / p);
+  const dim3 grid(bias_rows * bpp,
+                  (unsigned)((n / vec + THREADS - 1) / THREADS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 8)
-    bias_act_bwd_kernel<8><<<grid, THREADS, 0, st>>>(a);
+    bias_act_bwd_kernel<8><<<grid, THREADS, 0, st>>>(a, p, bpp);
   else
-    bias_act_bwd_kernel<1><<<grid, THREADS, 0, st>>>(a);
+    bias_act_bwd_kernel<1><<<grid, THREADS, 0, st>>>(a, p, bpp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || b == nullptr) return err;
-  bias_act_fold_kernel<<<(n + 31) / 32, 256, 0, st>>>(part, db, (int)blocks,
-                                                      n, b_dt);
+  bias_act_fold_kernel<<<dim3((n + 31) / 32, bias_rows), 256, 0, st>>>(
+      part, db, bpp, n, b_dt);
   return cudaGetLastError();
 }

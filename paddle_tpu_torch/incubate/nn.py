@@ -11,7 +11,10 @@ with 0 on that device), biases 0, norms 1 and 0.
 ``FusedMultiTransformer`` (``:274``) is the pre-LN decoder stack of the
 fused inference path: prefill on the flash kernels, decode over a list of
 caches, a stacked dense cache or the paged pool (the paged decode kernel).
-The MoE layers are not ported (ROADMAP Queue A)."""
+``FusedEcMoe`` (``:181``) is the expert-choice MoE over
+``functional.fused_ec_moe``; ``FusedMoELayer`` (``:147``) builds
+``incubate.moe.MoELayer`` as the reference does, which raises the
+reference's ``TypeError`` (``MoELayer`` wants ``experts``)."""
 
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ def _init_linears(module: nn.Module, device,
 
 
 __all__ = ["FusedBiasDropoutResidualLayerNorm", "FusedDropoutAdd",
-           "FusedFeedForward", "FusedLinear", "FusedMultiHeadAttention",
+           "FusedEcMoe", "FusedFeedForward", "FusedLinear",
+           "FusedMoELayer", "FusedMultiHeadAttention",
            "FusedMultiTransformer", "FusedTransformerEncoderLayer",
            "functional", "memory_efficient_attention"]
 
@@ -255,6 +259,63 @@ class FusedBiasDropoutResidualLayerNorm(nn.Module):
 _FMT_TAGS = ("ln_scale", "ln_bias", "qkv_w", "qkv_b", "out_w", "out_b",
              "ffn_ln_scale", "ffn_ln_bias", "ffn1_w", "ffn1_b", "ffn2_w",
              "ffn2_b")
+
+
+class FusedMoELayer(nn.Module):
+    """Parity: ``incubate.nn.FusedMoELayer``. As in the reference, it
+    hands ``MoELayer`` ``hidden_size`` and ``num_experts`` where that wants
+    ``experts``: construction raises ``TypeError``."""
+
+    def __init__(self, d_model, dim_feedforward, num_experts, top_k=2,
+                 **kwargs):
+        super().__init__()
+        from .moe import MoELayer
+        self.inner = MoELayer(d_model=d_model, hidden_size=dim_feedforward,
+                              num_experts=num_experts, top_k=top_k)
+
+    def forward(self, x):
+        return self.inner(x)
+
+
+class FusedEcMoe(nn.Module):
+    """Expert-choice MoE layer (``forward(x, gate)``: the caller's gate
+    LOGITS ``(B, S, E)``; the layer owns the expert weights ``w0`` ``(E,
+    H, I)``, ``b0`` ``(E, 1, I)``, ``w1`` ``(E, I, H)``, ``b1`` ``(E, 1,
+    H)``), over ``functional.fused_ec_moe``. Weights start Xavier-uniform
+    over each expert's ``(in, out)`` from ``generator`` (by default one
+    seeded with 0) on ``device``, biases 0. ``act_type`` other than
+    ``gelu`` / ``relu``, or ``weight_attr`` / ``bias_attr`` False, raise
+    ``ValueError`` as in the reference."""
+
+    def __init__(self, hidden_size, inter_size, num_experts, act_type="gelu",
+                 weight_attr=None, bias_attr=None, *, device=None,
+                 dtype=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if act_type not in ("gelu", "relu"):
+            raise ValueError("act_type must be gelu or relu")
+        if weight_attr is False or bias_attr is False:
+            raise ValueError(
+                "FusedEcMoe requires its expert weights and biases "
+                "(attr=False is not supported)")
+        dev = resolve_device(device)
+        self.num_experts = num_experts
+        self.act_type = act_type
+        kw = dict(device=dev, dtype=dtype)
+        e, h, i = num_experts, hidden_size, inter_size
+        self.w0 = nn.Parameter(torch.empty(e, h, i, **kw))
+        self.b0 = nn.Parameter(torch.zeros(e, 1, i, **kw))
+        self.w1 = nn.Parameter(torch.empty(e, i, h, **kw))
+        self.b1 = nn.Parameter(torch.zeros(e, 1, h, **kw))
+        g = generator if generator is not None else \
+            torch.Generator(device=dev).manual_seed(0)
+        bound = (6.0 / (h + i)) ** 0.5
+        with torch.no_grad():
+            for w in (self.w0, self.w1):
+                w.uniform_(-bound, bound, generator=g)
+
+    def forward(self, x, gate):
+        return functional.fused_ec_moe(x, gate, self.w0, self.b0, self.w1,
+                                       self.b1, self.act_type)
 
 
 class FusedMultiTransformer(nn.Module):

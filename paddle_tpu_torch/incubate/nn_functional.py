@@ -39,8 +39,18 @@ these with CUDA kernels of its own, ``paddle/phi/kernels/fusion/``):
   (``ops/paged_attention.py``) and the in-place token write;
 * ``identity_loss`` and ``blha_get_max_len``: plain PyTorch.
 
-The CPU runs the kernels' plain versions. The MoE op ``fused_ec_moe`` is
-not ported (ROADMAP Queue A).
+* ``fused_ec_moe``: the expert-choice MoE (``:455``, through the JAX
+  package's ``_ec_moe_apply``, ``nn.py:215``): softmax of the gate logits
+  in their dtype (rounded after each step, as XLA rounds a bf16 softmax),
+  each expert's top ``max(T // E, 1)`` tokens (ties to the lower token),
+  the tokens gathered by the dispatch kernel (``ops/moe.py``), the two
+  grouped products in ``torch.bmm``, the per-expert bias and activation in
+  the epilogue kernel with a bias period of C rows (``"gelu"`` is
+  ``jax.nn.gelu``'s default tanh form), and the rows scaled by their gate
+  and summed back into the tokens by the combine kernel in expert order,
+  each add rounded to x's dtype as the JAX package's scatter-add rounds.
+
+The CPU runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -54,15 +64,19 @@ from ..amp import cast_dtype, cast_inputs
 from ..ops import nn_ops
 from ..ops.bias_act import ActSpec, bias_act
 from ..ops.flash_attention import flash_attention
+from ..ops.moe import (CombineSpec, expert_choice_routes, moe_combine,
+                       moe_dispatch)
 from ..ops.fused_norm import NormSpec, fused_norm
 from ..ops.paged_attention import PagedDecodeCache, paged_decode_attention
 from ..ops.rope import rope
 from ..ops.softmax_mask import softmax_mask
 from ..ops.swiglu import swiglu as _swiglu
+from .moe import top_k
 
 __all__ = ["blha_get_max_len", "fused_bias_dropout_residual_layer_norm",
            "fused_dropout_add", "fused_feedforward", "fused_layer_norm",
-           "fused_linear", "fused_linear_activation", "fused_matmul_bias",
+           "fused_ec_moe", "fused_linear", "fused_linear_activation",
+           "fused_matmul_bias",
            "fused_multi_head_attention", "fused_rms_norm",
            "fused_rotary_position_embedding", "identity_loss",
            "masked_multihead_attention", "memory_efficient_attention",
@@ -416,6 +430,57 @@ def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size=None,
                      name=None):
     """``(max(seq_lens_encoder), max(seq_lens_decoder))`` as 0-d tensors."""
     return torch.max(seq_lens_encoder), torch.max(seq_lens_decoder)
+
+
+def _softmax_rounded(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis in x's dtype, each step rounded to it
+    (the max subtracted, exp, the fp32 sum, the quotient), as XLA computes
+    ``jax.nn.softmax`` of a bf16 array; fp32 is the plain softmax."""
+    def rnd(t):
+        return t.to(x.dtype).float()
+    v = x.float()
+    e = rnd(torch.exp(rnd(v - v.amax(-1, keepdim=True))))
+    return rnd(e / rnd(e.sum(-1, keepdim=True))).to(x.dtype)
+
+
+def _ec_moe_apply(x, gate, w0, b0, w1, b1, act: str):
+    """The expert-choice MoE both ``FusedEcMoe`` and :func:`fused_ec_moe`
+    run (see the module docstring)."""
+    x, gate, w0, b0, w1, b1 = cast_inputs("fused_ec_moe", x, gate, w0, b0,
+                                          w1, b1)
+    b, s, h = x.shape
+    t = b * s
+    e = w0.shape[0]
+    cap = max(t // e, 1)
+    probs = _softmax_rounded(gate.reshape(t, -1))
+    weight, sel = top_k(probs.t(), cap)                    # (E, C)
+    routes, perm = expert_choice_routes(sel, t)
+    tokens = x.reshape(t, h)
+    picked = moe_dispatch(tokens, routes, acc_dtype=x.dtype)
+    dt = torch.promote_types(x.dtype, w0.dtype)
+    hid = torch.bmm(picked.view(e, cap, h).to(dt), w0.to(dt))
+    hd = torch.promote_types(hid.dtype, b0.dtype)
+    hid = bias_act(hid, b0, ActSpec("gelu_tanh" if act == "gelu" else "relu",
+                                    hd, hd), period=cap)
+    dt = torch.promote_types(hid.dtype, w1.dtype)
+    y = torch.bmm(hid.to(dt), w1.to(dt))
+    yd = torch.promote_types(y.dtype, b1.dtype)
+    spec = CombineSpec(yd, torch.promote_types(yd, weight.dtype), x.dtype,
+                       x.dtype)
+    out = moe_combine(y.view(e * cap, h), weight.reshape(-1)[perm].float(),
+                      routes, bias=b1.reshape(e, h), spec=spec)
+    return out.view(b, s, h)
+
+
+def fused_ec_moe(x, gate, bmm0_weight, bmm0_bias, bmm1_weight, bmm1_bias,
+                 act_type="gelu", name=None):
+    """Expert-choice MoE: ``x`` ``(B, S, H)``, gate LOGITS ``(B, S, E)``,
+    weights ``(E, H, I)``, ``(E, 1, I)``, ``(E, I, H)``, ``(E, 1, H)``;
+    ``act_type`` ``"gelu"`` (the tanh form) or ``"relu"``."""
+    if act_type not in ("gelu", "relu"):
+        raise ValueError("act_type must be gelu or relu")
+    return _ec_moe_apply(x, gate, bmm0_weight, bmm0_bias, bmm1_weight,
+                         bmm1_bias, act_type)
 
 
 def _paged_mmha(x, cache: PagedDecodeCache):

@@ -15,7 +15,10 @@ JAX package rounds GELU's erf form after each primitive, ROADMAP Queue C).
 Its backward reads the saved ``y`` and ``b`` and recomputes the
 pre-activation (no activation is saved); the bias gradient is summed in
 fp32 per block of 16 rows and the partials folded in a fixed order, so
-every launch gives the same bits.
+every launch gives the same bits. With ``period=P`` the bias holds one row
+for each P rows (the expert-choice MoE's ``(E, 1, I)`` bias over ``E x C``
+rows: P = C), one launch for all of them; the bias gradient has a row for
+each.
 
 :func:`bias_act` runs :func:`bias_act_reference` for CPU tensors (gradients
 by autograd) and the kernel for CUDA tensors; any other device raises.
@@ -42,9 +45,9 @@ ACTS = {"none": 0, "relu": 1, "gelu": 2, "gelu_tanh": 3}
 ROWS = 16   # rows a backward block sums into one partial (csrc ROWS)
 
 _ARGTYPES_OF = {
-    "bias_act_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+    "bias_act_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
     + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    "bias_act_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+    "bias_act_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
     + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
 
@@ -86,22 +89,32 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
     return h
 
 
+def _add_bias(y: torch.Tensor, b: torch.Tensor,
+              period: Optional[int]) -> torch.Tensor:
+    if not period:
+        return y + b
+    n = y.shape[-1]
+    return (y.reshape(-1, period, n) + b.reshape(-1, 1, n)).view(y.shape)
+
+
 def bias_act_reference(y: torch.Tensor, b: Optional[torch.Tensor],
-                       spec: ActSpec) -> torch.Tensor:
+                       spec: ActSpec,
+                       period: Optional[int] = None) -> torch.Tensor:
     """Plain version: ``act((y + b).to(a))``, each op rounding as torch's
-    does."""
-    h = y if b is None else y + b
+    does; with ``period`` row r adds bias row ``r // period``."""
+    h = y if b is None else _add_bias(y, b, period)
     return _act(h.to(spec.a), spec.act)
 
 
-def bias_act_bwd_reference(y, b, dy, spec: ActSpec):
+def bias_act_bwd_reference(y, b, dy, spec: ActSpec,
+                           period: Optional[int] = None):
     """``(dy_y, db)`` of the plain version, by autograd (db None without
     b)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (y, b)
                   if t is not None]
         out = bias_act_reference(leaves[0], leaves[1] if b is not None
-                                 else None, spec)
+                                 else None, spec, period)
         grads = torch.autograd.grad(out, leaves, dy)
     return grads[0], grads[1] if b is not None else None
 
@@ -115,18 +128,31 @@ def _vec(n: int, *ts) -> int:
     return 8 if n % 8 == 0 and aligned16(*ts) else 1
 
 
-def _launch_fwd(y, b, spec: ActSpec, fns=None):
+def _bias_rows(b, rows: int, n: int, period: Optional[int]) -> int:
+    """How many bias rows b must hold, checked against its size."""
+    want = rows // period if period else 1
+    if period and rows % period:
+        raise ValueError(f"bias_act: {rows} rows are not a multiple of the "
+                         f"bias period {period}")
+    if b is not None and b.numel() != want * n:
+        raise ValueError(f"bias_act: bias of {b.numel()} for {want} bias "
+                         f"rows of {n}")
+    return want
+
+
+def _launch_fwd(y, b, spec: ActSpec, period: Optional[int] = None,
+                fns=None):
     dev = cuda_device("bias_act", y, b)
     y, rows, n = _flat(y)
     b = None if b is None else b.contiguous()
-    if b is not None and b.numel() != n:
-        raise ValueError(f"bias_act: bias of {b.numel()} for rows of {n}")
+    _bias_rows(b, rows, n, period)
     out = torch.empty(y.shape, dtype=spec.a, device=dev)
     if rows and n:
         c = functools.partial(dtype_code, what="bias_act")
         with torch.cuda.device(dev):
             err = (fns or _kernels())["bias_act_fwd"](
-                ptr(y), ptr(b), ptr(out), rows, n, ACTS[spec.act], c(y.dtype),
+                ptr(y), ptr(b), ptr(out), rows, period or 0, n,
+                ACTS[spec.act], c(y.dtype),
                 c(None if b is None else b.dtype), c(spec.h), c(spec.a),
                 _vec(n, y, b, out), stream(dev))
         _native.check(err, "bias_act forward kernel launch")
@@ -134,22 +160,27 @@ def _launch_fwd(y, b, spec: ActSpec, fns=None):
     return out
 
 
-def _launch_bwd(y, b, dy, spec: ActSpec, fns=None):
+def _launch_bwd(y, b, dy, spec: ActSpec, period: Optional[int] = None,
+                fns=None):
     """``(dy_y, db)``: the gradients of y and of the bias (None without)."""
     dev = cuda_device("bias_act", y, b, dy)
     y, rows, n = _flat(y)
     dy = dy.contiguous()
     b = None if b is None else b.contiguous()
+    bias_rows = _bias_rows(b, rows, n, period)
+    p = period or rows
     dyy = torch.empty(y.shape, dtype=y.dtype, device=dev)
-    db = None if b is None else torch.empty(n, dtype=b.dtype, device=dev)
+    db = None if b is None else torch.empty(bias_rows * n, dtype=b.dtype,
+                                            device=dev)
     part = None if b is None else torch.empty(
-        ((rows + ROWS - 1) // ROWS, n), dtype=torch.float32, device=dev)
+        (bias_rows * ((p + ROWS - 1) // ROWS), n), dtype=torch.float32,
+        device=dev)
     if rows and n:
         c = functools.partial(dtype_code, what="bias_act")
         with torch.cuda.device(dev):
             err = (fns or _kernels())["bias_act_bwd"](
                 ptr(y), ptr(b), ptr(dy), ptr(dyy), ptr(part), ptr(db), rows,
-                n, ACTS[spec.act], c(y.dtype),
+                period or 0, n, ACTS[spec.act], c(y.dtype),
                 c(None if b is None else b.dtype), c(spec.h), c(spec.a),
                 _vec(n, y, b, dy, dyy), stream(dev))
         _native.check(err, "bias_act backward kernel launch")
@@ -163,25 +194,26 @@ class BiasAct(torch.autograd.Function):
     """The kernel with its backward kernel; saves y and b only."""
 
     @staticmethod
-    def forward(ctx, y, b, spec):
+    def forward(ctx, y, b, spec, period):
         ctx.save_for_backward(y, b)
-        ctx.spec = spec
-        return _launch_fwd(y, b, spec)
+        ctx.spec, ctx.period = spec, period
+        return _launch_fwd(y, b, spec, period)
 
     @staticmethod
     def backward(ctx, dy):
         y, b = ctx.saved_tensors
-        dyy, db = _launch_bwd(y, b, dy, ctx.spec)
-        return dyy, db, None
+        dyy, db = _launch_bwd(y, b, dy, ctx.spec, ctx.period)
+        return dyy, db, None, None
 
 
 def bias_act(y: torch.Tensor, b: Optional[torch.Tensor],
-             spec: ActSpec) -> torch.Tensor:
-    """``act(y + b)`` over y's last axis (b of that length, or None): the
-    plain version for CPU tensors, the kernel for CUDA tensors."""
+             spec: ActSpec, period: Optional[int] = None) -> torch.Tensor:
+    """``act(y + b)`` over y's last axis (b of that length, or None; with
+    ``period``, one bias row for each ``period`` rows of y): the plain
+    version for CPU tensors, the kernel for CUDA tensors."""
     if spec.act not in ACTS:
         raise ValueError(f"activation must be one of {sorted(ACTS)}, got "
                          f"{spec.act!r}")
     if plain_path(y):
-        return bias_act_reference(y, b, spec)
-    return BiasAct.apply(y, b, spec)
+        return bias_act_reference(y, b, spec, period)
+    return BiasAct.apply(y, b, spec, period)

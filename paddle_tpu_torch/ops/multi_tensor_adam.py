@@ -16,7 +16,12 @@ Per element, in place and in ``_fused_step``'s order::
 step's scalars are the device block of ``ops/q8_adam.py`` (``SCALARS``:
 lr, decay = 1 - lr wd, c1, c2, gate, grad_scale), read from memory so that
 a captured graph reads each replay's own; where the gate is 0 nothing is
-written.
+written. With ``tables = (ends, scale, decays)`` (per tensor: the end of
+its slice in the flat buffers, its LR scale, 1 where it decays) each
+tensor's elements take ``lr * scale`` and ``decay = 1 - lr * scale * wd``,
+or no decay where its flag is 0: parameter groups' LR scales, AdamW's
+``lr_ratio`` and ``apply_decay_param_fun``; ``base`` is the flat index of
+the buffers' element 0.
 
 :func:`multi_tensor_adam_update` launches the kernel for CUDA tensors and
 runs :func:`multi_tensor_adam_update_reference` only for CPU tensors.
@@ -41,10 +46,14 @@ launches = _native.LaunchCounter("multi_tensor_adam")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # multi_tensor_adam(master, m, v, param, grad, n, param_dtype, grad_dtype,
 #                   scalars, eps, b1, b2, omb1, omb2, has_wd, grad_scale,
-#                   clip_value, lo, hi, stream)
+#                   clip_value, lo, hi, seg_end, scale, decays, n_seg, base,
+#                   wd, stream)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2 \
     + [ctypes.c_void_p] + [ctypes.c_float] * 5 + [ctypes.c_int] * 3 \
-    + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                      ctypes.c_longlong,
+                                                      ctypes.c_float,
+                                                      ctypes.c_void_p]
 
 
 @functools.cache
@@ -75,7 +84,9 @@ def _check(master, m, v, param, grad, scalars):
 def multi_tensor_adam_update_reference(
         master, m, v, param, grad, *, scalars: torch.Tensor, eps: float,
         beta1: float, beta2: float, has_wd: bool, grad_scale: bool = False,
-        clip_value: Optional[Tuple[float, float]] = None) -> None:
+        clip_value: Optional[Tuple[float, float]] = None,
+        tables: Optional[tuple] = None, base: int = 0,
+        wd: float = 0.0) -> None:
     """Plain version of the update, in place, with the kernel's operations
     in the kernel's order; the gate decided on the device."""
     _check(master, m, v, param, grad, scalars)
@@ -84,6 +95,14 @@ def multi_tensor_adam_update_reference(
     lr, decay, c1, c2, gs = sc[0], sc[1], sc[2], sc[3], sc[5]
     keep = sc[4] == 0.0
     s = lambda x: _scalar(x, dev)  # noqa: E731
+    decays = None
+    if tables is not None:
+        ends, scale, flags = (t.to(dev) for t in tables)
+        j = torch.searchsorted(ends, torch.arange(
+            master.numel(), device=dev) + base, right=True)
+        lr = lr * scale[j]
+        decay = 1.0 - lr * s(wd)
+        decays = flags[j] != 0.0
     g = grad.float()
     if clip_value is not None:
         g = torch.clamp(g, s(clip_value[0]), s(clip_value[1]))
@@ -93,6 +112,8 @@ def multi_tensor_adam_update_reference(
     nv = s(beta2) * v + s(1.0 - beta2) * g * g
     mh, vh = nm / c1, nv / c2
     u = master * decay if has_wd else master
+    if has_wd and decays is not None:
+        u = torch.where(decays, u, master)
     upd = u - (lr * mh) / (torch.sqrt(vh) + s(eps))
     m.copy_(torch.where(keep, m, nm))
     v.copy_(torch.where(keep, v, nv))
@@ -104,14 +125,18 @@ def multi_tensor_adam_update_reference(
 def multi_tensor_adam_update(
         master, m, v, param, grad, *, scalars: torch.Tensor, eps: float,
         beta1: float, beta2: float, has_wd: bool, grad_scale: bool = False,
-        clip_value: Optional[Tuple[float, float]] = None) -> None:
+        clip_value: Optional[Tuple[float, float]] = None,
+        tables: Optional[tuple] = None, base: int = 0,
+        wd: float = 0.0) -> None:
     """One multi-tensor AdamW step in place over flat 1-D buffers of ``n``
     elements: the kernel (CUDA) or its plain version (CPU). ``scalars`` is
     the device block (``SCALARS``); ``grad_scale`` multiplies g by its
     ``grad_scale`` entry (the global-norm clip), ``clip_value = (lo, hi)``
-    clips g (the by-value clip)."""
+    clips g (the by-value clip); ``tables``, ``base`` and ``wd``: the
+    per-tensor LR scales and decay flags (see the module docstring)."""
     kw = dict(scalars=scalars, eps=eps, beta1=beta1, beta2=beta2,
-              has_wd=has_wd, grad_scale=grad_scale, clip_value=clip_value)
+              has_wd=has_wd, grad_scale=grad_scale, clip_value=clip_value,
+              tables=tables, base=base, wd=wd)
     if master.device.type == "cpu":
         multi_tensor_adam_update_reference(master, m, v, param, grad, **kw)
         return
@@ -126,6 +151,15 @@ def multi_tensor_adam_update(
         raise ValueError("multi_tensor_adam: buffers must be contiguous and "
                          "start on a 16-byte boundary")
     lo, hi = clip_value if clip_value is not None else (0.0, 0.0)
+    if tables is not None:
+        ends, scale, flags = tables
+        if ends.dtype != torch.int64 or any(
+                t.device != master.device or not t.is_contiguous()
+                for t in tables) or not (ends.numel() == scale.numel()
+                                         == flags.numel() > 0):
+            raise ValueError("multi_tensor_adam: tables must be contiguous "
+                             "int64 ends and fp32 scales and flags of one "
+                             "length on the buffers' device")
     stream = torch.cuda.current_stream(master.device).cuda_stream
     with torch.cuda.device(master.device):
         err = _kernel()(
@@ -134,6 +168,9 @@ def multi_tensor_adam_update(
             master.numel(), -1 if param is None else _DTYPE_CODES[param.dtype],
             _DTYPE_CODES[grad.dtype], scalars.data_ptr(), eps, beta1, beta2,
             1.0 - beta1, 1.0 - beta2, int(has_wd), int(grad_scale),
-            int(clip_value is not None), lo, hi, stream)
+            int(clip_value is not None), lo, hi,
+            *([None] * 3 if tables is None else
+              [t.data_ptr() for t in tables]),
+            0 if tables is None else tables[0].numel(), base, wd, stream)
     _native.check(err, "multi_tensor_adam kernel launch")
     launches.count += 1

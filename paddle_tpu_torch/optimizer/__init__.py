@@ -42,13 +42,41 @@ memory knobs, gradient clipping (``ClipGradByValue``, ``ClipGradByNorm``,
   keeps an fp32 master for each bf16/fp16 parameter; ``False`` keeps none
   and writes bf16 back with stochastic rounding (``stochastic_rounding``,
   on by default).
-* Under the NaN gate of a captured step (``core.step_capture.gated``) a
-  step whose loss is not finite writes nothing and leaves ``_step_t``
-  where it was, decided on the device.
+* Under the NaN gate of a captured step (``core.step_capture.gated``), or
+  ``amp.GradScaler``'s found-inf gate, a step whose loss or gradients are
+  not finite writes nothing and leaves ``_step_t`` where it was, decided
+  on the device.
+* **Parameter groups** (``_normalize_param_groups``): a list of dicts
+  ``{"params", "learning_rate" (a scale of the LR), "weight_decay",
+  "grad_clip"}``. A group's clip replaces the optimizer's for its
+  parameters; a group's ``weight_decay`` is ``Adam``'s coupled L2 and, as
+  in the reference, has no effect on ``AdamW`` (whose decay is its
+  ``weight_decay`` coefficient). ``AdamW``'s ``lr_ratio(p)`` scales a
+  parameter's LR and ``apply_decay_param_fun(name)`` says whether it
+  decays. A parameter's name is its ``param_name`` attribute where it
+  has one (a torch tensor's ``name`` is read-only; :func:`set_parameter_names`
+  gives each parameter of a module its state-dict key), else
+  ``param_<i>``, its place in the optimizer's list; ``apply_decay_param_fun``
+  raises unless every parameter has a ``param_name``. Names, LR scales and
+  decay flags are read once, when the optimizer is built, for both paths
+  (a JAX parameter's name is fixed when it is made).
+  On the per-parameter path a parameter with another LR scale or no decay
+  takes its own block of scalars (``lr * scale``, ``1 - lr * scale * wd``);
+  on the multi-tensor path the scales and decay flags are per-tensor
+  tables the kernel reads. A group with its own clip or weight decay, and
+  an optimizer-level ``ClipGradByGlobalNorm`` over more than one group
+  (each group is clipped by its own norm), take the per-parameter path,
+  as the reference's fusable test does.
+* ``state_dict`` / ``set_state_dict`` with the JAX package's keys:
+  ``step``, ``LR_Scheduler``, ``<name>_<accumulator>`` (``moment1``,
+  ``moment2``, or the int8 layout's four) and ``master_weights`` ``{name:
+  fp32 master}`` for low-precision parameters; the multi-tensor layout
+  exposes per-parameter views of its flat buffers, as there. Values load
+  from tensors or numpy arrays, so a state saved by either package loads
+  in the other.
 
-Not ported (they raise): parameter groups, ``lazy_mode``,
-``apply_decay_param_fun``, ``lr_ratio``, bf16 moments and the master-free
-multi-tensor layout; ``state_dict``.
+Not ported (they raise): ``lazy_mode``, bf16 moments and the master-free
+multi-tensor layout.
 """
 
 from __future__ import annotations
@@ -66,7 +94,7 @@ from . import lr as lr_mod
 from .lr import LRScheduler
 
 __all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "Optimizer", "lr"]
+           "ClipGradByValue", "Optimizer", "lr", "set_parameter_names"]
 
 lr = lr_mod
 
@@ -143,13 +171,53 @@ class ClipGradByGlobalNorm(_ClipBase):
                 for p, g in params_grads]
 
 
+def _normalize_param_groups(parameters) -> List[dict]:
+    """A flat parameter list, or paddle-style group dicts ``{'params',
+    'learning_rate' (scale), 'weight_decay', 'grad_clip'}``, as groups."""
+    plist = list(parameters)
+    if plist and isinstance(plist[0], dict):
+        groups = [{"params": list(g["params"]),
+                   "learning_rate": g.get("learning_rate", 1.0),
+                   "weight_decay": g.get("weight_decay", None),
+                   "grad_clip": g.get("grad_clip", None)} for g in plist]
+    else:
+        groups = [{"params": plist, "learning_rate": 1.0,
+                   "weight_decay": None, "grad_clip": None}]
+    for g in groups:
+        if g["grad_clip"] is not None and not isinstance(g["grad_clip"],
+                                                         _ClipBase):
+            raise TypeError(f"a group's grad_clip must be a ClipGradBy* "
+                            f"object, got {type(g['grad_clip']).__name__}")
+    return groups
+
+
+def set_parameter_names(module: torch.nn.Module, prefix: str = "") -> None:
+    """Give each parameter of ``module`` its state-dict key (after
+    ``prefix``) as its ``param_name``: the name ``apply_decay_param_fun``
+    sees and the optimizer's ``state_dict`` keys carry."""
+    for n, p in module.named_parameters():
+        p.param_name = prefix + n
+
+
+def _load(src, like: torch.Tensor) -> torch.Tensor:
+    """A state-dict value (tensor or numpy array, bf16 included) as a
+    tensor of ``like``'s dtype, shape and device."""
+    if not isinstance(src, torch.Tensor):
+        from ..convert import _to_tensor
+        src = _to_tensor(getattr(src, "_data", src))
+    return src.to(device=like.device, dtype=like.dtype).reshape(like.shape)
+
+
 class Optimizer:
-    """Base class: a flat parameter list, the carried step count and LR,
-    and the per-parameter state (accumulators and fp32 masters, keyed by
-    the parameter's ``id``)."""
+    """Base class: the parameter groups and their flat list, the carried
+    step count and LR, and the per-parameter state (accumulators and fp32
+    masters, keyed by the parameter's ``id``)."""
 
     _betas = (0.0, 0.0)   # c1 = c2 = 1 for an optimizer without moments
     _wd_coeff = 0.0
+    _coupled_decay = True   # a weight_decay is L2 added to the gradient
+    _lr_ratio = None
+    _apply_decay_param_fun = None
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -159,11 +227,20 @@ class Optimizer:
         if grad_clip is not None and not isinstance(grad_clip, _ClipBase):
             raise TypeError(f"grad_clip must be a ClipGradBy* object, got "
                             f"{type(grad_clip).__name__}")
-        params = list(parameters)
-        if params and isinstance(params[0], dict):
-            raise NotImplementedError("parameter groups are not ported")
+        self._groups = _normalize_param_groups(parameters)
+        params = [p for g in self._groups for p in g["params"]]
         self._params = params
         self._index = {id(p): i for i, p in enumerate(params)}
+        # names, LR scales and decay flags are read once, here, as a JAX
+        # parameter's name is fixed when it is made
+        self._names = [getattr(p, "param_name", None) or f"param_{i}"
+                       for i, p in enumerate(params)]
+        if self._apply_decay_param_fun is not None and any(
+                getattr(p, "param_name", None) is None for p in params):
+            raise ValueError("apply_decay_param_fun needs every parameter's "
+                             "param_name: call set_parameter_names(model) "
+                             "before building the optimizer")
+        self._meta = self._param_meta()
         self._learning_rate = learning_rate \
             if isinstance(learning_rate, LRScheduler) else float(learning_rate)
         self._weight_decay = weight_decay
@@ -283,36 +360,120 @@ class Optimizer:
             new = new32.to(p.dtype)
         p.copy_(new if keep is None else torch.where(keep, p, new))
 
+    # -- names, LR scales and decay flags ------------------------------------
+    def _name(self, i: int) -> str:
+        return self._names[i]
+
+    def _param_meta(self) -> List[tuple]:
+        """``(lr scale, decays)`` of each parameter: the group's LR scale
+        times ``optimize_attr``'s times ``lr_ratio(p)``; whether
+        ``apply_decay_param_fun`` lets it decay (read once, at
+        construction, for both paths)."""
+        out = []
+        for g in self._groups:
+            for p in g["params"]:
+                scale = float(g["learning_rate"]) * float(getattr(
+                    p, "optimize_attr", {}).get("learning_rate", 1.0))
+                if self._lr_ratio is not None:
+                    scale *= float(self._lr_ratio(p))
+                fun = self._apply_decay_param_fun
+                decays = fun is None or bool(fun(self._name(
+                    self._index[id(p)])))
+                out.append((scale, decays))
+        return out
+
+    def _param_scalars(self, sc: torch.Tensor, meta: tuple,
+                       cache: dict) -> torch.Tensor:
+        """The step's scalar block for a parameter of ``meta``: ``sc``
+        itself at scale 1 with decay, else one with ``lr * scale`` and
+        ``1 - lr * scale * wd`` (made once a step for each ``meta``)."""
+        scale, decays = meta
+        if scale == 1.0 and (decays or not self._wd_coeff):
+            return sc
+        blk = cache.get(meta)
+        if blk is None:
+            lr = sc[0] if scale == 1.0 else sc[0] * scale
+            decay = 1.0 - lr * self._wd_coeff if decays else sc[1]
+            blk = cache[meta] = torch.stack([lr, decay, *sc[2:]])
+        return blk
+
     # -- the step -------------------------------------------------------------
     @torch.no_grad()
     def step(self) -> None:
         gate = step_capture.current_gate()
         self._step_t.add_(1 if gate is None else gate.to(torch.int32))
-        pg = [(p, p.grad) for p in self._params if p.grad is not None]
-        if self._grad_clip is not None:
-            pg = self._grad_clip(pg)
         sc = self._scalars(gate)
         seeds = self._sr_seeds() if self._needs_seeds() else None
-        for p, g in pg:
-            if self._weight_decay is not None:   # coupled L2 (not AdamW's)
-                coeff = getattr(self._weight_decay, "coeff",
-                                self._weight_decay)
-                g = g + float(coeff) * p
-            i = self._index[id(p)]
-            self._update_param(p, g, sc, None if seeds is None else seeds[i],
-                               None if gate is None else ~gate)
+        meta, cache = self._meta, {}
+        for group in self._groups:
+            pg = [(p, p.grad) for p in group["params"] if p.grad is not None]
+            clip = group["grad_clip"] or self._grad_clip
+            if clip is not None:
+                pg = clip(pg)
+            wd = group["weight_decay"] if group["weight_decay"] is not None \
+                else self._weight_decay
+            for p, g in pg:
+                if wd is not None and self._coupled_decay:   # L2
+                    g = g + float(getattr(wd, "coeff", wd)) * p
+                i = self._index[id(p)]
+                self._update_param(
+                    p, g, self._param_scalars(sc, meta[i], cache),
+                    None if seeds is None else seeds[i],
+                    None if gate is None else ~gate,
+                    bool(self._wd_coeff) and meta[i][1])
 
     def _needs_seeds(self) -> bool:
         return self._stochastic_rounding and self._use_master_weights is \
             False and any(p.dtype == torch.bfloat16 for p in self._params)
 
-    def _update_param(self, p, g, sc, seed, keep) -> None:
+    def _update_param(self, p, g, sc, seed, keep, has_wd: bool) -> None:
         raise NotImplementedError
 
     def clear_grad(self, set_to_zero: bool = False) -> None:
         for p in self._params:
             p.grad = None
 
+    # -- state ----------------------------------------------------------------
+    def _state_views(self):
+        """``(name, accumulator name, tensor)`` of every accumulator and
+        ``(name, None, master)`` of every fp32 master."""
+        for i, p in enumerate(self._params):
+            for acc, store in self._accumulators.items():
+                t = store.get(id(p))
+                if t is not None:
+                    yield self._name(i), acc, t
+            if id(p) in self._master_weights:
+                yield self._name(i), None, self._master_weights[id(p)]
+
+    def state_dict(self) -> dict:
+        """The JAX package's keys (see the module docstring); the values
+        are the live tensors (views of the flat buffers on the
+        multi-tensor path)."""
+        state = {"step": self._step_t}
+        if isinstance(self._learning_rate, LRScheduler):
+            state["LR_Scheduler"] = self._learning_rate.state_dict()
+        for name, acc, t in self._state_views():
+            if acc is None:
+                state.setdefault("master_weights", {})[name] = t
+            else:
+                state[f"{name}_{acc}"] = t
+        return state
+
+    @torch.no_grad()
+    def set_state_dict(self, state: dict) -> None:
+        """Load a state of :meth:`state_dict`'s keys, from either package
+        (tensors or numpy arrays)."""
+        step_capture.check_host_write("Optimizer._step_t")
+        self._step_t.copy_(_load(state.get("step", 0), self._step_t))
+        if isinstance(self._learning_rate, LRScheduler) and \
+                "LR_Scheduler" in state:
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
+            self._sync_lr_tensor()
+        mw = state.get("master_weights", {})
+        for name, acc, t in list(self._state_views()):
+            src = mw.get(name) if acc is None else state.get(f"{name}_{acc}")
+            if src is not None:
+                t.copy_(_load(src, t))
 
 
 class _Flat:
@@ -337,7 +498,26 @@ class _Flat:
         self.v = torch.zeros_like(self.master)
         self.param: Optional[torch.Tensor] = None
         self.grad = torch.empty(0)
+        self.tables: Optional[tuple] = None
         self.rebind()
+
+    def set_tables(self, meta: List[tuple]) -> None:
+        """The kernel's per-tensor tables from each parameter's ``(lr
+        scale, decays)``: every slice's end in the flat buffers (int64),
+        its LR scale and decay flag (fp32); None where every parameter has
+        scale 1 and decays."""
+        if all(m == (1.0, True) for m in meta):
+            self.tables = None
+            return
+        dev = self.master.device
+        ends = [off + -(-n // _FLAT_ALIGN) * _FLAT_ALIGN
+                for off, n in self.offsets]
+        self.tables = (
+            torch.tensor(ends, dtype=torch.int64, device=dev),
+            torch.tensor([s for s, _ in meta], dtype=torch.float32,
+                         device=dev),
+            torch.tensor([1.0 if d else 0.0 for _, d in meta],
+                         dtype=torch.float32, device=dev))
 
     def views(self, flat: torch.Tensor):
         return [flat[off:off + n].view(p.shape)
@@ -425,11 +605,16 @@ class Adam(Optimizer):
                 "only; drop use_multi_tensor")
         self._use_master_weights = use_master_weights
         self._stochastic_rounding = bool(stochastic_rounding)
-        # the reference's fusable test: clip by norm and a coupled decay
-        # take the per-parameter path
+        # the reference's fusable test: clip by norm, a coupled decay, a
+        # group's own clip or decay, and a global norm over several groups
+        # (each group clipped by its own norm) take the per-parameter path
         self._use_multi_tensor = bool(use_multi_tensor) and bool(
             self._params) and weight_decay is None and not isinstance(
-            grad_clip, ClipGradByNorm)
+            grad_clip, ClipGradByNorm) and all(
+            g["grad_clip"] is None and g["weight_decay"] is None
+            for g in self._groups) and (len(self._groups) == 1 or
+                                        not isinstance(grad_clip,
+                                                       ClipGradByGlobalNorm))
         self._flat: Optional[_Flat] = None
         self._materialize_state()
 
@@ -443,6 +628,7 @@ class Adam(Optimizer):
                                       "False needs use_multi_tensor=False")
         if self._flat is None:
             self._flat = _Flat(self._params)
+            self._flat.set_tables(self._meta)
 
     def _on_params_cast(self) -> None:
         if self._flat is None:
@@ -491,10 +677,23 @@ class Adam(Optimizer):
                 beta2=self._beta2, has_wd=bool(self._wd_coeff),
                 grad_scale=gscale is not None,
                 clip_value=(clip.min, clip.max)
-                if isinstance(clip, ClipGradByValue) else None)
+                if isinstance(clip, ClipGradByValue) else None,
+                tables=fs.tables, base=a, wd=self._wd_coeff)
 
-    def _adam_core(self, p, g, sc, seed, keep) -> None:
-        has_wd = bool(self._wd_coeff)
+    def _state_views(self):
+        if self._flat is None:
+            yield from super()._state_views()
+            return
+        fs = self._flat
+        for i, (p, m, v, w) in enumerate(zip(
+                fs.params, fs.views(fs.m), fs.views(fs.v),
+                fs.views(fs.master))):
+            yield self._name(i), "moment1", m
+            yield self._name(i), "moment2", v
+            if p.dtype in _LOW:
+                yield self._name(i), None, w
+
+    def _adam_core(self, p, g, sc, seed, keep, has_wd: bool) -> None:
         master = self._ensure_master(p)
         b1, b2 = self._beta1, self._beta2
         if self._moment_q8:
@@ -532,13 +731,16 @@ class Adam(Optimizer):
         else:
             self._write_back(p, new_p, seed, keep)
 
-    def _update_param(self, p, g, sc, seed, keep):
-        self._adam_core(p, g, sc, seed, keep)
+    def _update_param(self, p, g, sc, seed, keep, has_wd):
+        self._adam_core(p, g, sc, seed, keep, has_wd)
 
 
 class AdamW(Adam):
-    """Decoupled weight decay (``weight_decay`` default 0.01, applied to
-    every parameter)."""
+    """Decoupled weight decay (``weight_decay`` default 0.01), on every
+    parameter that ``apply_decay_param_fun(name)`` lets decay (all without
+    one); ``lr_ratio(p)`` scales a parameter's LR."""
+
+    _coupled_decay = False
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -547,11 +749,10 @@ class AdamW(Adam):
                  use_multi_tensor=False, moment_dtype="float32",
                  use_master_weights=None, stochastic_rounding=True,
                  name=None, seed: int = 0):
-        if lr_ratio is not None or apply_decay_param_fun is not None:
-            raise NotImplementedError("lr_ratio and apply_decay_param_fun "
-                                      "are not ported")
         self._wd_coeff = float(getattr(weight_decay, "coeff", weight_decay)
                                or 0.0)
+        self._lr_ratio = lr_ratio
+        self._apply_decay_param_fun = apply_decay_param_fun
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision,
                          use_multi_tensor, moment_dtype, use_master_weights,

@@ -13,9 +13,13 @@ weights (through ``convert.fmt_state_dict_from_paddle_tpu``) and inputs
 go to both packages. Tolerances: fp32 outputs and caches rtol 1e-5 and
 atol 1e-6 in units of the tensor's largest magnitude (outputs reach 4-5,
 where XLA's and MKL's fp32 sums differ by a few ulps, 4.8e-7 each); pools
-after a token write bit-equal (float pools to the paged kernel's atol
-1e-5 after six decode steps); token transcripts equal; weight gradients
-1e-4 of each tensor's largest element.
+after a token write: native fp32 and int8 pools to the paged kernel's
+atol 1e-5 after six decode steps; a bf16 pool is not bit-equal, since a
+token's fp32 K/V that agree within RTOL can still lie on either side of a
+bf16 midpoint: each element is within that tolerance of JAX's or one
+bf16 step from it, and at most 1% of the elements written differ; token
+transcripts equal; weight
+gradients 1e-4 of each tensor's largest element.
 """
 
 import numpy as np
@@ -503,9 +507,45 @@ def test_decode_paged_matches_jax(fmt_pair, leg):
                         time_step=torch.from_numpy(t))
         assert tview2.pool is tpool
         np.testing.assert_allclose(_np(to), _np(jo), rtol=RTOL, atol=1e-5)
-        np.testing.assert_allclose(_np(jpool).astype(np.float32),
-                                   tpool.float().numpy(), rtol=RTOL,
-                                   atol=1e-5)
+        if leg == "bf16":
+            _bf16_pools_within_one_step(_np(jpool), tpool,
+                                        written=(k + 1) * L * 2 * B * H * D)
+        else:
+            np.testing.assert_allclose(_np(jpool).astype(np.float32),
+                                       tpool.float().numpy(), rtol=RTOL,
+                                       atol=1e-5)
+
+
+BF16_FLIP_SHARE = 0.01
+
+
+def _bf16_ordinal(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns as integers in value order: neighbouring bf16
+    values differ by 1 (both zeros are 0)."""
+    mag = (bits & 0x7FFF).astype(np.int64)
+    return np.where(bits & 0x8000, -mag, mag)
+
+
+def _bf16_pools_within_one_step(jpool, tpool, written: int):
+    """A bf16 pool holds each token's fp32 K/V rounded once. The two
+    packages' fp32 K/V agree within RTOL but differ by a few ulps (XLA's
+    and MKL's sums), so a value near a bf16 midpoint may round to either
+    side: every element is within the float pools' tolerance (rtol RTOL,
+    atol 1e-5) of JAX's or one bf16 step from it, and the elements that
+    differ at all are at most BF16_FLIP_SHARE of the elements written."""
+    jb = np.asarray(jpool).view(np.uint16)
+    tb = tpool.view(torch.int16).numpy().view(np.uint16)
+    jf, tf = (torch.from_numpy(b.view(np.int16)).view(torch.bfloat16)
+              .float().numpy() for b in (jb, tb))
+    near = np.abs(tf - jf) <= 1e-5 + RTOL * np.abs(jf)
+    one_step = np.abs(_bf16_ordinal(jb) - _bf16_ordinal(tb)) <= 1
+    bad = ~(near | one_step)
+    assert not bad.any(), (f"{int(bad.sum())} elements neither within "
+                           f"tolerance nor one bf16 step apart, e.g. "
+                           f"jax {jf[bad][:4]} port {tf[bad][:4]}")
+    differ = int(np.count_nonzero(jb != tb))
+    assert differ <= BF16_FLIP_SHARE * written, \
+        f"{differ} of {written} written elements differ"
 
 
 def test_gradients_match_jax_in_training_mode(fmt_pair):

@@ -3,9 +3,11 @@
 ``paddle_tpu``; its entry points (model, engine, layers, ``incubate``'s
 fused layers, ``FusedMultiTransformer`` and the FMT serving stack) need a
 card unless the caller asks for the CPU, and device tensors never take a
-plain CPU path (the fused small ops, K5-K8 and the FMT's paged decode
-included); ``chip_smoke.py`` fails without a card or without the package;
-the kernel bindings match their C entry points."""
+plain CPU path (the fused small ops, K5-K8, the FMT's paged decode, the
+MoE routing kernel K9 and the multi-tensor AdamW's per-tensor tables
+included); ``incubate.moe``, ``ops.moe`` and ``amp.GradScaler`` load no
+JAX; ``chip_smoke.py`` fails without a card or without the package; the
+kernel bindings match their C entry points."""
 
 import ctypes
 import os
@@ -30,8 +32,10 @@ from paddle_tpu_torch.incubate import nn as inn
 from paddle_tpu_torch.ops import bias_act as ba
 from paddle_tpu_torch.ops import dropout as dr
 from paddle_tpu_torch.ops import embedding as em
+from paddle_tpu_torch.incubate import moe as tmoe
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_norm as fn
+from paddle_tpu_torch.ops import moe as k9
 from paddle_tpu_torch.ops import multi_tensor_adam as mta
 from paddle_tpu_torch.ops import nn_ops
 from paddle_tpu_torch.ops import paged_attention as pa
@@ -57,7 +61,11 @@ names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {"paddle_tpu_torch.tools.fmt_stack",
-        "paddle_tpu_torch.incubate.nn_functional"} <= set(names), names
+        "paddle_tpu_torch.incubate.nn_functional",
+        "paddle_tpu_torch.incubate.moe",
+        "paddle_tpu_torch.ops.moe"} <= set(names), names
+from paddle_tpu_torch.amp import GradScaler
+GradScaler()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print(bad)
@@ -301,6 +309,65 @@ def test_multi_tensor_adamw_over_device_parameters_never_takes_the_plain_path():
         opt.step()
 
 
+def _meta_routes():
+    return k9.Routes(ptr=torch.zeros(9, dtype=torch.int32, device="meta"),
+                     slot=torch.zeros(16, dtype=torch.int32, device="meta"),
+                     slot_route=torch.zeros(16, dtype=torch.int32,
+                                            device="meta"),
+                     route_token=torch.zeros(16, dtype=torch.int32,
+                                             device="meta"),
+                     experts=4, capacity=4)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, r: k9.moe_dispatch(x, r),
+    lambda x, r: k9.moe_combine(x.repeat(2, 1), torch.empty(
+        16, device="meta"), r),
+    lambda x, r: k9.moe_combine(x.repeat(2, 1), torch.empty(
+        16, device="meta"), r, bias=x[:4], spec=k9.CombineSpec(
+            x.dtype, x.dtype, x.dtype, x.dtype)),
+    lambda x, r: ba.bias_act(x.repeat(2, 1), x[:4], ba.ActSpec(
+        "gelu_tanh", x.dtype, x.dtype), period=4),
+], ids=["dispatch", "combine", "combine_bias", "bias_act_period"])
+def test_device_tensors_never_take_a_moe_plain_version(call):
+    # K9 and K6's bias period: a non-CPU tensor goes to the kernel or
+    # raises, never to a *_reference (meta tensors stand in for a card's)
+    x = torch.empty(8, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        call(x, _meta_routes())
+
+
+def test_moe_layers_need_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the layers would build there")
+    with pytest.raises(NoDeviceError):
+        tmoe.NaiveGate(16, 4)
+    with pytest.raises(NoDeviceError):
+        tmoe.MoELayer(16, [torch.nn.Identity()] * 4)
+    with pytest.raises(NoDeviceError):
+        inn.FusedEcMoe(16, 32, 4)
+    assert tmoe.MoELayer(16, [torch.nn.Identity()] * 4,
+                         device="cpu").gate.gate_proj.weight.device.type \
+        == "cpu"
+
+
+def test_multi_tensor_tables_over_device_parameters_never_take_the_plain_path():
+    # groups of LR scales and apply_decay_param_fun on the flat layout:
+    # the kernel's per-tensor tables, or raise (never a CPU detour)
+    ps = [torch.nn.Parameter(torch.empty(n, device="meta"))
+          for n in (100, 4096)]
+    for p, name in zip(ps, ("norm", "weight")):
+        p.param_name = name
+    opt = AdamW(parameters=[{"params": ps[:1], "learning_rate": 0.5},
+                            {"params": ps[1:]}], use_multi_tensor=True,
+                apply_decay_param_fun=lambda n: n != "norm")
+    assert opt._flat is not None and opt._flat.tables is not None
+    for p in ps:
+        p.grad = torch.empty_like(p)
+    with pytest.raises(ValueError, match="CUDA"):
+        opt.step()
+
+
 def test_captured_step_of_a_cpu_model_runs_eagerly(monkeypatch):
     # capture_step and the carried optimizer state need a card unless the
     # model is on the CPU: there the step runs eagerly (bypass "cpu")
@@ -393,6 +460,8 @@ _ARGTYPES_OF = {"flash_fwd": "_ARGTYPES", "flash_fwd_lse": "_ARGTYPES_LSE",
     (dr, "dropout.cu", "dropout_bwd"),
     (sm, "softmax_mask.cu", "softmax_mask_fwd"),
     (sm, "softmax_mask.cu", "softmax_mask_bwd"),
+    (k9, "moe.cu", "moe_gather_sum"),
+    (k9, "moe.cu", "moe_slot_rows"),
 ])
 def test_ctypes_bindings_match_c_signatures(mod, source, fn):
     params = _c_params(source, fn)

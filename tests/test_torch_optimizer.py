@@ -149,11 +149,13 @@ def test_clear_grad_and_default_weight_decay_on_every_parameter():
 
 def test_unported_options_raise():
     # use_multi_tensor and grad_clip are ported (tests/test_torch_
-    # multi_tensor_adam.py, tests/test_torch_grad_clip.py)
+    # multi_tensor_adam.py, tests/test_torch_grad_clip.py), and so are
+    # parameter groups, lr_ratio and apply_decay_param_fun
+    # (tests/test_torch_optimizer_groups.py)
     p = [torch.nn.Parameter(torch.zeros(4))]
-    for kw in (dict(apply_decay_param_fun=lambda n: True),
-               dict(lazy_mode=True), dict(lr_ratio=lambda q: 1.0)):
+    for kw in (dict(lazy_mode=True), dict(moment_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             AdamW(parameters=p, **kw)
-    with pytest.raises(NotImplementedError):
-        AdamW(parameters=[{"params": p, "learning_rate": 1.0}])
+    p[0].param_name = "w"
+    AdamW(parameters=[{"params": p, "learning_rate": 1.0}],
+          apply_decay_param_fun=lambda n: True, lr_ratio=lambda q: 1.0)
