@@ -116,7 +116,23 @@ per phase:
   ``FusedEcMoe`` at those widths beside its products' bound;
   ``moe_vs_cpu`` holds a narrow block and an EC-MoE on the card against
   the CPU; ``grad_scaler_check`` runs ``amp.GradScaler`` in an fp16 O1
-  step eager and captured with a planted ``inf``.
+  step eager and captured with a planted ``inf``;
+* serving under failure (the engine's fault sites, watchdog, bounded
+  prefill replay and drain, through its graphs): ``serve_chaos_check``
+  runs a seeded fault schedule and one device stall (a
+  ``torch.cuda._sleep`` queued before a decode replay, so the token
+  read-back waits on the card) at Llama-2-7B's width, 2 fp32 layers,
+  native and int8 pools with a shared 1024-token prefix: a hung trip
+  whose slots replayed, every Future typed, tokens equal to the no-fault
+  run's, no page leaked, shared pages unchanged, exact accounting,
+  launches as counted, a parseable flight dump, a retried step's pool
+  bit-equal to one step, and outcomes, fault trace and counters equal to
+  the CPU engine's under a deterministic schedule; ``serve_chaos_7b``
+  serves the 7B traffic under fire with observability, tracing and the
+  scrape endpoint on (``/metrics`` equal to the snapshot, ``/healthz``
+  listing the engine); ``obs_overhead_7b`` serves it with everything off
+  and on, interleaved, and requires a decode step with observability off
+  to make no more host launch calls than ``decode_step_profile``'s.
 
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound; the last line is ``{"ok": true, "device":
@@ -759,9 +775,10 @@ def build_7b(torch):
     return model, time.monotonic() - t0
 
 
-def engine_7b(model, prefill_fn, prefix_sharing: str, prompt_lens):
+def engine_7b(model, prefill_fn, prefix_sharing: str, prompt_lens, **kw):
     """serve_7b's engine, its decode buckets and the full prefills of
-    ``prompt_lens`` warmed (captured on the card)."""
+    ``prompt_lens`` warmed (captured on the card); ``kw`` adds
+    ``ServingConfig`` fields."""
     from paddle_tpu_torch.serving import Engine, ServingConfig
     cfg = model.config
     return Engine(prefill_fn, model.serving_callables(2048)[1], ServingConfig(
@@ -769,7 +786,7 @@ def engine_7b(model, prefill_fn, prefix_sharing: str, prompt_lens):
         head_dim=cfg.head_dim, max_len=2048, max_batch=16, page_size=64,
         compute_dtype="bfloat16", kv_dtype="native", policy="budget",
         prefill_token_budget=2048, prefix_sharing=prefix_sharing,
-        device="cuda")).warmup([int(n) for n in prompt_lens])
+        device="cuda", **kw)).warmup([int(n) for n in prompt_lens])
 
 
 def stats_delta(before: dict, after: dict) -> dict:
@@ -922,6 +939,7 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
                      "launches": launches, **memory_gb(torch)})
         if i == 0:
             main_launches = launches
+            transcripts = [r.tokens for r in results]
     spread = {k: [min(r[k] for r in runs), max(r[k] for r in runs)]
               for k in ("tokens_per_s", "ttft_median_s", "tpot_median_s")}
     emit({"phase": "serve_llama2_7b", "card": card, "layers": 32,
@@ -932,12 +950,14 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
           "prefill": PREFILL, "warmup_s": warmup_s,
           **prefill_graph_counts(eng.decode_stats())})
     profile_serving(torch, card, eng, prompts, runs[0]["wall_s"])
-    profile_decode_step(torch, card, eng, step_fn)
+    step_profile = profile_decode_step(torch, card, eng, step_fn)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     serve_7b_first_use(torch, card, fa, pa, model, prompts, fused)
-    return main_launches
+    return main_launches, {
+        "prompts": prompts, "lens": lens, "transcripts": transcripts,
+        "graph_host_launch_calls": step_profile["graph"]["host_launch_calls"]}
 
 
 def serve_7b_first_use(torch, card, fa, pa, model, prompts, fused) -> None:
@@ -1183,6 +1203,7 @@ def profile_decode_step(torch, card, eng, step_fn) -> None:
             f"decode step: host calls, eager against replay: {out}")
     emit({"phase": "decode_step_profile", "card": card, "bucket": b,
           "rows": "padding only (scratch page)", **out})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1660,6 +1681,668 @@ def agree_2layer(torch, fa, pa):
     del eng, model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# serving under failure: fault sites, the watchdog on a real device stall,
+# bounded prefill replay, the drain, and observability
+# ---------------------------------------------------------------------------
+
+CHAOS_WATCHDOG_S = 0.25
+CHAOS_MAX_REPLAYS = 2
+# the device stall: a torch.cuda._sleep of this many watchdog budgets queued
+# on the engine's stream before one decode replay
+STALL_BUDGETS = 1.5
+STALL_AT_REPLAY = 5
+# serve_chaos_check's serving.step probability: its requests decode 16
+# tokens, the suite's 3-5 (see chaos_schedule)
+CHECK_STEP_PROB = 0.015
+# the deterministic card-against-CPU run: four of the short prompts (37,
+# 128, 200 and 90 tokens)
+DET_PROMPTS = (0, 1, 4, 5)
+
+
+CHAOS_COUNTERS = ("serving.requests_total", "serving.tokens_total",
+                  "serving.step_retries_total", "serving.admit_retries_total",
+                  "serving.replays_total", "serving.rejected_total")
+
+
+def chaos_errors():
+    from paddle_tpu_torch.resilience import DeadlineExceeded, FaultInjected
+    from paddle_tpu_torch.serving import (DrainTimeout, EngineStopped,
+                                          WatchdogTimeout)
+    return (FaultInjected, WatchdogTimeout, DeadlineExceeded, DrainTimeout,
+            EngineStopped)
+
+
+def chaos_schedule(seed: int, delay: bool = True, step_prob: float = 0.06):
+    """The seeded schedule of ``tests/test_serving_chaos.py``'s sweep, all
+    four serving sites; ``delay=False`` leaves out its timing-driven
+    watchdog delay. The suite's requests decode 3-5 tokens; at
+    ``step_prob`` 0.06 a 64-token request meets two step faults (and
+    fails) nine times in ten, so longer requests take a ``step_prob``
+    scaled by their length for the same faults a request."""
+    from paddle_tpu_torch.resilience import FaultSchedule
+    sched = FaultSchedule(seed)
+    sched.error("serving.admit", prob=0.15)
+    sched.error("serving.step", prob=step_prob)
+    if delay:
+        sched.delay("serving.watchdog", prob=0.04, times=1, seconds=0.8)
+    sched.error("serving.watchdog", prob=0.05)
+    sched.error("serving.drain", prob=0.5)
+    return sched
+
+
+def sleep_cycles_per_s(torch) -> float:
+    """``torch.cuda._sleep`` cycles a second on this card (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 100_000_000 / (start.elapsed_time(end) / 1e3)
+
+
+@contextlib.contextmanager
+def device_stall(torch, eng, seconds: float, cycles_per_s: float,
+                 at: int = STALL_AT_REPLAY):
+    """Queue ``torch.cuda._sleep`` of ``seconds`` on the engine's stream
+    before the first decode graph replay of the ``at``-th decode step
+    inside the block (or of the first later step that launches), so that
+    step's token read-back waits on the card. Yields a dict that receives
+    the request ids of the stalled step's slots."""
+    from paddle_tpu_torch.serving.engine import DecodeGraph
+    real_replay = DecodeGraph.replay
+    real_step = eng._decode_step
+    state = {"steps": 0, "step_rids": [], "stalled_rids": [], "done": False}
+
+    def decode_step(included):
+        state["steps"] += 1
+        state["step_rids"] = [s.request.request_id for s in included]
+        return real_step(included)
+
+    def replay(self):
+        if not state["done"] and state["steps"] >= at:
+            require(torch.cuda.current_stream() == eng.stream,
+                    "a decode replay off the engine's stream")
+            torch.cuda._sleep(int(seconds * cycles_per_s))
+            state["stalled_rids"] = list(state["step_rids"])
+            state["done"] = True
+        return real_replay(self)
+
+    DecodeGraph.replay = replay
+    eng._decode_step = decode_step
+    try:
+        yield state
+    finally:
+        DecodeGraph.replay = real_replay
+        del eng._decode_step
+
+
+def fresh_obs(obs) -> None:
+    """Every series zeroed (the families and their buckets stay) and
+    collection on: a run's counts from 0."""
+    obs.reset()
+    obs.enable()
+
+
+def chaos_drive(eng, prompts, new_tokens: int, sched=None):
+    """Submit, run to the drain and ``stop(drain=True)``, under ``sched``
+    when given; returns the requests, their Futures and the wall
+    seconds."""
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import GenerationRequest
+    eng.run()                      # clears a previous drain's latch
+    t0 = time.monotonic()
+    with (faults.installed(sched) if sched is not None
+          else contextlib.nullcontext()):
+        reqs = [GenerationRequest(p, max_new_tokens=new_tokens)
+                for p in prompts]
+        futs = [eng.submit(r) for r in reqs]
+        eng.run()
+        eng.stop(drain=True, timeout=60)
+    return reqs, futs, time.monotonic() - t0
+
+
+def chaos_outcomes(futs):
+    """Per request ``("ok", tokens)`` or ``("err", type name)``; requires
+    every Future resolved, with a result or a typed error."""
+    errors = chaos_errors()
+    out = []
+    for f in futs:
+        require(f.done(), "a Future was left unresolved")
+        exc = f.exception(timeout=0)
+        require(exc is None or isinstance(exc, errors),
+                f"a Future resolved with an untyped error: {exc!r}")
+        out.append(("err", type(exc).__name__) if exc is not None
+                   else ("ok", list(f.result(timeout=0).tokens)))
+    return out
+
+
+def require_liveness(eng, outcomes, snap, what: str) -> dict:
+    """The chaos suite's invariants: no page leaked, nothing queued or
+    active after the drain, each request counted under exactly one
+    terminal status, replays within ``max_replays`` a request."""
+    statuses = snap.get("serving.requests_total", {})
+    resolved = sum(statuses.get(f"status={s}", 0) for s in (
+        "completed", "failed", "shed", "cancelled"))
+    completed = sum(o[0] == "ok" for o in outcomes)
+    replays = snap.get("serving.replays_total", 0)
+    require(eng.kv.outstanding_pages == 0
+            and eng.kv.free_pages == eng.kv.config.num_pages - 1
+            and eng.active_requests == 0 and eng.queue_depth == 0,
+            f"{what}: pages or requests left after the drain")
+    require(resolved == len(outcomes)
+            and statuses.get("status=completed", 0) == completed,
+            f"{what}: terminal accounting {statuses} for {len(outcomes)} "
+            f"requests, {completed} completed")
+    require(replays <= eng.config.max_replays * len(outcomes),
+            f"{what}: {replays} replays")
+    return {"statuses": statuses, "completed": completed, "replays": replays}
+
+
+def require_chaos_launches(before: dict, after: dict, counts: dict,
+                           layers: int, what: str) -> dict:
+    """B1 once a layer per prefill call (re-prefills included) and per
+    warm-up call of a capture; B6 once a layer per launched decode replay
+    (tripped and retried steps included)."""
+    from paddle_tpu_torch.serving.engine import _WARM_STEPS
+    d = stats_delta(before, after)
+    prefills = sum(d["prefill_replays"].values())
+    replays = sum(d["replays"].values())
+    want = {"flash_prefill": (prefills + _WARM_STEPS * d["prefill_graphs"])
+            * layers, "paged_decode": replays * layers}
+    require(counts == want, f"{what}: launches {counts} != {want} "
+            f"({prefills} prefill replays, {d['prefill_graphs']} captures, "
+            f"{replays} decode replays)")
+    return {"launches": counts, "prefill_replays": prefills,
+            "captured": d["prefill_graphs"],
+            "captured_s": d["prefill_capture_s"], "decode_replays": replays,
+            "keys_replayed": keyed(d["prefill_replays"])}
+
+
+def compare_tokens(reqs, outcomes, ref) -> dict:
+    """Per completed request, whether its tokens equal the no-fault run's,
+    and the first position where they differ."""
+    same, first = {}, {}
+    for r, o, want in zip(reqs, outcomes, ref):
+        if o[0] != "ok":
+            continue
+        same[r.request_id] = o[1] == want
+        if o[1] != want:
+            first[r.request_id] = next(
+                (k for k, (a, b) in enumerate(zip(o[1], want)) if a != b),
+                min(len(o[1]), len(want)))
+    return {"equal": same, "first_differing_position": first,
+            "equal_share": sum(same.values()) / max(1, len(same))}
+
+
+def flight_fault_sites(path) -> list:
+    doc = json.load(open(path))
+    require(doc["schema"] == 1 and doc["events"], f"{path}: empty dump")
+    return [e["attrs"].get("site") for e in doc["events"]
+            if e["name"] == "fault"]
+
+
+def retried_step_bit_equal(torch, eng, prompts) -> dict:
+    """Admit ``prompts`` and step; then the same decode step twice from one
+    state: once with its token read-back failing after the launch (the
+    engine retries the read, never the launch), once clean. Pools (and
+    scales) must be bit-equal, tokens equal."""
+    from paddle_tpu_torch.serving import GenerationRequest
+    eng.run()
+    futs = [eng.submit(GenerationRequest(p, max_new_tokens=16))
+            for p in prompts]
+    while eng.queue_depth or len(eng._slots) < len(prompts):
+        eng.step()
+    kv = eng.kv
+    pool0 = kv.pool.clone()
+    sc0 = None if kv.scales is None else kv.scales.clone()
+    state0 = [(s, s.t, s.last_tok, list(s.tokens), s.last_token_time)
+              for s in eng._slots]
+    real, failed = eng._read, []
+
+    def flaky(out):
+        if not failed:
+            failed.append(1)
+            raise RuntimeError("read-back failed after the launch")
+        return real(out)
+
+    eng._read = flaky
+    eng.step()
+    del eng._read
+    retried = (kv.pool.clone(), None if sc0 is None else kv.scales.clone(),
+               [list(s.tokens) for s in eng._slots])
+    kv.pool.copy_(pool0)
+    if sc0 is not None:
+        kv.scales.copy_(sc0)
+    for s, t, last, toks, lt in state0:
+        s.t, s.last_tok, s.tokens, s.last_token_time = t, last, toks, lt
+    eng.step()
+    require(failed and torch.equal(retried[0], kv.pool)
+            and (sc0 is None or torch.equal(retried[1], kv.scales))
+            and retried[2] == [list(s.tokens) for s in eng._slots],
+            "a retried decode step did not leave the pool bit-equal to one "
+            "step")
+    eng.run()
+    for f in futs:
+        f.result(timeout=0)
+    return {"bit_equal": True, "slots": len(prompts),
+            "pool_dtype": dtype_name(kv.pool.dtype)}
+
+
+@contextlib.contextmanager
+def trace_dir_on(trace):
+    """Tracing on, dumps and exports into a temporary directory."""
+    import tempfile
+    old = os.environ.get("PADDLE_TPU_TRACE_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["PADDLE_TPU_TRACE_DIR"] = tmp
+        trace.set_mode("on")
+        trace.clear()
+        trace.flight_recorder().clear()
+        try:
+            yield tmp
+        finally:
+            trace.set_mode("off")
+            trace.clear()
+            if old is None:
+                os.environ.pop("PADDLE_TPU_TRACE_DIR", None)
+            else:
+                os.environ["PADDLE_TPU_TRACE_DIR"] = old
+
+
+def recovery_seconds(evs) -> list:
+    """Per replay: seconds from its ``serving.replay`` instant to the end
+    of that request's next prefill (its re-admission), from the trace."""
+    begins = {e["span"]: e for e in evs if e["kind"] == "B"
+              and e["name"] == "serving.prefill"}
+    ends = sorted((begins[e["span"]]["attrs"]["rid"], e["ts"]) for e in evs
+                  if e["kind"] == "E" and e["span"] in begins
+                  and not e["attrs"].get("error"))
+    out = []
+    for e in evs:
+        if e["name"] == "serving.replay":
+            later = [ts for rid, ts in ends
+                     if rid == e["attrs"]["rid"] and ts > e["ts"]]
+            if later:
+                out.append(min(later) - e["ts"])
+    return out
+
+
+def require_stall_tripped(snap, evs, stall, outcomes, reqs, what) -> dict:
+    """The device stall tripped the watchdog (hung) and every slot of the
+    stalled step replayed (or failed with WatchdogTimeout past its
+    budget)."""
+    trips = snap.get("serving.watchdog_trips_total", {})
+    replayed = {e["attrs"]["rid"] for e in evs
+                if e["name"] == "serving.replay"}
+    timed_out = {r.request_id for r, o in zip(reqs, outcomes)
+                 if o == ("err", "WatchdogTimeout")}
+    stalled = set(stall["stalled_rids"])
+    require(trips.get("kind=hung", 0) >= 1 and stalled
+            and stalled <= replayed | timed_out,
+            f"{what}: the device stall did not trip the watchdog and replay "
+            f"its slots: trips {trips}, stalled {sorted(stalled)}, "
+            f"replayed {sorted(replayed)}")
+    rec = recovery_seconds(evs)
+    return {"trips": trips, "stalled_rids": sorted(stalled),
+            "replayed_rids": sorted(replayed),
+            "recovery_s": {"n": len(rec),
+                           "median": statistics.median(rec) if rec else None,
+                           "max": max(rec, default=None)}}
+
+
+def serve_chaos_check(torch, card, fa, pa) -> None:
+    """Serving under failure at Llama-2-7B's width (2 layers, fp32), native
+    and int8 pools, prefix sharing on (two prompts share a 1024-token
+    prefix), watchdog 0.25 s, two replays: the chaos suite's seeded
+    schedule at all four fault sites (its step-fault rate scaled to 16
+    tokens) plus one device stall of 1.5 budgets on the engine's stream. Requires a hung trip whose slots replayed, every Future typed,
+    survivors' and replays' tokens equal to the same engine's no-fault run
+    (on int8 a replay re-quantizes its pages on the prefill's grid, so its
+    tokens are reported, the others required), no leaked page, the shared
+    prefix pages unchanged, exact accounting, B1/B6 launches as counted, a
+    ``serving_recover`` flight dump naming a fault site, a retried step's
+    pool bit-equal to one step, and under one deterministic schedule the
+    card's outcomes, fault trace and terminal counters equal to the CPU
+    engine's on the same weights."""
+    import numpy as np
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = 2
+    model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1))
+    cpu_model = LlamaForCausalLM(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    rng = np.random.default_rng(14)
+    shared = rng.integers(0, cfg.vocab_size, (1024,), dtype=np.int32)
+    pair = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, (n,), dtype=np.int32)]) for n in (40, 77)]
+    short = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+             for n in (37, 128, 300, 513, 200, 90)]
+    prompts = pair + short
+    cycles = sleep_cycles_per_s(torch)
+
+    def engine(m, leg, device, watchdog_s=CHAOS_WATCHDOG_S):
+        return Engine(*m.serving_callables(2048), ServingConfig(
+            num_layers=2, num_heads=cfg.num_key_value_heads,
+            head_dim=cfg.head_dim, max_len=2048, max_batch=16,
+            page_size=64, compute_dtype="float32", kv_dtype=leg,
+            prefix_sharing="on", watchdog_s=watchdog_s,
+            max_replays=CHAOS_MAX_REPLAYS, device=device))
+
+    try:
+        for leg in ("native", "int8"):
+            t0 = time.monotonic()
+            eng = engine(model, leg, "cuda").warmup()
+            _, futs, _ = chaos_drive(eng, prompts, 16)
+            ref = [o[1] for o in chaos_outcomes(futs)]
+            # the prefix chain the no-fault run published must not change
+            chain = eng.kv.acquire_prefix(pair[0])
+            eng.kv.free(chain)
+            require(len(chain) == 16, f"prefix chain of {len(chain)} pages")
+            chain_before = eng.kv.pool[chain].clone()
+            scales_before = (None if eng.kv.scales is None
+                             else eng.kv.scales[chain].clone())
+            retried = retried_step_bit_equal(torch, eng, short[:4])
+
+            fresh_obs(obs)
+            with trace_dir_on(trace) as tmp:
+                for c in (fa.launches, pa.launches):
+                    c.reset()
+                before = eng.decode_stats()
+                with device_stall(torch, eng, STALL_BUDGETS
+                                  * CHAOS_WATCHDOG_S, cycles) as stall:
+                    sched = chaos_schedule(1, step_prob=CHECK_STEP_PROB)
+                    reqs, futs, wall = chaos_drive(eng, prompts, 16, sched)
+                counted = require_chaos_launches(
+                    before, eng.decode_stats(),
+                    {"flash_prefill": fa.launches.count,
+                     "paged_decode": pa.launches.count}, 2,
+                    f"serve_chaos_check {leg}")
+                outcomes = chaos_outcomes(futs)
+                snap = obs.snapshot()
+                what = f"serve_chaos_check {leg}"
+                live = require_liveness(eng, outcomes, snap, what)
+                evs = trace.events()
+                tripped = require_stall_tripped(snap, evs, stall, outcomes,
+                                                reqs, what)
+                tokens = compare_tokens(reqs, outcomes, ref)
+                replayed = set(tripped["replayed_rids"])
+                held = {rid: eq for rid, eq in tokens["equal"].items()
+                        if leg == "native" or rid not in replayed}
+                require(all(held.values()),
+                        f"{what}: tokens under fire differ from the no-fault "
+                        f"run: {tokens['first_differing_position']}")
+                require(torch.equal(eng.kv.pool[chain], chain_before)
+                        and (scales_before is None or torch.equal(
+                            eng.kv.scales[chain], scales_before)),
+                        f"{what}: a shared prefix page changed")
+                sites = flight_fault_sites(os.path.join(
+                    tmp, f"flight-{os.getpid()}-serving_recover.json"))
+                require(sites and sites[-1].startswith("serving."),
+                        f"{what}: flight dump fault sites {sites}")
+                hung = json.load(open(os.path.join(
+                    tmp, f"flight-{os.getpid()}-watchdog_hung.json")))
+                require(any(e["name"] == "watchdog_trip"
+                            for e in hung["events"]),
+                        f"{what}: the watchdog_hung dump has no trip")
+                require(trace.span_problems() == [],
+                        f"{what}: {trace.span_problems()[:5]}")
+            eng.stop(drain=True)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # one deterministic schedule (no timing-driven site, watchdog
+            # off) on the card and on the CPU, the same weights
+            det = {}
+            for name, m, dev in (("card", model, "cuda"),
+                                 ("cpu", cpu_model, "cpu")):
+                e = engine(m, leg, dev, watchdog_s=0)
+                fresh_obs(obs)
+                sched_d = chaos_schedule(3, delay=False)
+                _, dfuts, _ = chaos_drive(
+                    e, [short[i] for i in DET_PROMPTS], 8, sched_d)
+                dsnap = obs.snapshot()
+                douts = chaos_outcomes(dfuts)
+                require_liveness(e, douts, dsnap, f"{what} {name}")
+                det[name] = {
+                    "outcomes": [o[1] if o[0] == "err" else "ok"
+                                 for o in douts],
+                    "trace": [list(x) for x in sched_d.trace],
+                    "counters": {k: dsnap[k] for k in CHAOS_COUNTERS
+                                 if k in dsnap}}
+                del e
+                gc.collect()
+            require(det["card"] == det["cpu"],
+                    f"{what}: card and CPU engines differ under one "
+                    f"deterministic schedule: {det}")
+            emit({"phase": "serve_chaos_check", "card": card, "pool": leg,
+                  "layers": 2, "dtype": "float32", "requests": len(prompts),
+                  "shared_prefix": 1024, "new_tokens": 16,
+                  "watchdog_s": CHAOS_WATCHDOG_S,
+                  "max_replays": CHAOS_MAX_REPLAYS,
+                  "step_prob": CHECK_STEP_PROB,
+                  "stall_s": STALL_BUDGETS * CHAOS_WATCHDOG_S,
+                  "stall_at_replay": STALL_AT_REPLAY,
+                  "fault_trace": [list(x) for x in sched.trace],
+                  **tripped, **live,
+                  "outcomes": [o[0] if o[0] == "ok" else o[1]
+                               for o in outcomes],
+                  "tokens_vs_no_fault": tokens, **counted,
+                  "flight_dump_fault_sites": sites[-3:],
+                  "retried_step": retried,
+                  "deterministic_vs_cpu": {"equal": True, **det["card"]},
+                  "wall_s": wall, "seconds": time.monotonic() - t0})
+    finally:
+        obs.disable()
+    del model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def chaos_7b_leg(torch, eng, fa, pa, served, sched, cycles, srv, tmp,
+                 layers: int, leg: str) -> dict:
+    """One run of ``serve_chaos_7b``: the traffic under ``sched`` and one
+    device stall, then its gates; returns the leg's report."""
+    import urllib.request
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import GenerationRequest
+    what = f"serve_chaos_7b {leg}"
+    fresh_obs(obs)
+    trace.clear()
+    for c in (fa.launches, pa.launches):
+        c.reset()
+    eng.run()                      # clears a previous drain's latch
+    before = eng.decode_stats()
+    with device_stall(torch, eng, STALL_BUDGETS * CHAOS_WATCHDOG_S,
+                      cycles) as stall, faults.installed(sched):
+        t1 = time.monotonic()
+        reqs = [GenerationRequest(p, max_new_tokens=64)
+                for p in served["prompts"]]
+        futs = [eng.submit(r) for r in reqs]
+        eng.run()
+        wall = time.monotonic() - t1
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        eng.stop(drain=True, timeout=60)
+    counted = require_chaos_launches(
+        before, eng.decode_stats(), {"flash_prefill": fa.launches.count,
+                                     "paged_decode": pa.launches.count},
+        layers, what)
+    outcomes = chaos_outcomes(futs)
+    snap = obs.snapshot()
+    live = require_liveness(eng, outcomes, snap, what)
+    tripped = require_stall_tripped(snap, trace.events(), stall, outcomes,
+                                    reqs, what)
+    require(eng.beacon in health["components"],
+            f"{what}: /healthz lists {list(health['components'])}")
+    with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    scraped = obs.parse_prometheus_text(text)
+    snap = obs.snapshot()
+    statuses = {f'{{status="{k.split("=")[1]}"}}': v for k, v in
+                snap["serving.requests_total"].items()}
+    require('serving_tpot_seconds_bucket{le="0.004"}' in text
+            and scraped["serving_requests_total"] == statuses
+            and scraped["serving_tokens_total"][""]
+            == snap["serving.tokens_total"],
+            f"{what}: /metrics disagrees with obs.snapshot(): "
+            f"{scraped.get('serving_requests_total')} vs {statuses}")
+    path = trace.export_chrome(os.path.join(tmp, f"serving-{leg}.json"))
+    doc = json.load(open(path))
+    require(doc["traceEvents"] and trace.span_problems() == [],
+            f"{what}: chrome export or span tree broken: "
+            f"{trace.span_problems()[:5]}")
+    ntok = sum(len(o[1]) for o in outcomes if o[0] == "ok")
+    return {"fault_trace": [list(x) for x in sched.trace], **tripped,
+            **live, "wall_s": wall, "completed_tokens_per_s": ntok / wall,
+            "outcomes": [o[0] if o[0] == "ok" else o[1] for o in outcomes],
+            "tokens_vs_no_fault": compare_tokens(reqs, outcomes,
+                                                 served["transcripts"]),
+            **counted, "ttft_hist": snap.get("serving.ttft_seconds"),
+            "tpot_hist": snap.get("serving.tpot_seconds"),
+            "healthz": health["status"],
+            "metrics_lines": len(text.splitlines()),
+            "trace_events": len(doc["traceEvents"])}
+
+
+def serve_chaos_7b(torch, card, fa, pa, model, served):
+    """``serve_llama2_7b``'s traffic (16 prompts of 128-1000 tokens, 64 new,
+    lengths warmed; 32 layers bf16) with a 0.25 s watchdog, two replays
+    and one device stall a run, observability and tracing on, the scrape
+    endpoint on port 0 (the engine starts it from
+    ``PADDLE_TPU_OBS_HTTP_PORT``); twice: under the chaos suite's seeded
+    schedule as it is, then with its step-fault rate scaled to 64-token
+    requests. Requires in each the liveness invariants, the B1/B6
+    launches as counted, ``/metrics`` over loopback carrying the SLO
+    bucket ``le="0.004"`` and the same ``requests_total`` statuses as
+    ``obs.snapshot()``, ``/healthz`` listing the engine's beacon, and a
+    parseable Chrome export with no span problem. Reports tok/s under
+    fire, trips, replays, recovery seconds, the replay keys captured and
+    their seconds, and the share of survivors' tokens equal to the
+    no-fault run's. Returns the engine (for ``obs_overhead_7b``) and each
+    run's B1/B6 launches."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import http as obs_http
+    from paddle_tpu_torch.observability import trace
+    t0 = time.monotonic()
+    prefill_fn, _ = model.serving_callables(2048)
+    cycles = sleep_cycles_per_s(torch)
+    os.environ["PADDLE_TPU_OBS_HTTP_PORT"] = "0"
+    fresh_obs(obs)
+    legs = {}
+    try:
+        with trace_dir_on(trace) as tmp:
+            eng = engine_7b(model, prefill_fn, "off", served["lens"],
+                            watchdog_s=CHAOS_WATCHDOG_S,
+                            max_replays=CHAOS_MAX_REPLAYS)
+            srv = obs_http._GLOBAL
+            require(srv is not None, "the engine started no scrape endpoint")
+            for leg, step_prob in (("suite", 0.06),
+                                   ("per_token", 0.06 * 4 / 64)):
+                legs[leg] = {"step_prob": step_prob, **chaos_7b_leg(
+                    torch, eng, fa, pa, served,
+                    chaos_schedule(0, step_prob=step_prob), cycles, srv,
+                    tmp, model.config.num_hidden_layers, leg)}
+    finally:
+        obs.disable()
+        os.environ.pop("PADDLE_TPU_OBS_HTTP_PORT", None)
+        if obs_http._GLOBAL is not None:
+            obs_http._GLOBAL.close()
+            obs_http._GLOBAL = None
+    emit({"phase": "serve_chaos_7b", "card": card, "layers": 32,
+          "dtype": "bfloat16", "requests": len(served["prompts"]),
+          "new_tokens": 64, "watchdog_s": CHAOS_WATCHDOG_S,
+          "max_replays": CHAOS_MAX_REPLAYS,
+          "stall_s": STALL_BUDGETS * CHAOS_WATCHDOG_S, **legs,
+          "seconds": time.monotonic() - t0})
+    return eng, {leg: v["launches"] for leg, v in legs.items()}
+
+
+OBS_RUNS = 3
+
+
+def obs_overhead_7b(torch, card, eng, served) -> None:
+    """The warmed ``serve_llama2_7b`` traffic three times each way,
+    interleaved, on one engine: observability disabled and no watchdog
+    (the default), then observability and tracing on with a 0.25 s
+    watchdog. Reports tok/s, TTFT and TPOT each way, and the host calls of
+    one bucket-16 decode step (``eng.step()`` with 16 live slots) each way;
+    requires the disabled step to make no more launch calls than
+    ``decode_step_profile``'s replayed step."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.serving import GenerationRequest, StepWatchdog
+    watchdog = eng._watchdog
+
+    def mode(on: bool) -> None:
+        if eng._watchdog is not None:
+            eng._watchdog.stop()
+        eng._watchdog = watchdog if on else None
+        (obs.enable if on else obs.disable)()
+        trace.set_mode("on" if on else "off")
+        trace.clear()
+
+    def decode_step_calls() -> dict:
+        futs = [eng.submit(GenerationRequest(p, max_new_tokens=64))
+                for p in served["prompts"]]
+        while eng.queue_depth or eng.active_requests < len(futs):
+            eng.step()
+        row = profile_call(torch, eng.step)
+        eng.run()
+        for f in futs:
+            f.result(timeout=0)
+        return {"host_launch_calls": row["host_launch_calls"],
+                "host_calls": row["host_calls"],
+                "profiled_wall_ms": row["profiled_wall_ms"]}
+
+    require(isinstance(watchdog, StepWatchdog),
+            "obs_overhead_7b: the engine has no watchdog to turn on")
+    runs = {"off": [], "on": []}
+    steps = {}
+    fresh_obs(obs)
+    try:
+        eng.run()
+        for i in range(OBS_RUNS):
+            for name in ("off", "on"):
+                mode(name == "on")
+                wall, results, _ = run_traffic(torch, eng, served["prompts"],
+                                               64)
+                require(all(len(r.tokens) == 64 for r in results),
+                        f"obs_overhead_7b {name}: short transcripts")
+                runs[name].append(serving_numbers(results, wall))
+        for name in ("off", "on"):
+            mode(name == "on")
+            steps[name] = decode_step_calls()
+    finally:
+        mode(False)
+    require(steps["off"]["host_launch_calls"]
+            <= served["graph_host_launch_calls"],
+            f"obs_overhead_7b: a decode step with observability off makes "
+            f"{steps['off']['host_launch_calls']} launch calls, the replayed "
+            f"step of decode_step_profile "
+            f"{served['graph_host_launch_calls']}")
+    med = {name: {k: statistics.median(r[k] for r in rows) for k in (
+        "tokens_per_s", "ttft_median_s", "tpot_median_s")}
+        for name, rows in runs.items()}
+    emit({"phase": "obs_overhead_7b", "card": card, "runs": runs,
+          "median": med,
+          "on_vs_off_tokens_per_s": med["on"]["tokens_per_s"]
+          / med["off"]["tokens_per_s"],
+          "decode_step_host_calls": steps,
+          "decode_step_profile_host_launch_calls":
+              served["graph_host_launch_calls"]})
 
 
 # ---------------------------------------------------------------------------
@@ -5752,13 +6435,24 @@ def check_bias_period(torch, ba, gen) -> dict:
         lambda: torch.nn.functional.gelu(y3 + b, approximate="tanh"),
         MOE_ITERS)
     t["bwd_ms"] = cuda_ms(torch, bwd, MOE_ITERS)
+    t["bwd_plain_ms"] = cuda_ms(
+        torch, lambda: ba.bias_act_bwd_reference(y, b, dy, spec, cap),
+        max(2, MOE_ITERS // 4))
+    dy3 = dy.view(e, cap, i)
+
+    def library_bwd():
+        dyy = torch.ops.aten.gelu_backward(dy3, y3 + b, approximate="tanh")
+        return dyy, dyy.sum(dim=1, keepdim=True)
+    t["bwd_library_ms"] = cuda_ms(torch, library_bwd, MOE_ITERS)
     t["bound_ms"], t["bound_by"] = bound(0, nbytes(y, b, got["out"]),
                                          "float32")
     t["bwd_bound_ms"], _ = bound(0, nbytes(y, b, dy, gb["dy_y"], gb["db"]),
                                  "float32")
     return {"max_abs_err": err, "errs": errs,
             "case": "y (8192, 14336) bf16 + b (16, 1, 14336), period 512, "
-                    "GELU tanh; library: F.gelu(y + b, tanh) on (E, C, I)",
+                    "GELU tanh; library: F.gelu(y + b, tanh) on (E, C, I); "
+                    "backward library: aten.gelu_backward on (E, C, I) and "
+                    "its sum over C",
             **t}
 
 
@@ -6266,16 +6960,20 @@ def main() -> int:
     for c in all_counters:
         c.reset()
     model, init_s = build_7b(torch)
-    serve_launches = serve_7b(torch, smi, fa, pa, model, init_s)
+    serve_launches, served = serve_7b(torch, smi, fa, pa, model, init_s)
     prefix_launches = serve_prefix_7b(torch, smi, fa, pa, kvc, model)
     prefill_graph_check(torch, smi, model, kvc)
-    del model
+    chaos_eng, chaos_launches = serve_chaos_7b(torch, smi, fa, pa, model,
+                                               served)
+    obs_overhead_7b(torch, smi, chaos_eng, served)
+    del chaos_eng, model
     gc.collect()
     torch.cuda.empty_cache()
     fmt_check(torch, fa, pa, kvc)
     fmt_times = fmt_kernel_times(torch, fa, pa, kvc)
     fmt_launches = serve_fmt(torch, smi, fa, pa)
     agree_2layer(torch, fa, pa)
+    serve_chaos_check(torch, smi, fa, pa)
     flash_errs, flash_times = check_flash_train(torch, fa,
                                                 planted["flash_attention"])
     q8_err, q8_time = check_q8_adam(torch, q8)
@@ -6335,6 +7033,8 @@ def main() -> int:
             for m, v in prefix_launches.items()},
          **{f"launches_fmt_{p}": v["flash_prefill"]
             for p, v in fmt_launches.items()},
+         **{f"launches_serve_chaos_7b_{leg}": v["flash_prefill"]
+            for leg, v in chaos_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
          "case": k1["case"], **{k: k1[k] for k in keys},
          "fmt_shapes": {k: fmt_times[k] for k in ("flash_prefill",
@@ -6348,6 +7048,8 @@ def main() -> int:
             for m, v in prefix_launches.items()},
          **{f"launches_fmt_{p}": v["paged_decode"]
             for p, v in fmt_launches.items()},
+         **{f"launches_serve_chaos_7b_{leg}": v["paged_decode"]
+            for leg, v in chaos_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
          "case": k2["case"], **{k: k2[k] for k in keys},
          "fmt_shapes": {k: fmt_times[k] for k in ("paged_decode_bf16",
@@ -6467,8 +7169,8 @@ def main() -> int:
          "max_abs_err": moe_rows["bias_act_period"]["max_abs_err"],
          "case": moe_rows["bias_act_period"]["case"],
          **{key: moe_rows["bias_act_period"][key] for key in keys},
-         "bwd_ms": moe_rows["bias_act_period"]["bwd_ms"],
-         "bwd_bound_ms": moe_rows["bias_act_period"]["bwd_bound_ms"]},
+         **{key: moe_rows["bias_act_period"][key] for key in (
+             "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms")}},
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

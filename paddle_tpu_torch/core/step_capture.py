@@ -53,7 +53,10 @@ launch per op.
   host, as the reference's does.
 
 ``stats`` (per object) and :func:`capture_info` (process-wide) count hits,
-retraces and bypasses by reason.
+retraces and bypasses by reason, and so do the metrics
+``train.capture_hits_total``, ``train.capture_retraces_total`` and
+``train.capture_bypasses_total{reason}`` (host-side increments at each
+call, never inside a captured region; free while observability is off).
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import _native
+from .. import observability as _obs
 
 __all__ = ["CapturedStep", "HostStateWriteError", "capture_context",
            "capture_info", "capture_step", "capturing", "check_host_write",
@@ -161,6 +165,12 @@ def _count(kind: str, reason: Optional[str] = None) -> None:
             b[reason] = b.get(reason, 0) + 1
         else:
             _STATS[kind] += 1
+    if kind == "bypass":
+        _obs.inc("train.capture_bypasses_total", reason=reason or "other")
+    elif kind == "hits":
+        _obs.inc("train.capture_hits_total")
+    else:
+        _obs.inc("train.capture_retraces_total")
 
 
 def capture_info() -> Dict[str, Any]:

@@ -63,16 +63,79 @@ port of ``paddle_tpu/serving/engine.py``.
 
 The pool is updated **in place** and never reallocated (the JAX engine
 threads it through its compiled programs as functional state); a replay
-checks that it has not moved. The JAX engine's fault sites, watchdog,
-replay, metrics and traces are later slices.
+checks that it has not moved.
+
+Failure semantics, as the JAX engine's (``resilience`` seams, the same
+site names and counters):
+
+* ``serving.admit`` fires once per admission attempt, before the prefill.
+  One retry; a second fault fails that request and frees its pages.
+* ``serving.step`` fires once per (step, included slot), in admission
+  order. A faulted slot sits the step out; a second fault fails it alone.
+* ``serving.watchdog`` fires once per batched-decode attempt, inside the
+  armed watchdog window (``watchdog_s``, ``PADDLE_TPU_SERVING_WATCHDOG_S``)
+  and before the launch: a ``delay`` is a hung step, an ``error`` a
+  whole-batch fault. A fault is retried once; a second one, or a watchdog
+  trip, abandons the step's outputs and recovers the included slots by
+  **bounded prefill replay**: each slot's prompt + tokens so far is
+  requeued at the queue head and re-prefilled into fresh pages (at most
+  ``max_replays`` times, then the request fails); the flight recorder
+  dumps (``serving_recover``).
+* ``serving.drain`` fires at ``stop(drain=True)``; an injected error
+  degrades the drain to an immediate stop. Either way every Future
+  resolves and every page returns to the pool.
+
+Where the in-place pool changes the argument. The JAX engine's recovery
+rests on "nothing was committed". Here a launched decode step has written
+position ``t`` of every included slot, so: (1) a step that launched is
+never launched again: an exception after the launch (the token read-back)
+retries the read of the same output, so a retried step leaves the pool
+bit-equal to one step (and a repeated int8 token write is a no-op,
+``ops.paged_attention.scatter_token_inplace``); (2) a step whose outputs
+are abandoned wrote only into its slots' own pages at ``t`` >= the
+prompt length, never a published prefix page, and recovery frees those
+pages. A replay's re-prefill is a prefill key nobody warmed: on a card it
+is captured at its admission, outside the watchdog's window.
+
+An abandoned step still runs on the stream (a graph replay cannot be
+cancelled). A tripped step that returned has finished. A loop thread that
+``stop()`` abandons as a zombie has not: it may still be in its read-back,
+with its copies and kernels queued. Every replay records an event; after
+an abandonment no graph refills its pinned staging and no admission
+reuses a freed page until the graph's last replay event has completed,
+and the zombie launches nothing more (it checks under the launch lock).
+All engine work runs on one stream (:attr:`Engine.stream`), so stream
+order covers the pool.
+
+A real asynchronous CUDA error (an illegal address) is sticky: the
+process's context cannot run another kernel. The engine does not loop on
+it: the retry and the replays' re-prefills fail again, every involved
+Future resolves with the error within ``max_replays``, and the flight
+recorder dumps. Restart the process.
+
+Observability, as the JAX engine's: ``serving.requests_total{status}``,
+``tokens_total``, ``steps_total``, ``prefills_total``,
+``step_retries_total``, ``admit_retries_total``, ``replays_total``,
+``rejected_total{reason}``, ``watchdog_trips_total{kind}``, the
+``queue_depth``/``active_slots``/``batch_utilization`` gauges and the
+``ttft_seconds``/``tpot_seconds``/``queue_wait_seconds`` histograms; a
+trace root per request from ``submit()``; a ``/healthz`` beacon;
+``PADDLE_TPU_OBS_HTTP_PORT`` opts into the scrape endpoint. All of it is
+host code in the step loop, reading host state: nothing inside a captured
+region (``prefill_body``, ``step_fn``), which runs once at capture and
+never at replay. Disabled (the default), each seam is one bool probe, and
+with no watchdog budget none is armed.
 """
 
 from __future__ import annotations
 
 import inspect
+import logging
+import os
 import threading
 import time
 from collections import Counter, OrderedDict
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -80,17 +143,51 @@ import numpy as np
 import torch
 
 from .. import _native
+from .. import observability as _obs
 from ..device import resolve_device
+from ..observability import http as _obs_http
+from ..observability import trace as _trace
 from ..ops.paged_attention import PagedDecodeCache
+from ..resilience import deadline_scope, faults as _faults, jitter_sleep
 from . import kv_cache as _kv
 from .scheduler import (GenerationRequest, GenerationResult, Scheduler,
                         _Pending)
+from .watchdog import StepWatchdog, WatchdogTimeout
 
 __all__ = ["ServingConfig", "Engine", "EngineStopped", "DrainTimeout",
-           "DecodeGraph", "PrefillGraph", "prefill_body"]
+           "DecodeGraph", "PrefillGraph", "prefill_body", "TTFT_BUCKETS",
+           "TPOT_BUCKETS"]
 
+_log = logging.getLogger(__name__)
+
+# extra seconds past the drain budget the loop thread is given to come back
+# from its device call before stop() proceeds without it
+_JOIN_GRACE_S = 1.0
 # bound on joining the loop thread when stop() was given no drain budget
+# (PADDLE_TPU_STOP_JOIN_S overrides): past it a wedged thread is abandoned
 _STOP_JOIN_S = 30.0
+
+# SLO-shaped latency boundaries (the JAX engine's), registered at import so
+# every later observe joins these families
+TTFT_BUCKETS = (
+    0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5, 5.0,
+    10.0, 30.0,
+)
+TPOT_BUCKETS = (
+    0.0005, 0.001, 0.002, 0.004, 0.006, 0.008, 0.01, 0.015, 0.025,
+    0.05, 0.1, 0.25, 1.0,
+)
+_obs.histogram("serving.ttft_seconds",
+               "submit -> first token (once per request)",
+               buckets=TTFT_BUCKETS)
+_obs.histogram("serving.tpot_seconds",
+               "inter-token time after the first", buckets=TPOT_BUCKETS)
+
+# every Nth decode step drops an instant on the request's trace
+_DECODE_TRACE_EVERY = 8
+
+# the engine's liveness beacon ttl (/healthz goes 503 past this)
+_HEARTBEAT_TTL_S = 60.0
 # eager calls on a side stream before a decode or prefill capture (PyTorch's
 # graph API wants the call's lazy work, here the kernels' first build and
 # load and cuBLAS's handles, done before it records; one call does it all)
@@ -108,7 +205,21 @@ class EngineStopped(RuntimeError):
 
 class DrainTimeout(EngineStopped):
     """An admitted request was still decoding when the drain budget ran
-    out."""
+    out and ``on_timeout="fail"`` evicted it."""
+
+
+class _Abandoned(Exception):
+    """Raised in a loop thread that ``stop()`` abandoned as a zombie, at
+    its next launch: it launches nothing more."""
+
+
+def _env_seconds(name: str) -> Optional[float]:
+    """Float seconds from the environment; 0, empty or absent mean off."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    val = float(raw)
+    return val if val > 0 else None
 
 
 def _prefill_accepts_start(fn: Callable) -> bool:
@@ -133,6 +244,9 @@ class ServingConfig:
     num_heads: int
     head_dim: int
     max_len: int
+    # replica identity: names the liveness beacon serving.engine.<name>
+    # (empty: serving.engine)
+    name: str = ""
     max_batch: int = 16
     buckets: Tuple[int, ...] = (1, 4, 16)
     max_queue: int = 64
@@ -148,6 +262,15 @@ class ServingConfig:
     # never consult the index
     prefix_sharing: str = "auto"
     min_shared_pages: int = 1            # shortest chain worth mapping
+    # bounded prefill replay: how many times an unrecoverable step fault or
+    # a watchdog trip may requeue a slot before its Future fails
+    max_replays: int = 1
+    # step watchdog budget in seconds; None -> PADDLE_TPU_SERVING_WATCHDOG_S
+    # (0 or absent: off); 0 forces it off whatever the environment says
+    watchdog_s: Optional[float] = None
+    # cap on queue wait; None -> PADDLE_TPU_SERVING_MAX_QUEUE_WAIT (0 or
+    # absent: unbounded); 0 forces it off
+    max_queue_wait_s: Optional[float] = None
 
     def __post_init__(self):
         self.buckets = tuple(sorted(set(int(b) for b in self.buckets)))
@@ -160,6 +283,18 @@ class ServingConfig:
         if self.min_shared_pages < 1:
             raise ValueError(f"min_shared_pages must be >= 1, got "
                              f"{self.min_shared_pages}")
+        if self.max_replays < 0:
+            raise ValueError(f"max_replays must be >= 0, got "
+                             f"{self.max_replays}")
+        if self.watchdog_s is None:
+            self.watchdog_s = _env_seconds("PADDLE_TPU_SERVING_WATCHDOG_S")
+        elif self.watchdog_s <= 0:
+            self.watchdog_s = None
+        if self.max_queue_wait_s is None:
+            self.max_queue_wait_s = _env_seconds(
+                "PADDLE_TPU_SERVING_MAX_QUEUE_WAIT")
+        elif self.max_queue_wait_s <= 0:
+            self.max_queue_wait_s = None
 
     def kv_config(self) -> _kv.KVCacheConfig:
         cfg = _kv.KVCacheConfig(
@@ -183,11 +318,14 @@ class _Slot:
     t: int                              # next cache write position
     last_tok: int
     tokens: List[int] = field(default_factory=list)
+    faults: int = 0
     first_token_time: float = 0.0
     last_token_time: float = 0.0
     # leading pages mapped read-only from the prefix index: this slot holds
     # one reference on each, which free() hands back
     shared_pages: int = 0
+    # submit_time + deadline_s, when the request has a deadline
+    until: Optional[float] = None
 
     @property
     def request(self) -> GenerationRequest:
@@ -247,9 +385,10 @@ class _EngineGraph:
     The capture bakes in the addresses of the static buffers, the pool,
     its scales and the model's weights, so the pool must never be
     reallocated: :meth:`replay` raises if it moved. Replays count the
-    kernel launches the capture recorded (``_native.recorded_launches``).
-    Graphs of one engine share a memory pool, so a graph's output is valid
-    only until another graph replays."""
+    kernel launches the capture recorded (``_native.recorded_launches``)
+    and record :attr:`done` after the launch. Graphs of one engine share a
+    memory pool, so a graph's output is valid only until another graph
+    replays."""
 
     def __init__(self, kv: _kv.PagedKVCache, buffers: Tuple[torch.Tensor, ...],
                  what: str):
@@ -264,6 +403,9 @@ class _EngineGraph:
                          for x in buffers]
         self._pool_ptrs = self._pointers()
         self.replays = 0
+        # recorded after every replay: after an abandoned loop thread, the
+        # next step waits for it (Engine._await_quarantine)
+        self.done = torch.cuda.Event()
 
     def _capture(self, fn: Callable, mempool,
                  side: Optional[torch.cuda.Stream]) -> torch.Tensor:
@@ -300,8 +442,10 @@ class _EngineGraph:
 
     def load(self, *arrays: np.ndarray) -> None:
         """Copy one call's host arrays into the static buffers (queued on
-        the current stream; the previous replay's output read has retired
-        the previous copies, so the staging is free)."""
+        the current stream). The previous replay's output read has retired
+        the previous copies, so the staging is free (after an abandoned
+        loop thread, the engine's next step first waits for every graph's
+        last replay)."""
         for host, dev, arr in zip(self._staging, self._buffers, arrays):
             host.numpy()[...] = arr
             dev.copy_(host, non_blocking=True)
@@ -314,6 +458,7 @@ class _EngineGraph:
                 f"{self.what}: the KV pool moved since its capture; the pool "
                 f"must be updated in place")
         self.graph.replay()
+        self.done.record()
         for counter, n in self.launches.items():
             counter.add(n)
         self.replays += 1
@@ -379,8 +524,8 @@ class Engine:
     """Continuous-batching decode engine over a paged KV pool.
 
     ``step()`` is single-consumer (your own loop, :meth:`run`, or the
-    :meth:`start` thread); ``submit`` and ``cancel`` are safe from any
-    thread."""
+    :meth:`start` thread); ``submit``, ``cancel`` and ``stop`` are safe
+    from any other thread."""
 
     def __init__(self, prefill_fn: Callable, step_fn: Callable,
                  config: ServingConfig):
@@ -402,6 +547,7 @@ class Engine:
         self.scheduler = Scheduler(
             max_queue=config.max_queue, policy=config.policy,
             prefill_token_budget=config.prefill_token_budget,
+            max_queue_wait_s=config.max_queue_wait_s,
             prefill_cost=self._prefill_cost if self._share_prefix else None)
         # decode graphs by bucket and prefill graphs by (start, n), least
         # recently used first (a card only), sharing one memory pool;
@@ -418,21 +564,66 @@ class Engine:
         self._evicted_replays: Counter = Counter()
         self._graph_lock = threading.Lock()
         self._capture_pool = None
+        # the one stream of the engine's device work (a card only): the loop
+        # thread runs on it, so stream order covers the pool
+        self.stream = (torch.cuda.current_stream(self.device)
+                       if self.device.type == "cuda" else None)
+        # held from the zombie check through a launch: stop() takes it to
+        # mark an abandoned loop thread, which then launches nothing more
+        self._launch_lock = threading.Lock()
+        self._zombies: set = set()
+        # set when a loop thread was abandoned: the next step waits for
+        # every graph's last replay before it refills a staging buffer or
+        # reuses a freed page
+        self._quarantined = False
+        # the output of a launched step whose read-back failed: a retry
+        # reads it again instead of launching the step twice
+        self._unread: Optional[torch.Tensor] = None
         # the step loop's own counts: decode steps by live rows, prefills
         # by kind (guarded by _slot_lock)
         self._batch_sizes: Counter = Counter()
         self._prefills: Counter = Counter()
         self._slots: List[_Slot] = []    # admission order == batch row order
+        # guards slot admission and eviction and the in-transit count: a
+        # budgeted stop() that gave up on a wedged loop thread resolves
+        # stragglers from the caller's thread while the wedged call may
+        # return concurrently; _release decides each slot's winner once
         self._slot_lock = threading.Lock()
+        # requests between queue and slot (popped, prefill not finished) or
+        # between slot and queue (evicted by recovery, not yet requeued):
+        # the drain's owed-work probe must not read either as nothing left
+        self._in_transit = 0
+        # live slots whose requests carry a deadline (guarded by _slot_lock)
+        self._deadline_slots = 0
         # orders submit's draining check + enqueue against stop's latch, so
         # a request is either refused or swept by the drain, never stranded
         self._submit_lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._draining = threading.Event()
+        # how the last stop() resolves stragglers ("fail" | "requeue"; a
+        # pause requeues), and whether its sweep ran: an admission that
+        # lands after the sweep is resolved the same way (guarded by
+        # _slot_lock)
+        self._drain_on_timeout = "fail"
+        self._swept = False
         self._thread: Optional[threading.Thread] = None
+        self._watchdog: Optional[StepWatchdog] = (
+            StepWatchdog(config.watchdog_s) if config.watchdog_s else None)
+        self._beacon = (f"serving.engine.{config.name}" if config.name
+                        else "serving.engine")
+        # one trace track for the engine's own batched steps (requests
+        # carry their own), and the opt-in scrape endpoint
+        self._engine_trace = None
+        self._obs_http = _obs_http.maybe_serve_from_env()
 
     # -- device calls -------------------------------------------------------
+    def _check_live(self) -> None:
+        """Raise :class:`_Abandoned` in a loop thread ``stop()`` gave up on
+        (call with ``_launch_lock`` held)."""
+        if self._zombies and threading.get_ident() in self._zombies:
+            raise _Abandoned("this loop thread was abandoned by stop()")
+
     def _prefill(self, prompt: np.ndarray, row: np.ndarray,
                  start: int = 0) -> int:
         """Prefill ``prompt`` into the pages of ``row``; returns the first
@@ -443,32 +634,56 @@ class Engine:
         pages = row[:self.kv.pages_for(int(prompt.size))]
         if self.device.type == "cuda":
             g = self.prefill_graph(start, int(prompt.size) - start)
-            g.load(prompt[None, start:], pages)
-            return int(g.replay().reshape(-1)[0])
+            with self._launch_lock:
+                self._check_live()
+                g.load(prompt[None, start:], pages)
+                out = g.replay()
+            return int(out.reshape(-1)[0])
         ids = torch.as_tensor(prompt[None, start:], dtype=torch.int64,
                               device=self.device)
-        nxt = prefill_body(self._prefill_fn, self.kv, ids,
-                           torch.as_tensor(pages, device=self.device), start)
+        with self._launch_lock:
+            self._check_live()
+            nxt = prefill_body(self._prefill_fn, self.kv, ids,
+                               torch.as_tensor(pages, device=self.device),
+                               start)
         return int(nxt.reshape(-1)[0])
 
     def _decode(self, tok: np.ndarray, tables: np.ndarray,
                 t: np.ndarray) -> np.ndarray:
         """One batched decode step over the pool; returns next tokens
         (bucket,) (one host sync). A replay of the bucket's graph on a
-        card, an eager ``step_fn`` call on the CPU."""
-        if self.device.type == "cuda":
-            g = self.decode_graph(int(tok.shape[0]))
-            g.load(tok, tables, t)
-            return g.replay().reshape(-1).cpu().numpy()
-        dev = self.device
-        t_d = torch.as_tensor(t, device=dev)
-        view = PagedDecodeCache(
-            pool=self.kv.pool, tables=torch.as_tensor(tables, device=dev),
-            t=t_d, page_size=self.kv.config.page_size, scales=self.kv.scales)
-        with torch.no_grad():
-            nxt, _ = self._step_fn(torch.as_tensor(tok, device=dev), view,
-                                   t_d)
-        return nxt.reshape(-1).cpu().numpy()
+        card, an eager ``step_fn`` call on the CPU. If a launched step's
+        read-back failed (``_unread``), this reads that output again
+        instead of launching the step a second time."""
+        out = self._unread
+        if out is None:
+            if self.device.type == "cuda":
+                g = self.decode_graph(int(tok.shape[0]))
+                with self._launch_lock:
+                    self._check_live()
+                    g.load(tok, tables, t)
+                    out = g.replay()
+            else:
+                dev = self.device
+                t_d = torch.as_tensor(t, device=dev)
+                view = PagedDecodeCache(
+                    pool=self.kv.pool,
+                    tables=torch.as_tensor(tables, device=dev), t=t_d,
+                    page_size=self.kv.config.page_size, scales=self.kv.scales)
+                with self._launch_lock, torch.no_grad():
+                    self._check_live()
+                    out, _ = self._step_fn(torch.as_tensor(tok, device=dev),
+                                           view, t_d)
+            self._unread = out
+        next_np = self._read(out)
+        self._unread = None
+        return next_np
+
+    @staticmethod
+    def _read(out: torch.Tensor) -> np.ndarray:
+        """The host read of a decode step's tokens (on a card the wait for
+        the step; the copy releases the GIL while it waits)."""
+        return out.reshape(-1).cpu().numpy()
 
     def _capture_args(self):
         """The memory pool every graph of this engine captures into, and
@@ -631,7 +846,17 @@ class Engine:
     def submit(self, request: GenerationRequest):
         """Enqueue; returns a Future resolving to GenerationResult. Raises
         QueueFull, DeadlineExceeded (shed on arrival), EngineStopped
-        (draining) or ValueError (the request can never fit) here."""
+        (draining) or ValueError (the request can never fit) here. With
+        tracing on, the request gets its own trace root here, carried
+        through the queue to the step thread."""
+        ctx = _trace.new_trace(f"request-{request.request_id}",
+                               rid=request.request_id) \
+            if _trace.enabled() else None
+        with _trace.span("serving.submit", parent=ctx,
+                         rid=request.request_id):
+            return self._submit(request, ctx)
+
+    def _submit(self, request: GenerationRequest, ctx):
         if int(request.prompt.size) + request.max_new_tokens \
                 > self.config.max_len:
             raise ValueError(
@@ -642,10 +867,12 @@ class Engine:
             raise ValueError("request needs more pages than the pool holds")
         with self._submit_lock:
             if self._draining.is_set():
+                _obs.inc("serving.requests_total", status="rejected")
+                _obs.inc("serving.rejected_total", reason="shed")
                 raise EngineStopped("engine is draining/stopped: not "
                                     "admitting")
-            fut = self.scheduler.submit(request,
-                                        submit_time=time.monotonic())
+            fut = self.scheduler.submit(request, submit_time=time.monotonic(),
+                                        trace_ctx=ctx)
         self._wake.set()
         return fut
 
@@ -663,34 +890,69 @@ class Engine:
     def queue_depth(self) -> int:
         return self.scheduler.queue_depth
 
+    @property
+    def beacon(self) -> str:
+        """This engine's ``/healthz`` component name."""
+        return self._beacon
+
     # -- the step loop ------------------------------------------------------
     def step(self) -> bool:
         """One step boundary: evict cancellations, admit what fits, run one
-        batched decode step. Returns False when there was nothing to do."""
+        batched decode step. Returns False when there was nothing to do.
+        While draining only crash-recovery requeues are admitted: they are
+        work in flight, not new work."""
+        if self._obs_http is not None or _obs.enabled():
+            _trace.heartbeat(self._beacon, ttl_s=_HEARTBEAT_TTL_S)
+        if self.stream is not None:
+            with torch.cuda.stream(self.stream):
+                return self._step()
+        return self._step()
+
+    def _step(self) -> bool:
+        if self._quarantined:
+            self._await_quarantine()
         progressed = self._process_cancellations()
-        if not self._draining.is_set():
-            progressed |= self._admit()
+        progressed |= self._admit(replay_only=self._draining.is_set())
+        metrics = _obs.enabled()
         if not self._slots:
+            if metrics:
+                self._publish_gauges(0, 0)
             return progressed
-        self._decode_step(list(self._slots))
-        return True
+        included = self._fault_gate() if _faults._SCHEDULE is not None \
+            else list(self._slots)
+        if included:
+            self._decode_step(included)
+            progressed = True
+        if metrics:
+            self._publish_gauges(len(included), self._bucket_for(
+                len(included)) if included else 0)
+        return progressed
 
     def run(self) -> None:
-        """Drive step() until queue and slots drain (offline mode)."""
+        """Drive step() until queue and slots drain (offline mode). Clears
+        the draining latch first, so run() after ``stop(drain=True,
+        on_timeout="requeue")`` resumes the requeued work."""
         self._stop.clear()
         self._draining.clear()
+        self._swept = False
         while self.scheduler.queue_depth or self._slots:
             self.step()
 
     def start(self) -> "Engine":
-        """Serve from a background thread until stop()."""
+        """Serve from a background thread until stop(). Re-entrant after a
+        stop: clears the draining latch, so requests requeued by
+        ``stop(drain=True, on_timeout="requeue")`` resume decoding."""
         if self._thread is not None:
             return self
         self._stop.clear()
         self._draining.clear()
+        self._swept = False
 
         def loop():
-            while not self._stop.is_set():
+            me = threading.current_thread()
+            # an abandoned loop thread that comes back leaves at once, even
+            # when a later start() cleared the stop flag
+            while not self._stop.is_set() and self._thread is me:
                 if not self.step():
                     self._wake.wait(0.01)
                     self._wake.clear()
@@ -700,51 +962,175 @@ class Engine:
         self._thread.start()
         return self
 
-    def stop(self, drain: bool = False,
-             timeout: Optional[float] = None) -> None:
-        """Stop serving. ``drain=False`` pauses where it stands (``start()``
-        resumes). ``drain=True`` stops admitting, keeps stepping until every
-        admitted request finishes or ``timeout`` seconds pass, then fails
-        the still-active ones with :class:`DrainTimeout` and the
-        never-admitted ones with :class:`EngineStopped`: every Future
-        resolves and every page returns to the pool."""
+    def stop(self, drain: bool = False, timeout: Optional[float] = None,
+             on_timeout: str = "fail") -> None:
+        """Stop serving.
+
+        ``drain=False`` pauses where it stands: in-flight slots and the
+        queue stay, and ``start()`` resumes them.
+
+        ``drain=True`` stops admitting (``submit`` raises
+        :class:`EngineStopped`), keeps stepping until every in-flight
+        sequence finishes or ``timeout`` seconds pass, then resolves the
+        stragglers: ``on_timeout="fail"`` fails still-active slots with
+        :class:`DrainTimeout` and never-admitted requests with
+        :class:`EngineStopped`; ``on_timeout="requeue"`` puts the active
+        ones back at the queue head with their tokens so far (prompt +
+        tokens re-prefilled, not counted as a replay) and leaves the queue,
+        so a later ``start()`` resumes where the drain stopped.
+
+        Idempotent, callable from any thread but the step thread (a
+        stream callback calling it raises; use :meth:`cancel`). The join
+        is bounded by the budget + 1 s, or by ``PADDLE_TPU_STOP_JOIN_S``
+        (default 30 s) without one: a loop thread still wedged in a device
+        call past it is logged, its stragglers are resolved anyway, and the
+        thread is abandoned as a zombie (it launches nothing more, its late
+        return is dropped, and its graphs and freed pages are quarantined
+        until its last replay completed)."""
+        if on_timeout not in ("fail", "requeue"):
+            raise ValueError(f"on_timeout must be fail|requeue, "
+                             f"got {on_timeout!r}")
         if self._thread is not None \
                 and threading.current_thread() is self._thread:
             raise RuntimeError("Engine.stop() called from the engine step "
                                "thread; use cancel()")
         deadline = None if timeout is None else time.monotonic() + timeout
+        with self._slot_lock:
+            self._drain_on_timeout = on_timeout if drain else "requeue"
+        graceful = False
         if drain:
             with self._submit_lock:
                 self._draining.set()
             self._wake.set()
-            while self.active_requests and (
-                    deadline is None or time.monotonic() < deadline):
-                if self._thread is None:
+            try:
+                _faults.fault_point("serving.drain")
+                graceful = True
+            except Exception:
+                # an injected drain fault degrades to an immediate stop:
+                # no Future may be stranded either way
+                graceful = False
+        if graceful:
+            def owed() -> bool:
+                with self._slot_lock:
+                    busy = bool(self._slots) or self._in_transit > 0
+                return busy or self.scheduler.queued_replays() > 0
+
+            if self._thread is not None:
+                while owed() and not self._stop.is_set():
+                    if deadline is not None and time.monotonic() >= deadline:
+                        break
+                    jitter_sleep(0.002)
+            else:
+                while owed() and (deadline is None
+                                  or time.monotonic() < deadline):
                     self.step()
-                else:
-                    time.sleep(0.002)
         self._stop.set()
         self._wake.set()
         t = self._thread
         if t is not None:
-            t.join(timeout=_STOP_JOIN_S if deadline is None else
-                   max(0.0, deadline - time.monotonic()) + 1.0)
+            if deadline is None:
+                join_s = _env_seconds("PADDLE_TPU_STOP_JOIN_S") \
+                    or _STOP_JOIN_S
+            else:
+                join_s = max(0.0, deadline - time.monotonic()) \
+                    + _JOIN_GRACE_S
+            t.join(timeout=join_s)
             if t.is_alive():
-                raise RuntimeError("serving loop thread did not stop")
+                _log.warning(
+                    "serving stop(): loop thread still wedged in a device "
+                    "call past the drain budget; resolving stragglers "
+                    "without it, its late return is abandoned")
+                self._abandon(t)
         self._thread = None
+        if self._watchdog is not None:
+            self._watchdog.stop()
         if drain:
-            for slot in list(self._slots):
+            # a wedged loop thread may be mid-admission (popped, prefill in
+            # flight): give that window one bounded grace to land
+            grace = time.monotonic() + _JOIN_GRACE_S
+            while time.monotonic() < grace:
+                with self._slot_lock:
+                    if self._in_transit == 0:
+                        break
+                jitter_sleep(0.002)
+            with self._slot_lock:
+                self._swept = True
+            self._resolve_stragglers(on_timeout)
+        _trace.heartbeat_clear(self._beacon)
+        _trace.maybe_export_chrome("serving")
+
+    def _abandon(self, thread: threading.Thread) -> None:
+        """Quarantine a loop thread ``stop()`` gave up on: it launches
+        nothing more, and the engine's next step waits for every graph's
+        last replay (the thread's queued copies may still read the
+        staging, and its queued kernels still write its pages)."""
+        self._zombies.add(thread.ident)
+        # wait out a launch in progress (an enqueue on a card, the eager
+        # step on the CPU); past the bound, the thread is wedged inside one
+        if self._launch_lock.acquire(timeout=_JOIN_GRACE_S):
+            self._launch_lock.release()
+        else:
+            _log.warning("serving stop(): the abandoned loop thread holds "
+                         "the launch lock; quarantining without it")
+        self._quarantined = True
+
+    def _await_quarantine(self) -> None:
+        """Before a step refills a staging buffer an abandoned step's
+        copies may still read, or reuses a page its kernels may still
+        write: wait for every graph's last replay."""
+        with self._graph_lock:
+            graphs = [*self._graphs.values(), *self._prefill_graphs.values()]
+        for g in graphs:
+            g.done.synchronize()
+        self._quarantined = False
+
+    def _resolve_stragglers(self, on_timeout: str) -> None:
+        """A drain's terminal accounting: every straggler fails
+        (``fail``) or is requeued resumable (``requeue``)."""
+        requeue: List[_Pending] = []
+        for slot in list(self._slots):
+            pend = slot.pending
+            if on_timeout == "requeue":
+                # not a fault: it spends no replay budget; a restarted
+                # engine re-prefills prompt + tokens and continues
+                if not self._release(slot):
+                    continue
+                pend.replay_tokens = list(slot.tokens)
+                requeue.append(pend)
+            else:
                 self._finish_error(slot, DrainTimeout(
                     f"request {slot.request.request_id} evicted at drain "
                     f"timeout after {len(slot.tokens)} tokens"))
+        if requeue:
+            self.scheduler.requeue(requeue)
+        if on_timeout == "fail":
             for pend in self.scheduler.drain_queue():
+                # settle the Future before the telemetry calls
+                if pend.replays or pend.replay_tokens:
+                    # admitted and decoding when recovery requeued it
+                    pend.future.set_exception(DrainTimeout(
+                        f"request {pend.request.request_id} evicted at "
+                        f"drain timeout awaiting replay re-admission "
+                        f"after {len(pend.replay_tokens)} tokens"))
+                    _obs.inc("serving.requests_total", status="failed")
+                    _trace.instant("serving.fault", parent=pend.trace_ctx,
+                                   rid=pend.request.request_id,
+                                   error="DrainTimeout")
+                    continue
                 pend.future.set_exception(EngineStopped(
                     f"request {pend.request.request_id} never admitted: "
                     f"engine stopped"))
+                _obs.inc("serving.requests_total", status="shed")
+                _obs.inc("serving.rejected_total", reason="shed")
+                _trace.instant("serving.shed", parent=pend.trace_ctx,
+                               rid=pend.request.request_id,
+                               reason="engine_stopped")
 
     # -- step phases ----------------------------------------------------------
     def _process_cancellations(self) -> bool:
         cancelled = self.scheduler.take_cancelled_active()
+        if not cancelled:
+            return False
         hit = False
         for slot in [s for s in self._slots
                      if s.request.request_id in cancelled]:
@@ -752,11 +1138,13 @@ class Engine:
             hit = True
         return hit
 
-    def _admit(self) -> bool:
+    def _admit(self, replay_only: bool = False) -> bool:
         free_slots = self.config.max_batch - len(self._slots)
         if free_slots <= 0:
             return False
-        claimed = 0   # pages reserved by this boundary's earlier admissions
+        # pages reserved by this boundary's earlier admissions: free_pages
+        # alone would let every queued request pass against the same pages
+        claimed = 0
 
         def can_fit(req: GenerationRequest) -> bool:
             nonlocal claimed
@@ -766,32 +1154,62 @@ class Engine:
             claimed += need
             return True
 
+        # hold one unit of in-transit across the pop, so the drain's probe
+        # never reads the pop's window as nothing left to finish
+        with self._slot_lock:
+            self._in_transit += 1
+        try:
+            pending = self.scheduler.next_admissions(
+                free_slots, can_fit, replay_only=replay_only)
+        except BaseException:
+            with self._slot_lock:
+                self._in_transit -= 1
+            raise
         admitted = False
-        pending = self.scheduler.next_admissions(free_slots, can_fit)
-        for i, p in enumerate(pending):
-            try:
+        with self._slot_lock:
+            self._in_transit += len(pending) - 1
+        try:
+            for i, p in enumerate(pending):
                 status = self._admit_one(p)
-            except BaseException as exc:
-                # the popped requests behind this one go back in order;
-                # this one fails, and the error surfaces
-                self.scheduler.requeue(pending[i + 1:])
-                if not p.future.done():
-                    p.future.set_exception(exc)
-                raise
-            if status == "noroom":
-                # the pool could not cover what can_fit reserved (single
-                # consumer: not expected); put this one and the rest back
-                self.scheduler.requeue(pending[i:])
-                break
-            admitted |= status == "ok"
+                with self._slot_lock:
+                    self._in_transit -= 1
+                admitted |= status == "ok"
+                if status == "noroom":
+                    # the pool could not cover what can_fit reserved (single
+                    # consumer: not expected); put this one and the rest back
+                    self.scheduler.requeue(pending[i:])
+                    break
+        except BaseException as exc:
+            # the popped requests behind this one go back in order; this one
+            # fails (unless already resolved), and the error surfaces
+            self.scheduler.requeue(pending[i + 1:])
+            if not p.future.done():
+                p.future.set_exception(exc)
+            raise
+        finally:
+            with self._slot_lock:
+                self._in_transit = 0
         return admitted
+
+    def _deadline_ctx(self, pendings: Sequence[_Pending]):
+        """The ambient deadline for work done on behalf of ``pendings``:
+        the tightest ``submit_time + deadline_s`` among them as a
+        ``resilience.deadline_scope``, or a no-op when none carries one."""
+        until = [p.submit_time + p.request.deadline_s for p in pendings
+                 if p.submit_time and p.request.deadline_s is not None]
+        return deadline_scope(until=min(until)) if until else nullcontext()
 
     def _admit_one(self, pending: _Pending) -> str:
         """Admit one popped request: ``"ok"``, ``"failed"`` (its future
         holds the error) or ``"noroom"`` (untouched; the caller requeues
-        it)."""
+        it). A replayed request (``pending.replay_tokens``) re-prefills
+        prompt + the tokens already generated, and re-acquires its shared
+        prefix, so it continues as a never-faulted run would."""
         req = pending.request
         prompt = req.prompt
+        if pending.replay_tokens:
+            prompt = np.concatenate([
+                prompt, np.asarray(pending.replay_tokens, np.int32)])
         shared: List[int] = []
         if self._share_prefix:
             shared = self.kv.acquire_prefix(prompt)
@@ -809,27 +1227,111 @@ class Engine:
         start = len(shared) * self.config.page_size
         row = self.kv.table_row(pages)
         try:
-            first_tok = self._prefill(prompt, row, start)
+            with _trace.span("serving.prefill", parent=pending.trace_ctx,
+                             rid=req.request_id, prompt=int(prompt.size),
+                             shared_pages=len(shared),
+                             replay=len(pending.replay_tokens)), \
+                    self._deadline_ctx([pending]):
+                for attempt in (0, 1):
+                    try:
+                        _faults.fault_point("serving.admit")
+                        break
+                    except Exception as exc:
+                        if attempt:
+                            raise exc
+                        _obs.inc("serving.admit_retries_total")
+                        _trace.instant("serving.fault",
+                                       parent=pending.trace_ctx,
+                                       rid=req.request_id,
+                                       site="serving.admit", retried=True,
+                                       error=type(exc).__name__)
+                first_tok = self._prefill(prompt, row, start)
             if self._share_prefix:
                 # full prompt pages are frozen now: decode writes land at
-                # t >= prompt length, past every one of them
-                self.kv.publish(prompt, pages)
+                # t >= prompt length. Over the original prompt only: a
+                # replay's tokens are generated content
+                self.kv.publish(req.prompt, pages)
+        except _Abandoned:
+            # stop() gave up on this thread before the launch: resolve the
+            # request as the drain resolved its stragglers
+            self.kv.free(pages)
+            self._late(pending)
+            return "failed"
         except Exception as exc:
             self.kv.free(pages)     # shared pages lose one reference
+            _obs.inc("serving.requests_total", status="failed")
+            _trace.instant("serving.fault", parent=pending.trace_ctx,
+                           rid=req.request_id, site="serving.admit",
+                           error=type(exc).__name__)
             pending.future.set_exception(exc)
             return "failed"
         now = time.monotonic()
+        _obs.inc("serving.prefills_total")
+        _obs.inc("serving.prefill_tokens_requested_total", float(prompt.size))
+        _obs.inc("serving.prefill_tokens_computed_total",
+                 float(prompt.size - start))
         slot = _Slot(pending=pending, page_ids=pages, table_row=row,
                      t=int(prompt.size), last_tok=first_tok,
+                     tokens=list(pending.replay_tokens),
                      first_token_time=now, last_token_time=now,
-                     shared_pages=len(shared))
+                     shared_pages=len(shared),
+                     until=(pending.submit_time + req.deadline_s
+                            if pending.submit_time
+                            and req.deadline_s is not None else None))
+        # one event for a concurrent budgeted stop() sweeping stragglers
         with self._slot_lock:
             self._slots.append(slot)
+            self._deadline_slots += slot.until is not None
             self._prefill_tokens_requested += int(prompt.size)
             self._prefill_tokens_computed += int(prompt.size) - start
             self._prefills["tail" if start else "full"] += 1
-        self._emit_token(slot, first_tok, now)
+            late_dead = self._swept
+        if late_dead:
+            # in flight on a wedged loop thread when a budgeted drain swept
+            # the stragglers: nobody will step this slot
+            if self._release(slot):
+                self._late(pending, slot.tokens)
+            return "ok"
+        self._emit_token(slot, first_tok, now, first=True,
+                         metrics=_obs.enabled())
         return "ok"
+
+    def _late(self, pending: _Pending, tokens: Sequence[int] = ()) -> None:
+        """Resolve a request that left the queue but whose admission
+        finished after a drain resolved its stragglers, per the drain's
+        mode: requeued with its tokens, or failed."""
+        with self._slot_lock:
+            mode = self._drain_on_timeout
+        if mode == "requeue":
+            pending.replay_tokens = list(pending.replay_tokens or tokens)
+            self.scheduler.requeue([pending])
+            return
+        _obs.inc("serving.requests_total", status="failed")
+        pending.future.set_exception(DrainTimeout(
+            f"request {pending.request.request_id} admitted after the "
+            f"drain resolved its stragglers"))
+
+    def _fault_gate(self) -> List[_Slot]:
+        """The per-slot ``serving.step`` seam, in admission order. A faulted
+        slot sits this step out; everyone else proceeds."""
+        included: List[_Slot] = []
+        for slot in list(self._slots):
+            try:
+                _faults.fault_point("serving.step")
+            except Exception as exc:
+                slot.faults += 1
+                if slot.faults > 1:
+                    self._finish_error(slot, exc)
+                else:
+                    _obs.inc("serving.step_retries_total")
+                    _trace.instant("serving.fault",
+                                   parent=slot.pending.trace_ctx,
+                                   rid=slot.request.request_id,
+                                   site="serving.step", retried=True,
+                                   error=type(exc).__name__)
+                continue
+            included.append(slot)
+        return included
 
     def _bucket_for(self, n: int) -> int:
         for b in self.config.buckets:
@@ -838,6 +1340,17 @@ class Engine:
         raise AssertionError(f"no bucket for batch {n}")  # __post_init__
 
     def _decode_step(self, included: List[_Slot]) -> None:
+        if not _trace.enabled():
+            self._decode_step_traced(included, False)
+            return
+        if self._engine_trace is None:
+            self._engine_trace = _trace.new_trace("serving-engine")
+        with _trace.span("serving.decode", parent=self._engine_trace,
+                         batch=len(included)):
+            self._decode_step_traced(included, True)
+
+    def _decode_step_traced(self, included: List[_Slot],
+                            traced: bool) -> None:
         bucket = self._bucket_for(len(included))
         S = self.kv.config.pages_per_slot
         tok = np.zeros((bucket, 1), np.int64)
@@ -847,18 +1360,85 @@ class Engine:
             tok[i, 0] = slot.last_tok
             t[i] = slot.t
             tables[i] = slot.table_row
-        next_np = self._decode(tok, tables, t)
+        if self.device.type == "cuda":
+            # capture a bucket first met here before the watchdog's window
+            self.decode_graph(bucket)
+        self._unread = None
+        wd = self._watchdog
+        with (self._deadline_ctx([s.pending for s in included])
+              if self._deadline_slots else nullcontext()):
+            for attempt in (0, 1):
+                gen = wd.arm() if wd is not None else None
+                try:
+                    # the device-step seam: delay = a hung step (trips the
+                    # watchdog), error = a whole-batch fault
+                    _faults.fault_point("serving.watchdog")
+                    next_np = self._decode(tok, tables, t)
+                except _Abandoned:
+                    if gen is not None:
+                        wd.disarm(gen)
+                    return
+                except Exception as exc:
+                    if gen is not None:
+                        wd.disarm(gen)
+                    # a fault before the launch wrote nothing, and after the
+                    # launch the retry reads the same output again
+                    # (_unread): retry once, then recover by replay
+                    if attempt:
+                        self._unread = None
+                        self._recover_slots(included, exc)
+                        return
+                    _obs.inc("serving.step_retries_total")
+                    continue
+                verdict = wd.disarm(gen) if gen is not None else None
+                if verdict is not None:
+                    # tripped: abandon the outputs (the step wrote only its
+                    # slots' own pages, which recovery frees) and replay
+                    self._recover_slots(included, WatchdogTimeout(
+                        f"decode step classified {verdict} by the watchdog "
+                        f"(budget {wd.timeout_s:.3f}s)"))
+                    return
+                break
         with self._slot_lock:
-            self._batch_sizes[len(included)] += 1
+            abandoned = any(s not in self._slots for s in included)
+            if not abandoned:
+                self._batch_sizes[len(included)] += 1
+        if abandoned:
+            # a budgeted stop() resolved these slots while the step was in
+            # flight: no late token reaches a settled Future
+            return
         now = time.monotonic()
+        metrics = _obs.enabled()
+        if metrics:
+            _obs.inc("serving.steps_total")
+            _obs.inc("serving.paged_attention_steps_total", path="kernel")
         for i, slot in enumerate(included):
             slot.t += 1
-            self._emit_token(slot, int(next_np[i]), now)
+            if traced and len(slot.tokens) % _DECODE_TRACE_EVERY == 0:
+                _trace.instant("serving.decode_step",
+                               parent=slot.pending.trace_ctx,
+                               rid=slot.request.request_id, t=slot.t,
+                               tokens=len(slot.tokens))
+            self._emit_token(slot, int(next_np[i]), now, metrics=metrics)
 
-    def _emit_token(self, slot: _Slot, token: int, now: float) -> None:
+    def _emit_token(self, slot: _Slot, token: int, now: float,
+                    first: bool = False, metrics: bool = False) -> None:
         req = slot.request
         slot.tokens.append(token)
         slot.last_tok = token
+        if metrics:
+            _obs.inc("serving.tokens_total")
+            if first:
+                # a replay's re-prefill lands here too: TTFT is observed
+                # for the request's true first token only
+                sub = slot.pending.submit_time
+                if sub and not slot.pending.ttft_done:
+                    _obs.observe("serving.ttft_seconds", now - sub)
+            else:
+                _obs.observe("serving.tpot_seconds",
+                             now - slot.last_token_time)
+        if first:
+            slot.pending.ttft_done = True
         slot.last_token_time = now
         if req.stream is not None:
             try:
@@ -874,16 +1454,25 @@ class Engine:
             self._finish(slot, "length")
 
     def _release(self, slot: _Slot) -> bool:
+        """Evict ``slot`` and return its pages; False when it was already
+        released (a wedged step returning after a budgeted stop() resolved
+        it must not free pages twice or settle a Future again)."""
         with self._slot_lock:
             if slot not in self._slots:
                 return False
             self._slots.remove(slot)
+            self._deadline_slots -= slot.until is not None
         self.kv.free(slot.page_ids)
         return True
 
     def _finish(self, slot: _Slot, reason: str) -> None:
         if not self._release(slot):
             return
+        _obs.inc("serving.requests_total", status=(
+            "completed" if reason in ("eos", "length") else reason))
+        _trace.instant("serving.complete", parent=slot.pending.trace_ctx,
+                       rid=slot.request.request_id, reason=reason,
+                       tokens=len(slot.tokens))
         n = len(slot.tokens)
         tpot = ((slot.last_token_time - slot.first_token_time) / (n - 1)
                 if n > 1 else None)
@@ -894,5 +1483,56 @@ class Engine:
             tpot_s=tpot))
 
     def _finish_error(self, slot: _Slot, exc: BaseException) -> None:
-        if self._release(slot):
-            slot.pending.future.set_exception(exc)
+        if not self._release(slot):
+            return
+        _obs.inc("serving.requests_total", status="failed")
+        # a faulted request's trace carries the fault event, whatever path
+        # resolved it
+        _trace.instant("serving.fault", parent=slot.pending.trace_ctx,
+                       rid=slot.request.request_id,
+                       error=type(exc).__name__)
+        slot.pending.future.set_exception(exc)
+
+    def _recover_slots(self, included: List[_Slot],
+                       exc: BaseException) -> None:
+        """Crash recovery for an unrecoverable batched step (a fault after
+        the retry, or a watchdog trip): every included slot is evicted with
+        its pages reclaimed and, replay budget permitting, requeued at the
+        queue head with its prompt + tokens so far; past ``max_replays``
+        its Future gets ``exc``. The flight recorder dumps first."""
+        requeue: List[_Pending] = []
+        _trace.record("serving.recover", error=type(exc).__name__,
+                      slots=len(included))
+        _trace.flight_dump("serving_recover", error=type(exc).__name__,
+                           slots=len(included))
+        # cover the eviction -> requeue gap for the drain's probe
+        with self._slot_lock:
+            self._in_transit += len(included)
+        try:
+            for slot in list(included):
+                pend = slot.pending
+                if pend.replays >= self.config.max_replays:
+                    self._finish_error(slot, exc)
+                    continue
+                if not self._release(slot):
+                    # already resolved by a budgeted stop()
+                    continue
+                pend.replays += 1
+                pend.replay_tokens = list(slot.tokens)
+                _obs.inc("serving.replays_total")
+                _trace.instant("serving.replay", parent=pend.trace_ctx,
+                               rid=pend.request.request_id,
+                               replays=pend.replays,
+                               error=type(exc).__name__)
+                requeue.append(pend)
+            if requeue:
+                self.scheduler.requeue(requeue)
+                self._wake.set()
+        finally:
+            with self._slot_lock:
+                self._in_transit -= len(included)
+
+    def _publish_gauges(self, active: int, bucket: int) -> None:
+        _obs.set_gauge("serving.active_slots", len(self._slots))
+        _obs.set_gauge("serving.batch_utilization",
+                       active / bucket if bucket else 0.0)

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..ops.paged_attention import PagedDecodeCache  # noqa: F401  (re-export)
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "PagedDecodeCache",
@@ -290,7 +291,7 @@ class PagedKVCache:
                     self._unpublish_locked(pid)
                 self._ref[pid] = 1
                 ids.append(pid)
-            self._high_water = max(self._high_water, len(self._ref))
+            self._note_usage_locked()
         return ids
 
     def free(self, ids: Sequence[int]) -> None:
@@ -303,6 +304,7 @@ class PagedKVCache:
                 if pid == 0 or pid in self._free_set or pid in self._idle \
                         or rc <= 0:
                     self._double_free_total += 1
+                    _obs.inc("serving.kv.double_free_total")
                     raise ValueError(
                         f"double free / scratch free: page {pid} (rc={rc})")
                 if rc > 1:
@@ -314,6 +316,7 @@ class PagedKVCache:
                 else:
                     self._free.append(pid)
                     self._free_set.add(pid)
+            self._note_usage_locked()
 
     # -- prefix sharing ------------------------------------------------------
     def _shareable_digests(self, tokens) -> List[bytes]:
@@ -345,7 +348,8 @@ class PagedKVCache:
                 self._ref[pid] = self._ref.get(pid, 0) + 1
             self._prefix_query_hits += 1
             self._prefix_pages_shared_total += len(got)
-            self._high_water = max(self._high_water, len(self._ref))
+            _obs.inc("serving.kv.prefix_pages_shared_total", float(len(got)))
+            self._note_usage_locked()
         return got
 
     def peek_prefix_pages(self, tokens) -> int:
@@ -376,6 +380,9 @@ class PagedKVCache:
                 self._index[h] = pid
                 self._page_hash[pid] = h
                 added += 1
+            if added:
+                _obs.set_gauge("serving.kv.prefix_index_pages",
+                               float(len(self._index)))
         return added
 
     def prefix_summary(self) -> frozenset:
@@ -408,6 +415,17 @@ class PagedKVCache:
         h = self._page_hash.pop(pid, None)
         if h is not None and self._index.get(h) == pid:
             del self._index[h]
+
+    def _note_usage_locked(self) -> None:
+        in_use = len(self._ref)
+        self._high_water = max(self._high_water, in_use)
+        if not _obs.enabled():
+            return
+        claims = sum(self._ref.values())
+        _obs.set_gauge("serving.kv.pages_in_use", float(in_use))
+        _obs.set_gauge("serving.kv.pages_high_water", float(self._high_water))
+        _obs.set_gauge("serving.kv.pages_shared_ratio",
+                       (claims - in_use) / claims if claims else 0.0)
 
     def table_row(self, page_ids: Sequence[int]) -> np.ndarray:
         """A slot's page-table row: allocated ids then scratch padding."""

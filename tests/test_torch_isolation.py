@@ -136,6 +136,46 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
                for p in m.parameters())
 
 
+_IMPORT_SERVING = """
+import sys
+import paddle_tpu_torch.observability
+import paddle_tpu_torch.observability.http
+import paddle_tpu_torch.resilience
+import paddle_tpu_torch.serving
+from paddle_tpu_torch.serving import StepWatchdog, TTFT_BUCKETS
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_observability_resilience_and_serving_load_no_jax():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_SERVING], cwd=ROOT,
+                       env=_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_engine_under_a_watchdog_needs_a_card_unless_cpu_is_asked(
+        monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_SERVING_WATCHDOG_S", "0.3")
+    cfg = dict(num_layers=1, num_heads=2, head_dim=8, max_len=32,
+               page_size=16, max_replays=2, max_queue_wait_s=5.0)
+    if not torch.cuda.is_available():
+        with pytest.raises(NoDeviceError):
+            Engine(lambda *a: None, lambda *a: None,
+                   ServingConfig(**cfg, watchdog_s=0.25))
+        with pytest.raises(NoDeviceError):
+            Engine(lambda *a: None, lambda *a: None, ServingConfig(**cfg))
+    eng = Engine(lambda *a: None, lambda *a: None,
+                 ServingConfig(**cfg, device="cpu"))
+    assert eng.config.watchdog_s == 0.3 and eng._watchdog is not None
+    assert eng.stream is None
+    off = ServingConfig(**cfg, watchdog_s=0, device="cpu")
+    assert off.watchdog_s is None
+
+
 def test_ernie_entry_points_need_a_card_unless_cpu_is_asked():
     cfg = ErnieConfig.tiny(vocab=16, hidden=16, layers=1, heads=2, inter=16,
                            max_pos=16)
