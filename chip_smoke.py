@@ -87,11 +87,19 @@ per phase:
 * the fused small ops (``fused_ops_check``): holds the norm (RMSNorm and
   LayerNorm with the residual add), RoPE, SwiGLU and cross-entropy
   kernels, forward and backward, against their plain versions at the
-  Llama, ERNIE and serving shapes in fp32 and bf16, requires three
-  bit-equal launches of each and the rejection of a planted copy of each,
-  and times them beside their bound, plain version and library call; the
-  Llama, ERNIE and serving phases then count their launches (the Llama
-  step's against the per-step counts of ``llama_fused_per_step``);
+  Llama, ERNIE and serving shapes in fp32 and bf16 (the norm also at the
+  FMT stack's prefill and decode, row groups of one and four warps, a
+  width with no 8-element vectors and MAX_COLS in fp32, its block-per-row
+  path), requires three bit-equal launches of each and the rejection of
+  a planted copy of each (the norm: a forward that drops columns from its
+  statistics, a fold that drops a partial), and times them beside their
+  bound, plain version and library call, with the card's own time from
+  CUDA events over a captured graph of calls (``graph_ms``;
+  ``fused_norm_timing``: the norm's forward and backward at its four
+  paths' shapes, split by kernel by ``torch.profiler`` where it keeps
+  every record); the Llama, ERNIE and serving phases then count
+  their launches (the Llama step's against the per-step counts of
+  ``llama_fused_per_step``);
 * ERNIE's small ops (``ernie_ops_check``): holds the embedding (K5),
   bias-and-activation (K6), dropout (K7) and masked-softmax (K8) kernels,
   forward and backward, against their plain versions at ERNIE's four
@@ -135,8 +143,9 @@ per phase:
   to make no more host launch calls than ``decode_step_profile``'s.
 
 The line before the last lists each kernel with its launches on its path's
-run, error, times and bound; the last line is ``{"ok": true, "device":
-{...}}``. Any failed check raises and the script exits non-zero; without a
+run, error, times and bound (the port's own kernels with their device
+time and the wrapper's host time too); the last line is ``{"ok": true,
+"device": {...}}``. Any failed check raises and the script exits non-zero; without a
 card it exits 2 and prints no result.
 """
 
@@ -203,9 +212,12 @@ KV_ROUNDING_PER_LAYER = 2.0 ** -8
 # instead of the query head; flash_segs_dropout_check requires that
 # REL_TOL rejects it at a GQA case. In csrc/paged_attention.cu the combine
 # skips each row's second live split; paged_check requires that TOL rejects
-# it at bf16_h32. K1-K4 (fused_ops_check) and K5-K8 (ernie_ops_check) each
-# have one: K5's backward drops the second row of every piece (caught on
-# the all-zero ids), K6 zeroes one output, K7 flips one element's keep, K8
+# it at bf16_h32. K1 has two: its row-group forward leaves the last 256
+# columns out of the RMS statistics, and its fold skips the second CTA's
+# partial, so that FUSED_TOL must reject the output and dw. K2-K4
+# (fused_ops_check) and K5-K8 (ernie_ops_check) each have one: K5's
+# backward drops the second row of every piece (caught on the all-zero
+# ids), K6 zeroes one output, K7 flips one element's keep, K8
 # drops one mask column; K5 and K7 must fail bit-equality, K6 and K8
 # FUSED_TOL. K9 (moe_check): the token-major sum skips each token's second
 # route, so the combine must fail bit-equality.
@@ -235,8 +247,11 @@ PLANTED_FAULTS = (
      "      const float a = exp2f(pp[0] - mx);\n",
      "      if (sp == 1) continue;\n"),
     ("fused_norm",
-     "      s2 += v * v;\n",
-     "      if (c + j >= a.cols - 256) continue;\n"),
+     "          sq = __fmaf_rn(v, v, sq);\n",
+     "          if (c + j >= a.cols - 256) continue;\n"),
+    ("fused_norm",
+     "      s = __fadd_rn(s, part[(long long)i * f.cols + c]);\n",
+     "      if (i == 1) continue;\n"),
     ("rope",
      "  const long long cs = pos * a.cs_stride;\n",
      "  if (pos == 5) pos = 6;\n"),
@@ -995,8 +1010,8 @@ def serve_7b_first_use(torch, card, fa, pa, model, prompts, fused) -> None:
 
 
 # the kernels of K1-K8 by the names the profiler gives them
-FUSED_FAMILY = (("norm_fwd_kernel", "fused_norm"),
-                ("norm_bwd_kernel", "fused_norm"),
+FUSED_FAMILY = (("norm_fwd_", "fused_norm"),
+                ("norm_bwd_", "fused_norm"),
                 ("partial_fold_kernel", "fused_norm"),
                 ("rope_kernel", "rope"), ("swiglu_", "swiglu"),
                 ("ce_fwd_kernel", "softmax_cross_entropy"),
@@ -3874,6 +3889,8 @@ def check_multi_tensor_adam(torch, q8, mta) -> dict:
     del st_g
     ms = cuda_ms(torch, lambda: mta.multi_tensor_adam_update(
         *st_k, grad, **kw), 20)
+    dev = device_time(torch, lambda: mta.multi_tensor_adam_update(
+        *st_k, grad, **kw), 20, ms)
     plain = cuda_ms(torch, lambda: mta.multi_tensor_adam_update_reference(
         *st_r, grad, **kw), 3, warmup=1)
     del st_r
@@ -3888,12 +3905,18 @@ def check_multi_tensor_adam(torch, q8, mta) -> dict:
         [p32], [g32], [m32], [v32], [], [step_t], lr=lr, beta1=0.9,
         beta2=0.999, weight_decay=wd, eps=1e-8, amsgrad=False,
         maximize=False), 20)
+    library_dev = device_ms(torch, lambda: torch._fused_adamw_(
+        [p32], [g32], [m32], [v32], [], [step_t], lr=lr, beta1=0.9,
+        beta2=0.999, weight_decay=wd, eps=1e-8, amsgrad=False,
+        maximize=False), 20)
     bms, by = bound(MT_FLOPS * n, MT_BYTES * n, "float32")
     row = {"phase": "multi_tensor_adam_check", "n": n,
            "param_dtype": "bfloat16", "grad_dtype": "bfloat16",
            "max_abs_err": errs, "max_ulps": ulps,
            "bf16_params_differing": param_diff,
            "closed_gate_writes_nothing": True, "ms": ms, "plain_ms": plain,
+           "device_ms": dev["device_ms"], "device_source": dev["source"],
+           "library_device_ms": library_dev,
            "bound_ms": bms, "bound_by": by, "library_ms": library,
            "library": "torch._fused_adamw_ on fp32 masters and fp32 grads",
            "gbytes_per_s": MT_BYTES * n / ms / 1e6}
@@ -4446,11 +4469,245 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def fused_timing(torch, kernel, plain, library=None, iters=FUSED_ITERS):
-    return {"ms": cuda_ms(torch, kernel, iters),
+def kernel_name(key: str) -> str:
+    """A profiler kernel name cut to its function and template arguments:
+    ``void (anonymous namespace)::norm_fwd_kernel<8>((anonymous
+    namespace)::FwdArgs)`` -> ``norm_fwd_kernel<8>``."""
+    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(", 1)[0][:90]
+
+
+# a timing graph holds calls for about GRAPH_MS of the card's time (3 to
+# GRAPH_CALLS_MAX), replayed GRAPH_REPS times behind a spin of GRAPH_SPIN
+# cycles (about a millisecond: every replay is queued before the first
+# starts)
+GRAPH_MS = 1.0
+GRAPH_CALLS_MAX = 64
+GRAPH_REPS = 5
+GRAPH_SPIN = 2_000_000
+
+
+def graph_calls(est_ms: float) -> int:
+    """Calls a timing graph holds for a call of about ``est_ms``."""
+    return max(3, min(GRAPH_CALLS_MAX, math.ceil(GRAPH_MS / max(est_ms,
+                                                                1e-3))))
+
+
+def graph_ms(torch, fn, n: int = 3, reps: int = GRAPH_REPS) -> float:
+    """The card's ms a call of ``fn``: ``n`` calls captured into one CUDA
+    graph (the launch counters put back), replayed ``reps`` times between
+    two CUDA events, all queued behind a spin of the card
+    (``torch.cuda._sleep``) so that no host time falls between them; the
+    gaps between the graph's kernels count. ``fn`` has run before (no
+    warm-up on a side stream: its cached blocks would stay reserved).
+    Raises where ``fn`` cannot be captured (a host sync)."""
+    from paddle_tpu_torch._native import recorded_launches
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with recorded_launches(), torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+        g.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(GRAPH_SPIN)
+        start.record()
+        for _ in range(reps):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * n)
+    finally:
+        del g
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profile_kernels(torch, fn, iters: int):
+    """``{kernel: {"ms", "calls"}}`` a call of ``fn``, summed by
+    ``torch.profiler`` over ``iters`` calls, or None where a kernel's
+    records are not a whole number a call (the profiler dropped some)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and device_us(e) > 0:
+            k = by.setdefault(kernel_name(e.key), [0.0, 0])
+            k[0] += device_us(e) / 1e3 / iters
+            k[1] += e.count
+    if not by or any(c % iters for _, c in by.values()):
+        return None
+    return {n: {"ms": v[0], "calls": v[1] // iters}
+            for n, v in sorted(by.items())}
+
+
+def device_time(torch, fn, iters: int = FUSED_ITERS, est_ms=None,
+                split: bool = False) -> dict:
+    """The card's own ms a call of ``fn`` (``device_ms``): :func:`graph_ms`
+    over :func:`graph_calls` calls (``est_ms``: a time a call to size the
+    graph by, else measured), ``source`` "graph"; where ``fn`` cannot be
+    captured, None and "none" (``graph_error`` says why). ``split``: also
+    ``kernels``, :func:`profile_kernels`'s split by kernel (None where the
+    profiler dropped records)."""
+    if est_ms is None:
+        est_ms = cuda_ms(torch, fn, 3)
+    out = {"device_ms": None, "source": "none", "kernels": None}
+    try:
+        out.update(device_ms=graph_ms(torch, fn, graph_calls(est_ms)),
+                   source="graph")
+    except RuntimeError as e:   # a call that cannot be captured
+        out["graph_error"] = str(e)[:200]
+    if split:
+        out["kernels"] = profile_kernels(torch, fn, iters)
+    return out
+
+
+def device_ms(torch, fn, iters: int = FUSED_ITERS):
+    return device_time(torch, fn, iters)["device_ms"]
+
+
+def event_and_host(torch, fn, iters: int, warmup: int = 2):
+    """``(ms, host_us)``: CUDA-event ms a call over ``iters`` back-to-back
+    calls (the wrapper's host time shows in it where that exceeds the
+    kernel's), and the host's time a call to enqueue them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host / iters * 1e6
+
+
+def fused_timing(torch, kernel, plain, library=None, iters=FUSED_ITERS,
+                 split=False):
+    """A kernel's wrapper beside its plain version and a library call:
+    ``ms``, ``plain_ms`` and ``library_ms`` are CUDA-event times of
+    back-to-back calls of each; ``device_ms`` and ``library_device_ms``
+    the card's own time a call (:func:`device_time`; ``split``: with
+    ``device_kernels`` by kernel); ``host_us`` the wrapper's host time a
+    call."""
+    ms, host = event_and_host(torch, kernel, iters)
+    dev = device_time(torch, kernel, iters, ms, split)
+    lib_ms = None if library is None else cuda_ms(torch, library, iters)
+    return {"ms": ms, "host_us": host, "device_ms": dev["device_ms"],
+            "device_source": dev["source"], "device_kernels": dev["kernels"],
             "plain_ms": cuda_ms(torch, plain, max(2, iters // 4)),
-            "library_ms": None if library is None else cuda_ms(torch, library,
-                                                               iters)}
+            "library_ms": lib_ms,
+            "library_device_ms": None if library is None else device_time(
+                torch, library, iters, lib_ms)["device_ms"]}
+
+
+def norm_timed_cases(torch, fn) -> tuple:
+    """K1's timed cases, at the shapes its paths give it: (name, rows,
+    cols, x, residual, weight, bias dtypes, spec, backward timed). The
+    Llama training step's RMSNorm with the residual add (O2), ERNIE's
+    post-LN add (O2, fp32 residual), the FMT stack's LayerNorm (bf16,
+    ``layer_norm``'s casts) in a 512-token prefill and a 16-row decode
+    step, and a Llama-2-7B decode step's 16 rows."""
+    f32, bf = torch.float32, torch.bfloat16
+    S = fn.NormSpec
+    return (
+        ("llama_o2_residual", 24576, 2560, bf, bf, bf, None,
+         S("rms", 1e-5, f32, f32, bf, f32), True),
+        ("ernie_o2_residual", 4096, 768, bf, f32, bf, bf,
+         S("ln", 1e-12, f32, f32, bf, f32, f32), True),
+        ("fmt_prefill_ln", 512, 2560, bf, None, bf, bf,
+         S("ln", 1e-5, bf, bf, None, bf, bf), False),
+        ("fmt_decode_ln", 16, 2560, bf, None, bf, bf,
+         S("ln", 1e-5, bf, bf, None, bf, bf), False),
+        ("serve_decode_bf16_residual", 16, 4096, bf, bf, bf, None,
+         S("rms", 1e-5, bf, bf, bf, bf), False))
+
+
+def fused_norm_timing(torch, fn, gen) -> dict:
+    """K1's forward and backward (with its fold) at each of
+    :func:`norm_timed_cases`: the card's time, by kernel too, CUDA-event
+    and host times of the wrapper, the plain version's and the library
+    call's (``F.rms_norm`` / ``F.layer_norm`` of the add's result; its
+    autograd backward: the forward and backward in one call, less the
+    forward, since a capture holds only the backward of a forward it
+    recorded), and the byte bounds. Needs only ``_launch_fwd`` /
+    ``_launch_bwd``, so it times any tree's K1."""
+    TF = torch.nn.functional
+
+    def rn(shape, dt, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(dt)
+    out = {}
+    for name, rows, cols, xd, rd, wd, bd, spec, bwd in norm_timed_cases(
+            torch, fn):
+        x, res = rn((rows, cols), xd), None if rd is None else \
+            rn((rows, cols), rd)
+        w = rn((cols,), wd, 0.1, 1.0)
+        b = None if bd is None else rn((cols,), bd, 0.1)
+        got = fn._launch_fwd(x, w, b, res, None, spec)
+        h = x if got[1] is None else got[1]
+        lib_x = h.detach().to(spec.norm if spec.add is None else spec.add)
+
+        def library(lx=lib_x, w=w, b=b, spec=spec):
+            if spec.kind == "rms":
+                return TF.rms_norm(lx, (lx.shape[-1],), w.to(lx.dtype),
+                                   spec.eps)
+            return TF.layer_norm(lx, (lx.shape[-1],), w.to(lx.dtype),
+                                 None if b is None else b.to(lx.dtype),
+                                 spec.eps)
+        row = {"rows": rows, "cols": cols, "kind": spec.kind,
+               "dtypes": [dtype_name(d) for d in (xd, rd, spec.out)],
+               "fwd": fused_timing(
+                   torch, lambda: fn._launch_fwd(x, w, b, res, None, spec),
+                   lambda: fn.fused_norm_reference(x, w, b, res, spec=spec),
+                   library, split=True),
+               "fwd_bound_ms": bound(0, nbytes(x, res, w, b, *got),
+                                     "float32")[0]}
+        if bwd:
+            dy = rn((rows, cols), spec.out)
+            dres = None if spec.add is None else rn((rows, cols), spec.add)
+            dx_dtype = xd if spec.add is None else spec.add
+
+            def run_b(dy=dy, dres=dres, h=h, got=got, w=w, spec=spec,
+                      dx_dtype=dx_dtype, bd=bd):
+                return fn._launch_bwd(dy, dres, h, got[2], got[3], w, spec,
+                                      dx_dtype=dx_dtype, want_w=True,
+                                      bias_dtype=bd, pre_bias_dtype=None)
+            g = run_b()
+            lx = lib_x.clone().requires_grad_()
+            lw = w.to(lx.dtype).requires_grad_()
+            lb = None if b is None else b.to(lx.dtype).requires_grad_()
+            ldy = dy.to(lx.dtype)
+
+            def library_fb(lx=lx, lw=lw, lb=lb, ldy=ldy, spec=spec):
+                lo = TF.rms_norm(lx, (lx.shape[-1],), lw, spec.eps) \
+                    if spec.kind == "rms" else \
+                    TF.layer_norm(lx, (lx.shape[-1],), lw, lb, spec.eps)
+                return torch.autograd.grad(
+                    lo, [t for t in (lx, lw, lb) if t is not None], ldy)
+            row["bwd"] = fused_timing(
+                torch, run_b,
+                lambda: fn.fused_norm_bwd_reference(
+                    dy, dres, h, w, spec=spec, dx_dtype=dx_dtype,
+                    bias_dtype=bd),
+                library_fb, split=True)
+            for k in ("library_ms", "library_device_ms"):
+                fb, f = row["bwd"][k], row["fwd"][k]
+                row["bwd"][k] = None if fb is None or f is None else fb - f
+            row["bwd_bound_ms"] = bound(0, nbytes(dy, dres, h, w, got[2],
+                                                  got[3], *g), "float32")[0]
+        out[name] = row
+    return out
 
 
 def fused_planted_rejected(torch, run, refs: dict, what: str) -> dict:
@@ -4480,6 +4737,7 @@ def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
     def rn(shape, dt, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 + shift).to(dt)
+    fmt_ln = S("ln", 1e-5, bf, bf, None, bf, bf)
     # (name, rows, cols, x, residual, pre-bias, weight, bias dtypes, spec)
     cases = [
         ("llama_o2_residual", 24576, 2560, bf, bf, None, bf, None,
@@ -4500,8 +4758,22 @@ def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
          S("rms", 1e-6, bf, bf, bf, bf, bf, True)),
         ("incubate_fused_ln_fp32", 1000, 768, f32, None, None, None, f32,
          S("ln", 1e-5, f32, f32, None, None, f32, True)),
+        # row groups of one warp (512 columns) and of four (2048)
+        ("narrow_o2_residual", 16384, 512, bf, bf, None, bf, None,
+         S("rms", 1e-5, f32, f32, bf, f32)),
+        ("wide_ln_bf16_residual", 2048, 2048, bf, bf, None, bf, bf,
+         S("ln", 1e-5, bf, bf, bf, bf, bf)),
+        # the FMT stack's LayerNorm: a 512-token prefill, a decode step
+        ("fmt_prefill_ln", 512, 2560, bf, None, None, bf, bf, fmt_ln),
+        ("fmt_decode_ln", 16, 2560, bf, None, None, bf, bf, fmt_ln),
+        # rows of 770: no 8-element vectors, the block-per-row kernels
+        ("vec1_ln_prebias", 1000, 770, bf, bf, bf, bf, bf,
+         S("ln", 1e-5, f32, f32, bf, f32, f32)),
+        # MAX_COLS in fp32: too wide for the ring, the block-per-row kernels
+        ("max_cols_fp32", 512, fn.MAX_COLS, f32, f32, None, f32, f32,
+         S("ln", 1e-5, f32, f32, f32, f32, f32)),
     ]
-    results, err, timing = [], 0.0, None
+    results, err, timing = [], 0.0, {}
     for name, rows, cols, xd, rd, pbd, wd, bd, spec in cases:
         x = rn((rows, cols), xd)
         res = None if rd is None else rn((rows, cols), rd)
@@ -4550,43 +4822,48 @@ def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
         err = max(err, err_f, err_b)
         results.append({"case": name, "rows": rows, "cols": cols,
                         "fwd": errs_f, "bwd": errs_b})
+        if name in ("llama_o2_residual", "ernie_o2_residual",
+                    "fmt_prefill_ln", "narrow_o2_residual"):
+            # the first 16 rows alone (the block-per-row kernels) and the
+            # first 200 (the row groups): each row's bits as in the full call
+            for n in (16, 200):
+                def cut(t, n=n):
+                    return None if t is None else t[:n]
+                sf = fn._launch_fwd(x[:n], w, b, cut(res), pb, spec)
+                sb = fn._launch_bwd(
+                    dy[:n], cut(dres), h[:n], cut(got["mean"]),
+                    got["rstd"][:n], w, spec, dx_dtype=dx_dtype,
+                    want_w=False, bias_dtype=None, pre_bias_dtype=None)
+                full = (got["out"], got["h"], got["mean"], got["rstd"],
+                        g["dx"])
+                require(all(a is None or torch.equal(a, cut(f)) for a, f in
+                            zip((*sf, sb[0]), full)),
+                        f"fused_norm {name}: the first {n} rows alone differ "
+                        f"from the full call's")
         if name != "llama_o2_residual":
             continue
+        # forward and backward, fold included, three times: equal bits
         fused_repeat_equal(torch, lambda: {**fwd(), **bwd(h=h, stats=stats)},
                            f"fused_norm {name}")
         planted = fused_planted_rejected(
             torch, lambda: fwd(fn.bind(planted_lib)), refs_f,
             f"fused_norm {name}")
-        hh = ref_h.detach()
-        lib = getattr(torch.nn.functional, "rms_norm", None)
-        timing = fused_timing(
-            torch, fwd, lambda: fn.fused_norm_reference(x, w, b, res, pb,
-                                                        spec=spec),
-            None if lib is None else lambda: lib(hh, (cols,), w, spec.eps))
-        bwd_t = fused_timing(
-            torch, lambda: bwd(h=h, stats=stats),
-            lambda: fn.fused_norm_bwd_reference(
-                dy, dres, h, w, spec=spec, dx_dtype=dx_dtype))
-        timing.update({"bwd_" + k: v for k, v in bwd_t.items()
-                       if k != "library_ms"})
-        fb = nbytes(x, res, w) + nbytes(got["out"], got["h"], got["rstd"])
-        bb = nbytes(dy, dres, h, w, got["rstd"]) + nbytes(g["dx"], g["dw"])
-        timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
-        timing["bwd_bound_ms"], _ = bound(0, bb, "float32")
+        # the planted fold drops the second CTA's partial: dw must fail
+        planted_fold = fused_planted_rejected(
+            torch, lambda: bwd(fn.bind(planted_lib), h=h, stats=stats),
+            {"dw": refs_b["dw"]}, f"fused_norm {name} fold")
         timing["planted_max_abs_err"] = planted["max_abs_err"]
-        timing["case"] = (f"N={rows} C={cols} RMS, bf16 x and residual, "
-                          f"fp32 out (O2); library: rms_norm of the bf16 sum")
-    # ERNIE's LayerNorm beside torch's
-    x = rn((4096, 768), bf)
-    w, b = rn((768,), bf, 0.1, 1.0), rn((768,), bf, 0.1)
-    spec = S("ln", 1e-12, f32, f32, None, f32, f32)
-    timing["ernie_ln_ms"] = cuda_ms(
-        torch, lambda: fn._launch_fwd(x, w, b, None, None, spec),
-        FUSED_ITERS)
-    timing["ernie_ln_library_ms"] = cuda_ms(
-        torch, lambda: torch.nn.functional.layer_norm(x, (768,), w, b,
-                                                      1e-12), FUSED_ITERS)
-    return {"cases": results, "max_abs_err": err, **timing}
+        timing["planted_fold_max_abs_err"] = planted_fold["max_abs_err"]
+    timed = fused_norm_timing(torch, fn, gen)
+    llama = timed["llama_o2_residual"]
+    timing.update(llama["fwd"])
+    timing.update({"bwd_" + k: v for k, v in llama["bwd"].items()})
+    timing["bound_ms"], timing["bound_by"] = llama["fwd_bound_ms"], "bytes"
+    timing["bwd_bound_ms"] = llama["bwd_bound_ms"]
+    timing["case"] = ("N=24576 C=2560 RMS, bf16 x and residual, fp32 out "
+                      "(O2); library: rms_norm of the bf16 sum")
+    return {"cases": results, "max_abs_err": err, "timed_cases": timed,
+            **timing}
 
 
 def check_rope(torch, rp, planted_lib, gen) -> dict:
@@ -4727,6 +5004,7 @@ def check_swiglu(torch, sw, planted_lib, gen) -> dict:
         timing = fused_timing(torch, run, lambda: sw.swiglu_reference(g, u))
         both = cuda_ms(torch, plain_b, max(2, FUSED_ITERS // 4))
         timing.update({"bwd_ms": cuda_ms(torch, run_b, FUSED_ITERS),
+                       "bwd_device_ms": device_ms(torch, run_b),
                        "bwd_plain_ms": both - timing["plain_ms"]})
         fb = nbytes(g, u, got["y"])
         timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
@@ -4830,6 +5108,8 @@ def check_cross_entropy(torch, ce, planted_lib, gen) -> dict:
         lib_both = cuda_ms(torch, library_fb, FUSED_ITERS)
         timing.update({"bwd_ms": cuda_ms(torch, lambda: run_b(state),
                                          FUSED_ITERS),
+                       "bwd_device_ms": device_ms(torch,
+                                                  lambda: run_b(state)),
                        "bwd_plain_ms": both - timing["plain_ms"],
                        "bwd_library_ms": lib_both - timing["library_ms"]})
         rows = shape[0] * (shape[1] - 1)
@@ -5077,6 +5357,7 @@ def check_bias_act(torch, ba, planted_lib, gen) -> dict:
             torch.autograd.grad(out, leaves, dy)
         timing.update({
             "bwd_ms": cuda_ms(torch, bwd, FUSED_ITERS),
+            "bwd_device_ms": device_ms(torch, bwd),
             "bwd_plain_ms": cuda_ms(torch, plain_fb, FUSED_ITERS)
             - timing["plain_ms"],
             "bwd_library_ms": cuda_ms(torch, library_fb, FUSED_ITERS)
@@ -5154,6 +5435,7 @@ def check_dropout(torch, dr, planted_lib, gen) -> dict:
         scale = 1.0 / (1.0 - p)
         timing.update({
             "bwd_ms": cuda_ms(torch, bwd, FUSED_ITERS),
+            "bwd_device_ms": device_ms(torch, bwd),
             "bwd_plain_ms": cuda_ms(torch, plain_b, max(2, FUSED_ITERS // 4)),
             "bwd_library_ms": cuda_ms(
                 torch, lambda: torch.ops.aten.native_dropout_backward(
@@ -5230,6 +5512,7 @@ def check_softmax_mask(torch, sm, planted_lib, gen) -> dict:
         y = got["y"]
         timing.update({
             "bwd_ms": cuda_ms(torch, bwd, FUSED_ITERS),
+            "bwd_device_ms": device_ms(torch, bwd),
             "bwd_plain_ms": cuda_ms(
                 torch, lambda: sm.softmax_mask_bwd_reference(y, dy),
                 max(2, FUSED_ITERS // 4)),
@@ -6435,6 +6718,7 @@ def check_bias_period(torch, ba, gen) -> dict:
         lambda: torch.nn.functional.gelu(y3 + b, approximate="tanh"),
         MOE_ITERS)
     t["bwd_ms"] = cuda_ms(torch, bwd, MOE_ITERS)
+    t["bwd_device_ms"] = device_ms(torch, bwd, MOE_ITERS)
     t["bwd_plain_ms"] = cuda_ms(
         torch, lambda: ba.bias_act_bwd_reference(y, b, dy, spec, cap),
         max(2, MOE_ITERS // 4))
@@ -7005,6 +7289,10 @@ def main() -> int:
     k1 = next(r for r in flash_rows if r["case"] == "causal_1000_ragged")
     k2 = next(r for r in paged_rows if r["case"] == "bf16_h32")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the port's own kernels (K1-K9, multi-tensor AdamW) also carry the
+    # card's own time a call and the wrapper's host time
+    k_keys = keys + ("device_ms", "device_source", "library_device_ms",
+                     "host_us")
     train_rows = [
         ("flash_fwd_lse", "paddle_tpu_torch/csrc/flash_attention.cu",
          "paddle_tpu/ops/flash_attention.py:163",
@@ -7087,7 +7375,7 @@ def main() -> int:
          "max_abs_err": max(mt_row["max_abs_err"].values()),
          "case": "n=%d (ERNIE-3.0-base) bf16 params and grads, fp32 master "
                  "and moments, global-norm scale, wd" % mt_row["n"],
-         **{k: mt_row[k] for k in keys}},
+         **{k: mt_row.get(k) for k in k_keys}},
     ] + [
         {"name": k, "route": "cuda", "source": FUSED_SOURCES[k],
          "replaces": FUSED_REPLACES[k], "replaces_pallas_call": False,
@@ -7104,7 +7392,9 @@ def main() -> int:
          **({"fmt_shapes": {k: fmt_times[k]}} if k in fmt_times else {}),
          "max_abs_err": fused_rows[k]["max_abs_err"],
          "case": fused_rows[k]["case"],
-         **{key: fused_rows[k].get(key) for key in keys},
+         **({"timed_cases": fused_rows[k]["timed_cases"]}
+            if "timed_cases" in fused_rows[k] else {}),
+         **{key: fused_rows[k].get(key) for key in k_keys},
          **{key: fused_rows[k][key] for key in fused_rows[k]
             if key.startswith("bwd_")}}
         for k in FUSED_KERNELS
@@ -7128,7 +7418,7 @@ def main() -> int:
          "launches_incubate_check": incubate_row["launches"][k],
          "max_abs_err": ernie_rows[k]["max_abs_err"],
          "case": ernie_rows[k]["case"],
-         **{key: ernie_rows[k].get(key) for key in keys},
+         **{key: ernie_rows[k].get(key) for key in k_keys},
          **{key: ernie_rows[k][key] for key in ernie_rows[k]
             if key.startswith("bwd_")}}
         for k in ERNIE_OP_KERNELS
@@ -7148,9 +7438,9 @@ def main() -> int:
          "case": "8192 tokens x 4096, 16 experts, top-2, capacity 1536, "
                  "bf16 (O2)",
          **{key: moe_rows["moe_route"]["timing"]["token_choice"][
-             k.replace("moe_", "") + "_fwd"][key] for key in keys},
+             k.replace("moe_", "") + "_fwd"].get(key) for key in k_keys},
          **{f"bwd_{key}": moe_rows["moe_route"]["timing"]["token_choice"][
-             k.replace("moe_", "") + "_bwd"][key] for key in keys},
+             k.replace("moe_", "") + "_bwd"].get(key) for key in k_keys},
          "ec_shapes": {n: moe_rows["moe_route"]["timing"]["expert_choice"][n]
                        for n in moe_rows["moe_route"]["timing"][
                            "expert_choice"] if n.startswith(
@@ -7168,9 +7458,10 @@ def main() -> int:
          "launches_path": "ec_moe_jamba2 (one forward and backward)",
          "max_abs_err": moe_rows["bias_act_period"]["max_abs_err"],
          "case": moe_rows["bias_act_period"]["case"],
-         **{key: moe_rows["bias_act_period"][key] for key in keys},
+         **{key: moe_rows["bias_act_period"].get(key) for key in k_keys},
          **{key: moe_rows["bias_act_period"][key] for key in (
-             "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms")}},
+             "bwd_ms", "bwd_device_ms", "bwd_plain_ms", "bwd_library_ms",
+             "bwd_bound_ms")}},
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

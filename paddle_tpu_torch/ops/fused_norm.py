@@ -18,9 +18,16 @@ fp32 and rounds once. The statistics are fp32 in both.
 :func:`fused_norm` runs :func:`fused_norm_reference` for CPU tensors (its
 gradients by autograd) and the kernel, through an autograd function whose
 backward is the kernel's backward, for CUDA tensors; any other device
-raises. The backward's weight, bias and pre-bias gradients are per-block
-partial sums folded in a fixed order by a second kernel: no atomics, so
-launches on the same inputs agree bit for bit, inside a CUDA graph too.
+raises. :func:`launch_plan` sizes each launch from the rows, the columns,
+the vector width and the card's SM count (read once per device): the
+row-group kernels (a persistent grid, rows of 8-column chunks held in
+registers by groups of 1-8 warps, fed by a ring of asynchronous copies)
+where there are rows for every SM and their shared memory fits, else the
+block-per-row kernels (a row over the same threads, so its bits do not
+depend on the call's row count). The
+backward's weight, bias and pre-bias gradients are per-CTA partial sums
+folded in a fixed order by a second kernel: no atomics, so launches on the
+same inputs agree bit for bit, inside a CUDA graph too.
 :func:`fused_norm_bwd_reference` is the backward's plain version.
 """
 
@@ -38,20 +45,46 @@ from .. import _native
 from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path,
                         ptr, stream)
 
-__all__ = ["NormSpec", "fused_norm", "fused_norm_bwd_reference",
-           "fused_norm_reference", "launches"]
+__all__ = ["LaunchPlan", "NormSpec", "fused_norm", "fused_norm_bwd_reference",
+           "fused_norm_reference", "launch_plan", "launches"]
 
 launches = _native.LaunchCounter("fused_norm")
 
-# blocks of the backward at most (each writes one partial sum a column)
-NBLK = 1024
-# the backward keeps five fp32 rows in shared memory (227 KB a block)
+# the block-per-row backward keeps five fp32 rows in shared memory (227 KB
+# a block)
 MAX_COLS = 11264
+# the row-group kernels: 8-column chunks a thread, warps a group, warps a
+# CTA (more groups when a group has fewer), ring depths tried
+NC_MAX = 2
+GROUP_WARPS_MAX = 8
+CTA_WARPS = 8
+STAGES = (4, 3, 2)
+# a group's exchange slots (fp32), the forward's mbarrier a stage (bytes),
+# bytes of rows in flight an SM worth having (two microseconds of an SM's
+# share of the memory bandwidth)
+RED_FLOATS = 64
+MBAR_BYTES = 8
+IN_FLIGHT = 64 * 1024
+# what an H100 SM offers: dynamic shared memory a block, shared memory an SM
+# and its per-block reserve, threads, registers; the registers a thread of
+# the row-group kernels takes at most (csrc/fused_norm.cu builds them for 4
+# CTAs of 256 threads an SM forward, 2 backward) and of the block-per-row
+# ones (1024 threads)
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
+THREADS_SM = 2048
+REGS_SM = 65536
+REGS_FWD = 64
+REGS_BWD = 128
+REGS_BLOCK = 64
+BLOCKS_SM = 32
 
 _ARGTYPES_FWD = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int] * 14 + [ctypes.c_float] + [ctypes.c_int] * 9 \
+    + [ctypes.c_longlong, ctypes.c_void_p]
 _ARGTYPES_BWD = [ctypes.c_void_p] * 13 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 27 + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
@@ -170,6 +203,145 @@ def fused_norm_bwd_reference(dy, dres, h, weight=None, *, spec: NormSpec,
     return v.to(dx_dtype).reshape(h.shape), dw, db, dpb
 
 
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch of K1 is laid out. ``ring``: the row-group kernel,
+    ``grid`` CTAs of ``groups`` row groups of ``group_warps`` warps, each
+    thread holding ``nc`` 8-column chunks of a row, ``stages`` rows of
+    ``stage_bytes`` in each group's copy ring; CTA i takes rows ``[i *
+    rows_per_cta, (i + 1) * rows_per_cta)`` and group g of them every
+    ``groups``-th from the g-th. Else the block-per-row kernel: the forward
+    one row a block (with 8-element vectors ``nc`` chunks a thread), the
+    backward ``rows_per_cta`` rows a block. ``grid`` is also the number of
+    the backward's partial rows."""
+    ring: bool
+    grid: int
+    threads: int
+    smem: int
+    rows_per_cta: int
+    group_warps: int = 0
+    groups: int = 0
+    nc: int = 0
+    stages: int = 0
+    stage_bytes: int = 0
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _ctas_an_sm(threads: int, smem: int, regs: int) -> int:
+    return min(BLOCKS_SM, THREADS_SM // threads, REGS_SM // (regs * threads),
+               SMEM_SM // (smem + SMEM_RESERVED))
+
+
+def _threads_for(cols: int) -> int:
+    """The block-per-row kernels' threads for rows of single elements."""
+    return min(1024, max(32, _ceil(cols, 32) * 32))
+
+
+def group_warps(cols: int) -> int:
+    """The warps a row of ``cols`` (8-element vectors) is spread over, in
+    both kernels: the fewest (a power of 2) that leave each thread NC_MAX
+    chunks at most. A function of ``cols`` alone, so that a row's sums run
+    in one order whatever the rows beside it in the call."""
+    gw = 1
+    while 32 * gw * NC_MAX < _ceil(cols, 8):
+        gw *= 2
+    return gw
+
+
+def _ring_plan(rows: int, cols: int, sms: int, row_bytes: int,
+               cta_vecs: int, group_vecs: int, regs: int,
+               bar: int) -> Optional[LaunchPlan]:
+    chunks = cols // 8
+    gw = group_warps(cols)
+    if gw > GROUP_WARPS_MAX:
+        return None
+    nc = _ceil(chunks, 32 * gw)
+    groups = max(1, CTA_WARPS // gw)
+    while groups > 1 and _ceil(rows, groups) < sms:
+        groups //= 2
+    stage = cols * row_bytes
+    best = None
+    g = groups
+    while g >= 1:
+        for stages in STAGES:
+            smem = (g * stages * (stage + bar) + cta_vecs * cols * 4
+                    + g * group_vecs * cols * 4 + g * RED_FLOATS * 4)
+            if smem > SMEM_BLOCK:
+                continue
+            threads = g * gw * 32
+            per_sm = _ctas_an_sm(threads, smem, regs)
+            if per_sm < 1:
+                continue
+            # rows in flight an SM (to IN_FLIGHT), then warps, then depth
+            score = (min(per_sm * g * (stages - 1) * stage, IN_FLIGHT),
+                     per_sm * threads, stages)
+            if best is None or score > best[0]:
+                best = (score, g, stages, smem, threads, per_sm)
+        g //= 2
+    if best is None:
+        return None
+    _, g, stages, smem, threads, per_sm = best
+    grid = min(_ceil(rows, g), sms * per_sm)
+    rpc = _ceil(rows, grid)
+    # no deeper ring than a group has rows (one row a CTA: no prefetch)
+    fewer = max(0, stages - max(1, _ceil(rpc, g)))
+    return LaunchPlan(True, _ceil(rows, rpc), threads,
+                      smem - fewer * g * (stage + bar), rpc, gw, g, nc,
+                      stages - fewer, stage)
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(rows: int, cols: int, vec: int, sms: int, *,
+                backward: bool = False, row_bytes: int = 4,
+                cta_vecs: int = 0, group_vecs: int = 0) -> LaunchPlan:
+    """The launch of K1's forward (or ``backward``) over ``rows`` rows of
+    ``cols`` elements, 8 elements a vector (``vec`` 8) or 1, on a card of
+    ``sms`` SMs. ``row_bytes``: bytes a column of the rows the kernel
+    streams (forward: x and residual; backward: dy, h and d res_out);
+    ``cta_vecs``: fp32 columns a CTA keeps (the forward's weight, bias and
+    pre-bias; the backward's weight); ``group_vecs``: fp32 columns each
+    row group adds into (the backward's weight, bias and pre-bias
+    gradients; the forward's ring stages also carry an mbarrier each). The
+    row-group kernel where ``vec`` is 8 and its shared memory fits (a forward only with as many rows as SMs; a backward with
+    fewer takes one row a CTA, no prefetch); else the block-per-row
+    ones."""
+    if vec == 8 and (backward or rows >= sms):
+        plan = _ring_plan(rows, cols, sms, row_bytes, cta_vecs, group_vecs,
+                          REGS_BWD if backward else REGS_FWD,
+                          0 if backward else MBAR_BYTES)
+        if plan is not None:
+            return plan
+    threads = 32 * group_warps(cols) if vec == 8 else _threads_for(cols)
+    if not backward:
+        # vec 8 up to 16 warps: each thread's chunks in registers, only the
+        # 32 reduction slots in shared memory; else looping, the row's hn too
+        if vec == 8 and threads <= 512:
+            return LaunchPlan(False, rows, threads, 32 * 4, 1,
+                              nc=_ceil(cols // 8, threads))
+        return LaunchPlan(False, rows, threads, (cols + 32) * 4, 1)
+    smem = (5 * cols + 32) * 4
+    grid = min(rows, sms * _ctas_an_sm(threads, smem, REGS_BLOCK))
+    rpc = _ceil(rows, grid)
+    return LaunchPlan(False, _ceil(rows, rpc), threads, smem, rpc)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_args(plan: LaunchPlan) -> tuple:
+    return (plan.threads, plan.smem, plan.group_warps, plan.groups, plan.nc,
+            plan.stages, plan.stage_bytes, plan.rows_per_cta)
+
+
+def _size(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.element_size()
+
+
 def _vec(cols: int, *ts) -> int:
     return 8 if cols % 8 == 0 and aligned16(*ts) else 1
 
@@ -209,6 +381,10 @@ def _launch_fwd(x, weight, bias, residual, pre_bias, spec, fns=None):
     rstd = torch.empty(rows, dtype=torch.float32, device=dev)
     if rows:
         fn = (fns or _kernels())["fused_norm_fwd"]
+        vec = _vec(cols, x, residual, pre_bias, weight, bias, out, res_out)
+        plan = launch_plan(
+            rows, cols, vec, _sm_count(dev.index),
+            row_bytes=_size(x) + _size(residual), cta_vecs=3)
         with torch.cuda.device(dev):
             err = fn(ptr(x), ptr(residual), ptr(pre_bias), ptr(weight),
                      ptr(bias), ptr(out), ptr(res_out), ptr(mean), ptr(rstd),
@@ -226,10 +402,9 @@ def _launch_fwd(x, weight, bias, residual, pre_bias, spec, fns=None):
                      dtype_code(spec.out, "fused_norm"),
                      dtype_code(spec.add, "fused_norm"),
                      dtype_code(spec.norm, "fused_norm"),
-                     int(spec.kind == "ln"), int(spec.fused),
-                     _vec(cols, x, residual, pre_bias, weight, bias, out,
-                          res_out),
-                     spec.eps, stream(dev))
+                     int(spec.kind == "ln"), int(spec.fused), vec,
+                     spec.eps, int(plan.ring), plan.grid, *_plan_args(plan),
+                     stream(dev))
         _native.check(err, "fused_norm forward kernel launch")
         launches.count += 1
     return out, res_out, mean, rstd
@@ -246,13 +421,18 @@ def _launch_bwd(dy, dres, h, mean, rstd, weight, spec, *, dx_dtype,
     dres = None if dres is None else dres.contiguous()
     weight = None if weight is None else weight.contiguous()
     rows = h.numel() // cols
-    nblk = max(1, min(rows, NBLK))
     dx = torch.empty(h.shape, dtype=dx_dtype, device=dev)
+    want_b, want_pb = bias_dtype is not None, pre_bias_dtype is not None
+    vec = _vec(cols, dy, dres, h, weight, dx)
+    plan = launch_plan(
+        max(rows, 1), cols, vec, _sm_count(dev.index), backward=True,
+        row_bytes=_size(dy) + _size(h) + _size(dres),
+        cta_vecs=int(weight is not None),
+        group_vecs=int(want_w) + int(want_b) + int(want_pb))
 
     def part(on):
-        return torch.empty(nblk, cols, dtype=torch.float32, device=dev) \
-            if on else None
-    want_b, want_pb = bias_dtype is not None, pre_bias_dtype is not None
+        return torch.empty(plan.grid, cols, dtype=torch.float32,
+                           device=dev) if on else None
     pw, pb, ppb = part(want_w), part(want_b), part(want_pb)
     dw = torch.empty(cols, dtype=weight.dtype, device=dev) if want_w else None
     db = torch.empty(cols, dtype=bias_dtype, device=dev) if want_b else None
@@ -264,14 +444,14 @@ def _launch_bwd(dy, dres, h, mean, rstd, weight, spec, *, dx_dtype,
         with torch.cuda.device(dev):
             err = fn(ptr(dy), ptr(dres), ptr(h), ptr(mean), ptr(rstd),
                      ptr(weight), ptr(dx), ptr(pw), ptr(pb), ptr(ppb),
-                     ptr(dw), ptr(db), ptr(dpb), rows, cols, nblk,
+                     ptr(dw), ptr(db), ptr(dpb), rows, cols, plan.grid,
                      c(dy.dtype), c(None if dres is None else dres.dtype),
                      c(h.dtype), c(None if weight is None else weight.dtype),
                      c(spec.weight), c(dx_dtype), c(spec.bias),
                      c(bias_dtype), c(spec.add), c(pre_bias_dtype),
                      c(spec.out), c(spec.add), c(spec.norm),
                      int(spec.add is not None), int(spec.kind == "ln"),
-                     int(spec.fused), _vec(cols, dy, dres, h, weight, dx),
+                     int(spec.fused), vec, int(plan.ring), *_plan_args(plan),
                      stream(dev))
         _native.check(err, "fused_norm backward kernel launch")
         launches.count += 1
