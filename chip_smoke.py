@@ -97,7 +97,9 @@ per phase:
   CUDA events over a captured graph of calls (``graph_ms``;
   ``fused_norm_timing``: the norm's forward and backward at its four
   paths' shapes, split by kernel by ``torch.profiler`` where it keeps
-  every record); the Llama, ERNIE and serving phases then count
+  every record; ``rope_timing`` and ``swiglu_timing``: RoPE and SwiGLU
+  at Llama's O2 training shapes and a Llama-2-7B decode step and tail
+  prefill, three readings a case); the Llama, ERNIE and serving phases then count
   their launches (the Llama step's against the per-step counts of
   ``llama_fused_per_step``);
 * ERNIE's small ops (``ernie_ops_check``): holds the embedding (K5),
@@ -143,8 +145,9 @@ per phase:
   to make no more host launch calls than ``decode_step_profile``'s.
 
 The line before the last lists each kernel with its launches on its path's
-run, error, times and bound (the port's own kernels with their device
-time and the wrapper's host time too); the last line is ``{"ok": true,
+run, error, times and bound, with the card's own time of each kernel and
+its library call (``device_ms``, ``library_device_ms``: ``graph_ms``) and,
+for the port's own kernels, the wrapper's host time too; the last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises and the script exits non-zero; without a
 card it exits 2 and prints no result.
 """
@@ -256,8 +259,8 @@ PLANTED_FAULTS = (
      "  const long long cs = pos * a.cs_stride;\n",
      "  if (pos == 5) pos = 6;\n"),
     ("swiglu",
-     "  stv<V>(a.y, row * a.d + c, a.y_dt, y);\n",
-     "  if (row == a.rows / 2) y[0] = 0.f;\n"),
+     "    store<V, Dt::y>(a.y, yo[k], a.y_dt, y);\n",
+     "    if (yo[k] / a.d == a.vecs / (a.d / V) / 2) y[0] = 0.f;\n"),
     ("softmax_cross_entropy",
      "    float v[V];\n    ldv<V>(a.x, xo + c, a.x_dt, v);\n",
      "    if (c / (THREADS * V) == 1) continue;\n"),
@@ -456,6 +459,8 @@ def check_flash(torch, fa):
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(
             q, k, v, causal=causal), 3, warmup=1)
         library_ms = cuda_ms(torch, lib, 10)
+        dev = graph_pair(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, causal=causal), lib)
         if causal:
             shift = lk - lq
             pairs = sum(min(lk, max(0, i + shift + 1)) for i in range(lq))
@@ -468,7 +473,8 @@ def check_flash(torch, fa):
                    tile_rel_err=res.get("tile_rel"), ref_rms=res["ref_rms"],
                    library_max_abs_err=lib_err,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9)
+                   bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9,
+                   **dev)
         emit({"phase": "flash_check", **row})
         rows.append(row)
     return rows
@@ -634,7 +640,9 @@ def check_paged(torch, pa, kvc, planted_lib):
                            *args, page_size=ps), 20),
                        plain_ms=cuda_ms(torch, lambda: pa.paged_attention_dense(
                            *args, page_size=ps), 3, warmup=1),
-                       library_ms=cuda_ms(torch, lib, 20))
+                       library_ms=cuda_ms(torch, lib, 20),
+                       **graph_pair(torch, lambda: pa.paged_attention(
+                           *args, page_size=ps), lib))
             bms, by = bound(case["flops"], case["nbytes"], dtype_name(qdt))
             row.update(bound_ms=bms, bound_by=by,
                        gbytes_per_s=case["nbytes"] / row["ms"] / 1e6)
@@ -2478,8 +2486,8 @@ def entry_tail(torch, fa, q, k, causal: bool, var):
     """The arguments of a flash entry point after its pointers: the dims,
     dtype code, causal and sm_scale; for a variant ``var = (q_segs,
     kv_segs, dropout_p, seed)`` the ``*_segdrop`` arguments too. Returns
-    ``(entry suffix, arguments, tensors to keep alive)``; the stream is
-    last."""
+    ``(entry suffix, arguments, tensors to keep alive)``; the stream
+    follows them, the current one at each call (:func:`call_entry`)."""
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     tail = (b, lq, lk, h, hkv, d, fa._DTYPE_CODES[q.dtype], int(causal),
@@ -2488,7 +2496,13 @@ def entry_tail(torch, fa, q, k, causal: bool, var):
     if var is not None:
         extra, keep = fa._segdrop_args(*var, b, lq, lk, q.device)
         suffix = "_segdrop"
-    return suffix, (*tail, *extra, torch.cuda.current_stream().cuda_stream), keep
+    return suffix, (*tail, *extra), keep
+
+
+def call_entry(torch, fn, args) -> None:
+    """A flash entry point (:func:`bind_entry`'s, which raises where the
+    launch is refused) on the current stream, a graph capture's too."""
+    fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def bind_entry(fa, lib, name: str):
@@ -2513,7 +2527,8 @@ def bwd_launches(torch, fa, lib, q, k, v, out, lse, do, causal: bool = True,
                        ("flash_bwd_dkv", grads[1:])):
         fn = bind_entry(fa, lib, name + suffix)
         args = (*ptrs, *(x.data_ptr() for x in outs), *tail)
-        fns.append(lambda fn=fn, args=args, keep=(keep, delta): fn(*args))
+        fns.append(lambda fn=fn, args=args, keep=(keep, delta): call_entry(
+            torch, fn, args))
     return grads, fns[0], fns[1]
 
 
@@ -2530,7 +2545,7 @@ def fwd_lse_launch(torch, fa, lib, q, k, v, causal: bool = True, var=None,
                     + suffix)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) + (
         (lse.data_ptr(),) if with_lse else ())
-    return out, lse, lambda keep=keep: fn(*ptrs, *tail)
+    return out, lse, lambda keep=keep: call_entry(torch, fn, (*ptrs, *tail))
 
 
 def check_planted(torch, fa, planted_lib, q, k, v, rout, rlse, do, refs):
@@ -2673,6 +2688,16 @@ def check_flash_train(torch, fa, planted_lib):
     lib_out = TF.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
         lib_out, (qh, kh, vh), doh, retain_graph=True), 5)
+    dev = {"flash_fwd_lse": graph_pair(
+               torch, lambda: fa.flash_attention_lse(q, k, v, causal=True),
+               lambda: TF.scaled_dot_product_attention(
+                   qh.detach(), kh.detach(), vh.detach(), is_causal=True)),
+           "flash_bwd_dq": {"device_ms": device_ms(torch, run_dq)},
+           "flash_bwd_dkv": {"device_ms": device_ms(torch, run_dkv)}}
+    lib_bwd_dev = sdpa_backward_device_ms(torch, qh, kh, vh, doh,
+                                          is_causal=True)
+    for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        dev[kname]["library_device_ms"] = lib_bwd_dev
     pairs = attention_pairs(L, L, True)
     item = 2  # bf16
     qbytes = b * L * h * d * item
@@ -2689,7 +2714,7 @@ def check_flash_train(torch, fa, planted_lib):
         bms, by = bound(flops, nbytes, "bfloat16")
         timings[kname] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                               bound_ms=bms, bound_by=by,
-                              tflops=flops / ms / 1e9)
+                              tflops=flops / ms / 1e9, **dev[kname])
     emit({"phase": "flash_train_timing", "shape": [b, L, h, d],
           "dtype": "bfloat16", "causal": True, **timings,
           "plain_note": "plain_ms of dq and dkv is the whole plain backward",
@@ -2788,6 +2813,9 @@ def check_q8_adam(torch, q8):
                 bms, by = bound(25.0 * n, nbytes, "float32")
                 timing = dict(n=n, ms=ms, plain_ms=plain, bound_ms=bms,
                               bound_by=by, library_ms=None,
+                              device_ms=device_ms(
+                                  torch, lambda: q8.q8_adam_update(
+                                      *st_k, g, **kw)),
                               gbytes_per_s=nbytes / ms / 1e6,
                               closed_gate_writes_nothing=True)
             del st_k, st_r, g
@@ -3438,6 +3466,12 @@ def time_variants(torch, fa, b: int, h: int, L: int, d: int) -> dict:
         doh = do.transpose(1, 2).contiguous()
         lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qh, kh, vh), doh, retain_graph=True), 10)
+        lib_dev = {"fwd": device_ms(
+            torch, lambda: TF.scaled_dot_product_attention(
+                qh.detach(), kh.detach(), vh.detach(), attn_mask=mask,
+                dropout_p=p))}
+        lib_dev["bwd"] = sdpa_backward_device_ms(torch, qh, kh, vh, doh,
+                                                 attn_mask=mask, dropout_p=p)
         for entry, run, plain, libms, products, nbytes in (
                 ("fwd", run_fwd, plain_fwd, lib_fwd, 2, 4 * qbytes),
                 ("fwd_lse", run_lse, plain_fwd, lib_fwd, 2,
@@ -3450,6 +3484,9 @@ def time_variants(torch, fa, b: int, h: int, L: int, d: int) -> dict:
             flops = products * 2.0 * d * pairs
             bms, by = bound(flops, nbytes + seg_bytes, "bfloat16")
             rows[entry, variant] = dict(ms=ms, plain_ms=plain, library_ms=libms,
+                                        device_ms=device_ms(torch, run),
+                                        library_device_ms=lib_dev[
+                                            entry[:3]],
                                         bound_ms=bms, bound_by=by,
                                         tflops=flops / ms / 1e9,
                                         max_abs_err=errs.get(entry),
@@ -4573,6 +4610,35 @@ def device_ms(torch, fn, iters: int = FUSED_ITERS):
     return device_time(torch, fn, iters)["device_ms"]
 
 
+def graph_pair(torch, kernel, library) -> dict:
+    """``device_ms`` and ``library_device_ms``: :func:`device_ms` of a
+    kernel's call and of its library yardstick's."""
+    return {"device_ms": device_ms(torch, kernel),
+            "library_device_ms": device_ms(torch, library)}
+
+
+def sdpa_backward_device_ms(torch, qh, kh, vh, doh, **kw):
+    """The card's ms of SDPA's backward (dq, dk and dv together): the
+    forward and backward captured together, less the forward alone
+    (autograd runs a backward on its forward's stream, so the backward is
+    captured with its forward); None where either cannot be captured."""
+    import torch.nn.functional as TF
+
+    def fwd():
+        return TF.scaled_dot_product_attention(qh.detach(), kh.detach(),
+                                               vh.detach(), **kw)
+
+    # fresh leaves: the callers' own carry autograd nodes from earlier
+    # calls on another stream
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+
+    def fwd_bwd():
+        out = TF.scaled_dot_product_attention(*leaves, **kw)
+        return torch.autograd.grad(out, leaves, doh)
+    f, fb = device_ms(torch, fwd), device_ms(torch, fwd_bwd)
+    return None if f is None or fb is None else fb - f
+
+
 def event_and_host(torch, fn, iters: int, warmup: int = 2):
     """``(ms, host_us)``: CUDA-event ms a call over ``iters`` back-to-back
     calls (the wrapper's host time shows in it where that exceeds the
@@ -4707,6 +4773,95 @@ def fused_norm_timing(torch, fn, gen) -> dict:
             row["bwd_bound_ms"] = bound(0, nbytes(dy, dres, h, w, got[2],
                                                   got[3], *g), "float32")[0]
         out[name] = row
+    return out
+
+
+# graph device ms readings a timed case of K2 and K3 takes (their mean is
+# its device_ms; the A/B tool compares the readings' spread)
+TIMED_READINGS = 3
+
+
+def graph_readings(torch, fn, reads: int = TIMED_READINGS) -> dict:
+    """``device_ms`` (the mean) and ``readings``: :func:`graph_ms` of
+    ``fn`` read ``reads`` times over :func:`graph_calls` calls."""
+    fn()
+    n = graph_calls(cuda_ms(torch, fn, 3))
+    rs = [graph_ms(torch, fn, n) for _ in range(reads)]
+    return {"device_ms": sum(rs) / len(rs), "readings": rs}
+
+
+def rope_timed_cases(torch) -> tuple:
+    """K2's timed cases at the shapes its paths give it: (name, q/k shapes,
+    offset, positions dtype, dtype, table dtype, backward timed). The
+    Llama training step's q and k under AMP O2 (fp32 tables cast to bf16),
+    forward and backward; a Llama-2-7B decode step (positions on the
+    device) and tail prefill (offset 24), bf16 with fp32 tables uncast."""
+    bf = torch.bfloat16
+    return (("llama_o2", [(6, 4096, 20, 128)] * 2, 0, None, bf, bf, True),
+            ("serve_decode", [(16, 1, 32, 128)] * 2, 0, torch.int32, None,
+             None, False),
+            ("serve_prefill_tail", [(1, 1000, 32, 128)] * 2, 24, None, None,
+             None, False))
+
+
+def rope_timing(torch, rp, gen) -> dict:
+    """K2's forward (and backward) at each of :func:`rope_timed_cases`:
+    graph device ms (:func:`graph_readings`) beside the byte bound (each
+    element read and written once, the table rows the positions use
+    read once)."""
+    bf = torch.bfloat16
+    out = {}
+    for name, shapes, off, pdt, dt, tdt, bwd in rope_timed_cases(torch):
+        ang = torch.rand((4096, 64), generator=gen, device="cuda") * 6.3
+        cos, sin = ang.cos(), ang.sin()
+        xs = [torch.randn(sh, generator=gen, device="cuda").to(bf)
+              for sh in shapes]
+        b, n = shapes[0][:2]
+        pos = None if pdt is None else torch.randint(
+            0, 4096, (b, n), generator=gen, device="cuda", dtype=pdt)
+        kw = dict(offset=off, positions=pos, neox=True, dtype=dt,
+                  table_dtype=tdt)
+        out_dt = dt or bf
+        used = n if pos is None else int(torch.unique(pos).numel())
+        tbytes = 2 * used * cos.shape[1] * cos.element_size()
+        row = {"shapes": shapes,
+               "fwd": graph_readings(torch, lambda: rp._launch(
+                   xs, cos, sin, backward=False,
+                   out_dtypes=[out_dt] * len(xs), **kw)),
+               "bound_ms": bound(0, 2 * nbytes(*xs) + tbytes,
+                                 "float32")[0]}
+        if bwd:
+            gs = [torch.randn(sh, generator=gen, device="cuda").to(out_dt)
+                  for sh in shapes]
+            row["bwd"] = graph_readings(torch, lambda: rp._launch(
+                gs, cos, sin, backward=True, out_dtypes=[bf] * len(gs),
+                **dict(kw, dtype=out_dt)))
+        out[name] = row
+        del xs, cos, sin
+    return out
+
+
+def swiglu_timing(torch, sw, gen) -> dict:
+    """K3's forward (and backward) at the shapes its paths give it, bf16:
+    the Llama training step's g and u (24576, 6912), forward and backward,
+    and a Llama-2-7B decode step's (16, 11008): graph device ms
+    (:func:`graph_readings`) beside the byte bound."""
+    bf = torch.bfloat16
+    out = {}
+    for name, rows, d, bwd in (("llama", 24576, 6912, True),
+                               ("serve", 16, 11008, False)):
+        g, u, dy = (torch.randn((rows, d), generator=gen, device="cuda")
+                    .to(bf) for _ in range(3))
+        row = {"rows": rows, "d": d,
+               "fwd": graph_readings(torch, lambda: sw._launch_fwd(
+                   g, u, False)),
+               "bound_ms": bound(0, 3 * nbytes(g), "float32")[0]}
+        if bwd:
+            row["bwd"] = graph_readings(torch, lambda: sw._launch_bwd(
+                g, u, dy, False))
+            row["bwd_bound_ms"] = bound(0, 5 * nbytes(g), "float32")[0]
+        out[name] = row
+        del g, u, dy
     return out
 
 
@@ -4947,6 +5102,7 @@ def check_rope(torch, rp, planted_lib, gen) -> dict:
         timing["planted_max_abs_err"] = planted["max_abs_err"]
         timing["case"] = ("q and k (6, 4096, 20, 128) bf16, fp32 tables "
                           "cast to bf16 (O2), one launch")
+    timing["timed_cases"] = rope_timing(torch, rp, gen)
     return {"cases": results, "max_abs_err": err, **timing}
 
 
@@ -5012,6 +5168,7 @@ def check_swiglu(torch, sw, planted_lib, gen) -> dict:
                                           "float32")
         timing["planted_max_abs_err"] = planted["max_abs_err"]
         timing["case"] = "g, u (24576, 6912) bf16"
+    timing["timed_cases"] = swiglu_timing(torch, sw, gen)
     return {"cases": results, "max_abs_err": err, **timing}
 
 
@@ -6387,6 +6544,10 @@ def fmt_kernel_times(torch, fa, pa, kvc) -> dict:
             "library_ms": cuda_ms(
                 torch, lambda: TF.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask), 20),
+            **graph_pair(torch, lambda: fa.flash_attention_fwd(
+                q, k, v, causal=causal),
+                lambda: TF.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask)),
             "bound_ms": bms, "bound_by": by}
     rng = np.random.default_rng(6)
     for leg in ("bf16", "int8"):
@@ -6407,6 +6568,8 @@ def fmt_kernel_times(torch, fa, pa, kvc) -> dict:
             "plain_ms": cuda_ms(torch, lambda: pa.paged_attention_dense(
                 *args, page_size=FMT_PS), 3, warmup=1),
             "library_ms": cuda_ms(torch, lib, 20),
+            **graph_pair(torch, lambda: pa.paged_attention(
+                *args, page_size=FMT_PS), lib),
             "bound_ms": bms, "bound_by": by}
         del case, args, lib
     x = torch.randn(512, E, generator=gen, device="cuda").to(bf)
@@ -7289,6 +7452,8 @@ def main() -> int:
     k1 = next(r for r in flash_rows if r["case"] == "causal_1000_ragged")
     k2 = next(r for r in paged_rows if r["case"] == "bf16_h32")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the card's own time a call (graph_ms) of B1-B6 and their yardsticks
+    b_keys = ("device_ms", "library_device_ms")
     # the port's own kernels (K1-K9, multi-tensor AdamW) also carry the
     # card's own time a call and the wrapper's host time
     k_keys = keys + ("device_ms", "device_source", "library_device_ms",
@@ -7325,6 +7490,7 @@ def main() -> int:
             for leg, v in chaos_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
          "case": k1["case"], **{k: k1[k] for k in keys},
+         **{k: k1.get(k) for k in b_keys},
          "fmt_shapes": {k: fmt_times[k] for k in ("flash_prefill",
                                                   "flash_prefill_tail")}},
         {"name": "paged_decode", "route": "cuda",
@@ -7340,12 +7506,14 @@ def main() -> int:
             for leg, v in chaos_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
          "case": k2["case"], **{k: k2[k] for k in keys},
+         **{k: k2.get(k) for k in b_keys},
          "fmt_shapes": {k: fmt_times[k] for k in ("paged_decode_bf16",
                                                   "paged_decode_int8")}},
     ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": train_launches[name], "max_abs_err": err,
-         "case": case, **{k: t[k] for k in keys}}
+         "case": case, **{k: t[k] for k in keys},
+         **{k: t.get(k) for k in b_keys}}
         for name, src, rep, err, t, case in train_rows
     ] + [
         {"name": f"{VARIANT_KERNEL[e][0]}[{v}]", "route": "cuda",
@@ -7358,7 +7526,8 @@ def main() -> int:
          "max_abs_err": var_times[e, v]["max_abs_err"],
          "case": "B=%d H=%d L=%d D=%d bf16 not causal, ids %s" % (
              *ERNIE_SHAPE, var_times[e, v]["ids"]),
-         **{k: var_times[e, v][k] for k in keys}}
+         **{k: var_times[e, v][k] for k in keys},
+         **{k: var_times[e, v].get(k) for k in b_keys}}
         for e in VARIANT_LINES for v in fa.VARIANTS
     ] + [
         {"name": "multi_tensor_adam", "route": "cuda",

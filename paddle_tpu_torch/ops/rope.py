@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,15 +32,70 @@ from .. import _native
 from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path,
                         ptr, stream)
 
-__all__ = ["launches", "rope", "rope_reference"]
+__all__ = ["LaunchPlan", "launch_plan", "launches", "rope",
+           "rope_reference"]
 
 launches = _native.LaunchCounter("rope")
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
-                            ctypes.c_longlong] + [ctypes.c_int] * 6 \
-    + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] \
+    + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+# the kernel's CTA: 8 warps, each an item (a position and a run of its heads)
+THREADS = 256
+WARPS = THREADS // 32
+# warps an SM should have before one warp takes more of a position's heads
+TARGET_WARPS_SM = 32
+INDEX_LIMIT = 2 ** 31
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of the kernel: ``grid`` CTAs of ``threads``; ``items`` =
+    positions x ``parts`` warps, each turning ``heads_per_part`` heads of
+    its position (the tensors' heads in order); ``lph`` lanes a head,
+    ``hpw`` heads a warp step, ``nch`` chunks a lane, ``cph`` chunks of
+    ``vec`` pairs a head."""
+    grid: int
+    threads: int
+    items: int
+    parts: int
+    heads_per_part: int
+    lph: int
+    hpw: int
+    nch: int
+    cph: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(positions: int, heads: int, d: int, vec: int,
+                sms: int) -> LaunchPlan:
+    """The launch over ``positions`` (b, l) rows of ``heads`` heads (all
+    tensors') of ``d`` elements, ``vec`` pairs a chunk (8: 16-byte loads,
+    or 1), on a card of ``sms`` SMs. A warp takes all of a position's heads
+    where the card still gets ``TARGET_WARPS_SM`` warps an SM (Llama's
+    training shapes), else the heads are split into parts, down to one
+    warp step each (decode)."""
+    cph = d // 2 // vec
+    lph = min(cph, 32)
+    hpw = 32 // lph
+    nch = _ceil(cph, lph)
+    steps = _ceil(heads, hpw)
+    sp = max(1, min(steps, positions * steps // (sms * TARGET_WARPS_SM)))
+    hpp = sp * hpw
+    parts = _ceil(heads, hpp)
+    items = positions * parts
+    return LaunchPlan(_ceil(items, WARPS), THREADS, items, parts, hpp, lph,
+                      hpw, nch, cph)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def bind(lib) -> dict:
@@ -145,20 +200,25 @@ def _launch(xs, cos, sin, *, offset, positions, neox, dtype, table_dtype,
         positions = positions.contiguous()
     xs = [x.contiguous() for x in xs]
     cos, sin = cos.contiguous(), sin.contiguous()
+    if max(t.numel() for t in (*xs, cos)) >= INDEX_LIMIT or \
+            b * n >= INDEX_LIMIT:
+        raise ValueError(f"rope: the kernel indexes tensors of fewer than "
+                         f"2^31 elements, got {[tuple(x.shape) for x in xs]}"
+                         f", tables {tuple(cos.shape)}")
     outs = [torch.empty(x.shape, dtype=dt, device=dev)
             for x, dt in zip(xs, out_dtypes)]
     vec = 8 if d % 16 == 0 and cos.shape[1] % 8 == 0 and \
         aligned16(*xs, *outs, cos, sin) else 1
-    rows = [x.shape[0] * x.shape[1] * x.shape[2] for x in xs] + [0] * 3
-    heads = [x.shape[2] for x in xs] + [1] * 3
+    heads = [x.shape[2] for x in xs] + [0] * 3
     ins = list(xs) + [None] * 3
     os = list(outs) + [None] * 3
     c = functools.partial(dtype_code, what="rope")
-    if sum(rows[:3]):
+    if b * n and sum(heads):
+        plan = launch_plan(b * n, sum(heads), d, vec, _sm_count(dev.index))
         fn = (fns or _kernels())["rope"]
         with torch.cuda.device(dev):
             err = fn(ptr(ins[0]), ptr(ins[1]), ptr(ins[2]), ptr(os[0]),
-                     ptr(os[1]), ptr(os[2]), *rows[:3], *heads[:3], n, d,
+                     ptr(os[1]), ptr(os[2]), b * n, *heads[:3], n, d,
                      ptr(cos), ptr(sin), cos.shape[1], cos.shape[1],
                      c(cos.dtype), c(table_dtype or cos.dtype),
                      ptr(positions),
@@ -166,6 +226,8 @@ def _launch(xs, cos, sin, *, offset, positions, neox, dtype, table_dtype,
                          and positions.dtype == torch.int64),
                      offset, c(x0.dtype), c(dtype or x0.dtype),
                      c(out_dtypes[0]), int(neox), int(backward), vec,
+                     plan.grid, plan.threads, plan.parts,
+                     plan.heads_per_part, plan.lph, plan.hpw, plan.nch,
                      stream(dev))
         _native.check(err, "rope kernel launch")
         launches.count += 1

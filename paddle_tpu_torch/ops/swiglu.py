@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,14 +27,74 @@ from .. import _native
 from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path,
                         ptr, stream)
 
-__all__ = ["launches", "swiglu", "swiglu_reference"]
+__all__ = ["LaunchPlan", "divider", "launch_plan", "launches", "swiglu",
+           "swiglu_reference"]
 
 launches = _native.LaunchCounter("swiglu")
 
-_ARGTYPES_FWD = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int] \
-    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ARGTYPES_BWD = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int] \
-    + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_FWD = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 \
+    + [ctypes.c_void_p]
+_ARGTYPES_BWD = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 \
+    + [ctypes.c_void_p]
+
+MAX_THREADS = 256
+INDEX_LIMIT = 2 ** 31
+
+
+class LaunchPlan(NamedTuple):
+    """One launch: ``grid`` CTAs of ``threads``, a vector of ``vec``
+    elements a thread, ``vecs`` in all; rows at a stride (``strided``) find
+    the row of vector v as ``(v * magic) >> (31 + shift)``."""
+    grid: int
+    threads: int
+    vecs: int
+    strided: bool
+    magic: int
+    shift: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def divider(n: int) -> Tuple[int, int]:
+    """``(magic, shift)`` with ``(v * magic) >> (31 + shift) == v // n`` for
+    every ``0 <= v < 2^31``: ``shift = ceil(log2 n)``, ``magic =
+    ceil(2^(31 + shift) / n)`` (below 2^32). The product's excess over
+    ``v / n`` is under ``v / 2^(31 + shift) < 1 / n``, so the floor holds."""
+    shift = (n - 1).bit_length()
+    return _ceil(2 ** (31 + shift), n), shift
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(rows: int, d: int, vec: int, sms: int, *,
+                strided: bool = False) -> LaunchPlan:
+    """The launch over ``rows`` rows of ``d`` elements in vectors of
+    ``vec`` (8 or 1), on a card of ``sms`` SMs: a vector a thread, in CTAs
+    of 256 threads, or of 128 where there are fewer vectors than 256 an SM
+    (decode: the work spread over more SMs)."""
+    vecs = rows * (d // vec)
+    threads = MAX_THREADS if vecs >= MAX_THREADS * sms else MAX_THREADS // 2
+    magic, shift = divider(d // vec) if strided else (0, 0)
+    return LaunchPlan(max(1, _ceil(vecs, threads)), threads, vecs, strided,
+                      magic, shift)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_args(plan: LaunchPlan) -> tuple:
+    magic = plan.magic - 2 ** 32 if plan.magic >= 2 ** 31 else plan.magic
+    return plan.grid, plan.threads, int(plan.strided), magic, plan.shift
+
+
+def _check_size(what: str, *ts) -> None:
+    if any(t.numel() >= INDEX_LIMIT for t in ts):
+        raise ValueError(f"swiglu: the kernel indexes tensors of fewer than "
+                         f"2^31 elements, got {what} "
+                         f"{[tuple(t.shape) for t in ts]}")
 
 
 def bind(lib) -> dict:
@@ -89,13 +149,17 @@ def _launch_fwd(g, u, packed: bool, fns=None):
         shape = g.shape
     out_dtype = torch.promote_types(gv.dtype, uv.dtype)
     y = torch.empty(shape, dtype=out_dtype, device=dev)
+    _check_size("g", g if packed else gv)
     vec = 8 if d % 8 == 0 and aligned16(gv, uv, y) else 1
     if rows:
         c = functools.partial(dtype_code, what="swiglu")
+        plan = launch_plan(rows, d, vec, _sm_count(dev.index),
+                           strided=g_rs != d or u_rs != d)
         with torch.cuda.device(dev):
             err = (fns or _kernels())["swiglu_fwd"](
-                ptr(gv), ptr(uv), ptr(y), rows, d, g_rs, u_rs, c(gv.dtype),
-                c(uv.dtype), c(out_dtype), vec, stream(dev))
+                ptr(gv), ptr(uv), ptr(y), plan.vecs, d, g_rs, u_rs,
+                c(gv.dtype), c(uv.dtype), c(out_dtype), vec,
+                *_plan_args(plan), stream(dev))
         _native.check(err, "swiglu forward kernel launch")
         launches.count += 1
     return y
@@ -120,13 +184,17 @@ def _launch_bwd(g, u, dy, packed: bool, fns=None):
         rs = [d] * 4
         outs = (dg, du)
     rows = dy.numel() // d if d else 0
+    _check_size("g", g)
     vec = 8 if d % 8 == 0 and aligned16(gv, uv, dy, dg, du) else 1
     if rows:
         c = functools.partial(dtype_code, what="swiglu")
+        plan = launch_plan(rows, d, vec, _sm_count(dev.index),
+                           strided=rs[0] != d)
         with torch.cuda.device(dev):
             err = (fns or _kernels())["swiglu_bwd"](
-                ptr(gv), ptr(uv), ptr(dy), ptr(dg), ptr(du), rows, d, *rs,
-                c(gv.dtype), c(uv.dtype), c(dy.dtype), vec, stream(dev))
+                ptr(gv), ptr(uv), ptr(dy), ptr(dg), ptr(du), plan.vecs, d,
+                *rs, c(gv.dtype), c(uv.dtype), c(dy.dtype), vec,
+                *_plan_args(plan), stream(dev))
         _native.check(err, "swiglu backward kernel launch")
         launches.count += 1
     return outs

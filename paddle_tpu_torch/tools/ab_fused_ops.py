@@ -1,6 +1,10 @@
 """Before and after the fused small-op kernels, on one card: K1's
 forward and backward (with its fold) at the four shapes of its paths
-(``chip_smoke.fused_norm_timing``: the card's time by kernel), the Llama
+(``chip_smoke.fused_norm_timing``: the card's time by kernel), K2's and
+K3's forward and backward at theirs (``chip_smoke.rope_timing``,
+``swiglu_timing``: Llama training's O2 q and k and g and u, a Llama-2-7B
+decode step and tail prefill; three graph device ms readings a case and
+leg in each run), the Llama
 training step of ``bench.py`` (eager and profiled, then captured), the
 ERNIE-3.0-base fine-tune step captured (both legs, profiled), Llama-2-7B
 serving (three runs, profiled) and the FMT stack's serving (three runs,
@@ -12,14 +16,14 @@ own process, in the order other, this, this, other::
 ``DIR`` holds another tree of the repository, e.g. the parent commit
 unpacked by ``git archive`` into a git-ignored directory. Every run drives
 ``chip_smoke.py``'s own phases of this tree (``fused_norm_timing``,
-``train_1p6b``, ``train_ernie3_base_captured``, ``serve_7b``,
+``rope_timing``, ``swiglu_timing``, ``train_1p6b``, ``train_ernie3_base_captured``, ``serve_7b``,
 ``serve_fmt`` without its parity, prefix leg and prefill graph check) on
 the package of the tree it runs, so both trees run the same workloads,
 checks and kernel families (``other`` split into the fused kernels'
 families and the rest). Each phase's JSON line goes to ``FILE`` (default
 ``ab_fused_ops.jsonl`` in the working directory) tagged with its run; the
 last line printed sums up, for each run, K1's device ms by case and
-kernel, step p50, peak memory, device ms by family and kernels a step,
+kernel, K2's and K3's device ms and readings by case and leg, step p50, peak memory, device ms by family and kernels a step,
 and the serving tok/s, TTFT and TPOT.
 """
 
@@ -34,7 +38,8 @@ if __package__:
 else:   # a run's process: this file as a script, beside another package
     import _ab
 
-PHASES = ("fused_norm_timing", "train_llama_1p6b", "train_profile",
+PHASES = ("fused_norm_timing", "rope_timing", "swiglu_timing",
+          "train_llama_1p6b", "train_profile",
           "train_llama_1p6b_captured", "train_ernie3_base_captured",
           "train_ernie_captured_profile", "serve_llama2_7b", "serve_profile",
           "serve_fmt", "serve_fmt_profile")
@@ -60,6 +65,12 @@ def _run(tree: Path) -> None:
         gen = torch.Generator(device="cuda").manual_seed(9)
         cs.emit({"phase": "fused_norm_timing", "card": card,
                  **cs.fused_norm_timing(torch, fn, gen)})
+        from paddle_tpu_torch.ops import rope as rp
+        from paddle_tpu_torch.ops import swiglu as sw
+        cs.emit({"phase": "rope_timing", "card": card,
+                 **cs.rope_timing(torch, rp, gen)})
+        cs.emit({"phase": "swiglu_timing", "card": card,
+                 **cs.swiglu_timing(torch, sw, gen)})
     cs.train_1p6b(torch, card, fa, q8, counters)
     cs.train_ernie3_base_captured(torch, card, fa, mta)
     model, init_s = cs.build_7b(torch)
@@ -76,7 +87,8 @@ def _run(tree: Path) -> None:
 
 
 def _summary(rows: list) -> dict:
-    """Per run: K1's device ms by case, leg and kernel; step p50 and peak
+    """Per run: K1's device ms by case, leg and kernel; K2's and K3's
+    device ms and readings by case and leg; step p50 and peak
     memory of each workload; serving tok/s, TTFT and TPOT of each run;
     device ms by family and kernels of each profiled step."""
     out = {}
@@ -89,6 +101,11 @@ def _summary(rows: list) -> dict:
                                       k: round(t["ms"], 5) for k, t
                                       in v[leg]["device_kernels"].items()}}
                             for leg in ("fwd", "bwd") if leg in v}
+                     for case, v in r.items()
+                     if isinstance(v, dict) and "fwd" in v}
+        elif ph in ("rope_timing", "swiglu_timing"):
+            s[ph] = {case: {leg: v[leg] for leg in ("fwd", "bwd")
+                            if leg in v}
                      for case, v in r.items()
                      if isinstance(v, dict) and "fwd" in v}
         elif ph in ("serve_llama2_7b", "serve_fmt"):

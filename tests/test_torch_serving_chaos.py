@@ -167,7 +167,7 @@ def _chaos_run(eng, mod, faults_mod, sched, prompts):
 def parity_engines(pair):
     jm, tm = pair
     engines = {}
-    for leg in ("native", "int8"):
+    for leg in ("native", "bf16", "int8"):
         engines[leg] = (
             jserving.Engine(*jm.serving_callables(MAX_LEN), _cfg(
                 jserving, leg, paged_attention="on", max_replays=1)),
@@ -175,7 +175,7 @@ def parity_engines(pair):
     return engines
 
 
-@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["native", "bf16", "int8"])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_chaos_matches_the_jax_engine(parity_engines, metrics, kv_dtype,
                                       seed):
