@@ -108,7 +108,12 @@ per phase:
   tables, linear1 output, hidden dropout and attention scores (and
   Llama's embedding), K5 and K7 bit for bit, requires three bit-equal
   launches of each and the rejection of a planted copy of each, and times
-  them beside bound, plain version and library call; ``incubate_check``
+  them beside bound, plain version and library call (the library's
+  backward as its forward and backward captured together less the
+  forward; ``softmax_mask_timing`` and ``bias_act_timing``: K8 at ERNIE's
+  scores and the upper triangle, K6 at ERNIE's O2 and fp32 epilogues, the
+  FMT prefill and decode epilogues and the MoE's bias period, three
+  readings a case); ``incubate_check``
   drives ``incubate``'s fused layers at ERNIE's width (card against CPU,
   then O2 training, counting K6-K8); the ERNIE phases count K5-K7 a step;
 * Mixture-of-Experts (``moe_check``): holds the routing kernel K9
@@ -220,7 +225,8 @@ KV_ROUNDING_PER_LAYER = 2.0 ** -8
 # partial, so that FUSED_TOL must reject the output and dw. K2-K4
 # (fused_ops_check) and K5-K8 (ernie_ops_check) each have one: K5's
 # backward drops the second row of every piece (caught on the all-zero
-# ids), K6 zeroes one output, K7 flips one element's keep, K8
+# ids), K6's lookup forward (ERNIE's O2 epilogue) zeroes one output of
+# each vector of the middle row, K7 flips one element's keep, K8
 # drops one mask column; K5 and K7 must fail bit-equality, K6 and K8
 # FUSED_TOL. K9 (moe_check): the token-major sum skips each token's second
 # route, so the combine must fail bit-equality.
@@ -268,8 +274,8 @@ PLANTED_FAULTS = (
      "      ldv<V>(a.dy, s_perm[r - k0] * a.d + c, a.dy_dt, v);\n",
      "      if (r == k + 1) continue;\n"),
     ("bias_act",
-     "  stv<V>(a.out, row * a.n + c, a.a_dt, o);\n",
-     "  if (row == a.rows / 2) o[0] = 0.f;\n"),
+     "          store<V, BF16>(a.out, o, a.a_dt, out);\n",
+     "          if (r.r0 + i == a.rows / 2) out[0] = 0.f;\n"),
     ("dropout",
      "    o[j] = !k ? 0.f : a.upscale ? rnd(__fmul_rn(x[j], a.inv_keep), a.x_dt)\n",
      "    if (i0 + j == 4097) {\n"
@@ -277,8 +283,8 @@ PLANTED_FAULTS = (
      "      continue;\n"
      "    }\n"),
     ("softmax_mask",
-     "  return __fadd_rn(x[0], m[0]);\n",
-     "  if (j == 5) m[0] = 0.f;\n"),
+     "  return __fadd_rn(x, m);\n",
+     "  if (j == 5) m = 0.f;\n"),
     ("moe",
      "    if (s < 0) continue;  // a dropped route\n",
      "    if (r == r0 + 1) continue;\n"))
@@ -4617,26 +4623,30 @@ def graph_pair(torch, kernel, library) -> dict:
             "library_device_ms": device_ms(torch, library)}
 
 
-def sdpa_backward_device_ms(torch, qh, kh, vh, doh, **kw):
-    """The card's ms of SDPA's backward (dq, dk and dv together): the
-    forward and backward captured together, less the forward alone
-    (autograd runs a backward on its forward's stream, so the backward is
-    captured with its forward); None where either cannot be captured."""
-    import torch.nn.functional as TF
-
-    def fwd():
-        return TF.scaled_dot_product_attention(qh.detach(), kh.detach(),
-                                               vh.detach(), **kw)
-
+def library_backward_device_ms(torch, fn, inputs, dy):
+    """The card's ms of the backward of a library call ``fn(*inputs)`` by
+    autograd (the gradients of every input): the forward and backward
+    captured together, less the forward alone (autograd runs a backward on
+    its forward's stream, so the backward is captured with its forward);
+    None where either cannot be captured."""
+    plain = [x.detach() for x in inputs]
     # fresh leaves: the callers' own carry autograd nodes from earlier
     # calls on another stream
-    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    leaves = [x.detach().requires_grad_() for x in inputs]
 
     def fwd_bwd():
-        out = TF.scaled_dot_product_attention(*leaves, **kw)
-        return torch.autograd.grad(out, leaves, doh)
-    f, fb = device_ms(torch, fwd), device_ms(torch, fwd_bwd)
+        return torch.autograd.grad(fn(*leaves), leaves, dy)
+    f, fb = device_ms(torch, lambda: fn(*plain)), device_ms(torch, fwd_bwd)
     return None if f is None or fb is None else fb - f
+
+
+def sdpa_backward_device_ms(torch, qh, kh, vh, doh, **kw):
+    """The card's ms of SDPA's backward (dq, dk and dv together):
+    :func:`library_backward_device_ms`."""
+    import torch.nn.functional as TF
+    return library_backward_device_ms(
+        torch, lambda q, k, v: TF.scaled_dot_product_attention(q, k, v, **kw),
+        (qh, kh, vh), doh)
 
 
 def event_and_host(torch, fn, iters: int, warmup: int = 2):
@@ -4862,6 +4872,104 @@ def swiglu_timing(torch, sw, gen) -> dict:
             row["bwd_bound_ms"] = bound(0, 5 * nbytes(g), "float32")[0]
         out[name] = row
         del g, u, dy
+    return out
+
+
+def softmax_mask_timing(torch, sm, gen) -> dict:
+    """K8's forward and backward at the shapes its paths give it, bf16:
+    ERNIE's attention scores (32, 12, 128, 128) with a (32, 1, 128, 128)
+    mask (``softmax_mask_fuse``) and the upper triangle at (8, 12, 128,
+    128): graph device ms (:func:`graph_readings`) beside the byte bound
+    and the library's (``torch.softmax`` of the masked scores; its
+    backward by autograd, :func:`library_backward_device_ms`)."""
+    bf = torch.bfloat16
+    out = {}
+    for name, shape, mshape in (("ernie", (32, 12, 128, 128),
+                                 (32, 1, 128, 128)),
+                                ("upper_triangle", (8, 12, 128, 128), None)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(bf)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(bf)
+        causal = mshape is None
+        if causal:
+            q, k = shape[-2:]
+            keep = torch.ones(q, k, dtype=torch.bool,
+                              device="cuda").tril(k - q)
+            lib_mask = torch.zeros((q, k), device="cuda").masked_fill(
+                ~keep, -1e30).to(bf)
+            mask = None
+        else:
+            mask = torch.randn(mshape, generator=gen, device="cuda").to(bf)
+            lib_mask = mask
+        y = sm._launch_fwd(x, mask, causal)
+
+        def library(x, m=lib_mask):
+            return torch.softmax(x + m, -1)
+        out[name] = {
+            "shape": list(shape),
+            "fwd": graph_readings(torch, lambda: sm._launch_fwd(x, mask,
+                                                                causal)),
+            "bwd": graph_readings(torch, lambda: sm._launch_bwd(y, dy)),
+            "bound_ms": bound(0, nbytes(x, mask, y), "float32")[0],
+            "bwd_bound_ms": bound(0, 3 * nbytes(y), "float32")[0],
+            "library_device_ms": device_ms(torch, lambda: library(x)),
+            "bwd_library_device_ms": library_backward_device_ms(
+                torch, library, (x,), dy)}
+        del x, dy, y
+    return out
+
+
+def bias_act_timed_cases(torch) -> tuple:
+    """K6's timed cases at the shapes its paths give it: (name, rows, n,
+    y dtype, bias rows (None: no bias), period, act, backward timed).
+    ERNIE's linear1 epilogue under O2 and in fp32, FMT serving's prefill
+    and decode-step epilogues (GELU tanh) and the expert-choice MoE's
+    per-expert bias."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return (("ernie_o2", 4096, 3072, bf, 1, None, "gelu", True),
+            ("ernie_fp32", 4096, 3072, f32, 1, None, "gelu", True),
+            ("fmt_prefill", 512, 6912, bf, 1, None, "gelu_tanh", False),
+            ("fmt_decode", 16, 6912, bf, 1, None, "gelu_tanh", False),
+            ("moe_period", 8192, 14336, bf, 16, 512, "gelu_tanh", True))
+
+
+def bias_act_timing(torch, ba, gen) -> dict:
+    """K6's forward (and backward with its fold) at each of
+    :func:`bias_act_timed_cases`: graph device ms (:func:`graph_readings`)
+    beside the byte bound and the library's (``F.gelu(y + b)``; its
+    backward by autograd, :func:`library_backward_device_ms`)."""
+    TF = torch.nn.functional
+    out = {}
+    for name, rows, n, dt, brows, period, act, bwd in bias_act_timed_cases(
+            torch):
+        y = torch.randn((rows, n), generator=gen, device="cuda").to(dt)
+        b = (torch.randn((brows, 1, n) if period else (n,), generator=gen,
+                         device="cuda") * 0.5).to(dt)
+        spec = ba.ActSpec(act, dt, dt)
+        o = ba._launch_fwd(y, b, spec, period)
+        approx = "tanh" if act == "gelu_tanh" else "none"
+
+        def library(y, b, period=period, rows=rows, n=n, approx=approx):
+            yy = y.view(-1, period, n) if period else y
+            return TF.gelu(yy + b, approximate=approx)
+        row = {"rows": rows, "n": n, "dtype": dtype_name(dt), "act": act,
+               "period": period,
+               "fwd": graph_readings(torch, lambda: ba._launch_fwd(
+                   y, b, spec, period)),
+               "bound_ms": bound(0, nbytes(y, b, o), "float32")[0],
+               "library_device_ms": device_ms(torch, lambda: library(y, b))}
+        if bwd:
+            dy = torch.randn((rows, n), generator=gen, device="cuda").to(dt)
+            g = ba._launch_bwd(y, b, dy, spec, period)
+            row["bwd"] = graph_readings(torch, lambda: ba._launch_bwd(
+                y, b, dy, spec, period))
+            row["bwd_bound_ms"] = bound(0, nbytes(y, b, dy, *g),
+                                        "float32")[0]
+            row["bwd_library_device_ms"] = library_backward_device_ms(
+                torch, library, (y, b), dy.view(o.shape if not period else
+                                                (-1, period, n)))
+            del dy, g
+        out[name] = row
+        del y, b, o
     return out
 
 
@@ -5268,7 +5376,10 @@ def check_cross_entropy(torch, ce, planted_lib, gen) -> dict:
                        "bwd_device_ms": device_ms(torch,
                                                   lambda: run_b(state)),
                        "bwd_plain_ms": both - timing["plain_ms"],
-                       "bwd_library_ms": lib_both - timing["library_ms"]})
+                       "bwd_library_ms": lib_both - timing["library_ms"],
+                       "bwd_library_device_ms": library_backward_device_ms(
+                           torch, lambda x: torch.nn.functional.cross_entropy(
+                               x, flat_lab), (flat,), None)})
         rows = shape[0] * (shape[1] - 1)
         fb = rows * v * logits.element_size() + nbytes(labels)
         timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
@@ -5449,13 +5560,43 @@ def check_embedding(torch, em, planted_lib, gen) -> dict:
     return row
 
 
+def check_bias_act_tables(torch, ba) -> dict:
+    """K6's activation tables against torch's own GELU on every entry: the
+    forward table (bf16 bits) against ``F.gelu`` of the bf16 value, the
+    backward table (fp32) against ``aten.gelu_backward`` of 1 at its fp32
+    value, erf and tanh forms, bit for bit; returns the entries that
+    differ (0) by form."""
+    TF = torch.nn.functional
+    out = {}
+    for act, approx in (("gelu", "none"), ("gelu_tanh", "tanh")):
+        fwd, bwd = ba._tables(torch.cuda.current_device(), act)
+        half = fwd.numel() // 2
+        lo = 111 << 7   # csrc/bias_act.cu TAB_LO: 2^-16
+        mags = torch.arange(lo, lo + half, dtype=torch.int32, device="cuda")
+        bits = torch.cat([mags, mags + 0x8000]).to(torch.int16)
+        x = bits.view(torch.bfloat16)
+        want_f = TF.gelu(x, approximate=approx).view(torch.int16)
+        want_b = torch.ops.aten.gelu_backward(
+            torch.ones(x.shape, device="cuda"), x.float(), approximate=approx)
+        out[act] = {"fwd": int((fwd != want_f).sum()),
+                    "bwd": int((bwd.view(torch.int32)
+                                != want_b.view(torch.int32)).sum()),
+                    "entries": int(fwd.numel())}
+        require(out[act]["fwd"] == 0 and out[act]["bwd"] == 0,
+                f"bias_act {act} tables differ from torch's GELU: "
+                f"{out[act]}")
+    return out
+
+
 def check_bias_act(torch, ba, planted_lib, gen) -> dict:
     """K6 at ERNIE's linear1 output (4096 x 3072, bias, GELU erf) in bf16
     (O2) and fp32, the tanh form, ReLU, no bias and an odd width: forward
     within FUSED_TOL ``out``, the input gradient ``out``, the bias gradient
-    ``sum``."""
+    ``sum``; its activation tables bit-equal to torch's GELU on every
+    entry (:func:`check_bias_act_tables`)."""
     bf, f32 = torch.bfloat16, torch.float32
     S = ba.ActSpec
+    tables = check_bias_act_tables(torch, ba)
     # (name, rows, n, y dtype, bias dtype, act)
     cases = [("ernie_o2_gelu", 4096, 3072, bf, bf, "gelu"),
              ("ernie_fp32_gelu", 4096, 3072, f32, f32, "gelu"),
@@ -5518,7 +5659,10 @@ def check_bias_act(torch, ba, planted_lib, gen) -> dict:
             "bwd_plain_ms": cuda_ms(torch, plain_fb, FUSED_ITERS)
             - timing["plain_ms"],
             "bwd_library_ms": cuda_ms(torch, library_fb, FUSED_ITERS)
-            - timing["library_ms"]})
+            - timing["library_ms"],
+            "bwd_library_device_ms": library_backward_device_ms(
+                torch, lambda y, b: torch.nn.functional.gelu(y + b),
+                (y, bias), dy)})
         timing["bound_ms"], timing["bound_by"] = bound(
             0, nbytes(y, bias, got["out"]), "float32")
         timing["bwd_bound_ms"], _ = bound(
@@ -5526,7 +5670,11 @@ def check_bias_act(torch, ba, planted_lib, gen) -> dict:
         timing["planted_max_abs_err"] = planted["max_abs_err"]
         timing["case"] = ("y (4096, 3072) bf16 + bias, GELU erf (O2); "
                           "library: F.gelu(y + b), its backward by autograd")
-    return {"cases": results, "max_abs_err": err, **timing}
+    # a generator of its own: the later checks draw the inputs they drew
+    timing["timed_cases"] = bias_act_timing(
+        torch, ba, torch.Generator(device="cuda").manual_seed(17))
+    return {"cases": results, "tables_not_bit_equal": tables,
+            "max_abs_err": err, **timing}
 
 
 def check_dropout(torch, dr, planted_lib, gen) -> dict:
@@ -5596,7 +5744,10 @@ def check_dropout(torch, dr, planted_lib, gen) -> dict:
             "bwd_plain_ms": cuda_ms(torch, plain_b, max(2, FUSED_ITERS // 4)),
             "bwd_library_ms": cuda_ms(
                 torch, lambda: torch.ops.aten.native_dropout_backward(
-                    dy, mask, scale), FUSED_ITERS)})
+                    dy, mask, scale), FUSED_ITERS),
+            "bwd_library_device_ms": library_backward_device_ms(
+                torch, lambda x: torch.nn.functional.dropout(x, p), (x,),
+                dy)})
         timing["bound_ms"], timing["bound_by"] = bound(
             0, nbytes(x, refs["out"]), "float32")
         timing["bwd_bound_ms"], _ = bound(0, 2 * nbytes(dy), "float32")
@@ -5675,7 +5826,9 @@ def check_softmax_mask(torch, sm, planted_lib, gen) -> dict:
                 max(2, FUSED_ITERS // 4)),
             "bwd_library_ms": cuda_ms(
                 torch, lambda: torch.ops.aten._softmax_backward_data(
-                    dy, y, -1, dt), FUSED_ITERS)})
+                    dy, y, -1, dt), FUSED_ITERS),
+            "bwd_library_device_ms": library_backward_device_ms(
+                torch, lambda x: torch.softmax(x + mask, -1), (x,), dy)})
         timing["bound_ms"], timing["bound_by"] = bound(
             0, nbytes(x, mask, y), "float32")
         timing["bwd_bound_ms"], _ = bound(0, nbytes(y, dy, gb["dx"]),
@@ -5684,6 +5837,8 @@ def check_softmax_mask(torch, sm, planted_lib, gen) -> dict:
         timing["case"] = ("scores (32, 12, 128, 128) bf16 + mask (32, 1, "
                           "128, 128); library: torch.softmax(x + mask), "
                           "aten._softmax_backward_data")
+    timing["timed_cases"] = softmax_mask_timing(
+        torch, sm, torch.Generator(device="cuda").manual_seed(18))
     return {"cases": results, "max_abs_err": err, **timing}
 
 
@@ -6891,6 +7046,10 @@ def check_bias_period(torch, ba, gen) -> dict:
         dyy = torch.ops.aten.gelu_backward(dy3, y3 + b, approximate="tanh")
         return dyy, dyy.sum(dim=1, keepdim=True)
     t["bwd_library_ms"] = cuda_ms(torch, library_bwd, MOE_ITERS)
+    t["bwd_library_device_ms"] = library_backward_device_ms(
+        torch, lambda y3, b: torch.nn.functional.gelu(y3 + b,
+                                                      approximate="tanh"),
+        (y3, b), dy3)
     t["bound_ms"], t["bound_by"] = bound(0, nbytes(y, b, got["out"]),
                                          "float32")
     t["bwd_bound_ms"], _ = bound(0, nbytes(y, b, dy, gb["dy_y"], gb["db"]),
@@ -7587,6 +7746,8 @@ def main() -> int:
          "launches_incubate_check": incubate_row["launches"][k],
          "max_abs_err": ernie_rows[k]["max_abs_err"],
          "case": ernie_rows[k]["case"],
+         **({"timed_cases": ernie_rows[k]["timed_cases"]}
+            if "timed_cases" in ernie_rows[k] else {}),
          **{key: ernie_rows[k].get(key) for key in k_keys},
          **{key: ernie_rows[k][key] for key in ernie_rows[k]
             if key.startswith("bwd_")}}
@@ -7630,7 +7791,7 @@ def main() -> int:
          **{key: moe_rows["bias_act_period"].get(key) for key in k_keys},
          **{key: moe_rows["bias_act_period"][key] for key in (
              "bwd_ms", "bwd_device_ms", "bwd_plain_ms", "bwd_library_ms",
-             "bwd_bound_ms")}},
+             "bwd_library_device_ms", "bwd_bound_ms")}},
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

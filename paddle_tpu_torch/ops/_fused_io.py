@@ -1,12 +1,13 @@
 """What the wrappers of the fused small-op kernels share (``fused_norm``,
-``rope``, ``swiglu``, ``softmax_cross_entropy``): the dtype codes of their C
-entry points, the device check and the test that lets them read 16-byte
-vectors. The paged decode wrapper takes its route by :func:`plain_path`
-too."""
+``rope``, ``swiglu``, ``softmax_cross_entropy``, ...): the dtype codes of
+their C entry points, the device check, the test that lets them read
+16-byte vectors and the multiply-high divider of their launch plans. The
+paged decode wrapper takes its route by :func:`plain_path` too."""
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +40,21 @@ def cuda_device(what: str, *ts: Optional[torch.Tensor]) -> torch.device:
 def plain_path(t: torch.Tensor) -> bool:
     """Whether a wrapper runs its plain version: for a CPU tensor only."""
     return t.device.type == "cpu"
+
+
+@functools.cache
+def divider(n: int) -> Tuple[int, int]:
+    """``(magic, shift)`` with ``(v * magic) >> (31 + shift) == v // n`` for
+    every ``0 <= v < 2^31``: ``shift = ceil(log2 n)``, ``magic =
+    ceil(2^(31 + shift) / n)`` (below 2^32). The product's excess over
+    ``v / n`` is under ``v / 2^(31 + shift) < 1 / n``, so the floor holds."""
+    shift = (n - 1).bit_length()
+    return -(-2 ** (31 + shift) // n), shift
+
+
+def as_int32(v: int) -> int:
+    """A value below 2^32 as the C int that carries its bits."""
+    return v - 2 ** 32 if v >= 2 ** 31 else v
 
 
 def aligned16(*ts: Optional[torch.Tensor]) -> bool:

@@ -19,13 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _native
-from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path,
-                        ptr, stream)
+from ._fused_io import (aligned16, as_int32, cuda_device, divider,
+                        dtype_code, plain_path, ptr, stream)
 
 __all__ = ["LaunchPlan", "divider", "launch_plan", "launches", "swiglu",
            "swiglu_reference"]
@@ -57,15 +57,6 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def divider(n: int) -> Tuple[int, int]:
-    """``(magic, shift)`` with ``(v * magic) >> (31 + shift) == v // n`` for
-    every ``0 <= v < 2^31``: ``shift = ceil(log2 n)``, ``magic =
-    ceil(2^(31 + shift) / n)`` (below 2^32). The product's excess over
-    ``v / n`` is under ``v / 2^(31 + shift) < 1 / n``, so the floor holds."""
-    shift = (n - 1).bit_length()
-    return _ceil(2 ** (31 + shift), n), shift
-
-
 @functools.lru_cache(maxsize=4096)
 def launch_plan(rows: int, d: int, vec: int, sms: int, *,
                 strided: bool = False) -> LaunchPlan:
@@ -86,8 +77,8 @@ def _sm_count(index: int) -> int:
 
 
 def _plan_args(plan: LaunchPlan) -> tuple:
-    magic = plan.magic - 2 ** 32 if plan.magic >= 2 ** 31 else plan.magic
-    return plan.grid, plan.threads, int(plan.strided), magic, plan.shift
+    return (plan.grid, plan.threads, int(plan.strided), as_int32(plan.magic),
+            plan.shift)
 
 
 def _check_size(what: str, *ts) -> None:
