@@ -113,7 +113,8 @@ per phase:
   forward; ``softmax_mask_timing`` and ``bias_act_timing``: K8 at ERNIE's
   scores and the upper triangle, K6 at ERNIE's O2 and fp32 epilogues, the
   FMT prefill and decode epilogues and the MoE's bias period, three
-  readings a case); ``incubate_check``
+  readings a case; ``embedding_timing``: K5's backward at ERNIE's four
+  tables and Llama's, with its split by kernel); ``incubate_check``
   drives ``incubate``'s fused layers at ERNIE's width (card against CPU,
   then O2 training, counting K6-K8); the ERNIE phases count K5-K7 a step;
 * Mixture-of-Experts (``moe_check``): holds the routing kernel K9
@@ -271,8 +272,8 @@ PLANTED_FAULTS = (
      "    float v[V];\n    ldv<V>(a.x, xo + c, a.x_dt, v);\n",
      "    if (c / (THREADS * V) == 1) continue;\n"),
     ("embedding",
-     "      ldv<V>(a.dy, s_perm[r - k0] * a.d + c, a.dy_dt, v);\n",
-     "      if (r == k + 1) continue;\n"),
+     "          add_row<V>(acc, x, w_dt);\n",
+     "          if (i == 1) return;\n"),
     ("bias_act",
      "          store<V, BF16>(a.out, o, a.a_dt, out);\n",
      "          if (r.r0 + i == a.rows / 2) out[0] = 0.f;\n"),
@@ -1031,7 +1032,13 @@ FUSED_FAMILY = (("norm_fwd_", "fused_norm"),
                 ("ce_fwd_kernel", "softmax_cross_entropy"),
                 ("ce_mean_kernel", "softmax_cross_entropy"),
                 ("ce_bwd_kernel", "softmax_cross_entropy"),
-                ("emb_fwd_kernel", "embedding"), ("emb_bwd_", "embedding"),
+                ("emb_fwd_kernel", "embedding"),
+                ("emb_bwd_hist_kernel", "embedding"),
+                ("emb_bwd_radix_kernel", "embedding"),
+                ("emb_bwd_index_kernel", "embedding"),
+                ("emb_bwd_table_kernel", "embedding"),
+                # an older tree's backward kernels (piece, fold), in A/B runs
+                ("emb_bwd_", "embedding"),
                 ("bias_act_", "bias_act"), ("dropout_fwd_kernel", "dropout"),
                 ("dropout_bwd_kernel", "dropout"),
                 ("softmax_mask_", "softmax_mask"))
@@ -5472,12 +5479,12 @@ def planted_differs(torch, out: dict, refs: dict, what: str) -> dict:
     return {"max_abs_err": err}
 
 
-def check_embedding(torch, em, planted_lib, gen) -> dict:
-    """K5 at ERNIE's four tables (tokens (32, 128): word ids with padding
-    0, position ids each hit 32 times, all-zero type and task ids, one id
-    for all 4096 rows) in bf16 (O2) and fp32, Llama's 6 x 4096 ids into
-    32000 x 2560 bf16, and odd widths: forward and backward bit-equal to
-    the plain version."""
+def embedding_cases(torch, gen) -> list:
+    """K5's cases at the shapes its paths give it: (name, ids, rows, width,
+    dtype, padding_idx). ERNIE's four tables (tokens (32, 128): word ids
+    with padding 0, position ids each hit 32 times, all-zero type and task
+    ids, one id for all 4096 rows) in bf16 (O2) and fp32, Llama's 6 x 4096
+    ids into 32000 x 2560 bf16, and odd widths."""
     bf, f32 = torch.bfloat16, torch.float32
     b, n = 32, 128
     word = torch.randint(1, 40000, (b, n), generator=gen, device="cuda")
@@ -5485,17 +5492,67 @@ def check_embedding(torch, em, planted_lib, gen) -> dict:
     pos = torch.arange(n, device="cuda").expand(b, n).contiguous()
     zero = torch.zeros(b, n, dtype=torch.int64, device="cuda")
     llama = torch.randint(0, 32000, (6, 4096), generator=gen, device="cuda")
-    # (name, ids, rows, width, dtype, padding_idx)
-    cases = [("ernie_word_bf16", word, 40000, 768, bf, 0),
-             ("ernie_position_bf16", pos, 2048, 768, bf, None),
-             ("ernie_type_bf16_skew", zero, 4, 768, bf, None),
-             ("ernie_task_bf16_skew", zero, 3, 768, bf, None),
-             ("ernie_word_fp32", word, 40000, 768, f32, 0),
-             ("ernie_type_fp32_skew", zero, 4, 768, f32, None),
-             ("llama_bf16", llama, 32000, 2560, bf, None),
-             ("int32_ids_width_90_fp32", (word % 500).to(torch.int32), 500,
-              90, f32, 3),
-             ("width_99_bf16", word % 700, 700, 99, bf, None)]
+    return [("ernie_word_bf16", word, 40000, 768, bf, 0),
+            ("ernie_position_bf16", pos, 2048, 768, bf, None),
+            ("ernie_type_bf16_skew", zero, 4, 768, bf, None),
+            ("ernie_task_bf16_skew", zero, 3, 768, bf, None),
+            ("ernie_word_fp32", word, 40000, 768, f32, 0),
+            ("ernie_type_fp32_skew", zero, 4, 768, f32, None),
+            ("llama_bf16", llama, 32000, 2560, bf, None),
+            ("int32_ids_width_90_fp32", (word % 500).to(torch.int32), 500,
+             90, f32, 3),
+            ("width_99_bf16", word % 700, 700, 99, bf, None)]
+
+
+# K5's timed cases: ERNIE's four tables (bf16) and its word table in fp32,
+# and Llama's table
+EMBEDDING_TIMED = ("ernie_word_bf16", "ernie_word_fp32",
+                   "ernie_position_bf16", "ernie_type_bf16_skew",
+                   "ernie_task_bf16_skew", "llama_bf16")
+
+
+def embedding_timing(torch, em, gen) -> dict:
+    """K5's backward (and forward) at each of :data:`EMBEDDING_TIMED`:
+    graph device ms (:func:`graph_readings`), the backward's split by
+    kernel (:func:`profile_kernels`: the index preparation, the kernels and
+    whatever else the wrapper launches), the byte bounds (forward: ids, the
+    rows read and the output; backward: ids and dy read once, the whole
+    gradient table written once) and ``aten.embedding_dense_backward``'s
+    device ms. Needs only ``_launch_fwd`` / ``_launch_bwd``, so it times
+    any tree's K5."""
+    out = {}
+    for name, ids, rows, d, dt, pad in embedding_cases(torch, gen):
+        if name not in EMBEDDING_TIMED:
+            continue
+        w = (torch.randn((rows, d), generator=gen, device="cuda")
+             * 0.02).to(dt)
+        dy = torch.randn((*ids.shape, d), generator=gen, device="cuda").to(dt)
+
+        def bwd(ids=ids, dy=dy, rows=rows, pad=pad, dt=dt):
+            return em._launch_bwd(ids, dy, rows, pad, dt)
+        hit = int(torch.unique(ids).numel())
+        out[name] = {
+            "ids": list(ids.shape), "rows": rows, "width": d,
+            "dtype": dtype_name(dt),
+            "fwd": graph_readings(torch, lambda: em._launch_fwd(ids, w, pad)),
+            "bwd": graph_readings(torch, bwd),
+            "bwd_kernels": profile_kernels(torch, bwd, FUSED_ITERS),
+            "bound_ms": bound(0, nbytes(ids, dy) + hit * d * w.element_size(),
+                              "float32")[0],
+            "bwd_bound_ms": bound(0, nbytes(ids, dy) + nbytes(w),
+                                  "float32")[0],
+            "bwd_library_device_ms": device_ms(
+                torch, lambda: torch.ops.aten.embedding_dense_backward(
+                    dy, ids, rows, -1 if pad is None else pad, False))}
+        del w, dy
+    return out
+
+
+def check_embedding(torch, em, planted_lib, gen) -> dict:
+    """K5 at :func:`embedding_cases`: forward and backward bit-equal to the
+    plain version."""
+    bf = torch.bfloat16
+    cases = embedding_cases(torch, gen)
     results, timing, tables = [], {}, {}
     for name, ids, rows, d, dt, pad in cases:
         w = (torch.randn((rows, d), generator=gen, device="cuda")
@@ -5509,7 +5566,12 @@ def check_embedding(torch, em, planted_lib, gen) -> dict:
             return {"dw": em._launch_bwd(ids, dy, rows, pad, dt, fns=fns)}
         refs = {"out": em.embedding_reference(ids, w, pad),
                 "dw": em.embedding_bwd_reference(ids, dy, rows, pad, dt)}
-        bits = exact_compare(torch, {**fwd(), **bwd()}, refs,
+        got = fwd()
+        # the gradient's block comes from the allocator's cache: fill it
+        # with NaN first, so that a row the kernels leave unwritten shows
+        poison = torch.full((rows, d), float("nan"), dtype=dt, device="cuda")
+        del poison
+        bits = exact_compare(torch, {**got, **bwd()}, refs,
                              f"embedding {name}")
         results.append({"case": name, "ids": list(ids.shape), "rows": rows,
                         "width": d, "dtype": dtype_name(dt),
@@ -5554,9 +5616,12 @@ def check_embedding(torch, em, planted_lib, gen) -> dict:
                 "ernie_tables_bwd_library_ms": sum(
                     t["bwd_library_ms"] for t in tables.values()),
                 "case": "ERNIE word ids (32, 128) into 40000 x 768 bf16, "
-                        "padding_idx 0; backward with the sort and the "
-                        "zero fill; library: F.embedding and "
-                        "aten.embedding_dense_backward"})
+                        "padding_idx 0; backward: its sort, index and "
+                        "table kernels, no zero fill; library: "
+                        "F.embedding and "
+                        "aten.embedding_dense_backward",
+                "timed_cases": embedding_timing(torch, em, torch.Generator(
+                    device="cuda").manual_seed(19))})
     return row
 
 

@@ -6,18 +6,22 @@ PyTorch version. The port's own kernel: the JAX package gathers with
 
 Forward: the rows of ``weight`` at ``ids``, 0 where an id equals
 ``padding_idx`` (compared as given, as the JAX package compares it).
-Backward, with no atomics: the gradient rows that share an id are summed
-in token order within pieces of :data:`CHUNK` rows (a run of one id cut
-from its first row), and the pieces of a longer run added in piece order,
-each sum accumulating in the weight's dtype with a rounding after every
-add, as the JAX package's scatter-add does (fp32: the fp32 sum; bf16 under
-O2: what keeps the gradients within the parity bound of the reference,
-whose bf16 scatter-add rounds each add). Rows that no token hit and the
-padding row are 0. A run of at most CHUNK rows is therefore the
+Backward, with no atomics on the sums: the gradient rows that share an id
+are summed in token order within pieces of :data:`CHUNK` rows (a run of one
+id cut from its first row), and the pieces of a longer run added in piece
+order, each sum accumulating in the weight's dtype with a rounding after
+every add, as the JAX package's scatter-add does (fp32: the fp32 sum; bf16
+under O2: what keeps the gradients within the parity bound of the
+reference, whose bf16 scatter-add rounds each add). Rows that no token hit
+and the padding row are 0. A run of at most CHUNK rows is therefore the
 token-order sum that autograd's scatter-add takes on the CPU, bit for bit.
-The sort that groups the rows of an id is index preparation only:
-``torch.sort(stable=True)`` on the ids (the kernel reads the sorted ids and
-their token indices). Eager and captured steps give the same bits.
+On a card its kernels do it (``csrc/embedding.cu``): a stable radix sort
+of the tokens by id over tiles of sorted positions, an index kernel that
+writes each row's run as a row pointer, and one launch whose windows of
+sorted positions sum the hit rows and the pieces of long runs and whose
+other CTAs write the zero rows, so that every row of the gradient is
+written once (:func:`launch_plan` sizes the last). Eager and captured
+steps give the same bits.
 
 :func:`embedding` runs the plain version for CPU tensors (the gather, and
 :func:`embedding_bwd_reference` through :class:`Embedding`'s backward) and
@@ -30,26 +34,63 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _native
-from ._fused_io import cuda_device, dtype_code, plain_path, ptr, stream
+from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path, ptr,
+                        stream)
 
 __all__ = ["CHUNK", "embedding", "embedding_bwd_reference",
-           "embedding_reference", "launches"]
+           "embedding_reference", "launch_plan", "launches"]
 
 launches = _native.LaunchCounter("embedding")
 CHUNK = 64   # rows of a piece of one id's run (csrc/embedding.cu CHUNK)
+# the backward's table kernel (csrc/embedding.cu): a CTA's threads at most
+# (one vector of V columns of a row each), and the gradient rows a CTA of
+# its zero rows covers
+MAX_THREADS = 256
+ROWS_PER_CTA = 16
+# sorted positions a window (a CTA of the table kernel) starts segments
+# in; each window has two fp32 scratch slots for pieces of long runs
+WINDOW = 16
+# sorted positions a CTA of the sort takes; the sort's digits (8 bits a
+# pass, a pass per byte of rows)
+SORT_TILE = 512
+RADIX = 256
+# positions and rows are 32-bit in the backward's kernels, with room for
+# their grids' last CTA
+INDEX_LIMIT = 2 ** 31 - 1024
 
 _ARGTYPES_OF = {
     "emb_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
     + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p],
-    "emb_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-    + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_void_p],
+    "emb_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
+
+
+class Plan(NamedTuple):
+    """The backward's table kernel: ``vec`` columns a thread (8: 16-byte
+    vectors of bf16, or 1), ``threads`` a CTA and ``strips`` CTAs across a
+    row; ``windows`` CTAs of WINDOW sorted positions (the hit rows) before
+    its CTAs of ROWS_PER_CTA gradient rows (the zero rows)."""
+    vec: int
+    threads: int
+    strips: int
+    windows: int
+
+
+def launch_plan(n: int, d: int, vec: int) -> Plan:
+    """The table kernel for ``n`` tokens into rows of ``d``: as few strips
+    as MAX_THREADS allows, each CTA as wide as its strip's share of a row's
+    vectors (rounded up to warps)."""
+    vecs = -(-d // vec)
+    strips = -(-vecs // MAX_THREADS)
+    per_strip = -(-vecs // strips)
+    threads = -(-per_strip // 32) * 32
+    return Plan(vec, threads, strips, -(-n // WINDOW))
 
 
 def bind(lib) -> dict:
@@ -145,22 +186,37 @@ def _launch_fwd(ids, weight, pad: Optional[int], fns=None):
 def _launch_bwd(ids, dy, rows: int, pad: Optional[int], dtype, fns=None):
     dev = cuda_device("embedding", ids, dy)
     d = dy.shape[-1]
-    flat = ids.reshape(-1).long()
+    flat = ids.reshape(-1)
+    if flat.dtype not in (torch.int32, torch.int64):
+        flat = flat.long()
+    flat = flat.contiguous()
     n = flat.numel()
-    dy = dy.reshape(n, d).contiguous()
-    dw = torch.zeros(rows, d, dtype=dtype, device=dev)
-    if n and d:
-        s, perm = torch.sort(flat, stable=True)
-        part = torch.empty(2 * ((n + CHUNK - 1) // CHUNK), d,
+    if n >= INDEX_LIMIT or rows >= INDEX_LIMIT:
+        raise ValueError(f"embedding backward: {n} tokens into {rows} rows; "
+                         f"the kernel takes fewer than 2^31 - 1024 of each")
+    # first, so that it takes the block a caller just freed; every element
+    # is written by the kernels
+    dw = torch.empty(rows, d, dtype=dtype, device=dev)
+    if rows and d:
+        dy = dy.reshape(n, d).contiguous()
+        plan = launch_plan(n, d, 8 if d % 8 == 0 and aligned16(dy, dw)
+                           else 1)
+        # the sorted keys and tokens, the row pointer, the windows' tickets,
+        # the sort's digit counts by pass and tile; the pieces' slots (the
+        # sort's passes before them)
+        passes = -(-rows.bit_length() // 8)
+        idx = torch.empty(2 * n + rows + 1 + plan.windows * plan.strips
+                          + passes * RADIX * -(-n // SORT_TILE),
+                          dtype=torch.int32, device=dev)
+        part = torch.empty(max(2 * plan.windows * d, 2 * n),
                            dtype=torch.float32, device=dev)
-        vec = 8 if d % 8 == 0 and dy.data_ptr() % 16 == 0 \
-            and dw.data_ptr() % 16 == 0 else 1
         c = functools.partial(dtype_code, what="embedding")
         with torch.cuda.device(dev):
             err = (fns or _kernels())["emb_bwd"](
-                ptr(s), ptr(perm), ptr(dy), ptr(dw), ptr(part), n, rows, d,
-                c(dy.dtype), c(dtype), -1 if pad is None else pad, vec,
-                stream(dev))
+                ptr(flat), ptr(dy), ptr(dw), ptr(idx), ptr(part), n, rows, d,
+                int(flat.dtype == torch.int64), c(dy.dtype), c(dtype),
+                -1 if pad is None else pad, plan.vec, plan.threads,
+                plan.strips, stream(dev))
         _native.check(err, "embedding backward kernel launch")
         launches.count += 1
     return dw

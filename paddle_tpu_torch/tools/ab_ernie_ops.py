@@ -4,7 +4,9 @@ and backward at their paths' shapes (``chip_smoke.softmax_mask_timing``,
 ``bias_act_timing``: ERNIE's scores and the upper triangle; ERNIE's O2
 and fp32 linear1 epilogues, FMT serving's prefill and decode epilogues and
 the expert-choice MoE's bias period; three graph device ms readings a case
-and leg in each run, beside the library call's), the ERNIE-3.0-base
+and leg in each run, beside the library call's), K5's backward
+(``embedding_timing``: ERNIE's four tables, its word table in fp32 and
+Llama's table, with the split by kernel), the ERNIE-3.0-base
 fine-tune step captured (legs 1 and 2, each profiled; leg 1 also on its
 eager tier) and the FMT stack's serving (three runs, profiled; without its
 parity, prefix leg and prefill graph check), for two trees of the
@@ -21,9 +23,9 @@ runs, so both trees run the same workloads, checks and kernel families
 counts of kernels a tree lacks are not required). Each phase's JSON line
 goes to ``FILE`` (default ``ab_ernie_ops.jsonl`` in the working
 directory) tagged with its run; the last line printed sums up, for each
-run, K8's and K6's device ms and readings by case and leg, and for each
-leg step p50, peak memory, device ms, kernels a step and device ms by
-family, and FMT serving's tok/s, TTFT and TPOT.
+run, K8's, K6's and K5's device ms and readings by case and leg, and for
+each leg step p50, peak memory, device ms, kernels a step and device ms
+by family, and FMT serving's tok/s, TTFT and TPOT.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ if __package__:
 else:   # a run's process: this file as a script, beside another package
     import _ab
 
-PHASES = ("softmax_mask_timing", "bias_act_timing",
+PHASES = ("softmax_mask_timing", "bias_act_timing", "embedding_timing",
           "train_ernie3_base_captured", "train_ernie_captured_profile",
           "train_ernie3_base_captured_vs_eager", "serve_fmt",
           "serve_fmt_profile")
@@ -52,6 +54,7 @@ def _run(tree: Path) -> None:
         cs.ernie_op_counters = dict   # a tree without K5-K8
     else:
         from paddle_tpu_torch.ops import bias_act as ba
+        from paddle_tpu_torch.ops import embedding as em
         from paddle_tpu_torch.ops import softmax_mask as sm
         cs.emit({"phase": "softmax_mask_timing", "card": card,
                  **cs.softmax_mask_timing(torch, sm, torch.Generator(
@@ -59,6 +62,9 @@ def _run(tree: Path) -> None:
         cs.emit({"phase": "bias_act_timing", "card": card,
                  **cs.bias_act_timing(torch, ba, torch.Generator(
                      device="cuda").manual_seed(17))})
+        cs.emit({"phase": "embedding_timing", "card": card,
+                 **cs.embedding_timing(torch, em, torch.Generator(
+                     device="cuda").manual_seed(19))})
     cs.train_ernie3_base_captured(torch, card, fa, mta)
     for name in ("fmt_parity", "fmt_prefill_graph_check"):
         setattr(cs, name, lambda *a, **k: None)
@@ -67,7 +73,8 @@ def _run(tree: Path) -> None:
 
 
 def _summary(rows: list) -> dict:
-    """Per run: K8's and K6's device ms and readings by case and leg; per
+    """Per run: K8's, K6's and K5's device ms and readings by case and leg
+    (K5's backward also by kernel); per
     leg step p50, peak memory, and the profiled step's device ms, kernels
     and device ms by family (captured and, leg 1, the eager tier); FMT
     serving's tok/s, TTFT, TPOT and peak memory by run, and its profile's
@@ -76,10 +83,12 @@ def _summary(rows: list) -> dict:
     for r in rows:
         s = out.setdefault(r["run"], {})
         ph = r["phase"]
-        if ph in ("softmax_mask_timing", "bias_act_timing"):
+        if ph in ("softmax_mask_timing", "bias_act_timing",
+                  "embedding_timing"):
             s[ph] = {case: {k: v[k] for k in (
                 "fwd", "bwd", "bound_ms", "bwd_bound_ms",
-                "library_device_ms", "bwd_library_device_ms") if k in v}
+                "library_device_ms", "bwd_library_device_ms",
+                "bwd_kernels") if k in v}
                 for case, v in r.items()
                 if isinstance(v, dict) and "fwd" in v}
         elif ph == "train_ernie3_base_captured":
