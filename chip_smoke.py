@@ -5,9 +5,9 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 ``nvcc``. It builds every kernel in ``paddle_tpu_torch/csrc`` from source
-(and requires that the SASS of every bf16 flash kernel, forward, dq and
-dk/dv, holds wgmma and TMA instructions) and runs, printing one JSON line
-per phase:
+(and requires that the SASS of every bf16 and fp16 flash kernel, forward,
+dq and dk/dv, holds wgmma and TMA instructions) and runs, printing one JSON
+line per phase:
 
 * serving: holds the flash-prefill and paged-decode kernels against their
   plain PyTorch versions at the shapes the serving path gives them (the
@@ -148,7 +148,22 @@ per phase:
   scrape endpoint on (``/metrics`` equal to the snapshot, ``/healthz``
   listing the engine); ``obs_overhead_7b`` serves it with everything off
   and on, interleaved, and requires a decode step with observability off
-  to make no more host launch calls than ``decode_step_profile``'s.
+  to make no more host launch calls than ``decode_step_profile``'s;
+* fp16 end to end: the flash checks hold fp16 B1 at the Llama-2-7B
+  serving shapes, B2-B4 at bench.py's (three bit-equal launches, the
+  planted copy rejected, times beside SDPA at fp16) and fp16's range in
+  the backward (``flash_fp16_range_check``: a loss-scaled dO, and |dS| past
+  65504 with fp16-sized results), the variant checks fp16 SEGS and
+  SEGS+DROP (B0's bits read back through them) and their times at
+  ERNIE's shape; ``paged_check`` fp16 q on fp16, bf16 and int8 pools;
+  ``multi_tensor_adam_check`` fp16 parameters and gradients; K1-K8 fp16
+  cases at their paths' shapes (K6's fp16 GELU against ``F.gelu`` on every
+  fp16 value); ``serve_llama2_7b_fp16`` serves serve_7b's traffic with
+  the 7B weights cast to fp16 (``compute_dtype="float16"``, a native fp16
+  pool, the bf16 leg's gates); ``train_ernie3_base_fp16`` fine-tunes
+  ERNIE-3.0-base under O2 fp16 with ``GradScaler(2**15)``, eager and
+  captured from one state, the two bit-equal with equal loss-scale
+  histories.
 
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound, with the card's own time of each kernel and
@@ -176,7 +191,7 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # kernel vs plain, elementwise |out - ref| <= atol + rtol * |ref|, keyed by
 # (kernel, output dtype). bf16 outputs are one rounding (half an ulp,
 # <= 2^-9 relative) from the fp32 plain version. The paged kernel does its
@@ -184,11 +199,16 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # rounding and tight enough to catch one skipped 64-position page. fp32
 # outputs differ only by summation order. lse is fp32 from either flash
 # kernel: the bf16 kernel forms the same exact bf16 products and differs
-# from the plain version only in summation order.
+# from the plain version only in summation order. fp16 outputs round to 11
+# bits: the paged limits are the bf16 ones scaled by 2^-3 and rounded up
+# (max-abs 0.00049 seen at fp16 q on the 7B decode shape on an H100),
+# still past one skipped page.
 TOL = {("paged", "bfloat16"): (2e-3, 4e-3),
+       ("paged", "float16"): (5e-4, 1e-3),
        ("flash", "float32"): (1e-4, 1e-4),
        ("paged", "float32"): (1e-4, 1e-4),
        ("lse", "bfloat16"): (1e-4, 1e-5),
+       ("lse", "float16"): (1e-4, 1e-5),
        ("lse", "float32"): (1e-4, 1e-5),
        ("flash_bwd", "float32"): (1e-4, 1e-4)}
 # bf16 flash outputs (K1/B2 out, B3 dq, B4 dk and dv) are held against their
@@ -197,9 +217,18 @@ TOL = {("paged", "bfloat16"): (2e-3, 4e-3),
 # backward) to bf16 for their tensor-core products and round the output:
 # 0.0025-0.0030 seen in every case on random inputs, the output rounding
 # alone 0.0027. An absolute limit holds small elements loosely: at L=4096
-# a typical element of out or of a gradient is about 0.03 to 0.06.
+# a typical element of out or of a gradient is about 0.03 to 0.06. fp16
+# rounds P, dS (by each row's power of two) and the output to 11 bits:
+# 0.0003-0.0005 seen on random inputs and on a loss-scaled dO on an H100.
+# The largest seen, 0.0026, was a tile whose one live row sees one key:
+# there dS = dP' - delta, two equal sums whose difference is the fp16
+# rounding of out, and the wrapper's fp32 delta sums in another order than
+# the plain version's (replaying the kernel's own arithmetic with the plain
+# delta gives 0 there). So 5e-3; the planted faults stay near 0.2-0.6.
 REL_TOL = {("flash", "bfloat16"): 1e-2,
-           ("flash_bwd", "bfloat16"): 1e-2}
+           ("flash_bwd", "bfloat16"): 1e-2,
+           ("flash", "float16"): 5e-3,
+           ("flash_bwd", "float16"): 5e-3}
 # serve_prefix_7b holds each request's tail K/V, written by a tail prefill
 # over the shared prefix, against the unshared run's, per layer as
 # ||shared - unshared|| / ||unshared||. Layer 0 depends on the tail's own
@@ -226,8 +255,9 @@ KV_ROUNDING_PER_LAYER = 2.0 ** -8
 # partial, so that FUSED_TOL must reject the output and dw. K2-K4
 # (fused_ops_check) and K5-K8 (ernie_ops_check) each have one: K5's
 # backward drops the second row of every piece (caught on the all-zero
-# ids), K6's lookup forward (ERNIE's O2 epilogue) zeroes one output of
-# each vector of the middle row, K7 flips one element's keep, K8
+# ids), K6's lookup forward (ERNIE's O2 epilogue) and its computed forward
+# (the fp16 epilogue) zero one output of each vector of the middle row,
+# K7 flips one element's keep, K8
 # drops one mask column; K5 and K7 must fail bit-equality, K6 and K8
 # FUSED_TOL. K9 (moe_check): the token-major sum skips each token's second
 # route, so the combine must fail bit-equality.
@@ -277,6 +307,9 @@ PLANTED_FAULTS = (
     ("bias_act",
      "          store<V, BF16>(a.out, o, a.a_dt, out);\n",
      "          if (r.r0 + i == a.rows / 2) out[0] = 0.f;\n"),
+    ("bias_act",
+     "      store<V, Dt::a>(a.out, (row + u) * a.n + r.c, a.a_dt, o);\n",
+     "      if (row + u == a.rows / 2) o[0] = 0.f;\n"),
     ("dropout",
      "    o[j] = !k ? 0.f : a.upscale ? rnd(__fmul_rn(x[j], a.inv_keep), a.x_dt)\n",
      "    if (i0 + j == 4097) {\n"
@@ -405,10 +438,10 @@ def bound(flops: float, nbytes: float, dtype: str):
 # phase 2: flash prefill kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_flash(torch, fa):
+def check_flash(torch, fa, planted_lib):
     import torch.nn.functional as TF
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32, h16 = torch.bfloat16, torch.float32, torch.float16
     cases = [  # name, B, H, Hkv, Lq, Lk, causal, dtype, D
         ("causal_512", 1, 32, 32, 512, 512, True, bf, 128),
         ("causal_2048", 1, 32, 32, 2048, 2048, True, bf, 128),
@@ -434,6 +467,14 @@ def check_flash(torch, fa):
         ("f32_lq1_lk528", 1, 32, 32, 1, 528, True, f32, 128),
         # and its tail prefill over a shared 2-page prefix
         ("f32_causal_lq40_lk168", 1, 32, 32, 40, 168, True, f32, 128),
+        # fp16: the Llama-2-7B fp16 serving leg's prefills and tails, and
+        # the tile edges
+        ("fp16_causal_1000_ragged", 1, 32, 32, 1000, 1000, True, h16, 128),
+        ("fp16_causal_lq200_lk1224", 1, 32, 32, 200, 1224, True, h16, 128),
+        ("fp16_causal_lq16_lk1040", 1, 32, 32, 16, 1040, True, h16, 128),
+        ("fp16_causal_lq1_lk1064", 1, 32, 32, 1, 1064, True, h16, 128),
+        ("fp16_causal_lq256_lk128", 1, 32, 32, 256, 128, True, h16, 128),
+        ("fp16_d64_causal_1000", 1, 32, 32, 1000, 1000, True, h16, 64),
     ]
     rows = []
     for name, b, h, hkv, lq, lk, causal, dt, d in cases:
@@ -482,9 +523,34 @@ def check_flash(torch, fa):
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9,
                    **dev)
+        if name == "fp16_causal_1000_ragged":
+            row.update(fwd_repeat_and_planted(torch, fa, planted_lib, q, k, v,
+                                              ref, causal))
         emit({"phase": "flash_check", **row})
         rows.append(row)
     return rows
+
+
+def fwd_repeat_and_planted(torch, fa, planted_lib, q, k, v, ref,
+                           causal: bool) -> dict:
+    """B1 (``flash_fwd``) three times on the same inputs, bit for bit, and
+    the planted copy (its consumers skip the K/V tile at Lk/2), which
+    REL_TOL must reject."""
+    runs = [fa.flash_attention_fwd(q, k, v, causal=causal) for _ in range(3)]
+    same = all(torch.equal(r.view(torch.int16), runs[0].view(torch.int16))
+               for r in runs[1:])
+    require(same, f"flash_fwd {tuple(q.shape)} {dtype_name(q.dtype)}: three "
+                  f"launches on the same inputs differ")
+    bad, _, run = fwd_lse_launch(torch, fa, planted_lib, q, k, v, causal,
+                                 with_lse=False)
+    run()
+    torch.cuda.synchronize()
+    rel = tile_rel_err(torch, bad, ref)
+    limit = REL_TOL["flash", dtype_name(q.dtype)]
+    require(rel > limit, f"planted fault in flash_fwd "
+                         f"({dtype_name(q.dtype)}) passed: tile error {rel} "
+                         f"<= {limit}")
+    return {"bit_identical_launches": 3, "planted_tile_rel": rel}
 
 
 # ---------------------------------------------------------------------------
@@ -511,8 +577,8 @@ def split_edges(pa, b: int, hkv: int, ps: int, s: int) -> list:
 def paged_case(torch, kvc, gen, rng, t_host, h, hkv, leg, qdt, d=128, ps=64,
                s=32, layers=2, layer=1) -> dict:
     """Inputs of one paged-decode case, on the card: a pool of every row's
-    own pages in random order (``leg``: "f32", "bf16" or "int8" with
-    scales), q and the current token in ``qdt``, and the case's byte and
+    own pages in random order (``leg``: "f32", "bf16", "fp16" or "int8"
+    with scales), q and the current token in ``qdt``, and the case's byte and
     operation counts for the bound (live K/V, q, out, the current token,
     tables and t, and the live pages' scales)."""
     import numpy as np
@@ -527,8 +593,9 @@ def paged_case(torch, kvc, gen, rng, t_host, h, hkv, leg, qdt, d=128, ps=64,
     poolf = torch.randn(p, layers, 2, hkv, ps, d, generator=gen, device="cuda")
     if leg == "int8":
         pool, scales = kvc.quantize_pages(poolf)
-    elif leg == "bf16":
-        pool, scales = poolf.to(torch.bfloat16), None
+    elif leg in ("bf16", "fp16"):
+        pool = poolf.to(torch.bfloat16 if leg == "bf16" else torch.float16)
+        scales = None
     else:
         pool, scales = poolf, None
     del poolf
@@ -587,10 +654,10 @@ def check_paged(torch, pa, kvc, planted_lib):
     import numpy as np
     rng = np.random.default_rng(2)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32, h16 = torch.bfloat16, torch.float32, torch.float16
     edges = split_edges(pa, 16, 32, 64, 32)
     # name, q heads, kv heads, pool, q dtype, D, page size, table width,
-    # contexts; the first four are timed. The fp32 leg is the engine's
+    # contexts; those in ``timed`` are timed. The fp32 leg is the engine's
     # default (compute_dtype float32, native pool), which the
     # engine_vs_generate phase runs. The rest hold the split bookkeeping:
     # contexts at and beside the edges of the chunks of pages, every row
@@ -606,9 +673,21 @@ def check_paged(torch, pa, kvc, planted_lib):
               split_edges(pa, 16, 32, 16, 64)),
              ("bf16_ps256_d64", 32, 32, "bf16", bf, 64, 256, 8,
               split_edges(pa, 16, 32, 256, 8)),
-             ("int8_rep8_h32_kv4", 32, 4, "int8", bf, 128, 64, 32, PAGED_T))
+             ("int8_rep8_h32_kv4", 32, 4, "int8", bf, 128, 64, 32, PAGED_T),
+             # fp16 q: the Llama-2-7B fp16 serving leg's native pool (timed),
+             # and on bf16 and int8 pools (timed), the split edges and GQA
+             ("fp16_h32", 32, 32, "fp16", h16, 128, 64, 32, PAGED_T),
+             ("fp16_q_bf16_pool_h32", 32, 32, "bf16", h16, 128, 64, 32,
+              PAGED_T),
+             ("fp16_q_int8_pool_h32", 32, 32, "int8", h16, 128, 64, 32,
+              PAGED_T),
+             ("fp16_split_edges", 32, 32, "fp16", h16, 128, 64, 32, edges),
+             ("fp16_gqa_h32_kv8_ps16_d64", 32, 8, "fp16", h16, 64, 16, 64,
+              split_edges(pa, 16, 8, 16, 64)))
+    timed = {"bf16_h32", "int8_h32", "bf16_gqa_h32_kv8", "f32_h32",
+             "fp16_h32", "fp16_q_bf16_pool_h32", "fp16_q_int8_pool_h32"}
     rows = []
-    for i, (name, h, hkv, leg, qdt, d, ps, s, t_host) in enumerate(cases):
+    for name, h, hkv, leg, qdt, d, ps, s, t_host in cases:
         case = paged_case(torch, kvc, gen, rng, t_host, h, hkv, leg, qdt,
                           d=d, ps=ps, s=s)
         args = case["args"]
@@ -625,23 +704,23 @@ def check_paged(torch, pa, kvc, planted_lib):
         row = dict(case=name, dtype=dtype_name(qdt), pool=leg, D=d, ps=ps,
                    rep=case["rep"], split_plan=pa.split_plan(s, 16 * hkv),
                    max_abs_err=err, t0_rows=int(zero.sum()))
-        if name == "bf16_h32":
+        if name in ("bf16_h32", "fp16_h32"):
             # the kernels have no atomics and fold splits in order
             runs = [pa.paged_attention(*args, page_size=ps) for _ in range(3)]
             same = all(torch.equal(r.view(torch.int16), runs[0].view(torch.int16))
                        for r in runs[1:])
-            require(same, "paged bf16_h32: three launches on the same inputs "
-                          "differ")
+            require(same, f"paged {name}: three launches on the same inputs "
+                          f"differ")
             fn = planted_lib.paged_decode
             fn.argtypes, fn.restype = pa._ARGTYPES, ctypes.c_int
             bad = pa.call_kernel(fn, *args, page_size=ps)
             torch.cuda.synchronize()
             require(not within_tol(bad, ref, "paged"),
-                    "paged bf16_h32: the planted fault (the combine skips "
-                    "the second live split) passed TOL")
+                    f"paged {name}: the planted fault (the combine skips "
+                    f"the second live split) passed TOL")
             row.update(bit_identical_launches=3, planted_fault_max_abs=(
                 bad.float() - ref.float()).abs().max().item())
-        if i < 4:
+        if name in timed:
             lib = paged_sdpa(torch, case)
             row.update(ms=cuda_ms(torch, lambda: pa.paged_attention(
                            *args, page_size=ps), 20),
@@ -805,7 +884,8 @@ def build_7b(torch):
     return model, time.monotonic() - t0
 
 
-def engine_7b(model, prefill_fn, prefix_sharing: str, prompt_lens, **kw):
+def engine_7b(model, prefill_fn, prefix_sharing: str, prompt_lens,
+              compute_dtype: str = "bfloat16", **kw):
     """serve_7b's engine, its decode buckets and the full prefills of
     ``prompt_lens`` warmed (captured on the card); ``kw`` adds
     ``ServingConfig`` fields."""
@@ -814,7 +894,7 @@ def engine_7b(model, prefill_fn, prefix_sharing: str, prompt_lens, **kw):
     return Engine(prefill_fn, model.serving_callables(2048)[1], ServingConfig(
         num_layers=cfg.num_hidden_layers, num_heads=cfg.num_key_value_heads,
         head_dim=cfg.head_dim, max_len=2048, max_batch=16, page_size=64,
-        compute_dtype="bfloat16", kv_dtype="native", policy="budget",
+        compute_dtype=compute_dtype, kv_dtype="native", policy="budget",
         prefill_token_budget=2048, prefix_sharing=prefix_sharing,
         device="cuda", **kw)).warmup([int(n) for n in prompt_lens])
 
@@ -988,6 +1068,64 @@ def serve_7b(torch, card, fa, pa, model, init_s: float):
     return main_launches, {
         "prompts": prompts, "lens": lens, "transcripts": transcripts,
         "graph_host_launch_calls": step_profile["graph"]["host_launch_calls"]}
+
+
+def serve_7b_fp16(torch, card, fa, pa, model, served) -> dict:
+    """``serve_llama2_7b_fp16``: Llama-2-7B at full width in fp16 (the
+    published checkpoint's dtype) through the engine, ``compute_dtype=
+    "float16"``, a native fp16 pool of 64-position pages, decode and
+    prefill graphs, on serve_7b's traffic (16 requests of 128-1000 prompt
+    tokens, 64 new). The weights are serve_7b's random bf16 ones cast to
+    fp16 in place (one 7B build for both legs; the RoPE tables stay fp32,
+    as a model built in fp16 keeps them). The bf16 leg's gates
+    (``require_served``); B1 and B6 launched on the fp16 path. Returns the
+    run's launches."""
+    t0 = time.monotonic()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.to(torch.float16)
+    model.config.dtype = "float16"
+    torch.cuda.synchronize()
+    cast_s = time.monotonic() - t0
+    cfg = model.config
+    prompts, lens = served["prompts"], served["lens"]
+    prefill_fn, _ = model.serving_callables(2048)
+    t0 = time.monotonic()
+    eng = engine_7b(model, prefill_fn, "off", lens, compute_dtype="float16")
+    warmup_s = time.monotonic() - t0
+    require(eng.kv.pool.dtype == torch.float16,
+            f"serve_llama2_7b_fp16: pool {eng.kv.pool.dtype}")
+    fused = {k: v for k, v in step_counters().items()
+             if k in ("fused_norm", "rope", "swiglu", "embedding")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for ctr in (fa.launches, pa.launches, *fused.values()):
+        ctr.reset()
+    wall, results, stats = run_traffic(torch, eng, prompts, 64)
+    launches = {"flash_prefill": fa.launches.count,
+                "paged_decode": pa.launches.count,
+                **{k: ctr.count for k, ctr in fused.items()}}
+    require_served(eng, results, stats, launches, cfg.vocab_size,
+                   cfg.num_hidden_layers, 64, 16, "serve_llama2_7b_fp16")
+    numbers, mem = serving_numbers(results, wall), memory_gb(torch)
+    emit({"phase": "serve_llama2_7b_fp16", "card": card, "layers": 32,
+          "dtype": "float16", "kv_dtype": "native (float16)",
+          "weights": "serve_llama2_7b's bf16 weights cast to fp16 in place",
+          "cast_s": cast_s, "requests": 16,
+          "prompt_lens": [int(x) for x in lens], "new_tokens": 64,
+          "decode": "cuda_graph_per_bucket", "prefill": PREFILL,
+          "warmup_s": warmup_s, **numbers,
+          "decode_steps": sum(stats["steps"].values()),
+          "batch_sizes": stats["steps"], "graph_replays": stats["replays"],
+          "prefill_replays": keyed(stats["prefill_replays"]),
+          "launches": launches, **mem,
+          **prefill_graph_counts(eng.decode_stats())})
+    profile_serving(torch, card, eng, prompts, wall,
+                    phase="serve_fp16_profile")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def serve_7b_first_use(torch, card, fa, pa, model, prompts, fused) -> None:
@@ -2385,12 +2523,16 @@ def obs_overhead_7b(torch, card, eng, served) -> None:
 # training phase 1: forward with lse, flash backward against plain versions
 # ---------------------------------------------------------------------------
 
-# the bf16 flash kernels (forward, dq, dk/dv): each must run on wgmma and TMA
+# the 16-bit flash kernels (forward, dq, dk/dv): each must run on wgmma and
+# TMA. The element type leads the template arguments (an older source's
+# kernels name none: they read as bf16)
 WGMMA_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)"
-                          r"I((?:L[ib]\d+E)+)E")
-# forward <D, LSE, SEGS, DROP>, dq and dk/dv <D, SEGS, DROP>; D in 64, 128;
-# (SEGS, DROP) in (0, 0), (1, 0), (1, 1): dropout always carries ids
-N_WGMMA_KERNELS = 24
+                          r"I(13__nv_bfloat16|6__half)?((?:L[ib]\d+E)+)E")
+WGMMA_TYPES = {"6__half": "fp16"}
+# forward <E, D, LSE, SEGS, DROP>, dq and dk/dv <E, D, SEGS, DROP>; E bf16
+# or fp16; D in 64, 128; (SEGS, DROP) in (0, 0), (1, 0), (1, 1): dropout
+# always carries ids
+N_WGMMA_KERNELS = 48
 
 
 def sass_functions(native_build, name: str, pattern, ops) -> dict:
@@ -2426,25 +2568,28 @@ def sass_functions(native_build, name: str, pattern, ops) -> dict:
     return kernels
 
 
+def wgmma_key(m) -> str:
+    """The key of a WGMMA_KERNEL match, e.g.
+    ``flash_fwd_wgmma_kernel<fp16, 64, 1, 0, 0>``."""
+    return "%s<%s, %s>" % (m[1], WGMMA_TYPES.get(m[2], "bf16"),
+                           ", ".join(re.findall(r"L[ib](\d+)E", m[3])))
+
+
 def wgmma_kernels(native_build) -> dict:
-    """Each bf16 flash kernel of the built library (forward, dq, dk/dv): the
-    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS,
-    and its registers and spills, keyed e.g.
-    ``flash_fwd_wgmma_kernel<D, LSE>``."""
+    """Each 16-bit flash kernel of the built library (forward, dq, dk/dv):
+    the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in its
+    SASS, and its registers and spills, keyed by :func:`wgmma_key`."""
     kernels = sass_functions(native_build, "flash_attention", WGMMA_KERNEL,
                              ("HGMMA", "UTMALDG"))
-    named = {}
-    for fn, v in kernels.items():
-        m = WGMMA_KERNEL.search(fn)
-        named["%s<%s>" % (m[1], ", ".join(re.findall(r"L[ib](\d+)E", m[2])))] = v
-    return named
+    return {wgmma_key(WGMMA_KERNEL.search(fn)): v for fn, v in kernels.items()}
 
 
 # the paged split kernel (pool type, D, q heads per kv head bucket): each
 # must copy its pages by cp.async.bulk, whose SASS is UBLKCP
 PAGED_SPLIT_KERNEL = re.compile(r"paged_decode_split_kernel")
 BULK_COPY_OP = "UBLKCP"
-N_PAGED_SPLIT_KERNELS = 24     # f32, bf16, int8 pools x D 64, 128 x rep 1, 2, 4, 8
+# f32, bf16, fp16, int8 pools x D 64, 128 x rep 1, 2, 4, 8
+N_PAGED_SPLIT_KERNELS = 32
 
 
 def paged_kernels(native_build) -> dict:
@@ -2540,8 +2685,11 @@ def bwd_launches(torch, fa, lib, q, k, v, out, lse, do, causal: bool = True,
                        ("flash_bwd_dkv", grads[1:])):
         fn = bind_entry(fa, lib, name + suffix)
         args = (*ptrs, *(x.data_ptr() for x in outs), *tail)
-        fns.append(lambda fn=fn, args=args, keep=(keep, delta): call_entry(
-            torch, fn, args))
+        # the closure owns what its launch reads and writes, so a caller
+        # that keeps only the closure cannot free them under it
+        fns.append(lambda fn=fn, args=args,
+                   keep=(keep, delta, grads, q, k, v, do, lse):
+                   call_entry(torch, fn, args))
     return grads, fns[0], fns[1]
 
 
@@ -2558,7 +2706,8 @@ def fwd_lse_launch(torch, fa, lib, q, k, v, causal: bool = True, var=None,
                     + suffix)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) + (
         (lse.data_ptr(),) if with_lse else ())
-    return out, lse, lambda keep=keep: call_entry(torch, fn, (*ptrs, *tail))
+    return out, lse, lambda keep=(keep, out, lse): call_entry(
+        torch, fn, (*ptrs, *tail))
 
 
 def check_planted(torch, fa, planted_lib, q, k, v, rout, rlse, do, refs):
@@ -2576,7 +2725,7 @@ def check_planted(torch, fa, planted_lib, q, k, v, rout, rlse, do, refs):
                                    *((n, g, r, "flash_bwd") for n, g, r in
                                      zip(("dq", "dk", "dv"), (dq, dk, dv),
                                          refs))):
-        limit = REL_TOL[kernel, "bfloat16"]
+        limit = REL_TOL[kernel, dtype_name(q.dtype)]
         rel = tile_rel_err(torch, got, ref)
         # whether the elementwise limit that held these outputs before
         # REL_TOL would also reject the fault (PERF.md compares the two)
@@ -2587,15 +2736,20 @@ def check_planted(torch, fa, planted_lib, q, k, v, rout, rlse, do, refs):
         row[name] = {"tile_rel": rel, "limit": limit,
                      "old_abs_limit_passes": old_pass}
     emit({"phase": "flash_train_check", "planted_faults": {
-        "shape": list(q.shape), "out": "skips the K/V tile at Lk/2",
+        "shape": list(q.shape), "dtype": dtype_name(q.dtype),
+        "out": "skips the K/V tile at Lk/2",
         "dq": "skips the K tile at Lk/2", "dk_dv": "skip the Q tile at Lq/2",
         **row}})
 
 
 def check_flash_train(torch, fa, planted_lib):
-    import torch.nn.functional as TF
+    """B2-B4 against their plain versions in bf16, fp32 and fp16 (the
+    planted copy rejected at L=4096 in bf16 and fp16), fp16's range
+    (:func:`check_flash_fp16_range`), then the times at bench.py's shape
+    in bf16 and fp16 (:func:`flash_train_timing`). Returns the largest
+    errors and the times, bf16 (with fp32) and fp16 apart."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32, h16 = torch.bfloat16, torch.float32, torch.float16
     cases = [  # name, B, H, Hkv, Lq, Lk, causal, dtype, D
         ("causal_4096_h20", 1, 20, 20, 4096, 4096, True, bf, 128),
         ("gqa_causal_1024_h32_kv8", 1, 32, 8, 1024, 1024, True, bf, 128),
@@ -2611,9 +2765,19 @@ def check_flash_train(torch, fa, planted_lib):
         ("f32_causal_256_b2", 2, 20, 20, 256, 256, True, f32, 128),
         ("f32_causal_37", 1, 20, 20, 37, 37, True, f32, 128),
         ("f32_causal_513", 1, 20, 20, 513, 513, True, f32, 128),
+        # fp16: bench.py's heads at L=4096, GQA, D=64 and the tile edges
+        ("fp16_causal_4096_h20", 1, 20, 20, 4096, 4096, True, h16, 128),
+        ("fp16_gqa_causal_1024_h32_kv8", 1, 32, 8, 1024, 1024, True, h16,
+         128),
+        ("fp16_full_512", 1, 20, 20, 512, 512, False, h16, 128),
+        ("fp16_causal_lq1_lk1064", 1, 20, 20, 1, 1064, True, h16, 128),
+        ("fp16_causal_lq256_lk128", 1, 20, 20, 256, 128, True, h16, 128),
+        ("fp16_d64_causal_1024", 1, 20, 20, 1024, 1024, True, h16, 64),
     ]
-    errs = {"lse": 0.0, "out": 0.0, "dq": 0.0, "dkv": 0.0}
+    all_errs = {dt: {"lse": 0.0, "out": 0.0, "dq": 0.0, "dkv": 0.0}
+                for dt in ("16", "other")}
     for name, b, h, hkv, lq, lk, causal, dt, d in cases:
+        errs = all_errs["16" if dt == h16 else "other"]
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda", dtype=dt)
         q, k, v = rnd(b, lq, h, d), rnd(b, lk, hkv, d), rnd(b, lk, hkv, d)
@@ -2640,25 +2804,91 @@ def check_flash_train(torch, fa, planted_lib):
         errs["dkv"] = max(errs["dkv"], row["dk"]["max_abs"],
                           row["dv"]["max_abs"])
         emit({"phase": "flash_train_check", **row})
-        if name == "causal_4096_h20":
+        if name in ("causal_4096_h20", "fp16_causal_4096_h20"):
             check_planted(torch, fa, planted_lib, q, k, v, rout, rlse, do,
                           (rq, rk, rv))
         del q, k, v, do, out, lse, rout, rlse, dq, dk, dv, rq, rk, rv
     gc.collect()
     torch.cuda.empty_cache()
+    check_flash_fp16_range(torch, fa, gen)
+    return (all_errs["other"], flash_train_timing(torch, fa, gen, bf),
+            all_errs["16"], flash_train_timing(torch, fa, gen, h16))
 
-    # times at the main path's shape: bench.py's B=6, H=20, L=4096, D=128
+
+def check_flash_fp16_range(torch, fa, gen) -> None:
+    """fp16's range in B3/B4, where dS = P (dP - delta) is re-packed as a
+    16-bit operand (the reference keeps it fp32): a dO of loss-scaled size
+    (GradScaler's 2^15 times an ERNIE-sized gradient of about 2^-12), and
+    inputs built so that |dS| reaches 2^17, past fp16's 65504, while the
+    fp32 results fit fp16 (q near 0, so P is near uniform; keys near one
+    vector, so the dS terms of dq cancel; V rows of alternate sign and a
+    constant dO, so dP = +-2^24 and delta = 0). Each gradient must be
+    finite and within REL_TOL of the plain version."""
+    h16 = torch.float16
+    rows = {}
+    b, L, h, d = 2, 1024, 12, 64
+    q, k, v = (torch.randn(b, L, h, d, generator=gen, device="cuda",
+                           dtype=h16) for _ in range(3))
+    do = (torch.randn(b, L, h, d, generator=gen, device="cuda")
+          * 2.0 ** 3).to(h16)
+    inputs = {"loss_scaled_do": (q, k, v, do, True)}
+    b, L, h, d = 1, 128, 2, 64
+    q = (torch.randn(b, L, h, d, generator=gen, device="cuda")
+         * 1e-3).to(h16)
+    k = (torch.randn(1, 1, 1, d, generator=gen, device="cuda") + 1e-3
+         * torch.randn(b, L, h, d, generator=gen, device="cuda")).to(h16)
+    sign = 1.0 - 2.0 * (torch.arange(L, device="cuda") % 2).float()
+    v = (64.0 * sign.view(1, L, 1, 1).expand(b, L, h, d)).to(h16)
+    do = torch.full((b, L, h, d), 4096.0, device="cuda", dtype=h16)
+    inputs["ds_past_65504"] = (q, k, v, do, False)
+    for name, (q, k, v, do, causal) in inputs.items():
+        rout, rlse = fa.flash_attention_lse_reference(q, k, v, causal=causal)
+        refs = fa.flash_attention_bwd_reference(q, k, v, rout, rlse, do,
+                                                causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, rout, rlse, do, causal=causal)
+        torch.cuda.synchronize()
+        # the largest |dS| of the plain version, in fp32
+        qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))
+        p = torch.exp(qf @ kf.transpose(-1, -2) / math.sqrt(d)
+                      - rlse[..., None])
+        if causal:
+            p = p.tril()
+        delta = (dof * rout.float().transpose(1, 2)).sum(-1, keepdim=True)
+        ds_max = float((p * (dof @ vf.transpose(-1, -2) - delta)).abs().max())
+        rows[name] = {"shape": [b, L, h, d], "ds_max": ds_max,
+                      "plain_finite": all(bool(torch.isfinite(x).all())
+                                          for x in refs)}
+        for n, g, ref in zip(("dq", "dk", "dv"), got, refs):
+            rows[name][n] = check_close(torch, g, ref, "flash_bwd",
+                                        f"fp16 range {name} {n}")
+        del qf, kf, vf, dof, p
+    require(rows["ds_past_65504"]["ds_max"] > 65504.0
+            and rows["ds_past_65504"]["plain_finite"],
+            f"fp16 range: the built case does not reach past 65504 with "
+            f"finite plain gradients: {rows['ds_past_65504']}")
+    emit({"phase": "flash_fp16_range_check", **rows})
+    del inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def flash_train_timing(torch, fa, gen, dt) -> dict:
+    """B2-B4 at bench.py's B=6, H=20, L=4096, D=128, causal, in ``dt``:
+    three launches of each bit for bit, then times beside the bound, the
+    plain version and SDPA (forward, and its whole backward)."""
+    import torch.nn.functional as TF
     b, h, L, d = 6, 20, 4096, 128
+    dn = dtype_name(dt)
     q, k, v, do = (torch.randn(b, L, h, d, generator=gen, device="cuda",
-                               dtype=bf) for _ in range(4))
+                               dtype=dt) for _ in range(4))
     # the forward has no atomics: launches that differ in any bit race in
     # its pipeline
     runs = [fa.flash_attention_lse(q, k, v, causal=True) for _ in range(3)]
     same = all(torch.equal(o.view(torch.int16), runs[0][0].view(torch.int16))
                and torch.equal(l.view(torch.int32), runs[0][1].view(torch.int32))
                for o, l in runs[1:])
-    require(same, "flash_fwd_lse at B=6 H=20 L=4096: three launches on the "
-                  "same inputs differ")
+    require(same, f"flash_fwd_lse at B=6 H=20 L=4096 {dn}: three launches "
+                  f"on the same inputs differ")
     out, lse = runs[0]
     del runs
     grads, run_dq, run_dkv = bwd_launches(
@@ -2674,11 +2904,12 @@ def check_flash_train(torch, fa, planted_lib):
                           for r in bwd_runs[1:])
                 for i, name in enumerate(("dq", "dk", "dv"))}
     del bwd_runs
-    require(all(bwd_same.values()), f"flash backward at B=6 H=20 L=4096: "
-                                    f"three launches on the same inputs "
-                                    f"differ {bwd_same}")
+    require(all(bwd_same.values()), f"flash backward at B=6 H=20 L=4096 "
+                                    f"{dn}: three launches on the same "
+                                    f"inputs differ {bwd_same}")
     emit({"phase": "flash_train_check", "determinism": {
-        "shape": [b, L, h, d], "launches": 3, "bit_identical": same,
+        "shape": [b, L, h, d], "dtype": dn, "launches": 3,
+        "bit_identical": same,
         "backward_bit_identical": bwd_same}})
     ms_fwd = cuda_ms(torch, lambda: fa.flash_attention_lse(q, k, v, causal=True), 5)
     ms_dq = cuda_ms(torch, run_dq, 5)
@@ -2712,8 +2943,7 @@ def check_flash_train(torch, fa, planted_lib):
     for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
         dev[kname]["library_device_ms"] = lib_bwd_dev
     pairs = attention_pairs(L, L, True)
-    item = 2  # bf16
-    qbytes = b * L * h * d * item
+    qbytes = b * L * h * d * q.element_size()
     lse_bytes = b * h * L * 4
     timings = {}
     for kname, ms, plain, lib, products, nbytes in (
@@ -2724,19 +2954,19 @@ def check_flash_train(torch, fa, planted_lib):
             ("flash_bwd_dkv", ms_dkv, plain_bwd, lib_bwd, 4,
              6 * qbytes + 2 * lse_bytes)):
         flops = products * 2.0 * b * h * d * pairs
-        bms, by = bound(flops, nbytes, "bfloat16")
+        bms, by = bound(flops, nbytes, dn)
         timings[kname] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                               bound_ms=bms, bound_by=by,
                               tflops=flops / ms / 1e9, **dev[kname])
     emit({"phase": "flash_train_timing", "shape": [b, L, h, d],
-          "dtype": "bfloat16", "causal": True, **timings,
+          "dtype": dn, "causal": True, **timings,
           "plain_note": "plain_ms of dq and dkv is the whole plain backward",
           "library_note": "library_ms of dq and dkv is SDPA's whole "
                           "backward"})
     del q, k, v, do, out, lse, grads, qh, kh, vh, doh, lib_out
     gc.collect()
     torch.cuda.empty_cache()
-    return errs, timings
+    return timings
 
 
 # ---------------------------------------------------------------------------
@@ -3263,7 +3493,7 @@ def check_segs_dropout_cases(torch, fa, gen):
     against its plain version on one set of inputs per case; the two
     ERNIE cases are the attention of its two training legs as the model
     calls it (dropout, no ids)."""
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32, h16 = torch.bfloat16, torch.float32, torch.float16
     cases = [  # name, B, H, Hkv, L, causal, dtype, D, variant, ids
         ("segs_causal_512", 2, 8, 8, 512, True, bf, 128, "segs", "packed"),
         ("drop_causal_512", 2, 8, 8, 512, True, bf, 128, "segs_drop", "none"),
@@ -3299,6 +3529,18 @@ def check_segs_dropout_cases(torch, fa, gen):
          "segs_drop", "packed"),
         ("f32_segs_full_lq200_lk333", 2, 8, 4, (200, 333), False, f32, 64,
          "segs", "packed"),
+        # fp16: ERNIE's leg-1 attention as the fp16 leg calls it, packed ids
+        # with and without dropout, GQA, and Lq != Lk
+        ("fp16_ernie_leg1_drop_full_128", 32, 12, 12, 128, False, h16, 64,
+         "segs_drop", "none"),
+        ("fp16_segs_drop_causal_1000_ragged", 2, 8, 8, 1000, True, h16, 128,
+         "segs_drop", "packed"),
+        ("fp16_d64_segs_causal_1000_ragged", 2, 12, 12, 1000, True, h16, 64,
+         "segs", "packed"),
+        ("fp16_gqa_segs_drop_causal_512_h8_kv2", 2, 8, 2, 512, True, h16,
+         128, "segs_drop", "packed"),
+        ("fp16_segs_drop_causal_lq256_lk640", 2, 8, 8, (256, 640), True, h16,
+         128, "segs_drop", "packed"),
     ]
     errs = {}
     for name, b, h, hkv, L, causal, dt, d, variant, ids in cases:
@@ -3424,9 +3666,10 @@ def check_keep_mask_exact(torch, fa, dt, ids: str, seed: int) -> dict:
             "wrong_bits": res}
 
 
-def time_variants(torch, fa, b: int, h: int, L: int, d: int) -> dict:
-    """Times of every variant entry point (raw launches) at one shape, bf16,
-    not causal, on the ids VARIANT_IDS names, with the bound, the plain
+def time_variants(torch, fa, b: int, h: int, L: int, d: int,
+                  dt=None) -> dict:
+    """Times of every variant entry point (raw launches) at one shape, in
+    ``dt`` (default bf16), not causal, on the ids VARIANT_IDS names, with the bound, the plain
     version and the library yardstick: SDPA with a boolean key-padding mask
     (segs), with dropout_p=0.1 (segs_drop: no ids, as ERNIE calls it); for
     dq and dk/dv SDPA's whole backward and the whole plain backward. Each
@@ -3436,12 +3679,13 @@ def time_variants(torch, fa, b: int, h: int, L: int, d: int) -> dict:
     import torch.nn.functional as TF
     gen = torch.Generator(device="cuda").manual_seed(7)
     lib = fa._native.load("flash_attention")
+    dt = dt or torch.bfloat16
+    dn = dtype_name(dt)
     q, k, v, do = (torch.randn(b, L, h, d, generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(4))
+                               dtype=dt) for _ in range(4))
     rows = {}
     pairs = b * h * L * L
-    item = 2
-    qbytes = b * L * h * d * item
+    qbytes = b * L * h * d * q.element_size()
     rowbytes = b * h * L * 4
     # the flag-free kernels at the same shape first, for the variants' cost
     for variant in ("none",) + fa.VARIANTS:
@@ -3495,7 +3739,7 @@ def time_variants(torch, fa, b: int, h: int, L: int, d: int) -> dict:
                  6 * qbytes + 2 * rowbytes)):
             ms = cuda_ms(torch, run, 20)
             flops = products * 2.0 * d * pairs
-            bms, by = bound(flops, nbytes + seg_bytes, "bfloat16")
+            bms, by = bound(flops, nbytes + seg_bytes, dn)
             rows[entry, variant] = dict(ms=ms, plain_ms=plain, library_ms=libms,
                                         device_ms=device_ms(torch, run),
                                         library_device_ms=lib_dev[
@@ -3507,7 +3751,7 @@ def time_variants(torch, fa, b: int, h: int, L: int, d: int) -> dict:
         del out, lse, qh, kh, vh, lib_out, doh, run_fwd, run_lse, run_dq, \
             run_dkv
     emit({"phase": "flash_segs_dropout_timing", "shape": [b, L, h, d],
-          "dtype": "bfloat16", "causal": False, "dropout_p": DROPOUT_P,
+          "dtype": dn, "causal": False, "dropout_p": DROPOUT_P,
           **{f"{e}[{v}]": r for (e, v), r in rows.items()},
           "plain_note": "plain_ms of dq and dkv is the whole plain backward",
           "library_note": "SDPA: a boolean key mask (segs), dropout_p=0.1 "
@@ -3524,16 +3768,24 @@ def check_flash_segs_dropout(torch, fa, planted_b0):
     errs = check_segs_dropout_cases(torch, fa, gen)
     # B0 exactly, through every kernel, both dtypes, with and without ids
     masks = [check_keep_mask_exact(torch, fa, dt, ids, seed)
-             for dt in (torch.bfloat16, torch.float32)
+             for dt in (torch.bfloat16, torch.float32, torch.float16)
              for ids in ("none", "zeros")
              for seed in (2024, -7)]
     emit({"phase": "flash_segs_dropout_check", "keep_mask_exact": masks})
-    # three launches of each variant kernel at the second ERNIE leg's
-    # shape, as ERNIE calls it (dropout, no ids), each against the plain
-    # version and all three bit for bit
+    for dt in (torch.bfloat16, torch.float16):
+        segs_drop_repeat_and_planted(torch, fa, planted_b0, gen, dt)
+    return errs, masks
+
+
+def segs_drop_repeat_and_planted(torch, fa, planted_b0, gen, dt) -> None:
+    """In ``dt``: three launches of each variant kernel at the second ERNIE
+    leg's shape, as ERNIE calls it (dropout, no ids), each against the
+    plain version and all three bit for bit; then the planted fault, B4's
+    dropout keyed on the kv head, which REL_TOL must reject at GQA 8/2."""
+    dn = dtype_name(dt)
     b, h, L, d = 8, 12, 512, 64
     q, k, v, do = (torch.randn(b, L, h, d, generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(4))
+                               dtype=dt) for _ in range(4))
     var = variant_var(torch, gen, "segs_drop", b, L, L, "none")
     det_row, runs = check_variant(torch, fa, "determinism", q, k, v, do,
                                   False, var, runs=3)
@@ -3543,14 +3795,14 @@ def check_flash_segs_dropout(torch, fa, planted_b0):
     same = {n: all(torch.equal(bits(r[i]), bits(runs[0][i])) for r in runs[1:])
             for i, n in enumerate(det_row)}
     require(all(same.values()),
-            f"segs_drop at B={b} H={h} L={L}: three launches differ: {same}")
+            f"segs_drop at B={b} H={h} L={L} {dn}: three launches differ: "
+            f"{same}")
     del runs, q, k, v, do
-    # the planted fault: B4's dropout keyed on the kv head, at GQA 8/2
     b, h, hkv, L = 2, 8, 2, 512
     q, do = (torch.randn(b, L, h, 128, generator=gen, device="cuda",
-                         dtype=torch.bfloat16) for _ in range(2))
+                         dtype=dt) for _ in range(2))
     k, v = (torch.randn(b, L, hkv, 128, generator=gen, device="cuda",
-                        dtype=torch.bfloat16) for _ in range(2))
+                        dtype=dt) for _ in range(2))
     var = variant_var(torch, gen, "segs_drop", b, L, L)
     rout, rlse = fa.flash_attention_lse_reference(q, k, v, True, None, *var)
     _, rk, rv = fa.flash_attention_bwd_reference(q, k, v, rout, rlse, do, True,
@@ -3561,11 +3813,11 @@ def check_flash_segs_dropout(torch, fa, planted_b0):
     torch.cuda.synchronize()
     planted = {n: tile_rel_err(torch, g, r) for n, g, r in
                (("dk", dk, rk), ("dv", dv, rv))}
-    limit = REL_TOL["flash_bwd", "bfloat16"]
+    limit = REL_TOL["flash_bwd", dn]
     require(all(e > limit for e in planted.values()),
-            f"the planted fault (B4 dropout keyed on the kv head) passed "
-            f"REL_TOL {limit}: {planted}")
-    emit({"phase": "flash_segs_dropout_check", "determinism": {
+            f"the planted fault (B4 dropout keyed on the kv head, {dn}) "
+            f"passed REL_TOL {limit}: {planted}")
+    emit({"phase": "flash_segs_dropout_check", "dtype": dn, "determinism": {
         "shape": [8, 512, 12, 64], "variant": "segs_drop", "ids": "none",
         "launches": 3, "bit_identical": same, **det_row},
         "planted_fault": {"fault": "B4 dropout keyed on the kv head",
@@ -3574,7 +3826,6 @@ def check_flash_segs_dropout(torch, fa, planted_b0):
     del q, k, v, do, rout, rlse, rk, rv, dk, dv
     gc.collect()
     torch.cuda.empty_cache()
-    return errs, masks
 
 
 # ---------------------------------------------------------------------------
@@ -3887,22 +4138,23 @@ def ulps32(torch, a, b) -> int:
                .abs().max())
 
 
-def check_multi_tensor_adam(torch, q8, mta) -> dict:
+def check_multi_tensor_adam(torch, q8, mta, dt=None) -> dict:
     """The multi-tensor AdamW kernel against its plain version at
-    ERNIE-3.0-base's 117,946,370 parameters (bf16 parameters and
-    gradients, fp32 master and moments, the global-norm scale and weight
-    decay on): master, m and v within one fp32 ulp (max-abs reported),
-    bf16 parameters equal; a planted closed gate writes nothing; its time
-    against its byte bound, the plain version and ``torch._fused_adamw_``
-    on the fp32 masters (a yardstick, never the path)."""
+    ERNIE-3.0-base's 117,946,370 parameters (parameters and gradients in
+    ``dt``, bf16 by default or fp16, fp32 master and moments, the
+    global-norm scale and weight decay on): master, m and v within one fp32
+    ulp (max-abs reported), the 16-bit parameters equal; a planted closed
+    gate writes nothing; its time against its byte bound, the plain version
+    and ``torch._fused_adamw_`` (a yardstick, never the path: bf16 on the
+    fp32 masters, fp16 on fp16 parameters, gradients and moments)."""
+    dt = dt or torch.bfloat16
     n = ERNIE3_BASE_PARAMS
     gen = torch.Generator(device="cuda").manual_seed(11)
     master = torch.randn(n, generator=gen, device="cuda") * 0.02
     m = torch.randn(n, generator=gen, device="cuda") * 1e-3
     v = torch.rand(n, generator=gen, device="cuda") * 1e-4
-    grad = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(
-        torch.bfloat16)
-    param = master.to(torch.bfloat16)
+    grad = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(dt)
+    param = master.to(dt)
     t = 3
     c1, c2 = (float(torch.tensor(1.0 - b ** t, dtype=torch.float32))
               for b in (0.9, 0.999))
@@ -3925,9 +4177,9 @@ def check_multi_tensor_adam(torch, q8, mta) -> dict:
     param_diff = int((st_k[3] != st_r[3]).sum())
     moved = int((st_k[0] != master).sum())      # the update reached them
     require(max(ulps.values()) <= 1 and param_diff == 0 and moved > n // 2,
-            f"multi_tensor_adam kernel vs plain: max-abs {errs}, ulps "
-            f"{ulps}, bf16 parameters differing {param_diff}, masters moved "
-            f"{moved}")
+            f"multi_tensor_adam kernel vs plain ({dtype_name(dt)}): max-abs "
+            f"{errs}, ulps {ulps}, parameters differing {param_diff}, "
+            f"masters moved {moved}")
     closed = sc.clone()
     closed[4] = 0.0
     st_g = [x.clone() for x in (master, m, v, param)]
@@ -3947,9 +4199,11 @@ def check_multi_tensor_adam(torch, q8, mta) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # the library yardstick: one fused PyTorch AdamW over the fp32 masters
-    # (its gradient fp32 too: it takes the parameters' dtype)
-    p32, g32 = master.clone(), grad.float()
-    m32, v32 = m.clone(), v.clone()
+    # (its gradient fp32 too: it takes the parameters' dtype); for fp16
+    # over fp16 parameters, as torch.optim.AdamW(fused=True) keeps them
+    lib_dt = torch.float16 if dt == torch.float16 else torch.float32
+    p32, g32 = master.to(lib_dt), grad.to(lib_dt)
+    m32, v32 = m.to(lib_dt), v.to(lib_dt)
     step_t = torch.tensor(float(t), device="cuda")
     library = cuda_ms(torch, lambda: torch._fused_adamw_(
         [p32], [g32], [m32], [v32], [], [step_t], lr=lr, beta1=0.9,
@@ -3961,14 +4215,16 @@ def check_multi_tensor_adam(torch, q8, mta) -> dict:
         maximize=False), 20)
     bms, by = bound(MT_FLOPS * n, MT_BYTES * n, "float32")
     row = {"phase": "multi_tensor_adam_check", "n": n,
-           "param_dtype": "bfloat16", "grad_dtype": "bfloat16",
+           "param_dtype": dtype_name(dt), "grad_dtype": dtype_name(dt),
            "max_abs_err": errs, "max_ulps": ulps,
-           "bf16_params_differing": param_diff,
+           "params_differing": param_diff,
            "closed_gate_writes_nothing": True, "ms": ms, "plain_ms": plain,
            "device_ms": dev["device_ms"], "device_source": dev["source"],
            "library_device_ms": library_dev,
            "bound_ms": bms, "bound_by": by, "library_ms": library,
-           "library": "torch._fused_adamw_ on fp32 masters and fp32 grads",
+           "library": "torch._fused_adamw_ on fp32 masters and fp32 grads"
+                      if lib_dt == torch.float32 else
+                      "torch._fused_adamw_ on fp16 params, grads and moments",
            "gbytes_per_s": MT_BYTES * n / ms / 1e6}
     emit(row)
     del master, m, v, grad, param, st_k, p32, g32, m32, v32
@@ -4426,6 +4682,160 @@ def train_ernie3_base_captured(torch, card, fa, mta) -> dict:
         for r in legs}
 
 
+def train_ernie3_base_fp16(torch, card, fa, mta) -> dict:
+    """``train_ernie3_base_fp16``: ERNIE-3.0-base (full width and depth,
+    random weights from seed 0) fine-tuned under AMP O2 fp16 with fp32
+    masters and ``amp.GradScaler(init_loss_scaling=2**15)`` (its default
+    schedule), dropout 0.1, ``ernie_recipe``'s multi-tensor AdamW and
+    schedule, at bench_ernie.py's B=32, L=128 (PaddleNLP's ``--fp16
+    --fp16_opt_level O2`` fine-tune). The same 12 steps on the eager tier,
+    then from the same state (put back from a host copy) through
+    ``jit.capture_step``: every loss finite, the loss-scale histories and
+    the steps applied equal, and the captured run's losses and final state
+    (parameters, master, m, v, step, dropout counter, scaler) bit-equal to
+    the eager run's; B2-B4 SEGS+DROP launched 12 times and multi-tensor
+    AdamW once a step. Returns each tier's launches."""
+    import numpy as np
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                               ErnieForSequenceClassification)
+    t0 = time.monotonic()
+    cfg = ErnieConfig.ernie3_base()
+    batch, seq = ERNIE_LEGS[0]
+    warmup, timed = 2, 10
+    steps = warmup + timed
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0), seed=0)
+    sched, opt = ernie_recipe(torch, model, decay_steps=2 * steps,
+                              warmup_steps=max(1, steps // 5))
+    decay0 = sched.lr_sched.state_dict()    # the warm-up's inner schedule
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    require(all(p.dtype == torch.float16 for p in model.parameters()),
+            "train_ernie3_base_fp16: parameters not fp16 after decorate")
+    path = {e: fa.launches_variant[e, "segs_drop"]
+            for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
+    path["multi_tensor_adam"] = mta.launches
+    fused_step = ernie_fused_per_step(cfg.num_hidden_layers)
+    path.update({k: ctr for k, ctr in step_counters().items()
+                 if k in fused_step})
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq),
+                                       dtype=np.int32), device="cuda")
+    labels = torch.as_tensor(rng.integers(0, 2, (batch,)).astype(np.int64),
+                             device="cuda")
+
+    def step(ids, labels):
+        with amp.auto_cast(enable=True, level="O2", dtype="float16"):
+            loss, _ = model(ids, labels=labels)
+        scaler.scale(loss).backward()
+        return loss
+
+    def update():
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+    scaler._state(torch.device("cuda"))    # its state tensors, for the copy
+    fs = opt._flat
+    state = (list(model.parameters())
+             + [fs.master, fs.m, fs.v, opt._step_t, model.ernie.rng.counter,
+                scaler._scale, scaler._good, scaler._bad])
+    saved = [x.detach().cpu() for x in state]
+    epoch0 = sched.last_epoch
+    runs = {}
+    for tier in ("eager", "captured"):
+        with torch.no_grad():
+            for x, c in zip(state, saved):
+                x.copy_(c)
+        sched.lr_sched.set_state_dict(decay0)
+        sched.step(epoch0)
+        call = (captured_step(jit, step, "off", update_fn=update,
+                              clear_fn=opt.clear_grad, nan_gate=True)
+                if tier == "eager" else
+                jit.capture_step(step, update_fn=update,
+                                 clear_fn=opt.clear_grad, nan_gate=True))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in path.values():
+            c.reset()
+        t_applied = int(opt._step_t)
+        losses, times, scales = [], [], []
+        for _ in range(steps):
+            t1 = time.monotonic()
+            loss = call(ids, labels)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t1)
+            losses.append(float(loss))
+            scales.append(scaler.get_loss_scaling())
+            sched.step()
+        launches = {k: c.count for k, c in path.items()}
+        applied = int(opt._step_t) - t_applied
+        timed_s = times[warmup:]
+        p50 = statistics.median(timed_s)
+        tok_s = batch * seq / p50
+        fpt = model.flops_per_token(seq)
+        runs[tier] = {"losses": losses, "scales": scales, "step_s": times,
+                      "step_p50_s": p50,
+                      "step_spread_s": max(timed_s) - min(timed_s),
+                      "tokens_per_s": tok_s,
+                      "mfu_vs_989tflops": fpt * tok_s / 989e12,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "steps_applied": applied,
+                      "steps_skipped": steps - applied,
+                      "launches": launches,
+                      "digests": [digest(torch, x) for x in state],
+                      "stats": dict(call.stats)}
+        # one more step under the profiler, after the digests: where the
+        # device time goes, by family
+        runs[tier]["profile"] = {k: v for k, v in profile_step(
+            torch, card, lambda: call(ids, labels), p50,
+            "train_ernie_fp16_profile", train_family,
+            {"batch": batch, "seq": seq, "tier": tier}).items()
+            if k in ("device_ms", "device_busy_share_est_unprofiled",
+                     "device_kernels", "host_launch_calls")}
+        require(all(math.isfinite(x) for x in losses),
+                f"train_ernie3_base_fp16 {tier}: losses {losses}")
+        require(all(launches[e] == cfg.num_hidden_layers * steps
+                    for e in ("fwd_lse", "bwd_dq", "bwd_dkv"))
+                and launches["multi_tensor_adam"] == steps
+                and all(launches[k] == n * steps
+                        for k, n in fused_step.items() if k in launches),
+                f"train_ernie3_base_fp16 {tier}: launches {launches}")
+        del call
+    e, c = runs["eager"], runs["captured"]
+    require(not c["stats"]["bypasses"] and c["stats"]["hits"] == steps - 1,
+            f"train_ernie3_base_fp16 captured: {c['stats']}")
+    require(e["scales"] == c["scales"]
+            and e["steps_applied"] == c["steps_applied"] > 0,
+            f"train_ernie3_base_fp16: scale histories {e['scales']} "
+            f"{c['scales']}, steps applied {e['steps_applied']} "
+            f"{c['steps_applied']}")
+    require(e["losses"] == c["losses"] and e["digests"] == c["digests"],
+            f"train_ernie3_base_fp16: the captured run is not bit-equal to "
+            f"the eager run (losses {e['losses']} {c['losses']})")
+    emit({"phase": "train_ernie3_base_fp16", "card": card,
+          "params": model.num_params(), "batch": batch, "seq": seq,
+          "recipe": {"amp": "O2 fp16, fp32 masters",
+                     "grad_scaler": "GradScaler(init_loss_scaling=2**15), "
+                                    "incr_every_n_steps 2000, ratio 2, 0.5",
+                     "optimizer": "AdamW(use_multi_tensor=True, wd 0.01)",
+                     "grad_clip": "ClipGradByGlobalNorm(1.0)",
+                     "dropout": [cfg.hidden_dropout_prob,
+                                 cfg.attention_probs_dropout_prob],
+                     "nan_gate": True},
+          "warmup_calls": warmup, "timed_calls": timed,
+          **{t: {k: v for k, v in r.items() if k != "digests"}
+             for t, r in runs.items()},
+          "replay_bit_equal_to_eager": True,
+          "speedup": e["step_p50_s"] / c["step_p50_s"],
+          "seconds": time.monotonic() - t0})
+    del model, opt, scaler, state, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"ernie_fp16_{t}": r["launches"] for t, r in runs.items()}
+
+
 # ---------------------------------------------------------------------------
 # the fused small-op kernels: K1 norm, K2 RoPE, K3 SwiGLU, K4 cross-entropy
 # ---------------------------------------------------------------------------
@@ -4446,8 +4856,10 @@ FUSED_TOL = {("out", "bfloat16"): (2.0 ** -7, 1e-6),
              ("out", "float16"): (2.0 ** -10, 1e-6),
              ("out", "float32"): (1e-5, 1e-5),
              ("out2", "bfloat16"): (2.0 ** -6, 1e-6),
+             ("out2", "float16"): (2.0 ** -9, 1e-6),
              ("out2", "float32"): (1e-5, 1e-5),
              ("sum", "bfloat16"): (2.0 ** -7, 1e-4),
+             ("sum", "float16"): (2.0 ** -10, 1e-4),
              ("sum", "float32"): (1e-4, 1e-4)}
 FUSED_KERNELS = ("fused_norm", "rope", "swiglu", "softmax_cross_entropy")
 # the JAX function each replaces: XLA-fused jnp, no pallas_call
@@ -4501,6 +4913,10 @@ def fused_close(torch, out, ref, kind: str, mag=None):
     rtol, arel = FUSED_TOL[kind, dtype_name(out.dtype)]
     lim = rtol * (r.abs() if mag is None else mag) \
         + arel * float(r.square().mean().sqrt())
+    # below the normal range a result rounds on a fixed grid (fp16: 2^-24),
+    # so no limit is finer than one step of it
+    fi = torch.finfo(out.dtype)
+    lim = lim.clamp_min(fi.smallest_normal * fi.eps)
     ok = bool(torch.isfinite(o).all()) and bool((d <= lim).all())
     return ok, float(d.max())
 
@@ -5001,7 +5417,7 @@ def fused_repeat_equal(torch, run, what: str) -> None:
 
 
 def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
-    f32, bf = torch.float32, torch.bfloat16
+    f32, bf, h16 = torch.float32, torch.bfloat16, torch.float16
     S = fn.NormSpec
 
     def rn(shape, dt, scale=1.0, shift=0.0):
@@ -5042,6 +5458,14 @@ def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
         # MAX_COLS in fp32: too wide for the ring, the block-per-row kernels
         ("max_cols_fp32", 512, fn.MAX_COLS, f32, f32, None, f32, f32,
          S("ln", 1e-5, f32, f32, f32, f32, f32)),
+        # fp16: ERNIE's O2 LayerNorm with the residual add as its fp16 leg
+        # calls it, a Llama-2-7B fp16 decode step and prefill
+        ("ernie_fp16_o2_residual", 4096, 768, h16, h16, None, h16, h16,
+         S("ln", 1e-12, f32, f32, h16, f32, f32)),
+        ("serve_decode_fp16_residual", 16, 4096, h16, h16, None, h16, None,
+         S("rms", 1e-5, h16, h16, h16, h16)),
+        ("serve_prefill_fp16", 1000, 4096, h16, None, None, h16, None,
+         S("rms", 1e-5, h16, h16, None, h16)),
     ]
     results, err, timing = [], 0.0, {}
     for name, rows, cols, xd, rd, pbd, wd, bd, spec in cases:
@@ -5110,7 +5534,7 @@ def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
                             zip((*sf, sb[0]), full)),
                         f"fused_norm {name}: the first {n} rows alone differ "
                         f"from the full call's")
-        if name != "llama_o2_residual":
+        if name not in ("llama_o2_residual", "serve_prefill_fp16"):
             continue
         # forward and backward, fold included, three times: equal bits
         fused_repeat_equal(torch, lambda: {**fwd(), **bwd(h=h, stats=stats)},
@@ -5122,8 +5546,9 @@ def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
         planted_fold = fused_planted_rejected(
             torch, lambda: bwd(fn.bind(planted_lib), h=h, stats=stats),
             {"dw": refs_b["dw"]}, f"fused_norm {name} fold")
-        timing["planted_max_abs_err"] = planted["max_abs_err"]
-        timing["planted_fold_max_abs_err"] = planted_fold["max_abs_err"]
+        pre = "fp16_" if xd == h16 else ""
+        timing[pre + "planted_max_abs_err"] = planted["max_abs_err"]
+        timing[pre + "planted_fold_max_abs_err"] = planted_fold["max_abs_err"]
     timed = fused_norm_timing(torch, fn, gen)
     llama = timed["llama_o2_residual"]
     timing.update(llama["fwd"])
@@ -5137,7 +5562,7 @@ def check_fused_norm(torch, fn, planted_lib, gen) -> dict:
 
 
 def check_rope(torch, rp, planted_lib, gen) -> dict:
-    f32, bf = torch.float32, torch.bfloat16
+    f32, bf, h16 = torch.float32, torch.bfloat16, torch.float16
 
     def table(n, width, dt=f32):
         ang = torch.rand((n, width), generator=gen, device="cuda") * 6.3
@@ -5159,6 +5584,12 @@ def check_rope(torch, rp, planted_lib, gen) -> dict:
          table(256, 64), 0, torch.int64, False, bf, bf),
         ("incubate_neox_full_table_fp32", [(2, 256, 4, 64)] * 2, f32,
          table(256, 64), 0, None, True, None, None),
+        # fp16: the Llama-2-7B fp16 leg's decode step and prefill as its
+        # engine calls them
+        ("serve_decode_fp16", [(16, 1, 32, 128)] * 2, h16, cs_7b, 0,
+         torch.int32, True, None, None),
+        ("serve_prefill_fp16", [(1, 1000, 32, 128)] * 2, h16, cs_7b, 0, None,
+         True, h16, f32),
     ]
     results, err, timing = [], 0.0, None
     for name, shapes, xd, (cos, sin), off, pdt, neox, dt, tdt in cases:
@@ -5197,6 +5628,12 @@ def check_rope(torch, rp, planted_lib, gen) -> dict:
         err = max(err, err_f, err_b)
         results.append({"case": name, "shapes": shapes, "fwd": errs_f,
                         "bwd": errs_b, "elements_not_bit_equal": bits})
+        if name == "serve_prefill_fp16":
+            fused_repeat_equal(torch, lambda: {**run(), **run(back=True)},
+                               f"rope {name}")
+            results[-1]["planted_max_abs_err"] = fused_planted_rejected(
+                torch, lambda: run(rp.bind(planted_lib)), refs,
+                f"rope {name}")["max_abs_err"]
         if name != "llama_o2":
             continue
         fused_repeat_equal(torch, lambda: {**run(), **run(back=True)},
@@ -5222,11 +5659,14 @@ def check_rope(torch, rp, planted_lib, gen) -> dict:
 
 
 def check_swiglu(torch, sw, planted_lib, gen) -> dict:
-    f32, bf = torch.float32, torch.bfloat16
+    f32, bf, h16 = torch.float32, torch.bfloat16, torch.float16
     cases = [("llama", (24576, 6912), bf, False), ("serve", (16, 11008), bf,
                                                      False),
              ("fp32", (4096, 1024), f32, False),
-             ("packed_bf16", (4096, 1024), bf, True)]
+             ("packed_bf16", (4096, 1024), bf, True),
+             # fp16: the Llama-2-7B fp16 leg's decode step and prefill
+             ("serve_fp16", (16, 11008), h16, False),
+             ("serve_prefill_fp16", (1000, 11008), h16, False)]
     results, err, timing = [], 0.0, None
     for name, (rows, d), dt, packed in cases:
         if packed:
@@ -5266,6 +5706,12 @@ def check_swiglu(torch, sw, planted_lib, gen) -> dict:
         err = max(err, err_f, err_b)
         results.append({"case": name, "rows": rows, "d": d, "fwd": errs_f,
                         "bwd": errs_b, "elements_not_bit_equal": bits})
+        if name == "serve_prefill_fp16":
+            fused_repeat_equal(torch, lambda: {**run(), **run_b()},
+                               f"swiglu {name}")
+            results[-1]["planted_max_abs_err"] = fused_planted_rejected(
+                torch, lambda: run(sw.bind(planted_lib)), ref,
+                f"swiglu {name}")["max_abs_err"]
         if name != "llama":
             continue
         fused_repeat_equal(torch, lambda: {**run(), **run_b()},
@@ -5288,7 +5734,7 @@ def check_swiglu(torch, sw, planted_lib, gen) -> dict:
 
 
 def check_cross_entropy(torch, ce, planted_lib, gen) -> dict:
-    f32, bf = torch.float32, torch.bfloat16
+    f32, bf, h16 = torch.float32, torch.bfloat16, torch.float16
     i64, i32 = torch.int64, torch.int32
     # (name, logits shape, dtype, labels dtype, ignore_index, shift,
     #  labels: "random", "some_ignored", "all_ignored", "n1"; view)
@@ -5299,7 +5745,12 @@ def check_cross_entropy(torch, ce, planted_lib, gen) -> dict:
              ("all_ignored", (64, 128), bf, i64, 5, False, "all_ignored",
               None),
              ("strided_view_fp32", (4, 64, 1024), f32, i64, 3, False,
-              "some_ignored", "every_other_row")]
+              "some_ignored", "every_other_row"),
+             # fp16: ERNIE's classifier logits as its fp16 leg gives them,
+             # and a vocabulary wide enough for the planted fault
+             ("ernie_fp16", (32, 2), h16, i64, -100, False, "random", None),
+             ("vocab_fp16_shift", (2, 1024, 32000), h16, i64, -100, True,
+              "random", None)]
     results, err, timing = [], 0.0, None
     for name, shape, dt, ldt, ign, shift, lab_kind, view in cases:
         base = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dt)
@@ -5357,6 +5808,14 @@ def check_cross_entropy(torch, ce, planted_lib, gen) -> dict:
         results.append({"case": name, "shape": list(shape), "fwd": errs_f,
                         "bwd": errs_b, "loss": float(got["loss"]),
                         "count": float(got["count"])})
+        if name == "vocab_fp16_shift":
+            fused_repeat_equal(torch, lambda: (lambda f: {
+                "loss": f["loss"], "m": f["m"], "logs": f["logs"],
+                **run_b(f["state"])})(run()), f"softmax_cross_entropy {name}")
+            results[-1]["planted_max_abs_err"] = fused_planted_rejected(
+                torch, lambda: run(ce.bind(planted_lib)),
+                {"loss": (ref_loss, "out")},
+                f"softmax_cross_entropy {name}")["max_abs_err"]
         if name != "llama_shift":
             continue
         fused_repeat_equal(torch, lambda: (lambda f: {
@@ -5484,14 +5943,17 @@ def embedding_cases(torch, gen) -> list:
     dtype, padding_idx). ERNIE's four tables (tokens (32, 128): word ids
     with padding 0, position ids each hit 32 times, all-zero type and task
     ids, one id for all 4096 rows) in bf16 (O2) and fp32, Llama's 6 x 4096
-    ids into 32000 x 2560 bf16, and odd widths."""
-    bf, f32 = torch.bfloat16, torch.float32
+    ids into 32000 x 2560 bf16, odd widths, and in fp16 ERNIE's word and
+    type tables and a Llama-2-7B fp16 prompt of 1000 ids into 32000 x
+    4096."""
+    bf, f32, h16 = torch.bfloat16, torch.float32, torch.float16
     b, n = 32, 128
     word = torch.randint(1, 40000, (b, n), generator=gen, device="cuda")
     word[:, -8:] = 0
     pos = torch.arange(n, device="cuda").expand(b, n).contiguous()
     zero = torch.zeros(b, n, dtype=torch.int64, device="cuda")
     llama = torch.randint(0, 32000, (6, 4096), generator=gen, device="cuda")
+    prompt = torch.randint(0, 32000, (1, 1000), generator=gen, device="cuda")
     return [("ernie_word_bf16", word, 40000, 768, bf, 0),
             ("ernie_position_bf16", pos, 2048, 768, bf, None),
             ("ernie_type_bf16_skew", zero, 4, 768, bf, None),
@@ -5501,7 +5963,10 @@ def embedding_cases(torch, gen) -> list:
             ("llama_bf16", llama, 32000, 2560, bf, None),
             ("int32_ids_width_90_fp32", (word % 500).to(torch.int32), 500,
              90, f32, 3),
-            ("width_99_bf16", word % 700, 700, 99, bf, None)]
+            ("width_99_bf16", word % 700, 700, 99, bf, None),
+            ("ernie_word_fp16", word, 40000, 768, h16, 0),
+            ("ernie_type_fp16_skew", zero, 4, 768, h16, None),
+            ("serve_7b_prompt_fp16", prompt, 32000, 4096, h16, None)]
 
 
 # K5's timed cases: ERNIE's four tables (bf16) and its word table in fp32,
@@ -5584,12 +6049,12 @@ def check_embedding(torch, em, planted_lib, gen) -> dict:
                                 embedding_dense_backward(
                                     dy, ids, rows, -1 if pad is None else pad,
                                     False), FUSED_ITERS)}
-        if name == "ernie_type_bf16_skew":
+        if name in ("ernie_type_bf16_skew", "ernie_type_fp16_skew"):
             fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
                                f"embedding {name}")
-            timing["planted"] = planted_differs(
-                torch, bwd(em.bind(planted_lib)), {"dw": refs["dw"]},
-                f"embedding {name}")
+            timing["planted" if dt == bf else "planted_fp16"] = \
+                planted_differs(torch, bwd(em.bind(planted_lib)),
+                                {"dw": refs["dw"]}, f"embedding {name}")
         if name in ("ernie_word_bf16", "llama_bf16"):
             lib_pad = -1 if pad is None else pad
             t = fused_timing(
@@ -5610,6 +6075,8 @@ def check_embedding(torch, em, planted_lib, gen) -> dict:
     row = dict(timing["ernie_word_bf16"])
     row.update({"cases": results, "max_abs_err": 0.0,
                 "planted_max_abs_err": timing["planted"]["max_abs_err"],
+                "fp16_planted_max_abs_err":
+                    timing["planted_fp16"]["max_abs_err"],
                 "llama": timing["llama_bf16"], "ernie_tables": tables,
                 "ernie_tables_bwd_ms": sum(t["bwd_ms"]
                                            for t in tables.values()),
@@ -5653,22 +6120,56 @@ def check_bias_act_tables(torch, ba) -> dict:
     return out
 
 
+def check_bias_act_fp16_gelu(torch, ba) -> dict:
+    """K6's fp16 GELU, which computes the activation (the lookup tables
+    are bf16 only): every finite fp16 value through the kernel's forward,
+    against ``F.gelu`` of the fp16 value bit for bit, and its backward at
+    dy = 1 against ``aten.gelu_backward`` in fp16, erf and tanh forms;
+    returns the values that differ by form (the forward must give none)."""
+    TF = torch.nn.functional
+    h16 = torch.float16
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda")
+    x = bits.to(torch.int16).view(h16)
+    x = x[torch.isfinite(x)].reshape(-1, 8)     # 8-element vectors
+    one = torch.ones_like(x)
+    out = {}
+    for act, approx in (("gelu", "none"), ("gelu_tanh", "tanh")):
+        spec = ba.ActSpec(act, h16, h16)
+        fwd = ba._launch_fwd(x, None, spec)
+        dx, _ = ba._launch_bwd(x, None, one, spec)
+        want_f = TF.gelu(x, approximate=approx)
+        want_b = torch.ops.aten.gelu_backward(one, x, approximate=approx)
+        out[act] = {"fwd": int((fwd.view(torch.int16)
+                                != want_f.view(torch.int16)).sum()),
+                    "bwd": int((dx.view(torch.int16)
+                                != want_b.view(torch.int16)).sum()),
+                    "bwd_max_abs": float((dx.float() - want_b.float()).abs()
+                                         .max()),
+                    "values": int(x.numel())}
+        require(out[act]["fwd"] == 0,
+                f"bias_act fp16 {act} differs from torch's GELU: {out[act]}")
+    return out
+
+
 def check_bias_act(torch, ba, planted_lib, gen) -> dict:
     """K6 at ERNIE's linear1 output (4096 x 3072, bias, GELU erf) in bf16
     (O2) and fp32, the tanh form, ReLU, no bias and an odd width: forward
     within FUSED_TOL ``out``, the input gradient ``out``, the bias gradient
     ``sum``; its activation tables bit-equal to torch's GELU on every
     entry (:func:`check_bias_act_tables`)."""
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32, h16 = torch.bfloat16, torch.float32, torch.float16
     S = ba.ActSpec
     tables = check_bias_act_tables(torch, ba)
+    fp16_gelu = check_bias_act_fp16_gelu(torch, ba)
     # (name, rows, n, y dtype, bias dtype, act)
     cases = [("ernie_o2_gelu", 4096, 3072, bf, bf, "gelu"),
              ("ernie_fp32_gelu", 4096, 3072, f32, f32, "gelu"),
              ("gelu_tanh_bf16", 1024, 3072, bf, bf, "gelu_tanh"),
              ("relu_fp32_width_1001", 1000, 1001, f32, f32, "relu"),
              ("gelu_no_bias_bf16", 4096, 768, bf, None, "gelu"),
-             ("identity_bf16_y_fp32_bias", 512, 3072, bf, f32, "none")]
+             ("identity_bf16_y_fp32_bias", 512, 3072, bf, f32, "none"),
+             # fp16: ERNIE's linear1 epilogue as its fp16 leg calls it
+             ("ernie_fp16_gelu", 4096, 3072, h16, h16, "gelu")]
     results, err, timing = [], 0.0, None
     for name, rows, n, yd, bd, act in cases:
         y = (torch.randn((rows, n), generator=gen, device="cuda") * 2).to(yd)
@@ -5700,6 +6201,12 @@ def check_bias_act(torch, ba, planted_lib, gen) -> dict:
         results.append({"case": name, "rows": rows, "n": n, "act": act,
                         "fwd": errs_f, "bwd": errs_b,
                         "elements_not_bit_equal": bits})
+        if name == "ernie_fp16_gelu":
+            fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
+                               f"bias_act {name}")
+            results[-1]["planted_max_abs_err"] = fused_planted_rejected(
+                torch, lambda: fwd(ba.bind(planted_lib)), ref,
+                f"bias_act {name}")["max_abs_err"]
         if name != "ernie_o2_gelu":
             continue
         fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
@@ -5739,7 +6246,8 @@ def check_bias_act(torch, ba, planted_lib, gen) -> dict:
     timing["timed_cases"] = bias_act_timing(
         torch, ba, torch.Generator(device="cuda").manual_seed(17))
     return {"cases": results, "tables_not_bit_equal": tables,
-            "max_abs_err": err, **timing}
+            "fp16_gelu_not_bit_equal": fp16_gelu, "max_abs_err": err,
+            **timing}
 
 
 def check_dropout(torch, dr, planted_lib, gen) -> dict:
@@ -5747,15 +6255,20 @@ def check_dropout(torch, dr, planted_lib, gen) -> dict:
     fp32, with a residual of another dtype, downscale_in_infer on an odd
     size and the classifier's (32, 768): forward and backward bit-equal to
     the plain version, which hashes the same seed; the kept share near
-    1 - p; another seed another mask."""
-    bf, f32 = torch.bfloat16, torch.float32
+    1 - p; another seed another mask. The same in fp16 at the hidden and
+    classifier shapes."""
+    bf, f32, h16 = torch.bfloat16, torch.float32, torch.float16
     seed = torch.tensor(DROPOUT_SEED, dtype=torch.int64, device="cuda")
     # (name, shape, x dtype, residual dtype, upscale)
     cases = [("ernie_hidden_bf16", (4096, 768), bf, None, True),
              ("ernie_hidden_fp32", (4096, 768), f32, None, True),
              ("residual_bf16_x_fp32_res", (4096, 768), bf, f32, True),
              ("downscale_fp32_odd", (1000, 33), f32, None, False),
-             ("classifier_bf16", (32, 768), bf, None, True)]
+             ("classifier_bf16", (32, 768), bf, None, True),
+             # fp16: ERNIE's hidden and classifier dropouts as its fp16 leg
+             # calls them
+             ("ernie_hidden_fp16", (4096, 768), h16, None, True),
+             ("classifier_fp16", (32, 768), h16, None, True)]
     p = 0.1
     results, timing = [], None
     for name, shape, xd, rd, up in cases:
@@ -5792,6 +6305,12 @@ def check_dropout(torch, dr, planted_lib, gen) -> dict:
                         "dtype": dtype_name(xd), "upscale": up,
                         "kept_share": kept,
                         "elements_not_bit_equal": bits})
+        if name == "ernie_hidden_fp16":
+            fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
+                               f"dropout {name}")
+            results[-1]["planted_max_abs_err"] = planted_differs(
+                torch, fwd(dr.bind(planted_lib)), refs,
+                f"dropout {name}")["max_abs_err"]
         if name != "ernie_hidden_bf16":
             continue
         fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
@@ -5835,7 +6354,10 @@ def check_softmax_mask(torch, sm, planted_lib, gen) -> dict:
              ("ernie_fp32", (32, 12, 128, 128), (32, 1, 128, 128), f32),
              ("upper_triangle_bf16", (8, 12, 128, 128), None, bf),
              ("upper_triangle_lq_lt_lk_fp32", (2, 4, 64, 200), None, f32),
-             ("mask_3d_width_77_fp32", (3, 50, 77), (3, 50, 77), f32)]
+             ("mask_3d_width_77_fp32", (3, 50, 77), (3, 50, 77), f32),
+             # fp16: ERNIE's scores and mask in fp16
+             ("ernie_fp16", (32, 12, 128, 128), (32, 1, 128, 128),
+              torch.float16)]
     results, err, timing = [], 0.0, None
     for name, shape, mshape, dt in cases:
         x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dt)
@@ -5872,6 +6394,12 @@ def check_softmax_mask(torch, sm, planted_lib, gen) -> dict:
                         "elements_not_bit_equal": {
                             "y": int((got["y"] != ref["y"][0]).sum()),
                             "dx": int((gb["dx"] != r_dx).sum())}})
+        if name == "ernie_fp16":
+            fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
+                               f"softmax_mask {name}")
+            results[-1]["planted_max_abs_err"] = fused_planted_rejected(
+                torch, lambda: fwd(sm.bind(planted_lib)), ref,
+                f"softmax_mask {name}")["max_abs_err"]
         if name != "ernie_bf16":
             continue
         fused_repeat_equal(torch, lambda: {**fwd(), **bwd()},
@@ -7614,7 +8142,7 @@ def main() -> int:
           "card": smi})
     require(len(tc_kernels) == N_WGMMA_KERNELS and all(
         k["HGMMA"] > 0 and k["UTMALDG"] > 0 for k in tc_kernels.values()),
-        f"the bf16 flash kernels do not all run on wgmma and TMA: "
+        f"the 16-bit flash kernels do not all run on wgmma and TMA: "
         f"{tc_kernels}")
     require(len(bulk_kernels) == N_PAGED_SPLIT_KERNELS and all(
         k[BULK_COPY_OP] > 0 for k in bulk_kernels.values()),
@@ -7625,7 +8153,7 @@ def main() -> int:
                     mta.launches, *fa.launches_variant.values(),
                     *step_counters().values())
 
-    flash_rows = check_flash(torch, fa)
+    flash_rows = check_flash(torch, fa, planted["flash_attention"])
     paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
     decode_graph_check(torch, pa, kvc)
     for c in all_counters:
@@ -7637,7 +8165,11 @@ def main() -> int:
     chaos_eng, chaos_launches = serve_chaos_7b(torch, smi, fa, pa, model,
                                                served)
     obs_overhead_7b(torch, smi, chaos_eng, served)
-    del chaos_eng, model
+    del chaos_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve16_launches = serve_7b_fp16(torch, smi, fa, pa, model, served)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     fmt_check(torch, fa, pa, kvc)
@@ -7645,10 +8177,11 @@ def main() -> int:
     fmt_launches = serve_fmt(torch, smi, fa, pa)
     agree_2layer(torch, fa, pa)
     serve_chaos_check(torch, smi, fa, pa)
-    flash_errs, flash_times = check_flash_train(torch, fa,
-                                                planted["flash_attention"])
+    flash_errs, flash_times, flash16_errs, flash16_times = check_flash_train(
+        torch, fa, planted["flash_attention"])
     q8_err, q8_time = check_q8_adam(torch, q8)
     mt_row = check_multi_tensor_adam(torch, q8, mta)
+    mt16_row = check_multi_tensor_adam(torch, q8, mta, torch.float16)
     fused_rows = fused_ops_check(torch, planted)
     ernie_rows = ernie_ops_check(torch, planted)
     incubate_row = incubate_check(torch)
@@ -7657,6 +8190,7 @@ def main() -> int:
     train_vs_cpu(torch, fa, q8)
     check_flash_segs_dropout(torch, fa, planted["flash_attention:b0"])
     var_times = time_variants(torch, fa, *ERNIE_SHAPE)
+    var16_times = time_variants(torch, fa, *ERNIE_SHAPE, torch.float16)
     # each path's variant launches, counted from 0 just before its own run
     path_launches = {"unpadded": check_unpadded(torch, fa,
                                                 fa.launches_variant)}
@@ -7667,6 +8201,7 @@ def main() -> int:
     path_launches.update({k: {e: n for e, n in v.items()
                               if e != "multi_tensor_adam"}
                           for k, v in captured_launches.items()})
+    fp16_launches = train_ernie3_base_fp16(torch, smi, fa, mta)
     moe_rows = moe_check(torch, planted)
     moe_launches = train_moe_jamba2(torch, smi)
     ec_launches = ec_moe_jamba2(torch, smi)
@@ -7675,6 +8210,10 @@ def main() -> int:
 
     k1 = next(r for r in flash_rows if r["case"] == "causal_1000_ragged")
     k2 = next(r for r in paged_rows if r["case"] == "bf16_h32")
+    k1_16 = next(r for r in flash_rows
+                 if r["case"] == "fp16_causal_1000_ragged")
+    k2_16 = {r["case"]: r for r in paged_rows if r["case"].startswith("fp16")}
+    ernie16 = fp16_launches["ernie_fp16_captured"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the card's own time a call (graph_ms) of B1-B6 and their yardsticks
     b_keys = ("device_ms", "library_device_ms")
@@ -7682,20 +8221,77 @@ def main() -> int:
     # card's own time a call and the wrapper's host time
     k_keys = keys + ("device_ms", "device_source", "library_device_ms",
                      "host_us")
+    serve16_path = "serve_llama2_7b_fp16, prefill and decode graph replays"
+    fp16_rows = [
+        {"name": "flash_prefill[fp16]", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:82",
+         "launches": serve16_launches["flash_prefill"],
+         "launches_path": serve16_path,
+         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+                            if r["dtype"] == "float16"),
+         "case": "B=1 H=32 L=1000 D=128 causal fp16",
+         **{k: k1_16[k] for k in keys}, **{k: k1_16.get(k) for k in b_keys},
+         "tail_prefill": {k: next(r for r in flash_rows if r["case"]
+                                  == "fp16_causal_lq200_lk1224").get(k)
+                          for k in keys + b_keys}},
+        {"name": "paged_decode[fp16]", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "paddle_tpu/ops/paged_attention.py:178",
+         "launches": serve16_launches["paged_decode"],
+         "launches_path": serve16_path,
+         "max_abs_err": max(r["max_abs_err"] for r in k2_16.values()),
+         "case": "fp16 q on an fp16 pool, B=16 H=32 D=128 page 64, "
+                 "contexts 0-2047",
+         **{k: k2_16["fp16_h32"][k] for k in keys},
+         **{k: k2_16["fp16_h32"].get(k) for k in b_keys},
+         "other_pools": {n: {k: k2_16[n].get(k) for k in keys + b_keys}
+                         for n in ("fp16_q_bf16_pool_h32",
+                                   "fp16_q_int8_pool_h32")}},
+    ] + [
+        {"name": f"{VARIANT_KERNEL[e][0]}[segs_drop][fp16]", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py"
+                     + VARIANT_LINES[e]["segs_drop"],
+         "launches": ernie16[e],
+         "launches_path": "ernie_fp16_captured (12 steps)",
+         "launches_ernie_fp16_eager":
+             fp16_launches["ernie_fp16_eager"][e],
+         "max_abs_err": var16_times[e, "segs_drop"]["max_abs_err"],
+         "case": "B=%d H=%d L=%d D=%d fp16 not causal, dropout 0.1, no ids"
+                 % ERNIE_SHAPE,
+         **{k: var16_times[e, "segs_drop"][k] for k in keys},
+         **{k: var16_times[e, "segs_drop"].get(k) for k in b_keys}}
+        for e in ("fwd_lse", "bwd_dq", "bwd_dkv")
+    ] + [
+        {"name": "multi_tensor_adam[fp16]", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/multi_tensor_adam.cu",
+         "replaces": "paddle_tpu/optimizer/__init__.py:976",
+         "replaces_pallas_call": False,
+         "launches": ernie16["multi_tensor_adam"],
+         "launches_path": "ernie_fp16_captured (12 steps)",
+         "max_abs_err": max(mt16_row["max_abs_err"].values()),
+         "case": "n=%d (ERNIE-3.0-base) fp16 params and grads, fp32 master "
+                 "and moments, global-norm scale, wd" % mt16_row["n"],
+         **{k: mt16_row.get(k) for k in k_keys}},
+    ]
     train_rows = [
         ("flash_fwd_lse", "paddle_tpu_torch/csrc/flash_attention.cu",
          "paddle_tpu/ops/flash_attention.py:163",
          max(flash_errs["out"], flash_errs["lse"]),
-         flash_times["flash_fwd_lse"], "B=6 H=20 L=4096 D=128 causal bf16"),
+         flash_times["flash_fwd_lse"], "B=6 H=20 L=4096 D=128 causal bf16",
+         max(flash16_errs["out"], flash16_errs["lse"])),
         ("flash_bwd_dq", "paddle_tpu_torch/csrc/flash_attention.cu",
          "paddle_tpu/ops/flash_attention.py:228", flash_errs["dq"],
-         flash_times["flash_bwd_dq"], "B=6 H=20 L=4096 D=128 causal bf16"),
+         flash_times["flash_bwd_dq"], "B=6 H=20 L=4096 D=128 causal bf16",
+         flash16_errs["dq"]),
         ("flash_bwd_dkv", "paddle_tpu_torch/csrc/flash_attention.cu",
          "paddle_tpu/ops/flash_attention.py:288", flash_errs["dkv"],
-         flash_times["flash_bwd_dkv"], "B=6 H=20 L=4096 D=128 causal bf16"),
+         flash_times["flash_bwd_dkv"], "B=6 H=20 L=4096 D=128 causal bf16",
+         flash16_errs["dkv"]),
         ("q8_adam", "paddle_tpu_torch/csrc/q8_adam.cu",
          "paddle_tpu/ops/q8_adam_pallas.py:42", q8_err, q8_time,
-         "n=17694720 bf16 base and grad, SR"),
+         "n=17694720 bf16 base and grad, SR", None),
     ]
     emit({"kernels": [
         {"name": "flash_prefill", "route": "cuda",
@@ -7737,9 +8333,15 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": train_launches[name], "max_abs_err": err,
          "case": case, **{k: t[k] for k in keys},
-         **{k: t.get(k) for k in b_keys}}
-        for name, src, rep, err, t, case in train_rows
-    ] + [
+         **{k: t.get(k) for k in b_keys},
+         **({} if err16 is None else {"fp16_same_shape": {
+             "note": "the fp16 instantiation at the same shape (no fp16 "
+                     "path runs the flag-free training kernels: held and "
+                     "timed in flash_train_check)",
+             "max_abs_err": err16,
+             **{k: flash16_times[name].get(k) for k in keys + b_keys}}})}
+        for name, src, rep, err, t, case, err16 in train_rows
+    ] + fp16_rows + [
         {"name": f"{VARIANT_KERNEL[e][0]}[{v}]", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_attention.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py" + VARIANT_LINES[e][v],

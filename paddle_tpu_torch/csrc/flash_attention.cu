@@ -25,12 +25,14 @@
 //
 // What bounds it on an H100: at prefill lengths (L >= 512, D = 128) the work
 // is 4 * Lq * Lk * D operations per head against 2 * (Lq + Lk) * D elements
-// moved, so the tensor-core rate bounds it (989 TFLOP/s bf16). Two kernels,
-// K tiles past the causal diagonal never loaded:
+// moved, so the tensor-core rate bounds it (989 TFLOP/s bf16 or fp16). Two
+// kernels, K tiles past the causal diagonal never loaded:
 //
-// * bfloat16 (serving and training): one block per (128-row Q tile, batch
-//   * head), built for Hopper: a producer warp streams K/V tiles by TMA
-//   through a two-stage mbarrier ring while two consumer warpgroups run
+// * bfloat16 and float16 (serving and training; one template on the 16-bit
+//   element type, the wgmma, its A fragments and the tensor maps spelled
+//   for it): one block per (128-row Q tile, batch * head), built for
+//   Hopper: a producer warp streams K/V tiles by TMA through a two-stage
+//   mbarrier ring while two consumer warpgroups run
 //   wgmma (S = Q K^T from shared memory, O += P V with P re-packed in
 //   registers and V read through the transpose flag) and the online
 //   softmax in registers. The design notes sit above the kernel.
@@ -57,14 +59,15 @@
 //   H / Hkv query heads of its group (GQA: the group's sum is taken in
 //   registers, where the TPU package repeated K/V and let AD sum) and over
 //   the 64-query Q/dO tiles from the first one that can see the K tile.
-// In bf16 both are built for Hopper like the forward: 128-row blocks (query
-// rows for dq, keys for dk/dv) of two consumer warpgroups, 64 rows each,
-// fed by one producer warp through a TMA/mbarrier ring. The score and dP
+// In bf16 and fp16 both are built for Hopper like the forward: 128-row
+// blocks (query rows for dq, keys for dk/dv) of two consumer warpgroups, 64
+// rows each, fed by one producer warp through a TMA/mbarrier ring. The score and dP
 // products (S = Q K^T, dP = dO V^T for dq; S^T = K Q^T, dP^T = V dO^T for
 // dk/dv) are wgmma with both operands in shared memory; P and dS come out
 // of them in the accumulator layout of the warpgroup's own rows, so they
-// are re-packed in registers as the bf16 A operands of the second products
-// (dq += dS K; dv += P^T dO, dk += dS^T Q), whose B operand (K, dO, Q) is
+// are re-packed in registers as the 16-bit A operands of the second
+// products (dq += dS K; dv += P^T dO, dk += dS^T Q; fp16 packs dS by its
+// rows' powers of two, see ds_row_scale), whose B operand (K, dO, Q) is
 // read N-major through the transpose flag: nothing is transposed in shared
 // memory. The design notes sit above the two kernels. In fp32 they run on
 // the CUDA cores, 256 threads, each owning a 4x4 block of the score tile
@@ -75,9 +78,12 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -305,13 +311,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 forward: TMA-fed, warp-specialised wgmma
+// bfloat16 and float16 forward: TMA-fed, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two floats rounded to nearest into the 16-bit element type E of a wgmma
+// kernel (__nv_bfloat16 or __half), lo in the low half.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<E, __half>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
+
+template <typename E>
+constexpr bool kF16 = std::is_same_v<E, __half>;
 
 // One block per (128 query rows, batch * head): consumer warpgroups 0 and 1
 // own 64 rows each, and one warp of warpgroup 2 (the producer) starts every
@@ -330,7 +347,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 //   K-major (descriptor SBO 1024 bytes: the next 8 rows; a 16-column k-step
 //   advances the start address by 32 bytes inside the atom, the next 64
 //   columns are the next box). O += P V is m64nDk16 with P in registers (the
-//   score accumulators re-packed as bf16 A fragments: the accumulator
+//   score accumulators re-packed as 16-bit A fragments: the accumulator
 //   layout of columns 16kk..16kk+15 is the A layout of k-step kk) and V read
 //   N-major from the same boxes through the transpose flag (LBO: the next
 //   64 columns of D, one box on; SBO: the next 8 keys). V is never
@@ -447,76 +464,102 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
+// The wgmma instructions below, spelled for the element type: TY is "bf16"
+// or "f16" (both operands; the sums are fp32 either way).
+#define WGMMA_SS_N128(TY)                                                     \
+  asm volatile(                                                               \
+      "{\n"                                                                   \
+      ".reg .pred p;\n"                                                       \
+      "setp.ne.b32 p, %66, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"              \
+      "}\n"                                                                   \
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),        \
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)                                 \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+#define WGMMA_SS_N64(TY)                                                      \
+  asm volatile(                                                               \
+      "{\n"                                                                   \
+      ".reg .pred p;\n"                                                       \
+      "setp.ne.b32 p, %34, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n"                                 \
+      "}\n"                                                                   \
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)                      \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+#define WGMMA_RS_N128(TY)                                                     \
+  asm volatile(                                                               \
+      "{\n"                                                                   \
+      ".reg .pred p;\n"                                                       \
+      "setp.ne.b32 p, %69, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n" \
+      "}\n"                                                                   \
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),        \
+        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define WGMMA_RS_N64(TY)                                                      \
+  asm volatile(                                                               \
+      "{\n"                                                                   \
+      ".reg .pred p;\n"                                                       \
+      "setp.ne.b32 p, %37, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"                   \
+      "}\n"                                                                   \
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
 // d (64 x N) (+)= A (64 x 16) B (N x 16)^T, A and B K-major in shared
-// memory; N = 128 (64 accumulators a thread) or 64 (32).
+// memory, elements of type E; N = 128 (64 accumulators a thread) or 64 (32).
+template <typename E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
-        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kF16<E>) WGMMA_SS_N128("f16");
+  else WGMMA_SS_N128("bf16");
 }
 
+template <typename E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kF16<E>) WGMMA_SS_N64("f16");
+  else WGMMA_SS_N64("bf16");
 }
 
-// d (64 x N) += A (64 x 16, bf16 fragments in registers) B (16 x N, N-major
+// d (64 x N) += A (64 x 16, fragments of E in registers) B (16 x N, N-major
 // in shared memory, read through the transpose flag).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32),
-        ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kF16<E>) WGMMA_RS_N128("f16");
+  else WGMMA_RS_N128("bf16");
 }
 
+template <typename E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kF16<E>) WGMMA_RS_N64("f16");
+  else WGMMA_RS_N64("bf16");
 }
 
+#undef WGMMA_SS_N128
+#undef WGMMA_SS_N64
+#undef WGMMA_RS_N128
+#undef WGMMA_RS_N64
 #undef ACC8
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -529,54 +572,55 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // shared memory, each stored as D/64 boxes of 64 columns (128-byte swizzled
 // rows), ABOX and BBOX bytes apart. A 16-column k-step advances the start
 // address by 32 bytes inside the swizzle atom; SBO 1024 is the next 8 rows.
-template <int D, uint32_t ABOX, uint32_t BBOX, int N>
+template <typename E, int D, uint32_t ABOX, uint32_t BBOX, int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t box = kk / 4, off = (kk % 4) * 32;  // 64-column box, k-step
-    wgmma_ss(d, sw128_desc(a + box * ABOX + off, 16, 1024),
+    wgmma_ss<E>(d, sw128_desc(a + box * ABOX + off, 16, 1024),
              sw128_desc(b + box * BBOX + off, 16, 1024), kk > 0);
   }
 }
 
-// Issue d += A B (no commit): A (64 x 16 KS) as bf16 fragments in registers,
-// B (16 KS rows x N columns) N-major in shared memory, read through the
-// transpose flag: rows of 128 swizzled bytes, the N columns in boxes of 64
-// BBOX bytes apart (LBO), SBO 1024 the next 8 rows, a k-step 16 rows on.
-template <uint32_t BBOX, int KS, int N>
+// Issue d += A B (no commit): A (64 x 16 KS) as fragments of E in
+// registers, B (16 KS rows x N columns) N-major in shared memory, read
+// through the transpose flag: rows of 128 swizzled bytes, the N columns in
+// boxes of 64 BBOX bytes apart (LBO), SBO 1024 the next 8 rows, a k-step 16
+// rows on.
+template <typename E, uint32_t BBOX, int KS, int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N], const uint32_t (&a)[KS][4],
                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    wgmma_rs(d, a[kk], sw128_desc(b + kk * 16 * SW_ROW, BBOX, 1024));
+    wgmma_rs<E>(d, a[kk], sw128_desc(b + kk * 16 * SW_ROW, BBOX, 1024));
 }
 
-// Re-pack a 64 x 16 KS accumulator tile as bf16 A fragments: the
+// Re-pack a 64 x 16 KS accumulator tile as A fragments of E: the
 // accumulator layout of columns 16kk..16kk+15 is the A layout of k-step kk.
-template <int KS>
+template <typename E, int KS>
 __device__ __forceinline__ void pack_frags(uint32_t (&a)[KS][4],
                                            const float (&s)[KS * 8]) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack2<E>(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
 // Start S = Q K^T for one tile (one wgmma group); q_rows is the warpgroup's
 // 64 rows of the Q tile, kt the K tile.
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void qk_async(float (&s)[FW_BN / 2], uint32_t q_rows,
                                          uint32_t kt) {
-  mma_ss<D, FwSmem<D>::QBOX, FwSmem<D>::KVBOX>(s, q_rows, kt);
+  mma_ss<E, D, FwSmem<D>::QBOX, FwSmem<D>::KVBOX>(s, q_rows, kt);
   wgmma_commit();
 }
 
 // Start O += P V for one tile (one wgmma group).
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void pv_async(float (&o)[D / 2],
                                          const uint32_t (&p)[FW_BN / 16][4],
                                          uint32_t vt) {
-  mma_rs<FwSmem<D>::KVBOX>(o, p, vt);
+  mma_rs<E, FwSmem<D>::KVBOX>(o, p, vt);
   wgmma_commit();
 }
 
@@ -585,13 +629,13 @@ __device__ __forceinline__ void pv_async(float (&o)[D / 2],
 // smallest causal end of the warpgroup's rows, so a tile wholly before it is
 // not masked at all. Raises the running max m (raw scores) of the thread's
 // two rows, adds the tile's probabilities to the partial sums l, packs them
-// as bf16 A fragments into p and returns in alpha the factor by which O
+// as A fragments of E into p and returns in alpha the factor by which O
 // rescales.
 //
 // The variants (see SegDrop): with SEGS every tile is masked where a key's
 // id `ks[col]` differs from the row's (qs0, qs1); with DROP the
 // probabilities are dropped and scaled after the sums and before they are
-// packed, so P V takes the dropped bf16 values and l the undropped ones.
+// packed, so P V takes the dropped 16-bit values and l the undropped ones.
 // r0, r1 are the thread's two absolute query rows, kbase keep_base().
 struct RowVar {
   const int* ks;
@@ -600,7 +644,7 @@ struct RowVar {
   float keep_prob, inv_keep;
 };
 
-template <bool SEGS, bool DROP>
+template <typename E, bool SEGS, bool DROP>
 __device__ __forceinline__ void softmax_tile(float (&s)[FW_BN / 2],
                                              uint32_t (&p)[FW_BN / 16][4],
                                              float (&m)[2], float (&l)[2],
@@ -674,7 +718,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[FW_BN / 2],
                                ? s[j * 4 + 2 + e] * rv.inv_keep : 0.f;
       }
   }
-  pack_frags(p, s);
+  pack_frags<E>(p, s);
 }
 
 template <int N>
@@ -688,12 +732,12 @@ __device__ __forceinline__ void rescale_rows(float (&o)[N], const float (&alpha)
   }
 }
 
-template <int D, bool LSE, bool SEGS, bool DROP>
+template <typename E, int D, bool LSE, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       E* __restrict__ o, float* __restrict__ lse,
                        int Lq, int Lk, int H, int Hkv, int causal,
                        float sm_scale, SegDrop sd) {
   if constexpr (DROP) sd.seed = *sd.seed_ptr;
@@ -792,13 +836,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(bar_kfull(0), 0);
       fence_regs(sacc);
       wgmma_fence();
-      qk_async<D>(sacc, q_rows, k_tile(0));
+      qk_async<E, D>(sacc, q_rows, k_tile(0));
       wgmma_wait<0>();
       fence_regs(sacc);
       mbar_arrive(bar_kempty(0));
       float alpha[2];  // O is still 0: nothing to rescale
-      softmax_tile<SEGS, DROP>(sacc, pa, m_i, l_i, alpha, (n_tiles - 1) * FW_BN, Lk,
-                               wg_end, end0, end1, t, scale_log2, rv);
+      softmax_tile<E, SEGS, DROP>(sacc, pa, m_i, l_i, alpha, (n_tiles - 1) * FW_BN, Lk,
+                                  wg_end, end0, end1, t, scale_log2, rv);
     }
     for (int it = 1; it < n_tiles; ++it) {
       const int s = it % FW_STAGES, sp = (it - 1) % FW_STAGES;
@@ -808,15 +852,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(oacc);
       fence_regs(pa);
       wgmma_fence();
-      qk_async<D>(sacc, q_rows, k_tile(s));
-      pv_async<D>(oacc, pa, k_tile(sp) + S::KV);
+      qk_async<E, D>(sacc, q_rows, k_tile(s));
+      pv_async<E, D>(oacc, pa, k_tile(sp) + S::KV);
       wgmma_wait<1>();  // S of this tile is in
       fence_regs(sacc);
       mbar_arrive(bar_kempty(s));
       float alpha[2];
       uint32_t pa_next[FW_BN / 16][4];
-      softmax_tile<SEGS, DROP>(sacc, pa_next, m_i, l_i, alpha, (n_tiles - 1 - it) * FW_BN,
-                               Lk, wg_end, end0, end1, t, scale_log2, rv);
+      softmax_tile<E, SEGS, DROP>(sacc, pa_next, m_i, l_i, alpha,
+                                  (n_tiles - 1 - it) * FW_BN, Lk, wg_end, end0, end1, t,
+                                  scale_log2, rv);
       wgmma_wait<0>();  // P V of the previous tile is in
       fence_regs(oacc);
       fence_regs(pa);   // P stays in its registers until then
@@ -833,7 +878,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(oacc);
       fence_regs(pa);
       wgmma_fence();
-      pv_async<D>(oacc, pa, k_tile(sp) + S::KV);
+      pv_async<E, D>(oacc, pa, k_tile(sp) + S::KV);
       wgmma_wait<0>();
       fence_regs(oacc);
       mbar_arrive(bar_vempty(sp));
@@ -848,16 +893,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float inv0 = 1.f / fmaxf(l_i[0], 1e-30f);
     const float inv1 = 1.f / fmaxf(l_i[1], 1e-30f);
     const long q_stride = (long)H * D;
-    __nv_bfloat16* ob = o + ((long)b * Lq * H + h) * D;
+    E* ob = o + ((long)b * Lq * H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + t * 2;
       if (r0 < Lq)
         *reinterpret_cast<uint32_t*>(ob + (long)r0 * q_stride + col) =
-            pack_bf16(oacc[j * 4] * inv0, oacc[j * 4 + 1] * inv0);
+            pack2<E>(oacc[j * 4] * inv0, oacc[j * 4 + 1] * inv0);
       if (r1 < Lq)
         *reinterpret_cast<uint32_t*>(ob + (long)r1 * q_stride + col) =
-            pack_bf16(oacc[j * 4 + 2] * inv1, oacc[j * 4 + 3] * inv1);
+            pack2<E>(oacc[j * 4 + 2] * inv1, oacc[j * 4 + 3] * inv1);
     }
     if (LSE && t == 0) {  // the 4 lanes of a row hold the same m_i, l_i
       if (r0 < Lq)
@@ -882,20 +927,23 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// Tensor map of a contiguous bf16 (B, L, heads, D) tensor as 4-D (D, heads,
-// L, B), boxes of 64 columns x 1 head x `rows` rows, 128-byte swizzle; rows
-// past L read as zeros.
+// Tensor map of a contiguous (B, L, heads, D) tensor of the 16-bit element
+// type E (bf16 or fp16) as 4-D (D, heads, L, B), boxes of 64 columns x 1
+// head x `rows` rows, 128-byte swizzle; rows past L read as zeros.
+template <typename E>
 cudaError_t encode_tiles(CUtensorMap* map, const void* ptr, int D, int heads,
                          int L, int B, int rows) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L,
                               (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)D * sizeof(__nv_bfloat16);
+  const cuuint64_t row = (cuuint64_t)D * sizeof(E);
   const cuuint64_t strides[3] = {row, row * heads, row * heads * L};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = encode(map,
+                            kF16<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                             const_cast<void*>(ptr), dims, strides, box,
                             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B,
@@ -904,26 +952,25 @@ cudaError_t encode_tiles(CUtensorMap* map, const void* ptr, int D, int heads,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, bool LSE, bool SEGS, bool DROP>
+template <typename E, int D, bool LSE, bool SEGS, bool DROP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int Lq, int Lk, int H, int Hkv,
                          int causal, float sm_scale, SegDrop sd,
                          cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  if ((err = encode_tiles(&tq, q, D, H, Lq, B, FW_BM)) != cudaSuccess ||
-      (err = encode_tiles(&tk, k, D, Hkv, Lk, B, FW_BN)) != cudaSuccess ||
-      (err = encode_tiles(&tv, v, D, Hkv, Lk, B, FW_BN)) != cudaSuccess)
+  if ((err = encode_tiles<E>(&tq, q, D, H, Lq, B, FW_BM)) != cudaSuccess ||
+      (err = encode_tiles<E>(&tk, k, D, Hkv, Lk, B, FW_BN)) != cudaSuccess ||
+      (err = encode_tiles<E>(&tv, v, D, Hkv, Lk, B, FW_BN)) != cudaSuccess)
     return err;
-  auto kern = flash_fwd_wgmma_kernel<D, LSE, SEGS, DROP>;
+  auto kern = flash_fwd_wgmma_kernel<E, D, LSE, SEGS, DROP>;
   const size_t smem = FwSmem<D>::bytes;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + FW_BM - 1) / FW_BM, B * H);
-  kern<<<grid, FW_THREADS, smem, stream>>>(tq, tk, tv,
-                                           static_cast<__nv_bfloat16*>(o), lse,
-                                           Lq, Lk, H, Hkv, causal, sm_scale, sd);
+  kern<<<grid, FW_THREADS, smem, stream>>>(tq, tk, tv, static_cast<E*>(o), lse, Lq, Lk,
+                                           H, Hkv, causal, sm_scale, sd);
   return cudaGetLastError();
 }
 
@@ -958,11 +1005,17 @@ cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o,
     return launch<float, 64, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal,
                                               sm_scale, sd, s);
   if (dtype == 1 && D == 128)
-    return launch_wgmma<128, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal,
-                                              sm_scale, sd, s);
+    return launch_wgmma<__nv_bfloat16, 128, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H,
+                                                             Hkv, causal, sm_scale, sd, s);
   if (dtype == 1 && D == 64)
-    return launch_wgmma<64, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, causal,
-                                             sm_scale, sd, s);
+    return launch_wgmma<__nv_bfloat16, 64, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H,
+                                                            Hkv, causal, sm_scale, sd, s);
+  if (dtype == 2 && D == 128)
+    return launch_wgmma<__half, 128, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv,
+                                                      causal, sm_scale, sd, s);
+  if (dtype == 2 && D == 64)
+    return launch_wgmma<__half, 64, LSE, SEGS, DROP>(q, k, v, o, lse, B, Lq, Lk, H, Hkv,
+                                                     causal, sm_scale, sd, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1300,7 +1353,7 @@ constexpr size_t bwd_dkv_smem() {
 }
 
 // ---------------------------------------------------------------------------
-// backward, bfloat16: TMA-fed, warp-specialised wgmma
+// backward, bfloat16 and float16: TMA-fed, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int BW_BM = 128;    // rows a block owns: queries (dq), keys (dk/dv)
@@ -1338,21 +1391,79 @@ struct DkvSmem {
   static constexpr size_t bytes = BARS + 8 * (1 + 2 * BW_STAGES) + 1024;  // + alignment
 };
 
+// fp16 only: dS = P (dP - delta) is formed in fp32 and re-packed as the
+// 16-bit A operand of dq += dS K and dk += dS^T Q. bf16 keeps fp32's range
+// there; fp16 ends at 65504 and loses bits below 2^-14, so a loss-scaled dO
+// (GradScaler multiplies it by 2^15) could overflow dS where the fp32
+// reference (paddle_tpu/ops/flash_attention.py:269-276) does not, and a
+// small one could flush. Each accumulator row (a query row of dq, a key row
+// of dk) therefore carries its own power of two: its dS is packed times
+// 2^-e, with e the smallest that keeps the row's largest |dS| so far below
+// 2^15 (clamped to [-DS_EXP, DS_EXP]); when a tile raises e, the fp32
+// accumulator row is multiplied by 2^(old - new) before that tile's product
+// adds in, and the store multiplies by 2^e. Every one of these products is
+// exact in binary, so the only rounding left is fp16's 11 bits relative to
+// the row's largest dS: no overflow where the result fits, no flush of a
+// row of small gradients. e starts at -DS_EXP.
+constexpr int DS_EXP = 60;
+
+// 2^k as a float, k in [-126, 127].
+__device__ __forceinline__ float exp2i(int k) { return __int_as_float((127 + k) << 23); }
+
+// Scale a 64 x 64 tile in the accumulator layout (the thread's two rows:
+// elements 4j, 4j+1 and 4j+2, 4j+3) by its rows' 2^-e, raising e[r] where
+// the tile needs it; acc_mul[r] = 2^(old e - new e), the factor the row's
+// accumulator takes before the tile's product.
+__device__ __forceinline__ void ds_row_scale(float (&s)[BW_BN / 2], int (&e)[2],
+                                             float (&acc_mul)[2]) {
+  float mx0 = 0.f, mx1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < BW_BN / 2; i += 4) {
+    mx0 = fmaxf(mx0, fmaxf(fabsf(s[i]), fabsf(s[i + 1])));
+    mx1 = fmaxf(mx1, fmaxf(fabsf(s[i + 2]), fabsf(s[i + 3])));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mx[2] = {mx0, mx1};
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // mx < 2^x; an inf (exponent field 255) takes the clamp
+    const int x = (int)((__float_as_uint(mx[r]) >> 23) & 0xffu) - 126;
+    const int need = max(e[r], min(max(x - 15, -DS_EXP), DS_EXP));
+    acc_mul[r] = exp2i(e[r] - need);
+    e[r] = need;
+    f[r] = exp2i(-need);
+  }
+#pragma unroll
+  for (int i = 0; i < BW_BN / 2; i += 4) {
+    s[i] *= f[0];
+    s[i + 1] *= f[0];
+    s[i + 2] *= f[1];
+    s[i + 3] *= f[1];
+  }
+}
+
 // dS = P (dP - delta) of one 64 x 64 tile of a warpgroup's rows (dq), from
 // its scores s and dP in the accumulator layout, packed as the A fragments
 // of dq += dS K. P = exp2(s scale log2e - lse log2e); a key is masked for a
 // row at or past min(Lk, the row's causal end), and a tile wholly before
 // `wg_end` (the smallest causal end of the warpgroup's rows) is not masked.
 // The variants as in softmax_tile: with SEGS every tile is masked by the
-// ids; with DROP dS = P (dP' - delta), dP' the dropped, scaled dP.
-template <bool SEGS, bool DROP>
+// ids; with DROP dS = P (dP' - delta), dP' the dropped, scaled dP. fp16
+// packs dS by its rows' powers of two (ds_row_scale; dse, acc_mul).
+template <typename E, bool SEGS, bool DROP>
 __device__ __forceinline__ void dq_tile_ds(float (&s)[BW_BN / 2],
                                            const float (&dp)[BW_BN / 2],
                                            uint32_t (&ds)[BW_BN / 16][4], int n0,
                                            int Lk, int wg_end, int end0, int end1,
                                            int t, float scale_log2,
                                            const float (&lse2)[2],
-                                           const float (&dl)[2], const RowVar& rv) {
+                                           const float (&dl)[2], const RowVar& rv,
+                                           int (&dse)[2], float (&acc_mul)[2]) {
   if (SEGS) {  // every tile: a key of another segment is masked
 #pragma unroll
     for (int j = 0; j < BW_BN / 8; ++j)
@@ -1389,15 +1500,16 @@ __device__ __forceinline__ void dq_tile_ds(float (&s)[BW_BN / 2],
       s[i + e] = fast_exp2(fmaf(s[i + e], scale_log2, -lse2[0])) * (dp0 - dl[0]);
       s[i + 2 + e] = fast_exp2(fmaf(s[i + 2 + e], scale_log2, -lse2[1])) * (dp1 - dl[1]);
     }
-  pack_frags(ds, s);
+  if constexpr (kF16<E>) ds_row_scale(s, dse, acc_mul);
+  pack_frags<E>(ds, s);
 }
 
 // B3: dq, the port of _flash_bwd_dq_kernel (paddle_tpu/ops/flash_attention.py:228).
 // What bounds it on an H100: three products (S, dP, dq) of 2 * 64 * 64 * D
 // operations for each 64 x 64 (query, key) tile against Q, dO and dq moved
 // once and K, V once per Q tile (from L2): at L = 4096, D = 128 the
-// tensor-core rate (989 TFLOP/s bf16) bounds it. The design keeps the tensor
-// cores fed, as the forward does:
+// tensor-core rate (989 TFLOP/s bf16 or fp16) bounds it. The design keeps the
+// tensor cores fed, as the forward does:
 // * One block per (128 query rows, batch * head): consumer warpgroups 0 and
 //   1 own 64 rows each; one warp of warpgroup 2 (the producer) loads the Q
 //   and dO tiles once and streams 64-key K and V tiles through a ring of
@@ -1407,7 +1519,8 @@ __device__ __forceinline__ void dq_tile_ds(float (&s)[BW_BN / 2],
 // * S = Q K^T and dP = dO V^T are wgmma m64n64k16 with both operands in
 //   shared memory, K-major, read as they land. P = exp2(S scale log2e - lse
 //   log2e) with lse log2e formed once per row; dS = P (dP - delta) is
-//   re-packed in registers as bf16 A fragments, and dq += dS K is wgmma
+//   re-packed in registers as 16-bit A fragments (fp16: by its rows' powers
+//   of two, ds_row_scale), and dq += dS K is wgmma
 //   m64nDk16 with K read N-major through the transpose flag (as the forward
 //   reads V): K is never transposed.
 // * Within a warpgroup, tile i's S and dP are issued together with tile
@@ -1420,7 +1533,7 @@ __device__ __forceinline__ void dq_tile_ds(float (&s)[BW_BN / 2],
 // * setmaxnreg gives the consumers 240 registers and the producer 24: at
 //   D = 128 S and dP take 32 fp32 each, dq 64, the dS fragments 16 for each
 //   of the two tiles in flight.
-template <int D, bool SEGS, bool DROP>
+template <typename E, int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -1428,7 +1541,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int H,
+                          E* __restrict__ dq, int Lq, int Lk, int H,
                           int Hkv, int causal, float sm_scale, SegDrop sd) {
   if constexpr (DROP) sd.seed = *sd.seed_ptr;
   using S = DqSmem<D>;
@@ -1515,6 +1628,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < BW_BN / 2; ++i) sacc[i] = pacc[i] = 0.f;
     uint32_t ds[BW_BN / 16][4];
+    int dse[2] = {-DS_EXP, -DS_EXP};  // fp16: the rows' dS exponents
+    float acc_mul[2];
 
     if (n_tiles > 0) {
       mbar_wait(bar_q, 0);
@@ -1522,14 +1637,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sacc);
       fence_regs(pacc);
       wgmma_fence();
-      mma_ss<D, S::QBOX, S::KVBOX>(sacc, q_rows, k_tile(0));
-      mma_ss<D, S::QBOX, S::KVBOX>(pacc, do_rows, k_tile(0) + S::KV);
+      mma_ss<E, D, S::QBOX, S::KVBOX>(sacc, q_rows, k_tile(0));
+      mma_ss<E, D, S::QBOX, S::KVBOX>(pacc, do_rows, k_tile(0) + S::KV);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sacc);
       fence_regs(pacc);
-      dq_tile_ds<SEGS, DROP>(sacc, pacc, ds, 0, Lk, wg_end, end0, end1, t, scale_log2,
-                             lse2, dl, rv);
+      // dq is still 0: nothing to rescale
+      dq_tile_ds<E, SEGS, DROP>(sacc, pacc, ds, 0, Lk, wg_end, end0, end1, t, scale_log2,
+                                lse2, dl, rv, dse, acc_mul);
     }
     for (int it = 1; it < n_tiles; ++it) {
       const int s = it % BW_STAGES, sp = (it - 1) % BW_STAGES;
@@ -1539,20 +1655,21 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(dqacc);
       fence_regs(ds);
       wgmma_fence();
-      mma_ss<D, S::QBOX, S::KVBOX>(sacc, q_rows, k_tile(s));
-      mma_ss<D, S::QBOX, S::KVBOX>(pacc, do_rows, k_tile(s) + S::KV);
+      mma_ss<E, D, S::QBOX, S::KVBOX>(sacc, q_rows, k_tile(s));
+      mma_ss<E, D, S::QBOX, S::KVBOX>(pacc, do_rows, k_tile(s) + S::KV);
       wgmma_commit();
-      mma_rs<S::KVBOX>(dqacc, ds, k_tile(sp));
+      mma_rs<E, S::KVBOX>(dqacc, ds, k_tile(sp));
       wgmma_commit();
       wgmma_wait<1>();  // S and dP of this tile are in
       fence_regs(sacc);
       fence_regs(pacc);
       uint32_t ds_next[BW_BN / 16][4];
-      dq_tile_ds<SEGS, DROP>(sacc, pacc, ds_next, it * BW_BN, Lk, wg_end, end0, end1,
-                             t, scale_log2, lse2, dl, rv);
+      dq_tile_ds<E, SEGS, DROP>(sacc, pacc, ds_next, it * BW_BN, Lk, wg_end, end0, end1,
+                                t, scale_log2, lse2, dl, rv, dse, acc_mul);
       wgmma_wait<0>();  // dq of the previous tile is in
       fence_regs(dqacc);
       fence_regs(ds);   // dS stays in its registers until then
+      if constexpr (kF16<E>) rescale_rows(dqacc, acc_mul);  // to this tile's powers
       mbar_arrive(bar_empty(sp));
 #pragma unroll
       for (int kk = 0; kk < BW_BN / 16; ++kk)
@@ -1564,7 +1681,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(dqacc);
       fence_regs(ds);
       wgmma_fence();
-      mma_rs<S::KVBOX>(dqacc, ds, k_tile(sp));
+      mma_rs<E, S::KVBOX>(dqacc, ds, k_tile(sp));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dqacc);
@@ -1573,16 +1690,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 
     const long q_stride = (long)H * D;
-    __nv_bfloat16* dqb = dq + ((long)b * Lq * H + h) * D;
+    E* dqb = dq + ((long)b * Lq * H + h) * D;
+    // sm_scale, and fp16's dS powers of two (exact products)
+    const float sc0 = kF16<E> ? sm_scale * exp2i(dse[0]) : sm_scale;
+    const float sc1 = kF16<E> ? sm_scale * exp2i(dse[1]) : sm_scale;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + t * 2;
       if (r0 < Lq)
         *reinterpret_cast<uint32_t*>(dqb + (long)r0 * q_stride + col) =
-            pack_bf16(dqacc[j * 4] * sm_scale, dqacc[j * 4 + 1] * sm_scale);
+            pack2<E>(dqacc[j * 4] * sc0, dqacc[j * 4 + 1] * sc0);
       if (r1 < Lq)
         *reinterpret_cast<uint32_t*>(dqb + (long)r1 * q_stride + col) =
-            pack_bf16(dqacc[j * 4 + 2] * sm_scale, dqacc[j * 4 + 3] * sm_scale);
+            pack2<E>(dqacc[j * 4 + 2] * sc1, dqacc[j * 4 + 3] * sc1);
     }
   }
 }
@@ -1640,7 +1760,7 @@ __device__ __forceinline__ uint32_t dkv_keep_bits(uint32_t kbase, int q0, int k0
 }
 
 // pack_frags of the kept elements of s, scaled by inv; the dropped ones 0.
-template <int KS>
+template <typename E, int KS>
 __device__ __forceinline__ void pack_frags_kept(uint32_t (&a)[KS][4],
                                                 const float (&s)[KS * 8],
                                                 uint32_t keep, float inv) {
@@ -1649,7 +1769,7 @@ __device__ __forceinline__ void pack_frags_kept(uint32_t (&a)[KS][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = 8 * kk + 2 * e;
-      a[kk][e] = pack_bf16((keep >> i) & 1u ? s[i] * inv : 0.f,
+      a[kk][e] = pack2<E>((keep >> i) & 1u ? s[i] * inv : 0.f,
                            (keep >> (i + 1)) & 1u ? s[i + 1] * inv : 0.f);
     }
 }
@@ -1697,7 +1817,7 @@ __device__ __forceinline__ void dkv_tile_ds(float (&dp)[BW_BN / 2],
 //   sees its keys. sm_scale multiplies dk once, at the store. Key blocks
 //   run in order of k0, so causal blocks with the most Q tiles start first.
 // * setmaxnreg gives the consumers 240 registers and the producer 24.
-template <int D, bool SEGS, bool DROP>
+template <typename E, int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -1705,8 +1825,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_do,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int H,
+                           E* __restrict__ dk,
+                           E* __restrict__ dv, int Lq, int Lk, int H,
                            int Hkv, int causal, float sm_scale, SegDrop sd) {
   if constexpr (DROP) sd.seed = *sd.seed_ptr;
   using S = DkvSmem<D>;
@@ -1794,6 +1914,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float sacc[BW_BN / 2], pacc[BW_BN / 2];
 #pragma unroll
     for (int i = 0; i < BW_BN / 2; ++i) sacc[i] = pacc[i] = 0.f;
+    int dse[2] = {-DS_EXP, -DS_EXP};  // fp16: the key rows' dS exponents
 
     mbar_wait(bar_kv, 0);
     for (int it = 0; it < n_iters; ++it) {
@@ -1810,8 +1931,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sacc);
       fence_regs(pacc);
       wgmma_fence();
-      mma_ss<D, S::KBOX, S::QBOX>(sacc, k_rows, qt);
-      mma_ss<D, S::KBOX, S::QBOX>(pacc, v_rows, dot);
+      mma_ss<E, D, S::KBOX, S::QBOX>(sacc, k_rows, qt);
+      mma_ss<E, D, S::KBOX, S::QBOX>(pacc, v_rows, dot);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sacc);
@@ -1824,24 +1945,29 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         int bh = b * H + kvh * rep + it / nq;  // keyed on the tile's query head
         const uint32_t keep = dkv_keep_bits(keep_base(sd.seed, bh), q0, kr0, kr1, t,
                                             sd.keep_prob);
-        pack_frags_kept(pa, sacc, keep, sd.inv_keep);  // dv takes the dropped P
+        pack_frags_kept<E>(pa, sacc, keep, sd.inv_keep);  // dv takes the dropped P
 #pragma unroll
         for (int i = 0; i < BW_BN / 2; ++i)  // dS the dropped dP
           pacc[i] = (keep >> i) & 1u ? pacc[i] * sd.inv_keep : 0.f;
       } else {
-        pack_frags(pa, sacc);
+        pack_frags<E>(pa, sacc);
       }
       fence_regs(dvacc);
       fence_regs(pa);
       wgmma_fence();
-      mma_rs<S::QBOX>(dvacc, pa, dot);
+      mma_rs<E, S::QBOX>(dvacc, pa, dot);
       wgmma_commit();
       dkv_tile_ds(pacc, sacc, r + BW_BN, t);  // under dv's product
-      pack_frags(da, pacc);
+      if constexpr (kF16<E>) {  // dk is settled: its last product has landed
+        float acc_mul[2];
+        ds_row_scale(pacc, dse, acc_mul);
+        rescale_rows(dkacc, acc_mul);
+      }
+      pack_frags<E>(da, pacc);
       fence_regs(dkacc);
       fence_regs(da);
       wgmma_fence();
-      mma_rs<S::QBOX>(dkacc, da, qt);
+      mma_rs<E, S::QBOX>(dkacc, da, qt);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dvacc);
@@ -1852,22 +1978,25 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 
     const long kv_stride = (long)Hkv * D;
-    __nv_bfloat16* dkb = dk + ((long)b * Lk * Hkv + kvh) * D;
-    __nv_bfloat16* dvb = dv + ((long)b * Lk * Hkv + kvh) * D;
+    E* dkb = dk + ((long)b * Lk * Hkv + kvh) * D;
+    E* dvb = dv + ((long)b * Lk * Hkv + kvh) * D;
+    // sm_scale, and fp16's dS powers of two (exact products)
+    const float sc0 = kF16<E> ? sm_scale * exp2i(dse[0]) : sm_scale;
+    const float sc1 = kF16<E> ? sm_scale * exp2i(dse[1]) : sm_scale;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + t * 2;
       if (kr0 < Lk) {
         *reinterpret_cast<uint32_t*>(dkb + (long)kr0 * kv_stride + col) =
-            pack_bf16(dkacc[j * 4] * sm_scale, dkacc[j * 4 + 1] * sm_scale);
+            pack2<E>(dkacc[j * 4] * sc0, dkacc[j * 4 + 1] * sc0);
         *reinterpret_cast<uint32_t*>(dvb + (long)kr0 * kv_stride + col) =
-            pack_bf16(dvacc[j * 4], dvacc[j * 4 + 1]);
+            pack2<E>(dvacc[j * 4], dvacc[j * 4 + 1]);
       }
       if (kr1 < Lk) {
         *reinterpret_cast<uint32_t*>(dkb + (long)kr1 * kv_stride + col) =
-            pack_bf16(dkacc[j * 4 + 2] * sm_scale, dkacc[j * 4 + 3] * sm_scale);
+            pack2<E>(dkacc[j * 4 + 2] * sc1, dkacc[j * 4 + 3] * sc1);
         *reinterpret_cast<uint32_t*>(dvb + (long)kr1 * kv_stride + col) =
-            pack_bf16(dvacc[j * 4 + 2], dvacc[j * 4 + 3]);
+            pack2<E>(dvacc[j * 4 + 2], dvacc[j * 4 + 3]);
       }
     }
   }
@@ -1877,6 +2006,41 @@ template <typename K>
 cudaError_t set_smem(K kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
+}
+
+// The 16-bit (E: bf16 or fp16) backward: tensor maps of q and dO with
+// tiles of the rows a dq block owns or a dk/dv block streams, and of k and
+// v the other way round. DKV as in launch_bwd.
+template <typename E, bool DKV, int D, bool SEGS, bool DROP>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* ls, const float* dl,
+                             void* out0, void* out1, int B, int Lq, int Lk, int H,
+                             int Hkv, int causal, float sm_scale, SegDrop sd,
+                             cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  const int q_rows = DKV ? BW_BN : BW_BM, kv_rows = DKV ? BW_BM : BW_BN;
+  if ((err = encode_tiles<E>(&tq, q, D, H, Lq, B, q_rows)) != cudaSuccess ||
+      (err = encode_tiles<E>(&tdo, dout, D, H, Lq, B, q_rows)) != cudaSuccess ||
+      (err = encode_tiles<E>(&tk, k, D, Hkv, Lk, B, kv_rows)) != cudaSuccess ||
+      (err = encode_tiles<E>(&tv, v, D, Hkv, Lk, B, kv_rows)) != cudaSuccess)
+    return err;
+  if (!DKV) {
+    auto kern = flash_bwd_dq_wgmma_kernel<E, D, SEGS, DROP>;
+    const size_t smem = DqSmem<D>::bytes;
+    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<dim3((Lq + BW_BM - 1) / BW_BM, B * H), FW_THREADS, smem, st>>>(
+        tq, tk, tv, tdo, ls, dl, static_cast<E*>(out0), Lq, Lk, H, Hkv, causal,
+        sm_scale, sd);
+  } else {
+    auto kern = flash_bwd_dkv_wgmma_kernel<E, D, SEGS, DROP>;
+    const size_t smem = DkvSmem<D>::bytes;
+    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<dim3((Lk + BW_BM - 1) / BW_BM, B * Hkv), FW_THREADS, smem, st>>>(
+        tq, tk, tv, tdo, ls, dl, static_cast<E*>(out0), static_cast<E*>(out1),
+        Lq, Lk, H, Hkv, causal, sm_scale, sd);
+  }
+  return cudaGetLastError();
 }
 
 // DKV = false: dq into out0. DKV = true: dk into out0, dv into out1.
@@ -1907,32 +2071,12 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     }
     return cudaGetLastError();
   }
-  // bf16: tensor maps of q and dO with tiles of the rows a dq block owns or
-  // a dk/dv block streams, and of k and v the other way round
-  CUtensorMap tq, tk, tv, tdo;
-  const int q_rows = DKV ? BW_BN : BW_BM, kv_rows = DKV ? BW_BM : BW_BN;
-  if ((err = encode_tiles(&tq, q, D, H, Lq, B, q_rows)) != cudaSuccess ||
-      (err = encode_tiles(&tdo, dout, D, H, Lq, B, q_rows)) != cudaSuccess ||
-      (err = encode_tiles(&tk, k, D, Hkv, Lk, B, kv_rows)) != cudaSuccess ||
-      (err = encode_tiles(&tv, v, D, Hkv, Lk, B, kv_rows)) != cudaSuccess)
-    return err;
-  using bf = __nv_bfloat16;
-  if (!DKV) {
-    auto kern = flash_bwd_dq_wgmma_kernel<D, SEGS, DROP>;
-    const size_t smem = DqSmem<D>::bytes;
-    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
-    kern<<<dim3((Lq + BW_BM - 1) / BW_BM, B * H), FW_THREADS, smem, st>>>(
-        tq, tk, tv, tdo, ls, dl, static_cast<bf*>(out0), Lq, Lk, H, Hkv, causal,
-        sm_scale, sd);
-  } else {
-    auto kern = flash_bwd_dkv_wgmma_kernel<D, SEGS, DROP>;
-    const size_t smem = DkvSmem<D>::bytes;
-    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
-    kern<<<dim3((Lk + BW_BM - 1) / BW_BM, B * Hkv), FW_THREADS, smem, st>>>(
-        tq, tk, tv, tdo, ls, dl, static_cast<bf*>(out0), static_cast<bf*>(out1),
-        Lq, Lk, H, Hkv, causal, sm_scale, sd);
-  }
-  return cudaGetLastError();
+  return dtype == 1 ? launch_bwd_wgmma<__nv_bfloat16, DKV, D, SEGS, DROP>(
+                          q, k, v, dout, ls, dl, out0, out1, B, Lq, Lk, H, Hkv, causal,
+                          sm_scale, sd, st)
+                    : launch_bwd_wgmma<__half, DKV, D, SEGS, DROP>(
+                          q, k, v, dout, ls, dl, out0, out1, B, Lq, Lk, H, Hkv, causal,
+                          sm_scale, sd, st);
 }
 
 template <bool DKV, bool SEGS = false, bool DROP = false>
@@ -1941,8 +2085,8 @@ cudaError_t bwd_dispatch(const void* q, const void* k, const void* v,
                          void* out0, void* out1, int B, int Lq, int Lk, int H,
                          int Hkv, int D, int dtype, int causal, float sm_scale,
                          cudaStream_t s, SegDrop sd = {}) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      (dtype != 0 && dtype != 1))
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || Hkv <= 0 || H % Hkv != 0 || dtype < 0 ||
+      dtype > 2)
     return cudaErrorInvalidValue;
   if (D == 128)
     return launch_bwd<DKV, 128, SEGS, DROP>(q, k, v, dout, lse, delta, out0, out1, B, Lq,
@@ -1974,9 +2118,9 @@ cudaError_t bwd_dispatch_var(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry point returns a cudaError_t
-// (0 on success). q/dout/dq (B, Lq, H, D); k/v/dk/dv (B, Lk, Hkv, D);
-// lse/delta (B, H, Lq) fp32.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
+// cudaError_t (0 on success). q/dout/dq (B, Lq, H, D); k/v/dk/dv (B, Lk,
+// Hkv, D); lse/delta (B, H, Lq) fp32.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int B, int Lq, int Lk, int H, int Hkv, int D,
                          int dtype, int causal, float sm_scale, void* stream) {

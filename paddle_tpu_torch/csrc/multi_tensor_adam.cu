@@ -1,16 +1,18 @@
 // The multi-tensor AdamW update for Hopper (sm_90a): one launch updates
 // every parameter of a model, laid out as one flat buffer each for the fp32
-// master, the fp32 moments m and v, the gradient and the (bf16 or fp32)
-// parameter. The port's own kernel: the JAX package gets this fusion from
-// XLA (paddle_tpu/optimizer/__init__.py, Adam._fused_step), so it replaces
-// no Pallas function.
+// master, the fp32 moments m and v, the gradient and the (fp32, bf16 or
+// fp16) parameter. The port's own kernel: the JAX package gets this fusion
+// from XLA (paddle_tpu/optimizer/__init__.py, Adam._fused_step), so it
+// replaces no Pallas function.
 //
 // What it computes, in place, for each element of the flat buffers:
 //   g = grad (fp32), clipped to [lo, hi] (ClipGradByValue) or times the
 //       global-norm scale (ClipGradByGlobalNorm), when asked
 //   m' = b1 m + (1 - b1) g,  v' = b2 v + ((1 - b2) g) g
 //   master' = master (1 - lr wd) - (lr (m' / c1)) / (sqrt(v' / c2) + eps)
-//   param' = master' rounded to the parameter's dtype (bf16: to nearest)
+//   param' = master' rounded to the parameter's dtype (bf16, fp16: to
+//            nearest; Adam._fused_step rounds stochastically only a bf16
+//            flat buffer without masters, which this layout never is)
 // in Adam._fused_step's order. lr, decay = 1 - lr wd, c1 = 1 - b1^t,
 // c2 = 1 - b2^t, the NaN gate and the global-norm scale are read from
 // device memory, a block of fp32 the optimizer fills on the device each
@@ -31,11 +33,13 @@
 // master, m, v and the parameter agree bit for bit.
 //
 // Design: a thread takes 8 consecutive elements (one 16-byte vector of
-// bf16, two of fp32 per buffer), 256 threads a block, one pass; every load
-// is issued before the arithmetic. Bytes an element with a bf16 gradient
-// and parameter: 14 read (grad 2, master, m, v 4 each), 14 written.
+// bf16 or fp16, two of fp32 per buffer), 256 threads a block, one pass;
+// every load is issued before the arithmetic. Bytes an element with a
+// 16-bit gradient and parameter: 14 read (grad 2, master, m, v 4 each), 14
+// written.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,6 +88,18 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p,
   }
 }
 
+__device__ __forceinline__ void load8(const __half* __restrict__ p, long i,
+                                      float (&x)[PER]) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p + i);
+  const __half2* h = reinterpret_cast<const __half2*>(&r);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __half22float2(h[j]);
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store8(float* __restrict__ p, long i,
                                        const float (&x)[PER]) {
   *reinterpret_cast<float4*>(p + i) = make_float4(x[0], x[1], x[2], x[3]);
@@ -101,14 +117,27 @@ __device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ p, long i,
   *reinterpret_cast<uint4*>(p + i) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+__device__ __forceinline__ void store8(__half* __restrict__ p, long i,
+                                       const float (&x)[PER]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __half2 h = __floats2half2_rn(x[2 * j], x[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p + i) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 __device__ __forceinline__ void store8(NoParam*, long, const float (&)[PER]) {}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void put(float* p, long i, float x) { p[i] = x; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, long i, float x) {
   p[i] = __float2bfloat16_rn(x);
 }
+__device__ __forceinline__ void put(__half* p, long i, float x) { p[i] = __float2half_rn(x); }
 __device__ __forceinline__ void put(NoParam*, long, float) {}
 
 struct Step {
@@ -210,18 +239,20 @@ cudaError_t launch_grad(int grad_dtype, void* master, void* m, void* v,
                         void* param, const void* grad, long n,
                         const float* dsc, const Consts& k, const Tables& tb,
                         cudaStream_t s) {
-  return grad_dtype == 0
-             ? launch<TP, float>(master, m, v, param, grad, n, dsc, k, tb, s)
-             : launch<TP, __nv_bfloat16>(master, m, v, param, grad, n, dsc, k,
-                                         tb, s);
+  if (grad_dtype == 0)
+    return launch<TP, float>(master, m, v, param, grad, n, dsc, k, tb, s);
+  if (grad_dtype == 1)
+    return launch<TP, __nv_bfloat16>(master, m, v, param, grad, n, dsc, k, tb, s);
+  return launch<TP, __half>(master, m, v, param, grad, n, dsc, k, tb, s);
 }
 
 }  // namespace
 
-// master, m, v fp32 (n,); grad (n,) fp32 (grad_dtype 0) or bf16 (1); param
-// (n,) fp32 (param_dtype 0) or bf16 (1), or none (-1: the parameters are
-// views of the master). scalars points to 6 fp32 on the device: lr, decay
-// = 1 - lr * wd (used if has_wd), c1, c2, the gate (0: write nothing) and
+// master, m, v fp32 (n,); grad (n,) fp32 (grad_dtype 0), bf16 (1) or fp16
+// (2); param (n,) fp32 (param_dtype 0), bf16 (1) or fp16 (2), or none (-1:
+// the parameters are views of the master). scalars points to 6 fp32 on the
+// device: lr, decay = 1 - lr * wd (used if has_wd), c1, c2, the gate (0:
+// write nothing) and
 // the global-norm scale (used if grad_scale). clip_value clips g to [lo,
 // hi] first. omb1 = 1 - b1, omb2 = 1 - b2, rounded to fp32 by the caller.
 // seg_end (n_seg int64, the flat end of each tensor's slice), scale and
@@ -238,9 +269,8 @@ extern "C" int multi_tensor_adam(void* master, void* m, void* v, void* param,
                                  const void* scale, const void* decays,
                                  int n_seg, long long base, float wd,
                                  void* stream) {
-  if (n <= 0 || param_dtype < -1 || param_dtype > 1 ||
-      (grad_dtype != 0 && grad_dtype != 1) ||
-      (seg_end != nullptr && n_seg <= 0))
+  if (n <= 0 || param_dtype < -1 || param_dtype > 2 || grad_dtype < 0 ||
+      grad_dtype > 2 || (seg_end != nullptr && n_seg <= 0))
     return (int)cudaErrorInvalidValue;
   const Consts k{eps, b1, b2, omb1, omb2, lo, hi, wd, has_wd, clip_value,
                  grad_scale};
@@ -253,5 +283,7 @@ extern "C" int multi_tensor_adam(void* master, void* m, void* v, void* param,
     return (int)launch_grad<NoParam>(grad_dtype, master, m, v, param, grad, n, dsc, k, tb, s);
   if (param_dtype == 0)
     return (int)launch_grad<float>(grad_dtype, master, m, v, param, grad, n, dsc, k, tb, s);
-  return (int)launch_grad<__nv_bfloat16>(grad_dtype, master, m, v, param, grad, n, dsc, k, tb, s);
+  if (param_dtype == 1)
+    return (int)launch_grad<__nv_bfloat16>(grad_dtype, master, m, v, param, grad, n, dsc, k, tb, s);
+  return (int)launch_grad<__half>(grad_dtype, master, m, v, param, grad, n, dsc, k, tb, s);
 }

@@ -5,10 +5,12 @@
 // What it computes, for one layer: each batch row b attends its slot's
 // cached positions [0, t[b]) read through its page-table row, plus the
 // current token (k_new, v_new) at position t[b], which joins the softmax
-// unquantized. Pool (P, L, 2, Hkv, ps, D) in float32, bfloat16 or int8; the
-// int8 leg multiplies each page by its (page, layer, K/V, head) scale
-// (scales (P, L, 2, Hkv) fp32). Online softmax in fp32; out (B, H, D) in
-// q's dtype. With t[b] == 0 the output is exactly v_new.
+// unquantized. Pool (P, L, 2, Hkv, ps, D) in float32, bfloat16, float16 or
+// int8; the int8 leg multiplies each page by its (page, layer, K/V, head)
+// scale (scales (P, L, 2, Hkv) fp32), in fp32 as _decode_kernel does. q
+// (and k_new, v_new, out) in float32, bfloat16 or float16, on any pool.
+// Online softmax in fp32; out (B, H, D) in q's dtype. With t[b] == 0 the
+// output is exactly v_new.
 //
 // What bounds it on an H100: bytes. Each live K/V element is read once and
 // used for 2 * rep operations (rep = H / Hkv), far below the ~295
@@ -55,6 +57,7 @@
 // q's dtype. With no live split (t == 0) it computes v_new * 1 / 1.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -92,6 +95,16 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&x)[8]) 
     x[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load_row(const __half* p, float (&x)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
 // float(c) = (2^23 + c + 128) - (2^23 + 128), exactly: the biased byte
 // permuted into 2^23's mantissa, then one subtraction (no quarter-rate I2F)
 __device__ __forceinline__ void load_row(const int8_t* p, float (&x)[8]) {
@@ -104,11 +117,15 @@ __device__ __forceinline__ void load_row(const int8_t* p, float (&x)[8]) {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -148,7 +165,7 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
 
 template <typename TP, int D, int REPB>
 __global__ void __launch_bounds__(NT)
-paged_decode_split_kernel(const void* __restrict__ q, int q_bf16,
+paged_decode_split_kernel(const void* __restrict__ q, int q_dtype,
                           const TP* __restrict__ pool,
                           const float* __restrict__ scales,
                           const int* __restrict__ tables,
@@ -215,8 +232,10 @@ paged_decode_split_kernel(const void* __restrict__ q, int q_bf16,
     const long qo = ((long)b * H + kvh * rep + min(r, rep - 1)) * D + col;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
-      const float x = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qo + e])
-                             : static_cast<const float*>(q)[qo + e];
+      const float x =
+          q_dtype == 1 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qo + e])
+          : q_dtype == 2 ? __half2float(static_cast<const __half*>(q)[qo + e])
+                         : static_cast<const float*>(q)[qo + e];
       qr[r][e] = x * qscale;
       acc[r][e] = 0.f;
     }
@@ -380,7 +399,7 @@ paged_decode_combine_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_n
 }
 
 template <typename TP, int D, int REPB>
-cudaError_t launch_split(const void* q, int q_bf16, const void* pool,
+cudaError_t launch_split(const void* q, int q_dtype, const void* pool,
                          const float* scales, const int* tables, const int* t,
                          float* part, int B, int H, int Hkv, int L, int ps,
                          int S, int layer, int pps, int nsplit, float qscale,
@@ -395,19 +414,19 @@ cudaError_t launch_split(const void* q, int q_bf16, const void* pool,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(B * Hkv, nsplit), NT, smem, stream>>>(
-      q, q_bf16, static_cast<const TP*>(pool), scales, tables, t, part, H,
+      q, q_dtype, static_cast<const TP*>(pool), scales, tables, t, part, H,
       Hkv, L, ps, S, layer, pps, nstage, qscale);
   return cudaGetLastError();
 }
 
 template <typename TP, int D>
-cudaError_t dispatch_rep(int rep, const void* q, int q_bf16, const void* pool,
+cudaError_t dispatch_rep(int rep, const void* q, int q_dtype, const void* pool,
                          const float* scales, const int* tables, const int* t,
                          float* part, int B, int H, int Hkv, int L, int ps,
                          int S, int layer, int pps, int nsplit, float qscale,
                          cudaStream_t s) {
 #define PAGED_SPLIT(REPB)                                                       \
-  launch_split<TP, D, REPB>(q, q_bf16, pool, scales, tables, t, part, B, H, Hkv, \
+  launch_split<TP, D, REPB>(q, q_dtype, pool, scales, tables, t, part, B, H, Hkv, \
                             L, ps, S, layer, pps, nsplit, qscale, s)
   if (rep == 1) return PAGED_SPLIT(1);
   if (rep == 2) return PAGED_SPLIT(2);
@@ -417,21 +436,24 @@ cudaError_t dispatch_rep(int rep, const void* q, int q_bf16, const void* pool,
 }
 
 template <int D>
-cudaError_t dispatch_pool(int pool_dtype, int rep, const void* q, int q_bf16,
+cudaError_t dispatch_pool(int pool_dtype, int rep, const void* q, int q_dtype,
                           const void* pool, const float* scales,
                           const int* tables, const int* t, float* part, int B,
                           int H, int Hkv, int L, int ps, int S, int layer,
                           int pps, int nsplit, float qscale, cudaStream_t s) {
   switch (pool_dtype) {
     case 0:
-      return dispatch_rep<float, D>(rep, q, q_bf16, pool, scales, tables, t, part, B, H,
+      return dispatch_rep<float, D>(rep, q, q_dtype, pool, scales, tables, t, part, B, H,
                                     Hkv, L, ps, S, layer, pps, nsplit, qscale, s);
     case 1:
-      return dispatch_rep<__nv_bfloat16, D>(rep, q, q_bf16, pool, scales, tables, t, part,
+      return dispatch_rep<__nv_bfloat16, D>(rep, q, q_dtype, pool, scales, tables, t, part,
                                             B, H, Hkv, L, ps, S, layer, pps, nsplit,
                                             qscale, s);
     case 2:
-      return dispatch_rep<int8_t, D>(rep, q, q_bf16, pool, scales, tables, t, part, B, H,
+      return dispatch_rep<int8_t, D>(rep, q, q_dtype, pool, scales, tables, t, part, B, H,
+                                     Hkv, L, ps, S, layer, pps, nsplit, qscale, s);
+    case 3:
+      return dispatch_rep<__half, D>(rep, q, q_dtype, pool, scales, tables, t, part, B, H,
                                      Hkv, L, ps, S, layer, pps, nsplit, qscale, s);
   }
   return cudaErrorInvalidValue;
@@ -451,8 +473,9 @@ cudaError_t launch_combine(const void* q, const void* kn, const void* vn,
 
 }  // namespace
 
-// q_dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and out share it).
-// pool_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (then scales is required).
+// q_dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k_new, v_new and out
+// share it). pool_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (then scales
+// is required), 3 = float16.
 // part: fp32 scratch of B * H * nsplit * (D + 2) floats, nsplit =
 // ceil(S / pps). Launches the split kernel, then the combine, on `stream`.
 // Returns a cudaError_t (0 on success).
@@ -465,8 +488,8 @@ extern "C" int paged_decode(const void* q, const void* k_new,
                             float sm_scale, void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXREP || ps <= 0 ||
       ps > MAXPS || S <= 0 || layer < 0 || layer >= L || pps <= 0 ||
-      nsplit != (S + pps - 1) / pps || nsplit > 65535 || (q_dtype != 0 && q_dtype != 1) ||
-      (D != 64 && D != 128) || (pool_dtype == 2) != (scales != nullptr))
+      nsplit != (S + pps - 1) / pps || nsplit > 65535 || q_dtype < 0 ||
+      q_dtype > 2 || (D != 64 && D != 128) || (pool_dtype == 2) != (scales != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scales);
@@ -486,10 +509,15 @@ extern "C" int paged_decode(const void* q, const void* k_new,
                                                 S, pps, nsplit, qscale, s)
                    : launch_combine<float, 64>(q, k_new, v_new, pt, tt, out, B, H, Hkv, ps,
                                                S, pps, nsplit, qscale, s);
-  else
+  else if (q_dtype == 1)
     err = D == 128 ? launch_combine<__nv_bfloat16, 128>(q, k_new, v_new, pt, tt, out, B, H,
                                                         Hkv, ps, S, pps, nsplit, qscale, s)
                    : launch_combine<__nv_bfloat16, 64>(q, k_new, v_new, pt, tt, out, B, H,
                                                        Hkv, ps, S, pps, nsplit, qscale, s);
+  else
+    err = D == 128 ? launch_combine<__half, 128>(q, k_new, v_new, pt, tt, out, B, H, Hkv,
+                                                 ps, S, pps, nsplit, qscale, s)
+                   : launch_combine<__half, 64>(q, k_new, v_new, pt, tt, out, B, H, Hkv,
+                                                ps, S, pps, nsplit, qscale, s);
   return (int)err;
 }

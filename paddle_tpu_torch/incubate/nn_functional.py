@@ -377,7 +377,7 @@ def variable_length_memory_efficient_attention(query, key, value, seq_lens,
     kvl = kv_seq_lens.reshape(-1, 1).to(query.device)
     qvalid = torch.arange(sq, device=query.device)[None, :] < sl
     if mask is None and d in (64, 128) and \
-            query.dtype in (torch.float32, torch.bfloat16):
+            query.dtype in (torch.float32, torch.bfloat16, torch.float16):
         kv_ids = (torch.arange(sk, device=query.device)[None, :] < kvl)
         q_ids = torch.ones(b, sq, dtype=torch.int32, device=query.device)
         out = flash_attention(query.transpose(1, 2), key.transpose(1, 2),

@@ -49,7 +49,8 @@ from ..ops.swiglu import swiglu
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "apply_rotary"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 @dataclass

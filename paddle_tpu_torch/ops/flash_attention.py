@@ -7,7 +7,8 @@ PyTorch versions.
 
 Layout is paddle's flash-attention API: q ``(B, Lq, H, D)``, k/v
 ``(B, Lk, Hkv, D)`` with ``H % Hkv == 0`` (GQA), out ``(B, Lq, H, D)`` in
-q's dtype. Causal masking is bottom-right aligned: query row ``i`` sees keys
+q's dtype: float32, bfloat16 or float16 (the kernels' dtype codes 0, 1,
+2; the 16-bit ones run on wgmma). Causal masking is bottom-right aligned: query row ``i`` sees keys
 ``j <= i + Lk - Lq``, the KV-cache convention, so one call serves a prefill
 (``Lq == Lk``) and a decode over a grown cache (``Lq < Lk``). A row that sees
 no key emits 0.
@@ -78,7 +79,7 @@ LSE_MASKED = 1e30   # lse of a row that sees no key
 # the ids flash_attn_unpadded gives tokens past cu_seqlens[-1]: they match
 # nothing (paddle_tpu/ops/flash_attention.py:957-961)
 TAIL_Q_SEG, TAIL_KV_SEG = 2147483646, 2147483647
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _DIMS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 # flash_fwd(q, k, v, o, B, Lq, Lk, H, Hkv, D, dtype, causal, sm_scale, stream)
@@ -127,15 +128,15 @@ def _shapes(query, key, value):
 
 def _kernel_inputs(*xs: torch.Tensor):
     """Check what the CUDA kernels take (one CUDA device, one dtype of
-    float32 or bfloat16, a supported head_dim, 16-byte aligned) and return
-    the tensors made contiguous and the dtype code."""
+    float32, bfloat16 or float16, a supported head_dim, 16-byte aligned)
+    and return the tensors made contiguous and the dtype code."""
     dev, dt = xs[0].device, xs[0].dtype
     if dev.type != "cuda" or any(x.device != dev for x in xs):
         raise ValueError("flash attention: inputs must share one CUDA device")
     code = _DTYPE_CODES.get(dt)
     if code is None or any(x.dtype != dt for x in xs):
-        raise TypeError(f"flash kernels take float32 or bfloat16 inputs of "
-                        f"one dtype, got {[x.dtype for x in xs]}")
+        raise TypeError(f"flash kernels take float32, bfloat16 or float16 "
+                        f"inputs of one dtype, got {[x.dtype for x in xs]}")
     d = xs[0].shape[-1]
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash kernel head_dim must be one of "

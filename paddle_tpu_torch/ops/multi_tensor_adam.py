@@ -11,8 +11,9 @@ Per element, in place and in ``_fused_step``'s order::
     master' = master * decay - (lr * (m' / c1)) / (sqrt(v' / c2) + eps)
     param'  = master' in the parameter's dtype (round to nearest)
 
-``master``, ``m`` and ``v`` are fp32; ``grad`` and ``param`` bf16 or fp32
-(``param`` None where the parameters are views of the master itself). The
+``master``, ``m`` and ``v`` are fp32; ``grad`` and ``param`` fp32, bf16 or
+fp16, the parameter rounded to nearest from the new master (``param`` None
+where the parameters are views of the master itself). The
 step's scalars are the device block of ``ops/q8_adam.py`` (``SCALARS``:
 lr, decay = 1 - lr wd, c1, c2, gate, grad_scale), read from memory so that
 a captured graph reads each replay's own; where the gate is 0 nothing is
@@ -43,7 +44,7 @@ __all__ = ["launches", "multi_tensor_adam_update",
 
 launches = _native.LaunchCounter("multi_tensor_adam")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # multi_tensor_adam(master, m, v, param, grad, n, param_dtype, grad_dtype,
 #                   scalars, eps, b1, b2, omb1, omb2, has_wd, grad_scale,
 #                   clip_value, lo, hi, seg_end, scale, decays, n_seg, base,
@@ -72,8 +73,8 @@ def _check(master, m, v, param, grad, scalars):
                              f"{n} elements, got {t.dtype} {t.numel()}")
     for name, t in (("grad", grad), ("param", param)):
         if t is not None and (t.dtype not in _DTYPE_CODES or t.numel() != n):
-            raise ValueError(f"multi_tensor_adam: {name} must be fp32 or "
-                             f"bf16 of {n} elements, got {t.dtype} "
+            raise ValueError(f"multi_tensor_adam: {name} must be fp32, "
+                             f"bf16 or fp16 of {n} elements, got {t.dtype} "
                              f"{t.numel()}")
     if scalars.dtype != torch.float32 or scalars.numel() != len(SCALARS):
         raise ValueError(f"multi_tensor_adam: scalars must be fp32 "

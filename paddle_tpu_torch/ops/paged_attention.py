@@ -9,11 +9,12 @@ current token's K/V at position ``t[b]``, which joins the softmax
 unquantized. Then :func:`scatter_token_inplace` writes that token into the
 page that holds position ``t[b]``.
 
-Pool ``(num_pages, L, 2, H_kv, page_size, D)`` in float32, bfloat16 or
-int8; the int8 leg carries fp32 scales ``(num_pages, L, 2, H_kv)`` (one per
-page, layer, K/V and head; see ``serving/kv_cache.py::quantize_pages``).
-Page 0 is the scratch page that padded rows and unused table entries point
-at.
+Pool ``(num_pages, L, 2, H_kv, page_size, D)`` in float32, bfloat16,
+float16 or int8, under q in float32, bfloat16 or float16; the int8 leg
+carries fp32 scales ``(num_pages, L, 2, H_kv)`` (one per page, layer, K/V
+and head; see ``serving/kv_cache.py::quantize_pages``), applied in fp32 as
+``_decode_kernel`` does. Page 0 is the scratch page that padded rows and
+unused table entries point at.
 
 Unlike the JAX package, whose pool is functional state threaded through
 each compiled step, the port updates the pool and scales **in place**:
@@ -41,8 +42,9 @@ __all__ = ["PagedDecodeCache", "paged_attention", "paged_attention_dense",
 launches = _native.LaunchCounter("paged_decode_attention")
 
 _NEG_INF = -1e30  # the mask fill of the JAX reference
-_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float16: 3}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8
 _MAX_PAGE = 256
@@ -172,12 +174,12 @@ def call_kernel(fn, q, k_new, v_new, pool, scales, tables, t, layer: int,
                          f"CUDA device, got {sorted(devices)}")
     qc, pc = _Q_CODES.get(q.dtype), _POOL_CODES.get(pool.dtype)
     if qc is None or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
-        raise TypeError(f"paged kernel takes float32/bfloat16 q, k_new, "
-                        f"v_new of one dtype, got {q.dtype}/{k_new.dtype}/"
+        raise TypeError(f"paged kernel takes float32/bfloat16/float16 q, "
+                        f"k_new, v_new of one dtype, got {q.dtype}/{k_new.dtype}/"
                         f"{v_new.dtype}")
     if pc is None or (pc == 2) != (scales is not None):
-        raise TypeError(f"paged kernel pool must be float32, bfloat16 or "
-                        f"int8 with scales; got {pool.dtype} with "
+        raise TypeError(f"paged kernel pool must be float32, bfloat16, "
+                        f"float16 or int8 with scales; got {pool.dtype} with "
                         f"scales={'yes' if scales is not None else 'no'}")
     if scales is not None and (scales.dtype != torch.float32
                                or scales.shape != (p_, l_, 2, h_kv)):

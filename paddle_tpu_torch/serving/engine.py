@@ -253,7 +253,7 @@ class ServingConfig:
     page_size: int = 64
     num_pages: Optional[int] = None      # default: full coverage + scratch
     kv_dtype: str = "native"             # native | bf16 | int8
-    compute_dtype: str = "float32"       # float32 | bfloat16
+    compute_dtype: str = "float32"       # float32 | bfloat16 | float16
     policy: str = "fifo"
     prefill_token_budget: Optional[int] = None
     device: Optional[str] = None         # None -> cuda (raises without one)

@@ -50,7 +50,8 @@ __all__ = ["KVCacheConfig", "PagedKVCache", "PagedDecodeCache",
            "prefix_chain_digests"]
 
 _Q8_MAX = 127.0
-_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                   "float16": torch.float16}
 
 
 @dataclass

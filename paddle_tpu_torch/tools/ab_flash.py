@@ -91,8 +91,7 @@ def sass_summary(nb, cs, so: str) -> dict:
         m = re.search(r"Function : (\S+)", ln)
         if m:
             w = cs.WGMMA_KERNEL.search(m.group(1))
-            key = None if w is None else "%s<%s>" % (
-                w[1], ", ".join(re.findall(r"L[ib](\d+)E", w[2])))
+            key = None if w is None else cs.wgmma_key(w)
             if key:
                 out[key] = {"instructions": 0, "HGMMA": 0, "UTMALDG": 0}
                 text[key] = hashlib.sha256()
@@ -149,7 +148,8 @@ def main() -> int:
     for tag, wait in waits.items():
         libs[tag], ptxas[tag] = wait()
     sass = {tag: sass_summary(nb, cs, lib._name) for tag, lib in libs.items()}
-    flag_free = sorted(k for k in sass["this"] if k.endswith("0, 0>"))
+    flag_free = sorted(k for k in sass["this"]
+                       if k.endswith("0, 0>") and "<bf16," in k)
     print(json.dumps({"phase": "ab_build", "other": str(args.other),
                       "ptxas": ptxas, "sass": sass,
                       "flag_free_sass_identical": {

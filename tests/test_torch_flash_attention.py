@@ -127,22 +127,24 @@ def test_planted_fault_anchor_occurs_once_in_the_source(source, anchor):
 
 
 def test_build_phase_reads_each_forward_kernel(monkeypatch):
-    # chip_smoke.py's build phase fails unless the SASS of all 24 bf16
-    # flash instantiations (forward <D, LSE, SEGS, DROP>, dq and dk/dv <D,
-    # SEGS, DROP>; dropout always with ids) holds wgmma (HGMMA) and TMA
-    # (UTMALDG): its parser must keep them apart and pick up ptxas's
-    # registers/spills
+    # chip_smoke.py's build phase fails unless the SASS of all 48 16-bit
+    # flash instantiations (forward <E, D, LSE, SEGS, DROP>, dq and dk/dv
+    # <E, D, SEGS, DROP>; E bf16 or fp16; dropout always with ids) holds
+    # wgmma (HGMMA) and TMA (UTMALDG): its parser must keep them apart, by
+    # element type too, and pick up ptxas's registers/spills
     pre = "_ZN51_GLOBAL__N__4af27cb8_18_flash_attention_cu_b294bfd0"
     flags = [(0, 0), (1, 0), (1, 1)]
-    names = [f"{pre}22flash_fwd_wgmma_kernelILi{d}ELb{lse}ELb{sg}ELb{dr}EEEv"
-             f"14CUtensorMap_stS1_S1_P13__nv_bfloat16PfiiiiifNS_7SegDropE"
-             for d in (64, 128) for lse in (1, 0) for sg, dr in flags]
-    names += [f"{pre}{len(k)}{k}ILi{d}ELb{sg}ELb{dr}EEEv14CUtensorMap_stS1_S1_"
-              f"S1_PKfS3_P13__nv_bfloat16"
-              f"{'S4_' if k.endswith('dkv_wgmma_kernel') else ''}"
+    types = {"bf16": "13__nv_bfloat16", "fp16": "6__half"}
+    names = [f"{pre}22flash_fwd_wgmma_kernelI{types[e]}Li{d}ELb{lse}ELb{sg}"
+             f"ELb{dr}EEEv14CUtensorMap_stS2_S2_PT_PfiiiiifNS_7SegDropE"
+             for e in types for d in (64, 128) for lse in (1, 0)
+             for sg, dr in flags]
+    names += [f"{pre}{len(k)}{k}I{types[e]}Li{d}ELb{sg}ELb{dr}EEEv14CUtensor"
+              f"Map_stS2_S2_S2_PKfS4_PT_"
+              f"{'S6_' if k.endswith('dkv_wgmma_kernel') else ''}"
               f"iiiiifNS_7SegDropE"
               for k in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
-              for d in (64, 128) for sg, dr in flags]
+              for e in types for d in (64, 128) for sg, dr in flags]
     other = "_ZN51_GLOBAL__N__x19flash_bwd_dq_kernelILi64EEEvPKfS3_"
     sass = "".join(f"\t\tFunction : {n}\n  /*0010*/ HGMMA.64x128x16.F32.BF16 R24, "
                    f"gdesc[UR4], RZ ;\n  /*0020*/ UTMALDG.4D [UR8], [UR4] ;\n"
@@ -167,14 +169,21 @@ def test_build_phase_reads_each_forward_kernel(monkeypatch):
                         lambda *a, **k: type("Done", (), {"stdout": sass})())
     got = chip_smoke.wgmma_kernels(Build)
     assert sorted(got) == sorted(
-        [f"flash_fwd_wgmma_kernel<{d}, {lse}, {sg}, {dr}>" for d in (128, 64)
-         for lse in (0, 1) for sg, dr in flags]
-        + [f"flash_bwd_{k}_wgmma_kernel<{d}, {sg}, {dr}>" for k in ("dq", "dkv")
-           for d in (64, 128) for sg, dr in flags])
+        [f"flash_fwd_wgmma_kernel<{e}, {d}, {lse}, {sg}, {dr}>" for e in types
+         for d in (128, 64) for lse in (0, 1) for sg, dr in flags]
+        + [f"flash_bwd_{k}_wgmma_kernel<{e}, {d}, {sg}, {dr}>"
+           for k in ("dq", "dkv") for e in types for d in (64, 128)
+           for sg, dr in flags])
     assert len(got) == chip_smoke.N_WGMMA_KERNELS
     assert all(k == {"HGMMA": 1, "UTMALDG": 1, "spill_stores": 0,
                      "spill_loads": 0, "registers": 168}
                for k in got.values())
+    # a source from before the fp16 instantiations names no element type:
+    # its kernels read as bf16 (the A/B tool compares their SASS)
+    old = (f"{pre}22flash_fwd_wgmma_kernelILi64ELb1ELb0ELb0EEEv14CUtensorMap_"
+           f"stS1_S1_P13__nv_bfloat16PfiiiiifNS_7SegDropE")
+    assert chip_smoke.wgmma_key(chip_smoke.WGMMA_KERNEL.search(old)) == \
+        "flash_fwd_wgmma_kernel<bf16, 64, 1, 0, 0>"
 
 
 def test_ab_tool_needs_a_card(monkeypatch):
