@@ -165,6 +165,23 @@ line per phase:
   captured from one state, the two bit-equal with equal loss-scale
   histories.
 
+* the serving front door (``serve_router_7b``): a ``FrontDoor`` over a
+  ``Router`` over two Llama-2-7B engines in this process (each its own
+  stream and pool, one model's weights), serve_7b's 16 prompts posted by 16
+  client threads (8 SSE, 8 unary) three times, the same traffic through
+  ``Router.submit``, once more with an unwarmed prompt length captured
+  under load, a drain of one replica mid-traffic and its restore, and the
+  shared-prefix traffic placed by prefix affinity
+  (``serve_router_7b_prefix``): 200s, one terminal event a stream, first
+  tokens equal to serve_7b's, each engine's replay and launch accounting
+  summed equal to the global counters, no page leaked; the fleet
+  (``serve_fleet_7b_width``): two worker processes of the 7B's widths at 4
+  layers behind the router and a front door, first tokens against the same
+  model in this process, a SIGKILL after streamed tokens (every admitted
+  stream 503 ``RpcTransportError``, the queued request failed over and
+  completed, no token twice, one respawn that rejoins and serves, its split
+  printed) and a SIGTERM that drains and exits 0.
+
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound, with the card's own time of each kernel and
 its library call (``device_ms``, ``library_device_ms``: ``graph_ms``) and,
@@ -2517,6 +2534,846 @@ def obs_overhead_7b(torch, card, eng, served) -> None:
           "decode_step_host_calls": steps,
           "decode_step_profile_host_launch_calls":
               served["graph_host_launch_calls"]})
+
+
+# ---------------------------------------------------------------------------
+# the serving front door: the router, the HTTP front door, the process fleet
+# ---------------------------------------------------------------------------
+
+ROUTER_RUNS = 3
+# the prompt length the router engines are not warmed with (serve_7b's 16
+# are linspace(128, 1000, 16)): its prefill graph is captured at its
+# admission, under load
+FIRST_USE_LEN = 700
+SERVE_FUSED = ("fused_norm", "rope", "swiglu", "embedding")
+# the fleet's workers: Llama-2-7B's widths at this depth (a respawn, with
+# its process start, weights and captures, must fit the run's time limit)
+FLEET_LAYERS = 4
+FLEET_SEED = 0
+FLEET_SPAWN_S = 300.0
+# the kill scenario: every slot of the victim held by a stream of a short
+# prompt and this many new tokens, so one more request waits in its queue
+FLEET_HOLD_PROMPT, FLEET_HOLD_TOKENS = 48, 1900
+
+
+def serve_counters(fa, pa) -> dict:
+    """The launch counters the Llama serving path moves, by kernel."""
+    return {"flash_prefill": fa.launches, "paged_decode": pa.launches,
+            **{k: v for k, v in step_counters().items() if k in SERVE_FUSED}}
+
+
+def expected_launches(stats: dict, layers: int) -> dict:
+    """The launches one engine's run made by ``require_served``'s
+    accounting, from its ``decode_stats()`` delta: B1 per prefill call
+    (replays, and the warm-up calls of graphs captured in the run), B6 per
+    decode step, K1-K3 and K5 per call."""
+    from paddle_tpu_torch.serving.engine import _WARM_STEPS
+    steps = sum(stats["steps"].values())
+    calls = sum(stats["prefill_replays"].values()) \
+        + _WARM_STEPS * stats["prefill_graphs"]
+    per = {"fused_norm": 2 * layers + 1, "rope": layers, "swiglu": layers,
+           "embedding": 1}
+    return {"flash_prefill": calls * layers, "paged_decode": steps * layers,
+            **{k: n * (calls + steps) for k, n in per.items()}}
+
+
+def placed_on(router) -> dict:
+    """Request id -> the replica that holds it (the last pick)."""
+    out = {}
+    for e in router.trace:
+        if e[0] == "pick":
+            out[e[1]] = e[2]
+    return out
+
+
+def require_router_served(engines: dict, stats: dict, per_engine: dict,
+                          launches: dict, layers: int, vocab: int,
+                          new_tokens: int, what: str,
+                          captured=None) -> dict:
+    """Each engine's run by ``require_served``'s rules (every request
+    ``new_tokens`` long, every decode step a replay, every admission one
+    prefill replay, ``captured`` graphs captured in the run, no page
+    leaked), and the engines' expected launches summed equal to the
+    process-wide counters, which both loop threads moved."""
+    total = {k: 0 for k in launches}
+    for name, eng in engines.items():
+        st = stats[name]
+        tokens = per_engine.get(name, [])
+        for t in tokens:
+            require(len(t) == new_tokens and all(0 <= x < vocab for x in t),
+                    f"{what} {name}: a transcript of {len(t)} tokens")
+        steps = sum(st["steps"].values())
+        require(sum(st["replays"].values()) == steps,
+                f"{what} {name}: {steps} decode steps but replays "
+                f"{st['replays']}")
+        require_prefill_replays(st, len(tokens),
+                                (captured or {}).get(name, 0),
+                                f"{what} {name}")
+        for k, n in expected_launches(st, layers).items():
+            total[k] += n
+        require(eng.kv.outstanding_pages == 0
+                and eng.kv.free_pages == eng.kv.config.num_pages - 1,
+                f"{what} {name}: pages leaked")
+    require(total == launches,
+            f"{what}: launches {launches}, the engines' accounting sums to "
+            f"{total}")
+    return total
+
+
+def http_generate(fd, prompt, new_tokens: int, stream: bool,
+                  on_token=None) -> dict:
+    """One ``POST /v1/generate`` over loopback as its client sees it: the
+    status, the tokens (streamed, or the body's), the SSE terminal events,
+    each streamed token's index and the client's clock at send, at each
+    token and at the end."""
+    import http.client
+    conn = http.client.HTTPConnection(fd.host, fd.port, timeout=900)
+    out = {"stream": stream, "tokens": [], "indices": [], "terminals": [],
+           "stamps": []}
+    try:
+        body = json.dumps({"prompt": [int(x) for x in prompt],
+                           "max_new_tokens": new_tokens,
+                           "stream": stream}).encode()
+        out["t_send"] = time.monotonic()
+        conn.connect()
+        out["t_connected"] = time.monotonic()
+        conn.request("POST", "/v1/generate", body=body)
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        out["retry_after"] = resp.headers.get("Retry-After")
+        if not stream or resp.status != 200:
+            out["doc"] = json.loads(resp.read())
+            out["tokens"] = list(out["doc"].get("tokens", []))
+        else:
+            event = "message"
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                line = line.decode().rstrip("\n")
+                if line.startswith("event: "):
+                    event = line[len("event: "):]
+                elif line.startswith("data: "):
+                    doc = json.loads(line[len("data: "):])
+                    if event in ("done", "error"):
+                        out["terminals"].append((event, doc))
+                    else:
+                        out["stamps"].append(time.monotonic())
+                        out["tokens"].append(doc["token"])
+                        out["indices"].append(doc["index"])
+                        if on_token is not None:
+                            on_token(len(out["tokens"]))
+                elif not line:
+                    event = "message"
+        out["t_end"] = time.monotonic()
+    finally:
+        conn.close()
+    return out
+
+
+def http_traffic(fd, prompts, new_tokens: int, on_token=None):
+    """Every prompt posted at once from a client thread of its own, the
+    even-numbered ones streamed (SSE); returns the wall seconds and the
+    clients' records in prompt order. ``on_token(i, n)`` runs on request
+    i's client thread at its n-th streamed token."""
+    import threading
+    outs = [None] * len(prompts)
+    errors = []
+
+    def client(i):
+        try:
+            outs[i] = http_generate(
+                fd, prompts[i], new_tokens, i % 2 == 0,
+                None if on_token is None else (lambda n: on_token(i, n)))
+        except BaseException as e:           # noqa: BLE001 - re-raised
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.monotonic() - t0
+    require(not errors and all(not t.is_alive() for t in threads),
+            f"an HTTP client failed or hung: {errors}")
+    return wall, outs
+
+
+def terminal_of(out) -> tuple:
+    """(status, error name or None, final tokens or None) of one client
+    record: a unary body's, or an SSE stream's single terminal event."""
+    if not out["stream"] or out["status"] != 200:
+        doc = out["doc"]
+        return out["status"], doc.get("error"), doc.get("tokens")
+    require(len(out["terminals"]) == 1,
+            f"an SSE stream ended with {len(out['terminals'])} terminal "
+            f"events")
+    kind, doc = out["terminals"][0]
+    if kind == "done":
+        return 200, None, doc["tokens"]
+    return doc["status"], doc["error"], None
+
+
+def request_id_of(out):
+    if out["stream"] and out["status"] == 200:
+        return out["terminals"][0][1].get("request_id")
+    return out["doc"].get("request_id")
+
+
+def require_http_ok(outs, what: str) -> list:
+    """Every response 200, every stream one ``done`` whose tokens are the
+    streamed ones, each index once in order; returns the transcripts."""
+    got = []
+    for i, o in enumerate(outs):
+        status, err, tokens = terminal_of(o)
+        require(status == 200, f"{what}: request {i} answered {status} "
+                               f"({err})")
+        if o["stream"]:
+            require(o["tokens"] == tokens
+                    and o["indices"] == list(range(len(tokens))),
+                    f"{what}: request {i}'s streamed tokens differ from its "
+                    f"done event's")
+        got.append(list(tokens))
+    return got
+
+
+def http_numbers(outs, wall: float) -> dict:
+    """tok/s over the traffic's wall time; TTFT and TPOT medians as the
+    clients saw them (the streamed requests' own clocks), and as the
+    engines measured them (every request's result)."""
+    sse = [o for o in outs if o["stream"] and len(o["stamps"]) > 1]
+    docs = [o["terminals"][0][1] if o["stream"] else o["doc"] for o in outs]
+    return {"wall_s": wall,
+            "tokens_per_s": sum(len(o["tokens"]) for o in outs) / wall,
+            "client_ttft_median_s": statistics.median(
+                o["stamps"][0] - o["t_send"] for o in sse),
+            "client_ttft_max_s": max(o["stamps"][0] - o["t_send"]
+                                     for o in sse),
+            "client_connect_max_s": max(o["t_connected"] - o["t_send"]
+                                        for o in outs),
+            "client_tpot_median_s": statistics.median(
+                (o["stamps"][-1] - o["stamps"][0]) / (len(o["stamps"]) - 1)
+                for o in sse),
+            "engine_ttft_median_s": statistics.median(
+                d["ttft_s"] for d in docs),
+            "engine_tpot_median_s": statistics.median(
+                d["tpot_s"] for d in docs)}
+
+
+def transcript_agreement(got, want) -> dict:
+    """Whole transcripts equal to ``want``'s, and each other one's first
+    differing position."""
+    first_diff = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                       min(len(a), len(b)))
+                  for a, b in zip(got, want) if a != b]
+    return {"equal_transcript_share": sum(a == b for a, b in zip(got, want))
+            / len(want),
+            "first_differing_positions": first_diff}
+
+
+def router_submit_traffic(router, prompts, new_tokens: int, extra=None):
+    """The traffic through ``Router.submit`` (no HTTP): every prompt
+    submitted at once, each token stamped on the engine's loop thread;
+    ``extra`` (a prompt) is submitted once four requests have their first
+    token, under load. Returns wall seconds, the requests, their results
+    and the token stamps."""
+    import threading
+    from paddle_tpu_torch.serving import GenerationRequest
+    stamps = {}
+    started = threading.Event()
+    first = set()
+
+    def stamp(rid, tok):
+        stamps.setdefault(rid, []).append(time.monotonic())
+        first.add(rid)
+        if len(first) >= 4:
+            started.set()
+
+    t0 = time.monotonic()
+    reqs = [GenerationRequest(p, max_new_tokens=new_tokens, stream=stamp)
+            for p in prompts]
+    futs = [router.submit(r) for r in reqs]
+    if extra is not None:
+        require(started.wait(timeout=120), "no first tokens under load")
+        reqs.append(GenerationRequest(extra, max_new_tokens=new_tokens,
+                                      stream=stamp))
+        futs.append(router.submit(reqs[-1]))
+    results = [f.result(timeout=600) for f in futs]
+    return time.monotonic() - t0, reqs, results, stamps
+
+
+def router_engines(model, names, prefix_sharing: str, prompt_lens):
+    """One serve_7b engine per name (its own ``ServingConfig.name`` and
+    ``serving_callables``, the one model's weights), warmed."""
+    out = {}
+    for name in names:
+        prefill_fn, _ = model.serving_callables(2048)
+        out[name] = engine_7b(model, prefill_fn, prefix_sharing, prompt_lens,
+                              name=name)
+    return out
+
+
+def serve_router_7b(torch, card, fa, pa, model, served) -> dict:
+    """``serve_router_7b``: a ``FrontDoor`` over a ``Router`` over two
+    in-process serve_7b engines ``a`` and ``b`` (Llama-2-7B, 32 layers,
+    bf16, page 64, max_len 2048, max_batch 16, budget policy; each its own
+    ``serving_callables(2048)`` over the one model, warmed with the
+    traffic's 16 lengths), serve_7b's 16 prompts (128-1000 tokens, 64 new)
+    posted by 16 client threads over loopback, 8 streamed (SSE) and 8
+    unary, three times; then the same traffic through ``Router.submit``
+    with one more prompt of an unwarmed length submitted under load (its
+    prefill graph captured while both loops run); a drain of ``b`` after
+    the first streamed token, then ``b`` restored and one request placed on
+    it; and serve_prefix_7b's shared-prefix traffic with prefix sharing on
+    (prefix-affine placement). Gates: 200s, one terminal event a stream
+    carrying the streamed tokens, first tokens equal to serve_7b's,
+    ``require_served``'s accounting on each engine with the launches
+    summed equal to the global counters, both replicas used, no page
+    leaked, the drain typed. Returns the first HTTP run's launches."""
+    import numpy as np
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import FrontDoor, Router, RouterConfig
+    t_phase = time.monotonic()
+    cfg = model.config
+    layers, vocab = cfg.num_hidden_layers, cfg.vocab_size
+    prompts, lens = served["prompts"], served["lens"]
+    want = served["transcripts"]
+    counters = serve_counters(fa, pa)
+    # the engines beat their /healthz beacons (a replica whose beacon goes
+    # stale leaves the rotation) with observability on
+    fresh_obs(obs)
+    t0 = time.monotonic()
+    engines = router_engines(model, ("a", "b"), "off", lens)
+    warmup_s = time.monotonic() - t0
+    router = Router(list(engines.items()), RouterConfig(seed=0))
+    fd = FrontDoor(router)
+    router.start()
+    runs = []
+
+    def measured(drive, captured=None):
+        """Run ``drive()`` with every counter from 0; returns its result,
+        each engine's stats delta and the launches."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        before = {n: e.decode_stats() for n, e in engines.items()}
+        result = drive()
+        torch.cuda.synchronize()
+        stats = {n: stats_delta(before[n], e.decode_stats())
+                 for n, e in engines.items()}
+        return result, stats, {k: c.count for k, c in counters.items()}
+
+    def engine_rows(stats):
+        return {n: {"decode_steps": sum(s["steps"].values()),
+                    "batch_sizes": s["steps"], "graph_replays": s["replays"],
+                    "prefill_replays": keyed(s["prefill_replays"]),
+                    **prefill_graph_counts(s)} for n, s in stats.items()}
+
+    try:
+        for i in range(ROUTER_RUNS):
+            n_picks = len(router.trace)
+            (wall, outs), stats, launches = measured(
+                lambda: http_traffic(fd, prompts, 64))
+            got = require_http_ok(outs, f"serve_router_7b run {i + 1}")
+            require([t[0] for t in got] == [t[0] for t in want],
+                    f"serve_router_7b run {i + 1}: first tokens differ from "
+                    f"serve_llama2_7b's (same prefill graph keys)")
+            where = placed_on(router)
+            by_engine = {n: [] for n in engines}
+            for o, t in zip(outs, got):
+                by_engine[where[request_id_of(o)]].append(t)
+            require(all(by_engine.values()),
+                    f"serve_router_7b run {i + 1}: a replica took no "
+                    f"request: {[len(v) for v in by_engine.values()]}")
+            total = require_router_served(
+                engines, stats, by_engine, launches, layers, vocab, 64,
+                f"serve_router_7b run {i + 1}")
+            runs.append({**http_numbers(outs, wall),
+                         "placed": {n: len(v) for n, v in by_engine.items()},
+                         "engines": engine_rows(stats), "launches": launches,
+                         **transcript_agreement(got, want),
+                         "trace_entries": len(router.trace) - n_picks,
+                         **memory_gb(torch)})
+            if i == 0:
+                main_launches = total
+        spread = {k: [min(r[k] for r in runs), max(r[k] for r in runs)]
+                  for k in ("tokens_per_s", "client_ttft_median_s",
+                            "client_tpot_median_s")}
+        # the same traffic through Router.submit, no HTTP
+        direct = router_submit_run(torch, router, engines, measured,
+                                   engine_rows, prompts, want, layers, vocab)
+        # and again with one prompt of a length no engine was warmed with,
+        # submitted under load: its prefill graph is captured while both
+        # loops run
+        rng = np.random.default_rng(7)
+        first_use = router_submit_run(
+            torch, router, engines, measured, engine_rows, prompts, want,
+            layers, vocab, extra=rng.integers(0, vocab, (FIRST_USE_LEN,),
+                                              dtype=np.int32))
+        drain = router_drain_run(router, fd, engines, prompts, want)
+        emit({"phase": "serve_router_7b", "card": card, "layers": layers,
+              "dtype": "bfloat16", "replicas": sorted(engines),
+              "requests": len(prompts), "streamed": len(prompts[::2]),
+              "prompt_lens": [int(x) for x in lens], "new_tokens": 64,
+              "warmup_s": warmup_s, "runs": runs,
+              "spread_min_max": spread, "router_submit": direct,
+              "http_vs_submit_tokens_per_s": statistics.median(
+                  r["tokens_per_s"] for r in runs)
+              / direct["tokens_per_s"],
+              "first_use_under_load": first_use,
+              "drain_run": drain,
+              "stream_per_engine": all(
+                  e.stream is not None
+                  and e.stream != torch.cuda.default_stream()
+                  for e in engines.values())})
+    finally:
+        router.stop(drain=True, timeout=60)
+        fd.close()
+        obs.disable()
+    del engines, router, fd
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_router_prefix_7b(torch, card, fa, pa, model)
+    emit({"phase": "serve_router_7b_seconds",
+          "seconds": time.monotonic() - t_phase})
+    return main_launches
+
+
+def router_submit_run(torch, router, engines, measured, engine_rows,
+                      prompts, want, layers: int, vocab: int,
+                      extra=None) -> dict:
+    """``router_submit_traffic`` under ``measured`` with
+    ``require_router_served``'s gates and first tokens equal to ``want``'s;
+    with ``extra`` its engine must capture exactly that one prefill graph
+    in the run. Reports the numbers, placement, engines, launches, the
+    transcripts' agreement and, with ``extra``, the capture's seconds and
+    each engine's longest gap between two tokens of a request."""
+    what = "serve_router_7b submit" + (" first use" if extra is not None
+                                       else "")
+    (wall, reqs, results, stamps), stats, launches = measured(
+        lambda: router_submit_traffic(router, prompts, 64, extra))
+    where = placed_on(router)
+    by_engine = {n: [] for n in engines}
+    for r, res in zip(reqs, results):
+        by_engine[where[r.request_id]].append(res.tokens)
+    host = where[reqs[-1].request_id] if extra is not None else None
+    require_router_served(engines, stats, by_engine, launches, layers,
+                          vocab, 64, what,
+                          captured={n: int(n == host) for n in engines})
+    mine = results[:len(prompts)]
+    require([r.tokens[0] for r in mine] == [t[0] for t in want],
+            f"{what}: first tokens differ from serve_llama2_7b's")
+    row = {**serving_numbers(results, wall),
+           "placed": {n: len(v) for n, v in by_engine.items()},
+           "engines": engine_rows(stats), "launches": launches,
+           **transcript_agreement([r.tokens for r in mine], want),
+           **memory_gb(torch)}
+    if extra is not None:
+        row["first_use"] = {
+            "prompt_len": int(extra.size), "engine": host,
+            "capture_s": stats[host]["prefill_capture_s"],
+            "max_token_gap_s_by_engine": {
+                n: max((max(b - a for a, b in zip(s, s[1:]))
+                        for rid, s in stamps.items()
+                        if where[rid] == n and len(s) > 1), default=None)
+                for n in engines}}
+    return row
+
+
+def router_drain_run(router, fd, engines, prompts, want) -> dict:
+    """The HTTP traffic once more, ``drain_replica("b", timeout=0)``
+    issued at the first streamed token: ``b`` leaves the rotation before
+    its drain begins, its admitted requests end typed (DrainTimeout, 503),
+    its queued ones fail over to ``a``; every request ends 200 or with its
+    mapped typed status and every stream with one terminal event. Then
+    ``b`` restored and one request placed on it (``a`` latched out for
+    it)."""
+    import threading
+    fired = threading.Event()
+    done = threading.Event()
+    box = {}
+
+    def on_token(i, n):
+        if not fired.is_set():
+            fired.set()
+            t = threading.Thread(target=drain, daemon=True)
+            t.start()
+
+    def drain():
+        box["trace_at"] = len(router.trace)
+        router.drain_replica("b", timeout=0.0, on_timeout="fail")
+        box["rotation"] = router.in_rotation()
+        done.set()
+
+    wall, outs = http_traffic(fd, prompts, 64, on_token=on_token)
+    require(done.wait(timeout=60), "serve_router_7b drain: the drain hung")
+    statuses = {}
+    for i, o in enumerate(outs):
+        status, err, tokens = terminal_of(o)
+        require(status == 200 or (status in (503, 504) and err in (
+            "DrainTimeout", "EngineStopped")),
+            f"serve_router_7b drain: request {i} answered {status} ({err})")
+        if status == 200:
+            require(len(tokens) == 64 and tokens[0] == want[i][0],
+                    f"serve_router_7b drain: request {i} completed wrong")
+        if o["stream"] and status == 200:
+            require(o["tokens"] == tokens, "serve_router_7b drain: a "
+                                           "stream's tokens differ from its "
+                                           "done event's")
+        key = f"{status}" + (f" {err}" if err else "")
+        statuses[key] = statuses.get(key, 0) + 1
+    tail = router.trace[box["trace_at"]:]
+    out_at = tail.index(("out", "b"))
+    failovers = [e for e in tail if e[0] == "failover"]
+    require(all(tail.index(e) > out_at for e in failovers)
+            and box["rotation"] == ["a"],
+            f"serve_router_7b drain: b not out of the rotation before its "
+            f"drain ({box['rotation']})")
+    for name, eng in engines.items():
+        require(eng.kv.outstanding_pages == 0,
+                f"serve_router_7b drain: pages leaked on {name}")
+    # b back, and a request placed on it
+    router.restore_replica("b")
+    router.latch_out("a")
+    try:
+        o = http_generate(fd, prompts[0], 64, False)
+    finally:
+        router.restore_replica("a")
+    status, err, tokens = terminal_of(o)
+    require(status == 200 and placed_on(router)[o["doc"]["request_id"]]
+            == "b" and tokens[0] == want[0][0],
+            f"serve_router_7b drain: the restored replica answered {status} "
+            f"({err})")
+    return {"wall_s": wall, "statuses": statuses,
+            "failovers": len(failovers),
+            "rotation_during_drain": box["rotation"],
+            "restored_request_on": "b"}
+
+
+def serve_router_prefix_7b(torch, card, fa, pa, model) -> None:
+    """``serve_router_7b_prefix``: serve_prefix_7b's traffic (16 requests
+    sharing a 1024-token prefix, tails of 16-256 tokens, 64 new) through
+    ``Router.submit`` over two serve_7b engines with prefix sharing on,
+    every full and tail prefill key warmed on both: the first request
+    alone (its admission publishes the prefix on its replica), then the
+    other 15 at once, placed by prefix-affine pick-2 (bias 0.75). Reports
+    the share of the 15 placed on the replica holding the prefix, and
+    prompt tokens computed / requested over both engines."""
+    import numpy as np
+    from paddle_tpu_torch.serving import (GenerationRequest, Router,
+                                          RouterConfig)
+    cfg = model.config
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, (1024,), dtype=np.int32)
+    tails = rng.integers(16, 257, (16,))
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, (n,), dtype=np.int32)]) for n in tails]
+    t0 = time.monotonic()
+    engines = router_engines(model, ("a", "b"), "on",
+                             [p.size for p in prompts])
+    for eng in engines.values():
+        for p in prompts:
+            eng.prefill_graph(1024, p.size - 1024)
+    warmup_s = time.monotonic() - t0
+    counters = serve_counters(fa, pa)
+    router = Router(list(engines.items()), RouterConfig(seed=0))
+    router.start()
+    try:
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        before = {n: e.decode_stats() for n, e in engines.items()}
+        t0 = time.monotonic()
+        first = router.submit(GenerationRequest(prompts[0],
+                                                max_new_tokens=64))
+        results = [first.result(timeout=600)]
+        futs = [router.submit(GenerationRequest(p, max_new_tokens=64))
+                for p in prompts[1:]]
+        results += [f.result(timeout=600) for f in futs]
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        stats = {n: stats_delta(before[n], e.decode_stats())
+                 for n, e in engines.items()}
+        launches = {k: c.count for k, c in counters.items()}
+        where = placed_on(router)
+        holder = where[results[0].request_id]
+        by_engine = {n: [r.tokens for r in results
+                         if where[r.request_id] == n] for n in engines}
+        require_router_served(
+            engines, stats, by_engine, launches, cfg.num_hidden_layers,
+            cfg.vocab_size, 64, "serve_router_7b_prefix",
+            captured={n: s["prefill_graphs"] for n, s in stats.items()})
+        affine = [e for e in router.trace if e[0] == "affinity"]
+        requested = sum(e.prefill_token_stats()[0] for e in engines.values())
+        computed = sum(e.prefill_token_stats()[1] for e in engines.values())
+        require(computed < requested and affine,
+                f"serve_router_7b_prefix: prefill tokens {computed} of "
+                f"{requested}, {len(affine)} affine placements")
+        emit({"phase": "serve_router_7b_prefix", "card": card,
+              "requests": 16, "prefix_len": 1024,
+              "tail_lens": [int(x) for x in tails], "new_tokens": 64,
+              "warmup_s": warmup_s, **serving_numbers(results, wall),
+              "prefix_holder": holder,
+              "placed": {n: len(v) for n, v in by_engine.items()},
+              "placed_on_holder_share": sum(
+                  where[r.request_id] == holder for r in results[1:]) / 15,
+              "affinity_entries": len(affine),
+              "prefill_tokens_requested": requested,
+              "prefill_tokens_computed": computed,
+              "computed_over_requested": computed / requested,
+              "prefills": {n: s["prefills"] for n, s in stats.items()},
+              "captured_in_run": {n: s["prefill_graphs"]
+                                  for n, s in stats.items()},
+              "launches": launches, **memory_gb(torch)})
+    finally:
+        router.stop(drain=True, timeout=60)
+    del engines, router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fleet_engine(name: str, layers: int = FLEET_LAYERS,
+                 seed: int = FLEET_SEED, device=None):
+    """The fleet workers' factory (``chip_smoke:fleet_engine``, the repo
+    root on the spec's ``pythonpath``): Llama-2-7B's widths at ``layers``
+    layers, bf16, its weights drawn from a ``torch.Generator`` seeded with
+    ``seed``, behind an engine of serve_7b's settings named ``name``, not
+    warmed (the worker's ``Engine.warmup`` over the spec's lengths
+    captures every graph). ``device`` None needs a card, as every entry
+    point of the port: a worker without one exits non-zero."""
+    import torch
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+    dev = resolve_device(device)
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = layers
+    cfg.dtype = "bfloat16"
+    model = LlamaForCausalLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    torch.cuda.synchronize(dev)
+    return Engine(*model.serving_callables(2048), ServingConfig(
+        num_layers=layers, num_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim, max_len=2048, max_batch=16, page_size=64,
+        compute_dtype="bfloat16", kv_dtype="native", policy="budget",
+        prefill_token_budget=2048, prefix_sharing="off", device=dev,
+        name=name))
+
+
+def serve_fleet_7b_width(torch, card, served) -> None:
+    """``serve_fleet_7b_width``: a ``FleetSupervisor`` over two worker
+    processes (``python -m paddle_tpu_torch.serving.fleet_worker``), each
+    serving ``fleet_engine`` (Llama-2-7B's widths, FLEET_LAYERS layers,
+    seeded weights, warmed with serve_7b's 16 lengths), its ``Router``
+    behind a ``FrontDoor``; serve_7b's traffic over HTTP against the same
+    model built in this process. Then every slot of worker w0 held by a
+    long stream and one more request queued behind them, w0 SIGKILLed:
+    each admitted stream ends typed (RpcTransportError, 503 with
+    retry_after_s), the queued one fails over and completes on w1, no
+    token is delivered twice, w0 is respawned once (its split reported),
+    rejoins and serves; then w1 SIGTERMed drains and exits 0."""
+    import signal
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import (FleetSupervisor, FleetWorkerSpec,
+                                          FrontDoor)
+    t_phase = time.monotonic()
+    prompts, lens = served["prompts"], served["lens"]
+    root = str(Path(__file__).resolve().parent)
+    # the reference: the workers' model and engine, in this process
+    ref = fleet_engine("ref").warmup([int(n) for n in lens])
+    _, ref_results, _ = run_traffic(torch, ref, prompts, 64)
+    want = [r.tokens for r in ref_results]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh_obs(obs)
+    env = {"PYTHONPATH": os.pathsep.join(
+        [root, *filter(None, [os.environ.get("PYTHONPATH")])])}
+    specs = [FleetWorkerSpec(name=n, factory="chip_smoke:fleet_engine",
+                             config={"name": n}, pythonpath=[root], env=env,
+                             warmup=[int(x) for x in lens])
+             for n in ("w0", "w1")]
+    t0 = time.monotonic()
+    sup = FleetSupervisor(specs, poll_s=0.1, rpc_timeout_s=10.0,
+                          stale_after_s=30.0, max_respawns=1,
+                          spawn_timeout_s=FLEET_SPAWN_S)
+    sup.start()
+    boot_s = time.monotonic() - t0
+    fd = FrontDoor(sup.router)
+    pids = dict(sup.worker_pids())
+    try:
+        boots = {n: sup.worker_stats(n)["boot"] for n in ("w0", "w1")}
+        wall, outs = http_traffic(fd, prompts, 64)
+        got = require_http_ok(outs, "serve_fleet_7b_width")
+        require([t[0] for t in got] == [t[0] for t in want],
+                "serve_fleet_7b_width: first tokens differ from the "
+                "in-process engine's")
+        where = placed_on(sup.router)
+        traffic = {**http_numbers(outs, wall),
+                   "placed": {n: sum(where[request_id_of(o)] == n
+                                     for o in outs) for n in ("w0", "w1")},
+                   **transcript_agreement(got, want)}
+        kill = fleet_kill(torch, sup, fd, prompts, want)
+        # SIGTERM: w1 drains and exits 0 (no respawn left to take)
+        sup.max_respawns = 0
+        proc = sup._workers["w1"].proc
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.monotonic()
+        rc = proc.wait(timeout=120)
+        require(rc == 0, f"serve_fleet_7b_width: w1 exited {rc} on SIGTERM")
+        snap = obs.snapshot()
+        emit({"phase": "serve_fleet_7b_width", "card": card,
+              "layers": FLEET_LAYERS,
+              "cut": "depth 32 -> 4: two worker processes and a respawn "
+                     "(process start, weights, captures) must fit the run's "
+                     "time limit; widths are Llama-2-7B's",
+              "dtype": "bfloat16", "workers": 2, "requests": len(prompts),
+              "new_tokens": 64, "supervisor_start_s": boot_s,
+              "boot": boots, "traffic": traffic, "kill": kill,
+              "sigterm": {"exit_code": rc,
+                          "seconds": time.monotonic() - t0},
+              "metrics": {k: snap.get(k) for k in (
+                  "fleet.respawns_total", "fleet.worker_deaths_total",
+                  "serving.router.failovers_total",
+                  "serving.http.requests_total")},
+              "seconds": time.monotonic() - t_phase})
+    finally:
+        sup.max_respawns = 0
+        sup.stop(drain=False, timeout=30)
+        fd.close()
+        obs.disable()
+        for pid in {*pids.values(), *sup.worker_pids().values()}:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+
+
+def fleet_kill(torch, sup, fd, prompts, want) -> dict:
+    """w0's 16 slots held by long streams (w1 latched out while they are
+    placed), one more request queued behind them, w1 restored, w0
+    SIGKILLed; the outcomes, the respawn's split and w0 serving again."""
+    import signal
+    import threading
+    from paddle_tpu_torch.observability import trace
+    router = sup.router
+    router.latch_out("w1")
+    hold = [p[:FLEET_HOLD_PROMPT] for p in prompts]
+    first = [threading.Event() for _ in hold]
+    outs = [None] * (len(hold) + 1)
+
+    def client(i, prompt, n_new):
+        outs[i] = http_generate(
+            fd, prompt, n_new, True,
+            None if i >= len(first) else (lambda n: first[i].set()))
+
+    threads = [threading.Thread(target=client, args=(i, p, FLEET_HOLD_TOKENS),
+                                daemon=True) for i, p in enumerate(hold)]
+    for t in threads:
+        t.start()
+    require(all(e.wait(timeout=120) for e in first),
+            "serve_fleet_7b_width kill: the holding streams never started")
+    picks = sum(e[0] == "pick" and e[2] == "w0" for e in router.trace)
+    queued = threading.Thread(target=client,
+                              args=(len(hold), prompts[0], 64),
+                              daemon=True)
+    queued.start()
+    # placed on w0 (the router's trace), then accepted into its queue: a
+    # heartbeat asked for now shows it (the cached one may predate it)
+    w0 = next(r.engine for r in router.replicas if r.name == "w0")
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and (
+            sum(e[0] == "pick" and e[2] == "w0" for e in router.trace)
+            == picks or w0.beat(timeout=10.0)["queue_depth"] < 1):
+        time.sleep(0.01)
+    require(time.monotonic() < deadline,
+            "serve_fleet_7b_width kill: the queued request was not accepted")
+    router.restore_replica("w1")
+    free_before = torch.cuda.mem_get_info()[0]
+    old_pid = sup.worker_pids()["w0"]
+    t_kill = time.monotonic()
+    wall_kill = time.time()
+    os.kill(old_pid, signal.SIGKILL)
+    for t in [*threads, queued]:
+        t.join(timeout=600)
+    require(all(not t.is_alive() for t in [*threads, queued]),
+            "serve_fleet_7b_width kill: a client hung")
+    held = [terminal_of(o) for o in outs[:-1]]
+    require(all(s == 503 and e == "RpcTransportError" for s, e, _ in held),
+            f"serve_fleet_7b_width kill: the admitted streams ended "
+            f"{sorted({(s, e) for s, e, _ in held})}")
+    require(all(o["terminals"][0][1].get("retry_after_s") for o in outs[:-1]),
+            "serve_fleet_7b_width kill: a 503 without retry_after_s")
+    require(all(o["indices"] == list(range(len(o["tokens"])))
+                and 0 < len(o["tokens"]) < FLEET_HOLD_TOKENS
+                for o in outs[:-1]),
+            "serve_fleet_7b_width kill: a held stream repeated or skipped a "
+            "token")
+    status, err, tokens = terminal_of(outs[-1])
+    rid = request_id_of(outs[-1])
+    seen = {"status": status, "error": err,
+            "tokens": None if tokens is None else len(tokens),
+            "streamed": len(outs[-1]["tokens"]),
+            "first_token_equal": bool(tokens) and tokens[0] == want[0][0],
+            "trace": [e for e in router.trace if len(e) > 1 and e[1] == rid]}
+    require(status == 200 and outs[-1]["tokens"] == tokens
+            and len(tokens) == 64 and tokens[0] == want[0][0]
+            and placed_on(router)[rid] == "w1"
+            and ("failover", rid, "w0") in router.trace,
+            f"serve_fleet_7b_width kill: the queued request did not fail over "
+            f"to w1 and complete: {seen}")
+    # the respawn: a new process, back in the rotation
+    deadline = time.monotonic() + FLEET_SPAWN_S
+    while time.monotonic() < deadline and not (
+            sup.worker_pids()["w0"] != old_pid
+            and router.in_rotation() == ["w0", "w1"]):
+        time.sleep(0.05)
+    rejoin_s = time.monotonic() - t_kill
+    require(sup.worker_pids()["w0"] != old_pid
+            and router.in_rotation() == ["w0", "w1"] and not sup.lost,
+            f"serve_fleet_7b_width kill: w0 did not rejoin ({sup.lost})")
+    free_after = torch.cuda.mem_get_info()[0]
+    event = [e for e in trace.flight_recorder().snapshot()
+             if e["name"] == "fleet_respawned"][-1]["attrs"]
+    boot = sup.worker_stats("w0")["boot"]
+    split = {"kill_to_spawn_s": event["spawned_at"] - wall_kill,
+             "spawn_to_worker_main_s": boot["started_at"]
+             - event["spawned_at"],
+             "weights_s": boot["factory_s"],
+             "warmup_captures_s": boot["warmup_s"],
+             "worker_main_to_port_file_s": boot["port_at"]
+             - boot["started_at"],
+             "port_file_seen_s": event["port_at"] - boot["port_at"],
+             "first_good_heartbeat_s": event["beat_at"] - event["port_at"],
+             "kill_to_rejoin_s": rejoin_s}
+    # the respawned worker serves (w1 latched out for the request)
+    router.latch_out("w1")
+    try:
+        o = http_generate(fd, prompts[1], 64, False)
+    finally:
+        router.restore_replica("w1")
+    status, err, tokens = terminal_of(o)
+    require(status == 200 and placed_on(router)[o["doc"]["request_id"]]
+            == "w0" and tokens[0] == want[1][0],
+            f"serve_fleet_7b_width kill: the respawned w0 answered {status} "
+            f"({err})")
+    from paddle_tpu_torch import observability as obs
+    snap = obs.snapshot()
+    require(snap.get("fleet.respawns_total") == 1
+            and snap.get("fleet.worker_deaths_total") == {
+                "reason=signal:SIGKILL": 1.0},
+            f"serve_fleet_7b_width kill: respawns "
+            f"{snap.get('fleet.respawns_total')}, deaths "
+            f"{snap.get('fleet.worker_deaths_total')}")
+    return {"held_streams": len(held),
+            "held_tokens_streamed": [len(o["tokens"]) for o in outs[:-1]],
+            "held_status": "503 RpcTransportError",
+            "queued_request": {"status": status, "failed_over_to": "w1"},
+            "respawn_split": split,
+            "free_gb_before_kill": free_before / 1e9,
+            "free_gb_after_respawn": free_after / 1e9,
+            "respawned_serves": True}
 
 
 # ---------------------------------------------------------------------------
@@ -8168,6 +9025,8 @@ def main() -> int:
     del chaos_eng
     gc.collect()
     torch.cuda.empty_cache()
+    router_launches = serve_router_7b(torch, smi, fa, pa, model, served)
+    serve_fleet_7b_width(torch, smi, served)
     serve16_launches = serve_7b_fp16(torch, smi, fa, pa, model, served)
     del model
     gc.collect()
@@ -8308,6 +9167,7 @@ def main() -> int:
             for p, v in fmt_launches.items()},
          **{f"launches_serve_chaos_7b_{leg}": v["flash_prefill"]
             for leg, v in chaos_launches.items()},
+         "launches_serve_router_7b": router_launches["flash_prefill"],
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
          "case": k1["case"], **{k: k1[k] for k in keys},
          **{k: k1.get(k) for k in b_keys},
@@ -8324,6 +9184,7 @@ def main() -> int:
             for p, v in fmt_launches.items()},
          **{f"launches_serve_chaos_7b_{leg}": v["paged_decode"]
             for leg, v in chaos_launches.items()},
+         "launches_serve_router_7b": router_launches["paged_decode"],
          "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
          "case": k2["case"], **{k: k2[k] for k in keys},
          **{k: k2.get(k) for k in b_keys},
@@ -8382,6 +9243,7 @@ def main() -> int:
          "launches_ernie_captured_leg1":
              captured_launches["ernie_captured_leg1"].get(k, 0),
          "launches_serve_run1": serve_launches.get(k, 0),
+         "launches_serve_router_7b": router_launches.get(k, 0),
          **{f"launches_fmt_{p}": v.get(k, 0)
             for p, v in fmt_launches.items()},
          **({"fmt_shapes": {k: fmt_times[k]}} if k in fmt_times else {}),
@@ -8405,6 +9267,7 @@ def main() -> int:
          "launches_ernie_leg1": path_launches["ernie_leg1"].get(k, 0),
          "launches_llama_eager": train_launches.get(k, 0),
          "launches_serve_run1": serve_launches.get(k, 0),
+         "launches_serve_router_7b": router_launches.get(k, 0),
          **{f"launches_fmt_{p}": v.get(k, 0)
             for p, v in fmt_launches.items()},
          **({"fmt_shapes": {n: fmt_times[n] for n in ("bias_act_512",

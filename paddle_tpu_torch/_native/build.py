@@ -108,41 +108,75 @@ def check(err: int, what: str) -> None:
 
 
 class LaunchCounter:
-    """Counts a kernel's launches: its wrapper adds one where it launches
-    the kernel and nowhere else, so a run can show that its main path went
-    through the kernel. A CUDA graph launches the kernels its capture
-    recorded without passing through the wrappers: its replays count them
-    with :meth:`add`, by the amounts :func:`recorded_launches` took at
-    capture."""
+    """Counts a kernel's launches: its wrapper calls :meth:`launched` where
+    it launches the kernel and nowhere else, so a run can show that its
+    main path went through the kernel. A CUDA graph launches the kernels
+    its capture recorded without passing through the wrappers: its replays
+    count them with :meth:`add`, by the amounts :func:`recorded_launches`
+    took at capture.
+
+    Safe from several threads (two engines' loop threads replay at once):
+    both are one locked increment. While a capture records, every
+    wrapper's launch goes to the recording, whichever thread makes it (the
+    autograd engine runs a captured backward on threads of its own), and
+    replays go on counting: the captures that may overlap other threads'
+    work (the serving engines') hold a process-wide lock from their warm-up
+    calls to the end of the capture, so no other wrapper launches then."""
 
     def __init__(self, name: str):
         self.name = name
-        self.count = 0
+        self._count = 0
         _counters.append(self)
 
+    @property
+    def count(self) -> int:
+        """Launches made so far (a capture in progress adds none)."""
+        return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self.launched(value - self._count)
+
     def reset(self) -> None:
-        self.count = 0
+        with _count_lock:
+            self._count = 0
+
+    def launched(self, n: int = 1) -> None:
+        """A wrapper launched its kernel (``n`` times): counted, or taken
+        by the recording of a capture in progress."""
+        with _count_lock:
+            if _recordings:
+                rec = _recordings[-1]
+                rec[self] = rec.get(self, 0) + n
+            else:
+                self._count += n
 
     def add(self, n: int) -> None:
         """Count ``n`` launches made by a replay of a captured graph."""
-        self.count += n
+        with _count_lock:
+            self._count += n
 
 
 _counters: List[LaunchCounter] = []
+_count_lock = threading.Lock()
+# the dicts of the recorded_launches regions open in the process, innermost
+# last
+_recordings: List[Dict[LaunchCounter, int]] = []
 
 
 @contextlib.contextmanager
 def recorded_launches() -> Iterator[Dict[LaunchCounter, int]]:
-    """Around a CUDA graph capture: yields a dict that is filled on exit
-    with how far the region advanced each counter, and puts every count
-    back, since a capture records the launches without making them."""
-    counters = list(_counters)
-    before = [c.count for c in counters]
+    """Around a CUDA graph capture: yields a dict of the launches the
+    wrappers made inside the region, by counter, which leave every count
+    as it was, since a capture records the launches without making them.
+    Replays of other graphs meanwhile are counted as usual."""
     recorded: Dict[LaunchCounter, int] = {}
+    with _count_lock:
+        _recordings.append(recorded)
     try:
         yield recorded
     finally:
-        for c, n in zip(counters, before):
-            if c.count != n:
-                recorded[c] = c.count - n
-                c.count = n
+        with _count_lock:
+            _recordings.remove(recorded)
+            for c in [c for c, n in recorded.items() if n == 0]:
+                del recorded[c]

@@ -179,7 +179,7 @@ def _launch_fwd(ids, weight, pad: Optional[int], fns=None):
                 row_bytes, unit, int(ids.dtype == torch.int64),
                 -1 if pad is None else pad, stream(dev))
         _native.check(err, "embedding forward kernel launch")
-        launches.count += 1
+        launches.launched()
     return out
 
 
@@ -218,7 +218,7 @@ def _launch_bwd(ids, dy, rows: int, pad: Optional[int], dtype, fns=None):
                 -1 if pad is None else pad, plan.vec, plan.threads,
                 plan.strips, stream(dev))
         _native.check(err, "embedding backward kernel launch")
-        launches.count += 1
+        launches.launched()
     return dw
 
 

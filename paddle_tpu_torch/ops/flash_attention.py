@@ -407,7 +407,7 @@ def flash_attention_fwd(query: torch.Tensor, key: torch.Tensor,
                 lq, lk, h, hkv, d, code, int(causal), scale, *extra, stream)
     _native.check(err, "flash_attention kernel launch")
     (launches if variant is None
-     else launches_variant["fwd", variant]).count += 1
+     else launches_variant["fwd", variant]).launched()
     return out
 
 
@@ -443,7 +443,7 @@ def flash_attention_lse(query: torch.Tensor, key: torch.Tensor,
             err = _kernel("flash_fwd_lse_segdrop")(*args, *extra, stream)
     _native.check(err, "flash_attention_lse kernel launch")
     (launches_lse if variant is None
-     else launches_variant["fwd_lse", variant]).count += 1
+     else launches_variant["fwd_lse", variant]).launched()
     return out, lse
 
 
@@ -493,11 +493,11 @@ def flash_attention_bwd(query, key, value, out, lse, dout,
         err = _kernel("flash_bwd_dq" + suffix)(
             *ptrs, dq.data_ptr(), *dims, *extra, stream)
         _native.check(err, "flash_attention_bwd dq kernel launch")
-        counters[0].count += 1
+        counters[0].launched()
         err = _kernel("flash_bwd_dkv" + suffix)(
             *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *extra, stream)
         _native.check(err, "flash_attention_bwd dk/dv kernel launch")
-        counters[1].count += 1
+        counters[1].launched()
     return dq, dk, dv
 
 

@@ -406,7 +406,7 @@ def _launch_fwd(x, weight, bias, residual, pre_bias, spec, fns=None):
                      spec.eps, int(plan.ring), plan.grid, *_plan_args(plan),
                      stream(dev))
         _native.check(err, "fused_norm forward kernel launch")
-        launches.count += 1
+        launches.launched()
     return out, res_out, mean, rstd
 
 
@@ -454,7 +454,7 @@ def _launch_bwd(dy, dres, h, mean, rstd, weight, spec, *, dx_dtype,
                      int(spec.fused), vec, int(plan.ring), *_plan_args(plan),
                      stream(dev))
         _native.check(err, "fused_norm backward kernel launch")
-        launches.count += 1
+        launches.launched()
     if dw is not None and weight.shape != dw.shape:
         dw = dw.reshape(weight.shape)
     return dx, dw, db, dpb

@@ -303,7 +303,7 @@ def _gather(y, routes, gate, bias, spec, plain: bool, counter):
     if plain:
         return gather_sum_reference(y, routes, gate, bias, spec)
     out = _launch_gather(y, routes, gate, bias, spec)
-    counter.count += 1
+    counter.launched()
     return out
 
 
@@ -311,7 +311,7 @@ def _rows(src, routes, gate, y, bias, out_dtype, h, plain: bool, counter):
     if plain:
         return slot_rows_reference(src, routes, gate, y, bias, out_dtype, h)
     out = _launch_rows(src, routes, gate, y, bias, out_dtype, h)
-    counter.count += 1
+    counter.launched()
     return out
 
 

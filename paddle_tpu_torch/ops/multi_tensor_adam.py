@@ -174,4 +174,4 @@ def multi_tensor_adam_update(
               [t.data_ptr() for t in tables]),
             0 if tables is None else tables[0].numel(), base, wd, stream)
     _native.check(err, "multi_tensor_adam kernel launch")
-    launches.count += 1
+    launches.launched()

@@ -146,7 +146,7 @@ def paged_attention(q, k_new, v_new, pool, scales, tables, t, layer: int, *,
     # the library loads once the arguments have passed call_kernel's checks
     out = call_kernel(lambda *a: _kernel()(*a), q, k_new, v_new, pool, scales,
                       tables, t, layer, page_size=page_size)
-    launches.count += 1
+    launches.launched()
     return out
 
 

@@ -251,4 +251,4 @@ def q8_adam_update(m_q, m_s, v_q, v_s, base, grad, *,
             sc.data_ptr(), eps, beta1, beta2, 1.0 - beta1, 1.0 - beta2,
             int(has_wd), int(use_sr), seed_t.data_ptr(), stream)
     _native.check(err, "q8_adam kernel launch")
-    launches.count += 1
+    launches.launched()

@@ -230,7 +230,7 @@ def _launch(xs, cos, sin, *, offset, positions, neox, dtype, table_dtype,
                      plan.heads_per_part, plan.lph, plan.hpw, plan.nch,
                      stream(dev))
         _native.check(err, "rope kernel launch")
-        launches.count += 1
+        launches.launched()
     return tuple(outs)
 
 

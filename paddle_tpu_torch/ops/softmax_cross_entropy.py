@@ -133,7 +133,7 @@ def _launch_fwd(x3, lab2, l_used: int, ignore: int, x_cast, fns=None):
             ignore, c(x3.dtype), c(x_cast), int(lab2.dtype == torch.int64),
             vec, stream(dev))
     _native.check(err, "softmax_cross_entropy forward kernel launch")
-    launches.count += 1
+    launches.launched()
     return out, m, logs, valid
 
 
@@ -155,7 +155,7 @@ def _launch_bwd(x3, lab2, l_used: int, ignore: int, x_cast, m, logs, valid,
             lab2.stride(1), ignore, c(x3.dtype), c(x_cast),
             int(lab2.dtype == torch.int64), vec, stream(dev))
     _native.check(err, "softmax_cross_entropy backward kernel launch")
-    launches.count += 1
+    launches.launched()
     return dx
 
 

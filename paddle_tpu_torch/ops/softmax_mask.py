@@ -197,7 +197,7 @@ def _launch_fwd(x, mask, causal: bool, fns=None, plan=None):
                 plan.elems, plan.rpw, int(plan.head_major), plan.grid,
                 plan.threads, stream(dev))
         _native.check(err, "softmax_mask forward kernel launch")
-        launches.count += 1
+        launches.launched()
     return out
 
 
@@ -216,7 +216,7 @@ def _launch_bwd(y, dy, fns=None, plan=None):
                 dtype_code(y.dtype, "softmax_mask"), *_plan_args(plan),
                 stream(dev))
         _native.check(err, "softmax_mask backward kernel launch")
-        launches.count += 1
+        launches.launched()
     return dx
 
 

@@ -7,6 +7,10 @@ names, metrics and environment variables.
   that propagate through nested calls via :class:`deadline_scope`), the
   registry with ``PADDLE_TPU_RETRY_*`` overrides, and
   :func:`jitter_sleep` for poll loops;
+* :mod:`~paddle_tpu_torch.resilience.breaker`: the per-endpoint
+  :class:`CircuitBreaker` (closed -> open -> half-open with a cooldown) the
+  serving router keeps for each replica, so a dead replica costs one fast
+  :class:`BreakerOpen` instead of an attempt per request;
 * :mod:`~paddle_tpu_torch.resilience.faults`: deterministic
   :class:`FaultSchedule` injection (delay/error/kill, by site tag, seeded
   or scripted), a no-op global probe when not installed;
@@ -14,8 +18,8 @@ names, metrics and environment variables.
   :class:`StepWatchdog` that classifies a hung or zombie device step from
   a thread that cannot be wedged.
 
-The JAX package's circuit breaker (``resilience.breaker``, for the router)
-and training supervisor (``resilience.trainer``) are not ported yet.
+The JAX package's training supervisor (``resilience.trainer``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 from .policy import (DeadlineExceeded, RetryPolicy, current_deadline,
                      deadline_scope, env_float, env_int, get_policy,
                      jitter_sleep, register_policy, reset_policies)
+from .breaker import (BreakerOpen, CircuitBreaker, breaker_for,
+                      reset_breakers)
 from .faults import (FaultInjected, FaultSchedule, KillPoint, fault_point,
                      install, installed, uninstall)
 from .watchdog import StepWatchdog, WatchdogTimeout
@@ -31,6 +37,7 @@ __all__ = [
     "RetryPolicy", "DeadlineExceeded", "deadline_scope", "current_deadline",
     "get_policy", "register_policy", "reset_policies", "jitter_sleep",
     "env_float", "env_int",
+    "BreakerOpen", "CircuitBreaker", "breaker_for", "reset_breakers",
     "FaultInjected", "FaultSchedule", "KillPoint", "fault_point",
     "install", "installed", "uninstall",
     "StepWatchdog", "WatchdogTimeout",

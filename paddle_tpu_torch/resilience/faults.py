@@ -31,6 +31,11 @@ The port's serving engine threads four sites (exact-match tags):
                       degrades the graceful drain to an immediate stop
 ====================  =====================================================
 
+The tiers above the engine thread six more: ``router.pick`` and
+``router.forward`` (``serving.router``), ``http.write`` (``serving.http``),
+and ``fleet.spawn``, ``fleet.heartbeat`` and ``fleet.rpc``
+(``serving.fleet``); their modules say what each means.
+
 Kinds: ``delay`` sleeps; ``error`` raises a fresh instance of the
 configured exception type; ``kill`` raises :class:`KillPoint`, a
 ``BaseException``, so ordinary ``except Exception`` recovery code cannot

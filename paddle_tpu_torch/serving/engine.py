@@ -104,8 +104,13 @@ with its copies and kernels queued. Every replay records an event; after
 an abandonment no graph refills its pinned staging and no admission
 reuses a freed page until the graph's last replay event has completed,
 and the zombie launches nothing more (it checks under the launch lock).
-All engine work runs on one stream (:attr:`Engine.stream`), so stream
-order covers the pool.
+All of an engine's work runs on its own stream (:attr:`Engine.stream`), so
+stream order covers its pool; two engines in one process (a router's
+replicas) neither wait for each other's replays at their host reads nor
+share a capture: captures take one process-wide lock, as PyTorch allows
+one capture at a time in a process, and each engine captures on its own
+side stream, so its graphs' cuBLAS workspace (one per handle and stream)
+is its own and two engines' replays may overlap on the card.
 
 A real asynchronous CUDA error (an illegal address) is sticky: the
 process's context cannot run another kernel. The engine does not loop on
@@ -195,6 +200,10 @@ _WARM_STEPS = 1
 # below this share of the host's memory available, the least recently used
 # prefill graphs are dropped before another is captured
 _HOST_AVAILABLE_SHARE = 1 / 8
+# one CUDA graph capture at a time in the process (PyTorch's rule), whichever
+# engine's thread captures, held from its warm-up calls on; other threads go
+# on replaying meanwhile
+_CAPTURE_LOCK = threading.Lock()
 
 
 class EngineStopped(RuntimeError):
@@ -410,29 +419,39 @@ class _EngineGraph:
     def _capture(self, fn: Callable, mempool,
                  side: Optional[torch.cuda.Stream]) -> torch.Tensor:
         """Run ``fn`` ``_WARM_STEPS`` times on the side stream ``side`` (a
-        stream of its own if None), then capture one call of it into
-        ``mempool``; returns the call's output (the graph's). Warm-up
-        memory stays cached for its stream, so the engine gives all its
-        graphs one side stream."""
+        stream of its own if None), then capture one call of it on that
+        stream into ``mempool``; returns the call's output (the graph's).
+        Warm-up memory stays cached for its stream, so the engine gives all
+        its graphs one side stream. Holds the process-wide capture lock
+        throughout: no other engine captures, or launches a kernel through
+        a wrapper, meanwhile (the launch counters record this capture's)."""
         dev = self._kv.device
-        t0 = time.perf_counter()
-        if side is None:
-            side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.no_grad():
-            for _ in range(_WARM_STEPS):
-                fn()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: CUDA calls of the process's other threads (a caller's
-        # tensors, another engine) neither fail nor spoil the capture; this
-        # thread makes none, and the engine's replays run one at a time
-        with _native.recorded_launches() as self.launches, torch.no_grad(), \
-                torch.cuda.graph(self.graph, pool=mempool,
-                                 capture_error_mode="thread_local"):
-            out = fn()
-        torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t0
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            if side is None:
+                side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), torch.no_grad():
+                for _ in range(_WARM_STEPS):
+                    fn()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # captured on the engine's own side stream: cuBLAS keeps a
+            # workspace per (handle, stream), and a graph bakes in the one
+            # its capture used, so two engines' graphs replaying at once on
+            # their streams must not share one (PyTorch's default capture
+            # stream would give every engine's graphs the same).
+            # thread_local: CUDA calls of the process's other threads (a
+            # caller's tensors, another engine's replays) neither fail nor
+            # spoil the capture; this thread makes none, and the engine's
+            # replays run one at a time
+            with _native.recorded_launches() as self.launches, \
+                    torch.no_grad(), \
+                    torch.cuda.graph(self.graph, pool=mempool, stream=side,
+                                     capture_error_mode="thread_local"):
+                out = fn()
+            torch.cuda.synchronize(dev)
+            self.capture_s = time.perf_counter() - t0
         return out
 
     def _pointers(self) -> Tuple[int, int]:
@@ -564,10 +583,14 @@ class Engine:
         self._evicted_replays: Counter = Counter()
         self._graph_lock = threading.Lock()
         self._capture_pool = None
-        # the one stream of the engine's device work (a card only): the loop
-        # thread runs on it, so stream order covers the pool
-        self.stream = (torch.cuda.current_stream(self.device)
-                       if self.device.type == "cuda" else None)
+        # the engine's own stream for its device work (a card only): the
+        # loop thread and warmup() run on it, so stream order covers the
+        # pool, and another engine's replays never sit between this one's
+        # launch and its read; it starts after the pool's zero fill
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         # held from the zombie check through a launch: stop() takes it to
         # mark an abandoned loop thread, which then launches nothing more
         self._launch_lock = threading.Lock()
@@ -772,8 +795,14 @@ class Engine:
     def warmup(self, prompt_lens: Sequence[int] = ()) -> "Engine":
         """Make every batch bucket and the full prefill of each of
         ``prompt_lens`` ready before the first request: on a card capture
-        their graphs, on the CPU run each once. Writes nothing outside
-        page 0."""
+        their graphs (on the engine's stream), on the CPU run each once.
+        Writes nothing outside page 0."""
+        if self.stream is not None:
+            with torch.cuda.stream(self.stream):
+                return self._warmup(prompt_lens)
+        return self._warmup(prompt_lens)
+
+    def _warmup(self, prompt_lens: Sequence[int]) -> "Engine":
         S = self.kv.config.pages_per_slot
         on_card = self.device.type == "cuda"
         for b in self.config.buckets:
@@ -894,6 +923,12 @@ class Engine:
     def beacon(self) -> str:
         """This engine's ``/healthz`` component name."""
         return self._beacon
+
+    @property
+    def draining(self) -> bool:
+        """True once ``stop(drain=...)`` latched new admissions off: the
+        router takes a draining replica out of rotation."""
+        return self._draining.is_set()
 
     # -- the step loop ------------------------------------------------------
     def step(self) -> bool:

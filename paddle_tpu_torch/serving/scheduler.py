@@ -207,6 +207,13 @@ class Scheduler:
         self._cancelled_active: set = set()
 
     # -- producer side ------------------------------------------------------
+    def estimated_wait(self) -> float:
+        """Seconds a request arriving now is expected to queue (0.0 until
+        enough admissions were seen to estimate a drain rate): the
+        router's placement signal."""
+        with self._lock:
+            return self._estimated_wait_locked()
+
     def _estimated_wait_locked(self) -> float:
         if self._ewma_interval is None:
             return 0.0

@@ -157,6 +157,50 @@ def test_observability_resilience_and_serving_load_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+_IMPORT_FRONT_DOOR = """
+import sys
+import paddle_tpu_torch.serving.router
+import paddle_tpu_torch.serving.http
+import paddle_tpu_torch.serving.fleet
+import paddle_tpu_torch.serving.fleet_worker
+import paddle_tpu_torch.resilience.breaker
+import paddle_tpu_torch.distributed.rpc
+from paddle_tpu_torch.serving import (FleetSupervisor, FrontDoor, Router,
+                                      status_for)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_router_front_door_and_fleet_load_no_jax():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_FRONT_DOOR], cwd=ROOT,
+                       env=_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_a_fleet_worker_with_no_device_needs_a_card(tmp_path):
+    # the factory config names no device: the worker's engine needs a card,
+    # so without one the worker exits non-zero before it publishes a port,
+    # and the supervisor says so typed; nothing serves on the CPU
+    if torch.cuda.is_available():
+        return
+    from paddle_tpu_torch.serving import (FleetSupervisor, FleetWorkerLost,
+                                          FleetWorkerSpec)
+    spec = FleetWorkerSpec(
+        name="w", factory="torch_fleet_factory:make_engine",
+        config={"name": "w"},
+        pythonpath=[str(ROOT / "tests" / "workers"), str(ROOT)],
+        env={"PYTHONPATH": str(ROOT)})
+    sup = FleetSupervisor([spec], workdir=str(tmp_path), spawn_timeout_s=120,
+                          poll_s=0.05)
+    with pytest.raises(FleetWorkerLost, match="exited with status 1"):
+        sup.start()
+    assert sup.router is None and sup.worker_pids() == {}
+
+
 def test_engine_under_a_watchdog_needs_a_card_unless_cpu_is_asked(
         monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_SERVING_WATCHDOG_S", "0.3")
