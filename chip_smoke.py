@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE[,PHASE...]]
 
-Needs one CUDA card (an H100: the kernels are built for sm_90a) and
+(``--only``: the build and the named phases of ``PHASES``, with no kernels
+line; without it every phase runs.) Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 ``nvcc``. It builds every kernel in ``paddle_tpu_torch/csrc`` from source
 (and requires that the SASS of every bf16 and fp16 flash kernel, forward,
 dq and dk/dv, holds wgmma and TMA instructions) and runs, printing one JSON
@@ -181,6 +182,23 @@ line per phase:
   stream 503 ``RpcTransportError``, the queued request failed over and
   completed, no token twice, one respawn that rejoins and serves, its split
   printed) and a SIGTERM that drains and exits 0.
+
+* the rest of the optimizer: ``multi_tensor_adam_check`` also holds the
+  multi-tensor AdamW kernel's forms at the 1.59B Llama's 1,591,308,800
+  parameters bit for bit against its plain version (bf16 moments beside
+  an fp32 master; the master-free bf16 storage rounded stochastically and
+  to nearest; two launches at their flat offsets drawing one launch's
+  bits; a closed gate), timed beside their byte bounds and
+  ``torch._fused_adamw_``; ``train_llama_1p6b_bf16_state`` trains
+  ``bench.py``'s Llama on ``bench_llama.py --state bf16``'s optimizer
+  (multi-tensor AdamW, bf16 moments, no masters, O2 without master
+  weights: 6 bytes of state a parameter) for 2 warm-up and 4 timed steps,
+  profiles one more, and runs 5 calls on the eager tier and through
+  ``jit.capture_step`` from one saved state, bit-equal;
+  ``optimizer_zoo_check`` steps each optimizer of the JAX package's list
+  (and AdamW's other new forms) 5 times on one full-width ERNIE-3.0-base
+  layer on the card, against the same steps of the plain path on the CPU
+  and, all but ``LBFGS``, captured bit-equal.
 
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound, with the card's own time of each kernel and
@@ -8960,8 +8978,595 @@ def grad_scaler_check(torch) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the rest of the optimizer: the multi-tensor AdamW kernel's new forms, the
+# bf16-state Llama step of bench_llama.py, and the optimizers beyond AdamW
+# ---------------------------------------------------------------------------
+
+# bench_config()'s parameters: embeddings and head 2 x 32000 x 2560, 18
+# layers of 4 x 2560^2 + 3 x 2560 x 6912 + 2 x 2560, the final norm
+LLAMA_1P6B_PARAMS = 1591308800
+# the new forms of the multi-tensor AdamW kernel: (storage, moments,
+# parameter buffer, rounding) and the bytes each element moves (the grad is
+# bf16 throughout: 2 read)
+MT_FORMS = {
+    # an fp32 master with bf16 moments and bf16 parameters: 10 read
+    # (grad 2, master 4, m 2, v 2) and 10 written (master 4, m 2, v 2,
+    # param 2)
+    "bf16_moments": ("float32", "bfloat16", "bfloat16", False, 20.0),
+    # bench_llama's --state bf16: the bf16 parameters are the storage,
+    # rounded stochastically: 8 read (grad, w, m, v), 6 written (w, m, v)
+    "master_free_sr": ("bfloat16", "bfloat16", None, True, 14.0),
+    "master_free_rn": ("bfloat16", "bfloat16", None, False, 14.0),
+}
+MT_FORM_LR = 1e-3
+MT_FORM_SPLIT = 795654400   # a 16-byte aligned cut near half of n
+
+
+def mt_form_state(torch, n: int, form: str, seed: int = 11) -> list:
+    """``[w, m, v, param]`` of ``form`` for ``n`` elements, made on the card
+    from ``seed`` (the same each call): weights 0.02-sized, m 1e-3, v up to
+    1e-4."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    w_dt, m_dt, p_dt, _, _ = MT_FORMS[form]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(n, generator=gen, device="cuda") * 0.02
+    m = (torch.randn(n, generator=gen, device="cuda") * 1e-3).to(dt[m_dt])
+    v = (torch.rand(n, generator=gen, device="cuda") * 1e-4).to(dt[m_dt])
+    param = None if p_dt is None else w.to(dt[p_dt])
+    return [w.to(dt[w_dt]), m, v, param]
+
+
+def check_multi_tensor_adam_forms(torch, q8, mta) -> dict:
+    """The multi-tensor AdamW kernel's forms of this slice against its
+    plain version, bit for bit, at the 1.59B Llama's 1,591,308,800
+    parameters (bf16 gradients, the global-norm scale and weight decay on):
+    an fp32 master with bf16 moments; the master-free bf16 storage with
+    stochastic rounding and to nearest. The rounding form updated in two
+    launches at their flat offsets draws the bits of one launch; a closed
+    gate writes nothing. Each timed beside its byte bound, the plain
+    version and ``torch._fused_adamw_`` on bf16 parameters, gradients and
+    moments (a yardstick that rounds to nearest, never the path)."""
+    from paddle_tpu_torch.ops._u32 import derive_seed
+    n = LLAMA_1P6B_PARAMS
+    t = 3
+    c1, c2 = (float(torch.tensor(1.0 - b ** t, dtype=torch.float32))
+              for b in (0.9, 0.999))
+    lr, wd = MT_FORM_LR, 0.01
+    sc = q8.scalar_block(lr, c1, c2, 1.0 - lr * wd, grad_scale=0.8,
+                         device="cuda")
+    seed = derive_seed(torch.tensor(1234, device="cuda"),
+                       torch.tensor(t, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    grad = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(
+        torch.bfloat16)
+    rows = {}
+    for form, (_, _, _, sr, nbytes) in MT_FORMS.items():
+        kw = dict(ADAM_HP, scalars=sc, has_wd=True, grad_scale=True,
+                  seed=seed, stochastic_rounding=sr)
+        before = [None if x is None else digest(torch, x)
+                  for x in mt_form_state(torch, n, form)]
+        st_k = mt_form_state(torch, n, form)
+        launches0 = mta.launches.count
+        mta.multi_tensor_adam_update(*st_k, grad, **kw)
+        torch.cuda.synchronize()
+        require(mta.launches.count == launches0 + 1,
+                f"multi_tensor_adam[{form}]: not one launch")
+        st_r = mt_form_state(torch, n, form)
+        mta.multi_tensor_adam_update_reference(*st_r, grad, **kw)
+        names = ("w", "m", "v", "param")
+        differ = {nm: int((a != b).sum()) for nm, a, b in
+                  zip(names, st_k, st_r) if a is not None}
+        errs = {nm: float((a.float() - b.float()).abs().max()) for nm, a, b
+                in zip(names, st_k, st_r) if a is not None}
+        after = [None if x is None else digest(torch, x) for x in st_k]
+        moved = {nm: b != a for nm, a, b in zip(names, before, after)
+                 if a is not None}
+        require(all(v == 0 for v in differ.values()) and moved["m"]
+                and moved["v"] and (moved["w"] or form == "master_free_rn"),
+                f"multi_tensor_adam[{form}] kernel vs plain: elements "
+                f"differing {differ}, max-abs {errs}, moved {moved}")
+        del st_r
+        row = {"phase": "multi_tensor_adam_check", "form": form, "n": n,
+               "storage": MT_FORMS[form][0], "moments": MT_FORMS[form][1],
+               "param": MT_FORMS[form][2], "grad": "bfloat16",
+               "stochastic_rounding": sr, "elements_differing": differ,
+               "max_abs_err": errs, "state_moved": moved}
+        if sr:
+            # two launches at their flat offsets draw one launch's bits
+            st_s = mt_form_state(torch, n, form)
+            cut = MT_FORM_SPLIT
+            for a, b in ((0, cut), (cut, n)):
+                mta.multi_tensor_adam_update(
+                    *(None if x is None else x[a:b] for x in st_s),
+                    grad[a:b], **dict(kw, base=a))
+            require(all(torch.equal(a, b) for a, b in zip(st_s[:3],
+                                                          st_k[:3])),
+                    f"multi_tensor_adam[{form}]: two runs drew other bits "
+                    f"than one")
+            row["two_runs_bit_equal"] = True
+            # rounding moved the storage where rounding to nearest did not
+            row["storage_elements_moved"] = int(
+                (st_s[0] != mt_form_state(torch, n, form)[0]).sum())
+            del st_s
+        closed = sc.clone()
+        closed[4] = 0.0
+        st_g = mt_form_state(torch, n, form)
+        mta.multi_tensor_adam_update(*st_g, grad, **dict(kw, scalars=closed))
+        require([None if x is None else digest(torch, x) for x in st_g]
+                == before, f"multi_tensor_adam[{form}]: a closed gate "
+                f"wrote state")
+        row["closed_gate_writes_nothing"] = True
+        del st_g
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def kernel():
+            mta.multi_tensor_adam_update(*st_k, grad, **kw)
+        ms, host = event_and_host(torch, kernel, 20)
+        dev = device_time(torch, kernel, 20, ms)
+        row.update(ms=ms, host_us=host, device_ms=dev["device_ms"],
+                   device_source=dev["source"])
+        w16 = st_k[0] if st_k[3] is None else st_k[3]
+        # the plain version and the library on other buffers of the form
+        st_r = mt_form_state(torch, n, form)
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: mta.multi_tensor_adam_update_reference(
+                *st_r, grad, **kw), 2, warmup=1)
+        del st_r
+        gc.collect()
+        torch.cuda.empty_cache()
+        p16, m16, v16 = w16.clone(), st_k[1].clone(), st_k[2].clone()
+        step_t = torch.tensor(float(t), device="cuda")
+
+        def library():
+            torch._fused_adamw_([p16], [grad], [m16], [v16], [], [step_t],
+                                lr=lr, beta1=0.9, beta2=0.999,
+                                weight_decay=wd, eps=1e-8, amsgrad=False,
+                                maximize=False)
+        row["library_ms"] = cuda_ms(torch, library, 20)
+        row["library_device_ms"] = device_ms(torch, library, 20)
+        row["library"] = ("torch._fused_adamw_ on bf16 parameters, "
+                          "gradients and moments (rounds to nearest)")
+        bms, by = bound(MT_FLOPS * n, nbytes * n, "float32")
+        row.update(bound_ms=bms, bound_by=by, bytes_per_element=nbytes,
+                   gbytes_per_s=nbytes * n / ms / 1e6)
+        emit(row)
+        rows[form] = row
+        del st_k, p16, m16, v16, w16
+        gc.collect()
+        torch.cuda.empty_cache()
+    del grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+BF16_STATE_CALLS = 5   # one capturing call and 4 replays; 5 eager steps
+
+
+def train_llama_1p6b_bf16_state(torch, card, fa, q8, mta) -> dict:
+    """``train_llama_1p6b_bf16_state``: the 1.59B Llama of ``bench.py``
+    (``bench_config()``: full width and depth, batch 6, seq 4096,
+    recompute, O2 bf16) on ``benchmarks/bench_llama.py --state bf16``'s
+    optimizer, ``AdamW(learning_rate=1e-4, use_multi_tensor=True,
+    moment_dtype="bfloat16", use_master_weights=False)`` built on the fp32
+    parameters, then ``amp.decorate(level="O2", dtype="bfloat16",
+    master_weight=False)``: 2 warm-up and 4 timed eager steps, one more
+    profiled. Gates: the first loss within 0.5 of ``ln V + hidden * 0.02^2
+    / 2``, every loss finite, the optimizer state 6 bytes a parameter
+    (bf16 storage, m and v; the flat buffers' alignment pad reported) and
+    no fp32 buffer held, one multi-tensor AdamW launch a step and no B5,
+    B2-B4 once a layer a step and K1-K5 their per-step counts. Then the
+    same step from one saved state on the eager tier and through
+    ``jit.capture_step`` (one capturing call, 4 replays): losses and the
+    digests of the parameters, m, v and ``_step_t`` bit-equal, which holds
+    only if the rounding seed is drawn on the card each step. Returns the
+    eager run's launches."""
+    import numpy as np
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bench_config()
+    batch, seq, warmup, timed = 6, 4096, 2, 4
+    t0 = time.monotonic()
+    model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                use_multi_tensor=True, moment_dtype="bfloat16",
+                use_master_weights=False)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                              master_weight=False)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    fs = opt._flat
+    n_params = model.num_params()
+    require(n_params == LLAMA_1P6B_PARAMS,
+            f"bench_config() has {n_params} parameters")
+    require(fs.master.dtype == fs.m.dtype == fs.v.dtype == torch.bfloat16
+            and not fs.lows and all(
+                p.dtype == torch.bfloat16 for p in model.parameters()),
+            "train_llama_1p6b_bf16_state: the state is not the bf16 "
+            "master-free layout")
+    state_bytes = fs.state_bytes()
+    require(state_bytes == 6 * fs.total,
+            f"optimizer state {state_bytes} bytes for {fs.total} flat "
+            f"elements")
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def fwd_bwd(ids):
+        with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+            loss, _ = model(ids, labels=ids)
+        loss.backward()
+        return loss
+
+    def update():
+        opt.step()
+        opt.clear_grad()
+
+    def step():
+        loss = fwd_bwd(ids)
+        update()
+        return loss
+
+    counters = {k: c for k, c in train_counters(fa, q8).items()
+                if k != "q8_adam"}
+    counters["multi_tensor_adam"] = mta.launches
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (*counters.values(), q8.launches, fa.launches):
+        c.reset()
+    stop_sampler = sample_card()
+    try:
+        for _ in range(warmup + timed):
+            t1 = time.monotonic()
+            loss = step()
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t1)
+            losses.append(float(loss.detach()))
+    finally:
+        card_samples = stop_sampler()
+    launches = {k: c.count for k, c in counters.items()}
+    steps = warmup + timed
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    expect = math.log(cfg.vocab_size) + cfg.hidden_size * 0.02 ** 2 / 2
+    require(abs(losses[0] - expect) < 0.5,
+            f"step-1 loss {losses[0]} not within 0.5 of {expect}")
+    # B2 twice a layer: the forward and its recomputation in the backward
+    per_step = dict(llama_fused_per_step(cfg.num_hidden_layers),
+                    flash_fwd_lse=2 * cfg.num_hidden_layers,
+                    flash_bwd_dq=cfg.num_hidden_layers,
+                    flash_bwd_dkv=cfg.num_hidden_layers,
+                    multi_tensor_adam=len(fs.runs(
+                        (True,) * len(fs.params))))
+    require(q8.launches.count == 0 and fa.launches.count == 0
+            and all(launches[k] == n * steps for k, n in per_step.items()),
+            f"train_llama_1p6b_bf16_state: launches {launches} (B5 "
+            f"{q8.launches.count}), expected {per_step} a step")
+    timed_s = times[warmup:]
+    p50 = statistics.median(timed_s)
+    tok_s = batch * seq / p50
+    fpt = model.flops_per_token(seq)
+    row = {"phase": "train_llama_1p6b_bf16_state", "card": card,
+           "optimizer": "AdamW(learning_rate=1e-4, use_multi_tensor=True, "
+                        "moment_dtype='bfloat16', use_master_weights=False)"
+                        ", amp.decorate(O2, bf16, master_weight=False)",
+           "params": n_params, "flat_elements": fs.total,
+           "alignment_pad_elements": fs.total - n_params,
+           "optimizer_state_bytes": state_bytes,
+           "optimizer_state_bytes_per_param": state_bytes / n_params,
+           "batch": batch, "seq": seq, "warmup_steps": warmup,
+           "timed_steps": timed, "step_s": times, "step_p50_s": p50,
+           "step_spread_s": max(timed_s) - min(timed_s),
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "mfu_vs_989tflops": fpt * tok_s / 989e12,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "max_memory_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "losses": losses, "expected_first_loss": expect,
+           "init_s": init_s, "card_during_steps": card_samples,
+           "launches": launches,
+           "launches_per_step": {k: n / steps for k, n in launches.items()}}
+    # one more step under the profiler: the update's device time
+    prof = profile_step(torch, card, step, p50,
+                        "train_llama_bf16_state_profile", train_family)
+    row["update_device_ms"] = prof["families"].get(
+        "multi_tensor_adam", {}).get("device_ms")
+    emit(row)
+    require(row["update_device_ms"], "the profiled step shows no "
+            "multi_tensor_adam device time")
+    del loss
+    gc.collect()
+    # eager tier and captured, from one saved state (the host's copy)
+    state = [fs.master, fs.m, fs.v, opt._step_t]
+    saved = [x.detach().cpu() for x in state]
+    gen_ids = torch.Generator(device="cuda").manual_seed(1)
+    call_ids = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda",
+                             generator=gen_ids)
+    runs = {}
+    for tier in ("eager", "captured"):
+        with torch.no_grad():
+            for x, c in zip(state, saved):
+                x.copy_(c)
+        call = (captured_step(jit, fwd_bwd, "off", update_fn=update,
+                              clear_fn=opt.clear_grad, nan_gate=True)
+                if tier == "eager" else
+                jit.capture_step(fwd_bwd, update_fn=update,
+                                 clear_fn=opt.clear_grad, nan_gate=True))
+        for c in counters.values():
+            c.reset()
+        tl, tt = [], []
+        for _ in range(BF16_STATE_CALLS):
+            t1 = time.monotonic()
+            loss = call(call_ids)
+            torch.cuda.synchronize()
+            tt.append(time.monotonic() - t1)
+            tl.append(float(loss))
+        runs[tier] = {"losses": tl, "call_s": tt,
+                      "launches": {k: c.count for k, c in counters.items()},
+                      "digests": [digest(torch, x) for x in state],
+                      "stats": dict(call.stats)}
+        require(all(math.isfinite(x) for x in tl),
+                f"train_llama_1p6b_bf16_state {tier}: losses {tl}")
+        require(runs[tier]["launches"]["multi_tensor_adam"]
+                == BF16_STATE_CALLS,
+                f"train_llama_1p6b_bf16_state {tier}: launches "
+                f"{runs[tier]['launches']}")
+        del call, loss
+        gc.collect()
+    e, c = runs["eager"], runs["captured"]
+    require(not c["stats"]["bypasses"]
+            and c["stats"]["hits"] == BF16_STATE_CALLS - 1,
+            f"train_llama_1p6b_bf16_state captured: {c['stats']}")
+    require(e["losses"] == c["losses"] and e["digests"] == c["digests"],
+            f"train_llama_1p6b_bf16_state: the captured run is not "
+            f"bit-equal to the eager run (losses {e['losses']} "
+            f"{c['losses']})")
+    emit({"phase": "train_llama_1p6b_bf16_state_captured", "card": card,
+          "calls": BF16_STATE_CALLS, "replays": c["stats"]["hits"],
+          **{t: {k: v for k, v in r.items() if k != "digests"}
+             for t, r in runs.items()},
+          "state": ["storage (bf16 parameters)", "m", "v", "_step_t"],
+          "replay_bit_equal_to_eager": True,
+          "captured_call_p50_s": statistics.median(c["call_s"][1:]),
+          "eager_call_p50_s": statistics.median(e["call_s"][1:])})
+    del model, opt, fs, state, saved, ids, call_ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# optimizer_zoo_check: name -> (class, constructor arguments, LR, O2
+# master_weight or "fp32": no decorate); fp32 rtol, bf16 one ulp as the
+# CPU tests (tests/test_torch_optimizer_zoo.py, test_torch_bf16_state.py)
+ZOO = {
+    "SGD": ("SGD", {}, 1e-2, "fp32"),
+    "SGD_o2_masters": ("SGD", {}, 1e-2, None),
+    "SGD_o2_master_free": ("SGD", {}, 1e-2, False),
+    "Momentum": ("Momentum", dict(momentum=0.9), 1e-2, "fp32"),
+    "Momentum_o2_masters": ("Momentum", dict(momentum=0.9,
+                                             use_nesterov=True), 1e-2, None),
+    "Momentum_o2_master_free": ("Momentum", dict(momentum=0.9), 1e-2, False),
+    "Adamax": ("Adamax", {}, 1e-3, "fp32"),
+    "Adagrad": ("Adagrad", dict(initial_accumulator_value=0.1), 1e-3,
+                "fp32"),
+    "Adadelta": ("Adadelta", dict(rho=0.9), 1.0, "fp32"),
+    "RMSProp": ("RMSProp", dict(centered=True, momentum=0.5), 1e-4, "fp32"),
+    "Lamb": ("Lamb", {}, 1e-3, "fp32"),
+    "LBFGS": ("LBFGS", {}, 1e-3, "fp32"),
+    "Rprop": ("Rprop", dict(learning_rate_range=(1e-5, 1e-2)), 1e-3, "fp32"),
+    "ASGD": ("ASGD", dict(batch_num=3), 1e-3, "fp32"),
+    "NAdam": ("NAdam", {}, 1e-3, "fp32"),
+    "RAdam": ("RAdam", dict(beta2=0.9), 1e-3, "fp32"),
+    # the multi-tensor kernel's other new forms on a path: bf16 moments
+    # beside fp32 masters, and the master-free storage rounded to nearest
+    "AdamW_mt_bf16_moments": ("AdamW", dict(use_multi_tensor=True,
+                                            moment_dtype="bfloat16"), 1e-3,
+                              None),
+    "AdamW_mt_master_free_rn": ("AdamW", dict(
+        use_multi_tensor=True, moment_dtype="bfloat16",
+        stochastic_rounding=False), 1e-3, False),
+}
+ZOO_STEPS = 5
+ZOO_RTOL, ZOO_ATOL, ZOO_ULP = 1e-6, 1e-8, 2.0 ** -7
+
+
+def zoo_state(opt) -> list:
+    """Every tensor an optimizer's step writes: accumulators, masters, the
+    flat buffers and the step count."""
+    out = [t for store in opt._accumulators.values() for t in store.values()]
+    out += list(opt._master_weights.values())
+    fs = getattr(opt, "_flat", None)
+    if fs is not None:
+        out += [fs.master, fs.m, fs.v, *fs.lows.values()]
+    return out + [opt._step_t]
+
+
+def optimizer_zoo_check(torch, mta) -> dict:
+    """``optimizer_zoo_check``: each optimizer the port added in this slice
+    (and AdamW's other new multi-tensor forms) takes 5 steps on the card
+    on one full-width ERNIE-3.0-base layer (its embeddings, one encoder
+    layer and the classifier, random weights from seed 0, B=32, L=128,
+    dropout 0.1): ``SGD`` and ``Momentum`` also under O2 with fp32
+    masters and master-free (stochastic rounding). The card's gradients of
+    each step are handed to a CPU copy of the parameters and its optimizer
+    (the plain path), which must agree within the CPU tests' tolerances
+    (fp32 rtol 1e-6, atol 1e-8; bf16 one ulp). Every optimizer except
+    ``LBFGS`` (eager only) then takes the same 5 calls from the same state
+    through ``jit.capture_step`` (one capturing call, 4 replays): losses
+    and the digests of every state tensor bit-equal to the eager steps.
+    Returns the multi-tensor AdamW launches by case."""
+    import numpy as np
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                               ErnieForSequenceClassification)
+    t0 = time.monotonic()
+    cfg = ErnieConfig.ernie3_base()
+    cfg.num_hidden_layers = 1
+    batch, seq = ERNIE_LEGS[0]
+    rng = np.random.default_rng(3)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq),
+                                       dtype=np.int32), device="cuda")
+    labels = torch.as_tensor(rng.integers(0, 2, (batch,)).astype(np.int64),
+                             device="cuda")
+    rows, mt_launches = {}, {}
+    for case, (cls, kw, lr, o2) in ZOO.items():
+        model = ErnieForSequenceClassification(
+            cfg, num_classes=2, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0), seed=0)
+        opt = getattr(topt, cls)(learning_rate=lr,
+                                 parameters=model.parameters(), **kw)
+        cpu_params = [torch.nn.Parameter(p.detach().cpu())
+                      for p in model.parameters()]
+        cpu_opt = getattr(topt, cls)(learning_rate=lr,
+                                     parameters=cpu_params, **kw)
+        amp_kw = None if o2 == "fp32" else dict(
+            level="O2", dtype="bfloat16", master_weight=o2)
+        if amp_kw is not None:
+            model, opt = amp.decorate(model, opt, **amp_kw)
+            with torch.no_grad():
+                for p in cpu_params:
+                    p.data = p.data.to(torch.bfloat16)
+            if o2 is False:
+                cpu_opt._use_master_weights = False
+            cpu_opt._on_params_cast()
+        params = list(model.parameters())
+        on_cpu = {"step": True}
+
+        def fwd_bwd(ids, labels):
+            with amp.auto_cast(enable=amp_kw is not None, level="O2",
+                               dtype="bfloat16"):
+                loss, _ = model(ids, labels=labels)
+            loss.backward()
+            return loss
+
+        def update():
+            if on_cpu["step"]:   # the same gradients to the plain path
+                for pc, p in zip(cpu_params, params):
+                    pc.grad = p.grad.detach().cpu()
+                cpu_opt.step()
+                cpu_opt.clear_grad()
+            opt.step()
+            opt.clear_grad()
+        tensors = params + zoo_state(opt) + [model.ernie.rng.counter]
+        saved = [x.detach().cpu() for x in tensors]
+        tiers = ("eager",) if cls == "LBFGS" else ("eager", "captured")
+        runs = {}
+        for tier in tiers:
+            with torch.no_grad():
+                for x, c in zip(tensors, saved):
+                    x.copy_(c)
+            on_cpu["step"] = tier == "eager"
+            call = (captured_step(jit, fwd_bwd, "off", update_fn=update,
+                                  clear_fn=opt.clear_grad)
+                    if tier == "eager" else
+                    jit.capture_step(fwd_bwd, update_fn=update,
+                                     clear_fn=opt.clear_grad))
+            mta.launches.reset()
+            losses = [float(call(ids, labels)) for _ in range(ZOO_STEPS)]
+            torch.cuda.synchronize()
+            runs[tier] = {"losses": losses, "stats": dict(call.stats),
+                          "digests": [digest(torch, x) for x in tensors],
+                          "multi_tensor_adam": mta.launches.count}
+            require(all(math.isfinite(x) for x in losses),
+                    f"optimizer_zoo_check {case} {tier}: losses {losses}")
+            if tier == "eager":
+                errs = zoo_compare(torch, case, params, cpu_params, opt,
+                                   cpu_opt)
+            del call
+        if "captured" in runs:
+            e, c = runs["eager"], runs["captured"]
+            require(not c["stats"]["bypasses"]
+                    and c["stats"]["hits"] == ZOO_STEPS - 1
+                    and e["losses"] == c["losses"]
+                    and e["digests"] == c["digests"],
+                    f"optimizer_zoo_check {case}: the captured run is not "
+                    f"bit-equal to the eager run ({c['stats']}, losses "
+                    f"{e['losses']} {c['losses']})")
+        mt_launches[case] = runs["eager"]["multi_tensor_adam"]
+        rows[case] = {"optimizer": cls, "kwargs": {k: str(v) for k, v in
+                                                   kw.items()},
+                      "lr": lr, "amp": "fp32" if o2 == "fp32" else
+                      ("O2 bf16, fp32 masters" if o2 is None else
+                       "O2 bf16, master-free"),
+                      "losses": runs["eager"]["losses"],
+                      "card_vs_cpu": errs,
+                      "captured_bit_equal": "captured" in runs,
+                      "multi_tensor_adam_launches": mt_launches[case]}
+        del model, opt, cpu_opt, cpu_params, params, tensors, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "optimizer_zoo_check", "model": "ERNIE-3.0-base, one "
+          "encoder layer", "batch": batch, "seq": seq, "steps": ZOO_STEPS,
+          "cases": rows, "seconds": time.monotonic() - t0})
+    return mt_launches
+
+
+def zoo_compare(torch, case, params, cpu_params, opt, cpu_opt) -> dict:
+    """The card's parameters and state against the CPU's after the eager
+    steps: fp32 within rtol 1e-6 (atol 1e-8), 16-bit tensors within one
+    bf16 ulp; returns the largest relative error of each kind."""
+    out = {"params": 0.0, "state": 0.0}
+    pairs = [("params", a, b) for a, b in zip(params, cpu_params)]
+    pairs += [("state", a, b) for a, b in zip(zoo_state(opt)[:-1],
+                                              zoo_state(cpu_opt)[:-1])]
+    for j, (kind, a, b) in enumerate(pairs):
+        rtol, atol = (ZOO_ULP, 0.0) if a.element_size() == 2 else \
+            (ZOO_RTOL, ZOO_ATOL)
+        a, b = a.detach().float().cpu(), b.detach().float()
+        diff = (a - b).abs()
+        rel = float((diff / b.abs().clamp(min=1e-30)).max()) \
+            if diff.numel() else 0.0
+        out[kind] = max(out[kind], rel)
+        over = diff - (atol + rtol * b.abs())
+        if diff.numel() and bool((over > 0).any()):
+            i = int(over.reshape(-1).argmax())
+            require(False, f"optimizer_zoo_check {case}: card vs CPU {kind} "
+                    f"#{j} {tuple(a.shape)}: {int((over > 0).sum())} "
+                    f"elements past the tolerance, the worst at {i}: card "
+                    f"{float(a.reshape(-1)[i])!r} CPU "
+                    f"{float(b.reshape(-1)[i])!r}")
+    require(int(opt._step_t) == int(cpu_opt._step_t),
+            f"optimizer_zoo_check {case}: step counts differ")
+    return out
+
+
+# the phases ``--only`` can name, in the order they run (a name covers the
+# phases that share its model or inputs)
+PHASES = ("flash_check", "paged_check", "decode_graph_check", "serve_7b",
+          "fmt", "agree_2layer", "serve_chaos_check", "flash_train_check",
+          "q8_adam_check", "multi_tensor_adam_check", "fused_ops_check",
+          "ernie_ops_check", "incubate_check", "train_llama_1p6b",
+          "train_llama_1p6b_bf16_state", "train_vs_cpu",
+          "flash_segs_dropout", "unpadded", "train_ernie3_base",
+          "ernie_vs_cpu", "capture_check", "train_ernie3_base_captured",
+          "train_ernie3_base_fp16", "moe", "grad_scaler_check",
+          "optimizer_zoo_check")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after the build "
+                         f"(of {', '.join(PHASES)}); the kernels line is "
+                         "then left out. Without it every phase runs.")
+    args = ap.parse_args(argv)
+    if args.only is not None:
+        args.only = [p.strip() for p in args.only.split(",") if p.strip()]
+        unknown = sorted(set(args.only) - set(PHASES))
+        if unknown or not args.only:
+            ap.error(f"unknown phases {unknown}; choose from {PHASES}")
+    return args
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    args = parse_args()
+    only = None if args.only is None else set(args.only)
+
+    def want(name: str) -> bool:
+        return only is None or name in only
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -9010,62 +9615,101 @@ def main() -> int:
                     mta.launches, *fa.launches_variant.values(),
                     *step_counters().values())
 
-    flash_rows = check_flash(torch, fa, planted["flash_attention"])
-    paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
-    decode_graph_check(torch, pa, kvc)
+    if want("flash_check"):
+        flash_rows = check_flash(torch, fa, planted["flash_attention"])
+    if want("paged_check"):
+        paged_rows = check_paged(torch, pa, kvc, planted["paged_attention"])
+    if want("decode_graph_check"):
+        decode_graph_check(torch, pa, kvc)
     for c in all_counters:
         c.reset()
-    model, init_s = build_7b(torch)
-    serve_launches, served = serve_7b(torch, smi, fa, pa, model, init_s)
-    prefix_launches = serve_prefix_7b(torch, smi, fa, pa, kvc, model)
-    prefill_graph_check(torch, smi, model, kvc)
-    chaos_eng, chaos_launches = serve_chaos_7b(torch, smi, fa, pa, model,
-                                               served)
-    obs_overhead_7b(torch, smi, chaos_eng, served)
-    del chaos_eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    router_launches = serve_router_7b(torch, smi, fa, pa, model, served)
-    serve_fleet_7b_width(torch, smi, served)
-    serve16_launches = serve_7b_fp16(torch, smi, fa, pa, model, served)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    fmt_check(torch, fa, pa, kvc)
-    fmt_times = fmt_kernel_times(torch, fa, pa, kvc)
-    fmt_launches = serve_fmt(torch, smi, fa, pa)
-    agree_2layer(torch, fa, pa)
-    serve_chaos_check(torch, smi, fa, pa)
-    flash_errs, flash_times, flash16_errs, flash16_times = check_flash_train(
-        torch, fa, planted["flash_attention"])
-    q8_err, q8_time = check_q8_adam(torch, q8)
-    mt_row = check_multi_tensor_adam(torch, q8, mta)
-    mt16_row = check_multi_tensor_adam(torch, q8, mta, torch.float16)
-    fused_rows = fused_ops_check(torch, planted)
-    ernie_rows = ernie_ops_check(torch, planted)
-    incubate_row = incubate_check(torch)
-    train_launches, llama_captured = train_1p6b(torch, smi, fa, q8,
-                                                all_counters)
-    train_vs_cpu(torch, fa, q8)
-    check_flash_segs_dropout(torch, fa, planted["flash_attention:b0"])
-    var_times = time_variants(torch, fa, *ERNIE_SHAPE)
-    var16_times = time_variants(torch, fa, *ERNIE_SHAPE, torch.float16)
+    if want("serve_7b"):
+        model, init_s = build_7b(torch)
+        serve_launches, served = serve_7b(torch, smi, fa, pa, model, init_s)
+        prefix_launches = serve_prefix_7b(torch, smi, fa, pa, kvc, model)
+        prefill_graph_check(torch, smi, model, kvc)
+        chaos_eng, chaos_launches = serve_chaos_7b(torch, smi, fa, pa, model,
+                                                   served)
+        obs_overhead_7b(torch, smi, chaos_eng, served)
+        del chaos_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        router_launches = serve_router_7b(torch, smi, fa, pa, model, served)
+        serve_fleet_7b_width(torch, smi, served)
+        serve16_launches = serve_7b_fp16(torch, smi, fa, pa, model, served)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("fmt"):
+        fmt_check(torch, fa, pa, kvc)
+        fmt_times = fmt_kernel_times(torch, fa, pa, kvc)
+        fmt_launches = serve_fmt(torch, smi, fa, pa)
+    if want("agree_2layer"):
+        agree_2layer(torch, fa, pa)
+    if want("serve_chaos_check"):
+        serve_chaos_check(torch, smi, fa, pa)
+    if want("flash_train_check"):
+        flash_errs, flash_times, flash16_errs, flash16_times = \
+            check_flash_train(torch, fa, planted["flash_attention"])
+    if want("q8_adam_check"):
+        q8_err, q8_time = check_q8_adam(torch, q8)
+    if want("multi_tensor_adam_check"):
+        mt_row = check_multi_tensor_adam(torch, q8, mta)
+        mt16_row = check_multi_tensor_adam(torch, q8, mta, torch.float16)
+        mt_forms = check_multi_tensor_adam_forms(torch, q8, mta)
+    if want("fused_ops_check"):
+        fused_rows = fused_ops_check(torch, planted)
+    if want("ernie_ops_check"):
+        ernie_rows = ernie_ops_check(torch, planted)
+    if want("incubate_check"):
+        incubate_row = incubate_check(torch)
+    if want("train_llama_1p6b"):
+        train_launches, llama_captured = train_1p6b(torch, smi, fa, q8,
+                                                    all_counters)
+    if want("train_llama_1p6b_bf16_state"):
+        bf16_state = train_llama_1p6b_bf16_state(torch, smi, fa, q8, mta)
+    if want("train_vs_cpu"):
+        train_vs_cpu(torch, fa, q8)
+    if want("flash_segs_dropout"):
+        check_flash_segs_dropout(torch, fa, planted["flash_attention:b0"])
+        var_times = time_variants(torch, fa, *ERNIE_SHAPE)
+        var16_times = time_variants(torch, fa, *ERNIE_SHAPE, torch.float16)
     # each path's variant launches, counted from 0 just before its own run
-    path_launches = {"unpadded": check_unpadded(torch, fa,
-                                                fa.launches_variant)}
-    path_launches.update(train_ernie3_base(torch, smi, fa, all_counters))
-    ernie_vs_cpu(torch, fa)
-    capture_check(torch, fa, mta)
-    captured_launches = train_ernie3_base_captured(torch, smi, fa, mta)
-    path_launches.update({k: {e: n for e, n in v.items()
-                              if e != "multi_tensor_adam"}
-                          for k, v in captured_launches.items()})
-    fp16_launches = train_ernie3_base_fp16(torch, smi, fa, mta)
-    moe_rows = moe_check(torch, planted)
-    moe_launches = train_moe_jamba2(torch, smi)
-    ec_launches = ec_moe_jamba2(torch, smi)
-    moe_vs_cpu(torch)
-    grad_scaler_check(torch)
+    path_launches = {}
+    if want("unpadded"):
+        path_launches["unpadded"] = check_unpadded(torch, fa,
+                                                   fa.launches_variant)
+    if want("train_ernie3_base"):
+        path_launches.update(train_ernie3_base(torch, smi, fa,
+                                               all_counters))
+    if want("ernie_vs_cpu"):
+        ernie_vs_cpu(torch, fa)
+    if want("capture_check"):
+        capture_check(torch, fa, mta)
+    if want("train_ernie3_base_captured"):
+        captured_launches = train_ernie3_base_captured(torch, smi, fa, mta)
+        path_launches.update({k: {e: n for e, n in v.items()
+                                  if e != "multi_tensor_adam"}
+                              for k, v in captured_launches.items()})
+    if want("train_ernie3_base_fp16"):
+        fp16_launches = train_ernie3_base_fp16(torch, smi, fa, mta)
+    if want("moe"):
+        moe_rows = moe_check(torch, planted)
+        moe_launches = train_moe_jamba2(torch, smi)
+        ec_launches = ec_moe_jamba2(torch, smi)
+        moe_vs_cpu(torch)
+    if want("grad_scaler_check"):
+        grad_scaler_check(torch)
+    if want("optimizer_zoo_check"):
+        zoo_launches = optimizer_zoo_check(torch, mta)
+    if only is not None:
+        # a subset of phases: no kernels line (it reads every phase)
+        emit({"only": sorted(only, key=PHASES.index),
+              "seconds": time.monotonic() - t_start, "card": smi})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     k1 = next(r for r in flash_rows if r["case"] == "causal_1000_ragged")
     k2 = next(r for r in paged_rows if r["case"] == "bf16_h32")
@@ -9192,7 +9836,10 @@ def main() -> int:
                                                   "paged_decode_int8")}},
     ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": train_launches[name], "max_abs_err": err,
+         "launches": train_launches[name],
+         "launches_train_llama_1p6b_bf16_state":
+             bf16_state.get(name, 0),
+         "max_abs_err": err,
          "case": case, **{k: t[k] for k in keys},
          **{k: t.get(k) for k in b_keys},
          **({} if err16 is None else {"fp16_same_shape": {
@@ -9233,12 +9880,39 @@ def main() -> int:
                  "and moments, global-norm scale, wd" % mt_row["n"],
          **{k: mt_row.get(k) for k in k_keys}},
     ] + [
+        {"name": f"multi_tensor_adam[{form}]", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/multi_tensor_adam.cu",
+         "replaces": "paddle_tpu/optimizer/__init__.py:976",
+         "replaces_pallas_call": False,
+         "note": "the port's own kernel in a form of this slice (see "
+                 "MT_FORMS): the JAX package's Adam._fused_step is "
+                 "XLA-fused jnp, no pallas_call; library_ms is "
+                 "torch._fused_adamw_ on bf16 parameters, gradients and "
+                 "moments, a yardstick that rounds to nearest",
+         "launches": (bf16_state["multi_tensor_adam"]
+                      if zoo_case is None else zoo_launches[zoo_case]),
+         "launches_path": ("train_llama_1p6b_bf16_state (6 eager steps)"
+                           if zoo_case is None else
+                           f"optimizer_zoo_check {zoo_case} (5 eager steps)"),
+         "max_abs_err": max(mt_forms[form]["max_abs_err"].values()),
+         "elements_differing": mt_forms[form]["elements_differing"],
+         "case": "n=%d (bench_config()) bf16 grads, %s storage, %s moments"
+                 "%s, global-norm scale, wd" % (
+                     mt_forms[form]["n"], mt_forms[form]["storage"],
+                     mt_forms[form]["moments"],
+                     ", stochastic rounding" if MT_FORMS[form][3] else ""),
+         **{k: mt_forms[form].get(k) for k in k_keys}}
+        for form, zoo_case in (("master_free_sr", None),
+                               ("bf16_moments", "AdamW_mt_bf16_moments"),
+                               ("master_free_rn", "AdamW_mt_master_free_rn"))
+    ] + [
         {"name": k, "route": "cuda", "source": FUSED_SOURCES[k],
          "replaces": FUSED_REPLACES[k], "replaces_pallas_call": False,
          "note": "the port's own kernel, forward and backward: the JAX "
                  "package computes it with XLA-fused jnp, no pallas_call",
          "launches": train_launches[k],
          "launches_path": "train_llama_1p6b (6 eager steps)",
+         "launches_train_llama_1p6b_bf16_state": bf16_state[k],
          "launches_llama_captured": llama_captured["launches"][k],
          "launches_ernie_captured_leg1":
              captured_launches["ernie_captured_leg1"].get(k, 0),
@@ -9266,6 +9940,8 @@ def main() -> int:
              "launches_path": "ernie_captured_leg1 (12 calls)"}),
          "launches_ernie_leg1": path_launches["ernie_leg1"].get(k, 0),
          "launches_llama_eager": train_launches.get(k, 0),
+         "launches_train_llama_1p6b_bf16_state":
+             bf16_state.get(k, 0),
          "launches_serve_run1": serve_launches.get(k, 0),
          "launches_serve_router_7b": router_launches.get(k, 0),
          **{f"launches_fmt_{p}": v.get(k, 0)

@@ -45,7 +45,7 @@ from ._u32 import M32, mul32, seed_tensor, seed_term
 
 __all__ = ["Q8_BLOCK", "SCALARS", "launches", "q8_adam_update",
            "q8_adam_update_reference", "q8_dequantize", "q8_quantize",
-           "scalar_block", "sr_bits", "stochastic_round_bf16"]
+           "scalar_block", "sqrt_rn", "sr_bits", "stochastic_round_bf16"]
 
 Q8_BLOCK = 2048
 launches = _native.LaunchCounter("q8_adam")
@@ -88,13 +88,17 @@ def q8_dequantize(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     return (q.float() * scale[:, None]).reshape(-1)[:n].reshape(shape)
 
 
-def sr_bits(seed, n: int, device=None) -> torch.Tensor:
-    """The 16 rounding bits of elements ``0 .. n-1`` under ``seed`` (an int
-    or a 0-d integer tensor, its low 32 bits): the
-    lowbias32 finalizer over ``idx * 0x9E3779B1 ^ seed * 0xC2B2AE3D``, top
-    16 bits (``csrc/q8_adam.cu: sr_bits``). int64 values in [0, 2^16)."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    h = mul32(idx, 0x9E3779B1) ^ seed_term(seed, 0xC2B2AE3D, device)
+def sr_bits(seed, n: int, device=None, base: int = 0) -> torch.Tensor:
+    """The 16 rounding bits of elements ``base .. base + n - 1`` under
+    ``seed`` (an int or a 0-d integer tensor, its low 32 bits): the
+    lowbias32 finalizer over ``lo * 0x9E3779B1 ^ hi * 0x85EBCA77 ^ seed *
+    0xC2B2AE3D``, ``lo`` and ``hi`` the 64-bit index's words, top 16 bits
+    (``csrc/q8_adam.cu: sr_bits``, whose indices stay below 2^32, and
+    ``csrc/multi_tensor_adam.cu: flat_sr_bits``, of flat indices). int64
+    values in [0, 2^16)."""
+    idx = torch.arange(n, dtype=torch.int64, device=device) + int(base)
+    h = mul32(idx & M32, 0x9E3779B1) ^ mul32(idx >> 32, 0x85EBCA77) \
+        ^ seed_term(seed, 0xC2B2AE3D, device)
     h = h ^ (h >> 16)
     h = mul32(h, 0x7FEB352D)
     h = h ^ (h >> 15)
@@ -120,6 +124,16 @@ def stochastic_round_bf16(x32: torch.Tensor, bits: torch.Tensor
     hi = torch.where(torch.isnan(x32), (xb >> 16) & 0x8000 | 0x7FC0, hi)
     hi = torch.where(hi >= 2 ** 15, hi - 2 ** 16, hi)
     return hi.to(torch.int16).view(torch.bfloat16)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``sqrt`` rounded to nearest, as the kernels' ``__fsqrt_rn``
+    and XLA give it. A CPU tensor's is taken in fp64 and rounded once:
+    PyTorch's fp32 ``sqrt`` on the CPU goes through MKL, whose AVX-512 path
+    is an ulp off on some inputs, and not on every process alike."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def _scalar(x: float, device) -> torch.Tensor:

@@ -45,6 +45,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu import optimizer as jopt
 from paddle_tpu import serving as jserving
+from paddle_tpu.observability import trace as jtrace
 from paddle_tpu.models.llama import LlamaConfig as JLlamaConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 from paddle_tpu.ops import flash_attention as jfa
@@ -68,6 +69,16 @@ torch.set_num_threads(2)
 
 H16 = torch.float16
 ULP = 2.0 ** -10
+
+
+@pytest.fixture(autouse=True)
+def _retire_jax_engine_beacon():
+    """The JAX reference engines here run to the end of their traffic
+    without ``stop()``, which is what retires their ``serving.engine``
+    beacon: retire it at teardown, or it goes stale 60 s later and every
+    later ``/healthz`` in this process reads unhealthy."""
+    yield
+    jtrace.heartbeat_clear("serving.engine")
 
 
 @pytest.fixture(autouse=True)
@@ -463,7 +474,7 @@ def _linear_pair(seed=3):
             tl.weight.copy_(torch.from_numpy(np.array(jl.weight._data)))
             b = np.random.default_rng(seed).normal(0, 0.1, tl.bias.shape)
             tl.bias.copy_(torch.from_numpy(b.astype(np.float32)))
-            jl.bias._set_data(jnp.asarray(tl.bias.numpy()))
+            jl.bias._set_data(jnp.asarray(tl.bias.numpy().copy()))
     return jm, tm
 
 

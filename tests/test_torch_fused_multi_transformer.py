@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import paddle_tpu as paddle
 from paddle_tpu import nn as jnn
 from paddle_tpu import serving as jserving
+from paddle_tpu.observability import trace as jtrace
 from paddle_tpu.incubate import nn as jinn
 from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu.serving import kv_cache as jkv
@@ -46,6 +47,16 @@ E, H, FF, L, V = 128, 2, 256, 2, 64
 D = E // H
 B, S = 2, 12
 RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(autouse=True)
+def _retire_jax_engine_beacon():
+    """The JAX reference engines here run to the end of their traffic
+    without ``stop()``, which is what retires their ``serving.engine``
+    beacon: retire it at teardown, or it goes stale 60 s later and every
+    later ``/healthz`` in this process reads unhealthy."""
+    yield
+    jtrace.heartbeat_clear("serving.engine")
 
 
 def _close(got, want):

@@ -15,7 +15,8 @@ package's fused path on its eager tier, and the flat layout it keeps.
   offset, the step's gradients copied into a flat gradient (a parameter
   without one reads zeros there, whatever an earlier step left); int8
   moments refused; ``ClipGradByNorm`` takes the per-parameter path, as in
-  the reference.
+  the reference; the master-free layout and mixed dtypes build the flat
+  storage the reference builds.
 * The update itself: the kernel's wrapper runs the plain version on CPU
   tensors; a gate of 0 writes nothing, bit for bit."""
 
@@ -50,7 +51,7 @@ def _models(seed=3):
             tl.weight.copy_(torch.from_numpy(np.array(jl.weight._data)))
             b = np.random.default_rng(seed).normal(0, 0.1, tl.bias.shape)
             tl.bias.copy_(torch.from_numpy(b.astype(np.float32)))
-            jl.bias._set_data(jnp.asarray(tl.bias.numpy()))
+            jl.bias._set_data(jnp.asarray(tl.bias.numpy().copy()))
     return jm, tm
 
 
@@ -192,15 +193,26 @@ def test_refusals_and_fallbacks_follow_the_reference():
     opt = AdamW(parameters=p, use_multi_tensor=True,
                 grad_clip=ClipGradByGlobalNorm(1.0))
     assert opt._flat is not None
-    with pytest.raises(NotImplementedError, match="master-free"):
-        AdamW(parameters=[torch.nn.Parameter(torch.zeros(4,
-                                                         dtype=torch.bfloat16))],
-              use_multi_tensor=True, use_master_weights=False)
-    with pytest.raises(NotImplementedError, match="one dtype"):
-        AdamW(parameters=[torch.nn.Parameter(torch.zeros(4)),
-                          torch.nn.Parameter(torch.zeros(4,
-                                                         dtype=torch.bfloat16))],
-              use_multi_tensor=True)
+    # the master-free layout and mixed dtypes are ported: the flat storage
+    # of each is what the reference builds (bf16 for master-free bf16
+    # parameters, fp32 for a mix); their steps are held against the JAX
+    # package in tests/test_torch_bf16_state.py
+    for dts, master, want in (
+            ((torch.bfloat16,) * 2, False, torch.bfloat16),
+            ((torch.float32, torch.bfloat16), None, torch.float32),
+            ((torch.float32, torch.bfloat16), False, torch.float32)):
+        ps = [torch.nn.Parameter(torch.zeros(4, dtype=dt)) for dt in dts]
+        jps = [paddle.nn.Linear(2, 2).weight for _ in dts]
+        for jp_, dt in zip(jps, dts):
+            jp_._set_data(jp_._data.astype(
+                jnp.bfloat16 if dt == torch.bfloat16 else jnp.float32))
+        opt = AdamW(parameters=ps, use_multi_tensor=True,
+                    use_master_weights=master)
+        jo = jopt.AdamW(parameters=jps, use_multi_tensor=True,
+                        use_master_weights=master)
+        assert opt._flat.master.dtype == want
+        assert str(jo._fused["master"]._data.dtype) == str(want).replace(
+            "torch.", "")
     assert ClipGradByValue(1.0).min == -1.0
 
 

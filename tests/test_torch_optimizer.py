@@ -1,8 +1,9 @@
 """The port's ``AdamW`` (plain versions on the CPU) against the JAX
 package's ``AdamW`` over 5 steps on the same parameters and gradients:
 fp32 moments, int8 moments, fp32 masters under AMP O2 (bf16 parameters),
-and master-free bf16 without stochastic rounding. Also ``clear_grad`` and
-the default decoupled weight decay of 0.01 on every parameter.
+master-free bf16 without stochastic rounding, and bf16 moments. Also
+``clear_grad`` and the default decoupled weight decay of 0.01 on every
+parameter.
 
 Tolerances: fp32 parameters rtol 1e-6 (the update is the same fp32
 arithmetic; XLA and PyTorch differ in the last bit of a few elementwise
@@ -39,7 +40,7 @@ def _models():
             tl.bias.copy_(torch.from_numpy(
                 np.random.default_rng(1).normal(0, 0.1, tl.bias.shape)
                 .astype(np.float32)))
-            jl.bias._set_data(jnp.asarray(tl.bias.numpy()))
+            jl.bias._set_data(jnp.asarray(tl.bias.numpy().copy()))
     return jm, tm
 
 
@@ -148,14 +149,30 @@ def test_clear_grad_and_default_weight_decay_on_every_parameter():
 
 
 def test_unported_options_raise():
-    # use_multi_tensor and grad_clip are ported (tests/test_torch_
-    # multi_tensor_adam.py, tests/test_torch_grad_clip.py), and so are
-    # parameter groups, lr_ratio and apply_decay_param_fun
+    # only lazy_mode (SelectedRows gradients) is not ported: bf16 and fp16
+    # moments now run, and match the JAX package's (here 5 steps of bf16
+    # moments on the per-parameter path: moments within one bf16 ulp, fp32
+    # parameters rtol 1e-6); a moment dtype the reference does not know
+    # raises its TypeError. use_multi_tensor and grad_clip are ported
+    # (tests/test_torch_multi_tensor_adam.py, tests/test_torch_grad_clip.py),
+    # and so are parameter groups, lr_ratio and apply_decay_param_fun
     # (tests/test_torch_optimizer_groups.py)
     p = [torch.nn.Parameter(torch.zeros(4))]
-    for kw in (dict(lazy_mode=True), dict(moment_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            AdamW(parameters=p, **kw)
+    with pytest.raises(NotImplementedError):
+        AdamW(parameters=p, lazy_mode=True)
+    with pytest.raises(TypeError):
+        AdamW(parameters=p, moment_dtype="bfloat")
+    jo, to, jp, tp = _run("bfloat16", o2=False, master=None)
+    for pj, pt in zip(jp, tp):
+        np.testing.assert_allclose(_np(pt), np.asarray(pj._data), rtol=1e-6,
+                                   atol=1e-9)
+        for name in ("moment1", "moment2"):
+            got = to._accumulators[name][id(pt)]
+            want = np.asarray(jo._accumulators[name][id(pj)]._data,
+                              np.float32)
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_allclose(_np(got), want, rtol=2.0 ** -7,
+                                       atol=0)
     p[0].param_name = "w"
     AdamW(parameters=[{"params": p, "learning_rate": 1.0}],
           apply_decay_param_fun=lambda n: True, lr_ratio=lambda q: 1.0)

@@ -55,7 +55,7 @@ def _models():
             tl.weight.copy_(torch.from_numpy(np.array(jl.weight._data)))
             tl.bias.copy_(torch.from_numpy(
                 rng.normal(0, 0.1, tl.bias.shape).astype(np.float32)))
-            jl.bias._set_data(jnp.asarray(tl.bias.numpy()))
+            jl.bias._set_data(jnp.asarray(tl.bias.numpy().copy()))
     for jp, tp in zip(jm.parameters(), tm.parameters()):
         tp.param_name = jp.name
     return jm, tm
@@ -402,18 +402,30 @@ def _np_of(t):
     return np.asarray(t._data)
 
 
-@pytest.mark.parametrize("layout", ["per_param", "multi_tensor", "o2"])
+@pytest.mark.parametrize("layout", ["per_param", "multi_tensor", "o2",
+                                    "master_free_bf16"])
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
 def test_state_dict_loads_across_packages(direction, layout):
-    multi, o2 = layout == "multi_tensor", layout == "o2"
+    # master_free_bf16: bench_llama's --state bf16 layout (multi-tensor,
+    # bf16 moments, no masters: master_weights are the bf16 parameters'
+    # slices of the flat storage), rounding off so that the next steps
+    # compare; its parameters, moments and master_weights within one bf16
+    # ulp
+    free = layout == "master_free_bf16"
+    multi, o2 = layout in ("multi_tensor", "master_free_bf16"), \
+        layout in ("o2", "master_free_bf16")
+    okw = dict(use_multi_tensor=True, moment_dtype="bfloat16",
+               use_master_weights=False, stochastic_rounding=False) \
+        if free else dict(use_multi_tensor=multi)
+    dkw = dict(level="O2", dtype="bfloat16",
+               master_weight=False if free else None)
     jm, tm = _models()
     jo = paddle.optimizer.AdamW(learning_rate=LR, parameters=jm.parameters(),
-                                use_multi_tensor=multi)
-    to = AdamW(learning_rate=LR, parameters=tm.parameters(),
-               use_multi_tensor=multi)
+                                **okw)
+    to = AdamW(learning_rate=LR, parameters=tm.parameters(), **okw)
     if o2:
-        jm, jo = paddle.amp.decorate(jm, jo, level="O2", dtype="bfloat16")
-        tm, to = amp.decorate(tm, to, level="O2", dtype="bfloat16")
+        jm, jo = paddle.amp.decorate(jm, jo, **dkw)
+        tm, to = amp.decorate(tm, to, **dkw)
     jp, tp = list(jm.parameters()), list(tm.parameters())
     _train(jo, to, jp, tp, steps=3)
     src_state = jo.state_dict() if direction == "jax_to_port" \
@@ -434,10 +446,9 @@ def test_state_dict_loads_across_packages(direction, layout):
                 p.copy_(torch.from_numpy(_np32(src)))
                 p.param_name = q.param_name
         fresh = AdamW(learning_rate=LR, parameters=fresh_m.parameters(),
-                      use_multi_tensor=multi)
+                      **okw)
         if o2:
-            fresh_m, fresh = amp.decorate(fresh_m, fresh, level="O2",
-                                          dtype="bfloat16")
+            fresh_m, fresh = amp.decorate(fresh_m, fresh, **dkw)
         fresh.set_state_dict(state)
         fp = list(fresh_m.parameters())
         with torch.no_grad():   # the source's bf16 parameters
@@ -447,7 +458,9 @@ def test_state_dict_loads_across_packages(direction, layout):
         assert fresh.t == 4
         _params_close(jp, fp, bf16=o2)
         if o2:
-            _masters_close(jo.state_dict(), fresh.state_dict())
+            _masters_close(jo.state_dict(), fresh.state_dict(), bf16=free)
+        if free:
+            _moments_close(jo.state_dict(), fresh.state_dict())
     else:
         paddle.seed(3)
         fresh_m = paddle.nn.LayerList([paddle.nn.Linear(i, o)
@@ -456,10 +469,9 @@ def test_state_dict_loads_across_packages(direction, layout):
             p._set_data(jnp.asarray(_np32(q)))
         fresh = paddle.optimizer.AdamW(learning_rate=LR,
                                        parameters=fresh_m.parameters(),
-                                       use_multi_tensor=multi)
+                                       **okw)
         if o2:
-            fresh_m, fresh = paddle.amp.decorate(fresh_m, fresh, level="O2",
-                                                 dtype="bfloat16")
+            fresh_m, fresh = paddle.amp.decorate(fresh_m, fresh, **dkw)
             for p, q in zip(fresh_m.parameters(), tp):
                 p._set_data(jnp.asarray(_np32(q)).astype(jnp.bfloat16))
         # the port's names are the source model's; the fresh JAX model's
@@ -477,6 +489,9 @@ def test_state_dict_loads_across_packages(direction, layout):
         _params_close(fp, tp, bf16=o2)
         if o2:
             _masters_close(fresh.state_dict(), to.state_dict(),
+                           rename=rename, bf16=free)
+        if free:
+            _moments_close(fresh.state_dict(), to.state_dict(),
                            rename=rename)
 
 
@@ -487,11 +502,22 @@ def _renamed(key, rename):
     return key
 
 
-def _masters_close(jstate, tstate, rename=None):
+def _masters_close(jstate, tstate, rename=None, bf16=False):
     jm = jstate["master_weights"]
     for n, t in tstate["master_weights"].items():
+        if bf16:
+            assert t.dtype == torch.bfloat16
         np.testing.assert_allclose(_np32(t), _np32(jm[(rename or {}).get(
-            n, n)]), rtol=RTOL, atol=1e-8)
+            n, n)]), rtol=2.0 ** -7 if bf16 else RTOL, atol=1e-8)
+
+
+def _moments_close(jstate, tstate, rename=None):
+    for k, t in tstate.items():
+        if k.endswith(("_moment1", "_moment2")):
+            assert t.dtype == torch.bfloat16
+            np.testing.assert_allclose(
+                _np32(t), _np32(jstate[_renamed(k, rename or {})]),
+                rtol=2.0 ** -7, atol=1e-30)
 
 
 def test_set_parameter_names_and_default_names():

@@ -26,6 +26,7 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu import serving as jserving
+from paddle_tpu.observability import trace as jtrace
 from paddle_tpu.models.llama import LlamaConfig as JConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 from paddle_tpu.serving import kv_cache as jkvc
@@ -51,6 +52,16 @@ torch.set_num_threads(2)
 _W = torch.from_numpy(np.linspace(-1.0, 1.0, D * V).reshape(D, V)
                       .astype(np.float32))
 _POSW = (torch.arange(M, dtype=torch.float32) + 1.0) / M
+
+
+@pytest.fixture(autouse=True)
+def _retire_jax_engine_beacon():
+    """The JAX reference engines here run to the end of their traffic
+    without ``stop()``, which is what retires their ``serving.engine``
+    beacon: retire it at teardown, or it goes stale 60 s later and every
+    later ``/healthz`` in this process reads unhealthy."""
+    yield
+    jtrace.heartbeat_clear("serving.engine")
 
 
 def _kv_of(tok_f):

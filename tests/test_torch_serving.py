@@ -22,6 +22,7 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu import serving as jserving
+from paddle_tpu.observability import trace as jtrace
 from paddle_tpu.models.llama import LlamaConfig as JConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 from paddle_tpu.ops import flash_attention as jflash
@@ -37,6 +38,16 @@ TINY = dict(vocab=64, hidden=32, layers=2, heads=4, kv_heads=2, inter=48,
             max_pos=256)
 MAX_LEN, PS, NEW = 160, 16, 6
 PROMPT_LENS = (128, 9, 23)
+
+
+@pytest.fixture(autouse=True)
+def _retire_jax_engine_beacon():
+    """The JAX reference engines here run to the end of their traffic
+    without ``stop()``, which is what retires their ``serving.engine``
+    beacon: retire it at teardown, or it goes stale 60 s later and every
+    later ``/healthz`` in this process reads unhealthy."""
+    yield
+    jtrace.heartbeat_clear("serving.engine")
 
 
 @pytest.fixture(scope="module")
