@@ -544,13 +544,9 @@ def check_flash(torch, fa, planted_lib):
         library_ms = cuda_ms(torch, lib, 10)
         dev = graph_pair(torch, lambda: fa.flash_attention_fwd(
             q, k, v, causal=causal), lib)
-        if causal:
-            shift = lk - lq
-            pairs = sum(min(lk, max(0, i + shift + 1)) for i in range(lq))
-        else:
-            pairs = lq * lk
-        flops = 4.0 * b * h * d * pairs
-        nbytes = q.element_size() * d * b * (2 * lq * h + 2 * lk * hkv)
+        # the launch's cost function: what the cost registry files
+        flops, nbytes = fa.attention_cost("fwd", b, lq, lk, h, hkv, d,
+                                          q.element_size(), causal)
         bms, by = bound(flops, nbytes, dtype_name(dt))
         row = dict(case=name, dtype=dtype_name(dt), max_abs_err=err,
                    tile_rel_err=res.get("tile_rel"), ref_rms=res["ref_rms"],
@@ -637,14 +633,11 @@ def paged_case(torch, kvc, gen, rng, t_host, h, hkv, leg, qdt, d=128, ps=64,
     q = torch.randn(b, h, d, generator=gen, device="cuda", dtype=qdt)
     kn = torch.randn(b, hkv, d, generator=gen, device="cuda", dtype=qdt)
     vn = torch.randn(b, hkv, d, generator=gen, device="cuda", dtype=qdt)
+    from paddle_tpu_torch.ops import paged_attention as pa
     args = (q, kn, vn, pool, scales, torch.as_tensor(tables_host, device="cuda"),
             torch.as_tensor(t_host, device="cuda"), layer)
-    npages = int(sum(-(-int(tv) // ps) for tv in t_host))
-    nbytes = (2.0 * int(t_host.sum()) * hkv * d * pool.element_size()
-              + q.element_size() * (2 * b * h * d + 2 * b * hkv * d)
-              + 4.0 * (b * s + b)
-              + (8.0 * npages * hkv if scales is not None else 0.0))
-    flops = 4.0 * h * d * float((t_host + 1).sum())
+    # the launch's cost function: what the cost registry files
+    flops, nbytes = pa.paged_cost(q, pool, scales, args[5], args[6], ps)
     return dict(args=args, ps=ps, t_host=t_host, nbytes=nbytes, flops=flops,
                 rep=h // hkv)
 
@@ -3474,15 +3467,6 @@ def paged_kernels(native_build) -> dict:
                           (BULK_COPY_OP,))
 
 
-def attention_pairs(lq: int, lk: int, causal: bool) -> int:
-    """(query, key) pairs the attention computes: the causal rule's count
-    where causal (bottom-right aligned), lq * lk where not."""
-    if not causal:
-        return lq * lk
-    shift = lk - lq
-    return sum(min(lk, max(0, i + shift + 1)) for i in range(lq))
-
-
 def build_planted(native_build):
     """Start ``nvcc`` on each copy that PLANTED_FAULTS names, its source
     with its faults applied, into the git-ignored build directory (one
@@ -3817,18 +3801,14 @@ def flash_train_timing(torch, fa, gen, dt) -> dict:
                                           is_causal=True)
     for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
         dev[kname]["library_device_ms"] = lib_bwd_dev
-    pairs = attention_pairs(L, L, True)
-    qbytes = b * L * h * d * q.element_size()
-    lse_bytes = b * h * L * 4
     timings = {}
-    for kname, ms, plain, lib, products, nbytes in (
-            ("flash_fwd_lse", ms_fwd, plain_fwd, lib_fwd, 2,
-             4 * qbytes + lse_bytes),
-            ("flash_bwd_dq", ms_dq, plain_bwd, lib_bwd, 3,
-             5 * qbytes + 2 * lse_bytes),
-            ("flash_bwd_dkv", ms_dkv, plain_bwd, lib_bwd, 4,
-             6 * qbytes + 2 * lse_bytes)):
-        flops = products * 2.0 * b * h * d * pairs
+    for kname, ms, plain, lib in (
+            ("flash_fwd_lse", ms_fwd, plain_fwd, lib_fwd),
+            ("flash_bwd_dq", ms_dq, plain_bwd, lib_bwd),
+            ("flash_bwd_dkv", ms_dkv, plain_bwd, lib_bwd)):
+        # the launch's cost function: what the cost registry files
+        flops, nbytes = fa.attention_cost(kname[len("flash_"):], b, L, L, h,
+                                          h, d, q.element_size(), True)
         bms, by = bound(flops, nbytes, dn)
         timings[kname] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                               bound_ms=bms, bound_by=by,
@@ -3927,8 +3907,9 @@ def check_q8_adam(torch, q8):
                 ms = cuda_ms(torch, lambda: q8.q8_adam_update(*st_k, g, **kw), 20)
                 plain = cuda_ms(torch, lambda: q8.q8_adam_update_reference(
                     *st_r, g, **kw), 3, warmup=1)
-                nbytes = 10.0 * n + 16.0 * nb   # codes, base, grad; scales
-                bms, by = bound(25.0 * n, nbytes, "float32")
+                # the launch's cost function: codes, base, grad; scales
+                flops, nbytes = q8.q8_adam_cost(st_k[4], g)
+                bms, by = bound(flops, nbytes, "float32")
                 timing = dict(n=n, ms=ms, plain_ms=plain, bound_ms=bms,
                               bound_by=by, library_ms=None,
                               device_ms=device_ms(
@@ -4559,9 +4540,6 @@ def time_variants(torch, fa, b: int, h: int, L: int, d: int,
     q, k, v, do = (torch.randn(b, L, h, d, generator=gen, device="cuda",
                                dtype=dt) for _ in range(4))
     rows = {}
-    pairs = b * h * L * L
-    qbytes = b * L * h * d * q.element_size()
-    rowbytes = b * h * L * 4
     # the flag-free kernels at the same shape first, for the variants' cost
     for variant in ("none",) + fa.VARIANTS:
         var, errs = None, {}
@@ -4572,7 +4550,6 @@ def time_variants(torch, fa, b: int, h: int, L: int, d: int,
                                    do, False, var)
             errs = entry_errs(row)
         args = var or (None, None, 0.0, 0)
-        seg_bytes = 2 * b * L * 4 if args[0] is not None else 0
         out, lse = fa.flash_attention_lse(q, k, v, False, None, *args)
         _, _, run_fwd = fwd_lse_launch(torch, fa, lib, q, k, v, False, var,
                                        with_lse=False)
@@ -4604,17 +4581,18 @@ def time_variants(torch, fa, b: int, h: int, L: int, d: int,
                 dropout_p=p))}
         lib_dev["bwd"] = sdpa_backward_device_ms(torch, qh, kh, vh, doh,
                                                  attn_mask=mask, dropout_p=p)
-        for entry, run, plain, libms, products, nbytes in (
-                ("fwd", run_fwd, plain_fwd, lib_fwd, 2, 4 * qbytes),
-                ("fwd_lse", run_lse, plain_fwd, lib_fwd, 2,
-                 4 * qbytes + rowbytes),
-                ("bwd_dq", run_dq, plain_bwd, lib_bwd, 3,
-                 5 * qbytes + 2 * rowbytes),
-                ("bwd_dkv", run_dkv, plain_bwd, lib_bwd, 4,
-                 6 * qbytes + 2 * rowbytes)):
+        for entry, run, plain, libms in (
+                ("fwd", run_fwd, plain_fwd, lib_fwd),
+                ("fwd_lse", run_lse, plain_fwd, lib_fwd),
+                ("bwd_dq", run_dq, plain_bwd, lib_bwd),
+                ("bwd_dkv", run_dkv, plain_bwd, lib_bwd)):
             ms = cuda_ms(torch, run, 20)
-            flops = products * 2.0 * d * pairs
-            bms, by = bound(flops, nbytes + seg_bytes, dn)
+            # the launch's cost function (ids read where the caller gave
+            # them): what the cost registry files
+            flops, nbytes = fa.attention_cost(
+                entry, b, L, L, h, h, d, q.element_size(), False,
+                args[0] is not None)
+            bms, by = bound(flops, nbytes, dn)
             rows[entry, variant] = dict(ms=ms, plain_ms=plain, library_ms=libms,
                                         device_ms=device_ms(torch, run),
                                         library_device_ms=lib_dev[
@@ -5000,11 +4978,6 @@ def ernie_vs_cpu(torch, fa) -> None:
 
 ERNIE3_BASE_PARAMS = 117946370   # ErnieConfig.ernie3_base() with 2 classes
 ADAM_HP = dict(eps=1e-8, beta1=0.9, beta2=0.999)
-# the multi-tensor update: per element 14 bytes read (bf16 grad, fp32
-# master, m, v) and 14 written (master, m, v, bf16 parameter); 18 fp32
-# operations (clip scale 1, m 3, v 4, two bias divisions, decay 1, lr 1,
-# sqrt, eps add, division, subtraction)
-MT_BYTES, MT_FLOPS = 28.0, 18.0
 
 
 def ulps32(torch, a, b) -> int:
@@ -5088,7 +5061,10 @@ def check_multi_tensor_adam(torch, q8, mta, dt=None) -> dict:
         [p32], [g32], [m32], [v32], [], [step_t], lr=lr, beta1=0.9,
         beta2=0.999, weight_decay=wd, eps=1e-8, amsgrad=False,
         maximize=False), 20)
-    bms, by = bound(MT_FLOPS * n, MT_BYTES * n, "float32")
+    # the launch's cost function (ops.multi_tensor_adam): what the cost
+    # registry files
+    mt_flops, mt_bytes = mta.multi_tensor_adam_cost(*st_k, grad)
+    bms, by = bound(mt_flops, mt_bytes, "float32")
     row = {"phase": "multi_tensor_adam_check", "n": n,
            "param_dtype": dtype_name(dt), "grad_dtype": dtype_name(dt),
            "max_abs_err": errs, "max_ulps": ulps,
@@ -5100,7 +5076,7 @@ def check_multi_tensor_adam(torch, q8, mta, dt=None) -> dict:
            "library": "torch._fused_adamw_ on fp32 masters and fp32 grads"
                       if lib_dt == torch.float32 else
                       "torch._fused_adamw_ on fp16 params, grads and moments",
-           "gbytes_per_s": MT_BYTES * n / ms / 1e6}
+           "gbytes_per_s": mt_bytes / ms / 1e6}
     emit(row)
     del master, m, v, grad, param, st_k, p32, g32, m32, v32
     gc.collect()
@@ -6721,8 +6697,8 @@ def check_cross_entropy(torch, ce, planted_lib, gen) -> dict:
                        "bwd_library_device_ms": library_backward_device_ms(
                            torch, lambda x: torch.nn.functional.cross_entropy(
                                x, flat_lab), (flat,), None)})
-        rows = shape[0] * (shape[1] - 1)
-        fb = rows * v * logits.element_size() + nbytes(labels)
+        # the launch's cost function: the rows it scores and their labels
+        fb = ce.cross_entropy_cost(x3, lab2, lu)[1]
         timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
         timing["bwd_bound_ms"], _ = bound(
             0, fb + nbytes(gb["dx"]), "float32")
@@ -8153,9 +8129,8 @@ def fmt_kernel_times(torch, fa, pa, kvc) -> dict:
         mask = torch.ones(lq, lk, dtype=torch.bool, device="cuda").tril(
             lk - lq) if causal else None
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        pairs = attention_pairs(lq, lk, causal)
-        bms, by = bound(4.0 * H * D * pairs,
-                        2.0 * D * (2 * lq * H + 2 * lk * H), "bfloat16")
+        bms, by = bound(*fa.attention_cost("fwd", 1, lq, lk, H, H, D, 2,
+                                           causal), "bfloat16")
         rows[name] = {
             "case": f"(1, {lq}, {H}, {D}) over {lk} bf16"
                     f"{' causal' if causal else ''}",
@@ -8987,17 +8962,14 @@ def grad_scaler_check(torch) -> dict:
 # layers of 4 x 2560^2 + 3 x 2560 x 6912 + 2 x 2560, the final norm
 LLAMA_1P6B_PARAMS = 1591308800
 # the new forms of the multi-tensor AdamW kernel: (storage, moments,
-# parameter buffer, rounding) and the bytes each element moves (the grad is
-# bf16 throughout: 2 read)
+# parameter buffer, rounding); the grad is bf16 throughout
 MT_FORMS = {
-    # an fp32 master with bf16 moments and bf16 parameters: 10 read
-    # (grad 2, master 4, m 2, v 2) and 10 written (master 4, m 2, v 2,
-    # param 2)
-    "bf16_moments": ("float32", "bfloat16", "bfloat16", False, 20.0),
+    # an fp32 master with bf16 moments and bf16 parameters
+    "bf16_moments": ("float32", "bfloat16", "bfloat16", False),
     # bench_llama's --state bf16: the bf16 parameters are the storage,
-    # rounded stochastically: 8 read (grad, w, m, v), 6 written (w, m, v)
-    "master_free_sr": ("bfloat16", "bfloat16", None, True, 14.0),
-    "master_free_rn": ("bfloat16", "bfloat16", None, False, 14.0),
+    # rounded stochastically
+    "master_free_sr": ("bfloat16", "bfloat16", None, True),
+    "master_free_rn": ("bfloat16", "bfloat16", None, False),
 }
 MT_FORM_LR = 1e-3
 MT_FORM_SPLIT = 795654400   # a 16-byte aligned cut near half of n
@@ -9008,7 +8980,7 @@ def mt_form_state(torch, n: int, form: str, seed: int = 11) -> list:
     from ``seed`` (the same each call): weights 0.02-sized, m 1e-3, v up to
     1e-4."""
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    w_dt, m_dt, p_dt, _, _ = MT_FORMS[form]
+    w_dt, m_dt, p_dt, _ = MT_FORMS[form]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     w = torch.randn(n, generator=gen, device="cuda") * 0.02
     m = (torch.randn(n, generator=gen, device="cuda") * 1e-3).to(dt[m_dt])
@@ -9041,7 +9013,7 @@ def check_multi_tensor_adam_forms(torch, q8, mta) -> dict:
     grad = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(
         torch.bfloat16)
     rows = {}
-    for form, (_, _, _, sr, nbytes) in MT_FORMS.items():
+    for form, (_, _, _, sr) in MT_FORMS.items():
         kw = dict(ADAM_HP, scalars=sc, has_wd=True, grad_scale=True,
                   seed=seed, stochastic_rounding=sr)
         before = [None if x is None else digest(torch, x)
@@ -9128,9 +9100,11 @@ def check_multi_tensor_adam_forms(torch, q8, mta) -> dict:
         row["library_device_ms"] = device_ms(torch, library, 20)
         row["library"] = ("torch._fused_adamw_ on bf16 parameters, "
                           "gradients and moments (rounds to nearest)")
-        bms, by = bound(MT_FLOPS * n, nbytes * n, "float32")
-        row.update(bound_ms=bms, bound_by=by, bytes_per_element=nbytes,
-                   gbytes_per_s=nbytes * n / ms / 1e6)
+        # the launch's cost function: what the cost registry files
+        mt_flops, mt_bytes = mta.multi_tensor_adam_cost(*st_k, grad)
+        bms, by = bound(mt_flops, mt_bytes, "float32")
+        row.update(bound_ms=bms, bound_by=by, bytes_per_element=mt_bytes / n,
+                   gbytes_per_s=mt_bytes / ms / 1e6)
         emit(row)
         rows[form] = row
         del st_k, p16, m16, v16, w16
@@ -9535,8 +9509,632 @@ def zoo_compare(torch, case, params, cpu_params, opt, cpu_opt) -> dict:
 
 # the phases ``--only`` can name, in the order they run (a name covers the
 # phases that share its model or inputs)
+# ---------------------------------------------------------------------------
+# sampling in generate and the program cost registry, on serve_7b's 7B
+# ---------------------------------------------------------------------------
+
+SAMPLE = dict(temperature=0.7, top_k=50, top_p=0.9)
+SAMPLE_PROMPTS, SAMPLE_LEN, SAMPLE_NEW, SAMPLE_SEED = 4, 128, 64, 2024
+# the cut tolerance: generate's logits (one token at a time over a concat
+# cache) and the teacher-forced forward's (the transcript at once) differ
+# by bf16 roundings, so a sampled token outside the kept set of the latter
+# passes when its logit is within this many bf16 ulps of the set's smallest
+# (the cut); such tokens are counted apart
+CUT_TOL_ULPS = 4
+
+
+def bf16_ulps_of(torch, x):
+    """One bf16 ulp at each element's magnitude."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def teacher_forced(torch, model, ids, prompt_len: int):
+    """fp32 logits of every generated position of ``ids`` (B, prompt +
+    new), by one forward over the transcript: (B * new, V)."""
+    with torch.no_grad():
+        logits = model(ids)[:, prompt_len - 1:-1].float()
+    return logits.reshape(-1, logits.shape[-1])
+
+
+def outside_kept(torch, gm, model, ids, prompt_len: int) -> dict:
+    """The sampled tokens of ``ids`` against the plain filter's kept set of
+    the teacher-forced logits of their positions: inside, near the cut
+    (CUT_TOL_ULPS), outside."""
+    flat = teacher_forced(torch, model, ids, prompt_len)
+    kept = torch.isfinite(gm.filter_logits(flat, **SAMPLE))
+    tok = ids[:, prompt_len:].reshape(-1)
+    rows = torch.arange(flat.shape[0], device=flat.device)
+    inside = kept[rows, tok]
+    cut = torch.where(kept, flat, torch.inf).min(-1).values
+    near = flat[rows, tok] >= cut - CUT_TOL_ULPS * bf16_ulps_of(torch, cut)
+    return {"tokens": int(tok.numel()), "inside": int(inside.sum()),
+            "near_cut": int((~inside & near).sum()),
+            "outside": int((~inside & ~near).sum()),
+            "kept_set_sizes": [int(kept.sum(-1).min()),
+                               int(kept.sum(-1).max())]}
+
+
+def generate_sample_7b(torch, card, model) -> None:
+    """``generate_sample_7b``: Llama-2-7B at full width, bf16, 4 prompts of
+    128 tokens, 64 new tokens, sampled at temperature 0.7, top-k 50, top-p
+    0.9 on a seeded card generator. Gates: one seed gives one transcript;
+    top-k 1 gives greedy's tokens up to a position whose top logits tie
+    within the cut tolerance; every sampled token in the plain filter's
+    kept set of the teacher-forced logits (within the cut tolerance); a
+    planted draw outside the kept set is caught. Prints tok/s sampled and
+    greedy and the sampler's ms a call."""
+    import numpy as np
+    from paddle_tpu_torch.models import generation as gm
+    cfg = model.config
+    rng = np.random.default_rng(21)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (SAMPLE_PROMPTS, SAMPLE_LEN)),
+                          device="cuda")
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(SAMPLE_SEED)
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = model.generate(ids, max_new_tokens=SAMPLE_NEW, **kw)
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+    # first-call costs untimed (the sampler's kernels load lazily)
+    model.generate(ids, max_new_tokens=2)
+    model.generate(ids, max_new_tokens=2, do_sample=True,
+                   generator=seeded(), **SAMPLE)
+    greedy, greedy_s = timed()
+    s1, s1_s = timed(do_sample=True, generator=seeded(), **SAMPLE)
+    s2, s2_s = timed(do_sample=True, generator=seeded(), **SAMPLE)
+    _, greedy2_s = timed()
+    want_shape = (SAMPLE_PROMPTS, SAMPLE_LEN + SAMPLE_NEW)
+    require(tuple(s1.shape) == want_shape and torch.equal(
+        s1[:, :SAMPLE_LEN], ids), f"generate_sample_7b: shape "
+        f"{tuple(s1.shape)} or prompt changed")
+    require(torch.equal(s1, s2), "generate_sample_7b: one seed gave two "
+                                 "transcripts")
+    require(not torch.equal(s1, greedy), "generate_sample_7b: the sampled "
+                                         "transcript is greedy's")
+    # top-k 1 keeps the largest logit and its ties: greedy's tokens, but
+    # where the top logits tie the draw may take another of them
+    k1, _ = timed(do_sample=True, temperature=0.7, top_k=1,
+                  generator=seeded())
+    flat = teacher_forced(torch, model, greedy, SAMPLE_LEN).view(
+        SAMPLE_PROMPTS, SAMPLE_NEW, -1)
+    k1_rows = []
+    for r in range(SAMPLE_PROMPTS):
+        diff = (k1[r, SAMPLE_LEN:] != greedy[r, SAMPLE_LEN:]).nonzero()
+        if not len(diff):
+            k1_rows.append(None)
+            continue
+        i = int(diff[0])
+        lg = flat[r, i]
+        gap = float(lg[greedy[r, SAMPLE_LEN + i]]
+                    - lg[k1[r, SAMPLE_LEN + i]])
+        tol = CUT_TOL_ULPS * float(bf16_ulps_of(torch, lg.max()))
+        require(abs(gap) <= tol, f"generate_sample_7b: top_k=1 row {r} "
+                f"left greedy at new token {i} with a logit gap {gap} "
+                f"(tolerance {tol})")
+        k1_rows.append({"first_diff": i, "logit_gap": gap, "tol": tol})
+    kept = outside_kept(torch, gm, model, s1, SAMPLE_LEN)
+    require(kept["outside"] == 0, f"generate_sample_7b: sampled tokens "
+                                  f"outside the kept set: {kept}")
+    # a planted draw: the first new token of row 0 replaced by its
+    # position's smallest logit
+    planted = s1.clone()
+    first = teacher_forced(torch, model, s1[:1, :SAMPLE_LEN + 1],
+                           SAMPLE_LEN)[0]
+    planted[0, SAMPLE_LEN] = int(first.argmin())
+    caught = outside_kept(torch, gm, model, planted, SAMPLE_LEN)
+    require(caught["outside"] >= 1, f"generate_sample_7b: a planted draw "
+                                    f"outside the kept set passed: {caught}")
+    logits = torch.randn(SAMPLE_PROMPTS, cfg.vocab_size, device="cuda",
+                         generator=seeded())
+    g = seeded()
+    sampler_ms, sampler_host_us = event_and_host(torch, lambda: gm.sample_token(
+        logits, True, SAMPLE["temperature"], SAMPLE["top_k"],
+        SAMPLE["top_p"], g), 20)
+    argmax_ms, argmax_host_us = event_and_host(
+        torch, lambda: logits.argmax(-1), 20)
+    new = SAMPLE_PROMPTS * SAMPLE_NEW
+    emit({"phase": "generate_sample_7b", "card": card, "layers": 32,
+          "dtype": "bfloat16", "prompts": SAMPLE_PROMPTS,
+          "prompt_len": SAMPLE_LEN, "new_tokens": SAMPLE_NEW, **SAMPLE,
+          "seed": SAMPLE_SEED, "sampled_s": [s1_s, s2_s],
+          "greedy_s": [greedy_s, greedy2_s],
+          "sampled_tok_s": new / min(s1_s, s2_s),
+          "greedy_tok_s": new / min(greedy_s, greedy2_s),
+          "two_runs_equal": True, "top_k1_rows": k1_rows,
+          "kept_check": kept, "planted": caught,
+          "cut_tol_bf16_ulps": CUT_TOL_ULPS,
+          "sampler_ms_a_call": sampler_ms, "argmax_ms_a_call": argmax_ms,
+          "sampler_host_us_a_call": sampler_host_us,
+          "argmax_host_us_a_call": argmax_host_us,
+          "sampler_note": "CUDA events around 20 back-to-back calls on "
+                          "(4, 32000) fp32 logits: device time and launch "
+                          "gaps"})
+
+
+COST_FLOPS_RTOL = 1e-6      # a decode record against its closed form
+COST_STEP_RTOL = 1e-3       # the train.step record against its closed form
+COST_PROMPT_LENS = (128, 512, 1000)
+
+
+def matmul_params(cfg) -> int:
+    """Weights of the products one token goes through, the head's too."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    return cfg.num_hidden_layers * (2 * h * h + 2 * h * kv + 3 * h * i) \
+        + h * v
+
+
+def cost_kernel_cases(torch, gen):
+    """One launch of each hand-written kernel at a case of its check, and
+    the (flops, bytes) that check feeds ``bound()``: the cost function
+    itself where the check reads it (B1-B6, multi-tensor AdamW), the
+    check's ``nbytes`` of the same tensors where it counts them (K1-K8) and
+    ``moe_bytes`` (K9). Yields (case, counter name, launch, expected)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import bias_act as ba
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import embedding as em
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import moe as K9
+    from paddle_tpu_torch.ops import multi_tensor_adam as mta
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import q8_adam as q8
+    from paddle_tpu_torch.ops import rope as rp
+    from paddle_tpu_torch.ops import softmax_cross_entropy as ce
+    from paddle_tpu_torch.ops import softmax_mask as sm
+    from paddle_tpu_torch.ops import swiglu as sw
+    from paddle_tpu_torch.serving import kv_cache as kvc
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+    # B1, B1 tail, B2-B4 and the SEGS variant
+    for name, (b, h, hkv, lq, lk, causal) in {
+            "flash_fwd causal_1000_ragged": (1, 32, 32, 1000, 1000, True),
+            "flash_fwd causal_lq200_lk1224": (1, 32, 32, 200, 1224, True),
+            "flash_fwd_lse gqa": (2, 16, 4, 512, 512, True)}.items():
+        q, k, v = rn((b, lq, h, 128), bf), rn((b, lk, hkv, 128), bf), \
+            rn((b, lk, hkv, 128), bf)
+        entry = name.split()[0][len("flash_"):]
+        if entry == "fwd":
+            yield name, "flash_attention_fwd", (
+                lambda q=q, k=k, v=v, c=causal: fa.flash_attention_fwd(
+                    q, k, v, causal=c)), fa.attention_cost(
+                "fwd", b, lq, lk, h, hkv, 128, 2, causal)
+        else:
+            yield name, "flash_attention_fwd_lse", (
+                lambda q=q, k=k, v=v: fa.flash_attention_lse(
+                    q, k, v, causal=True)), fa.attention_cost(
+                "fwd_lse", b, lq, lk, h, hkv, 128, 2, True)
+            out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+            do = rn(out.shape, bf)
+            for e in ("bwd_dq", "bwd_dkv"):
+                yield f"flash_{e} gqa", f"flash_attention_{e}", (
+                    lambda q=q, k=k, v=v, out=out, lse=lse, do=do:
+                    fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                           causal=True)), \
+                    fa.attention_cost(e, b, lq, lk, h, hkv, 128, 2, True)
+    b, h, L, d = ERNIE_SHAPE
+    q, k, v = (rn((b, L, h, d), bf) for _ in range(3))
+    ids = torch.zeros(b, L, dtype=torch.int32, device="cuda")
+    yield "flash_fwd_lse[segs] ernie", "flash_attention_fwd_lse[segs]", (
+        lambda: fa.flash_attention_lse(q, k, v, False, None, ids, ids, 0.0,
+                                       0)), fa.attention_cost(
+        "fwd_lse", b, L, L, h, h, d, 2, False, True)
+    # B6 on a bf16 and an int8 pool (paged_case's counts are the check's)
+    rng = np.random.default_rng(3)
+    for leg in ("bf16", "int8"):
+        case = paged_case(torch, kvc, gen, rng, rng.integers(0, 2048, 16),
+                          32, 32, leg, bf)
+        yield f"paged_decode {leg}_h32", "paged_decode_attention", (
+            lambda case=case: pa.paged_attention(
+                *case["args"][:7], case["args"][7], page_size=case["ps"])), \
+            (case["flops"], case["nbytes"])
+    # B5, the main path's form
+    n = 2048 * 512
+    nb = n // q8.Q8_BLOCK
+    st = [torch.zeros(nb, q8.Q8_BLOCK, dtype=torch.int8, device="cuda"),
+          torch.ones(nb, device="cuda"),
+          torch.zeros(nb, q8.Q8_BLOCK, dtype=torch.int8, device="cuda"),
+          torch.ones(nb, device="cuda"), rn((n,), bf, 0.02)]
+    g8 = rn((n,), bf, 1e-2)
+    kw8 = dict(eps=1e-8, beta1=0.9, beta2=0.999, has_wd=True, use_sr=True,
+               scalars=q8.scalar_block(1e-4, 0.1, 0.001, 1.0, device="cuda"),
+               seed=torch.tensor(1234, device="cuda"))
+    yield "q8_adam bf16 SR", "q8_adam", (
+        lambda: q8.q8_adam_update(*st, g8, **kw8)), q8.q8_adam_cost(st[4],
+                                                                    g8)
+    # multi-tensor AdamW: an fp32 master beside bf16 parameters, and the
+    # master-free bf16 form with rounding
+    sc = q8.scalar_block(1e-4, 0.1, 0.001, 1.0, grad_scale=0.8,
+                         device="cuda")
+    gm_ = rn((n,), bf, 1e-2)
+    forms = {"fp32_master": ([rn((n,), f32, 0.02), rn((n,), f32, 1e-3),
+                              rn((n,), f32, 1e-4).abs(), rn((n,), bf)],
+                             {}),
+             "master_free_sr": ([rn((n,), bf, 0.02), rn((n,), bf, 1e-3),
+                                 rn((n,), bf, 1e-4).abs(), None],
+                                dict(seed=torch.tensor(7, device="cuda"),
+                                     stochastic_rounding=True))}
+    for form, (stm, extra) in forms.items():
+        kwm = dict(ADAM_HP, scalars=sc, has_wd=True, grad_scale=True,
+                   **extra)
+        yield f"multi_tensor_adam {form}", "multi_tensor_adam", (
+            lambda stm=stm, kwm=kwm: mta.multi_tensor_adam_update(
+                *stm, gm_, **kwm)), mta.multi_tensor_adam_cost(*stm, gm_)
+    # K1 forward and backward (fused_norm_timing's tensors)
+    spec = fn.NormSpec("ln", 1e-12, f32, f32, bf, f32, f32)
+    x, res = rn((4096, 768), bf), rn((4096, 768), f32)
+    w, bb = rn((768,), bf, 0.1), rn((768,), bf, 0.1)
+    got = fn._launch_fwd(x, w, bb, res, None, spec)
+    yield "fused_norm fwd ernie_o2_residual", "fused_norm", (
+        lambda: fn._launch_fwd(x, w, bb, res, None, spec)), \
+        (0.0, float(nbytes(x, res, w, bb, *got)))
+    dy, dres = rn((4096, 768), spec.out), rn((4096, 768), spec.add)
+    hh = x if got[1] is None else got[1]
+
+    def k1_bwd():
+        return fn._launch_bwd(dy, dres, hh, got[2], got[3], w, spec,
+                              dx_dtype=spec.add, want_w=True, bias_dtype=bf,
+                              pre_bias_dtype=None)
+    yield "fused_norm bwd ernie_o2_residual", "fused_norm", k1_bwd, \
+        (0.0, float(nbytes(dy, dres, hh, w, got[2], got[3], *k1_bwd())))
+    # K2 (check_rope's fb), K3 forward and backward
+    xs = [rn((6, 512, 20, 128), bf) for _ in range(2)]
+    ang = torch.rand((4096, 64), generator=gen, device="cuda") * 6.3
+    cos, sin = ang.cos(), ang.sin()
+
+    def k2():
+        return rp._launch(xs, cos, sin, offset=0, positions=None, neox=True,
+                          dtype=bf, table_dtype=bf, backward=False,
+                          out_dtypes=[bf] * 2)
+    yield "rope llama_o2", "rope", k2, \
+        (0.0, float(nbytes(*xs, cos, sin) + nbytes(*k2())))
+    gg, uu, dyy = (rn((4096, 6912), bf) for _ in range(3))
+    yield "swiglu fwd", "swiglu", (lambda: sw._launch_fwd(gg, uu, False)), \
+        (0.0, float(nbytes(gg, uu, sw._launch_fwd(gg, uu, False))))
+    yield "swiglu bwd", "swiglu", (
+        lambda: sw._launch_bwd(gg, uu, dyy, False)), \
+        (0.0, float(nbytes(gg, uu, dyy, *sw._launch_bwd(gg, uu, dyy,
+                                                          False))))
+    # K4 as the Llama loss reads it: rows l < L - 1 in place
+    logits = rn((2, 1024, 32000), bf, 2.0)
+    labels = torch.randint(0, 32000, (2, 1024), generator=gen,
+                           device="cuda")
+    lab2, lu = labels[:, 1:], 1023
+    state = ce._launch_fwd(logits, lab2, lu, -100, f32)
+    fb = ce.cross_entropy_cost(logits, lab2, lu)[1]
+    yield "softmax_cross_entropy fwd", "softmax_cross_entropy", (
+        lambda: ce._launch_fwd(logits, lab2, lu, -100, f32)), (0.0, float(fb))
+    g1 = torch.tensor(0.75, device="cuda")
+    dx = ce._launch_bwd(logits, lab2, lu, -100, f32, *state[1:], state[0],
+                        g1)
+    yield "softmax_cross_entropy bwd", "softmax_cross_entropy", (
+        lambda: ce._launch_bwd(logits, lab2, lu, -100, f32, *state[1:],
+                               state[0], g1)), (0.0, float(fb + nbytes(dx)))
+    # K5 (check_embedding's fb and bb)
+    eids = torch.randint(0, 40000, (32, 128), generator=gen, device="cuda")
+    ew = rn((40000, 768), bf, 0.02)
+    edy = rn((32, 128, 768), bf)
+    hit = int(torch.unique(eids).numel())
+    yield "embedding fwd ernie_word", "embedding", (
+        lambda: em._launch_fwd(eids, ew, 0)), \
+        (0.0, float(nbytes(eids) + hit * 768 * ew.element_size()
+                    + nbytes(edy)))
+    yield "embedding bwd ernie_word", "embedding", (
+        lambda: em._launch_bwd(eids, edy, 40000, 0, bf)), \
+        (0.0, float(nbytes(eids, edy) + 40000 * 768 * ew.element_size()))
+    # K6, K7, K8 forward and backward
+    y, yb, ydy = rn((4096, 3072), bf), rn((3072,), bf, 0.5), \
+        rn((4096, 3072), bf)
+    aspec = ba.ActSpec("gelu", bf, bf)
+    yo = ba._launch_fwd(y, yb, aspec, None)
+    yield "bias_act fwd ernie_o2", "bias_act", (
+        lambda: ba._launch_fwd(y, yb, aspec, None)), \
+        (0.0, float(nbytes(y, yb, yo)))
+    yield "bias_act bwd ernie_o2", "bias_act", (
+        lambda: ba._launch_bwd(y, yb, ydy, aspec, None)), \
+        (0.0, float(nbytes(y, yb, ydy, *ba._launch_bwd(y, yb, ydy, aspec,
+                                                         None))))
+    seed = torch.tensor(DROPOUT_SEED, dtype=torch.int64, device="cuda")
+    dx_ = rn((4096, 768), bf)
+    yield "dropout fwd ernie_hidden_bf16", "dropout", (
+        lambda: dr._launch_fwd(dx_, None, seed, 0.1, True)), \
+        (0.0, float(nbytes(dx_, dr._launch_fwd(dx_, None, seed, 0.1,
+                                                True))))
+    yield "dropout bwd ernie_hidden_bf16", "dropout", (
+        lambda: dr._launch_bwd(dx_, seed, 0.1, True, bf)), \
+        (0.0, float(2 * nbytes(dx_)))
+    sx, smask = rn((32, 12, 128, 128), bf), rn((32, 1, 128, 128), bf)
+    sy = sm._launch_fwd(sx, smask, False)
+    sdy = rn(sy.shape, bf)
+    yield "softmax_mask fwd ernie", "softmax_mask", (
+        lambda: sm._launch_fwd(sx, smask, False)), \
+        (0.0, float(nbytes(sx, smask, sy)))
+    yield "softmax_mask bwd ernie", "softmax_mask", (
+        lambda: sm._launch_bwd(sy, sdy)), \
+        (0.0, float(nbytes(sy, sdy, sm._launch_bwd(sy, sdy))))
+    # K9's four calls through the wrappers that count them (moe_bytes)
+    c = moe_case(torch, K9, gen, "token_choice", bf)
+    want = moe_bytes(torch, c)
+    r, s_ = c["routes"], c["spec"]
+    dsp, cmb = K9.launches_dispatch, K9.launches_combine
+    calls = {
+        "dispatch_fwd": (dsp, lambda: K9._rows(
+            c["x"], r, None, None, None, c["dt"], None, False, dsp)),
+        "dispatch_bwd": (dsp, lambda: K9._gather(
+            c["dy"], r, None, None, moe_dispatch_spec(K9, c), False, dsp)),
+        "combine_fwd": (cmb, lambda: K9._gather(
+            c["y"], r, c["gate"], c["bias"], s_, False, cmb)),
+        "combine_bwd": (cmb, lambda: K9._rows(
+            c["dout"], r, c["gate"], c["y"], c["bias"], c["dt"], s_.h,
+            False, cmb))}
+    for name, (ctr, call) in calls.items():
+        yield f"{name} token_choice", ctr.name, call, (0.0, float(want[name]))
+
+
+def check_cost_functions(torch, cost) -> list:
+    """Each kernel case launched once under the registry's count: it files
+    one launch of its own counter (the backward cases launch dq and dk/dv,
+    each its own), with the flops and bytes its check feeds ``bound()``."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows = []
+    for case, counter, launch, (flops, nbytes_) in cost_kernel_cases(torch,
+                                                                      gen):
+        with cost.counted() as tally:
+            launch()
+        torch.cuda.synchronize()
+        got = tally.kernels.get(counter)
+        ok = got == [1, float(flops), float(nbytes_)]
+        rows.append({"case": case, "counter": counter, "filed": got,
+                     "bound_inputs": [float(flops), float(nbytes_)],
+                     "equal": ok})
+        require(ok, f"cost_check: {case} filed {tally.kernels}, its check "
+                    f"feeds bound() flops {flops} bytes {nbytes_}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def http_json(url: str):
+    """GET ``url``: (status, JSON body), a 503's too."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def cost_step_closed_form(cfg, batch: int, seq: int, n_params: int) -> dict:
+    """What the registry counts for bench.py's Llama step (recompute on,
+    int8 AdamW), per token: each layer's products forward, twice in the
+    backward and again in the recompute but for ``down_proj`` (PyTorch's
+    non-reentrant checkpoint stops once the tensors the backward saved are
+    rebuilt, and the layer's last product saves none), the head's forward
+    and backward; flash attention's causal pairs forward (B2), again in the
+    recompute, dq (B3) and dk/dv (B4); B5's 25 operations an element."""
+    from paddle_tpu_torch.ops.flash_attention import attention_pairs
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    layer = cfg.num_hidden_layers * (2 * h * h + 2 * h * kv + 3 * h * i)
+    tokens = batch * seq
+    down = cfg.num_hidden_layers * h * i
+    matmul = 8.0 * layer - 2.0 * down + 6.0 * h * v
+    attn = cfg.num_hidden_layers * (4 + 4 + 6 + 8) * cfg.num_attention_heads \
+        * cfg.head_dim * attention_pairs(seq, seq, True) / seq
+    adam = 25.0 * n_params / tokens
+    return {"matmul": matmul, "attention": attn, "adam": adam,
+            "total": matmul + attn + adam}
+
+
+def cost_train_step(torch, card, tobs, cost) -> dict:
+    """bench.py's Llama step at 4 layers (batch 6, seq 4096, O2, int8
+    AdamW, recompute), captured, 4 calls timed under train.step_seconds:
+    its train.step record against the closed form and beside
+    ``flops_per_token``; the utilization join's MFU."""
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bench_config()
+    cfg.num_hidden_layers = 4
+    batch, seq = 6, 4096
+    model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                use_multi_tensor=False, moment_dtype="int8",
+                use_master_weights=False)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                              master_weight=False)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def llama_step(ids):
+        with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+            loss, _ = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    cap = jit.capture_step(llama_step)
+    t0 = time.monotonic()
+    cap(ids)
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t0
+    times = []
+    for _ in range(4):
+        t0 = time.monotonic()
+        loss = cap(ids)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        tobs.observe("train.step_seconds", times[-1])
+    require(cap.stats["retraces"] == 1 and cap.stats["hits"] == 4
+            and math.isfinite(float(loss)), f"cost_check: the captured "
+            f"step {cap.stats}, loss {float(loss)}")
+    (rec,) = cost.records(site="train.step")
+    tokens = batch * seq
+    counted = rec["flops"] / tokens
+    closed = cost_step_closed_form(cfg, batch, seq, model.num_params())
+    require(abs(counted - closed["total"]) <= COST_STEP_RTOL
+            * closed["total"], f"cost_check: train.step counts {counted} "
+            f"flops a token, the closed form {closed}")
+    util = [r for r in cost.utilization() if r["site"] == "train.step"]
+    require(len(util) == 1 and util[0]["mfu"] > 0,
+            f"cost_check: no train.step utilization row {util}")
+    fpt = model.flops_per_token(seq)
+    p50 = statistics.median(times)
+    row = {"layers": 4, "batch": batch, "seq": seq, "capture_s": capture_s,
+           "step_s": times, "step_p50_s": p50, "record": rec,
+           "flops_per_token_counted": counted,
+           "flops_per_token_closed_form": closed,
+           "flops_per_token_formula": fpt,
+           "counted_over_formula": counted / fpt,
+           "mfu_join": util[0]["mfu"],
+           "mfu_formula_p50": fpt * tokens / p50 / 989e12,
+           "bandwidth_util_join": util[0]["bandwidth_util"],
+           "gap_note": "flops_per_token = 6 N + 12 L H s: N counts the "
+                       "embedding table (a lookup, no product), no "
+                       "recompute forward, and the whole L x L attention "
+                       "square; the registry counts the products run: the "
+                       "recompute's second forward of each layer, the "
+                       "causal pairs only, B5's update"}
+    del cap, opt, model, ids, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def cost_check(torch, card, model) -> None:
+    """``cost_check``: the program cost registry on the card, observability
+    and the registry on. The 7B engine's warm-up files one serving.decode
+    record per bucket and one serving.prefill record per key, each with
+    flops, bytes and temp_bytes; bucket 16's flops equal the closed form;
+    after serving traffic the utilization join gives each bucket's
+    bandwidth share; the HBM ledger's pool and parameter bytes equal the
+    engine's and the model's; /debug/cost and /healthz carry the records and
+    the hbm component; a decode graph captured with the registry off
+    records and replays the same launches; bench.py's Llama step at 4 layers
+    captured (train.step); each kernel's filed flops and bytes are those
+    its check feeds bound()."""
+    import numpy as np
+    from paddle_tpu_torch import observability as tobs
+    from paddle_tpu_torch.observability import cost
+    from paddle_tpu_torch.observability.http import start_http_server
+    require(cost.mode() == "on", "cost_check: PADDLE_TPU_COST is off")
+    t_phase = time.monotonic()
+    fresh_obs(tobs)
+    cost.clear()
+    require(cost.installed(), "cost_check: enable() did not install the "
+                              "registry")
+    cfg = model.config
+    prefill_fn, _ = model.serving_callables(2048)
+    t0 = time.monotonic()
+    eng = engine_7b(model, prefill_fn, "off", COST_PROMPT_LENS)
+    warmup_s = time.monotonic() - t0
+    dec = cost.decode_bucket_records()
+    pre = cost.records(site="serving.prefill")
+    recs = list(dec.values()) + pre
+    require(set(dec) == set(eng.config.buckets)
+            and sorted(r["program"] for r in pre)
+            == sorted(f"prefill[len={n}]" for n in COST_PROMPT_LENS)
+            and all(r["model_source"] == "analytic" and r["flops"]
+                    and r["bytes_accessed"] and r["temp_bytes"] is not None
+                    for r in recs),
+            f"cost_check: records after warmup {recs}")
+    closed = 2.0 * 16 * matmul_params(cfg) + cfg.num_hidden_layers * 4 * \
+        cfg.num_attention_heads * cfg.head_dim * 16
+    rel = abs(dec[16]["flops"] - closed) / closed
+    require(rel <= COST_FLOPS_RTOL, f"cost_check: decode bucket 16 flops "
+            f"{dec[16]['flops']} against the closed form {closed}")
+    # serving traffic, then the utilization join
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (COST_PROMPT_LENS[i % 3],),
+                            dtype=np.int32) for i in range(16)]
+    wall, results, stats = run_traffic(torch, eng, prompts, 64)
+    util = {r["bucket"]: r for r in cost.utilization()
+            if r["site"] == "serving.decode"}
+    require(set(util) == set(eng.config.buckets) and all(
+        0 < r["bandwidth_util"] for r in util.values()),
+        f"cost_check: utilization rows {util}")
+    led = cost.hbm_ledger()
+    pool = eng.kv.pool.nbytes + (0 if eng.kv.scales is None
+                                 else eng.kv.scales.nbytes)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    require(led["kv_pool_bytes"] == pool and led["param_bytes"] == params,
+            f"cost_check: ledger {led}, pool {pool}, params {params}")
+    srv = start_http_server(0)
+    try:
+        code, doc = http_json(srv.url + "/debug/cost")
+        hcode, health = http_json(srv.url + "/healthz")
+    finally:
+        srv.close()
+    require(code == 200 and len(doc["records"]) == len(cost.records())
+            and doc["hbm"]["kv_pool_bytes"] == pool,
+            f"cost_check: /debug/cost {code} {doc.get('hbm')}")
+    hbm = health["components"].get("hbm")
+    require(hbm is not None and hbm["ok"] is True,
+            f"cost_check: /healthz {hcode} without its hbm component")
+    # the registry off: bucket 16 captured again records the same launches
+    # (counting is in the warm-up call, never in a graph), and a replay of
+    # each adds them
+    g_on = eng.decode_graph(16)
+    cost.uninstall()
+    with eng._graph_lock:
+        del eng._graphs[16]
+    g_off = eng.decode_graph(16)
+    cost.install()
+    rec_on = {c.name: n for c, n in g_on.launches.items()}
+    rec_off = {c.name: n for c, n in g_off.launches.items()}
+    replay = {}
+    for name, g in (("on", g_on), ("off", g_off)):
+        before = {c.name: c.count for c in g.launches}
+        with eng._launch_lock:
+            g.replay()
+        torch.cuda.synchronize()
+        replay[name] = {c.name: c.count - before[c.name] for c in g.launches}
+    require(g_off.tally is None and rec_on == rec_off
+            and replay["on"] == replay["off"] == rec_on,
+            f"cost_check: decode launches with the registry on {rec_on}, "
+            f"off {rec_off}, replays {replay}")
+    max_reserved = torch.cuda.max_memory_reserved()
+    del eng, g_on, g_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = cost_train_step(torch, card, tobs, cost)
+    kernels = check_cost_functions(torch, cost)
+    tpot = cost._hist_mean("serving.tpot_seconds")
+    emit({"phase": "cost_check", "card": card, "warmup_s": warmup_s,
+          "records": {r["program"]: {k: r[k] for k in (
+              "flops", "bytes_accessed", "temp_bytes", "analysis_seconds")}
+              for r in recs},
+          "decode_b16_flops": dec[16]["flops"],
+          "decode_b16_closed_form": closed, "decode_b16_rel_err": rel,
+          "traffic": {**serving_numbers(results, wall),
+                      "tpot_mean_s": tpot,
+                      "decode_steps": sum(stats["steps"].values())},
+          "bandwidth_util": {b: r["bandwidth_util"]
+                             for b, r in sorted(util.items())},
+          "mfu": {b: r["mfu"] for b, r in sorted(util.items())},
+          "hbm_ledger": led, "max_memory_reserved": max_reserved,
+          "healthz_status": hcode, "healthz_hbm": hbm,
+          "decode_b16_launches": rec_on, "decode_b16_replay": replay,
+          "train_step": step, "kernel_cases": kernels,
+          "seconds": time.monotonic() - t_phase})
+    tobs.disable()
+    tobs.reset()
+
+
 PHASES = ("flash_check", "paged_check", "decode_graph_check", "serve_7b",
-          "fmt", "agree_2layer", "serve_chaos_check", "flash_train_check",
+          "generate_sample_7b", "cost_check", "fmt", "agree_2layer", "serve_chaos_check", "flash_train_check",
           "q8_adam_check", "multi_tensor_adam_check", "fused_ops_check",
           "ernie_ops_check", "incubate_check", "train_llama_1p6b",
           "train_llama_1p6b_bf16_state", "train_vs_cpu",
@@ -9623,6 +10221,7 @@ def main() -> int:
         decode_graph_check(torch, pa, kvc)
     for c in all_counters:
         c.reset()
+    model = None
     if want("serve_7b"):
         model, init_s = build_7b(torch)
         serve_launches, served = serve_7b(torch, smi, fa, pa, model, init_s)
@@ -9636,7 +10235,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         router_launches = serve_router_7b(torch, smi, fa, pa, model, served)
         serve_fleet_7b_width(torch, smi, served)
+    # on the 7B in bf16, before serve_7b_fp16 casts its weights to fp16
+    if want("generate_sample_7b") or want("cost_check"):
+        if model is None:
+            model, _ = build_7b(torch)
+        if want("generate_sample_7b"):
+            generate_sample_7b(torch, smi, model)
+        if want("cost_check"):
+            cost_check(torch, smi, model)
+    if want("serve_7b"):
         serve16_launches = serve_7b_fp16(torch, smi, fa, pa, model, served)
+    if model is not None:
         del model
         gc.collect()
         torch.cuda.empty_cache()

@@ -19,4 +19,12 @@ points run on ``cuda`` unless given ``device="cpu"``.
 
 from .device import NoDeviceError, resolve_device
 
-__all__ = ["NoDeviceError", "resolve_device"]
+__all__ = ["NoDeviceError", "flops", "resolve_device"]
+
+
+def __getattr__(name: str):
+    # ``paddle.flops``, imported on first use (it loads the layers)
+    if name == "flops":
+        from .flops_counter import flops
+        return flops
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

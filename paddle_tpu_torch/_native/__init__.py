@@ -2,6 +2,8 @@
 ``nvcc`` on first use and bound through ``ctypes`` (see ``build.py``)."""
 
 from . import build
-from .build import LaunchCounter, check, load, recorded_launches
+from .build import (LaunchCounter, check, io_cost, load, recorded_launches,
+                    tensor_bytes)
 
-__all__ = ["LaunchCounter", "build", "check", "load", "recorded_launches"]
+__all__ = ["LaunchCounter", "build", "check", "io_cost", "load",
+           "recorded_launches", "tensor_bytes"]

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -141,9 +141,16 @@ class LaunchCounter:
         with _count_lock:
             self._count = 0
 
-    def launched(self, n: int = 1) -> None:
+    def launched(self, n: int = 1, cost: Optional[Callable] = None,
+                 *args) -> None:
         """A wrapper launched its kernel (``n`` times): counted, or taken
-        by the recording of a capture in progress."""
+        by the recording of a capture in progress. ``cost(*args)`` is the
+        launch's ``(flops, bytes)`` (the cost function beside the wrapper):
+        called only while the program cost registry counts an eager call
+        (:data:`cost_hook` set), so a launch otherwise pays one None test."""
+        hook = cost_hook
+        if hook is not None and cost is not None:
+            hook(self.name, n, cost, args)
         with _count_lock:
             if _recordings:
                 rec = _recordings[-1]
@@ -155,6 +162,27 @@ class LaunchCounter:
         """Count ``n`` launches made by a replay of a captured graph."""
         with _count_lock:
             self._count += n
+
+
+#: set by ``observability.cost`` while it counts one eager call of a
+#: program: every wrapper launch hands it ``(counter name, launches, cost
+#: function, its arguments)``, and the registry calls the cost function.
+#: None otherwise (and always inside a graph capture: the registry counts
+#: the warm-up call before it).
+cost_hook: Optional[Callable[[str, int, Callable, tuple], None]] = None
+
+
+def tensor_bytes(*ts) -> int:
+    """Bytes of the tensors (None skipped), each counted once as a whole:
+    what a kernel moves reading each input and writing each output once."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def io_cost(*ts) -> Tuple[float, float]:
+    """The cost function of a kernel that does no matrix products: no
+    flops counted, and :func:`tensor_bytes` of the tensors it reads and
+    writes (the elementwise, norm and row kernels K1-K8)."""
+    return 0.0, float(tensor_bytes(*ts))
 
 
 _counters: List[LaunchCounter] = []

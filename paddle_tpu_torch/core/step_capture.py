@@ -52,6 +52,13 @@ launch per op.
   raises. The eager tier gates on the
   host, as the reference's does.
 
+* **Cost.** With the program cost registry installed
+  (``observability.enable()``), each signature's program is counted once,
+  in its eager warm-up (on the CPU, its first call), and filed as a
+  ``train.step`` record with the graph pool's growth over the capture; the
+  record retires when the signature's graph is dropped or this object
+  dies. The modules and optimizer the functions hold feed the HBM ledger.
+
 ``stats`` (per object) and :func:`capture_info` (process-wide) count hits,
 retraces and bypasses by reason, and so do the metrics
 ``train.capture_hits_total``, ``train.capture_retraces_total`` and
@@ -76,6 +83,7 @@ from torch.utils import _pytree as pytree
 
 from .. import _native
 from .. import observability as _obs
+from ..observability import cost as _cost
 
 __all__ = ["CapturedStep", "HostStateWriteError", "capture_context",
            "capture_info", "capture_step", "capturing", "check_host_write",
@@ -375,6 +383,10 @@ class CapturedStep:
         self._pool = None
         self.stats: Dict[str, Any] = {"hits": 0, "retraces": 0,
                                       "bypasses": {}}
+        # the cost registry: the ledger's sources, the keys counted eagerly
+        _cost.register_state(*_cost.state_owners(step_fn, update_fn,
+                                                  clear_fn))
+        self._cost_keys: set = set()
 
     @property
     def applies_update(self) -> bool:
@@ -399,6 +411,8 @@ class CapturedStep:
         reason = self._bypass_reason(args, kwargs)
         if reason is not None:
             self._note("bypass", reason)
+            if reason == "cpu" and _cost.installed():
+                return self._eager_step_counted(args, kwargs)
             return self._eager_step(args, kwargs)
         key = self._key(args, kwargs)
         if key in self._dead:
@@ -450,7 +464,25 @@ class CapturedStep:
         self._graphs[key] = entry
         self._graphs.move_to_end(key)
         while len(self._graphs) > self._MAX_GRAPHS:
-            self._graphs.popitem(last=False)
+            old, _ = self._graphs.popitem(last=False)
+            _cost.retire_program(self, _cost_key(old))
+
+    def _file_cost(self, key, tally, temp_bytes=None) -> None:
+        _cost.record_program(
+            self, _cost_key(key), "train.step",
+            getattr(self._step_fn, "__name__", "step"), tally,
+            temp_bytes=temp_bytes)
+
+    def _eager_step_counted(self, args, kwargs):
+        """The CPU's eager tier with the cost registry on: a signature's
+        first call is counted and filed."""
+        key = self._key(args, kwargs)
+        with _cost.counted(key not in self._cost_keys) as tally:
+            out = self._eager_step(args, kwargs)
+        if tally is not None:
+            self._cost_keys.add(key)
+            self._file_cost(key, tally)
+        return out
 
     # -- the step body, shared by warm-up, capture and the eager tier --------
     def _once_gated(self, args, kwargs, drawn: set):
@@ -496,8 +528,8 @@ class CapturedStep:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         drawn: set = set()
-        with torch.cuda.stream(side):        # the call's real step
-            out = self._body(s_args, s_kwargs, drawn)
+        with torch.cuda.stream(side), _cost.counted() as tally:
+            out = self._body(s_args, s_kwargs, drawn)   # the call's real step
         torch.cuda.current_stream(dev).wait_stream(side)
         result = _detach_clone(out)
         del out
@@ -505,6 +537,7 @@ class CapturedStep:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        reserved = torch.cuda.memory_reserved(dev)
         try:
             with _native.recorded_launches() as recorded, capture_context(), \
                     torch.cuda.device(dev), \
@@ -526,6 +559,8 @@ class CapturedStep:
             return result
         self._store(key, _Graph(graph, static, _detach(static_out),
                                 dict(recorded), tuple(drawn)))
+        self._file_cost(key, tally,
+                        torch.cuda.memory_reserved(dev) - reserved)
         self._note("retraces")
         return result
 
@@ -565,6 +600,11 @@ class CapturedStep:
         else:
             self._update_fn()
         return out
+
+
+def _cost_key(key) -> str:
+    """The cost registry's name of a signature's program."""
+    return f"step:{abs(hash(key)):x}"
 
 
 def _detach(out):

@@ -285,15 +285,23 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
-                 eos_token_id: Optional[int] = None):
-        """Greedy decode over a concat KV cache (reference surface:
-        PaddleNLP GenerationMixin.generate with do_sample=False). Returns
-        ``(B, L + new)`` token ids."""
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, do_sample: bool = False,
+                 eos_token_id: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+        """Autoregressive decode over a concat KV cache via the shared
+        generation loop (reference surface: PaddleNLP
+        GenerationMixin.generate): greedy by default, temperature / top-k /
+        top-p sampling with ``do_sample`` on ``generator`` (a
+        ``torch.Generator`` on the model's device; required to sample).
+        Returns ``(B, L + new)`` token ids."""
         from .generation import kv_cache_generate
         return kv_cache_generate(
             lambda x, c: self.model(x, caches=c), self._logits, input_ids,
             self._empty_caches(input_ids.shape[0]),
-            max_new_tokens=max_new_tokens, eos_token_id=eos_token_id)
+            max_new_tokens=max_new_tokens, temperature=temperature,
+            top_k=top_k, top_p=top_p, do_sample=do_sample,
+            eos_token_id=eos_token_id, generator=generator)
 
     def serving_callables(self, max_len: int):
         """``(prefill_fn, step_fn)`` over the serving engine's cache

@@ -18,15 +18,17 @@ Naming convention: ``<subsystem>.<noun>_<unit>``, counters suffixed
 ``_total``, histograms ``_seconds``, gauges plain nouns.
 
 The package also holds ``trace`` (span trees, the Chrome trace-event
-export and the always-on flight recorder) and ``http`` (the ``/metrics``,
-``/healthz`` and ``/debug`` endpoint behind ``PADDLE_TPU_OBS_HTTP_PORT``).
+export and the always-on flight recorder), ``http`` (the ``/metrics``,
+``/healthz`` and ``/debug`` endpoint behind ``PADDLE_TPU_OBS_HTTP_PORT``)
+and ``cost`` (the program cost registry: flops and bytes of each captured
+program, the HBM ledger, MFU and bandwidth shares; ``/debug/cost``), which
+``enable()`` installs and ``disable()`` uninstalls.
 
 Disabled (the default), the helpers ``inc``/``observe``/``set_gauge``/
 ``scoped_timer`` return on one global bool. Left out of the port: the JAX
 package's per-op dispatch and eager-cache hooks (``_dispatch_hook``,
 ``_cache_hook`` and their installation in ``enable``/``disable``), which
-hook its eager dispatcher, and its program cost registry
-(``observability.cost``).
+hook its eager dispatcher.
 """
 
 from __future__ import annotations
@@ -66,10 +68,13 @@ def enabled() -> bool:
 
 
 def enable() -> None:
-    """Turn metrics collection on."""
+    """Turn metrics collection on and install the program cost registry
+    (a no-op under ``PADDLE_TPU_COST=off``)."""
     global _ENABLED
     with _LOCK:
         _ENABLED = True
+    from . import cost
+    cost.install()
 
 
 def disable() -> None:
@@ -77,6 +82,8 @@ def disable() -> None:
     global _ENABLED
     with _LOCK:
         _ENABLED = False
+    from . import cost
+    cost.uninstall()
 
 
 # -- family accessors (get-or-create on the default registry) ----------------
@@ -143,8 +150,11 @@ def snapshot() -> Dict[str, Any]:
 
 
 def reset() -> None:
-    """Zero every series (metric families survive)."""
+    """Zero every series (metric families survive) and drop cost
+    records; test isolation seam."""
     _REGISTRY.reset()
+    from . import cost
+    cost.clear()
 
 
 def prometheus_text(registry: Optional[Registry] = None) -> str:

@@ -10,13 +10,15 @@ documents, same ``PADDLE_TPU_OBS_HTTP_PORT`` opt-in), on a stdlib
   device call stops beating); each component carries ``stale`` and
   ``ok``;
 * ``GET /debug/flight``: the flight recorder's last-N-events snapshot;
-* ``GET /debug/trace``: the trace buffer as Chrome trace-event JSON.
+* ``GET /debug/trace``: the trace buffer as Chrome trace-event JSON;
+* ``GET /debug/cost``: the program cost registry's document (one record
+  per live program, the HBM ledger, the utilization join, the device
+  model; :func:`cost.debug_doc`).
 
 The serving engine calls :func:`maybe_serve_from_env` at construction:
 with ``PADDLE_TPU_OBS_HTTP_PORT`` set the process-global server starts
 once (port 0 = ephemeral, read back from ``server.port`` or ``.url``);
-unset, it costs one environment read. The JAX package's ``/debug/cost``
-route is left out with its cost registry.
+unset, it costs one environment read.
 """
 
 from __future__ import annotations
@@ -110,10 +112,13 @@ class _Handler(QuietJSONHandler):
                     "events": _trace.flight_recorder().snapshot()})
             elif path == "/debug/trace":
                 self._send_json(200, _trace.export_chrome())
+            elif path == "/debug/cost":
+                from . import cost as _cost
+                self._send_json(200, _cost.debug_doc())
             else:
                 self._send_json(404, {"error": "not found", "routes": [
                     "/metrics", "/healthz", "/debug/flight",
-                    "/debug/trace"]})
+                    "/debug/trace", "/debug/cost"]})
         except (BrokenPipeError, ConnectionResetError):
             pass  # why: the scraper hung up mid-response; nothing to serve
         except Exception:

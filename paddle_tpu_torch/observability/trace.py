@@ -30,7 +30,8 @@ Left out of the port: the JAX package's per-op dispatch events
 (``_op_event_hook``/``_sync_op_hook``), which hook its eager dispatcher
 (``core.tensor._op_trace_hook``); the port has no such dispatcher, so
 ``on`` records spans and instants only. A flight dump's ``cost`` key is
-None (the port has no program cost registry yet).
+the program cost registry's snapshot (:func:`cost.flight_snapshot`), and
+``/healthz`` carries its ``hbm`` component, which never flips the status.
 
 Overhead: with tracing off (the default) ``span()`` is one global read
 returning a shared no-op context manager, and only explicit
@@ -505,7 +506,14 @@ class FlightRecorder:
                "dumped_at": time.time(),
                "dumped_perf_ts": time.perf_counter(),
                "info": dict(info), "events": evs}
-        doc["cost"] = None      # no program cost registry in the port
+        try:
+            # the post-mortem names the programs that were live and what
+            # they should have cost (records + HBM ledger); flight_snapshot
+            # itself never raises, the guard covers the import
+            from . import cost as _cost
+            doc["cost"] = _cost.flight_snapshot()
+        except Exception:
+            doc["cost"] = None
         if path is None:
             slug = "".join(c if c.isalnum() or c in "-_" else "_"
                            for c in reason)
@@ -588,6 +596,18 @@ def health() -> Dict[str, Any]:
     for name, b in sorted(dict(_HEALTH.beats).items()):
         comps[name] = c = _beacon_component(b, now)
         healthy = healthy and c["ok"]
+    # the HBM ledger's detail rides along independently of the 503: low
+    # headroom warns (once, in the cost module) but never flips the
+    # routing status; the component's ok is always True
+    try:
+        from . import cost as _cost
+        hbm = _cost.healthz_component()
+        if hbm is not None:
+            comps["hbm"] = hbm
+    except Exception:
+        # why silent: the hbm component is advisory detail; a ledger walk
+        # failing mid-scrape must not turn /healthz into a 500
+        _log.debug("healthz: hbm component unavailable", exc_info=True)
     return {"status": "ok" if healthy else "unhealthy",
             "components": comps, "pid": os.getpid()}
 

@@ -316,7 +316,7 @@ def _launch_fwd(y, b, spec: ActSpec, period: Optional[int] = None,
                 c(None if b is None else b.dtype), c(spec.h), c(spec.a),
                 *_plan_args(plan), stream(dev))
         _native.check(err, "bias_act forward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, y, b, out)
     return out
 
 
@@ -348,7 +348,7 @@ def _launch_bwd(y, b, dy, spec: ActSpec, period: Optional[int] = None,
                 c(None if b is None else b.dtype), c(spec.h), c(spec.a),
                 *_plan_args(plan), stream(dev))
         _native.check(err, "bias_act backward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, y, b, dy, dyy, db)
     elif db is not None:
         db.zero_()
     return dyy, None if db is None else db.view(b.shape)

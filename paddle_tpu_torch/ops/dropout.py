@@ -122,7 +122,7 @@ def _launch_fwd(x, residual, seed_t, p, upscale, fns=None):
                 c(None if residual is None else residual.dtype),
                 c(out_dtype), vec, stream(dev))
         _native.check(err, "dropout forward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, x, residual, out)
     return out
 
 
@@ -140,7 +140,7 @@ def _launch_bwd(dy, seed_t, p, upscale, x_dtype, fns=None):
                 ptr(dy), ptr(dx), ptr(seed_t), n, keep_prob, inv,
                 int(upscale), c(x_dtype), c(dy.dtype), vec, stream(dev))
         _native.check(err, "dropout backward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, dy, dx)
     return dx
 
 

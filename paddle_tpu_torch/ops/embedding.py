@@ -42,7 +42,7 @@ from .. import _native
 from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path, ptr,
                         stream)
 
-__all__ = ["CHUNK", "embedding", "embedding_bwd_reference",
+__all__ = ["CHUNK", "embedding", "embedding_bwd_reference", "embedding_cost",
            "embedding_reference", "launch_plan", "launches"]
 
 launches = _native.LaunchCounter("embedding")
@@ -161,6 +161,14 @@ def embedding_bwd_reference(ids: torch.Tensor, dy: torch.Tensor, rows: int,
     return out.to(dtype)
 
 
+def embedding_cost(ids, weight, out) -> tuple:
+    """The forward launch's ``(flops, bytes)``: the ids, the table rows
+    they hit (each once: a host count of the distinct ids), the output."""
+    hit = int(torch.unique(ids).numel())
+    return 0.0, float(_native.tensor_bytes(ids, out)
+                      + hit * weight.shape[1] * weight.element_size())
+
+
 def _launch_fwd(ids, weight, pad: Optional[int], fns=None):
     dev = cuda_device("embedding", ids, weight)
     if ids.dtype not in (torch.int32, torch.int64):
@@ -179,7 +187,7 @@ def _launch_fwd(ids, weight, pad: Optional[int], fns=None):
                 row_bytes, unit, int(ids.dtype == torch.int64),
                 -1 if pad is None else pad, stream(dev))
         _native.check(err, "embedding forward kernel launch")
-        launches.launched()
+        launches.launched(1, embedding_cost, ids, weight, out)
     return out
 
 
@@ -218,7 +226,7 @@ def _launch_bwd(ids, dy, rows: int, pad: Optional[int], dtype, fns=None):
                 -1 if pad is None else pad, plan.vec, plan.threads,
                 plan.strips, stream(dev))
         _native.check(err, "embedding backward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, flat, dy, dw)
     return dw
 
 

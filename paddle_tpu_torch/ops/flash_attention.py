@@ -55,7 +55,8 @@ import torch
 from .. import _native
 from ._u32 import M32, mul32, seed_tensor, seed_term
 
-__all__ = ["FlashAttention", "VARIANTS", "dropout_constants", "dropout_seed",
+__all__ = ["FlashAttention", "VARIANTS", "attention_cost", "attention_pairs",
+           "dropout_constants", "dropout_seed",
            "seed_tensor",
            "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_reference",
@@ -124,6 +125,45 @@ def _shapes(query, key, value):
         raise ValueError(f"incompatible q {tuple(query.shape)} and k/v "
                          f"{tuple(key.shape)}")
     return b, lq, lk, h, hkv, d
+
+
+def attention_pairs(lq: int, lk: int, causal: bool) -> int:
+    """(query, key) pairs the attention computes: ``lq * lk``, or where
+    causal the pairs at or below the bottom-right diagonal (a row that sees
+    no key counts none)."""
+    if not causal:
+        return lq * lk
+    first = max(lk - lq + 1, 1)   # keys the first row that sees one sees
+    return (lk * (lk + 1) - (first - 1) * first) // 2
+
+
+# the cost functions of the four entry points: one launch's (flops, bytes)
+# from its shapes. flops: 2 per multiply-add of the products the kernel
+# does (QK^T and PV forward; dq adds dP and dS K, dk/dv dS^T Q and P^T dO)
+# over the pairs it computes; bytes: q, k, v (and dO, the gradients) once,
+# the lse (and delta) rows in fp32, and the segment ids a caller passed
+_PRODUCTS = {"fwd": 2, "fwd_lse": 2, "bwd_dq": 3, "bwd_dkv": 4}
+
+
+def attention_cost(entry: str, b: int, lq: int, lk: int, h: int, hkv: int,
+                   d: int, item: int, causal: bool, segs: bool = False):
+    """``(flops, bytes)`` of one launch of ``entry`` (``fwd``, ``fwd_lse``,
+    ``bwd_dq``, ``bwd_dkv``) on ``item``-byte q, k, v."""
+    flops = _PRODUCTS[entry] * 2.0 * b * h * d * attention_pairs(lq, lk,
+                                                                  causal)
+    q_rows, kv_rows = {"fwd": (2, 2), "fwd_lse": (2, 2), "bwd_dq": (3, 2),
+                       "bwd_dkv": (2, 4)}[entry]
+    nbytes = item * d * b * (q_rows * lq * h + kv_rows * lk * hkv)
+    nbytes += {"fwd": 0, "fwd_lse": 1}.get(entry, 2) * b * h * lq * 4
+    if segs:
+        nbytes += b * (lq + lk) * 4
+    return flops, float(nbytes)
+
+
+def _launch_cost(entry: str, q, k, causal: bool, segs) -> tuple:
+    b, lq, h, d = q.shape
+    return attention_cost(entry, b, lq, k.shape[1], h, k.shape[2], d,
+                          q.element_size(), causal, segs is not None)
 
 
 def _kernel_inputs(*xs: torch.Tensor):
@@ -407,7 +447,8 @@ def flash_attention_fwd(query: torch.Tensor, key: torch.Tensor,
                 lq, lk, h, hkv, d, code, int(causal), scale, *extra, stream)
     _native.check(err, "flash_attention kernel launch")
     (launches if variant is None
-     else launches_variant["fwd", variant]).launched()
+     else launches_variant["fwd", variant]).launched(
+        1, _launch_cost, "fwd", q, k, causal, q_segs)
     return out
 
 
@@ -443,7 +484,8 @@ def flash_attention_lse(query: torch.Tensor, key: torch.Tensor,
             err = _kernel("flash_fwd_lse_segdrop")(*args, *extra, stream)
     _native.check(err, "flash_attention_lse kernel launch")
     (launches_lse if variant is None
-     else launches_variant["fwd_lse", variant]).launched()
+     else launches_variant["fwd_lse", variant]).launched(
+        1, _launch_cost, "fwd_lse", q, k, causal, q_segs)
     return out, lse
 
 
@@ -493,11 +535,13 @@ def flash_attention_bwd(query, key, value, out, lse, dout,
         err = _kernel("flash_bwd_dq" + suffix)(
             *ptrs, dq.data_ptr(), *dims, *extra, stream)
         _native.check(err, "flash_attention_bwd dq kernel launch")
-        counters[0].launched()
+        counters[0].launched(1, _launch_cost, "bwd_dq", q, k, causal,
+                             q_segs)
         err = _kernel("flash_bwd_dkv" + suffix)(
             *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *extra, stream)
         _native.check(err, "flash_attention_bwd dk/dv kernel launch")
-        counters[1].launched()
+        counters[1].launched(1, _launch_cost, "bwd_dkv", q, k, causal,
+                             q_segs)
     return dq, dk, dv
 
 

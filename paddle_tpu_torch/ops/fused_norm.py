@@ -406,7 +406,8 @@ def _launch_fwd(x, weight, bias, residual, pre_bias, spec, fns=None):
                      spec.eps, int(plan.ring), plan.grid, *_plan_args(plan),
                      stream(dev))
         _native.check(err, "fused_norm forward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, x, residual, pre_bias, weight,
+                          bias, out, res_out, mean, rstd)
     return out, res_out, mean, rstd
 
 
@@ -454,7 +455,8 @@ def _launch_bwd(dy, dres, h, mean, rstd, weight, spec, *, dx_dtype,
                      int(spec.fused), vec, int(plan.ring), *_plan_args(plan),
                      stream(dev))
         _native.check(err, "fused_norm backward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, dy, dres, h, mean, rstd,
+                          weight, dx, dw, db, dpb)
     if dw is not None and weight.shape != dw.shape:
         dw = dw.reshape(weight.shape)
     return dx, dw, db, dpb

@@ -45,7 +45,7 @@ from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path,
 
 __all__ = ["CombineSpec", "Routes", "dense_routes", "expert_choice_routes",
            "gather_sum_reference", "launches_combine", "launches_dispatch",
-           "moe_combine", "moe_dispatch", "slot_rows_reference",
+           "moe_combine", "moe_dispatch", "route_cost", "slot_rows_reference",
            "token_choice_routes"]
 
 launches_dispatch = _native.LaunchCounter("moe_dispatch")
@@ -299,11 +299,40 @@ def _launch_rows(src, routes: Routes, gate, y, bias, out_dtype, h,
     return out, dgate
 
 
+def route_cost(routes: Routes, y, src, gate, bias, out, by_slot: bool):
+    """A launch's ``(flops, bytes)`` for this routing (host counts of the
+    live routes): the routing table; ``by_slot`` (dispatch, the combine's
+    backward): the rows of ``src`` of tokens with a live route, every slot
+    row of ``out``, the live rows of ``y``, the gate read and its gradient
+    written; else (combine, the dispatch's backward): the live slot rows of
+    ``y``, every token row of ``out``, the gate read. The bias as given."""
+    live = routes.slot >= 0
+    n_live = int(live.sum())
+    m = out.shape[-1]
+    nbytes = 4 * sum(t.numel() for t in (routes.ptr, routes.slot,
+                                         routes.slot_route,
+                                         routes.route_token))
+    nbytes += _native.tensor_bytes(bias)
+    if gate is not None:
+        nbytes += (2 if by_slot else 1) * 4 * routes.slot.numel()
+    if by_slot:
+        toks = int((torch.bincount(routes.route_token.long()[live],
+                                   minlength=routes.tokens) > 0).sum())
+        nbytes += toks * m * src.element_size() + out.numel() * \
+            out.element_size()
+        if y is not None:
+            nbytes += n_live * m * y.element_size()
+    else:
+        nbytes += n_live * m * y.element_size() + out.numel() * \
+            out.element_size()
+    return 0.0, float(nbytes)
+
+
 def _gather(y, routes, gate, bias, spec, plain: bool, counter):
     if plain:
         return gather_sum_reference(y, routes, gate, bias, spec)
     out = _launch_gather(y, routes, gate, bias, spec)
-    counter.launched()
+    counter.launched(1, route_cost, routes, y, None, gate, bias, out, False)
     return out
 
 
@@ -311,7 +340,7 @@ def _rows(src, routes, gate, y, bias, out_dtype, h, plain: bool, counter):
     if plain:
         return slot_rows_reference(src, routes, gate, y, bias, out_dtype, h)
     out = _launch_rows(src, routes, gate, y, bias, out_dtype, h)
-    counter.launched()
+    counter.launched(1, route_cost, routes, y, src, gate, bias, out[0], True)
     return out
 
 

@@ -53,7 +53,7 @@ from ._u32 import seed_tensor
 from .q8_adam import (SCALARS, _scalar, sqrt_rn, sr_bits,
                       stochastic_round_bf16)
 
-__all__ = ["launches", "multi_tensor_adam_update",
+__all__ = ["launches", "multi_tensor_adam_cost", "multi_tensor_adam_update",
            "multi_tensor_adam_update_reference"]
 
 launches = _native.LaunchCounter("multi_tensor_adam")
@@ -177,6 +177,18 @@ def multi_tensor_adam_update_reference(
             seed=seed, stochastic_rounding=stochastic_rounding)
 
 
+def multi_tensor_adam_cost(master, m, v, param, grad) -> tuple:
+    """One launch's ``(flops, bytes)``: 18 fp32 operations an element (clip
+    scale 1, m 3, v 4, two bias divisions, decay 1, lr 1, sqrt, eps add,
+    division, subtraction); the gradient read, the storage, m and v read
+    and written, the low-precision parameter copy written."""
+    n = master.numel()
+    item = (grad.element_size() + 2 * (master.element_size()
+            + m.element_size() + v.element_size())
+            + (0 if param is None else param.element_size()))
+    return 18.0 * n, float(item * n)
+
+
 def multi_tensor_adam_update(
         master, m, v, param, grad, *, scalars: torch.Tensor, eps: float,
         beta1: float, beta2: float, has_wd: bool, grad_scale: bool = False,
@@ -237,4 +249,4 @@ def multi_tensor_adam_update(
               [t.data_ptr() for t in tables]),
             0 if tables is None else tables[0].numel(), base, wd, stream)
     _native.check(err, "multi_tensor_adam kernel launch")
-    launches.launched()
+    launches.launched(1, multi_tensor_adam_cost, master, m, v, param, grad)

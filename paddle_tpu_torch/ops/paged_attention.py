@@ -36,6 +36,7 @@ from .. import _native
 from ._fused_io import plain_path
 
 __all__ = ["PagedDecodeCache", "paged_attention", "paged_attention_dense",
+           "paged_cost",
            "scatter_token_inplace", "paged_decode_attention", "launches",
            "split_plan"]
 
@@ -134,6 +135,23 @@ def split_plan(pages_per_row: int, rows: int) -> Tuple[int, int]:
     return pps, -(-pages_per_row // pps)
 
 
+def paged_cost(q, pool, scales, tables, t, page_size: int) -> tuple:
+    """One launch's ``(flops, bytes)``, counted for this call's contexts (a
+    host read of ``t``): 4 flops per (query head, dim, position) over the
+    cached positions and the current token; the live K/V rows of the pool,
+    q, out and the current token's k and v, the tables and t, and the live
+    pages' scales of an int8 pool."""
+    b, h, d = q.shape
+    hkv = pool.shape[3]
+    ts = [int(x) for x in t.tolist()]
+    npages = sum(-(-x // page_size) for x in ts)
+    nbytes = (2.0 * sum(ts) * hkv * d * pool.element_size()
+              + q.element_size() * (2 * b * h * d + 2 * b * hkv * d)
+              + 4.0 * (tables.numel() + b)
+              + (8.0 * npages * hkv if scales is not None else 0.0))
+    return 4.0 * h * d * (sum(ts) + b), nbytes
+
+
 def paged_attention(q, k_new, v_new, pool, scales, tables, t, layer: int, *,
                     page_size: int) -> torch.Tensor:
     """Decode attention for one layer: the kernel for CUDA tensors, the
@@ -146,7 +164,7 @@ def paged_attention(q, k_new, v_new, pool, scales, tables, t, layer: int, *,
     # the library loads once the arguments have passed call_kernel's checks
     out = call_kernel(lambda *a: _kernel()(*a), q, k_new, v_new, pool, scales,
                       tables, t, layer, page_size=page_size)
-    launches.launched()
+    launches.launched(1, paged_cost, q, pool, scales, tables, t, page_size)
     return out
 
 

@@ -43,7 +43,7 @@ import torch
 from .. import _native
 from ._u32 import M32, mul32, seed_tensor, seed_term
 
-__all__ = ["Q8_BLOCK", "SCALARS", "launches", "q8_adam_update",
+__all__ = ["Q8_BLOCK", "SCALARS", "launches", "q8_adam_cost", "q8_adam_update",
            "q8_adam_update_reference", "q8_dequantize", "q8_quantize",
            "scalar_block", "sqrt_rn", "sr_bits", "stochastic_round_bf16"]
 
@@ -211,6 +211,16 @@ def q8_adam_update_reference(m_q, m_s, v_q, v_s, base, grad, *,
     flat.copy_(torch.where(keep, flat, new))
 
 
+def q8_adam_cost(base, grad) -> tuple:
+    """One launch's ``(flops, bytes)``: 25 fp32 operations an element; the
+    base read and written, the gradient read, both int8 codes read and
+    written, and both fp32 scales of each block read and written."""
+    n = base.numel()
+    nb = -(-n // Q8_BLOCK)
+    return 25.0 * n, float(n * (2 * base.element_size() + grad.element_size()
+                                + 4) + 16 * nb)
+
+
 def q8_adam_update(m_q, m_s, v_q, v_s, base, grad, *,
                    scalars: torch.Tensor, has_wd: bool, eps: float,
                    beta1: float, beta2: float, seed=0,
@@ -265,4 +275,4 @@ def q8_adam_update(m_q, m_s, v_q, v_s, base, grad, *,
             sc.data_ptr(), eps, beta1, beta2, 1.0 - beta1, 1.0 - beta2,
             int(has_wd), int(use_sr), seed_t.data_ptr(), stream)
     _native.check(err, "q8_adam kernel launch")
-    launches.launched()
+    launches.launched(1, q8_adam_cost, base, grad)

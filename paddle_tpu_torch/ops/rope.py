@@ -230,7 +230,8 @@ def _launch(xs, cos, sin, *, offset, positions, neox, dtype, table_dtype,
                      plan.heads_per_part, plan.lph, plan.hpw, plan.nch,
                      stream(dev))
         _native.check(err, "rope kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, *xs, cos, sin, positions,
+                          *outs)
     return tuple(outs)
 
 

@@ -32,7 +32,7 @@ from .. import _native
 from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path,
                         ptr, stream)
 
-__all__ = ["launches", "softmax_cross_entropy",
+__all__ = ["cross_entropy_cost", "launches", "softmax_cross_entropy",
            "softmax_cross_entropy_reference"]
 
 launches = _native.LaunchCounter("softmax_cross_entropy")
@@ -114,6 +114,16 @@ def _labels_2d(label: torch.Tensor, shape) -> torch.Tensor:
     return label.reshape(shape)
 
 
+def cross_entropy_cost(x3, lab2, l_used: int, dx=None) -> tuple:
+    """A launch's ``(flops, bytes)``: the logits of the rows it scores
+    (``l_used`` of each sequence, read in place), the labels, and the
+    backward's gradient of the whole (B, L, V) logits; the per-row fp32
+    statistics (12 bytes a row) are left out."""
+    nb, _, v = x3.shape
+    return 0.0, float(nb * l_used * v * x3.element_size()
+                      + _native.tensor_bytes(lab2, dx))
+
+
 def _launch_fwd(x3, lab2, l_used: int, ignore: int, x_cast, fns=None):
     """``(out [mean, count], m, logs, valid)``."""
     dev = cuda_device("softmax_cross_entropy", x3, lab2)
@@ -133,7 +143,7 @@ def _launch_fwd(x3, lab2, l_used: int, ignore: int, x_cast, fns=None):
             ignore, c(x3.dtype), c(x_cast), int(lab2.dtype == torch.int64),
             vec, stream(dev))
     _native.check(err, "softmax_cross_entropy forward kernel launch")
-    launches.launched()
+    launches.launched(1, cross_entropy_cost, x3, lab2, l_used)
     return out, m, logs, valid
 
 
@@ -155,7 +165,7 @@ def _launch_bwd(x3, lab2, l_used: int, ignore: int, x_cast, m, logs, valid,
             lab2.stride(1), ignore, c(x3.dtype), c(x_cast),
             int(lab2.dtype == torch.int64), vec, stream(dev))
     _native.check(err, "softmax_cross_entropy backward kernel launch")
-    launches.launched()
+    launches.launched(1, cross_entropy_cost, x3, lab2, l_used, dx)
     return dx
 
 

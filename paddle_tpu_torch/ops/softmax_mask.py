@@ -197,7 +197,9 @@ def _launch_fwd(x, mask, causal: bool, fns=None, plan=None):
                 plan.elems, plan.rpw, int(plan.head_major), plan.grid,
                 plan.threads, stream(dev))
         _native.check(err, "softmax_mask forward kernel launch")
-        launches.launched()
+        # the mask as given: a mask broadcast over heads is read once
+        launches.launched(1, _native.io_cost, x, None if causal else mask,
+                          out)
     return out
 
 
@@ -216,7 +218,7 @@ def _launch_bwd(y, dy, fns=None, plan=None):
                 dtype_code(y.dtype, "softmax_mask"), *_plan_args(plan),
                 stream(dev))
         _native.check(err, "softmax_mask backward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, y, dy, dx)
     return dx
 
 

@@ -152,7 +152,7 @@ def _launch_fwd(g, u, packed: bool, fns=None):
                 c(gv.dtype), c(uv.dtype), c(out_dtype), vec,
                 *_plan_args(plan), stream(dev))
         _native.check(err, "swiglu forward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, gv, uv, y)
     return y
 
 
@@ -187,7 +187,7 @@ def _launch_bwd(g, u, dy, packed: bool, fns=None):
                 *rs, c(gv.dtype), c(uv.dtype), c(dy.dtype), vec,
                 *_plan_args(plan), stream(dev))
         _native.check(err, "swiglu backward kernel launch")
-        launches.launched()
+        launches.launched(1, _native.io_cost, gv, uv, dy, dg, du)
     return outs
 
 

@@ -140,7 +140,7 @@ import os
 import threading
 import time
 from collections import Counter, OrderedDict
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -150,6 +150,7 @@ import torch
 from .. import _native
 from .. import observability as _obs
 from ..device import resolve_device
+from ..observability import cost as _cost
 from ..observability import http as _obs_http
 from ..observability import trace as _trace
 from ..ops.paged_attention import PagedDecodeCache
@@ -386,6 +387,25 @@ def prefill_body(prefill_fn: Callable, kv: _kv.PagedKVCache,
     return nxt
 
 
+def _decode_key(bucket: int) -> str:
+    return f"decode:{bucket}"
+
+
+def _decode_label(bucket: int) -> str:
+    return f"decode[b={bucket}]"
+
+
+def _prefill_key(start: int, n: int) -> str:
+    return f"prefill:{start}:{n}"
+
+
+def _prefill_label(start: int, n: int) -> str:
+    """A prefill program's label: ``prefill[len=n]``, a tail after a
+    resident prefix ``prefill[start=s][len=n]``."""
+    return (f"prefill[start={start}]" if start else "prefill") + \
+        f"[len={n}]"
+
+
 class _EngineGraph:
     """What the decode and prefill graphs share: static device buffers
     filled through pinned staging, a capture after warm-up calls on a side
@@ -424,7 +444,10 @@ class _EngineGraph:
         Warm-up memory stays cached for its stream, so the engine gives all
         its graphs one side stream. Holds the process-wide capture lock
         throughout: no other engine captures, or launches a kernel through
-        a wrapper, meanwhile (the launch counters record this capture's)."""
+        a wrapper, meanwhile (the launch counters record this capture's,
+        and the cost registry counts the last warm-up call's: ``tally``,
+        None while it is off; ``temp_bytes`` is the pool's growth in
+        reserved memory over the capture)."""
         dev = self._kv.device
         with _CAPTURE_LOCK:
             t0 = time.perf_counter()
@@ -432,9 +455,15 @@ class _EngineGraph:
                 side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side), torch.no_grad():
-                for _ in range(_WARM_STEPS):
-                    fn()
+                for i in range(_WARM_STEPS):
+                    with _cost.counted(i == _WARM_STEPS - 1) as self.tally:
+                        fn()
             torch.cuda.current_stream(dev).wait_stream(side)
+            # the capture frees the cached blocks first (as torch.cuda.graph
+            # does on entry), so the pool's growth is what it reserves anew
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
             self.graph = torch.cuda.CUDAGraph()
             # captured on the engine's own side stream: cuBLAS keeps a
             # workspace per (handle, stream), and a graph bakes in the one
@@ -451,6 +480,7 @@ class _EngineGraph:
                                      capture_error_mode="thread_local"):
                 out = fn()
             torch.cuda.synchronize(dev)
+            self.temp_bytes = torch.cuda.memory_reserved(dev) - reserved
             self.capture_s = time.perf_counter() - t0
         return out
 
@@ -553,6 +583,11 @@ class Engine:
         self._prefill_fn = prefill_fn
         self._step_fn = step_fn
         self.kv = _kv.PagedKVCache(config.kv_config(), self.device)
+        # the HBM ledger's sources: the pool and the model the callables
+        # hold (weakly); the cost records of programs counted on the CPU
+        _cost.register_kv_cache(self.kv)
+        _cost.register_state(*_cost.state_owners(prefill_fn, step_fn))
+        self._cost_keys: set = set()
         capable = _prefill_accepts_start(prefill_fn)
         if config.prefix_sharing == "on" and not capable:
             raise ValueError(
@@ -664,7 +699,10 @@ class Engine:
             return int(out.reshape(-1)[0])
         ids = torch.as_tensor(prompt[None, start:], dtype=torch.int64,
                               device=self.device)
-        with self._launch_lock:
+        n = int(prompt.size) - start
+        with self._launch_lock, self._first_call_counted(
+                "serving.prefill", _prefill_key(start, n),
+                _prefill_label(start, n)):
             self._check_live()
             nxt = prefill_body(self._prefill_fn, self.kv, ids,
                                torch.as_tensor(pages, device=self.device),
@@ -693,7 +731,11 @@ class Engine:
                     pool=self.kv.pool,
                     tables=torch.as_tensor(tables, device=dev), t=t_d,
                     page_size=self.kv.config.page_size, scales=self.kv.scales)
-                with self._launch_lock, torch.no_grad():
+                b = int(tok.shape[0])
+                with self._launch_lock, torch.no_grad(), \
+                        self._first_call_counted(
+                            "serving.decode", _decode_key(b),
+                            _decode_label(b), bucket=b):
                     self._check_live()
                     out, _ = self._step_fn(torch.as_tensor(tok, device=dev),
                                            view, t_d)
@@ -701,6 +743,33 @@ class Engine:
         next_np = self._read(out)
         self._unread = None
         return next_np
+
+    @contextmanager
+    def _first_call_counted(self, site: str, key: str, label: str,
+                            bucket: Optional[int] = None):
+        """Around a program's eager call on the CPU: its first call is
+        counted for the cost registry (while it is installed), and filed
+        under ``key``."""
+        first = _cost.installed() and key not in self._cost_keys
+        with _cost.counted(first) as tally:
+            yield
+        if tally is not None:
+            self._cost_keys.add(key)
+            _cost.record_program(self, key, site, label, tally,
+                                 bucket=bucket)
+
+    def _file_graph(self, g: "_EngineGraph", site: str, key: str,
+                    label: str, bucket: Optional[int] = None,
+                    primer: Optional["_EngineGraph"] = None) -> None:
+        """File a captured graph's count (its last warm-up call's), while
+        the registry is installed; the pool's growth over its capture is
+        its ``temp_bytes``, the primer's added where the primer was captured
+        for it."""
+        if not _cost.installed():
+            return
+        temp = g.temp_bytes + (0 if primer is None else primer.temp_bytes)
+        _cost.record_program(self, key, site, label, g.tally, bucket=bucket,
+                             temp_bytes=temp)
 
     @staticmethod
     def _read(out: torch.Tensor) -> np.ndarray:
@@ -731,6 +800,8 @@ class Engine:
                 g = DecodeGraph(self._step_fn, self.kv, bucket,
                                 *self._capture_args())
                 self._graphs[bucket] = g
+                self._file_graph(g, "serving.decode", _decode_key(bucket),
+                                 _decode_label(bucket), bucket=bucket)
         return g
 
     def prefill_graph(self, start: int, n: int) -> PrefillGraph:
@@ -757,6 +828,7 @@ class Engine:
                 old_key, old = self._prefill_graphs.popitem(last=False)
                 self._evicted_replays[old_key] += old.replays
                 self._prefill_evictions += 1
+                _cost.retire_program(self, _prefill_key(*old_key))
                 del old
             primer = None
             if not self._pool_primed:
@@ -767,6 +839,8 @@ class Engine:
             g = self._count_capture(PrefillGraph(
                 self._prefill_fn, self.kv, *key, *self._capture_args()))
             self._prefill_graphs[key] = g
+            self._file_graph(g, "serving.prefill", _prefill_key(*key),
+                             _prefill_label(*key), primer=primer)
             del primer
         return g
 

@@ -228,7 +228,7 @@ def main() -> int:
                 del lib_out, doh
             del qh, kh, vh
         products, n_tensors, n_rows = WORK[entry]
-        flops = products * 2.0 * b * h * d * cs.attention_pairs(L, L, causal)
+        flops = products * 2.0 * b * h * d * fa.attention_pairs(L, L, causal)
         nbytes = 2.0 * d * b * h * L * n_tensors + 4.0 * b * h * L * n_rows
         bound_ms, bound_by = cs.bound(flops, nbytes, "bfloat16")
         row = {"phase": "ab_flash", "case": name, "entry": entry,
