@@ -200,6 +200,25 @@ line per phase:
   layer on the card, against the same steps of the plain path on the CPU
   and, all but ``LBFGS``, captured bit-equal.
 
+* the dense decode tier, Transformer-base and the loss ops:
+  ``serve_7b_dense`` serves Llama-2-7B at full width on the dense
+  stacked-cache tier (``paged_attention="off"``, max_len 1024) and on the
+  paged tier, 16 x 512 tokens and 64 new each (tok/s, TTFT, TPOT, memory,
+  the path counter), holds one bucket-16 replay of each tier from one pool
+  state (next tokens equal but at the paged tier's 2-ulp ties, 7 more
+  teacher-forced steps within a logits drift, the pools bit-equal away
+  from ``t``), times both replays and the gather, serves a request on an
+  engine demoted at page 8 (the JAX package's tiling rule refuses it) and
+  sees page 512 refused at construction; ``serve_fmt_dense`` serves the FMT stack's
+  2 layers on the dense tier under ``serve_fmt_parity``'s gate;
+  ``loss_ops_check`` holds K4's smoothed, weighted, summed, unreduced and
+  out-of-vocabulary forms against their plain version at (16384, 37000)
+  bf16 and times them; ``train_transformer_base`` trains
+  ``nn.Transformer()`` at its defaults (Transformer-base) under O2 with
+  label smoothing, eager then captured from one state (bit-equal), its MFU
+  from ``paddle_tpu_torch.flops``, and a 2 + 2-layer fp32 copy on the card
+  against the CPU.
+
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound, with the card's own time of each kernel and
 its library call (``device_ms``, ``library_device_ms``: ``graph_ms``) and,
@@ -966,6 +985,30 @@ def require_prefill_replays(stats: dict, prefills: int, captured: int,
             f"{what}: {prefills} prefills but prefill replays "
             f"{keyed(replays)}, {stats['prefill_graphs']} captured during "
             f"the run (want {captured})")
+
+
+def left_on_card(torch, after: str) -> None:
+    """After a phase: collect, empty the cache and print what stays
+    allocated and reserved on the card (a phase must leave nothing)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = torch.cuda.memory_stats()
+    # the segments that stay, by (stream, pool): a graph's private pool
+    # stays while the graph lives; a regular segment while a block in it does
+    held = {}
+    for seg in torch.cuda.memory_snapshot():
+        k = f"{seg.get('stream')}:{seg.get('segment_pool_id')}"
+        h = held.setdefault(k, [0, 0.0, 0.0])
+        h[0] += 1
+        h[1] += seg["total_size"] / 1e9
+        h[2] += seg["allocated_size"] / 1e9
+    emit({"phase": "left_on_card", "after": after,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+          "segments": stats.get("segment.all.current"),
+          "free_gb": torch.cuda.mem_get_info()[0] / 1e9,
+          "held_by_stream_pool": dict(sorted(
+              held.items(), key=lambda kv: -kv[1][1])[:8])})
 
 
 def memory_gb(torch) -> dict:
@@ -7454,8 +7497,8 @@ FMT_TIE_ULPS = 2
 # branch), compounded through the residual stream, one bf16 rounding a
 # layer as serve_prefix_7b's K/V check allows, and two more for the final
 # LayerNorm and the head. A wrong page, position or weight is off by order
-# 1. Held as ||engine - reference|| / ||reference|| at every position.
-FMT_LOGITS_REL = (FMT_LAYERS + 2) * KV_ROUNDING_PER_LAYER
+# 1. Held as ||engine - reference|| / ||reference|| at every position, at
+# most (layers + 2) * KV_ROUNDING_PER_LAYER (fmt_parity).
 # fmt_check holds a 2-layer fp32 prefill's outputs and caches on the card
 # against the same weights on the CPU (plain versions), and the tail of a
 # seq_offset prefill against the full causal prefill, each as
@@ -7571,7 +7614,8 @@ def fmt_stack(torch, layers: int, dtype, seed: int):
 
 def fmt_engine(stack, max_len: int, max_batch: int, buckets, kv_dtype: str,
                compute_dtype: str, causal: bool = False,
-               prefix_sharing: str = "auto", callables=None):
+               prefix_sharing: str = "auto", callables=None,
+               paged_attention: str = "auto"):
     from paddle_tpu_torch.serving import Engine, ServingConfig
     L, _, H, D = stack.cache_shape
     callables = callables or stack.serving_callables(causal=causal)
@@ -7579,7 +7623,8 @@ def fmt_engine(stack, max_len: int, max_batch: int, buckets, kv_dtype: str,
         num_layers=L, num_heads=H, head_dim=D, max_len=max_len,
         max_batch=max_batch, buckets=buckets, page_size=FMT_PS,
         kv_dtype=kv_dtype, compute_dtype=compute_dtype,
-        prefix_sharing=prefix_sharing, device="cuda"))
+        prefix_sharing=prefix_sharing, device="cuda",
+        paged_attention=paged_attention))
 
 
 def fmt_check(torch, fa, pa, kvc) -> dict:
@@ -7919,7 +7964,8 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.frexp(abs(x))[1] - 8) if x else 2.0 ** -133
 
 
-def fmt_kept_logits(torch, stack, prompts, n_new: int):
+def fmt_kept_logits(torch, stack, prompts, n_new: int,
+                    paged_attention: str = "auto"):
     """The traffic once more, through an engine whose callables keep the
     logits each token is picked from (the graphs capture the keeping: a
     bucket's or a prompt length's kept logits are its graph's output).
@@ -7940,7 +7986,8 @@ def fmt_kept_logits(torch, stack, prompts, n_new: int):
         return stack.greedy(kept[tok.shape[0]]), cache
 
     eng = fmt_engine(stack, FMT_MAX_LEN, FMT_REQUESTS, FMT_BUCKETS,
-                     "native", "bfloat16", callables=(prefill_fn, step_fn))
+                     "native", "bfloat16", callables=(prefill_fn, step_fn),
+                     paged_attention=paged_attention)
     eng.warmup([FMT_PROMPT])
     index = {np.asarray(p, np.int64).tobytes(): i
              for i, p in enumerate(prompts)}
@@ -7970,28 +8017,33 @@ def fmt_kept_logits(torch, stack, prompts, n_new: int):
             [torch.stack(r) for r in rows])
 
 
-def fmt_parity(torch, card, stack, prompts, served) -> dict:
+def fmt_parity(torch, card, stack, prompts, served, layers: int = FMT_LAYERS,
+               phase: str = "serve_fmt_parity",
+               paged_attention: str = "auto") -> dict:
     """``served`` (the first timed run's transcripts) against the bs=1
     per-token dense reference: run free, as the bench compares
     (match and first difference a request), and fed the engine's own
     transcript, each position's logits against the engine's kept ones
-    (``FMT_MATCH``, ``FMT_LOGITS_REL`` and ``FMT_TIE_ULPS``). Every
-    pick that differs is listed with both sides' margins, the largest
-    difference of the two rows, and the bf16 ulp at the reference row's
-    largest logit."""
+    (``FMT_MATCH``, ``FMT_TIE_ULPS`` and the relative logits limit of
+    ``layers`` layers). Every pick that differs is listed with both
+    sides' margins, the largest difference of the two rows, and the bf16
+    ulp at the reference row's largest logit. ``paged_attention``: the
+    decode tier of the engine that keeps its logits."""
     t0 = time.monotonic()
+    logits_rel = (layers + 2) * KV_ROUNDING_PER_LAYER
     free = [stack.reference(p, FMT_NEW, FMT_MAX_LEN) for p in prompts]
-    tokens, engine = fmt_kept_logits(torch, stack, prompts, FMT_NEW)
-    require(tokens == served, "serve_fmt parity: the engine that keeps its "
-                              "logits gave other transcripts than run 1")
+    tokens, engine = fmt_kept_logits(torch, stack, prompts, FMT_NEW,
+                                     paged_attention)
+    require(tokens == served, f"{phase}: the engine that keeps its "
+                              f"logits gave other transcripts than run 1")
     per_request, flips = [], []
     for i, (p, toks, e_lg) in enumerate(zip(prompts, tokens, engine)):
         r_lg = stack.reference_logits(p, toks, FMT_MAX_LEN)
         require(e_lg.shape == r_lg.shape == (FMT_NEW, FMT["vocab"]),
-                f"serve_fmt parity: request {i}: logits {e_lg.shape}")
+                f"{phase}: request {i}: logits {e_lg.shape}")
         e = torch.tensor(toks, device=e_lg.device)
         require(torch.equal(e_lg.argmax(dim=1), e),
-                f"serve_fmt parity: request {i}: the kept logits do not "
+                f"{phase}: request {i}: the kept logits do not "
                 f"give the engine's tokens")
         a = r_lg.argmax(dim=1)
         diff = e_lg - r_lg
@@ -8021,23 +8073,24 @@ def fmt_parity(torch, card, stack, prompts, served) -> dict:
     for f in flips:
         f["tie"] = f["reference_margin"] + f["engine_margin"] \
             <= FMT_TIE_ULPS * f["bf16_ulp"]
-    row = {"phase": "serve_fmt_parity", "card": card,
-           "layers": FMT_LAYERS, "dtype": "bfloat16",
-           "match_limit": FMT_MATCH, "logits_rel_limit": FMT_LOGITS_REL,
+    row = {"phase": phase, "card": card,
+           "layers": layers, "dtype": "bfloat16",
+           "decode_tier": paged_attention,
+           "match_limit": FMT_MATCH, "logits_rel_limit": logits_rel,
            "tie_limit_ulps": FMT_TIE_ULPS,
            "requests": per_request, "flips": flips,
            "seconds": time.monotonic() - t0}
     emit(row)
     for i, r in enumerate(per_request):
         require(r["free_first_difference"] == r["forced_first_difference"],
-                f"serve_fmt parity: request {i}: the fed reference departs "
+                f"{phase}: request {i}: the fed reference departs "
                 f"from the free one before the engine does: {r}")
         require(r["forced_match"] >= FMT_MATCH
-                and r["logits_rel_err_max"] <= FMT_LOGITS_REL,
-                f"serve_fmt parity: request {i} against the bs=1 "
+                and r["logits_rel_err_max"] <= logits_rel,
+                f"{phase}: request {i} against the bs=1 "
                 f"reference at the engine's context: {r}")
     require(all(f["tie"] for f in flips),
-            f"serve_fmt parity: picks that differ by more than a tie: "
+            f"{phase}: picks that differ by more than a tie: "
             f"{[f for f in flips if not f['tie']]}")
     return row
 
@@ -10133,15 +10186,790 @@ def cost_check(torch, card, model) -> None:
     tobs.reset()
 
 
+# ---------------------------------------------------------------------------
+# the dense decode tier (serve_7b_dense, serve_fmt_dense), the loss ops
+# (loss_ops_check) and Transformer-base (train_transformer_base)
+# ---------------------------------------------------------------------------
+
+DENSE_MAX_LEN, DENSE_PROMPT, DENSE_NEW, DENSE_REQUESTS = 1024, 512, 64, 16
+DENSE_BUCKETS = (1, 4, 16)
+# one bucket-16 step of the dense and the paged tier from one pool state
+# picks the same token in every row but where the paged tier's own logits
+# put the dense tier's pick within this many bf16 ulps of its top one: a
+# tie either way. Over the later teacher-forced steps the two tiers' logits
+# (fp32 attention over the stacked cache against B6's split sums, each
+# layer's output rounded to bf16) drift apart by rounding: held as
+# ||dense - paged|| / ||paged|| a row within DENSE_LOGITS_REL, one bf16
+# rounding a layer plus two (serve_fmt_parity's limit at 32 layers)
+DENSE_TIE_ULPS = 2
+DENSE_LOGITS_REL = (32 + 2) * KV_ROUNDING_PER_LAYER
+# the gates' prompts (cut from the traffic's) and teacher-forced steps: t
+# runs 508-515 across the page boundary at 512
+DENSE_GATE_PROMPT, DENSE_GATE_STEPS = 508, 8
+# a bf16 page the JAX package's tiling rule refuses (its sublane is 16),
+# which its engine demotes to the dense tier on a TPU
+DEMOTED_PAGE_SIZE = 8
+# a bf16 page that rule takes and the paged kernel cannot stage
+# (ops.paged_attention._MAX_PAGE 256): refused at construction
+REFUSED_PAGE_SIZE = 512
+
+
+def engine_7b_tier(model, tier: str, page_size: int = 64,
+                   max_batch: int = DENSE_REQUESTS, buckets=DENSE_BUCKETS):
+    """The 7B engine of serve_7b_dense on decode tier ``tier`` (the
+    ``ServingConfig.paged_attention`` value)."""
+    from paddle_tpu_torch.serving import Engine, ServingConfig
+    cfg = model.config
+    return Engine(*model.serving_callables(DENSE_MAX_LEN), ServingConfig(
+        num_layers=cfg.num_hidden_layers, num_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim, max_len=DENSE_MAX_LEN, max_batch=max_batch,
+        buckets=buckets, page_size=page_size, compute_dtype="bfloat16",
+        kv_dtype="native", prefix_sharing="off", paged_attention=tier,
+        device="cuda"))
+
+
+def kept_logits(model, kept: dict, tag: str):
+    """``model._logits`` that also keeps each call's logits in ``kept``
+    under ``(tag, rows)``: set on the instance while an engine captures its
+    graphs, it makes each graph keep its step's logits (a bucket's kept
+    tensor is rewritten by every replay of its graph)."""
+    logits = type(model)._logits.__get__(model)
+
+    def keep(h):
+        out = logits(h)
+        kept[tag, h.shape[0]] = out
+        return out
+    return keep
+
+
+def tier_gates(torch, de, pe, prompts, kept: dict) -> dict:
+    """Gates 1 and 2 of serve_7b_dense. The prompts cut to
+    ``DENSE_GATE_PROMPT`` tokens are prefilled into the dense engine's pool
+    (slot i on pages 1 + 16 i ...) and the pool copied into the paged
+    engine's; then ``DENSE_GATE_STEPS`` bucket-16 decode replays on each
+    tier, both fed the paged tier's tokens (teacher forcing), crossing a
+    page at t = 512. Gate 1: the first step's next tokens equal but where
+    the paged tier's own logits (``kept`` by its graph) put the dense pick
+    within DENSE_TIE_ULPS bf16 ulps of its top one; at every step the two
+    tiers' logits within DENSE_LOGITS_REL (the later steps' differing picks
+    are listed with both tiers' margins). Gate 2, after the first replay: the pools bit-equal at every position but each row's t (page 0,
+    the warm-ups' scratch, aside); at t layer 0's K/V are bit-equal too
+    (later layers read attention outputs that the two tiers round
+    apart)."""
+    import numpy as np
+    s = de.kv.config.pages_per_slot
+    ps = de.kv.config.page_size
+    n = len(prompts)
+    tables = (1 + np.arange(n * s, dtype=np.int32)).reshape(n, s)
+    tok = np.array([[de._prefill(p[:DENSE_GATE_PROMPT], tables[i])]
+                    for i, p in enumerate(prompts)], np.int64)
+    pe.kv.pool.copy_(de.kv.pool)
+    tok0 = tok.copy()
+    flips, equal_rows, rel, pool_gate = [], [], [], None
+    for k in range(DENSE_GATE_STEPS):
+        t = np.full((n,), DENSE_GATE_PROMPT + k, np.int32)
+        dense_next = de._decode(tok, tables, t)
+        paged_next = pe._decode(tok, tables, t)
+        equal_rows.append(int((dense_next == paged_next).sum()))
+        lg = {tier: kept[tier, n].reshape(n, -1).float()
+              for tier in ("dense", "paged")}
+        rel.append(float(((lg["dense"] - lg["paged"]).norm(dim=1)
+                          / lg["paged"].norm(dim=1)).max()))
+        for i in np.flatnonzero(dense_next != paged_next).tolist():
+            d, p = int(dense_next[i]), int(paged_next[i])
+            top = float(lg["paged"][i, p])
+            margin = top - float(lg["paged"][i, d])
+            flips.append({"step": k, "row": i, "dense": d, "paged": p,
+                          "paged_margin": margin,
+                          "dense_margin": float(lg["dense"][i, d]
+                                                - lg["dense"][i, p]),
+                          "bf16_ulp": bf16_ulp(top),
+                          "tie": margin <= DENSE_TIE_ULPS * bf16_ulp(top)})
+        if k == 0:
+            pool_gate = pools_equal_but_t(torch, de.kv.pool, pe.kv.pool,
+                                          tables, t, ps)
+        tok = paged_next.astype(np.int64).reshape(n, 1)
+    require(all(f["tie"] for f in flips if f["step"] == 0)
+            and max(rel) <= DENSE_LOGITS_REL,
+            f"serve_7b_dense gate 1: the tiers pick other tokens outside a "
+            f"tie at the first step, or their logits drift beyond "
+            f"{DENSE_LOGITS_REL}: {rel} {flips}")
+    require(pool_gate["pools_equal_but_t"]
+            and pool_gate["kv_at_t_layer0_equal"],
+            f"serve_7b_dense gate 2: the pools differ after one replay of "
+            f"each tier: {pool_gate}")
+    return {"rows": n, "t": [DENSE_GATE_PROMPT,
+                             DENSE_GATE_PROMPT + DENSE_GATE_STEPS - 1],
+            "steps": DENSE_GATE_STEPS, "tokens_equal_rows": equal_rows,
+            "logits_rel_err_max": rel, "logits_rel_limit": DENSE_LOGITS_REL,
+            "flips": flips, "tie_limit_ulps": DENSE_TIE_ULPS, **pool_gate,
+            "tables": tables, "tok": tok0}
+
+
+def pools_equal_but_t(torch, a, b, tables, t, ps: int) -> dict:
+    """Whether pools ``a`` and ``b`` are bit-equal on every page but 0 away
+    from each row's position ``t``, and how they compare at ``t``."""
+    n = len(t)
+    rows = torch.arange(n, device="cuda")
+    pages = torch.as_tensor(tables, device="cuda").long()[
+        rows, torch.as_tensor(t // ps, device="cuda").long()]
+    offs = torch.as_tensor(t % ps, device="cuda").long()
+    at_a, at_b = a[pages, :, :, :, offs], b[pages, :, :, :, offs]
+    out = {"kv_at_t_equal": torch.equal(at_a, at_b),
+           "kv_at_t_layer0_equal": torch.equal(at_a[:, 0], at_b[:, 0]),
+           "kv_at_t_max_abs": float((at_a.float() - at_b.float()).abs()
+                                    .max())}
+    a[pages, :, :, :, offs] = at_b
+    out["pools_equal_but_t"] = all(torch.equal(a[i:i + 16], b[i:i + 16])
+                                   for i in range(1, a.shape[0], 16))
+    a[pages, :, :, :, offs] = at_a
+    return out
+
+
+def dense_step_cost(torch, kvc, de, pe, gates) -> dict:
+    """One bucket-16 replay of each tier at 16 live rows of t = 508 (the
+    gates' pool), and the dense tier's gather alone into its buffer, beside
+    the gather's bytes bound (the stacked cache read from the pool and
+    written once)."""
+    import numpy as np
+    t = np.full((DENSE_REQUESTS,), DENSE_GATE_PROMPT, np.int32)
+    out = {}
+    for name, eng in (("dense", de), ("paged", pe)):
+        g = eng.decode_graph(DENSE_REQUESTS)
+        g.load(gates["tok"], gates["tables"], t)
+        out[f"{name}_replay_ms"] = cuda_ms(torch, g.replay, 10)
+    g = de.decode_graph(DENSE_REQUESTS)
+    tables_d = torch.as_tensor(gates["tables"], device="cuda")
+    out["gather_ms"] = cuda_ms(torch, lambda: kvc.gather_pages(
+        de.kv.pool, None, tables_d, torch.bfloat16, out=g.dense), 10)
+    out["dense_buffer_gb"] = nbytes(g.dense) / 1e9
+    out["gather_bound_ms"], _ = bound(0, 2 * nbytes(g.dense), "bfloat16")
+    out["gather_share_of_dense_replay"] = out["gather_ms"] / out[
+        "dense_replay_ms"]
+    return out
+
+
+def demoted_engine_serves(torch, model, prompt) -> dict:
+    """Gate 3: a kernel-tier 7B engine at a page size the JAX package's
+    tiling rule refuses is built on the dense tier with the warning and
+    serves one request; one at a page size that rule takes and the paged
+    kernel cannot stage raises ``NotImplementedError`` at construction."""
+    import logging
+    try:
+        engine_7b_tier(model, "on", page_size=REFUSED_PAGE_SIZE,
+                       max_batch=1, buckets=(1,))
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    require(refused is not None,
+            f"serve_7b_dense gate 3: page_size {REFUSED_PAGE_SIZE} on the "
+            f"kernel tier was built, not refused")
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    log = logging.getLogger("paddle_tpu_torch.serving.engine")
+    handler = Keep(logging.WARNING)
+    log.addHandler(handler)
+    try:
+        eng = engine_7b_tier(model, "on", page_size=DEMOTED_PAGE_SIZE,
+                             max_batch=1, buckets=(1,))
+    finally:
+        log.removeHandler(handler)
+    require(eng.decode_path == "dense"
+            and any("dense decode tier" in r for r in records),
+            f"serve_7b_dense gate 3: page_size {DEMOTED_PAGE_SIZE} on the "
+            f"kernel tier: decode_path {eng.decode_path}, log {records}")
+    eng.warmup([DENSE_PROMPT])
+    wall, results, stats = run_traffic(torch, eng, [prompt], 8)
+    require(len(results[0].tokens) == 8 and eng.kv.outstanding_pages == 0
+            and sum(stats["replays"].values()) == 7,
+            f"serve_7b_dense gate 3: the demoted engine served "
+            f"{results[0].tokens}, replays {stats['replays']}")
+    out = {"page_size": DEMOTED_PAGE_SIZE, "decode_path": eng.decode_path,
+           "warning": records[-1], "tokens": results[0].tokens,
+           "wall_s": wall, "refused_page_size": REFUSED_PAGE_SIZE,
+           "refused": refused}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_7b_dense(torch, card, fa, pa, kvc, model) -> dict:
+    """Llama-2-7B at full width on the dense decode tier
+    (``paged_attention="off"``, max_len 1024, buckets 1, 4, 16): the
+    three gates (:func:`tier_gates`, :func:`demoted_engine_serves`), then
+    16 x 512-token prompts with 64 new tokens each on the dense and on the
+    paged tier, one run each (tok/s, TTFT, TPOT, peak memory, launches, the
+    ``serving.paged_attention_steps_total`` path), and one bucket-16 step
+    of each timed (:func:`dense_step_cost`)."""
+    import numpy as np
+    from paddle_tpu_torch import observability as obs
+    t_phase = time.monotonic()
+    cfg = model.config
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab_size, (DENSE_PROMPT,),
+                            dtype=np.int32) for _ in range(DENSE_REQUESTS)]
+    engines, kept = {}, {}
+    for tier, tag in (("off", "dense"), ("on", "paged")):
+        t0 = time.monotonic()
+        model._logits = kept_logits(model, kept, tag)
+        try:
+            engines[tier] = engine_7b_tier(model, tier).warmup(
+                [DENSE_PROMPT, DENSE_GATE_PROMPT])
+        finally:
+            del model._logits
+        engines[tier].warmup_s = time.monotonic() - t0
+    de, pe = engines["off"], engines["on"]
+    require(de.decode_path == "dense" and pe.decode_path == "kernel",
+            f"serve_7b_dense: tiers {de.decode_path}, {pe.decode_path}")
+    gates = tier_gates(torch, de, pe, prompts, kept)
+    cost = dense_step_cost(torch, kvc, de, pe, gates)
+    counters = {"flash_prefill": fa.launches, "paged_decode": pa.launches,
+                **{k: c for k, c in step_counters().items()
+                   if k in SERVE_FUSED}}
+    runs = {}
+    for tier, eng in (("dense", de), ("paged", pe)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fresh_obs(obs)
+        obs.enable()
+        for c in counters.values():
+            c.reset()
+        try:
+            wall, results, stats = run_traffic(torch, eng, prompts, DENSE_NEW)
+        finally:
+            obs.disable()
+        launches = {k: c.count for k, c in counters.items()}
+        steps = sum(stats["steps"].values())
+        paths = obs.snapshot().get("serving.paged_attention_steps_total", {})
+        want_path = "path=dense" if tier == "dense" else "path=kernel"
+        require(paths == {want_path: steps},
+                f"serve_7b_dense {tier}: path counter {paths}, {steps} steps")
+        if tier == "paged":
+            require_served(eng, results, stats, launches, cfg.vocab_size,
+                           cfg.num_hidden_layers, DENSE_NEW, DENSE_REQUESTS,
+                           "serve_7b_dense paged")
+        else:
+            layers = cfg.num_hidden_layers
+            per = {"fused_norm": 2 * layers + 1, "rope": layers,
+                   "swiglu": layers, "embedding": 1}
+            calls = DENSE_REQUESTS + steps
+            require(all(len(r.tokens) == DENSE_NEW for r in results)
+                    and sum(stats["replays"].values()) == steps > 0
+                    and launches["paged_decode"] == 0
+                    and launches["flash_prefill"] == DENSE_REQUESTS * layers
+                    and all(launches[k] == n * calls
+                            for k, n in per.items())
+                    and eng.kv.outstanding_pages == 0,
+                    f"serve_7b_dense dense: launches {launches}, {steps} "
+                    f"steps, replays {stats['replays']}")
+        runs[tier] = {**serving_numbers(results, wall),
+                      "decode_steps": steps, "graph_replays": stats["replays"],
+                      "launches": launches, "path_counter": paths,
+                      "warmup_s": eng.warmup_s, **memory_gb(torch)}
+        runs[tier]["transcripts"] = [r.tokens for r in results]
+    del eng
+    obs.reset()
+    pairs = list(zip(runs["dense"].pop("transcripts"),
+                     runs["paged"].pop("transcripts")))
+    same = {"equal": sum(a == b for a, b in pairs),
+            "first_difference": [next((j for j, (x, y) in enumerate(
+                zip(a, b)) if x != y), None) for a, b in pairs]}
+    kept.clear()
+    del de, pe, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    demoted = demoted_engine_serves(torch, model, prompts[0])
+    gates = {k: v for k, v in gates.items() if k not in ("tables", "tok")}
+    emit({"phase": "serve_7b_dense", "card": card, "layers":
+          cfg.num_hidden_layers, "dtype": "bfloat16", "max_len":
+          DENSE_MAX_LEN, "buckets": list(DENSE_BUCKETS), "requests":
+          DENSE_REQUESTS, "prompt_len": DENSE_PROMPT, "new_tokens":
+          DENSE_NEW, "runs": runs, "transcripts_equal_across_tiers": same,
+          "gates": gates, "step_cost": cost, "demoted": demoted,
+          "seconds": time.monotonic() - t_phase})
+    return runs["dense"]["launches"]
+
+
+def serve_fmt_dense(torch, card, fa, pa) -> dict:
+    """The FMT stack's 2-layer bf16 engine at full width on the dense tier
+    (serve_fmt's traffic: 16 x 512 tokens, 64 new, buckets 1, 4, 16): no
+    paged launch, B1, K1, K6 and K5 as on the paged tier, and the
+    transcripts against the bs=1 dense reference under serve_fmt_parity's
+    gate (:func:`fmt_parity` at 2 layers, the logits kept by a dense-tier
+    engine)."""
+    import numpy as np
+    layers = 2
+    stack = fmt_stack(torch, layers, torch.bfloat16, seed=0)
+    t0 = time.monotonic()
+    eng = fmt_engine(stack, FMT_MAX_LEN, FMT_REQUESTS, FMT_BUCKETS, "native",
+                     "bfloat16", paged_attention="off").warmup([FMT_PROMPT])
+    warmup_s = time.monotonic() - t0
+    require(eng.decode_path == "dense", f"serve_fmt_dense: {eng.decode_path}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, FMT["vocab"], (FMT_PROMPT,), dtype=np.int32)
+               for _ in range(FMT_REQUESTS)]
+    counters = fmt_counters(fa, pa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    wall, results, stats = run_traffic(torch, eng, prompts, FMT_NEW)
+    launches = {k: c.count for k, c in counters.items()}
+    steps = sum(stats["steps"].values())
+    want = {"flash_prefill": FMT_REQUESTS * layers, "paged_decode": 0,
+            **{k: n * (FMT_REQUESTS + steps)
+               for k, n in fmt_per_call(layers).items()}}
+    require(launches == want and sum(stats["replays"].values()) == steps > 0
+            and eng.kv.outstanding_pages == 0,
+            f"serve_fmt_dense: launches {launches}, want {want}; replays "
+            f"{stats['replays']}")
+    emit({"phase": "serve_fmt_dense", "card": card, "layers": layers,
+          "dtype": "bfloat16", **FMT, "requests": FMT_REQUESTS,
+          "prompt_len": FMT_PROMPT, "new_tokens": FMT_NEW,
+          "max_len": FMT_MAX_LEN, "decode_tier": eng.decode_path,
+          **serving_numbers(results, wall), "decode_steps": steps,
+          "launches": launches, "warmup_s": warmup_s, **memory_gb(torch)})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    fmt_parity(torch, card, stack, prompts, [r.tokens for r in results],
+               layers=layers, phase="serve_fmt_dense_parity",
+               paged_attention="off")
+    del stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# K4's forms of this slice at Transformer-base's vocabulary, 16384 rows:
+# (name, label smoothing, class weights, reduction, ignore_index, labels)
+LOSS_ROWS, LOSS_VOCAB = 16384, 37000
+LOSS_FORMS = (
+    ("smooth", 0.1, False, "mean", -100, "random"),
+    ("weighted", 0.0, True, "mean", -100, "random"),
+    ("smooth_weighted_none", 0.1, True, "none", -100, "random"),
+    ("smooth_sum_ignore0", 0.1, False, "sum", 0, "random"),
+    ("oov_ignore_n100", 0.1, False, "mean", -100, "oov"),
+    ("oov_ignore_0", 0.0, False, "mean", 0, "oov"),
+    ("weighted_wrap", 0.1, True, "mean", 0, "wrap"),
+)
+
+
+def loss_labels(torch, gen, kind: str, v: int):
+    """Labels of one form: random classes (1 in 8 set to 0), with every
+    seventh row cycling through -100, -1, V and V + 7 ("oov") or set to -1
+    ("wrap": a class weight read from the end of the table, as jnp.take
+    reads it)."""
+    lab = torch.randint(0, v, (LOSS_ROWS,), generator=gen, device="cuda")
+    lab[::8] = 0
+    if kind == "oov":
+        bad = torch.tensor([-100, -1, v, v + 7], device="cuda")
+        lab[3::7] = bad.repeat(LOSS_ROWS // 28 + 1)[:lab[3::7].numel()]
+    elif kind == "wrap":
+        lab[3::7] = -1
+    return lab
+
+
+def loss_ops_check(torch, gen) -> dict:
+    """K4's forms of this slice on the card against their plain version on
+    the same inputs: logits (16384, 37000) bf16 read as fp32 (O2's cast),
+    label smoothing 0.1, class weights, each reduction, labels outside the
+    vocabulary at ignore_index -100 and 0. Loss (fp32, FUSED_TOL "out":
+    rtol 1e-5, atol 1e-5 rms) and gradient (bf16, rtol 2^-7, atol 1e-6
+    rms) of each; three bit-equal launches of the smoothed form; each
+    form's forward timed beside its bound (``cross_entropy_cost``), its
+    plain version and ``F.cross_entropy`` with the same smoothing, weight
+    and reduction (none where a label lies outside the vocabulary, which
+    it refuses); the smoothed form's backward too."""
+    from paddle_tpu_torch.ops import softmax_cross_entropy as ce
+    t0 = time.monotonic()
+    v = LOSS_VOCAB
+    x = (torch.randn(LOSS_ROWS, v, generator=gen, device="cuda")
+         * 2).bfloat16()
+    w = torch.rand(v, generator=gen, device="cuda") * 1.5 + 0.5
+    f32 = torch.float32
+    rows = {}
+    for name, eps, weighted, red, ign, kind in LOSS_FORMS:
+        lab = loss_labels(torch, gen, kind, v)
+        wt = w if weighted else None
+        kw = dict(dtype=f32, weight=wt, label_smoothing=eps, reduction=red)
+        cot = (torch.randn(LOSS_ROWS, generator=gen, device="cuda")
+               if red == "none" else torch.tensor(0.75, device="cuda"))
+
+        def fwd_bwd(fn, lab=lab, ign=ign, kw=kw, cot=cot):
+            leaf = x.detach().requires_grad_()
+            loss = fn(leaf, lab, ign, **kw)
+            (dx,) = torch.autograd.grad(loss, leaf, cot)
+            return {"loss": loss.detach(), "dx": dx}
+        got = fwd_bwd(ce.softmax_cross_entropy)
+        ref = fwd_bwd(ce.softmax_cross_entropy_reference)
+        ok, err, errs = fused_compare(torch, {
+            "loss": (got["loss"], ref["loss"], "out"),
+            "dx": (got["dx"], ref["dx"], "out")})
+        require(ok, f"loss_ops_check {name}: beyond FUSED_TOL: {errs}")
+        x3 = x.unsqueeze(0)
+        lab2 = lab.view(1, -1)
+        fb = ce.cross_entropy_cost(x3, lab2, LOSS_ROWS, None, wt,
+                                   red == "none")[1]
+        library = None
+        if kind == "random":
+            def library(lab=lab, ign=ign, wt=wt, eps=eps, red=red):
+                return torch.nn.functional.cross_entropy(
+                    x, lab, weight=None if wt is None else wt.to(x.dtype),
+                    ignore_index=ign, label_smoothing=eps, reduction=red)
+        with torch.no_grad():
+            timing = fused_timing(
+                torch, lambda lab=lab, ign=ign, kw=kw:
+                ce.softmax_cross_entropy(x, lab, ign, **kw),
+                lambda lab=lab, ign=ign, kw=kw:
+                ce.softmax_cross_entropy_reference(x, lab, ign, **kw),
+                library)
+        timing["bound_ms"], timing["bound_by"] = bound(0, fb, "float32")
+        row = {"case": f"logits ({LOSS_ROWS}, {v}) bf16 read as fp32, "
+                       f"label_smoothing {eps}, weights "
+                       f"{'yes' if weighted else 'no'}, reduction {red}, "
+                       f"ignore_index {ign}, labels {kind}",
+               "max_abs_err": err, "errs": errs,
+               "loss": float(got["loss"].float().sum()), **timing}
+        if name == "smooth":
+            fused_repeat_equal(torch, lambda: fwd_bwd(
+                ce.softmax_cross_entropy), f"loss_ops_check {name}")
+            out, m, logs, valid = ce._launch_fwd(x3, lab2, LOSS_ROWS, ign,
+                                                 f32, eps=eps)
+            g = torch.tensor(0.75, device="cuda")
+            row["bwd_device_ms"] = device_ms(torch, lambda: ce._launch_bwd(
+                x3, lab2, LOSS_ROWS, ign, f32, m, logs, valid, out, g,
+                eps=eps))
+            row["bwd_bound_ms"], _ = bound(0, fb + nbytes(x), "float32")
+            leaf = x.detach().requires_grad_()
+
+            def library_fb():
+                leaf.grad = None
+                torch.nn.functional.cross_entropy(
+                    leaf, lab, label_smoothing=eps).backward()
+            row["bwd_library_ms"] = cuda_ms(torch, library_fb, 5) \
+                - timing["library_ms"]
+        rows[name] = row
+        del got, ref
+    emit({"phase": "loss_ops_check", "seconds": time.monotonic() - t0,
+          "tolerance": {"loss": FUSED_TOL["out", "float32"],
+                        "dx": FUSED_TOL["out", "bfloat16"]},
+          "forms": rows})
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Transformer-base ("Attention Is All You Need", Table 3 "base"): the
+# defaults of paddle.nn.Transformer; WMT14 en-de's shared BPE vocabulary
+TB_VOCAB, TB_BATCH, TB_LEN, TB_MIN_LEN = 37000, 96, 256, 128
+TB_SEED, TB_WARM, TB_TIMED = 0, 2, 10
+TB_EPS = 0.1
+TB_CPU_LAYERS, TB_CPU_BATCH, TB_CPU_LEN = 2, 4, 64
+
+
+def seq2seq(torch, d_model: int, layers: int, device, seed: int):
+    """paddle.nn.Transformer at its defaults (``layers`` a stack) under one
+    shared Embedding(TB_VOCAB, d_model) scaled by sqrt(d_model) plus fixed
+    sinusoidal positions, dropout 0.1 on the sums, and an untied bias-free
+    head; weights N(0, 0.02) from ``seed``, every dropout seeded by the
+    Transformer's DropoutRNG."""
+    from torch import nn as tnn
+
+    from paddle_tpu_torch import nn
+
+    class Seq2Seq(tnn.Module):
+        def __init__(self):
+            super().__init__()
+            self.transformer = nn.Transformer(
+                d_model, num_encoder_layers=layers,
+                num_decoder_layers=layers, device=device)
+            self.embed = nn.Embedding(TB_VOCAB, d_model, padding_idx=0,
+                                      device=device)
+            self.head = nn.Linear(d_model, TB_VOCAB, bias_attr=False,
+                                  device=device)
+            self.drop = nn.Dropout(0.1, rng=self.transformer.rng)
+            pos = torch.arange(TB_LEN, dtype=torch.float64)[:, None]
+            i = torch.arange(0, d_model, 2, dtype=torch.float64)
+            ang = pos / 10000.0 ** (i / d_model)
+            pe = torch.zeros(TB_LEN, d_model, dtype=torch.float64)
+            pe[:, 0::2], pe[:, 1::2] = torch.sin(ang), torch.cos(ang)
+            self.register_buffer("pos", pe.float().to(device))
+            gen = torch.Generator(device=device).manual_seed(seed)
+            for m in self.modules():
+                if isinstance(m, (nn.Linear, nn.Embedding)):
+                    m.reset_parameters(gen)
+
+        def inputs(self, ids):
+            x = self.embed(ids) * math.sqrt(d_model)
+            return self.drop(x + self.pos[:ids.shape[1]].to(x.dtype))
+
+        def forward(self, src, tgt_in, src_keep, tgt_mask):
+            out = self.transformer(self.inputs(src), self.inputs(tgt_in),
+                                   src_keep, tgt_mask, src_keep)
+            return self.head(out)
+    return Seq2Seq()
+
+
+def seq2seq_batch(torch, batch: int, length: int, min_len: int, seed: int,
+                  device):
+    """Source ids, shifted target ids (BOS 1), labels (0 = padding) and the
+    key-padding mask ``(B, 1, 1, length)`` of the source: every length
+    drawn from ``seed`` in ``[min_len, length]``, tokens in [2, V)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    src = np.zeros((batch, length), np.int64)
+    tgt_in = np.zeros((batch, length), np.int64)
+    labels = np.zeros((batch, length), np.int64)
+    ls = rng.integers(min_len, length + 1, batch)
+    lt = rng.integers(min_len, length + 1, batch)
+    for i in range(batch):
+        src[i, :ls[i]] = rng.integers(2, TB_VOCAB, ls[i])
+        y = rng.integers(2, TB_VOCAB, lt[i])
+        labels[i, :lt[i]] = y
+        tgt_in[i, 0] = 1
+        tgt_in[i, 1:lt[i]] = y[:-1]
+    keep = np.arange(length)[None, :] < ls[:, None]
+    as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return (as_t(src), as_t(tgt_in), as_t(labels),
+            as_t(keep[:, None, None, :]), int(ls.sum()), int(lt.sum()))
+
+
+def transformer_base_vs_cpu(torch, fa) -> dict:
+    """A 2 + 2-layer Transformer at base width in fp32, training mode with
+    every dropout on, one forward and backward on the card and on the CPU
+    (the kernels' plain versions) from one state dict: the DropoutRNGs
+    derive the same seeds, so the card's masks are the CPU's. Loss rel
+    1e-4, logits 1e-4, each gradient 1e-3 of its largest element (floored
+    at 1e-3 of the model's largest), as ernie_vs_cpu."""
+    from paddle_tpu_torch.ops.loss_ops import cross_entropy
+    runs, init = {}, None
+    counters = {e: fa.launches_variant[e, "segs_drop"]
+                for e in ("fwd_lse", "bwd_dq", "bwd_dkv")}
+    for dev in ("cuda", "cpu"):
+        model = seq2seq(torch, 512, TB_CPU_LAYERS, dev, TB_SEED)
+        if init is None:
+            init = {k: v.cpu() for k, v in model.state_dict().items()}
+        model.load_state_dict(init)
+        src, tgt_in, labels, keep, _, _ = seq2seq_batch(
+            torch, TB_CPU_BATCH, TB_CPU_LEN, TB_CPU_LEN // 2, 5, dev)
+        mask = model.transformer.generate_square_subsequent_mask(TB_CPU_LEN)
+        for c in counters.values():
+            c.reset()
+        logits = model(src, tgt_in, keep, mask)
+        loss = cross_entropy(logits, labels, ignore_index=0,
+                             label_smoothing=TB_EPS)
+        loss.backward()
+        runs[dev] = dict(loss=float(loss), logits=logits.detach().cpu(),
+                         grads={k: p.grad.detach().cpu()
+                                for k, p in model.named_parameters()},
+                         launches={e: c.count for e, c in counters.items()})
+        del model, loss, logits
+    a, b = runs["cuda"], runs["cpu"]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    logit_err = float((a["logits"] - b["logits"]).abs().max())
+    floor = 1e-3 * max(float(g.abs().max()) for g in b["grads"].values())
+    grad_rel = max(float((a["grads"][k] - b["grads"][k]).abs().max())
+                   / max(float(b["grads"][k].abs().max()), floor)
+                   for k in b["grads"])
+    require(loss_rel < 1e-4 and logit_err < 1e-4 and grad_rel < 1e-3
+            and all(n == 2 * TB_CPU_LAYERS for n in a["launches"].values())
+            and not any(b["launches"].values()),
+            f"Transformer card vs CPU: loss rel {loss_rel}, logits "
+            f"{logit_err}, grad rel {grad_rel}, launches {a['launches']} / "
+            f"{b['launches']}")
+    out = {"layers": f"{TB_CPU_LAYERS} + {TB_CPU_LAYERS}", "dtype": "float32",
+           "batch": TB_CPU_BATCH, "len": TB_CPU_LEN, "dropout": 0.1,
+           "loss_card": a["loss"], "loss_cpu": b["loss"],
+           "loss_rel": loss_rel, "logits_max_abs": logit_err,
+           "grad_max_rel": grad_rel,
+           "tolerance": {"loss_rel": 1e-4, "logits_abs": 1e-4,
+                         "grad_rel": 1e-3},
+           "launches_card": a["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def transformer_counters(fa, mta) -> dict:
+    c = step_counters()
+    return {**{f"{e}[segs_drop]": fa.launches_variant[e, "segs_drop"]
+               for e in ("fwd_lse", "bwd_dq", "bwd_dkv")},
+            "multi_tensor_adam": mta.launches,
+            **{k: c[k] for k in ("softmax_cross_entropy", "fused_norm",
+                                 "bias_act", "dropout", "embedding")}}
+
+
+def train_transformer_base(torch, card, fa, mta) -> dict:
+    """Transformer-base at full width (``paddle_tpu_torch.nn.Transformer()``
+    at its defaults, 6 + 6 layers; :func:`seq2seq`) trained under AMP O2
+    bf16 with fp32 masters, multi-tensor AdamW (beta2 0.98, eps 1e-9, no
+    weight decay) and ``NoamDecay(512, 4000)``, on one batch of 96 pairs
+    padded to 256 (lengths from ``TB_SEED`` in 128-256; key-padding source
+    and memory masks, the square subsequent target mask), loss
+    ``cross_entropy(label_smoothing=0.1, ignore_index=0)``. The eager tier
+    runs 2 warm-up and 10 timed steps, then the captured tier
+    (``jit.capture_step``) the same 12 from the same state (host copy):
+    losses and the digests of parameters, master, m, v, step count and
+    dropout counter bit-equal. Launches a step: B2-B4 SEGS+DROP 12 each
+    (encoder self and decoder cross attention), K4 2, multi-tensor AdamW
+    1. MFU from ``paddle_tpu_torch.flops``: 6 x its multiply-adds of the
+    Transformer at the padded shape plus the head's, over 989 TFLOP/s. The
+    eval loss must fall; then :func:`transformer_base_vs_cpu`."""
+    from paddle_tpu_torch import amp, flops, jit
+    from paddle_tpu_torch.ops.loss_ops import cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    t_phase = time.monotonic()
+    model = seq2seq(torch, 512, 6, "cuda", TB_SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    sched = lr_mod.NoamDecay(512, 4000)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                beta2=0.98, epsilon=1e-9, weight_decay=0.0,
+                use_multi_tensor=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    src, tgt_in, labels, keep, src_tokens, tgt_tokens = seq2seq_batch(
+        torch, TB_BATCH, TB_LEN, TB_MIN_LEN, TB_SEED, "cuda")
+    mask = model.transformer.generate_square_subsequent_mask(TB_LEN)
+
+    def step(src, tgt_in, labels):
+        with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+            logits = model(src, tgt_in, keep, mask)
+            loss = cross_entropy(logits, labels, ignore_index=0,
+                                 label_smoothing=TB_EPS)
+        loss.backward()
+        return loss
+
+    def update():
+        opt.step()
+        opt.clear_grad()
+
+    def eval_loss():
+        model.eval()
+        with torch.no_grad(), amp.auto_cast(enable=True, level="O2",
+                                            dtype="bfloat16"):
+            logits = model(src, tgt_in, keep, mask)
+            loss = cross_entropy(logits, labels, ignore_index=0,
+                                 label_smoothing=TB_EPS)
+        model.train()
+        return float(loss)
+
+    fs = opt._flat
+    state = (list(model.parameters())
+             + [fs.master, fs.m, fs.v, opt._step_t,
+                model.transformer.rng.counter])
+    saved = [x.detach().cpu().clone() for x in state]
+    epoch0 = sched.last_epoch
+    path = transformer_counters(fa, mta)
+    steps = TB_WARM + TB_TIMED
+    before = eval_loss()
+    runs = {}
+    for tier in ("eager", "captured"):
+        with torch.no_grad():
+            for x, c in zip(state, saved):
+                x.copy_(c)
+        sched.step(epoch0)
+        call = (captured_step(jit, step, "off", update_fn=update,
+                              clear_fn=opt.clear_grad, nan_gate=True)
+                if tier == "eager" else
+                jit.capture_step(step, update_fn=update,
+                                 clear_fn=opt.clear_grad, nan_gate=True))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in path.values():
+            c.reset()
+        stop = sample_card()
+        losses, times = [], []
+        try:
+            for _ in range(steps):
+                t1 = time.monotonic()
+                loss = call(src, tgt_in, labels)
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t1)
+                losses.append(float(loss))
+                sched.step()
+        finally:
+            clocks = stop()
+        launches = {k: c.count for k, c in path.items()}
+        timed = times[TB_WARM:]
+        runs[tier] = {"losses": losses, "step_s": times,
+                      "step_p50_s": statistics.median(timed),
+                      "step_spread_s": max(timed) - min(timed),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": launches, "card_during_steps": clocks,
+                      "digests": [digest(torch, x) for x in state],
+                      "stats": dict(call.stats)}
+        del call, loss
+    after = eval_loss()
+    e, c = runs["eager"], runs["captured"]
+    require(all(math.isfinite(x) for x in e["losses"]),
+            f"train_transformer_base: losses {e['losses']}")
+    require(e["losses"] == c["losses"] and e["digests"] == c["digests"],
+            f"train_transformer_base: the captured steps are not bit-equal "
+            f"to the eager ones: losses {e['losses']} / {c['losses']}")
+    require(c["stats"]["hits"] == steps - 1 and not c["stats"]["bypasses"],
+            f"train_transformer_base captured: {c['stats']}")
+    per_step = {"fwd_lse[segs_drop]": 12, "bwd_dq[segs_drop]": 12,
+                "bwd_dkv[segs_drop]": 12, "softmax_cross_entropy": 2,
+                "multi_tensor_adam": 1}
+    for tier, r in runs.items():
+        require(all(r["launches"][k] == n * steps
+                    for k, n in per_step.items())
+                and all(r["launches"][k] > 0 for k in r["launches"]),
+                f"train_transformer_base {tier}: launches {r['launches']}")
+    require(after < before, f"train_transformer_base: eval loss {before} -> "
+                            f"{after}, not falling")
+    with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+        macs = flops(model.transformer, [TB_BATCH, TB_LEN, 512]) \
+            + TB_BATCH * TB_LEN * 512 * TB_VOCAB
+    train_flops = 6 * macs
+    for r in runs.values():
+        p50 = r["step_p50_s"]
+        r.update({"target_tokens_per_s": tgt_tokens / p50,
+                  "tokens_per_s_src_and_tgt": (src_tokens + tgt_tokens) / p50,
+                  "mfu_vs_989tflops": train_flops / p50 / 989e12})
+    vs_cpu = transformer_base_vs_cpu(torch, fa)
+    emit({"phase": "train_transformer_base", "card": card,
+          "params": n_params, "config": {
+              "d_model": 512, "nhead": 8, "layers": "6 + 6",
+              "dim_feedforward": 2048, "dropout": 0.1, "vocab": TB_VOCAB,
+              "source": "Vaswani et al. 2017, Table 3 'base'; WMT14 en-de "
+                        "shared BPE vocabulary"},
+          "batch": TB_BATCH, "padded_len": TB_LEN,
+          "src_tokens": src_tokens, "tgt_tokens": tgt_tokens,
+          "recipe": {"amp": "O2 bf16, fp32 masters",
+                     "optimizer": "AdamW(multi-tensor, beta2 0.98, eps 1e-9, "
+                                  "wd 0)",
+                     "lr": "NoamDecay(512, 4000)",
+                     "loss": "cross_entropy(label_smoothing=0.1, "
+                             "ignore_index=0)"},
+          "warmup_steps": TB_WARM, "timed_steps": TB_TIMED,
+          "flops_multiply_adds_forward": macs, "train_flops": train_flops,
+          "eval_loss_before": before, "eval_loss_after": after,
+          "runs": {t: {k: v for k, v in r.items() if k != "digests"}
+                   for t, r in runs.items()},
+          "captured_bit_equal_to_eager": True, "vs_cpu": vs_cpu,
+          "seconds": time.monotonic() - t_phase})
+    launches = runs["eager"]["launches"]
+    return launches
+
+
 PHASES = ("flash_check", "paged_check", "decode_graph_check", "serve_7b",
-          "generate_sample_7b", "cost_check", "fmt", "agree_2layer", "serve_chaos_check", "flash_train_check",
-          "q8_adam_check", "multi_tensor_adam_check", "fused_ops_check",
-          "ernie_ops_check", "incubate_check", "train_llama_1p6b",
+          "generate_sample_7b", "cost_check", "serve_7b_dense", "fmt",
+          "serve_fmt_dense", "agree_2layer", "serve_chaos_check",
+          "flash_train_check", "q8_adam_check", "multi_tensor_adam_check",
+          "fused_ops_check", "loss_ops_check", "ernie_ops_check",
+          "incubate_check", "train_llama_1p6b",
           "train_llama_1p6b_bf16_state", "train_vs_cpu",
           "flash_segs_dropout", "unpadded", "train_ernie3_base",
           "ernie_vs_cpu", "capture_check", "train_ernie3_base_captured",
           "train_ernie3_base_fp16", "moe", "grad_scaler_check",
-          "optimizer_zoo_check")
+          "optimizer_zoo_check", "train_transformer_base")
 
 
 def parse_args(argv=None):
@@ -10243,6 +11071,11 @@ def main() -> int:
             generate_sample_7b(torch, smi, model)
         if want("cost_check"):
             cost_check(torch, smi, model)
+    if want("serve_7b_dense"):
+        if model is None:
+            model, _ = build_7b(torch)
+        dense_launches = serve_7b_dense(torch, smi, fa, pa, kvc, model)
+        left_on_card(torch, "serve_7b_dense")
     if want("serve_7b"):
         serve16_launches = serve_7b_fp16(torch, smi, fa, pa, model, served)
     if model is not None:
@@ -10253,6 +11086,9 @@ def main() -> int:
         fmt_check(torch, fa, pa, kvc)
         fmt_times = fmt_kernel_times(torch, fa, pa, kvc)
         fmt_launches = serve_fmt(torch, smi, fa, pa)
+    if want("serve_fmt_dense"):
+        fmt_dense_launches = serve_fmt_dense(torch, smi, fa, pa)
+        left_on_card(torch, "serve_fmt_dense")
     if want("agree_2layer"):
         agree_2layer(torch, fa, pa)
     if want("serve_chaos_check"):
@@ -10268,6 +11104,10 @@ def main() -> int:
         mt_forms = check_multi_tensor_adam_forms(torch, q8, mta)
     if want("fused_ops_check"):
         fused_rows = fused_ops_check(torch, planted)
+    if want("loss_ops_check"):
+        loss_rows = loss_ops_check(
+            torch, torch.Generator(device="cuda").manual_seed(23))
+        left_on_card(torch, "loss_ops_check")
     if want("ernie_ops_check"):
         ernie_rows = ernie_ops_check(torch, planted)
     if want("incubate_check"):
@@ -10275,8 +11115,10 @@ def main() -> int:
     if want("train_llama_1p6b"):
         train_launches, llama_captured = train_1p6b(torch, smi, fa, q8,
                                                     all_counters)
+        left_on_card(torch, "train_llama_1p6b")
     if want("train_llama_1p6b_bf16_state"):
         bf16_state = train_llama_1p6b_bf16_state(torch, smi, fa, q8, mta)
+        left_on_card(torch, "train_llama_1p6b_bf16_state")
     if want("train_vs_cpu"):
         train_vs_cpu(torch, fa, q8)
     if want("flash_segs_dropout"):
@@ -10293,24 +11135,35 @@ def main() -> int:
                                                all_counters))
     if want("ernie_vs_cpu"):
         ernie_vs_cpu(torch, fa)
+        left_on_card(torch, "ernie_vs_cpu")
     if want("capture_check"):
         capture_check(torch, fa, mta)
     if want("train_ernie3_base_captured"):
         captured_launches = train_ernie3_base_captured(torch, smi, fa, mta)
+        left_on_card(torch, "train_ernie3_base_captured")
         path_launches.update({k: {e: n for e, n in v.items()
                                   if e != "multi_tensor_adam"}
                               for k, v in captured_launches.items()})
     if want("train_ernie3_base_fp16"):
         fp16_launches = train_ernie3_base_fp16(torch, smi, fa, mta)
+        left_on_card(torch, "train_ernie3_base_fp16")
     if want("moe"):
         moe_rows = moe_check(torch, planted)
         moe_launches = train_moe_jamba2(torch, smi)
         ec_launches = ec_moe_jamba2(torch, smi)
         moe_vs_cpu(torch)
+        left_on_card(torch, "moe")
     if want("grad_scaler_check"):
         grad_scaler_check(torch)
+        left_on_card(torch, "grad_scaler_check")
     if want("optimizer_zoo_check"):
         zoo_launches = optimizer_zoo_check(torch, mta)
+        left_on_card(torch, "optimizer_zoo_check")
+    if want("train_transformer_base"):
+        tb_launches = train_transformer_base(torch, smi, fa, mta)
+        left_on_card(torch, "train_transformer_base")
+        path_launches["transformer_base"] = {
+            k: n for k, n in tb_launches.items() if k.endswith("[segs_drop]")}
     if only is not None:
         # a subset of phases: no kernels line (it reads every phase)
         emit({"only": sorted(only, key=PHASES.index),
@@ -10421,6 +11274,8 @@ def main() -> int:
          **{f"launches_serve_chaos_7b_{leg}": v["flash_prefill"]
             for leg, v in chaos_launches.items()},
          "launches_serve_router_7b": router_launches["flash_prefill"],
+         "launches_serve_7b_dense": dense_launches["flash_prefill"],
+         "launches_serve_fmt_dense": fmt_dense_launches["flash_prefill"],
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
          "case": k1["case"], **{k: k1[k] for k in keys},
          **{k: k1.get(k) for k in b_keys},
@@ -10591,6 +11446,26 @@ def main() -> int:
                            "expert_choice"] if n.startswith(
                                k.replace("moe_", ""))}}
         for k in MOE_REPLACES
+    ] + [
+        {"name": "softmax_cross_entropy[smooth]", "route": "cuda",
+         "source": FUSED_SOURCES["softmax_cross_entropy"],
+         "replaces": FUSED_REPLACES["softmax_cross_entropy"],
+         "replaces_pallas_call": False,
+         "note": "K4 with label smoothing 0.1 (and ignore_index 0 on the "
+                 "path): the JAX package's cross_entropy is XLA-fused jnp, "
+                 "no pallas_call. forms: the slice's other forms (class "
+                 "weights, reductions none and sum, labels outside the "
+                 "vocabulary), held and timed in loss_ops_check only",
+         "launches": tb_launches["softmax_cross_entropy"],
+         "launches_path": "train_transformer_base eager (12 steps)",
+         "max_abs_err": loss_rows["smooth"]["max_abs_err"],
+         "case": loss_rows["smooth"]["case"],
+         **{key: loss_rows["smooth"].get(key) for key in k_keys},
+         **{key: loss_rows["smooth"][key] for key in loss_rows["smooth"]
+            if key.startswith("bwd_")},
+         "forms": {n: {key: r.get(key) for key in ("case", "max_abs_err")
+                       + k_keys}
+                   for n, r in loss_rows.items() if n != "smooth"}},
     ] + [
         {"name": "bias_act[period]", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/bias_act.cu",

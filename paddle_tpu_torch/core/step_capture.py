@@ -164,6 +164,19 @@ def gated(finite: torch.Tensor):
 
 _LOCK = threading.Lock()
 _STATS: Dict[str, Any] = {"hits": 0, "retraces": 0, "bypasses": {}}
+# the side stream of every capture's warm-up, one a device: cuBLAS keeps a
+# 32 MiB workspace for each stream it has run on for the process's life, so
+# a stream a capture would leave one more workspace behind, carved out of
+# whatever large cached block the capture found free (pinning that segment)
+_WARM_STREAMS: Dict[Any, Any] = {}
+
+
+def _warm_stream(dev):
+    with _LOCK:
+        side = _WARM_STREAMS.get(dev)
+        if side is None:
+            side = _WARM_STREAMS[dev] = torch.cuda.Stream(dev)
+    return side
 
 
 def _count(kind: str, reason: Optional[str] = None) -> None:
@@ -525,7 +538,7 @@ class CapturedStep:
                    if isinstance(x, torch.Tensor)]
         dev = tensors[0].device if tensors else \
             torch.device("cuda", torch.cuda.current_device())
-        side = torch.cuda.Stream(dev)
+        side = _warm_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         drawn: set = set()
         with torch.cuda.stream(side), _cost.counted() as tally:

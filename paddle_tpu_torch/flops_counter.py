@@ -16,6 +16,7 @@ record (:func:`observability.cost.record_analytic`) when it is installed.
 
 from __future__ import annotations
 
+import inspect
 from typing import Dict, List, Optional
 
 import torch
@@ -47,16 +48,49 @@ def _count_act(layer, x, y) -> int:
     return _prod(y.shape)
 
 
-def _count_none(layer, x, y) -> int:
+def _count_none(*call) -> int:
     return 0
 
 
+def _count_attention(layer, args, kwargs, output) -> int:
+    query = args[0]
+    if isinstance(output, tuple):       # with a cache: (out, (k, v))
+        lk = output[1][0].shape[1]
+    else:
+        key = args[1] if len(args) > 1 and args[1] is not None \
+            else kwargs.get("key")
+        lk = (query if key is None else key).shape[1]
+    b, lq = query.shape[0], query.shape[1]
+    return 2 * b * lq * int(lk) * layer.num_heads * layer.head_dim
+
+
+def _count_feed_forward_in(layer, args, kwargs, output) -> int:
+    w = layer.linear1.weight            # (in, out)
+    rows = _prod(args[0].shape[:-1])
+    bias_ops = 1 if layer.linear1.bias is not None else 0
+    return rows * int(w.shape[1]) * (int(w.shape[0]) + bias_ops)
+
+
+def _on_first(fn):
+    """A counter of ``(layer, x, y)``, the form ``custom_ops`` takes as in
+    paddle, as one of the whole call: ``x`` its first input, ``y`` its
+    first output."""
+    def count(layer, args, kwargs, output):
+        y = output[0] if isinstance(output, (tuple, list)) else output
+        return fn(layer, args[0], y)
+    return count
+
+
+# each counter takes the call: (layer, args, kwargs, output)
 _COUNTERS = {
-    nn.Linear: _count_linear, nn.Embedding: _count_none,
-    nn.LayerNorm: _count_norm, nn.RMSNorm: _count_norm,
-    tnn.ReLU: _count_act, tnn.ReLU6: _count_act, tnn.Sigmoid: _count_act,
-    tnn.Hardswish: _count_act, tnn.Hardsigmoid: _count_act,
-    tnn.GELU: _count_act, tnn.SiLU: _count_act, tnn.Tanh: _count_act,
+    nn.Linear: _on_first(_count_linear), nn.Embedding: _count_none,
+    nn.LayerNorm: _on_first(_count_norm), nn.RMSNorm: _on_first(_count_norm),
+    **{t: _on_first(_count_act) for t in (
+        tnn.ReLU, tnn.ReLU6, tnn.Sigmoid, tnn.Hardswish, tnn.Hardsigmoid,
+        tnn.GELU, tnn.SiLU, tnn.Tanh)},
+    nn.MultiHeadAttention: _count_attention,
+    nn.TransformerEncoderLayer: _count_feed_forward_in,
+    nn.TransformerDecoderLayer: _count_feed_forward_in,
 }
 
 
@@ -68,24 +102,24 @@ def flops(net: tnn.Module, input_size: List[int],
     the linears, elementwise counts for the norms and activations."""
     counters = dict(_COUNTERS)
     if custom_ops:
-        counters.update(custom_ops)
+        counters.update((t, _on_first(fn)) for t, fn in custom_ops.items())
 
     totals: Dict[int, int] = {}
     names: Dict[int, str] = {}
     handles = []
 
     def make_hook(fn, name):
-        def hook(lyr, inputs, output):
-            x = inputs[0] if isinstance(inputs, (tuple, list)) else inputs
-            y = output[0] if isinstance(output, (tuple, list)) else output
-            totals[id(lyr)] = totals.get(id(lyr), 0) + int(fn(lyr, x, y))
+        def hook(lyr, args, kwargs, output):
+            totals[id(lyr)] = totals.get(id(lyr), 0) + int(
+                fn(lyr, args, kwargs, output))
             names[id(lyr)] = name
         return hook
 
     for name, sub in net.named_modules():
         fn = counters.get(type(sub))
         if fn is not None:
-            handles.append(sub.register_forward_hook(make_hook(fn, name)))
+            handles.append(sub.register_forward_hook(make_hook(fn, name),
+                                                     with_kwargs=True))
 
     param = next(net.parameters(), None)
     device = param.device if param is not None else torch.device("cpu")
@@ -93,7 +127,8 @@ def flops(net: tnn.Module, input_size: List[int],
     net.eval()
     try:
         with torch.no_grad():
-            net(torch.zeros(input_size, dtype=torch.float32, device=device))
+            x = torch.zeros(input_size, dtype=torch.float32, device=device)
+            net(*[x] * _required_inputs(net))
     finally:
         for h in handles:
             h.remove()
@@ -112,6 +147,16 @@ def flops(net: tnn.Module, input_size: List[int],
     else:
         print(f"Total Flops: {total}     Total Params: {_num_params(net)}")
     return total
+
+
+def _required_inputs(net: tnn.Module) -> int:
+    """How many positional inputs without a default ``net``'s forward
+    takes (at least 1)."""
+    params = inspect.signature(net.forward).parameters.values()
+    return max(1, sum(1 for p in params
+                      if p.kind in (p.POSITIONAL_ONLY,
+                                    p.POSITIONAL_OR_KEYWORD)
+                      and p.default is p.empty))
 
 
 def _num_params(net: tnn.Module) -> int:

@@ -30,6 +30,8 @@ stacked-cache decode tier.
 
 from __future__ import annotations
 
+import math
+
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -320,7 +322,11 @@ class LlamaForCausalLM(nn.Module):
         * ``step_fn(tok (B, 1), cache, t (B,))`` decodes one token per row.
           ``cache`` is a ``PagedDecodeCache``: every layer's attention runs
           the paged decode kernel and writes position ``t`` into its page,
-          in place. Returns ``(next_token (B, 1) int32, cache)``.
+          in place; or the dense stacked cache ``(L, 2, B, H_kv, M, D)``
+          (the engine's dense tier): each layer writes its K/V at ``t`` in
+          place and attends positions ``<= t`` with fp32 logits and
+          softmax, the KV heads repeated for GQA, as the JAX package's
+          ``_dense_attn``. Returns ``(next_token (B, 1) int32, cache)``.
 
         Greedy (argmax) next token. Wire up with ``ServingConfig(
         num_layers=L, num_heads=num_key_value_heads, head_dim=D,
@@ -334,11 +340,31 @@ class LlamaForCausalLM(nn.Module):
         layers = list(model.layers)
         nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                        cfg.head_dim)
+        rep = nh // nkv
+        inv_scale = 1.0 / math.sqrt(hd)
+
+        def dense_attn(q, k, v, cache, t, i):
+            """Layer ``i``'s decode attention on the stacked cache: write
+            K/V at ``t``, attend the span ``<= t``."""
+            t64 = t.long()
+            rows = torch.arange(q.shape[0], device=q.device)
+            cache[i, 0, rows, :, t64] = k.to(cache.dtype)
+            cache[i, 1, rows, :, t64] = v.to(cache.dtype)
+            kc, vc = cache[i, 0], cache[i, 1]            # (B, H_kv, M, D)
+            if rep > 1:
+                kc = kc.repeat_interleave(rep, dim=1)
+                vc = vc.repeat_interleave(rep, dim=1)
+            logits = torch.einsum("bhd,bhld->bhl", q.float(),
+                                  kc.float()) * inv_scale
+            m = cache.shape[4]
+            span = torch.arange(m, device=q.device)[None, :] <= t64[:, None]
+            logits = torch.where(span[:, None, :], logits, -1e30)
+            p = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bhl,bhld->bhd", p, vc.float())
+            return out.to(q.dtype)
 
         def step_fn(tok, cache, t):
-            if not isinstance(cache, PagedDecodeCache):
-                raise TypeError("step_fn decodes over a PagedDecodeCache; the "
-                                "dense stacked-cache tier is not ported")
+            paged = isinstance(cache, PagedDecodeCache)
             b = int(tok.shape[0])
             x = model.embed_tokens(tok)                  # (B, 1, E)
             for i, layer in enumerate(layers):
@@ -349,8 +375,11 @@ class LlamaForCausalLM(nn.Module):
                 k = att.k_proj(h).reshape(b, nkv, hd)
                 v = att.v_proj(h).reshape(b, nkv, hd)
                 q, k = _rope_rows([q, k], model.rope_cos, model.rope_sin, t)
-                out, cache = paged_decode_attention(q, k, v,
-                                                    cache.at_layer(i))
+                if paged:
+                    out, cache = paged_decode_attention(q, k, v,
+                                                        cache.at_layer(i))
+                else:
+                    out = dense_attn(q, k, v, cache, t, i)
                 normed, x = layer.post_attention_layernorm(
                     att.o_proj(out.reshape(b, 1, nh * hd)), res)
                 x = x + layer.mlp(normed)

@@ -231,8 +231,9 @@ def keep_mask_reference(seed, bh, rows, cols,
     h = mul32(h, 0x846CA68B)
     h = h ^ (h >> 16)
     u = (h >> 8).to(torch.float32) * (1.0 / 16777216.0)
-    return u < torch.tensor(_f32(keep_prob), dtype=torch.float32,
-                            device=u.device)
+    # a Python float compares in u's fp32 (it is one already): no host
+    # tensor to copy, so a captured step can draw the mask
+    return u < _f32(keep_prob)
 
 
 def _variant(q_segs, kv_segs, dropout_p: float) -> Optional[str]:

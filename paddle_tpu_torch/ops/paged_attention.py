@@ -20,6 +20,15 @@ Unlike the JAX package, whose pool is functional state threaded through
 each compiled step, the port updates the pool and scales **in place**:
 :func:`scatter_token_inplace` writes into the tensors it is given and
 returns them, so the serving engine never holds two copies of the pool.
+
+Which decode tier a serving engine runs (:func:`mode`, :func:`decode_path`,
+:func:`kernel_eligible`, :func:`require_kernel_shape`): ``kernel`` hands ``step_fn`` a
+:class:`PagedDecodeCache` (this kernel; its plain version on the CPU),
+``dense`` the stacked ``(L, 2, B, H, M, D)`` cache gathered from the pool
+each step (``serving.engine.DenseDecodeGraph``). A divergence by design:
+``auto`` resolves to ``kernel`` on every device, where the JAX package
+takes the dense tier on the CPU, because the port's CPU paged path is the
+kernel's plain version, not an interpreter.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
@@ -35,8 +45,9 @@ import torch
 from .. import _native
 from ._fused_io import plain_path
 
-__all__ = ["PagedDecodeCache", "paged_attention", "paged_attention_dense",
-           "paged_cost",
+__all__ = ["PagedDecodeCache", "decode_path", "kernel_eligible", "mode",
+           "paged_attention", "paged_attention_dense", "paged_cost",
+           "require_kernel_shape",
            "scatter_token_inplace", "paged_decode_attention", "launches",
            "split_plan"]
 
@@ -53,6 +64,69 @@ _MAX_PAGE = 256
 # (next to at most 16.6 KB of merge area, within 227 KB)
 _MAX_STAGED_BYTES = 192 * 1024
 _SPLIT_BLOCKS = 4096   # split blocks a launch aims at: >= 2 waves on 132 SMs
+
+_VALID_MODES = ("auto", "on", "off")
+
+
+def mode() -> str:
+    """``PADDLE_TPU_PAGED_ATTENTION`` (default ``auto``), with the JAX
+    package's spellings: ``auto``; ``on`` (also 1, true, yes, enable,
+    enabled, kernel): the kernel tier; ``off`` (also 0, false, no,
+    disable, disabled): the dense tier. Set but empty reads as unset; any
+    other value raises, so a typo never flips the tier."""
+    m = os.environ.get("PADDLE_TPU_PAGED_ATTENTION", "auto").strip().lower()
+    if m in _VALID_MODES:
+        return m
+    if not m:
+        return "auto"
+    if m in ("0", "false", "no", "disable", "disabled"):
+        return "off"
+    if m in ("1", "true", "yes", "enable", "enabled", "kernel"):
+        return "on"
+    raise ValueError(
+        f"PADDLE_TPU_PAGED_ATTENTION must be auto|on|off, got {m!r}")
+
+
+def decode_path(override: str = "") -> str:
+    """``"kernel"`` or ``"dense"``: ``override`` (a
+    ``ServingConfig.paged_attention`` value) wins over the environment when
+    non-empty. ``off`` is the dense tier; ``on`` and ``auto`` the kernel
+    tier, on every device (the module docstring)."""
+    m = (override or "").strip().lower() or mode()
+    if m not in _VALID_MODES:
+        raise ValueError(
+            f"paged_attention mode must be auto|on|off, got {m!r} "
+            "(env: PADDLE_TPU_PAGED_ATTENTION)")
+    return "dense" if m == "off" else "kernel"
+
+
+def kernel_eligible(page_size: int, head_dim: int,
+                    storage_dtype: torch.dtype) -> bool:
+    """The JAX package's rule for its compiled kernel (Mosaic's tiling):
+    ``page_size`` a multiple of the storage dtype's sublane (8 for fp32, 16
+    for 2-byte dtypes, 32 for int8) and ``head_dim`` a multiple of 8. A
+    card engine whose shape fails is served on the dense tier, as the JAX
+    engine on a TPU is: the reference has no kernel there either."""
+    item = torch.empty((), dtype=storage_dtype).element_size()
+    sublane = 32 if item == 1 else 16 if item == 2 else 8
+    return page_size % sublane == 0 and head_dim % 8 == 0
+
+
+def require_kernel_shape(page_size: int, head_dim: int,
+                         storage_dtype: torch.dtype) -> None:
+    """Raise ``NotImplementedError`` for a shape past this kernel's own
+    limits: ``head_dim`` in ``_HEAD_DIMS``, ``page_size <= _MAX_PAGE`` and
+    two staged K and V pages of ``storage_dtype`` within
+    ``_MAX_STAGED_BYTES`` (``paged_decode_attention`` also bounds the query
+    heads a KV head by ``_MAX_REP``)."""
+    item = torch.empty((), dtype=storage_dtype).element_size()
+    if head_dim not in _HEAD_DIMS or not 0 < page_size <= _MAX_PAGE \
+            or 4 * page_size * head_dim * item > _MAX_STAGED_BYTES:
+        raise NotImplementedError(
+            f"the paged kernel serves head_dim in {_HEAD_DIMS}, page_size "
+            f"<= {_MAX_PAGE} and two staged K/V pages within "
+            f"{_MAX_STAGED_BYTES} bytes; got page_size={page_size}, "
+            f"head_dim={head_dim}, storage {storage_dtype}")
 
 
 @dataclass

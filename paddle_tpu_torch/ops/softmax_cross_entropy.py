@@ -11,9 +11,16 @@ against labels ``[:, 1:]`` (the causal LM loss) and writes the gradient of
 the whole logits, 0 in the last row, so neither the slice nor its backward
 copies anything. It keeps each row's max and log-sum-exp (fp32) for the
 backward; the mean over the rows that count (``ignore_index`` is honoured
-when it is >= 0; the count is clamped at 1) and the count are folded on
-the device in a fixed order, and the backward reads the loss's gradient
-there, so nothing is read on the host and launches agree bit for bit.
+when it is >= 0; the count is clamped at 1), or the sum, and the count are
+folded on the device in a fixed order (``reduction="none"`` returns the
+per-row losses), and the backward reads the loss's gradient there, so
+nothing is read on the host and launches agree bit for bit.
+
+``label_smoothing`` and a class ``weight`` follow the JAX package's
+``cross_entropy``: the target is ``one_hot(y) * (1 - eps) + eps / V``, a
+label outside ``[0, V)`` one-hots to zeros (its row scores ``eps`` times the
+smoothing term, 0 without smoothing, and still counts), and ``w[y]`` is read
+as ``jnp.take`` reads it (labels in ``[-V, 0)`` wrap, others give NaN).
 
 :func:`softmax_cross_entropy` runs :func:`softmax_cross_entropy_reference`
 for CPU tensors (gradients by autograd) and the kernel for CUDA tensors;
@@ -32,17 +39,20 @@ from .. import _native
 from ._fused_io import (aligned16, cuda_device, dtype_code, plain_path,
                         ptr, stream)
 
-__all__ = ["cross_entropy_cost", "launches", "softmax_cross_entropy",
-           "softmax_cross_entropy_reference"]
+__all__ = ["cross_entropy_cost", "launches", "reduce_loss",
+           "softmax_cross_entropy", "softmax_cross_entropy_reference",
+           "take_weight"]
 
 launches = _native.LaunchCounter("softmax_cross_entropy")
 
-_ARGTYPES_FWD = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] \
+_ARGTYPES_FWD = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] \
     + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 4 \
-    + [ctypes.c_void_p]
-_ARGTYPES_BWD = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES_BWD = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
     + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 4 \
-    + [ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# the kernels' reduction codes
+REDUCTIONS = {"none": 0, "sum": 1, "mean": 2}
 
 
 def bind(lib) -> dict:
@@ -68,26 +78,61 @@ def _flat_labels(label: torch.Tensor, ndim: int) -> torch.Tensor:
     return li
 
 
+def take_weight(weight: torch.Tensor, li: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(weight, li)`` in its default fill mode: labels in ``[-V,
+    0)`` wrap, labels outside ``[-V, V)`` read NaN."""
+    v = weight.shape[0]
+    inside = (li >= -v) & (li < v)
+    got = weight[torch.where(inside, li, 0)]
+    return torch.where(inside, got, torch.nan)
+
+
 def softmax_cross_entropy_reference(logits, label, ignore_index: int = -100,
                                     *, dtype: Optional[torch.dtype] = None,
-                                    shift: bool = False) -> torch.Tensor:
+                                    shift: bool = False, weight=None,
+                                    label_smoothing: float = 0.0,
+                                    reduction: str = "mean") -> torch.Tensor:
     """Plain version, in the ops of the port's former ``cross_entropy``:
-    log-softmax in fp32, the label's entry, the mean over the rows that
-    count."""
+    log-softmax in fp32, the label's entry (0 for a label outside the
+    vocabulary), the smoothing term and the class weight as the JAX
+    package's ``cross_entropy`` has them, then the reduction (``mean``: over
+    the rows that count)."""
     if shift:
         v = logits.shape[-1]
         logits = logits[:, :-1, :].reshape(-1, v)
         label = label[:, 1:].reshape(-1)
     x = logits if dtype is None else logits.to(dtype)
     logp = torch.log_softmax(x.float(), dim=-1)
+    v = logp.shape[-1]
     li = _flat_labels(label.long(), logp.dim())
+    inside = (li >= 0) & (li < v)
+    loss = -logp.gather(-1, torch.where(inside, li, 0).unsqueeze(-1)) \
+        .squeeze(-1)
+    # a weighted row outside the vocabulary scores 0 * sum(logp): JAX's
+    # zero target, whose gradient is NaN where w[y] is
+    loss = torch.where(inside, loss,
+                       0.0 if weight is None else logp.sum(-1) * 0.0)
+    if label_smoothing > 0.0:
+        loss = loss * (1.0 - label_smoothing) \
+            - logp.sum(-1) * (label_smoothing / v)
+    if weight is not None:
+        loss = loss * take_weight(weight.float(), li)
     valid = li != ignore_index if ignore_index >= 0 else None
-    idx = li if valid is None else torch.where(valid, li, 0)
-    loss = -logp.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
     if valid is None:
-        return loss.mean()
+        return reduce_loss(loss, reduction)
     loss = torch.where(valid, loss, 0.0)
-    return loss.sum() / valid.sum().float().clamp(min=1.0)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().float().clamp(min=1.0)
+    return reduce_loss(loss, reduction)
+
+
+def reduce_loss(loss: torch.Tensor, reduction: str) -> torch.Tensor:
+    """The JAX package's ``_reduce``: ``mean``, ``sum`` or the losses."""
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 def _as_3d(logits: torch.Tensor) -> torch.Tensor:
@@ -114,21 +159,32 @@ def _labels_2d(label: torch.Tensor, shape) -> torch.Tensor:
     return label.reshape(shape)
 
 
-def cross_entropy_cost(x3, lab2, l_used: int, dx=None) -> tuple:
+def cross_entropy_cost(x3, lab2, l_used: int, dx=None, weight=None,
+                       rows_out: bool = False) -> tuple:
     """A launch's ``(flops, bytes)``: the logits of the rows it scores
-    (``l_used`` of each sequence, read in place), the labels, and the
-    backward's gradient of the whole (B, L, V) logits; the per-row fp32
-    statistics (12 bytes a row) are left out."""
+    (``l_used`` of each sequence, read in place), the labels, the class
+    weights the rows read (one a row, at most the table), the per-row
+    losses (``rows_out``: the forward's result under ``reduction="none"``,
+    the backward's per-row gradient) and the backward's gradient of the
+    whole (B, L, V) logits; the per-row fp32 statistics (12 bytes a row)
+    are left out."""
     nb, _, v = x3.shape
-    return 0.0, float(nb * l_used * v * x3.element_size()
-                      + _native.tensor_bytes(lab2, dx))
+    rows = nb * l_used
+    extra = 4 * (min(rows, weight.shape[0]) if weight is not None else 0) \
+        + (4 * rows if rows_out else 0)
+    return 0.0, float(rows * v * x3.element_size()
+                      + _native.tensor_bytes(lab2, dx) + extra)
 
 
-def _launch_fwd(x3, lab2, l_used: int, ignore: int, x_cast, fns=None):
-    """``(out [mean, count], m, logs, valid)``."""
-    dev = cuda_device("softmax_cross_entropy", x3, lab2)
+def _launch_fwd(x3, lab2, l_used: int, ignore: int, x_cast, fns=None, *,
+                weight=None, eps: float = 0.0, reduction: str = "mean"):
+    """``(out, m, logs, valid)``: ``out`` is ``[mean or sum, count]``, or
+    the per-row losses under ``reduction="none"``."""
+    dev = cuda_device("softmax_cross_entropy", x3, lab2,
+                      *(() if weight is None else (weight,)))
     nb, _, v = x3.shape
     n = nb * l_used
+    red = REDUCTIONS[reduction]
     f32 = dict(dtype=torch.float32, device=dev)
     m, logs, loss, valid = (torch.empty(n, **f32) for _ in range(4))
     out = torch.empty(2, **f32)
@@ -138,20 +194,37 @@ def _launch_fwd(x3, lab2, l_used: int, ignore: int, x_cast, fns=None):
     c = functools.partial(dtype_code, what="softmax_cross_entropy")
     with torch.cuda.device(dev):
         err = (fns or _kernels())["ce_fwd"](
-            ptr(x3), ptr(lab2), ptr(m), ptr(logs), ptr(loss), ptr(valid),
-            ptr(out), nb, l_used, v, sb, sl, lab2.stride(0), lab2.stride(1),
-            ignore, c(x3.dtype), c(x_cast), int(lab2.dtype == torch.int64),
-            vec, stream(dev))
+            ptr(x3), ptr(lab2), _weight_ptr(weight, v), ptr(m), ptr(logs),
+            ptr(loss), ptr(valid), ptr(out), nb, l_used, v, sb, sl,
+            lab2.stride(0), lab2.stride(1), ignore, c(x3.dtype), c(x_cast),
+            int(lab2.dtype == torch.int64), vec, float(eps), red,
+            stream(dev))
     _native.check(err, "softmax_cross_entropy forward kernel launch")
-    launches.launched(1, cross_entropy_cost, x3, lab2, l_used)
-    return out, m, logs, valid
+    launches.launched(1, cross_entropy_cost, x3, lab2, l_used, None, weight,
+                      red == 0)
+    return (loss if red == 0 else out), m, logs, valid
+
+
+def _weight_ptr(weight, v: int):
+    """The class weights' address: fp32, contiguous, ``(V,)``; None for
+    none."""
+    if weight is None:
+        return None
+    if weight.dtype != torch.float32 or weight.shape != (v,) \
+            or not weight.is_contiguous():
+        raise ValueError(f"softmax_cross_entropy: the class weight must be "
+                         f"a contiguous fp32 ({v},), got {weight.dtype} "
+                         f"{tuple(weight.shape)}")
+    return ptr(weight)
 
 
 def _launch_bwd(x3, lab2, l_used: int, ignore: int, x_cast, m, logs, valid,
-                out, g, fns=None):
+                out, g, fns=None, *, weight=None, eps: float = 0.0,
+                reduction: str = "mean"):
     """The gradient of the (B, L, V) logits, contiguous."""
     dev = cuda_device("softmax_cross_entropy", x3, lab2, g)
     nb, length, v = x3.shape
+    red = REDUCTIONS[reduction]
     dx = torch.empty(x3.shape, dtype=x3.dtype, device=dev)
     sb, sl = x3.stride(0), x3.stride(1)
     vec = 8 if v % 8 == 0 and sb % 8 == 0 and sl % 8 == 0 and \
@@ -160,48 +233,65 @@ def _launch_bwd(x3, lab2, l_used: int, ignore: int, x_cast, m, logs, valid,
     c = functools.partial(dtype_code, what="softmax_cross_entropy")
     with torch.cuda.device(dev):
         err = (fns or _kernels())["ce_bwd"](
-            ptr(x3), ptr(lab2), ptr(m), ptr(logs), ptr(valid), ptr(out),
-            ptr(g), ptr(dx), nb, length, l_used, v, sb, sl, lab2.stride(0),
-            lab2.stride(1), ignore, c(x3.dtype), c(x_cast),
-            int(lab2.dtype == torch.int64), vec, stream(dev))
+            ptr(x3), ptr(lab2), _weight_ptr(weight, v), ptr(m), ptr(logs),
+            ptr(valid), ptr(out), ptr(g), ptr(dx), nb, length, l_used, v, sb,
+            sl, lab2.stride(0), lab2.stride(1), ignore, c(x3.dtype),
+            c(x_cast), int(lab2.dtype == torch.int64), vec, float(eps), red,
+            stream(dev))
     _native.check(err, "softmax_cross_entropy backward kernel launch")
-    launches.launched(1, cross_entropy_cost, x3, lab2, l_used, dx)
+    launches.launched(1, cross_entropy_cost, x3, lab2, l_used, dx, weight,
+                      red == 0)
     return dx
 
 
 class SoftmaxCrossEntropy(torch.autograd.Function):
     """The kernel on ``(B, L, V)`` logits and ``(B, L_used)`` labels with
-    its backward kernel; returns the mean (a 0-d fp32 tensor)."""
+    its backward kernel; returns the mean or sum (a 0-d fp32 tensor), or
+    the ``(B * L_used,)`` per-row losses under ``reduction="none"``."""
 
     @staticmethod
-    def forward(ctx, x3, lab2, l_used: int, ignore: int, x_cast):
-        out, m, logs, valid = _launch_fwd(x3, lab2, l_used, ignore, x_cast)
+    def forward(ctx, x3, lab2, l_used: int, ignore: int, x_cast,
+                weight=None, eps: float = 0.0, reduction: str = "mean"):
+        opts = dict(weight=weight, eps=eps, reduction=reduction)
+        out, m, logs, valid = _launch_fwd(x3, lab2, l_used, ignore, x_cast,
+                                          **opts)
         ctx.save_for_backward(x3, lab2, m, logs, valid, out)
-        ctx.args = (l_used, ignore, x_cast)
-        return out[0]
+        ctx.args = (l_used, ignore, x_cast, opts)
+        return out if reduction == "none" else out[0]
 
     @staticmethod
     def backward(ctx, g):
         x3, lab2, m, logs, valid, out = ctx.saved_tensors
-        l_used, ignore, x_cast = ctx.args
+        l_used, ignore, x_cast, opts = ctx.args
         dx = _launch_bwd(x3, lab2, l_used, ignore, x_cast, m, logs, valid,
-                         out, g)
-        return dx, None, None, None, None
+                         out, g, **opts)
+        return dx, None, None, None, None, None, None, None
 
 
 def softmax_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
                           ignore_index: int = -100, *,
                           dtype: Optional[torch.dtype] = None,
-                          shift: bool = False) -> torch.Tensor:
-    """The mean hard-label cross-entropy over ``logits``' last axis, labels
-    of ``logits.shape[:-1]`` (or with a trailing 1); ``shift``: token
-    ``l + 1`` of ``(B, L)`` labels against row ``l < L - 1`` of ``(B, L,
-    V)`` logits. ``dtype``: what the op casts the logits to. The plain
-    version for CPU tensors, the kernel for CUDA tensors."""
+                          shift: bool = False, weight=None,
+                          label_smoothing: float = 0.0,
+                          reduction: str = "mean") -> torch.Tensor:
+    """The hard-label cross-entropy over ``logits``' last axis, labels of
+    ``logits.shape[:-1]`` (or with a trailing 1), reduced by ``reduction``
+    (``"none"``: the labels' shape); ``shift``: token ``l + 1`` of ``(B,
+    L)`` labels against row ``l < L - 1`` of ``(B, L, V)`` logits.
+    ``dtype``: what the op casts the logits to; ``weight``: class weights
+    ``(V,)``; ``label_smoothing``: eps. The plain version for CPU tensors,
+    the kernel for CUDA tensors."""
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"reduction must be one of {sorted(REDUCTIONS)}, "
+                         f"got {reduction!r}")
     if plain_path(logits):
         return softmax_cross_entropy_reference(
-            logits, label, ignore_index, dtype=dtype, shift=shift)
+            logits, label, ignore_index, dtype=dtype, shift=shift,
+            weight=weight, label_smoothing=label_smoothing,
+            reduction=reduction)
     x_cast = dtype or logits.dtype
+    opts = (None if weight is None else weight.detach().float().contiguous(),
+            float(label_smoothing), reduction)
     if shift:
         if logits.dim() != 3 or label.shape != logits.shape[:2]:
             raise ValueError(f"softmax_cross_entropy(shift=True) wants "
@@ -210,7 +300,7 @@ def softmax_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
         x3 = _as_3d(logits)
         lab2 = _labels_2d(label, label.shape)[:, 1:]
         return SoftmaxCrossEntropy.apply(x3, lab2, x3.shape[1] - 1,
-                                         ignore_index, x_cast)
+                                         ignore_index, x_cast, *opts)
     label = _flat_labels(label, logits.dim())
     if label.shape != logits.shape[:-1]:
         raise ValueError(f"softmax_cross_entropy: labels "
@@ -219,5 +309,5 @@ def softmax_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
     x3 = _as_3d(logits)
     lab2 = _labels_2d(label, x3.shape[:2])
     loss = SoftmaxCrossEntropy.apply(x3, lab2, x3.shape[1], ignore_index,
-                                     x_cast)
-    return loss
+                                     x_cast, *opts)
+    return loss.view(label.shape) if reduction == "none" else loss

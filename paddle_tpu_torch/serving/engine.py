@@ -10,9 +10,27 @@ port of ``paddle_tpu/serving/engine.py``.
     of ``cache`` in place; ``[0, start)`` is a resident shared prefix. A
     2-argument ``prefill_fn(ids, cache)`` (``start`` always 0) works too,
     with prefix sharing off;
-  - ``step_fn(tok (B, 1), cache: PagedDecodeCache, t (B,)) -> (next_token
-    (B, 1), cache)``, whose attention reads the pool through the page
-    tables and writes position ``t`` into it.
+  - ``step_fn(tok (B, 1), cache, t (B,)) -> (next_token (B, 1), cache)``.
+    On the kernel tier ``cache`` is a ``PagedDecodeCache``, whose attention
+    reads the pool through the page tables and writes position ``t`` into
+    it; on the dense tier it is the stacked cache ``(L, 2, B, H, M, D)``
+    (``M = max_len``) gathered from the slots' pages, in which the step
+    writes position ``t``.
+
+* The decode tier (``ServingConfig.paged_attention``, else the
+  ``PADDLE_TPU_PAGED_ATTENTION`` knob; ``ops.paged_attention.decode_path``):
+  ``auto`` and ``on`` run the paged kernel tier, ``off`` the dense tier,
+  which gathers the slots' pages into a static dense buffer, runs
+  ``step_fn`` on it and writes position ``t``'s page back
+  (:func:`dense_decode_body`; :class:`DenseDecodeGraph` on a card). So any
+  pair of callables whose step reads the dense stacked cache can be served.
+  A kernel-tier engine on a card whose shape the JAX package's tiling rule
+  refuses (``ops.paged_attention.kernel_eligible``) is built on the dense
+  tier, with a warning, at its construction, as the JAX engine is on a TPU;
+  a shape that rule accepts and the kernel's own limits refuse raises
+  ``NotImplementedError`` there (``require_kernel_shape``).
+  ``serving.paged_attention_steps_total``
+  carries the tier as ``path``.
 
 * Batch rows are assigned to active slots per step (per-slot state is on
   the host: a page-table row, a position, the last token), so the batch is
@@ -153,6 +171,7 @@ from ..device import resolve_device
 from ..observability import cost as _cost
 from ..observability import http as _obs_http
 from ..observability import trace as _trace
+from ..ops import paged_attention as _pa
 from ..ops.paged_attention import PagedDecodeCache
 from ..resilience import deadline_scope, faults as _faults, jitter_sleep
 from . import kv_cache as _kv
@@ -161,7 +180,8 @@ from .scheduler import (GenerationRequest, GenerationResult, Scheduler,
 from .watchdog import StepWatchdog, WatchdogTimeout
 
 __all__ = ["ServingConfig", "Engine", "EngineStopped", "DrainTimeout",
-           "DecodeGraph", "PrefillGraph", "prefill_body", "TTFT_BUCKETS",
+           "DecodeGraph", "DenseDecodeGraph", "PrefillGraph",
+           "dense_decode_body", "prefill_body", "TTFT_BUCKETS",
            "TPOT_BUCKETS"]
 
 _log = logging.getLogger(__name__)
@@ -281,6 +301,10 @@ class ServingConfig:
     # cap on queue wait; None -> PADDLE_TPU_SERVING_MAX_QUEUE_WAIT (0 or
     # absent: unbounded); 0 forces it off
     max_queue_wait_s: Optional[float] = None
+    # decode tier: "" -> the PADDLE_TPU_PAGED_ATTENTION knob (default auto);
+    # auto and on = the paged kernel tier, off = the dense stacked-cache
+    # tier. The field wins when set
+    paged_attention: str = ""
 
     def __post_init__(self):
         self.buckets = tuple(sorted(set(int(b) for b in self.buckets)))
@@ -305,6 +329,9 @@ class ServingConfig:
                 "PADDLE_TPU_SERVING_MAX_QUEUE_WAIT")
         elif self.max_queue_wait_s <= 0:
             self.max_queue_wait_s = None
+        self.paged_attention = self.paged_attention.strip().lower() \
+            or _pa.mode()
+        _pa.decode_path(self.paged_attention)     # raises on a typo
 
     def kv_config(self) -> _kv.KVCacheConfig:
         cfg = _kv.KVCacheConfig(
@@ -385,6 +412,51 @@ def prefill_body(prefill_fn: Callable, kv: _kv.PagedKVCache,
                                   pages[start // ps:],
                                   start + int(ids.shape[1]), ps, start=start)
     return nxt
+
+
+def dense_decode_body(step_fn: Callable, kv: _kv.PagedKVCache,
+                      tok: torch.Tensor, tables: torch.Tensor,
+                      t: torch.Tensor,
+                      dense: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decode step on the dense tier: the JAX engine's dense
+    ``decode_fn``. Gathers the rows' pages (``tables (b, S)`` int32) into
+    the stacked cache ``(L, 2, b, H, max_len, D)`` (into ``dense`` when
+    given), runs ``step_fn(tok (b, 1), cache, t (b,))`` and writes each
+    row's page holding position ``t`` back into the pool, in place (int8
+    pages quantized anew); returns the next tokens ``(b, 1)`` on the
+    device. No host read: the CPU engine calls it eagerly and
+    :class:`DenseDecodeGraph` captures it."""
+    cfg = kv.config
+    with torch.no_grad():
+        dense = _kv.gather_pages(kv.pool, kv.scales, tables,
+                                 cfg.torch_compute_dtype, out=dense)
+        nxt, dense = step_fn(tok, dense, t)
+        _kv.scatter_token_page(dense.to(cfg.torch_compute_dtype), kv.pool,
+                               kv.scales, tables, t, cfg.page_size)
+    return nxt
+
+
+def _dense_bytes(cfg: _kv.KVCacheConfig, bucket: int) -> int:
+    """The dense tier's stacked cache of ``bucket`` rows, in bytes."""
+    return (cfg.num_layers * 2 * bucket * cfg.num_heads * cfg.max_len
+            * cfg.head_dim * cfg.torch_compute_dtype.itemsize)
+
+
+def _kernel_tier_serves(device: torch.device, cfg: _kv.KVCacheConfig
+                        ) -> bool:
+    """Whether a kernel-tier engine stays on that tier. On the CPU the
+    kernel's plain version serves every shape. On a card, not where the
+    JAX package's rule (``kernel_eligible``) refuses the shape, as the JAX
+    engine demotes on a TPU; a shape that rule accepts and the kernel's
+    own limits refuse raises ``NotImplementedError``
+    (``require_kernel_shape``)."""
+    if device.type != "cuda":
+        return True
+    if not _pa.kernel_eligible(cfg.page_size, cfg.head_dim,
+                               cfg.storage_dtype):
+        return False
+    _pa.require_kernel_shape(cfg.page_size, cfg.head_dim, cfg.storage_dtype)
+    return True
 
 
 def _decode_key(bucket: int) -> str:
@@ -530,12 +602,38 @@ class DecodeGraph(_EngineGraph):
         self.tables = torch.zeros((bucket, S), dtype=torch.int32, device=dev)
         self.t = torch.zeros((bucket,), dtype=torch.int32, device=dev)
         super().__init__(kv, (self.tok, self.tables, self.t),
-                         f"decode graph of bucket {bucket}")
-        view = PagedDecodeCache(pool=kv.pool, tables=self.tables, t=self.t,
-                                page_size=kv.config.page_size,
-                                scales=kv.scales)
-        self.next = self._capture(
-            lambda: step_fn(self.tok, view, self.t)[0], mempool, side)
+                         f"{type(self).__name__} of bucket {bucket}")
+        self.next = self._capture(lambda: self._step(step_fn), mempool,
+                                  side)
+
+    def _step(self, step_fn: Callable) -> torch.Tensor:
+        """The captured call: ``step_fn`` over the pool's page-table
+        view."""
+        view = PagedDecodeCache(pool=self._kv.pool, tables=self.tables,
+                                t=self.t, page_size=self._kv.config.page_size,
+                                scales=self._kv.scales)
+        return step_fn(self.tok, view, self.t)[0]
+
+
+class DenseDecodeGraph(DecodeGraph):
+    """One bucket's decode step on the dense tier as a CUDA graph:
+    :func:`dense_decode_body` over :class:`DecodeGraph`'s static buffers and
+    a static stacked cache ``dense`` ``(L, 2, b, H, max_len, D)`` in the
+    compute dtype (:func:`_dense_bytes`), allocated here, which each replay
+    fills from the pool. Warm-up calls read and write page 0 only."""
+
+    def __init__(self, step_fn: Callable, kv: _kv.PagedKVCache, bucket: int,
+                 mempool, side: Optional[torch.cuda.Stream] = None):
+        cfg = kv.config
+        self.dense = torch.zeros((cfg.num_layers, 2, bucket, cfg.num_heads,
+                                  cfg.max_len, cfg.head_dim),
+                                 dtype=cfg.torch_compute_dtype,
+                                 device=kv.device)
+        super().__init__(step_fn, kv, bucket, mempool, side)
+
+    def _step(self, step_fn: Callable) -> torch.Tensor:
+        return dense_decode_body(step_fn, self._kv, self.tok, self.tables,
+                                 self.t, self.dense)
 
 
 class PrefillGraph(_EngineGraph):
@@ -582,7 +680,22 @@ class Engine:
         self.device = resolve_device(config.device)
         self._prefill_fn = prefill_fn
         self._step_fn = step_fn
-        self.kv = _kv.PagedKVCache(config.kv_config(), self.device)
+        # the decode tier, decided here from the configuration and the
+        # shape, before the pool is allocated: "kernel" hands step_fn the
+        # pool's PagedDecodeCache view, "dense" the stacked cache gathered
+        # from it
+        kcfg = config.kv_config()
+        self.decode_path = _pa.decode_path(config.paged_attention)
+        if self.decode_path == "kernel" and \
+                not _kernel_tier_serves(self.device, kcfg):
+            _log.warning(
+                "paged-attention kernel ineligible for page_size=%d "
+                "head_dim=%d kv storage %s (tiling floors: see "
+                "ops.paged_attention.kernel_eligible) -- serving on the "
+                "dense decode tier", kcfg.page_size, kcfg.head_dim,
+                kcfg.storage_dtype)
+            self.decode_path = "dense"
+        self.kv = _kv.PagedKVCache(kcfg, self.device)
         # the HBM ledger's sources: the pool and the model the callables
         # hold (weakly); the cost records of programs counted on the CPU
         _cost.register_kv_cache(self.kv)
@@ -727,18 +840,23 @@ class Engine:
             else:
                 dev = self.device
                 t_d = torch.as_tensor(t, device=dev)
-                view = PagedDecodeCache(
-                    pool=self.kv.pool,
-                    tables=torch.as_tensor(tables, device=dev), t=t_d,
-                    page_size=self.kv.config.page_size, scales=self.kv.scales)
+                tables_d = torch.as_tensor(tables, device=dev)
+                tok_d = torch.as_tensor(tok, device=dev)
                 b = int(tok.shape[0])
                 with self._launch_lock, torch.no_grad(), \
                         self._first_call_counted(
                             "serving.decode", _decode_key(b),
                             _decode_label(b), bucket=b):
                     self._check_live()
-                    out, _ = self._step_fn(torch.as_tensor(tok, device=dev),
-                                           view, t_d)
+                    if self.decode_path == "dense":
+                        out = dense_decode_body(self._step_fn, self.kv,
+                                                tok_d, tables_d, t_d)
+                    else:
+                        view = PagedDecodeCache(
+                            pool=self.kv.pool, tables=tables_d, t=t_d,
+                            page_size=self.kv.config.page_size,
+                            scales=self.kv.scales)
+                        out, _ = self._step_fn(tok_d, view, t_d)
             self._unread = out
         next_np = self._read(out)
         self._unread = None
@@ -786,8 +904,9 @@ class Engine:
         return self._capture_pool
 
     def decode_graph(self, bucket: int) -> DecodeGraph:
-        """The CUDA graph of ``bucket``'s decode step, captured on first
-        use (a card only)."""
+        """The CUDA graph of ``bucket``'s decode step (a
+        :class:`DenseDecodeGraph` on the dense tier), captured on first use
+        (a card only)."""
         if self.device.type != "cuda":
             raise RuntimeError("decode graphs need a CUDA device; the CPU "
                                "engine decodes eagerly")
@@ -797,8 +916,10 @@ class Engine:
         with self._graph_lock:
             g = self._graphs.get(bucket)
             if g is None:
-                g = DecodeGraph(self._step_fn, self.kv, bucket,
-                                *self._capture_args())
+                cls = DenseDecodeGraph if self.decode_path == "dense" \
+                    else DecodeGraph
+                g = cls(self._step_fn, self.kv, bucket,
+                        *self._capture_args())
                 self._graphs[bucket] = g
                 self._file_graph(g, "serving.decode", _decode_key(bucket),
                                  _decode_label(bucket), bucket=bucket)
@@ -852,18 +973,21 @@ class Engine:
     def _memory_short(self) -> bool:
         """Whether the card could not hold a ``max_len`` prefill's dense
         buffer twice over (``cudaMemGetInfo``'s free memory and what the
-        caching allocator holds unused), or the host has less than
-        ``_HOST_AVAILABLE_SHARE`` of its memory available. A prefill graph
-        holds its executable on both, and the shared pool's temporaries are
-        reused by the next capture."""
+        caching allocator holds unused) beside the static stacked caches of
+        the dense tier's buckets not captured yet, or the host has less
+        than ``_HOST_AVAILABLE_SHARE`` of its memory available. A prefill
+        graph holds its executable on both, and the shared pool's
+        temporaries are reused by the next capture."""
         cfg = self.kv.config
-        dense = (cfg.num_layers * 2 * cfg.num_heads * cfg.max_len
-                 * cfg.head_dim * cfg.torch_compute_dtype.itemsize)
+        owed = 0
+        if self.decode_path == "dense":
+            owed = sum(_dense_bytes(cfg, b) for b in self.config.buckets
+                       if b not in self._graphs)
         free = torch.cuda.mem_get_info(self.device)[0] \
             + torch.cuda.memory_reserved(self.device) \
             - torch.cuda.memory_allocated(self.device)
         host = _host_memory()
-        return free < 2 * dense or (
+        return free < 2 * _dense_bytes(cfg, 1) + owed or (
             host is not None and host[0] < host[1] * _HOST_AVAILABLE_SHARE)
 
     def warmup(self, prompt_lens: Sequence[int] = ()) -> "Engine":
@@ -1520,7 +1644,8 @@ class Engine:
         metrics = _obs.enabled()
         if metrics:
             _obs.inc("serving.steps_total")
-            _obs.inc("serving.paged_attention_steps_total", path="kernel")
+            _obs.inc("serving.paged_attention_steps_total",
+                     path=self.decode_path)
         for i, slot in enumerate(included):
             slot.t += 1
             if traced and len(slot.tokens) % _DECODE_TRACE_EVERY == 0:

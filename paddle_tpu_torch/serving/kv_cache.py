@@ -14,8 +14,9 @@ Layout:
 * page table -- ``(pages_per_slot,)`` int32 per slot; unused entries 0.
 
 The engine writes prefilled pages with :func:`scatter_prefill_pages` and
-each decoded token with ``ops.paged_attention.scatter_token_inplace``, both
-**in place** (the JAX package threads the pool through its programs as
+each decoded token with ``ops.paged_attention.scatter_token_inplace`` (the
+dense decode tier: :func:`gather_pages` into the stacked cache, then
+:func:`scatter_token_page`), all **in place** (the JAX package threads the pool through its programs as
 functional state instead): the pool never moves, so the engine's captured
 decode graphs can hold its address. int8 requantization contract: writing
 position ``t`` re-quantizes its whole page with positions ``> t`` zeroed.
@@ -46,8 +47,8 @@ from .. import observability as _obs
 from ..ops.paged_attention import PagedDecodeCache  # noqa: F401  (re-export)
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "PagedDecodeCache",
-           "gather_pages", "scatter_prefill_pages", "quantize_pages",
-           "prefix_chain_digests"]
+           "gather_pages", "scatter_prefill_pages", "scatter_token_page",
+           "quantize_pages", "prefix_chain_digests"]
 
 _Q8_MAX = 127.0
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -120,18 +121,59 @@ def quantize_pages(pages: torch.Tensor
 
 
 def gather_pages(pool: torch.Tensor, scales: Optional[torch.Tensor],
-                 page_ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """One slot's pages -> its dense cache ``(L, 2, 1, H, n * page_size,
-    D)`` in ``dtype``; ``page_ids`` is ``(n,)``. The int8 leg dequantizes
-    with the pages' scales, the multiply in ``dtype`` (as the JAX package
-    does); other legs only convert when the storage dtype differs."""
-    ids = page_ids.long()
-    taken = pool[ids]                                 # (n, L, 2, H, ps, D)
+                 tables: torch.Tensor, dtype: torch.dtype,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pages -> the dense stacked cache ``(L, 2, B, H, S * page_size, D)``
+    in ``dtype``: ``tables`` ``(B, S)`` page ids (a 1-D ``(S,)`` is one
+    slot, ``B = 1``). Rows gathered through scratch entries carry garbage
+    at positions the decode's span mask (``<= t``) never admits. The int8
+    leg dequantizes with the pages' scales, the multiply in ``dtype`` (as
+    the JAX package does); other legs only convert when the storage dtype
+    differs. ``out``: a buffer of that shape to gather into (one page slot
+    at a time, so no second cache-sized temporary), returned."""
+    ids = tables.long()
+    if ids.dim() == 1:
+        ids = ids[None]
+    b, n = ids.shape
+    _, l, two, h, ps, d = pool.shape
+    if out is None:
+        out = torch.empty((l, two, b, h, n * ps, d), dtype=dtype,
+                          device=pool.device)
+    slots = out.view(l, two, b, h, n, ps, d)
+    for s in range(n):
+        taken = pool[ids[:, s]]                       # (B, L, 2, H, ps, D)
+        if scales is not None:
+            taken = taken.to(dtype) * \
+                scales[ids[:, s]][..., None, None].to(dtype)
+        slots[:, :, :, :, s] = taken.permute(1, 2, 0, 3, 4, 5)
+    return out
+
+
+def scatter_token_page(dense: torch.Tensor, pool: torch.Tensor,
+                       scales: Optional[torch.Tensor], tables: torch.Tensor,
+                       t: torch.Tensor, page_size: int) -> None:
+    """Write back, in place, the one page per slot that holds position
+    ``t``: ``dense`` is the stacked cache ``(L, 2, B, H, M, D)`` after a
+    decode step wrote position ``t`` of each row; positions ``> t`` in that
+    page are zeroed (a fresh page never inherits stale bytes, and the int8
+    scales cover written positions only), and on an int8 pool the page is
+    quantized anew with its scales. ``tables`` ``(B, S)``, ``t`` ``(B,)``."""
+    ps = page_size
+    b = dense.shape[2]
+    t64 = t.long().reshape(-1)
+    pos = (t64 // ps * ps)[:, None] + torch.arange(ps, device=dense.device)
+    rows = torch.arange(b, device=dense.device)[:, None]
+    pages = dense[:, :, rows, :, pos]                 # (B, ps, L, 2, H, D)
+    pages = pages.permute(0, 2, 3, 4, 1, 5)           # (B, L, 2, H, ps, D)
+    valid = pos <= t64[:, None]
+    pages = torch.where(valid[:, None, None, None, :, None], pages, 0)
+    pids = tables.long().gather(1, (t64 // ps)[:, None])[:, 0]
     if scales is not None:
-        taken = taken.to(dtype) * scales[ids][..., None, None].to(dtype)
-    n, l, two, h, ps, d = taken.shape
-    dense = taken.permute(1, 2, 3, 0, 4, 5).reshape(l, two, h, n * ps, d)
-    return dense[:, :, None].to(dtype)
+        q8, sc = quantize_pages(pages)
+        pool[pids] = q8
+        scales[pids] = sc
+    else:
+        pool[pids] = pages.to(pool.dtype)
 
 
 def scatter_prefill_pages(dense: torch.Tensor, pool: torch.Tensor,

@@ -15,7 +15,9 @@ the serving engine's contract (``serving/engine.py``):
   can share prompt prefixes;
 * ``step_fn(tok (B, 1), cache, t (B,))`` decodes one token per row over a
   ``PagedDecodeCache`` (the paged decode kernel on a card) or a stacked
-  dense cache.
+  dense cache ``(L, 2, B, H, M, D)``, written in place at each row's
+  ``t``: the layout of the engine's dense tier (``paged_attention="off"``),
+  so both tiers serve the stack.
 
 :meth:`FMTStack.reference` is the bench's parity oracle: one request at
 batch 1, prefill, then a per-token loop over a stacked dense cache, whose

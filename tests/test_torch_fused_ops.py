@@ -839,7 +839,9 @@ def _fake_swiglu_bwd(g, u, dy, packed, fns=None):
         return torch.autograd.grad(sw.swiglu_reference(*leaves), leaves, dy)
 
 
-def _fake_ce_fwd(x3, lab2, l_used, ignore, x_cast, fns=None):
+def _fake_ce_fwd(x3, lab2, l_used, ignore, x_cast, fns=None, *,
+                 weight=None, eps=0.0, reduction="mean"):
+    assert (weight, eps, reduction) == (None, 0.0, "mean")
     with torch.no_grad():
         rows = x3[:, :l_used].reshape(-1, x3.shape[-1]).to(x_cast).float()
         lab = lab2.reshape(-1).long()
@@ -855,7 +857,8 @@ def _fake_ce_fwd(x3, lab2, l_used, ignore, x_cast, fns=None):
 
 
 def _fake_ce_bwd(x3, lab2, l_used, ignore, x_cast, m, logs, valid, out, g,
-                 fns=None):
+                 fns=None, *, weight=None, eps=0.0, reduction="mean"):
+    assert (weight, eps, reduction) == (None, 0.0, "mean")
     leaf = x3.detach().requires_grad_()
     with torch.enable_grad():
         loss = ce.softmax_cross_entropy_reference(
