@@ -219,6 +219,19 @@ line per phase:
   from ``paddle_tpu_torch.flops``, and a 2 + 2-layer fp32 copy on the card
   against the CPU.
 
+* ResNet-50 on K10 (the batch-norm kernel): ``batch_norm_check`` holds
+  K10 against its plain version at the stem's, layer 1's and layer 4's
+  shapes and an NHWC view, bf16 under O2 and fp32, training and eval, with
+  each fused tail (output, running buffers, statistics and every
+  gradient), three launches bit-equal and a planted fault rejected, and
+  times each form beside its byte bound and ``F.batch_norm``;
+  ``train_resnet50`` trains ``vision.models.resnet50`` at
+  ``bench_resnet.py``'s settings (batch 64, 224 x 224, O2 bf16, Momentum)
+  eager and captured from one state (bit-equal, cuDNN deterministic),
+  profiles one step by family, times the eval forward, holds an fp32 copy
+  on the card against the CPU and times the step's conv and pool library
+  calls.
+
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound, with the card's own time of each kernel and
 its library call (``device_ms``, ``library_device_ms``: ``graph_ms``) and,
@@ -375,7 +388,10 @@ PLANTED_FAULTS = (
      "  if (j == 5) m = 0.f;\n"),
     ("moe",
      "    if (s < 0) continue;  // a dropped route\n",
-     "    if (r == r0 + 1) continue;\n"))
+     "    if (r == r0 + 1) continue;\n"),
+    ("batch_norm",
+     "    chan(cnt, m, M, __ldcg(pq), __ldcg(pq + 1), __ldcg(pq + 2));\n",
+     "    if (q == 1) continue;\n"))
 
 
 def emit(obj) -> None:
@@ -10959,6 +10975,770 @@ def train_transformer_base(torch, card, fa, mta) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# K10 batch norm and the ResNet-50 training step (BASELINE config #1)
+# ---------------------------------------------------------------------------
+
+# K10's tolerance: outputs and gradients rtol (one bf16 rounding, or fp32
+# sums in another order) plus a share of the reference's rms (cancellation
+# in dx); per-channel sums of 10^3-10^6 elements (running buffers, stats,
+# fp32 dw and db) 1e-4 of each and of their rms
+K10_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-4),
+           "bfloat16_add": (2.0 ** -6, 1e-4), "sum": (1e-4, 1e-4)}
+# a ReLU tail's mask may differ from the plain version's where the
+# pre-activation lies within a rounding of 0 (the two sum in other orders):
+# at most K10_FLIPS[0] + K10_FLIPS[1] x the elements may; dx and the
+# residual's gradient are compared off those elements, and each sum they
+# feed (dw, db, dx's mean terms) is allowed the flipped elements' share
+K10_FLIPS = (8, 1e-6)
+K10_REPLACES = "paddle_tpu/ops/nn_ops.py:210"
+K10_SOURCE = "paddle_tpu_torch/csrc/batch_norm.cu"
+K10_FORMS = ("none", "relu", "add_relu")
+K10_LEAVES = ("x", "w", "b", "res")
+# (name, shape, dtype, tail, training, data_format, O2, use_global_stats):
+# the stem's BN + ReLU, layer 1's bn3 + residual + ReLU, layer 4's
+# downsample BN, an NHWC view, each in bf16 under O2 and in fp32, two eval
+# forms and one under use_global_stats
+K10_CASES = (
+    ("stem_relu_bf16", (64, 64, 112, 112), "bfloat16", "relu", True,
+     "NCHW", True, None),
+    ("layer1_add_relu_bf16", (64, 256, 56, 56), "bfloat16", "add_relu",
+     True, "NCHW", True, None),
+    ("layer4_bf16", (64, 2048, 7, 7), "bfloat16", "none", True, "NCHW",
+     True, None),
+    ("nhwc_relu_bf16", (64, 28, 28, 128), "bfloat16", "relu", True, "NHWC",
+     True, None),
+    ("stem_relu_fp32", (64, 64, 112, 112), "float32", "relu", True, "NCHW",
+     False, None),
+    ("layer1_add_relu_fp32", (64, 256, 56, 56), "float32", "add_relu", True,
+     "NCHW", False, None),
+    ("layer4_fp32", (64, 2048, 7, 7), "float32", "none", True, "NCHW",
+     False, None),
+    ("layer1_add_relu_bf16_eval", (64, 256, 56, 56), "bfloat16", "add_relu",
+     False, "NCHW", True, None),
+    ("stem_relu_fp32_eval", (64, 64, 112, 112), "float32", "relu", False,
+     "NCHW", False, None),
+    ("layer4_bf16_global_stats", (64, 2048, 7, 7), "bfloat16", "none", True,
+     "NCHW", True, True),
+)
+# the timed case of each form, at the ResNet-50 step's shapes
+K10_TIMED = {"relu": "stem_relu_bf16", "add_relu": "layer1_add_relu_bf16",
+             "none": "layer4_bf16"}
+# the case whose gradients are also taken a subset at a time: the leaves
+# asked for and the backward launches that takes (the reduce for dw / db
+# and, with batch statistics, for dx; the apply for dx / dres)
+K10_SUBSETS_CASE = "layer4_bf16"
+K10_SUBSETS = ((("x",), 2), (("w", "b"), 1))
+
+
+def k10_name(tail: str) -> str:
+    return "batch_norm" + ("" if tail == "none" else f"[{tail}]")
+
+
+def k10_close(torch, got, want, kind: str, mag=None, slack=None):
+    """``(ok, max-abs)`` of got against want (same shape and dtype) under
+    K10_TOL[kind], the relative part of ``mag`` (default |want|), plus
+    ``slack``."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False, float("inf")
+    g, w = got.float(), want.float()
+    rtol, arel = K10_TOL[kind]
+    lim = rtol * (w.abs() if mag is None else mag) \
+        + arel * float(w.square().mean().sqrt())
+    if slack is not None:
+        lim = lim + slack
+    d = (g - w).abs()
+    return (bool(torch.isfinite(g).all()) and bool((d <= lim).all()),
+            float(d.max()))
+
+
+def k10_compare(torch, pairs: dict, what: str, expect_ok: bool = True):
+    res = {n: k10_close(torch, *p) for n, p in pairs.items()}
+    ok = all(v[0] for v in res.values())
+    require(ok == expect_ok, f"{what}: " + (
+        f"not within K10_TOL {res}" if expect_ok
+        else f"the planted fault passed the check {res}"))
+    return max(v[1] for v in res.values()), {n: v[1] for n, v in res.items()}
+
+
+def k10_amp(o2: bool):
+    from paddle_tpu_torch import amp
+    return amp.auto_cast(enable=True, level="O2", dtype="bfloat16") if o2 \
+        else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def k10_library(K10, lib):
+    """K10's wrapper launching from another build of its library (the
+    planted fault) while the block runs."""
+    real = K10._kernels
+    K10._kernels = lambda: K10.bind(lib)
+    try:
+        yield
+    finally:
+        K10._kernels = real
+
+
+def k10_inputs(torch, gen, shape, dtype, tail, fmt):
+    dt = getattr(torch, dtype)
+    c = shape[1] if fmt.startswith("NC") else shape[-1]
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen, device="cuda")
+    x = (rn(*shape) * 1.5 + 0.3).to(dt)
+    w = (1.0 + 0.2 * rn(c)).to(dt)
+    b = (0.1 * rn(c)).to(dt)
+    res = rn(*shape).to(dt) if tail == "add_relu" else None
+    rm = 0.1 * rn(c)
+    rv = 1.0 + 0.2 * torch.rand(c, generator=gen, device="cuda")
+    return x, w, b, res, rm, rv
+
+
+def k10_call(torch, K10, ins, case, dy, plain=False, grads=K10_LEAVES):
+    """One call of the wrapper ``K10.batch_norm`` (``plain``: of its plain
+    version) on fresh leaves and running buffers under the case's amp, and
+    autograd's gradients for ``dy`` of the leaves named in ``grads``:
+    ``{"out", "run_mean", "run_var", "dx", "dw", "db", "dres"}``, and the
+    batch ``mean`` and ``var`` the wrapper saved for its backward."""
+    _, _, _, tail, training, fmt, o2, ugs = case
+    rm, rv = ins[4].clone(), ins[5].clone()
+    leaves = {k: None if t is None else t.detach().requires_grad_(k in grads)
+              for k, t in zip(K10_LEAVES, ins[:4])}
+    with k10_amp(o2):
+        out = (K10.batch_norm_reference if plain else K10.batch_norm)(
+            leaves["x"], rm, rv, leaves["w"], leaves["b"], training, 0.9,
+            1e-5, fmt, ugs, residual=leaves["res"],
+            act=None if tail == "none" else "relu")
+    got = {"out": out.detach(), "run_mean": rm, "run_var": rv}
+    if not plain and training and not ugs:
+        got["mean"], got["var"] = out.grad_fn.saved_tensors[2:4]
+    asked = [k for k in grads if leaves[k] is not None]
+    got.update(zip(("d" + k for k in asked), torch.autograd.grad(
+        out, [leaves[k] for k in asked], dy)))
+    return got
+
+
+def k10_pairs(torch, K10, got, ref, ins, case, dy):
+    """``({name: k10_close's arguments}, mask flips)``: the wrapper's
+    output, running buffers, gradients and batch statistics against the
+    plain version's (the statistics against x's own in fp32)."""
+    name, _, _, tail, training, fmt, _, ugs = case
+    x, _, _, res, rm, rv = ins
+    grads = ["d" + k for k in K10_LEAVES]
+    require(sorted(k for k in got if k in grads)
+            == sorted(k for k in ref if k in grads),
+            f"batch_norm {name}: gradients {sorted(got)} / {sorted(ref)}")
+    pairs = {k: (got[k], ref[k], dtype_name(got[k].dtype))
+             for k in ("out", "dx", "dres") if k in ref}
+    if res is not None and got["out"].dtype != torch.float32:
+        # the normalised value is rounded to bf16 before the add, and the
+        # sum again: a last-bit difference in fp32 moves each by up to an
+        # ulp, 2^-7 of |bn| and of |sum|, at most 2^-6 of |out| + |res|
+        pairs["out"] = (got["out"], ref["out"], "bfloat16_add",
+                        ref["out"].float().abs() + res.float().abs())
+    for k in ("dw", "db"):
+        if k in ref:
+            pairs[k] = (got[k], ref[k], "sum" if ref[k].dtype
+                        == torch.float32 else dtype_name(ref[k].dtype))
+    for k in ("run_mean", "run_var"):
+        pairs[k] = (got[k], ref[k], "sum")
+    n, s, c = K10.bn_geometry(x, fmt)
+
+    def v3(t):
+        return t.reshape(n // s, c, s)
+    x3 = v3(x).float()
+    batch = training and not ugs
+    if batch:
+        mu = x3.mean((0, 2))
+        var = (x3 - mu.view(1, c, 1)).square().mean((0, 2))
+        pairs["mean"] = (got["mean"], mu, "sum")
+        pairs["var"] = (got["var"], var, "sum")
+    else:
+        mu, var = rm, rv
+    flips = 0
+    if tail != "none":
+        flip = (got["out"] > 0) != (ref["out"] > 0)
+        flips = int(flip.sum())
+        require(flips <= K10_FLIPS[0] + K10_FLIPS[1] * x.numel(),
+                f"batch_norm {name}: {flips} elements' ReLU masks differ")
+    if flips:
+        g3 = v3(dy).float().abs() * v3(flip)
+        xh = ((x3 - mu.view(1, c, 1)) * torch.rsqrt(var.view(1, c, 1)
+                                                    + 1e-5)).abs()
+        sdb, sdw = g3.sum((0, 2)), (g3 * xh).sum((0, 2))
+        for k, sl in (("db", sdb), ("dw", sdw)):
+            if k in pairs:
+                pairs[k] += (None, sl.view(pairs[k][0].shape))
+        for k in ("dx", "dres"):
+            if k in pairs:
+                slack = None
+                if k == "dx" and batch:
+                    w = ins[1].float().view(1, c, 1)
+                    slack = (w.abs() * torch.rsqrt(var.view(1, c, 1) + 1e-5)
+                             * (sdb.view(1, c, 1) + xh * sdw.view(1, c, 1))
+                             / n).reshape(x.shape)
+                pairs[k] = (got[k].masked_fill(flip, 0),
+                            ref[k].masked_fill(flip, 0), pairs[k][2], None,
+                            slack)
+    return pairs, flips
+
+
+def k10_timing(torch, K10, ins, tail, fmt, dy) -> dict:
+    """The wrapper's forward (stats + apply) beside its plain version and
+    ``F.batch_norm`` (+ the add and ``F.relu``), and its backward by
+    autograd beside the plain version's and the library's, at a training
+    form under O2; bounds by bytes (each input read once, each output
+    written once)."""
+    import torch.nn.functional as TF
+    x, w, b, res, rm, rv = ins
+    act = None if tail == "none" else "relu"
+    rm_l, rv_l = rm.clone(), rv.clone()
+
+    def call(fn):
+        rm_, rv_ = rm.clone(), rv.clone()
+
+        def f(xx, ww, bb, *r):
+            with k10_amp(True):
+                return fn(xx, rm_, rv_, ww, bb, True, 0.9, 1e-5, fmt,
+                          residual=r[0] if r else None, act=act)
+        return f
+    kernel_fn, plain_fn = call(K10.batch_norm), call(K10.batch_norm_reference)
+    k_in = (x, w, b) + (() if res is None else (res,))
+
+    def library_fn(xx, ww, bb, *r):
+        y = TF.batch_norm(xx, rm_l, rv_l, ww, bb, True, 0.1, 1e-5)
+        if r:
+            y = y + r[0]
+        return y if act is None else TF.relu(y)
+
+    def held(fn):
+        """A backward by autograd, repeatable on one forward's graph."""
+        leaves = [t.detach().requires_grad_() for t in k_in]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+    def no_grad(fn, args):
+        def f():
+            with torch.no_grad():
+                return fn(*args)
+        return f
+    lib_in = (x, w.float(), b.float()) + (() if res is None else (res,))
+    t = fused_timing(torch, no_grad(kernel_fn, k_in), no_grad(plain_fn, k_in),
+                     no_grad(library_fn, lib_in))
+    out = no_grad(kernel_fn, k_in)()
+    t["bound_ms"], t["bound_by"] = bound(0, nbytes(x, res, out), "float32")
+    # the backward reads x and dy and writes dx (and the residual's
+    # gradient); the ReLU's mask follows from x and the statistics, and
+    # only the residual's tail needs a tensor more (the output, or the
+    # residual) to know it
+    mask = out if tail == "add_relu" else None
+    t.update({
+        "bwd_ms": cuda_ms(torch, held(kernel_fn), FUSED_ITERS),
+        "bwd_device_ms": library_backward_device_ms(torch, kernel_fn, k_in,
+                                                    dy),
+        "bwd_plain_ms": cuda_ms(torch, held(plain_fn), 3),
+        "bwd_library_device_ms": library_backward_device_ms(
+            torch, library_fn, lib_in, dy),
+        "bwd_bound_ms": bound(0, nbytes(x, dy, mask, x, res), "float32")[0],
+        "case": f"{tuple(x.shape)} {dtype_name(x.dtype)} {fmt}, training, "
+                f"tail {tail}, O2 (out {dtype_name(out.dtype)}); library: "
+                f"F.batch_norm{' + add' if res is not None else ''}"
+                f"{' + F.relu' if act else ''} (fp32 weight), its autograd"})
+    return t
+
+
+def k10_subsets(torch, K10, ins, case, dy, full) -> dict:
+    """The wrapper's gradients a subset of the leaves at a time
+    (``K10_SUBSETS``): bit-equal to those of all of them, nothing more
+    returned, and the backward launches each subset needs."""
+    tail = case[3]
+    out = {}
+    for sub, calls in K10_SUBSETS:
+        before = K10.launches_bwd[tail].count
+        part = k10_call(torch, K10, ins, case, dy, grads=sub)
+        ran = K10.launches_bwd[tail].count - before
+        keys = sorted(k for k in part if k.startswith("d"))
+        require(ran == calls and keys == sorted("d" + k for k in sub)
+                and all(torch.equal(part[k], full[k]) for k in keys),
+                f"batch_norm {case[0]} gradients of {sub}: {ran} backward "
+                f"launches (want {calls}), {keys}, bit-equal "
+                f"{[torch.equal(part[k], full[k]) for k in keys]}")
+        out["+".join(sub)] = {"bwd_launches": ran}
+    return out
+
+
+def batch_norm_check(torch, planted_lib) -> dict:
+    """K10's wrapper (``ops.batch_norm.batch_norm``, its autograd function)
+    against its plain version on the same inputs, in every form
+    ``K10_CASES`` lists: output, running buffers, batch statistics, and
+    the gradients of x, weight, bias and the residual by autograd, within
+    K10_TOL (K10_FLIPS for the ReLU masks); three calls bit-equal; the
+    gradients of a subset of the leaves (``K10_SUBSETS``); a planted fault
+    (the fold skips chunk 1's partial) rejected; each form timed at its
+    ResNet-50 shape (``K10_TIMED``). Returns rows by form."""
+    from paddle_tpu_torch.ops import batch_norm as K10
+    t_phase = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    cases, rows = [], {}
+    for case in K10_CASES:
+        name, shape, dtype, tail, training, fmt, o2, ugs = case
+        ins = k10_inputs(torch, gen, shape, dtype, tail, fmt)
+        with k10_amp(o2):
+            out_dt = K10.bn_spec(ins[0], ins[1], ins[2], ins[3],
+                                 None if tail == "none" else "relu").out
+        dy = torch.randn(shape, generator=gen, device="cuda").to(out_dt)
+        got = k10_call(torch, K10, ins, case, dy)
+        ref = k10_call(torch, K10, ins, case, dy, plain=True)
+        pairs, flips = k10_pairs(torch, K10, got, ref, ins, case, dy)
+        err, errs = k10_compare(torch, pairs, f"batch_norm {name}")
+        row = {"case": name, "shape": list(shape), "dtype": dtype,
+               "tail": tail, "training": training, "data_format": fmt,
+               "o2": o2, "use_global_stats": ugs,
+               "out_dtype": dtype_name(out_dt), "max_abs_err": err,
+               "errs": errs, "mask_flips": flips}
+        if name == "stem_relu_bf16":
+            keys = list(got)
+            for _ in range(2):
+                again = k10_call(torch, K10, ins, case, dy)
+                require(all(torch.equal(got[k], again[k]) for k in keys),
+                        f"batch_norm {name}: three calls differ")
+            with k10_library(K10, planted_lib):
+                bad = k10_call(torch, K10, ins, case, dy)
+            row["planted_max_abs_err"], _ = k10_compare(
+                torch, {k: (bad[k], ref[k], "bfloat16")
+                        for k in ("out", "run_mean", "run_var")},
+                f"batch_norm {name} planted", expect_ok=False)
+        if name == K10_SUBSETS_CASE:
+            row["subsets"] = k10_subsets(torch, K10, ins, case, dy, got)
+        for form, timed in K10_TIMED.items():
+            if timed == name:
+                rows[form] = k10_timing(torch, K10, ins, tail, fmt, dy)
+        cases.append(row)
+        del ins, got, ref, pairs, dy
+        gc.collect()
+        torch.cuda.empty_cache()
+    for form in rows:
+        rows[form]["max_abs_err"] = max(
+            c["max_abs_err"] for c in cases if c["tail"] == form)
+    emit({"phase": "batch_norm_check", "cases": cases,
+          "timing": {k10_name(f): r for f, r in rows.items()},
+          "tolerance": K10_TOL, "mask_flips_allowed": K10_FLIPS,
+          "seconds": time.monotonic() - t_phase})
+    return rows
+
+
+RN_BATCH, RN_HW, RN_WARM, RN_TIMED, RN_SEED = 64, 224, 2, 10, 0
+RN_CPU_BATCH, RN_CPU_HW, RN_CPU_CLASSES = 2, 64, 10
+# the damping of every block's last BN weight in the card-vs-CPU check (a
+# random ResNet-50 at batch 2 amplifies fp32 rounding into gradients that
+# differ by tens of percent between two correct runs; 0.1 bounds it)
+RN_CPU_BN3_SCALE = 0.1
+RN_EVAL_ITERS = 10
+# the rescaled run's images: x times 1 + 2^-7, the same step in exact
+# arithmetic (the stem's BN takes the scale out) with other roundings
+RN_RESCALE = 1.0 + 2.0 ** -7
+# the K10 run's losses against the plain-BN witness's over the first
+# RN_WITNESS_STEPS steps, rel, within RN_WITNESS_FACTOR x the largest
+# distance the rescale alone puts between two K10 runs over those steps.
+# At lr 0.1 on one batch the loss climbs to 15-26 from the fourth step on,
+# and there runs that differ only in roundings part by tens of percent,
+# so the later steps are reported and not held
+RN_WITNESS_STEPS, RN_WITNESS_FACTOR = 4, 2.0
+# K10 launches of one ResNet-50 training step, forward (statistics and
+# apply) and backward (reduce and apply): 4 downsample BNs, 33 with a
+# ReLU (the stem's and each bottleneck's bn1, bn2), 16 with the residual
+# add and ReLU (each bottleneck's bn3)
+RN_K10_PER_STEP = {"batch_norm": 8, "batch_norm[relu]": 66,
+                   "batch_norm[add_relu]": 32, "batch_norm_bwd": 8,
+                   "batch_norm[relu]_bwd": 66, "batch_norm[add_relu]_bwd": 32}
+
+
+def resnet_family(name: str) -> str:
+    """A ResNet step's kernel family: K10, cuDNN's convolutions and their
+    layout transposes, the pools, K4, the fc's products, else ``other``
+    (the optimizer's and the casts' elementwise kernels among them)."""
+    low = name.lower()
+    for keys, fam in ((("bn_stats", "bn_apply", "bn_bwd"), "batch_norm"),
+                      (("nchwtonhwc", "nhwctonchw", "transpose"),
+                       "conv_layout"),
+                      (("conv", "fprop", "dgrad", "wgrad", "implicit",
+                        "cudnn", "xmma"), "conv"),
+                      (("pool",), "pool"),
+                      (("softmax_cross_entropy", "ce_fwd", "ce_bwd"),
+                       "cross_entropy"),
+                      (("gemm", "gemv", "cutlass", "nvjet"), "matmul")):
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+# the ResNet-50 step's library calls at its shapes, bf16 under O2 (name,
+# function, x shape, weight shape or None, keyword arguments)
+RN_LIBRARY_CASES = (
+    ("conv2d_stem_7x7_s2", "conv2d", (64, 3, 224, 224), (64, 3, 7, 7),
+     dict(stride=2, padding=3)),
+    ("conv2d_layer1_3x3", "conv2d", (64, 64, 56, 56), (64, 64, 3, 3),
+     dict(padding=1)),
+    ("conv2d_layer1_1x1_expand", "conv2d", (64, 64, 56, 56),
+     (256, 64, 1, 1), {}),
+    ("conv2d_layer4_3x3", "conv2d", (64, 512, 7, 7), (512, 512, 3, 3),
+     dict(padding=1)),
+    ("max_pool2d_3x3_s2", "max_pool2d", (64, 64, 112, 112), None,
+     dict(kernel_size=3, stride=2, padding=1)),
+    ("adaptive_avg_pool2d_1x1", "adaptive_avg_pool2d", (64, 2048, 7, 7),
+     None, dict(output_size=(1, 1))),
+)
+
+
+def resnet_library_rows(torch) -> dict:
+    """The port's conv and pool functions at the ResNet-50 step's shapes
+    (cuDNN's and PyTorch's kernels, no kernel of the port's own): device
+    ms forward and backward beside the bound (a convolution's 2 x
+    multiply-adds at 989 TFLOP/s against its bytes; a pool's bytes)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import conv_pool
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name, fn_name, xs, ws, kw in RN_LIBRARY_CASES:
+        fn = getattr(conv_pool, fn_name)
+        x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16)
+        w = None if ws is None else (0.05 * torch.randn(
+            ws, generator=gen, device="cuda")).to(torch.bfloat16)
+        args = (x,) if w is None else (x, w)
+
+        def call(*a, fn=fn, kw=kw):
+            with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+                return fn(*a, **kw)
+        out = call(*args)
+        dy = torch.randn(out.shape, generator=gen, device="cuda").to(
+            out.dtype)
+        if w is None:
+            flops_, nb = 0, nbytes(x, out)
+        else:
+            macs = out.numel() * ws[1] * ws[2] * ws[3]
+            flops_, nb = 2 * macs, nbytes(x, w, out)
+        b_ms, b_by = bound(flops_, nb, "bfloat16")
+        bb_ms, bb_by = bound(2 * flops_, nb + nbytes(dy, x) + (
+            0 if w is None else nbytes(w)), "bfloat16")
+        rows[name] = {
+            "x": list(xs), "weight": None if ws is None else list(ws),
+            "out": list(out.shape), "kwargs": kw,
+            "device_ms": device_ms(torch, lambda: call(*args)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bwd_device_ms": library_backward_device_ms(torch, call, args,
+                                                        dy),
+            "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by}
+        del x, w, out, dy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k10_counters() -> dict:
+    from paddle_tpu_torch.ops import batch_norm as K10
+    return {**{k10_name(t): K10.launches_fwd[t] for t in K10_FORMS},
+            **{k10_name(t) + "_bwd": K10.launches_bwd[t] for t in K10_FORMS}}
+
+
+def resnet_vs_cpu(torch) -> dict:
+    """``resnet50(num_classes=10)`` in fp32 at 2 x 3 x 64 x 64, one
+    training forward and backward on the card (K10, cuDNN without TF32)
+    and on the CPU (the plain versions) from one state, every block's last
+    BN weight scaled by RN_CPU_BN3_SCALE: loss rel 1e-4, logits 1e-4 of
+    their largest, each gradient 1e-3 of its largest element, the BN
+    buffers 1e-4; K10 launches 106 forward and 106 backward on the card, 0
+    on the CPU."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops.loss_ops import cross_entropy
+    from paddle_tpu_torch.vision import models
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((RN_CPU_BATCH, 3, RN_CPU_HW, RN_CPU_HW)).astype(
+        np.float32)
+    y = rng.integers(0, RN_CPU_CLASSES, RN_CPU_BATCH)
+    counters = k10_counters()
+    runs, init = {}, None
+    for dev in ("cuda", "cpu"):
+        model = models.resnet50(num_classes=RN_CPU_CLASSES, device=dev,
+                                seed=RN_SEED)
+        if init is None:
+            init = {k: (v * RN_CPU_BN3_SCALE if re.search(
+                r"layer\d\.\d+\.bn3\.weight", k) else v).cpu()
+                for k, v in model.state_dict().items()}
+        model.load_state_dict(init)
+        for c in counters.values():
+            c.reset()
+        logits = model(torch.as_tensor(x, device=dev))
+        loss = cross_entropy(logits, torch.as_tensor(y, device=dev))
+        loss.backward()
+        runs[dev] = dict(
+            loss=float(loss), logits=logits.detach().cpu(),
+            grads={k: p.grad.detach().cpu()
+                   for k, p in model.named_parameters()},
+            bufs={k: v.detach().cpu() for k, v in model.state_dict().items()
+                  if k.endswith(("_mean", "_variance"))},
+            launches={k: c.count for k, c in counters.items()})
+        del model, loss, logits
+    a, b = runs["cuda"], runs["cpu"]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    logit_err = float((a["logits"] - b["logits"]).abs().max()) / float(
+        b["logits"].abs().max())
+    grad_rel = max(float((a["grads"][k] - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30)
+                   for k, g in b["grads"].items())
+    buf_rel = max(float((a["bufs"][k] - v).abs().max())
+                  / max(float(v.abs().max()), 1e-30)
+                  for k, v in b["bufs"].items())
+    want = RN_K10_PER_STEP
+    require(loss_rel < 1e-4 and logit_err < 1e-4 and grad_rel < 1e-3
+            and buf_rel < 1e-4 and a["launches"] == want
+            and not any(b["launches"].values()),
+            f"ResNet-50 card vs CPU: loss rel {loss_rel}, logits {logit_err},"
+            f" grad rel {grad_rel}, buffers {buf_rel}, launches "
+            f"{a['launches']} / {b['launches']}")
+    out = {"shape": [RN_CPU_BATCH, 3, RN_CPU_HW, RN_CPU_HW],
+           "num_classes": RN_CPU_CLASSES, "dtype": "float32",
+           "bn3_weight_scale": RN_CPU_BN3_SCALE, "loss_card": a["loss"],
+           "loss_cpu": b["loss"], "loss_rel": loss_rel,
+           "logits_rel": logit_err, "grad_max_rel": grad_rel,
+           "buffers_max_rel": buf_rel, "launches_card": a["launches"],
+           "tolerance": {"loss_rel": 1e-4, "logits_rel": 1e-4,
+                         "grad_rel": 1e-3, "buffers_rel": 1e-4}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_batch_norm():
+    """Every batch norm of the port's layers on its plain version
+    (``batch_norm_reference``, plain PyTorch on the card, the JAX
+    package's rounding points) while the block runs: the witness that
+    K10's training step takes the same course."""
+    from paddle_tpu_torch.ops import batch_norm as K10
+    from paddle_tpu_torch.ops import nn_ops
+    real = nn_ops.batch_norm
+    nn_ops.batch_norm = K10.batch_norm_reference
+    try:
+        yield
+    finally:
+        nn_ops.batch_norm = real
+
+
+def rn_witness(losses: list, plain: dict, rescaled: dict) -> dict:
+    """The eager K10 run's losses against the plain-BN run's (no K10
+    launch): each of the first RN_WITNESS_STEPS within RN_WITNESS_FACTOR x
+    the largest distance over those steps between the K10 run and the
+    rescaled K10 run (roundings alone); every step's distances
+    reported."""
+    require(not any(plain["launches"].values()),
+            f"train_resnet50 plain_bn: K10 launched {plain['launches']}")
+
+    def rel(a, b):
+        return [abs(u - v) / abs(v) for u, v in zip(a, b)]
+    held = rel(losses, plain["losses"])
+    rounding = rel(rescaled["losses"], losses)
+    bound = RN_WITNESS_FACTOR * max(rounding[:RN_WITNESS_STEPS])
+    require(max(held[:RN_WITNESS_STEPS]) <= bound,
+            f"train_resnet50: K10's losses {losses} leave the plain "
+            f"version's {plain['losses']} (rel {held}) by more than "
+            f"{RN_WITNESS_FACTOR} x the rescale's {rounding} over the first "
+            f"{RN_WITNESS_STEPS} steps")
+    return {"plain_losses": plain["losses"], "rel": held, "bound": bound,
+            "steps_held": RN_WITNESS_STEPS,
+            "rescaled_losses": rescaled["losses"],
+            "rescaled_rel_to_k10": rounding,
+            "plain_step_p50_s": plain["step_p50_s"],
+            "plain_images_per_s": plain["images_per_s"],
+            "plain_peak_mem_gb": plain["peak_mem_gb"]}
+
+
+def train_resnet50(torch, card) -> dict:
+    """``vision.models.resnet50(num_classes=1000)`` at
+    ``benchmarks/bench_resnet.py``'s settings: batch 64 of 3 x 224 x 224
+    images and labels from seed 0, AMP O2 bf16 through ``amp.decorate``
+    (fp32 masters), ``Momentum(0.1, 0.9)``, ``cross_entropy``. The eager
+    tier runs 2 warm-up and 10 timed steps, then the captured tier
+    (``jit.capture_step``) the same 12 from the same state: losses and the
+    digests of parameters, masters, velocity, step count and BN buffers
+    bit-equal. cuDNN runs deterministic with autotuning off in this phase:
+    an autotuned or atomic algorithm may differ between the eager and the
+    captured call (so would their bits); TF32 is off for the whole run.
+    K10 launches a step: 106 forward (53 BNs, stats and apply) and 106
+    backward. MFU = 3 x 2 x ``paddle_tpu_torch.flops`` multiply-adds an
+    image x images/s / 989 TFLOP/s. The first step must lower the loss,
+    and the eager losses must follow those of a third run of the same 12
+    steps from the same state with every BN on its plain version
+    (:func:`plain_batch_norm`), which launches no K10 kernel, over the
+    first RN_WITNESS_STEPS steps as closely as a fourth run, K10 on the
+    images times RN_RESCALE, follows K10's own (:func:`rn_witness`).
+    Then one more eager step under ``torch.profiler`` (device time by
+    :func:`resnet_family`), the eval forward's images/s on the running
+    buffers, :func:`resnet_vs_cpu` and :func:`resnet_library_rows`."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp, flops, jit
+    from paddle_tpu_torch.ops.loss_ops import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models
+    t_phase = time.monotonic()
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        model = models.resnet50(num_classes=1000, device="cuda",
+                                seed=RN_SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters())
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        rng = np.random.default_rng(RN_SEED)
+        x = torch.as_tensor(rng.normal(size=(
+            RN_BATCH, 3, RN_HW, RN_HW)).astype(np.float32), device="cuda")
+        y = torch.as_tensor(rng.integers(0, 1000, RN_BATCH), device="cuda")
+
+        def step(x, y):
+            with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+                loss = cross_entropy(model(x), y)
+            loss.backward()
+            return loss
+
+        def update():
+            opt.step()
+            opt.clear_grad()
+
+        state = (list(model.parameters())
+                 + [t for _, _, t in opt._state_views()] + [opt._step_t]
+                 + [b for k, b in model.state_dict(keep_vars=True).items()
+                    if k.endswith(("_mean", "_variance"))])
+        saved = [s.detach().clone() for s in state]
+        path = k10_counters()
+        steps = RN_WARM + RN_TIMED
+        runs = {}
+        for tier in ("eager", "captured", "plain_bn", "rescaled"):
+            with torch.no_grad():
+                for s, c in zip(state, saved):
+                    s.copy_(c)
+            call = (jit.capture_step(step, update_fn=update,
+                                     clear_fn=opt.clear_grad, nan_gate=True)
+                    if tier == "captured" else
+                    captured_step(jit, step, "off", update_fn=update,
+                                  clear_fn=opt.clear_grad, nan_gate=True))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in path.values():
+                c.reset()
+            xin = x * RN_RESCALE if tier == "rescaled" else x
+            stop = sample_card()
+            losses, times = [], []
+            try:
+                with (plain_batch_norm() if tier == "plain_bn"
+                      else contextlib.nullcontext()):
+                    for _ in range(steps):
+                        t1 = time.monotonic()
+                        loss = call(xin, y)
+                        torch.cuda.synchronize()
+                        times.append(time.monotonic() - t1)
+                        losses.append(float(loss))
+            finally:
+                clocks = stop()
+            timed = times[RN_WARM:]
+            p50 = statistics.median(timed)
+            runs[tier] = {"losses": losses, "step_s": times,
+                          "step_p50_s": p50,
+                          "step_spread_s": max(timed) - min(timed),
+                          "images_per_s": RN_BATCH / p50,
+                          **memory_gb(torch),
+                          "launches": {k: c.count for k, c in path.items()},
+                          "card_during_steps": clocks,
+                          "digests": [digest(torch, s) for s in state],
+                          "stats": dict(call.stats)}
+            del call, loss
+        e, c = runs["eager"], runs["captured"]
+        plain, rescaled = runs.pop("plain_bn"), runs.pop("rescaled")
+        require(all(math.isfinite(v) for v in e["losses"]),
+                f"train_resnet50: losses {e['losses']}")
+        require(e["losses"] == c["losses"] and e["digests"] == c["digests"],
+                f"train_resnet50: the captured steps are not bit-equal to "
+                f"the eager ones: losses {e['losses']} / {c['losses']}")
+        require(c["stats"]["hits"] == steps - 1
+                and not c["stats"]["bypasses"],
+                f"train_resnet50 captured: {c['stats']}")
+        for tier, r in runs.items():
+            require(r["launches"] == {k: n * steps for k, n in
+                                      RN_K10_PER_STEP.items()},
+                    f"train_resnet50 {tier}: K10 launches {r['launches']}")
+        # the witness: the same steps from the same state with every BN on
+        # its plain version (no K10 launch) take the same losses
+        witness = rn_witness(e["losses"], plain, rescaled)
+        require(e["losses"][1] < e["losses"][0],
+                f"train_resnet50: the first step does not lower the loss: "
+                f"{e['losses']}")
+        profiled = profile_step(torch, card, lambda: (step(x, y), update()),
+                                e["step_p50_s"], "train_resnet50_profile",
+                                resnet_family)
+        with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+            macs = flops(model, [1, 3, RN_HW, RN_HW])
+        for r in runs.values():
+            r["mfu_vs_989tflops"] = 6 * macs * r["images_per_s"] / 989e12
+        model.eval()
+
+        def infer():
+            with torch.no_grad(), amp.auto_cast(enable=True, level="O2",
+                                                dtype="bfloat16"):
+                return model(x)
+        for c in path.values():
+            c.reset()
+        for _ in range(2):
+            infer()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        for _ in range(RN_EVAL_ITERS):
+            infer()
+        torch.cuda.synchronize()
+        eval_s = (time.monotonic() - t1) / RN_EVAL_ITERS
+        eval_launches = {k: n for k, n in ((k, c.count)
+                                           for k, c in path.items()) if n}
+        require(eval_launches == {"batch_norm": 4 * (RN_EVAL_ITERS + 2),
+                                  "batch_norm[relu]": 33 * (RN_EVAL_ITERS
+                                                            + 2),
+                                  "batch_norm[add_relu]": 16 * (
+                                      RN_EVAL_ITERS + 2)},
+                f"train_resnet50 eval: K10 launches {eval_launches}")
+        del model, opt, state, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        vs_cpu = resnet_vs_cpu(torch)
+        library = resnet_library_rows(torch)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+    emit({"phase": "train_resnet50", "card": card, "params": n_params,
+          "config": {"model": "resnet50", "num_classes": 1000,
+                     "source": "benchmarks/bench_resnet.py:34-62 "
+                               "(PaddleClas ResNet-50 ImageNet train, "
+                               "BASELINE config #1)"},
+          "batch": RN_BATCH, "image": [3, RN_HW, RN_HW],
+          "recipe": {"amp": "O2 bf16 (amp.decorate), fp32 masters",
+                     "optimizer": "Momentum(0.1, 0.9)",
+                     "loss": "cross_entropy"},
+          "cudnn": {"deterministic": True, "benchmark": False,
+                    "allow_tf32": torch.backends.cudnn.allow_tf32},
+          "warmup_steps": RN_WARM, "timed_steps": RN_TIMED,
+          "flops_multiply_adds_per_image": macs,
+          "train_flops_per_image": 6 * macs,
+          "runs": {t: {k: v for k, v in r.items() if k != "digests"}
+                   for t, r in runs.items()},
+          "captured_bit_equal_to_eager": True, "plain_bn_witness": witness,
+          "eval": {"step_s": eval_s, "images_per_s": RN_BATCH / eval_s,
+                   "launches": eval_launches},
+          "profile_families": profiled["families"],
+          "library_rows": library, "vs_cpu": vs_cpu,
+          "seconds": time.monotonic() - t_phase})
+    return runs["eager"]["launches"]
+
 PHASES = ("flash_check", "paged_check", "decode_graph_check", "serve_7b",
           "generate_sample_7b", "cost_check", "serve_7b_dense", "fmt",
           "serve_fmt_dense", "agree_2layer", "serve_chaos_check",
@@ -10969,7 +11749,8 @@ PHASES = ("flash_check", "paged_check", "decode_graph_check", "serve_7b",
           "flash_segs_dropout", "unpadded", "train_ernie3_base",
           "ernie_vs_cpu", "capture_check", "train_ernie3_base_captured",
           "train_ernie3_base_fp16", "moe", "grad_scaler_check",
-          "optimizer_zoo_check", "train_transformer_base")
+          "optimizer_zoo_check", "train_transformer_base",
+          "batch_norm_check", "train_resnet50")
 
 
 def parse_args(argv=None):
@@ -11164,6 +11945,12 @@ def main() -> int:
         left_on_card(torch, "train_transformer_base")
         path_launches["transformer_base"] = {
             k: n for k, n in tb_launches.items() if k.endswith("[segs_drop]")}
+    if want("batch_norm_check"):
+        k10_rows = batch_norm_check(torch, planted["batch_norm"])
+        left_on_card(torch, "batch_norm_check")
+    if want("train_resnet50"):
+        rn_launches = train_resnet50(torch, smi)
+        left_on_card(torch, "train_resnet50")
     if only is not None:
         # a subset of phases: no kernels line (it reads every phase)
         emit({"only": sorted(only, key=PHASES.index),
@@ -11482,6 +12269,24 @@ def main() -> int:
          **{key: moe_rows["bias_act_period"][key] for key in (
              "bwd_ms", "bwd_device_ms", "bwd_plain_ms", "bwd_library_ms",
              "bwd_library_device_ms", "bwd_bound_ms")}},
+    ] + [
+        {"name": k10_name(form), "route": "cuda", "source": K10_SOURCE,
+         "replaces": K10_REPLACES, "replaces_pallas_call": False,
+         "note": "K10, the port's own kernel (stats + apply forward, reduce "
+                 "+ apply backward): the JAX package's batch_norm_stats and "
+                 "batch_norm are XLA-fused jnp, no pallas_call; launches "
+                 "forward and backward",
+         "launches": rn_launches[k10_name(form)]
+         + rn_launches[k10_name(form) + "_bwd"],
+         "launches_fwd": rn_launches[k10_name(form)],
+         "launches_bwd": rn_launches[k10_name(form) + "_bwd"],
+         "launches_path": "train_resnet50 eager (12 steps)",
+         "max_abs_err": k10_rows[form]["max_abs_err"],
+         "case": k10_rows[form]["case"],
+         **{key: k10_rows[form].get(key) for key in k_keys},
+         **{key: k10_rows[form][key] for key in k10_rows[form]
+            if key.startswith("bwd_")}}
+        for form in K10_FORMS
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

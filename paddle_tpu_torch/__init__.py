@@ -13,8 +13,12 @@ with segment ids and in-kernel dropout), paged decode attention
 dropout and masked-softmax kernels, under ``incubate``'s fused functions).
 ``incubate.FusedMultiTransformer`` with ``masked_multihead_attention``,
 the fused inference stack, is served by the same engine
-(``tools/fmt_stack.py``). It imports neither JAX nor ``paddle_tpu``. Entry
-points run on ``cuda`` unless given ``device="cpu"``.
+(``tools/fmt_stack.py``). ``vision.models``' ResNets train on ``nn``'s
+paddle layers (``nn.Layer``, ``Conv2D``, ``BatchNorm2D``, the pools) with
+every batch norm on the batch-norm kernel (``ops.batch_norm``) and the
+convolutions and pools of ``ops.conv_pool``. It imports neither JAX nor
+``paddle_tpu``. Entry points run on ``cuda`` unless given
+``device="cpu"``.
 """
 
 from .device import NoDeviceError, resolve_device

@@ -22,6 +22,11 @@ them back (the port's copies of the JAX package's converters).
 both) and, given them, the embedding, final LayerNorm and head of the
 serving stack built around it (``tools/fmt_stack.py``), after checking
 that every layer carries every tag in a consistent shape.
+:func:`load_resnet_state_dict` carries a ``paddle_tpu`` ResNet's state
+dict (numpy arrays: the weights, biases and every BN's ``_mean`` and
+``_variance``) into the port's ResNet key for key, after checking that
+the keys are the model's own and every shape matches; the BN buffers stay
+fp32 whatever the parameters' dtype.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 __all__ = ["fmt_state_dict_from_paddle_tpu", "layered_to_scan_state_dict",
-           "scan_to_layered_state_dict", "state_dict_from_paddle_tpu"]
+           "load_resnet_state_dict", "scan_to_layered_state_dict",
+           "state_dict_from_paddle_tpu"]
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -49,6 +55,23 @@ def state_dict_from_paddle_tpu(np_state: Mapping[str, np.ndarray]
     numpy arrays) to ``{key: tensor}`` for ``load_state_dict`` of the
     port's counterpart module."""
     return {k: _to_tensor(v) for k, v in np_state.items()}
+
+
+def load_resnet_state_dict(model, np_state: Mapping[str, np.ndarray]
+                           ) -> None:
+    """Load a ``paddle_tpu`` ResNet state dict (numpy values) into the
+    port's ``model`` (``vision.models.ResNet``): each parameter takes the
+    array in its own dtype, each BN buffer in fp32. Raises ``ValueError``
+    where the keys differ from the model's or a shape does not match."""
+    own = model.state_dict()
+    if set(np_state) != set(own):
+        raise ValueError(
+            f"not this ResNet's state dict: missing "
+            f"{sorted(set(own) - set(np_state))[:4]}, extra "
+            f"{sorted(set(np_state) - set(own))[:4]}")
+    missing, unexpected = model.set_state_dict(
+        state_dict_from_paddle_tpu(np_state))
+    assert not missing and not unexpected
 
 
 def fmt_state_dict_from_paddle_tpu(fmt: Mapping[str, np.ndarray], *,

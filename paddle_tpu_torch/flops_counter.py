@@ -4,10 +4,16 @@ python/paddle/hapi/dynamic_flops.py): forward hooks count multiply-adds
 per registered layer type, summed over one forward of zeros.
 
 Counted, with the JAX package's rules: the port's ``Linear`` (output
-elements x (in features + 1 with a bias)), ``LayerNorm`` (2 per input
-element), and the activations of ``torch.nn`` the port's models use
-(``ReLU``, ``ReLU6``, ``Sigmoid``, ``Hardswish``, ``Hardsigmoid``: 1 per
-output element). The port's own additions: ``RMSNorm`` counts as a norm (2
+elements x (in features + 1 with a bias)), ``Conv1D/2D/3D`` (output
+elements x (kernel size x in channels a group + 1 with a bias)),
+``LayerNorm`` and ``BatchNorm1D/2D/3D`` (2 per input element), the pools
+``AvgPool2D``, ``MaxPool2D``, ``AdaptiveAvgPool2D`` and
+``AdaptiveMaxPool2D`` (1 per output element), and the activations
+``ReLU``, ``ReLU6``, ``Sigmoid``, ``Hardswish``, ``Hardsigmoid`` (1 per
+output element; the port's layers and ``torch.nn``'s). A batch norm called
+with the port's fused ReLU tail (``act="relu"``) also counts that ReLU, 1
+per output element, as the JAX package's hook on the ``ReLU`` it calls
+there does (its residual add, like the JAX package's, is not counted). The port's own additions: ``RMSNorm`` counts as a norm (2
 per input element; the JAX package counts none) and ``GELU``, ``SiLU`` and
 ``Tanh`` as activations; ``Embedding`` is listed with 0 (a lookup). Each
 call files its total with the program cost registry as an ``analytic``
@@ -42,6 +48,17 @@ def _count_linear(layer, x, y) -> int:
 
 def _count_norm(layer, x, y) -> int:
     return 2 * _prod(x.shape)
+
+
+def _count_conv(layer, x, y) -> int:
+    kernel_ops = _prod(layer.weight.shape[2:]) * int(layer.weight.shape[1])
+    bias_ops = 1 if getattr(layer, "bias", None) is not None else 0
+    return _prod(y.shape) * (kernel_ops + bias_ops)
+
+
+def _count_batch_norm(layer, args, kwargs, output) -> int:
+    fused_relu = _prod(output.shape) if kwargs.get("act") == "relu" else 0
+    return 2 * _prod(args[0].shape) + fused_relu
 
 
 def _count_act(layer, x, y) -> int:
@@ -87,7 +104,15 @@ _COUNTERS = {
     nn.LayerNorm: _on_first(_count_norm), nn.RMSNorm: _on_first(_count_norm),
     **{t: _on_first(_count_act) for t in (
         tnn.ReLU, tnn.ReLU6, tnn.Sigmoid, tnn.Hardswish, tnn.Hardsigmoid,
-        tnn.GELU, tnn.SiLU, tnn.Tanh)},
+        tnn.GELU, tnn.SiLU, tnn.Tanh, nn.ReLU, nn.ReLU6, nn.Sigmoid,
+        nn.Hardswish, nn.Hardsigmoid)},
+    **{t: _on_first(_count_conv) for t in (nn.Conv1D, nn.Conv2D,
+                                           nn.Conv3D)},
+    **{t: _count_batch_norm for t in (nn.BatchNorm1D, nn.BatchNorm2D,
+                                      nn.BatchNorm3D)},
+    **{t: _on_first(_count_act) for t in (nn.AvgPool2D, nn.MaxPool2D,
+                                          nn.AdaptiveAvgPool2D,
+                                          nn.AdaptiveMaxPool2D)},
     nn.MultiHeadAttention: _count_attention,
     nn.TransformerEncoderLayer: _count_feed_forward_in,
     nn.TransformerDecoderLayer: _count_feed_forward_in,
@@ -121,7 +146,7 @@ def flops(net: tnn.Module, input_size: List[int],
             handles.append(sub.register_forward_hook(make_hook(fn, name),
                                                      with_kwargs=True))
 
-    param = next(net.parameters(), None)
+    param = next(iter(net.parameters()), None)
     device = param.device if param is not None else torch.device("cpu")
     was_training = net.training
     net.eval()

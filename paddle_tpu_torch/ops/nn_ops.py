@@ -1,6 +1,8 @@
 """Functional nn ops of the Llama and ERNIE paths: linear, embedding,
 rms_norm, layer_norm, silu, relu, gelu, tanh, add, dropout and
-scaled_dot_product_attention (paddle's signatures and layouts). Each
+scaled_dot_product_attention, and the norms of A7: batch_norm (K10,
+``ops/batch_norm.py``, with ResNet's fused tails), instance_norm,
+group_norm and local_response_norm (paddle's signatures and layouts). Each
 casts its inputs as the active ``amp.auto_cast`` says (see ``amp``), by the
 JAX package's op name. The small ops run the port's fused kernels on a
 card, which do those casts as they load their inputs: ``rms_norm`` and
@@ -39,15 +41,17 @@ import torch
 
 from ..amp import cast_dtype, cast_inputs
 from . import dropout as _dropout
+from .batch_norm import batch_norm
 from .bias_act import ActSpec, bias_act
 from .embedding import embedding as _embedding
 from .flash_attention import (dropout_seed, flash_attention,
                               keep_mask_reference)
 from .fused_norm import NormSpec, fused_norm
 
-__all__ = ["add", "dropout", "embedding", "gelu", "layer_norm", "linear",
-           "relu", "rms_norm", "scaled_dot_product_attention", "silu",
-           "tanh"]
+__all__ = ["add", "batch_norm", "dropout", "embedding", "gelu",
+           "group_norm", "instance_norm", "layer_norm", "linear",
+           "local_response_norm", "relu", "rms_norm",
+           "scaled_dot_product_attention", "silu", "tanh"]
 
 
 # activation name -> (the bias_act kernel's act, the JAX op name it casts as)
@@ -255,3 +259,58 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
             ar(lq).view(1, 1, lq, 1), ar(lk).view(1, 1, 1, lk), 1.0 - p)
         probs = torch.where(keep, probs / (1.0 - p), 0.0).to(qh.dtype)
     return (probs @ vh).transpose(1, 2)
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.view(shape)
+    if bias is not None:
+        out = out + bias.view(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats: bool = True,
+                  momentum: float = 0.9, eps: float = 1e-5,
+                  data_format: str = "NCHW", name=None):
+    """Each (sample, channel) normalised over its spatial axes in fp32, cast
+    back to x's dtype, then ``* weight + bias`` (``paddle_tpu/ops/
+    nn_ops.py:271``: the running buffers, ``use_input_stats`` and
+    ``data_format`` are taken and not read, as there)."""
+    x, weight, bias = cast_inputs("instance_norm", x, weight, bias)
+    axes = tuple(range(2, x.dim()))
+    x32 = x.float()
+    mu = x32.mean(axes, keepdim=True)
+    var = (x32 - mu).square().mean(axes, keepdim=True)
+    out = ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return _affine(out, weight, bias, [1, -1] + [1] * (x.dim() - 2))
+
+
+def group_norm(x, num_groups: int, epsilon: float = 1e-5, weight=None,
+               bias=None, data_format: str = "NCHW", name=None):
+    """Channels in ``num_groups`` groups, each (sample, group) normalised in
+    fp32 over its channels and spatial axes, cast back, then ``* weight +
+    bias`` (``paddle_tpu/ops/nn_ops.py:302``; channels first, as there)."""
+    x, weight, bias = cast_inputs("group_norm", x, weight, bias)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape(n, num_groups, c // num_groups, *x.shape[2:]).float()
+    axes = tuple(range(2, xg.dim()))
+    mu = xg.mean(axes, keepdim=True)
+    var = (xg - mu).square().mean(axes, keepdim=True)
+    out = ((xg - mu) * torch.rsqrt(var + epsilon)).reshape(x.shape).to(
+        x.dtype)
+    return _affine(out, weight, bias, [1, c] + [1] * (x.dim() - 2))
+
+
+def local_response_norm(x, size: int, alpha: float = 1e-4,
+                        beta: float = 0.75, k: float = 1.0,
+                        data_format: str = "NCHW", name=None):
+    """``x / (k + alpha * sum of x^2 over size neighbouring channels)^beta``
+    with the window's zero padding split ``size // 2`` before and the rest
+    after (``paddle_tpu/ops/nn_ops.py:335``; axis 1, as there)."""
+    (x,) = cast_inputs("local_response_norm", x)
+    half = size // 2
+    sq = x.square().movedim(1, -1)
+    sq = torch.nn.functional.pad(sq, (half, size - half - 1))
+    s = sq.unfold(-1, size, 1).sum(-1).movedim(-1, 1)
+    return x / torch.pow(k + alpha * s, beta)
