@@ -232,6 +232,21 @@ line per phase:
   on the card against the CPU and times the step's conv and pool library
   calls.
 
+* PP-YOLOE-l on K11 (greedy NMS) and K10's swish tails: ``nms_check``
+  holds K11 bit-equal to its plain version at PP-YOLOE-l's
+  ``multiclass_nms`` (640 problems of 1000), ``nms`` over 8400 boxes
+  (with categories and ``top_k``) and odd sizes, three launches
+  bit-equal, a planted fault rejected, and times it; ``batch_norm_check``
+  also holds the swish and add-swish forms at the detector's NHWC shapes;
+  ``serve_ppyoloe`` serves ``PPYOLOEConfig.l(80)`` (batch 8, 640 x 640,
+  fp32) through ``predict`` at PaddleDetection's NMS settings (p50,
+  images/s, memory, launches, the output bit-equal to the same call on
+  the plain NMS, one call profiled) and holds a -s copy on the card
+  against the CPU; ``train_ppyoloe`` trains it for 6 eager Adam steps
+  (p50, images/s, MFU against the fp32 peak, the four losses) with the
+  first step held against the same step on the plain batch norm, and
+  profiles a step and the loss alone.
+
 The line before the last lists each kernel with its launches on its path's
 run, error, times and bound, with the card's own time of each kernel and
 its library call (``device_ms``, ``library_device_ms``: ``graph_ms``) and,
@@ -327,7 +342,8 @@ KV_ROUNDING_PER_LAYER = 2.0 ** -8
 # K7 flips one element's keep, K8
 # drops one mask column; K5 and K7 must fail bit-equality, K6 and K8
 # FUSED_TOL. K9 (moe_check): the token-major sum skips each token's second
-# route, so the combine must fail bit-equality.
+# route, so the combine must fail bit-equality. K11 (nms_check): the sweep
+# reads row 2's mask words for row 1, so keep must fail bit-equality.
 PLANTED_FAULTS = (
     ("flash_attention",
      "  if (n0 + FW_BN > min(Lk, wg_end)) {\n",
@@ -391,7 +407,10 @@ PLANTED_FAULTS = (
      "    if (r == r0 + 1) continue;\n"),
     ("batch_norm",
      "    chan(cnt, m, M, __ldcg(pq), __ldcg(pq + 1), __ldcg(pq + 2));\n",
-     "    if (q == 1) continue;\n"))
+     "    if (q == 1) continue;\n"),
+    ("nms",
+     "      for (int q = w + lane; q < words; q += 32) removed[q] |= row[q];\n",
+     "      if (i == 1) row += words;\n"))
 
 
 def emit(obj) -> None:
@@ -10985,7 +11004,14 @@ def train_transformer_base(torch, card, fa, mta) -> dict:
 # in dx); per-channel sums of 10^3-10^6 elements (running buffers, stats,
 # fp32 dw and db) 1e-4 of each and of their rms
 K10_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-4),
-           "bfloat16_add": (2.0 ** -6, 1e-4), "sum": (1e-4, 1e-4)}
+           "bfloat16_add": (2.0 ** -6, 1e-4), "sum": (1e-4, 1e-4),
+           "bfloat16_swish": (2.0 ** -6, 2.0 ** -8)}
+# a bf16 swish tail's input z is the fp32 norm rounded to bf16 (and, with
+# the residual, the bf16 sum rounded again): a last-bit difference of the
+# fp32 value moves z by an ulp (2^-8 of |z|), which the swish, its
+# derivative and the gradients after it carry to elements of any size; so
+# the swish forms' out, dx and the residual's gradient are held by 2^-6 of
+# |ref| (+ |res|) plus 2^-8 of the reference's rms
 # a ReLU tail's mask may differ from the plain version's where the
 # pre-activation lies within a rounding of 0 (the two sum in other orders):
 # at most K10_FLIPS[0] + K10_FLIPS[1] x the elements may; dx and the
@@ -10994,7 +11020,9 @@ K10_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-4),
 K10_FLIPS = (8, 1e-6)
 K10_REPLACES = "paddle_tpu/ops/nn_ops.py:210"
 K10_SOURCE = "paddle_tpu_torch/csrc/batch_norm.cu"
-K10_FORMS = ("none", "relu", "add_relu")
+K10_FORMS = ("none", "relu", "add_relu", "swish", "add_swish")
+# the forms on PP-YOLOE's path (and ResNet's none)
+K10_SWISH_FORMS = ("swish", "add_swish")
 K10_LEAVES = ("x", "w", "b", "res")
 # (name, shape, dtype, tail, training, data_format, O2, use_global_stats):
 # the stem's BN + ReLU, layer 1's bn3 + residual + ReLU, layer 4's
@@ -11021,10 +11049,37 @@ K10_CASES = (
      "NCHW", False, None),
     ("layer4_bf16_global_stats", (64, 2048, 7, 7), "bfloat16", "none", True,
      "NCHW", True, True),
+    # PP-YOLOE-l at batch 8, 640 x 640, NHWC: the stem's first BN + swish
+    # (stride 2), a RepVGG pair of backbone stage 1 at stride 8 (ch_half 96
+    # of CSPResStage(128, 256): bn2 plain, bn1 + bn2's output + swish), the
+    # first neck stage's BN + swish at stride 32
+    ("ppyoloe_stem_swish_fp32", (8, 320, 320, 32), "float32", "swish", True,
+     "NHWC", False, None),
+    ("ppyoloe_repvgg_none_fp32", (8, 80, 80, 96), "float32", "none", True,
+     "NHWC", False, None),
+    ("ppyoloe_repvgg_add_swish_fp32", (8, 80, 80, 96), "float32",
+     "add_swish", True, "NHWC", False, None),
+    ("ppyoloe_neck_swish_fp32", (8, 20, 20, 384), "float32", "swish", True,
+     "NHWC", False, None),
+    ("ppyoloe_neck_swish_fp32_eval", (8, 20, 20, 384), "float32", "swish",
+     False, "NHWC", False, None),
+    ("ppyoloe_repvgg_add_swish_fp32_eval", (8, 80, 80, 96), "float32",
+     "add_swish", False, "NHWC", False, None),
+    ("ppyoloe_stem_swish_bf16", (8, 320, 320, 32), "bfloat16", "swish", True,
+     "NHWC", True, None),
+    ("ppyoloe_repvgg_add_swish_bf16", (8, 80, 80, 96), "bfloat16",
+     "add_swish", True, "NHWC", True, None),
+    ("ppyoloe_neck_swish_bf16_eval", (8, 20, 20, 384), "bfloat16", "swish",
+     False, "NHWC", True, None),
 )
-# the timed case of each form, at the ResNet-50 step's shapes
+# the timed case of each form, at the ResNet-50 step's shapes (bf16 under
+# O2) and PP-YOLOE-l's (fp32, its path's dtype)
 K10_TIMED = {"relu": "stem_relu_bf16", "add_relu": "layer1_add_relu_bf16",
-             "none": "layer4_bf16"}
+             "none": "layer4_bf16", "swish": "ppyoloe_stem_swish_fp32",
+             "add_swish": "ppyoloe_repvgg_add_swish_fp32"}
+# the NHWC view at the detector's shapes, timed besides (PERF.md: its
+# stride-C reads)
+K10_NHWC_TIMED = ("ppyoloe_repvgg_none_fp32", "ppyoloe_neck_swish_fp32")
 # the case whose gradients are also taken a subset at a time: the leaves
 # asked for and the backward launches that takes (the reduce for dw / db
 # and, with batch statistics, for dx; the apply for dx / dres)
@@ -11034,6 +11089,12 @@ K10_SUBSETS = ((("x",), 2), (("w", "b"), 1))
 
 def k10_name(tail: str) -> str:
     return "batch_norm" + ("" if tail == "none" else f"[{tail}]")
+
+
+def k10_act(tail: str):
+    """The ``act`` of ``batch_norm`` that gives the tail."""
+    return None if tail == "none" else ("swish" if tail in K10_SWISH_FORMS
+                                        else "relu")
 
 
 def k10_close(torch, got, want, kind: str, mag=None, slack=None):
@@ -11089,7 +11150,7 @@ def k10_inputs(torch, gen, shape, dtype, tail, fmt):
     x = (rn(*shape) * 1.5 + 0.3).to(dt)
     w = (1.0 + 0.2 * rn(c)).to(dt)
     b = (0.1 * rn(c)).to(dt)
-    res = rn(*shape).to(dt) if tail == "add_relu" else None
+    res = rn(*shape).to(dt) if tail.startswith("add") else None
     rm = 0.1 * rn(c)
     rv = 1.0 + 0.2 * torch.rand(c, generator=gen, device="cuda")
     return x, w, b, res, rm, rv
@@ -11108,8 +11169,7 @@ def k10_call(torch, K10, ins, case, dy, plain=False, grads=K10_LEAVES):
     with k10_amp(o2):
         out = (K10.batch_norm_reference if plain else K10.batch_norm)(
             leaves["x"], rm, rv, leaves["w"], leaves["b"], training, 0.9,
-            1e-5, fmt, ugs, residual=leaves["res"],
-            act=None if tail == "none" else "relu")
+            1e-5, fmt, ugs, residual=leaves["res"], act=k10_act(tail))
     got = {"out": out.detach(), "run_mean": rm, "run_var": rv}
     if not plain and training and not ugs:
         got["mean"], got["var"] = out.grad_fn.saved_tensors[2:4]
@@ -11131,7 +11191,13 @@ def k10_pairs(torch, K10, got, ref, ins, case, dy):
             f"batch_norm {name}: gradients {sorted(got)} / {sorted(ref)}")
     pairs = {k: (got[k], ref[k], dtype_name(got[k].dtype))
              for k in ("out", "dx", "dres") if k in ref}
-    if res is not None and got["out"].dtype != torch.float32:
+    if tail in K10_SWISH_FORMS and got["out"].dtype != torch.float32:
+        mag = None if res is None else res.float().abs()
+        for k in ("out", "dx", "dres"):
+            if k in ref:
+                m = ref[k].float().abs() + (0 if mag is None else mag)
+                pairs[k] = (got[k], ref[k], "bfloat16_swish", m)
+    elif res is not None and got["out"].dtype != torch.float32:
         # the normalised value is rounded to bf16 before the add, and the
         # sum again: a last-bit difference in fp32 moves each by up to an
         # ulp, 2^-7 of |bn| and of |sum|, at most 2^-6 of |out| + |res|
@@ -11157,7 +11223,7 @@ def k10_pairs(torch, K10, got, ref, ins, case, dy):
     else:
         mu, var = rm, rv
     flips = 0
-    if tail != "none":
+    if tail in ("relu", "add_relu"):
         flip = (got["out"] > 0) != (ref["out"] > 0)
         flips = int(flip.sum())
         require(flips <= K10_FLIPS[0] + K10_FLIPS[1] * x.numel(),
@@ -11184,22 +11250,24 @@ def k10_pairs(torch, K10, got, ref, ins, case, dy):
     return pairs, flips
 
 
-def k10_timing(torch, K10, ins, tail, fmt, dy) -> dict:
+def k10_timing(torch, K10, ins, tail, fmt, dy, o2: bool = True) -> dict:
     """The wrapper's forward (stats + apply) beside its plain version and
-    ``F.batch_norm`` (+ the add and ``F.relu``), and its backward by
-    autograd beside the plain version's and the library's, at a training
-    form under O2; bounds by bytes (each input read once, each output
+    ``F.batch_norm`` (+ the add and ``F.relu`` or ``F.silu``; on the
+    channels-last view of an NHWC x), and its backward by autograd beside
+    the plain version's and the library's, at a training form, under O2
+    where ``o2``; bounds by bytes (each input read once, each output
     written once)."""
     import torch.nn.functional as TF
     x, w, b, res, rm, rv = ins
-    act = None if tail == "none" else "relu"
+    act = k10_act(tail)
     rm_l, rv_l = rm.clone(), rv.clone()
+    last = not fmt.startswith("NC")
 
     def call(fn):
         rm_, rv_ = rm.clone(), rv.clone()
 
         def f(xx, ww, bb, *r):
-            with k10_amp(True):
+            with k10_amp(o2):
                 return fn(xx, rm_, rv_, ww, bb, True, 0.9, 1e-5, fmt,
                           residual=r[0] if r else None, act=act)
         return f
@@ -11207,10 +11275,13 @@ def k10_timing(torch, K10, ins, tail, fmt, dy) -> dict:
     k_in = (x, w, b) + (() if res is None else (res,))
 
     def library_fn(xx, ww, bb, *r):
-        y = TF.batch_norm(xx, rm_l, rv_l, ww, bb, True, 0.1, 1e-5)
+        y = TF.batch_norm(xx.movedim(-1, 1) if last else xx, rm_l, rv_l, ww,
+                          bb, True, 0.1, 1e-5)
+        y = y.movedim(1, -1) if last else y
         if r:
             y = y + r[0]
-        return y if act is None else TF.relu(y)
+        return y if act is None else (TF.relu(y) if act == "relu"
+                                      else TF.silu(y))
 
     def held(fn):
         """A backward by autograd, repeatable on one forward's graph."""
@@ -11233,6 +11304,8 @@ def k10_timing(torch, K10, ins, tail, fmt, dy) -> dict:
     # only the residual's tail needs a tensor more (the output, or the
     # residual) to know it
     mask = out if tail == "add_relu" else None
+    # a swish tail's backward recomputes its input: the residual again
+    mask = res if tail == "add_swish" else mask
     t.update({
         "bwd_ms": cuda_ms(torch, held(kernel_fn), FUSED_ITERS),
         "bwd_device_ms": library_backward_device_ms(torch, kernel_fn, k_in,
@@ -11242,9 +11315,12 @@ def k10_timing(torch, K10, ins, tail, fmt, dy) -> dict:
             torch, library_fn, lib_in, dy),
         "bwd_bound_ms": bound(0, nbytes(x, dy, mask, x, res), "float32")[0],
         "case": f"{tuple(x.shape)} {dtype_name(x.dtype)} {fmt}, training, "
-                f"tail {tail}, O2 (out {dtype_name(out.dtype)}); library: "
+                f"tail {tail}, {'O2' if o2 else 'no amp'} (out "
+                f"{dtype_name(out.dtype)}); library: "
                 f"F.batch_norm{' + add' if res is not None else ''}"
-                f"{' + F.relu' if act else ''} (fp32 weight), its autograd"})
+                f"{f' + F.{act}' if act == 'relu' else ''}"
+                f"{' + F.silu' if act == 'swish' else ''} (fp32 weight), its "
+                f"autograd"})
     return t
 
 
@@ -11280,13 +11356,13 @@ def batch_norm_check(torch, planted_lib) -> dict:
     from paddle_tpu_torch.ops import batch_norm as K10
     t_phase = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(24)
-    cases, rows = [], {}
+    cases, rows, nhwc = [], {}, {}
     for case in K10_CASES:
         name, shape, dtype, tail, training, fmt, o2, ugs = case
         ins = k10_inputs(torch, gen, shape, dtype, tail, fmt)
         with k10_amp(o2):
             out_dt = K10.bn_spec(ins[0], ins[1], ins[2], ins[3],
-                                 None if tail == "none" else "relu").out
+                                 k10_act(tail)).out
         dy = torch.randn(shape, generator=gen, device="cuda").to(out_dt)
         got = k10_call(torch, K10, ins, case, dy)
         ref = k10_call(torch, K10, ins, case, dy, plain=True)
@@ -11313,7 +11389,9 @@ def batch_norm_check(torch, planted_lib) -> dict:
             row["subsets"] = k10_subsets(torch, K10, ins, case, dy, got)
         for form, timed in K10_TIMED.items():
             if timed == name:
-                rows[form] = k10_timing(torch, K10, ins, tail, fmt, dy)
+                rows[form] = k10_timing(torch, K10, ins, tail, fmt, dy, o2)
+        if name in K10_NHWC_TIMED:
+            nhwc[name] = k10_timing(torch, K10, ins, tail, fmt, dy, o2)
         cases.append(row)
         del ins, got, ref, pairs, dy
         gc.collect()
@@ -11323,6 +11401,7 @@ def batch_norm_check(torch, planted_lib) -> dict:
             c["max_abs_err"] for c in cases if c["tail"] == form)
     emit({"phase": "batch_norm_check", "cases": cases,
           "timing": {k10_name(f): r for f, r in rows.items()},
+          "nhwc_timing": nhwc,
           "tolerance": K10_TOL, "mask_flips_allowed": K10_FLIPS,
           "seconds": time.monotonic() - t_phase})
     return rows
@@ -11351,7 +11430,9 @@ RN_WITNESS_STEPS, RN_WITNESS_FACTOR = 4, 2.0
 # add and ReLU (each bottleneck's bn3)
 RN_K10_PER_STEP = {"batch_norm": 8, "batch_norm[relu]": 66,
                    "batch_norm[add_relu]": 32, "batch_norm_bwd": 8,
-                   "batch_norm[relu]_bwd": 66, "batch_norm[add_relu]_bwd": 32}
+                   "batch_norm[relu]_bwd": 66, "batch_norm[add_relu]_bwd": 32,
+                   "batch_norm[swish]": 0, "batch_norm[add_swish]": 0,
+                   "batch_norm[swish]_bwd": 0, "batch_norm[add_swish]_bwd": 0}
 
 
 def resnet_family(name: str) -> str:
@@ -11739,6 +11820,528 @@ def train_resnet50(torch, card) -> dict:
           "seconds": time.monotonic() - t_phase})
     return runs["eager"]["launches"]
 
+
+# ---------------------------------------------------------------------------
+# K11 NMS and PP-YOLOE-l (BASELINE config #3)
+# ---------------------------------------------------------------------------
+
+K11_REPLACES = "paddle_tpu/ops/vision.py:58"
+K11_SOURCE = "paddle_tpu_torch/csrc/nms.cu"
+# PaddleDetection's PP-YOLOE post-process (configs/ppyoloe/_base_/
+# ppyoloe_crn.yml, MultiClassNMS)
+PP_NMS = dict(nms_top_k=1000, keep_top_k=300, score_threshold=0.01,
+              nms_threshold=0.7)
+PP_BATCH, PP_HW, PP_SEED, PP_CLASSES = 8, 640, 0, 80
+PP_ANCHORS = sum((PP_HW // s) ** 2 for s in (8, 16, 32))
+PP_SERVE_WARM, PP_SERVE_ITERS = 2, 10
+PP_TRAIN_STEPS = 6
+# ground truth an image: PP_GT padded boxes, the last PP_GT_MASKED masked
+PP_GT, PP_GT_MASKED = 32, 4
+# the -s copy on the card against the CPU: 128 x 128, batch 1, eval mode,
+# fp32 (TF32 off): cls_logits and reg_dist within this share of each
+# tensor's largest element (the sums of cuDNN and oneDNN in other orders)
+PP_S_HW, PP_S_TOL = 128, 1e-4
+# the witness of the first training step, every K10 call on its plain
+# version from the same state: each loss rel, each parameter's gradient
+# as a share of its largest element (K10's statistics and sums run in
+# another order than the plain version's; the step amplifies that through
+# 100 BNs in fp32, and the assignment's top-13 and argmax may move an
+# anchor whose metric ties within a rounding)
+PP_WITNESS_LOSS_REL, PP_WITNESS_GRAD = 1e-3, 1e-2
+
+
+def nms_boxes(torch, gen, lead, n: int, hw: float = float(PP_HW)):
+    """``lead + (n, 4)`` xyxy boxes: centres uniform over the image, sides
+    4-124 pixels."""
+    c = torch.rand(*lead, n, 2, generator=gen, device="cuda") * hw
+    wh = torch.rand(*lead, n, 2, generator=gen, device="cuda") * 120 + 4
+    return torch.cat([c - wh / 2, c + wh / 2], -1)
+
+
+@contextlib.contextmanager
+def k11_recorded(V):
+    """K11's wrapper records each call's boxes, threshold and keep."""
+    real, calls = V.nms_suppress, []
+
+    def rec(boxes, thr):
+        keep = real(boxes, thr)
+        calls.append((boxes, thr, keep))
+        return keep
+    V.nms_suppress = rec
+    try:
+        yield calls
+    finally:
+        V.nms_suppress = real
+
+
+@contextlib.contextmanager
+def k11_plain(V):
+    """Every NMS on K11's plain version while the block runs."""
+    real = V.nms_suppress
+    V.nms_suppress = V.nms_suppress_reference
+    try:
+        yield
+    finally:
+        V.nms_suppress = real
+
+
+@contextlib.contextmanager
+def k11_library(V, lib):
+    """K11's wrapper launching from another build (the planted fault)."""
+    real = V._kernels
+    V._kernels = lambda: V.bind(lib)
+    try:
+        yield
+    finally:
+        V._kernels = real
+
+
+def nms_check(torch, planted_lib) -> dict:
+    """K11 (``ops.vision.nms_suppress``) against its plain version on the
+    card: at PP-YOLOE-l's ``multiclass_nms`` (B 8, C 80, the 1000 best of
+    8400 anchors a class, threshold 0.7: 640 problems), ``nms`` over 8400
+    boxes with scores, with categories and ``top_k`` 300, and problems of
+    130 and of 1 candidate: ``keep`` bit-equal, the whole op's output
+    bit-equal to the same call on the plain version, three launches
+    bit-equal, a planted fault (the sweep reads row 2's words for row 1)
+    rejected; K11 timed at the multiclass shape beside its plain version
+    and its bound (operations: the IoU of each pair)."""
+    from paddle_tpu_torch.ops import vision as V
+    t_phase = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = []
+
+    def check(name, op, kwargs_note):
+        with k11_recorded(V) as calls:
+            got = op()
+        with k11_plain(V):
+            ref = op()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        require(len(calls) == 1 and all(torch.equal(a, b)
+                                        for a, b in zip(got, ref)),
+                f"nms_check {name}: the op's output differs from the plain "
+                f"version's")
+        boxes, thr, keep = calls[0]
+        plain = V.nms_suppress_reference(boxes, thr)
+        require(torch.equal(keep, plain),
+                f"nms_check {name}: keep differs from the plain version's "
+                f"in {int((keep != plain).sum())} of {keep.numel()}")
+        for _ in range(2):
+            require(torch.equal(V.nms_suppress(boxes, thr), keep),
+                    f"nms_check {name}: three launches differ")
+        rows.append({"case": name, "problems": int(boxes.shape[0]),
+                     "candidates": int(boxes.shape[1]), "threshold": thr,
+                     "kept": int(keep.sum()), "bit_equal": True,
+                     "call": kwargs_note})
+        return boxes, thr, keep, plain
+
+    bx = nms_boxes(torch, gen, (PP_BATCH,), PP_ANCHORS)
+    sc = torch.rand(PP_BATCH, PP_CLASSES, PP_ANCHORS, generator=gen,
+                    device="cuda")
+    mc_boxes, mc_thr, mc_keep, mc_plain = check(
+        "ppyoloe_l_multiclass", lambda: V.multiclass_nms(bx, sc, **PP_NMS),
+        f"multiclass_nms B={PP_BATCH} C={PP_CLASSES} N={PP_ANCHORS} "
+        f"{PP_NMS}")
+    b1 = nms_boxes(torch, gen, (), PP_ANCHORS)
+    s1 = torch.rand(PP_ANCHORS, generator=gen, device="cuda")
+    cat = torch.randint(0, PP_CLASSES, (PP_ANCHORS,), generator=gen,
+                        device="cuda")
+    check("nms_8400", lambda: V.nms(b1, 0.7, s1),
+          f"nms over {PP_ANCHORS} boxes, scores, threshold 0.7")
+    check("nms_8400_categories_top_k",
+          lambda: V.nms(b1, 0.7, s1, cat, list(range(PP_CLASSES)), 300),
+          f"nms over {PP_ANCHORS} boxes, scores, {PP_CLASSES} categories, "
+          f"top_k 300")
+    for name, (p, k) in (("k_130", (16, 130)), ("k_1", (4, 1))):
+        b = nms_boxes(torch, gen, (p,), k)
+        check(name, lambda b=b: V.nms_suppress(b, 0.5),
+              f"nms_suppress of {p} problems of {k}, threshold 0.5")
+    with k11_library(V, planted_lib):
+        bad = V.nms_suppress(mc_boxes, mc_thr)
+    flipped = int((bad != mc_plain).sum())
+    require(flipped > 0, "nms_check: the planted fault passed the check")
+    t = fused_timing(torch, lambda: V.nms_suppress(mc_boxes, mc_thr),
+                     lambda: V.nms_suppress_reference(mc_boxes, mc_thr))
+    ops, nb = V.nms_cost(mc_boxes, mc_keep)
+    t["bound_ms"], t["bound_by"] = bound(ops, nb, "float32")
+    t.update({"max_abs_err": 0.0, "planted_keep_flips": flipped,
+              "case": f"{tuple(mc_boxes.shape)} fp32 boxes (PP-YOLOE-l's "
+                      f"multiclass_nms), threshold {mc_thr}; no library "
+                      f"call computes greedy NMS (torchvision is not "
+                      f"installed)"})
+    b8400 = nms_boxes(torch, gen, (1,), PP_ANCHORS)
+    t["nms_8400"] = {
+        "ms": cuda_ms(torch, lambda: V.nms_suppress(b8400, 0.7), 5),
+        "plain_ms": cuda_ms(torch,
+                            lambda: V.nms_suppress_reference(b8400, 0.7), 2),
+        "bound_ms": bound(*V.nms_cost(b8400, mc_keep[:1, :1].expand(
+            1, PP_ANCHORS)), "float32")[0]}
+    emit({"phase": "nms_check", "cases": rows, "timing": t,
+          "seconds": time.monotonic() - t_phase})
+    del bx, sc, mc_boxes, mc_keep, mc_plain, bad
+    gc.collect()
+    torch.cuda.empty_cache()
+    return t
+
+
+def pp_family(name: str) -> str:
+    """A PP-YOLOE step's kernel family: K10, K11, cuDNN's convolutions and
+    their layout transposes, the pools, the sorts (NMS's and the
+    assigner's top-k), the products, else ``other`` (the loss's and the
+    optimizer's elementwise kernels, the concatenations, the upsample)."""
+    low = name.lower()
+    for keys, fam in ((("bn_stats", "bn_apply", "bn_bwd"), "batch_norm"),
+                      (("nms_mask", "nms_sweep"), "nms"),
+                      (("nchwtonhwc", "nhwctonchw", "transpose"),
+                       "conv_layout"),
+                      (("conv", "fprop", "dgrad", "wgrad", "implicit",
+                        "cudnn", "xmma"), "conv"),
+                      (("pool",), "pool"),
+                      (("sort", "radix", "topk", "bitonic"), "sort"),
+                      (("gemm", "gemv", "cutlass", "nvjet"), "matmul")):
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def pp_counters() -> dict:
+    from paddle_tpu_torch.ops import vision as V
+    return {**k10_counters(), "nms": V.launches}
+
+
+def pp_bn_forms(model) -> dict:
+    """The model's batch norms by K10 form: a RepVGG block's bn2 plain and
+    bn1 with the add and swish, every other ConvBNLayer's with the swish."""
+    from paddle_tpu_torch.models import ppyoloe
+    forms = {"none": 0, "swish": 0, "add_swish": 0}
+    for m in model.modules():
+        if isinstance(m, ppyoloe.RepVggBlock):
+            forms["none"] += 1
+            forms["add_swish"] += 1
+        elif isinstance(m, ppyoloe.ConvBNLayer) and m.act == "swish":
+            forms["swish"] += 1
+    return forms
+
+
+def pp_counts(counters) -> dict:
+    return {k: c.count for k, c in counters.items() if c.count}
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+
+
+def pp_images(torch, batch: int, hw: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(size=(batch, hw, hw, 3)).astype(
+        np.float32), device="cuda")
+
+
+def ppyoloe_s_vs_cpu(torch) -> dict:
+    """``PPYOLOEConfig.s(80)`` at 1 x 128 x 128, eval mode, fp32: the
+    card's forward (K10, cuDNN without TF32) against the CPU's (the plain
+    versions) from one state: cls_logits and reg_dist within PP_S_TOL of
+    each tensor's largest element; K10 launched on the card only."""
+    from paddle_tpu_torch.models import PPYOLOE, PPYOLOEConfig
+    counters = k10_counters()
+    x = pp_images(torch, 1, PP_S_HW, 3)
+    runs, state = {}, None
+    for dev in ("cuda", "cpu"):
+        model = PPYOLOE(PPYOLOEConfig.s(PP_CLASSES), device=dev, seed=1)
+        if state is None:
+            state = {k: v.cpu() for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        model.eval()
+        for c in counters.values():
+            c.reset()
+        with torch.no_grad():
+            cls, reg = model(x.to(dev))
+        runs[dev] = (cls.cpu(), reg.cpu(), pp_counts(counters))
+        del model
+    (ac, ar, al), (bc, br, bl) = runs["cuda"], runs["cpu"]
+    errs = {n: float((a - b).abs().max() / b.abs().max())
+            for n, a, b in (("cls_logits", ac, bc), ("reg_dist", ar, br))}
+    require(all(v < PP_S_TOL for v in errs.values()) and al and not bl,
+            f"PP-YOLOE-s card vs CPU: {errs} (tolerance {PP_S_TOL}), "
+            f"launches {al} / {bl}")
+    return {"config": "PPYOLOEConfig.s(80)", "shape": [1, PP_S_HW, PP_S_HW,
+                                                       3],
+            "mode": "eval", "dtype": "float32", "rel_err": errs,
+            "tolerance": PP_S_TOL, "launches_card": al}
+
+
+def serve_ppyoloe(torch, card) -> dict:
+    """``PPYOLOE(PPYOLOEConfig.l(80))`` in eval mode, fp32, serving batch 8
+    of 640 x 640 NHWC images from a seed through ``predict`` at
+    PaddleDetection's post-process settings (PP_NMS): PP_SERVE_WARM
+    warm-up and PP_SERVE_ITERS timed calls (p50 latency, images/s, peak
+    memory), the K10 and K11 launches of one call, the whole output of a
+    call bit-equal to the same call with K11 on its plain version (cuDNN
+    deterministic, so the forward repeats bit for bit), one call profiled
+    by :func:`pp_family`, and :func:`ppyoloe_s_vs_cpu`."""
+    from paddle_tpu_torch.models import PPYOLOE, PPYOLOEConfig
+    from paddle_tpu_torch.ops import vision as V
+    t_phase = time.monotonic()
+    with cudnn_deterministic(torch):
+        model = PPYOLOE(PPYOLOEConfig.l(PP_CLASSES), device="cuda",
+                        seed=PP_SEED)
+        model.eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        x = pp_images(torch, PP_BATCH, PP_HW, PP_SEED)
+        counters = pp_counters()
+        forms = pp_bn_forms(model)
+
+        def call():
+            with torch.no_grad():
+                return model.predict(x, **PP_NMS)
+        for _ in range(PP_SERVE_WARM):
+            call()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        out, nums = call()
+        torch.cuda.synchronize()
+        per_call = pp_counts(counters)
+        want = {"nms": 2, **{k10_name(f): n for f, n in forms.items()}}
+        require(per_call == want,
+                f"serve_ppyoloe: launches of one predict {per_call}, want "
+                f"{want}")
+        with k11_plain(V):
+            out_p, nums_p = call()
+        require(torch.equal(out, out_p) and torch.equal(nums, nums_p),
+                "serve_ppyoloe: predict on K11 differs from predict on its "
+                "plain version")
+        require(tuple(out.shape) == (PP_BATCH, PP_NMS["keep_top_k"], 6)
+                and bool(torch.isfinite(out).all())
+                and bool(((nums >= 0) & (nums <= PP_NMS["keep_top_k"])).all())
+                and bool(((out[..., 0] >= -1) & (out[..., 0] < PP_CLASSES)
+                          ).all()),
+                f"serve_ppyoloe: output {tuple(out.shape)}, counts "
+                f"{nums.tolist()}")
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        stop = sample_card()
+        times = []
+        try:
+            for _ in range(PP_SERVE_ITERS):
+                t1 = time.monotonic()
+                call()
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t1)
+        finally:
+            clocks = stop()
+        launches = pp_counts(counters)
+        p50 = statistics.median(times)
+        profiled = profile_step(torch, card, call, p50,
+                                "serve_ppyoloe_profile", pp_family)
+        del model, x, out, out_p
+        gc.collect()
+        torch.cuda.empty_cache()
+        vs_cpu = ppyoloe_s_vs_cpu(torch)
+    row = {"phase": "serve_ppyoloe", "card": card, "params": n_params,
+           "config": {"model": "PPYOLOEConfig.l(80)",
+                      "source": "PaddleDetection configs/ppyoloe/"
+                                "ppyoloe_crn_l_300e_coco.yml (BASELINE "
+                                "config #3), MultiClassNMS of "
+                                "_base_/ppyoloe_crn.yml"},
+           "batch": PP_BATCH, "image": [PP_HW, PP_HW, 3], "dtype": "float32",
+           "nms": PP_NMS, "warmup_calls": PP_SERVE_WARM,
+           "timed_calls": PP_SERVE_ITERS, "call_s": times,
+           "latency_p50_s": p50, "images_per_s": PP_BATCH / p50,
+           **memory_gb(torch), "card_during_calls": clocks,
+           "launches_per_call": per_call, "launches": launches,
+           "detections": nums.tolist(), "k11_plain_bit_equal": True,
+           "profile_families": profiled["families"], "s_vs_cpu": vs_cpu,
+           "seconds": time.monotonic() - t_phase}
+    emit(row)
+    return row
+
+
+def pp_gt(torch, seed: int):
+    """PP_GT padded ground-truth boxes an image (sides 16-256 pixels inside
+    the image, labels of PP_CLASSES), the last PP_GT_MASKED masked off."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    wh = rng.uniform(16, 256, (PP_BATCH, PP_GT, 2))
+    lo = rng.uniform(0, 1, (PP_BATCH, PP_GT, 2)) * (PP_HW - wh)
+    boxes = np.concatenate([lo, lo + wh], -1).astype(np.float32)
+    labels = rng.integers(0, PP_CLASSES, (PP_BATCH, PP_GT)).astype(np.int64)
+    mask = np.ones((PP_BATCH, PP_GT), np.float32)
+    mask[:, PP_GT - PP_GT_MASKED:] = 0.0
+    return [torch.as_tensor(a, device="cuda") for a in (labels, boxes, mask)]
+
+
+def pp_loss_profile(torch, card, model, x, gt) -> dict:
+    """The loss alone (its forward and backward from the head's outputs,
+    detached) under ``torch.profiler``: the loss's kernels, which the
+    step's profile files under ``other``."""
+    from paddle_tpu_torch.models import ppyoloe
+    with torch.no_grad():
+        feats = model.neck(model.backbone(x))
+        cls, reg = model.head(feats)
+        anchors, strides = model.head._anchors(feats)
+    head = model.head
+    cls, reg4 = cls.detach(), head._reg4(reg).detach()
+
+    def loss():
+        c, r = cls.requires_grad_(), reg4.requires_grad_()
+        out = ppyoloe._vfl_giou_dfl_loss(
+            c, r, anchors, strides, *gt, num_classes=head.num_classes,
+            reg_max=head.reg_max, tal_topk=head.tal_topk,
+            alpha=head.tal_alpha, beta=head.tal_beta,
+            loss_weights=head.loss_weights)
+        out[0].backward()
+    loss()
+    return profile_step(torch, card, loss, cuda_ms(torch, loss, 3) / 1e3,
+                        "train_ppyoloe_loss_profile", pp_family)
+
+
+def train_ppyoloe(torch, card) -> dict:
+    """``PPYOLOE(PPYOLOEConfig.l(80))`` in train mode, fp32, batch 8 of 640
+    x 640 NHWC images and PP_GT ground-truth boxes an image (the last
+    PP_GT_MASKED masked off) from a seed, ``Adam(learning_rate=1e-3)`` as
+    ``examples/train_ppyoloe.py`` sets it, PP_TRAIN_STEPS eager steps (the
+    first a warm-up): step p50, images/s, MFU (3 x 2 x ``flops``
+    multiply-adds an image x images/s over the fp32 peak), peak memory,
+    the four losses of every step, all finite, and the K10 launches of the
+    path (two forward and two backward a BN a step). The witness: the
+    first step again from the saved state with every BN on its plain
+    version (:func:`plain_batch_norm`, no K10 launch): the four losses
+    within PP_WITNESS_LOSS_REL and each parameter's gradient within
+    PP_WITNESS_GRAD of its largest element. No gate on the loss falling.
+    One more step profiled by :func:`pp_family`, and the loss alone
+    (:func:`pp_loss_profile`). cuDNN deterministic: the witness compares
+    K10 with its plain version, not two convolution algorithms."""
+    from paddle_tpu_torch import flops
+    from paddle_tpu_torch.models import PPYOLOE, PPYOLOEConfig
+    from paddle_tpu_torch.optimizer import Adam
+    t_phase = time.monotonic()
+    names = ("loss", "loss_cls", "loss_iou", "loss_dfl")
+    with cudnn_deterministic(torch):
+        model = PPYOLOE(PPYOLOEConfig.l(PP_CLASSES), device="cuda",
+                        seed=PP_SEED)
+        model.train()
+        opt = Adam(learning_rate=1e-3, parameters=model.parameters())
+        x = pp_images(torch, PP_BATCH, PP_HW, PP_SEED + 1)
+        gt = pp_gt(torch, PP_SEED + 1)
+        forms = pp_bn_forms(model)
+        state = list(model.parameters()) + [
+            b for k, b in model.state_dict(keep_vars=True).items()
+            if k.endswith(("_mean", "_variance"))]
+        saved = [s.detach().clone() for s in state]
+        counters = k10_counters()
+
+        def step():
+            out = model.loss(x, *gt)
+            out["loss"].backward()
+            return out
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stop = sample_card()
+        losses, times, grads0 = [], [], None
+        try:
+            for i in range(PP_TRAIN_STEPS):
+                t1 = time.monotonic()
+                out = step()
+                if i == 0:
+                    grads0 = {k: p.grad.detach().clone()
+                              for k, p in model.named_parameters()}
+                opt.step()
+                opt.clear_grad()
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t1)
+                losses.append([out[k].item() for k in names])
+                del out
+        finally:
+            clocks = stop()
+        mem = memory_gb(torch)
+        launches = pp_counts(counters)
+        want = {k10_name(f) + sfx: 2 * n * PP_TRAIN_STEPS
+                for f, n in forms.items() for sfx in ("", "_bwd")}
+        require(launches == want,
+                f"train_ppyoloe: K10 launches {launches}, want {want}")
+        require(all(math.isfinite(v) for row in losses for v in row),
+                f"train_ppyoloe: losses {losses}")
+        timed = times[1:]
+        p50 = statistics.median(timed)
+        # the witness: step 1 again from the saved state on the plain BN
+        with torch.no_grad():
+            for s, c in zip(state, saved):
+                s.copy_(c)
+        for c in counters.values():
+            c.reset()
+        with plain_batch_norm():
+            out = step()
+        require(not pp_counts(counters),
+                f"train_ppyoloe plain_bn: K10 launched {pp_counts(counters)}")
+        plain = [out[k].item() for k in names]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], plain)]
+        grad_rel = {k: float((grads0[k] - p.grad).abs().max()
+                             / max(float(p.grad.abs().max()), 1e-30))
+                    for k, p in model.named_parameters()}
+        worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:5]
+        require(max(loss_rel) <= PP_WITNESS_LOSS_REL
+                and worst[0][1] <= PP_WITNESS_GRAD,
+                f"train_ppyoloe: step 1 on K10 against the plain BN: losses "
+                f"{losses[0]} / {plain} (rel {loss_rel}), worst gradients "
+                f"{worst}")
+        opt.clear_grad()
+        del out, grads0
+        profiled = profile_step(torch, card, lambda: (step(), opt.step(),
+                                                      opt.clear_grad()),
+                                p50, "train_ppyoloe_profile", pp_family)
+        loss_prof = pp_loss_profile(torch, card, model, x, gt)
+        macs = flops(model, [1, PP_HW, PP_HW, 3])
+        images_per_s = PP_BATCH / p50
+        del model, opt, state, saved, x, gt
+        gc.collect()
+        torch.cuda.empty_cache()
+    row = {"phase": "train_ppyoloe", "card": card,
+           "config": {"model": "PPYOLOEConfig.l(80)",
+                      "source": "PaddleDetection configs/ppyoloe/"
+                                "ppyoloe_crn_l_300e_coco.yml (BASELINE "
+                                "config #3); examples/train_ppyoloe.py's "
+                                "Adam(1e-3)"},
+           "batch": PP_BATCH, "image": [PP_HW, PP_HW, 3], "dtype": "float32",
+           "gt_boxes": PP_GT, "gt_masked": PP_GT_MASKED,
+           "steps": PP_TRAIN_STEPS, "step_s": times, "step_p50_s": p50,
+           "step_spread_s": max(timed) - min(timed),
+           "images_per_s": images_per_s, **mem,
+           "card_during_steps": clocks, "losses": losses,
+           "loss_names": list(names),
+           "flops_multiply_adds_per_image": macs,
+           "train_flops_per_image": 6 * macs,
+           "fp32_peak_flops": PEAK_OPS_PER_S["float32"],
+           "mfu_vs_fp32_peak": 6 * macs * images_per_s
+           / PEAK_OPS_PER_S["float32"],
+           "launches": launches,
+           "witness": {"plain_losses": plain, "k10_losses": losses[0],
+                       "loss_rel": loss_rel,
+                       "grad_max_rel": worst[0][1], "worst_grads": worst,
+                       "bounds": {"loss_rel": PP_WITNESS_LOSS_REL,
+                                  "grad": PP_WITNESS_GRAD}},
+           "profile_families": profiled["families"],
+           "loss_profile_families": loss_prof["families"],
+           "loss_profile_device_ms": loss_prof["device_ms"],
+           "seconds": time.monotonic() - t_phase}
+    emit(row)
+    return row
+
+
 PHASES = ("flash_check", "paged_check", "decode_graph_check", "serve_7b",
           "generate_sample_7b", "cost_check", "serve_7b_dense", "fmt",
           "serve_fmt_dense", "agree_2layer", "serve_chaos_check",
@@ -11750,7 +12353,8 @@ PHASES = ("flash_check", "paged_check", "decode_graph_check", "serve_7b",
           "ernie_vs_cpu", "capture_check", "train_ernie3_base_captured",
           "train_ernie3_base_fp16", "moe", "grad_scaler_check",
           "optimizer_zoo_check", "train_transformer_base",
-          "batch_norm_check", "train_resnet50")
+          "batch_norm_check", "train_resnet50", "nms_check",
+          "serve_ppyoloe", "train_ppyoloe")
 
 
 def parse_args(argv=None):
@@ -11951,6 +12555,15 @@ def main() -> int:
     if want("train_resnet50"):
         rn_launches = train_resnet50(torch, smi)
         left_on_card(torch, "train_resnet50")
+    if want("nms_check"):
+        nms_row = nms_check(torch, planted["nms"])
+        left_on_card(torch, "nms_check")
+    if want("serve_ppyoloe"):
+        pp_serve = serve_ppyoloe(torch, smi)
+        left_on_card(torch, "serve_ppyoloe")
+    if want("train_ppyoloe"):
+        pp_train = train_ppyoloe(torch, smi)
+        left_on_card(torch, "train_ppyoloe")
     if only is not None:
         # a subset of phases: no kernels line (it reads every phase)
         emit({"only": sorted(only, key=PHASES.index),
@@ -12276,22 +12889,52 @@ def main() -> int:
                  "+ apply backward): the JAX package's batch_norm_stats and "
                  "batch_norm are XLA-fused jnp, no pallas_call; launches "
                  "forward and backward",
-         "launches": rn_launches[k10_name(form)]
-         + rn_launches[k10_name(form) + "_bwd"],
-         "launches_fwd": rn_launches[k10_name(form)],
-         "launches_bwd": rn_launches[k10_name(form) + "_bwd"],
-         "launches_path": "train_resnet50 eager (12 steps)",
+         **k10_path_launches(form, rn_launches, pp_train, pp_serve),
          "max_abs_err": k10_rows[form]["max_abs_err"],
          "case": k10_rows[form]["case"],
          **{key: k10_rows[form].get(key) for key in k_keys},
          **{key: k10_rows[form][key] for key in k10_rows[form]
             if key.startswith("bwd_")}}
         for form in K10_FORMS
+    ] + [
+        {"name": "nms", "route": "cuda", "source": K11_SOURCE,
+         "replaces": K11_REPLACES,
+         "note": "K11: the JAX package's _nms_suppress is a lax.fori_loop "
+                 "(XLA), no pallas_call; two launches a call (the "
+                 "suppression bitmask, then the sweep); no PyTorch call "
+                 "computes greedy NMS (library_ms null)",
+         "launches": pp_serve["launches"]["nms"],
+         "launches_path": f"serve_ppyoloe ({PP_SERVE_ITERS} predict calls)",
+         "launches_per_call": pp_serve["launches_per_call"]["nms"],
+         "max_abs_err": nms_row["max_abs_err"], "case": nms_row["case"],
+         **{key: nms_row.get(key) for key in k_keys},
+         "nms_8400": nms_row["nms_8400"]},
     ], "card": smi, "seconds": time.monotonic() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def k10_path_launches(form: str, rn_launches: dict, pp_train: dict,
+                      pp_serve: dict) -> dict:
+    """A K10 form's launches on its path's run: ResNet-50's 12 eager steps
+    for its forms, PP-YOLOE-l's training steps for the swish forms (and
+    the plain form there too), with the serving calls beside."""
+    name = k10_name(form)
+    pp = {"launches_train_ppyoloe": pp_train["launches"].get(name, 0)
+          + pp_train["launches"].get(name + "_bwd", 0),
+          "launches_serve_ppyoloe": pp_serve["launches"].get(name, 0)}
+    if form in K10_SWISH_FORMS:
+        return {"launches": pp["launches_train_ppyoloe"],
+                "launches_fwd": pp_train["launches"].get(name, 0),
+                "launches_bwd": pp_train["launches"].get(name + "_bwd", 0),
+                "launches_path": f"train_ppyoloe eager ({PP_TRAIN_STEPS} "
+                                 f"steps)", **pp}
+    return {"launches": rn_launches[name] + rn_launches[name + "_bwd"],
+            "launches_fwd": rn_launches[name],
+            "launches_bwd": rn_launches[name + "_bwd"],
+            "launches_path": "train_resnet50 eager (12 steps)", **pp}
 
 
 if __name__ == "__main__":

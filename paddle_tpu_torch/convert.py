@@ -26,7 +26,11 @@ that every layer carries every tag in a consistent shape.
 dict (numpy arrays: the weights, biases and every BN's ``_mean`` and
 ``_variance``) into the port's ResNet key for key, after checking that
 the keys are the model's own and every shape matches; the BN buffers stay
-fp32 whatever the parameters' dtype.
+fp32 whatever the parameters' dtype. :func:`load_ppyoloe_state_dict` does
+the same for a ``paddle_tpu`` PP-YOLOE (``backbone.stem.0.conv.weight``,
+..., ``head.pred_reg.2.bias``): both keep the convolution weight as
+``(out, in / groups, kh, kw)`` whatever the data format, so each array is
+copied as it is.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ import numpy as np
 import torch
 
 __all__ = ["fmt_state_dict_from_paddle_tpu", "layered_to_scan_state_dict",
-           "load_resnet_state_dict", "scan_to_layered_state_dict",
+           "load_ppyoloe_state_dict", "load_resnet_state_dict",
+           "scan_to_layered_state_dict",
            "state_dict_from_paddle_tpu"]
 
 
@@ -57,21 +62,35 @@ def state_dict_from_paddle_tpu(np_state: Mapping[str, np.ndarray]
     return {k: _to_tensor(v) for k, v in np_state.items()}
 
 
+def _load_exact(model, np_state: Mapping[str, np.ndarray], what: str
+                ) -> None:
+    own = model.state_dict()
+    if set(np_state) != set(own):
+        raise ValueError(
+            f"not this {what}'s state dict: missing "
+            f"{sorted(set(own) - set(np_state))[:4]}, extra "
+            f"{sorted(set(np_state) - set(own))[:4]}")
+    missing, unexpected = model.set_state_dict(
+        state_dict_from_paddle_tpu(np_state))
+    assert not missing and not unexpected
+
+
 def load_resnet_state_dict(model, np_state: Mapping[str, np.ndarray]
                            ) -> None:
     """Load a ``paddle_tpu`` ResNet state dict (numpy values) into the
     port's ``model`` (``vision.models.ResNet``): each parameter takes the
     array in its own dtype, each BN buffer in fp32. Raises ``ValueError``
     where the keys differ from the model's or a shape does not match."""
-    own = model.state_dict()
-    if set(np_state) != set(own):
-        raise ValueError(
-            f"not this ResNet's state dict: missing "
-            f"{sorted(set(own) - set(np_state))[:4]}, extra "
-            f"{sorted(set(np_state) - set(own))[:4]}")
-    missing, unexpected = model.set_state_dict(
-        state_dict_from_paddle_tpu(np_state))
-    assert not missing and not unexpected
+    _load_exact(model, np_state, "ResNet")
+
+
+def load_ppyoloe_state_dict(model, np_state: Mapping[str, np.ndarray]
+                            ) -> None:
+    """Load a ``paddle_tpu`` PP-YOLOE state dict (numpy values: the
+    weights, biases and every BN's ``_mean`` / ``_variance``) into the
+    port's ``models.PPYOLOE`` key for key. Raises ``ValueError`` on a
+    missing or unexpected key or a shape that does not match."""
+    _load_exact(model, np_state, "PP-YOLOE")
 
 
 def fmt_state_dict_from_paddle_tpu(fmt: Mapping[str, np.ndarray], *,

@@ -1,6 +1,7 @@
 // K10: batch norm, forward and backward, for Hopper (sm_90a), with the
 // ResNet blocks' tails fused into the apply: bn + ReLU, and bn + the
-// residual add + ReLU. The port's own kernel: the JAX package computes
+// residual add + ReLU; and PP-YOLOE's: bn + swish, and bn + the residual
+// add + swish (a RepVGG block's two branches). The port's own kernel: the JAX package computes
 // batch_norm_stats and batch_norm (paddle_tpu/ops/nn_ops.py:210-264) as
 // XLA-fused jnp, no pallas_call.
 //
@@ -25,19 +26,27 @@
 //       rnd(t w, wmul_dt), then rnd(t + b, badd_dt) (the reference's order
 //       and rounding points), with the batch's or the running statistics;
 //       tail 1: relu(rnd(t, act_dt)); tail 2: relu(rnd(rnd(t, act_dt) +
-//       rnd(residual, act_dt), act_dt)). Stored in out_dt.
+//       rnd(residual, act_dt), act_dt)); tail 3: swish(z) for z = rnd(t,
+//       act_dt); tail 4: swish(z) for z = rnd(rnd(t, act_dt) +
+//       rnd(residual, act_dt), act_dt), swish(z) = z / (1 + expf(-z)).
+//       Stored in out_dt.
 //   (c) bn_bwd_reduce: g = dy, masked where the block output is not > 0
-//       (tails 1 and 2); per channel sum(g) and sum(g xhat), as (a), the
+//       (tails 1 and 2); for the swish tails (3 and 4), which cannot be
+//       inverted from the output, g = rnd(dy (s + z s (1 - s)), act_dt)
+//       with s = 1 / (1 + expf(-z)), z recomputed as the apply computes it
+//       from x, the statistics, w, b (and the residual); per channel
+//       sum(g) and sum(g xhat), as (a), the
 //       last block writing the sums and dw = rnd(sum(g xhat), w's dtype),
 //       db = rnd(sum(g), b's dtype).
 //   (d) bn_bwd_apply: dx = w r (g - sum(g) / n - xhat sum(g xhat) / n) with
 //       batch statistics, w r g with the running ones; the residual's
-//       gradient g (tail 2), each rounded to its tensor's dtype.
+//       gradient g (tails 2 and 4), each rounded to its tensor's dtype.
 // Launches on the same inputs agree bit for bit: every sum has a fixed
 // order whatever the blocks' timing.
 //
 // Bound: bytes. (a) reads x; (b) reads x (and the residual) and writes the
-// output; (c) reads x, dy (and the output); (d) reads them again and writes
+// output; (c) reads x, dy (and the output, or for the swish tails the
+// bias and the residual); (d) reads them again and writes
 // dx (and the residual's gradient). The design is the simple one: one
 // element a load, 16 a thread; a chunk per block fills the card for every
 // ResNet-50 shape at batch 64 (2048 to 12544 blocks).
@@ -84,6 +93,20 @@ __device__ __forceinline__ long long addr(const Geo& g, int c, long long j) {
 
 __device__ __forceinline__ float relu(float z) {
   return (z > 0.f || z != z) ? z : 0.f;
+}
+
+// the swish tails: codes 3 and 4; 2 and 4 add the residual
+__device__ __forceinline__ bool swish_tail(int tail) { return tail >= 3; }
+__device__ __forceinline__ bool add_tail(int tail) {
+  return tail == 2 || tail == 4;
+}
+
+__device__ __forceinline__ float sigm(float z) {
+  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z)));
+}
+
+__device__ __forceinline__ float swish(float z) {
+  return __fdiv_rn(z, __fadd_rn(1.f, expf(-z)));
 }
 
 // Chan's merge of (nb, mb, Mb) into (n, m, M): counts, means and sums of
@@ -237,8 +260,17 @@ struct ApplyArgs {
   float eps;
   int x_dt, w_dt, b_dt, r_dt, out_dt;
   int norm_dt, wmul_dt, badd_dt, act_dt;
-  int tail;  // 0 none, 1 relu, 2 add then relu
+  int tail;  // 0 none, 1 relu, 2 add then relu, 3 swish, 4 add then swish
 };
+
+// the tail's input z from the affine output y: the residual added (tails
+// 2 and 4), rounded to act_dt
+__device__ __forceinline__ float tail_in(float y, int tail, const void* r,
+                                         long long e, int r_dt, int act_dt) {
+  if (add_tail(tail))
+    y = rnd(__fadd_rn(rnd(y, act_dt), rnd(ld1(r, e, r_dt), act_dt)), act_dt);
+  return rnd(y, act_dt);
+}
 
 __global__ void __launch_bounds__(THREADS) bn_apply_kernel(ApplyArgs a) {
   const int c = blockIdx.y, k = blockIdx.x, t = threadIdx.x;
@@ -256,10 +288,10 @@ __global__ void __launch_bounds__(THREADS) bn_apply_kernel(ApplyArgs a) {
                   a.norm_dt);
     if (a.w != nullptr) y = rnd(__fmul_rn(y, w), a.wmul_dt);
     if (a.b != nullptr) y = rnd(__fadd_rn(y, b), a.badd_dt);
-    if (a.tail == 2)
-      y = rnd(__fadd_rn(rnd(y, a.act_dt), rnd(ld1(a.r, e, a.r_dt), a.act_dt)),
-              a.act_dt);
-    if (a.tail != 0) y = relu(rnd(y, a.act_dt));
+    if (a.tail != 0) {
+      y = tail_in(y, a.tail, a.r, e, a.r_dt, a.act_dt);
+      y = swish_tail(a.tail) ? swish(y) : relu(y);
+    }
     st1(a.out, e, a.out_dt, y);
   }
 }
@@ -271,6 +303,10 @@ struct BwdArgs {
   float eps;
   int x_dt, dy_dt, out_dt, w_dt;
   int tail;
+  // the swish tails' recompute of z: the bias, the residual, the apply's
+  // rounding points
+  const void *b, *r;
+  int b_dt, r_dt, norm_dt, wmul_dt, badd_dt, act_dt;
   // reduce
   float* part;       // [C][chunks][2]
   unsigned* ticket;
@@ -282,16 +318,30 @@ struct BwdArgs {
   int dx_dt, dres_dt, batch_stats;
 };
 
-__device__ __forceinline__ float grad_in(const BwdArgs& a, long long e) {
+// the gradient at the tail's input; w and b are the channel's weight and
+// bias (1 and 0 where absent), xs = x - mean, rs = rsqrt(var + eps)
+__device__ __forceinline__ float grad_in(const BwdArgs& a, long long e,
+                                         float xs, float rs, float w,
+                                         float b) {
   const float g = ld1(a.dy, e, a.dy_dt);
   if (a.tail == 0) return g;
-  return ld1(a.out, e, a.out_dt) > 0.f ? g : 0.f;
+  if (!swish_tail(a.tail)) return ld1(a.out, e, a.out_dt) > 0.f ? g : 0.f;
+  float y = rnd(__fmul_rn(xs, rs), a.norm_dt);
+  if (a.w != nullptr) y = rnd(__fmul_rn(y, w), a.wmul_dt);
+  if (a.b != nullptr) y = rnd(__fadd_rn(y, b), a.badd_dt);
+  const float z = tail_in(y, a.tail, a.r, e, a.r_dt, a.act_dt);
+  const float s = sigm(z);
+  const float d =
+      __fadd_rn(s, __fmul_rn(__fmul_rn(z, s), __fsub_rn(1.f, s)));
+  return rnd(__fmul_rn(g, d), a.act_dt);
 }
 
 __global__ void __launch_bounds__(THREADS) bn_bwd_reduce_kernel(BwdArgs a) {
   const int c = blockIdx.y, k = blockIdx.x, t = threadIdx.x;
   const float mu = a.mean[c];
   const float rs = __frsqrt_rn(__fadd_rn(a.var[c], a.eps));
+  const float w = a.w != nullptr ? ld1(a.w, c, a.w_dt) : 1.f;
+  const float b = a.b != nullptr ? ld1(a.b, c, a.b_dt) : 0.f;
   const long long j0 = (long long)k * CHUNK + t;
   float sg = 0.f, sgx = 0.f;
 #pragma unroll 4
@@ -299,8 +349,9 @@ __global__ void __launch_bounds__(THREADS) bn_bwd_reduce_kernel(BwdArgs a) {
     const long long j = j0 + (long long)i * THREADS;
     if (j >= a.g.n) break;
     const long long e = addr(a.g, c, j);
-    const float g = grad_in(a, e);
-    const float xh = __fmul_rn(__fsub_rn(ld1(a.x, e, a.x_dt), mu), rs);
+    const float xs = __fsub_rn(ld1(a.x, e, a.x_dt), mu);
+    const float g = grad_in(a, e, xs, rs, w, b);
+    const float xh = __fmul_rn(xs, rs);
     sg = __fadd_rn(sg, g);
     sgx = __fadd_rn(sgx, __fmul_rn(g, xh));
   }
@@ -333,6 +384,7 @@ __global__ void __launch_bounds__(THREADS) bn_bwd_apply_kernel(BwdArgs a) {
   const float mu = a.mean[c];
   const float rs = __frsqrt_rn(__fadd_rn(a.var[c], a.eps));
   const float w = a.w != nullptr ? ld1(a.w, c, a.w_dt) : 1.f;
+  const float b = a.b != nullptr ? ld1(a.b, c, a.b_dt) : 0.f;
   const float wr = __fmul_rn(w, rs);
   const float inv_n = __fdiv_rn(1.f, (float)a.g.n);
   const float k1 = __fmul_rn(a.sums[2 * c], inv_n);
@@ -343,12 +395,13 @@ __global__ void __launch_bounds__(THREADS) bn_bwd_apply_kernel(BwdArgs a) {
     const long long j = j0 + (long long)i * THREADS;
     if (j >= a.g.n) break;
     const long long e = addr(a.g, c, j);
-    const float g = grad_in(a, e);
+    const float xs = __fsub_rn(ld1(a.x, e, a.x_dt), mu);
+    const float g = grad_in(a, e, xs, rs, w, b);
     if (a.dres != nullptr) st1(a.dres, e, a.dres_dt, g);
     if (a.dx == nullptr) continue;
     float d;
     if (a.batch_stats) {
-      const float xh = __fmul_rn(__fsub_rn(ld1(a.x, e, a.x_dt), mu), rs);
+      const float xh = __fmul_rn(xs, rs);
       d = __fmul_rn(wr, __fsub_rn(__fsub_rn(g, k1), __fmul_rn(xh, k2)));
     } else {
       d = __fmul_rn(wr, g);
@@ -396,11 +449,14 @@ extern "C" int bn_bwd(int phase, const void* x, const void* dy,
                       const float* var, long long n, long long S, int C,
                       int chunks, unsigned magic, int shift, float eps,
                       int x_dt, int dy_dt, int out_dt, int w_dt, int tail,
+                      const void* b, const void* r, int b_dt, int r_dt,
+                      int norm_dt, int wmul_dt, int badd_dt, int act_dt,
                       float* part, unsigned* ticket, float* sums, void* dw,
                       void* db, int dw_dt, int db_dt, void* dx, void* dres,
                       int dx_dt, int dres_dt, int batch_stats, void* stream) {
   BwdArgs a{x, dy, out, w, mean, var, geo(n, S, C, chunks, magic, shift),
-            eps, x_dt, dy_dt, out_dt, w_dt, tail, part, ticket, sums, dw,
+            eps, x_dt, dy_dt, out_dt, w_dt, tail, b, r, b_dt, r_dt,
+            norm_dt, wmul_dt, badd_dt, act_dt, part, ticket, sums, dw,
             db, dw_dt, db_dt, dx, dres, dx_dt, dres_dt, batch_stats};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (phase == 0)

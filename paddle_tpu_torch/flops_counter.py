@@ -13,9 +13,13 @@ elements x (kernel size x in channels a group + 1 with a bias)),
 output element; the port's layers and ``torch.nn``'s). A batch norm called
 with the port's fused ReLU tail (``act="relu"``) also counts that ReLU, 1
 per output element, as the JAX package's hook on the ``ReLU`` it calls
-there does (its residual add, like the JAX package's, is not counted). The port's own additions: ``RMSNorm`` counts as a norm (2
-per input element; the JAX package counts none) and ``GELU``, ``SiLU`` and
-``Tanh`` as activations; ``Embedding`` is listed with 0 (a lookup). Each
+there does (its residual add, like the JAX package's, is not counted).
+The port's own additions: a batch norm called with the fused swish tail
+(``act="swish"``, PP-YOLOE's blocks) counts the swish, 1 per output
+element, which the JAX package's hooks do not see (its ``F.swish`` is a
+function, not a layer; its nearest upsample, a copy, counts 0 in both);
+``RMSNorm`` counts as a norm (2 per input element; the JAX package counts
+none) and ``GELU``, ``SiLU`` and ``Tanh`` as activations; ``Embedding`` is listed with 0 (a lookup). Each
 call files its total with the program cost registry as an ``analytic``
 record (:func:`observability.cost.record_analytic`) when it is installed.
 """
@@ -57,8 +61,9 @@ def _count_conv(layer, x, y) -> int:
 
 
 def _count_batch_norm(layer, args, kwargs, output) -> int:
-    fused_relu = _prod(output.shape) if kwargs.get("act") == "relu" else 0
-    return 2 * _prod(args[0].shape) + fused_relu
+    fused_act = _prod(output.shape) if kwargs.get("act") in ("relu", "swish") \
+        else 0
+    return 2 * _prod(args[0].shape) + fused_act
 
 
 def _count_act(layer, x, y) -> int:

@@ -2,6 +2,7 @@
 
 from .ernie import ErnieConfig, ErnieForSequenceClassification, ErnieModel
 from .llama import LlamaConfig, LlamaForCausalLM
+from .ppyoloe import PPYOLOE, PPYOLOEConfig
 
 __all__ = ["ErnieConfig", "ErnieForSequenceClassification", "ErnieModel",
-           "LlamaConfig", "LlamaForCausalLM"]
+           "LlamaConfig", "LlamaForCausalLM", "PPYOLOE", "PPYOLOEConfig"]

@@ -2,7 +2,8 @@
 ``bias``), and the rest of ``paddle_tpu/nn/norm.py``: ``BatchNorm``,
 ``BatchNorm1D/2D/3D`` (weight 1, bias 0, fp32 buffers ``_mean`` 0 and
 ``_variance`` 1, momentum 0.9, epsilon 1e-5; on K10 on a card, with the
-fused ``residual`` / ``act`` tails of ``ops/batch_norm.py``),
+fused ``residual`` / ``act`` tails of ``ops/batch_norm.py``: ReLU or
+swish),
 ``GroupNorm``, ``InstanceNorm1D/2D/3D`` and ``LocalResponseNorm``.
 ``SyncBatchNorm`` and ``SpectralNorm`` are not ported (ROADMAP.md)."""
 
@@ -81,8 +82,9 @@ class _BatchNormBase(Layer):
             torch.ones(num_features, dtype=torch.float32)))
 
     def forward(self, x, residual=None, act=None):
-        """``batch_norm`` of x; the port's ``act="relu"`` and ``residual``
-        fuse the tail ``relu(add(bn(x), residual))`` into K10."""
+        """``batch_norm`` of x; the port's ``act`` (``"relu"`` or
+        ``"swish"``) and ``residual`` fuse the tail ``act(add(bn(x),
+        residual))`` into K10."""
         return nn_ops.batch_norm(
             x, self._mean, self._variance, self.weight, self.bias,
             training=self.training, momentum=self.momentum,

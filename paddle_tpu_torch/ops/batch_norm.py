@@ -1,4 +1,4 @@
-"""K10, batch norm with the ResNet blocks' fused tails: the hand-written
+"""K10, batch norm with the ResNet and PP-YOLOE blocks' fused tails: the hand-written
 Hopper kernel (``csrc/batch_norm.cu``, four launches: the batch statistics
 with the running-buffer update, the apply, the backward's per-channel
 reduce and its apply) and its plain PyTorch version. The port's own kernel:
@@ -7,16 +7,20 @@ the JAX package's ``batch_norm_stats`` and ``batch_norm``
 function.
 
 :func:`batch_norm` takes ``paddle.nn.functional.batch_norm``'s arguments
-and two of the port's own: ``act="relu"`` applies ReLU to the output, and
-``residual`` (with ``act="relu"``) adds a tensor of x's shape before it,
-``relu(add(bn(x), residual))``: the tails of ResNet's blocks. The casts
-are the JAX package's ops' under the active ``amp.auto_cast``: the norm
-and its statistics as ``batch_norm`` (black-listed: fp32 under O2), the
-tail as ``add`` and ``relu`` (bf16 under O2), so under O2 a bottleneck's
-tail is ``relu(bf16(bf16(bn3(x)) + identity))`` as there. The kernel does
-the casts as it loads and stores; its statistics are fp32, its sums fixed
-in order (bit-equal launches). The backward saves x, the per-channel mean
-and biased variance and, with a tail, the output (the ReLU mask).
+and two of the port's own: ``act="relu"`` or ``act="swish"`` applies that
+activation to the output, and ``residual`` (with an ``act``) adds a tensor
+of x's shape before it, ``relu(add(bn(x), residual))``: the tails of
+ResNet's blocks, and ``swish(bn(x))`` and ``swish(add(bn(x), residual))``,
+those of PP-YOLOE's ``ConvBNLayer`` and ``RepVggBlock``. The casts are the
+JAX package's ops' under the active ``amp.auto_cast``: the norm and its
+statistics as ``batch_norm`` (black-listed: fp32 under O2), the tail as
+``add`` and ``relu`` / ``swish`` (bf16 under O2), so under O2 a
+bottleneck's tail is ``relu(bf16(bf16(bn3(x)) + identity))`` as there.
+The kernel does the casts as it loads and stores; its statistics are fp32,
+its sums fixed in order (bit-equal launches). The backward saves x, the
+per-channel mean and biased variance and, with a ReLU tail, the output
+(the ReLU mask); with a swish tail, which its output cannot invert, the
+bias and the residual, from which it recomputes the swish's input.
 
 :func:`batch_norm` runs :func:`batch_norm_reference` for CPU tensors (its
 gradients by autograd, its running buffers updated in place) and the
@@ -50,7 +54,9 @@ CHUNK = 4096
 # most channels a launch takes: its grid is (chunks, C), and a grid's y
 # dimension holds at most 65535 blocks
 MAX_CHANNELS = 65535
-TAILS = ("none", "relu", "add_relu")
+TAILS = ("none", "relu", "add_relu", "swish", "add_swish")
+# the tails whose backward recomputes the activation's input
+SWISH_TAILS = ("swish", "add_swish")
 _TAIL_CODE = {t: i for i, t in enumerate(TAILS)}
 
 launches_fwd: Dict[str, _native.LaunchCounter] = {
@@ -67,7 +73,8 @@ _GEO = [_LL, _LL, _I, _I, _U, _I]
 _ARGTYPES_OF = {
     "bn_stats": [_P, _I] + _GEO + [_P] * 6 + [_F] * 3 + [_P],
     "bn_apply": [_P] * 7 + _GEO + [_F] + [_I] * 10 + [_P],
-    "bn_bwd": [_I] + [_P] * 6 + _GEO + [_F] + [_I] * 5 + [_P] * 5
+    "bn_bwd": [_I] + [_P] * 6 + _GEO + [_F] + [_I] * 5 + [_P] * 2
+    + [_I] * 6 + [_P] * 5
     + [_I] * 2 + [_P] * 2 + [_I] * 3 + [_P],
 }
 
@@ -107,7 +114,8 @@ class BNSpec:
     """The reference's rounding points: ``norm`` the dtype x takes in the
     norm (and the normalised value is rounded to), ``wmul`` / ``badd`` the
     dtypes of ``* weight`` and ``+ bias`` (None: no such operand), ``act``
-    the tail's dtype (the ``add``'s and ``relu``'s; None: no tail), ``out``
+    the tail's dtype (the ``add``'s and the activation's; None: no tail),
+    ``out``
     the output's."""
     norm: torch.dtype
     wmul: Optional[torch.dtype]
@@ -121,11 +129,12 @@ def bn_spec(x, weight=None, bias=None, residual=None,
             act: Optional[str] = None) -> BNSpec:
     """The rounding points of :func:`batch_norm_reference` on these inputs
     under the active ``auto_cast``."""
-    if act not in (None, "relu"):
-        raise ValueError(f"act must be None or 'relu', got {act!r}")
-    if residual is not None and act != "relu":
-        raise ValueError("a residual is added only before a ReLU "
-                         "(act='relu'), the ResNet block's tail")
+    if act not in (None, "relu", "swish"):
+        raise ValueError(f"act must be None, 'relu' or 'swish', got {act!r}")
+    if residual is not None and act is None:
+        raise ValueError("a residual is added only before a ReLU or a swish "
+                         "(act='relu' or 'swish'), the ResNet and RepVGG "
+                         "blocks' tails")
     norm = cur = cast_dtype("batch_norm", x.dtype)
     wmul = badd = None
     if weight is not None:
@@ -137,15 +146,15 @@ def bn_spec(x, weight=None, bias=None, residual=None,
     if act is None:
         return BNSpec(norm, wmul, badd, None, cur, "none")
     if residual is None:
-        a = cast_dtype("relu", cur)
-        return BNSpec(norm, wmul, badd, a, a, "relu")
+        a = cast_dtype(act, cur)
+        return BNSpec(norm, wmul, badd, a, a, act)
     a = torch.promote_types(cast_dtype("add", cur),
                             cast_dtype("add", residual.dtype))
-    if cast_dtype("relu", a) != a:
-        raise ValueError(f"the add's dtype {a} and the ReLU's "
-                         f"{cast_dtype('relu', a)} differ under this "
+    if cast_dtype(act, a) != a:
+        raise ValueError(f"the add's dtype {a} and the {act}'s "
+                         f"{cast_dtype(act, a)} differ under this "
                          "auto_cast; the fused tail takes one")
-    return BNSpec(norm, wmul, badd, a, a, "add_relu")
+    return BNSpec(norm, wmul, badd, a, a, "add_" + act)
 
 
 def _channel_axis(x: torch.Tensor, data_format: str) -> int:
@@ -175,7 +184,8 @@ def batch_norm_reference(x, running_mean, running_var, weight=None,
     variance in fp32 (the variance of the deviations), the running buffers
     updated in place (``m r + (1 - m) batch``, the variance times ``n / (n
     - 1)``); the normalised value rounded to x's (cast) dtype, then ``*
-    weight + bias``; then the tail, ``relu(add(., residual))``."""
+    weight + bias``; then the tail, ``act(add(., residual))`` with ``act``
+    ReLU or swish (``F.silu``)."""
     bn_spec(x, weight, bias, residual, act)     # validates act / residual
     x, weight, bias = cast_inputs("batch_norm", x, weight, bias)
     ch = _channel_axis(x, data_format)
@@ -204,9 +214,10 @@ def batch_norm_reference(x, running_mean, running_var, weight=None,
     if residual is not None:
         out, residual = cast_inputs("add", out, residual)
         out = out + residual
-    if act == "relu":
-        (out,) = cast_inputs("relu", out)
-        out = torch.relu(out)
+    if act is not None:
+        (out,) = cast_inputs(act, out)
+        out = torch.relu(out) if act == "relu" else \
+            torch.nn.functional.silu(out)
     return out
 
 
@@ -215,23 +226,52 @@ def _view3(t: torch.Tensor, geo) -> torch.Tensor:
     return t.reshape(n // s, c, s)
 
 
+def _swish_input(x3, mean, r, weight, bias, res3, spec: BNSpec):
+    """The swish tails' activation input z, recomputed as the apply
+    computes it: the normalised value, ``* w``, ``+ b`` each rounded to
+    its dtype, the residual added (``add_swish``), rounded to the tail's
+    dtype; fp32."""
+    c = x3.shape[1]
+    t = ((x3 - mean.float().view(1, c, 1)) * r).to(spec.norm).float()
+    if weight is not None:
+        t = (t * weight.float().view(1, c, 1)).to(spec.wmul).float()
+    if bias is not None:
+        t = (t + bias.float().view(1, c, 1)).to(spec.badd).float()
+    if spec.tail == "add_swish":
+        t = (t.to(spec.act).float() + res3.to(spec.act).float()).to(
+            spec.act).float()
+    return t.to(spec.act).float()
+
+
 def batch_norm_bwd_reference(x, dy, out, weight, mean, var, epsilon: float,
                              spec: BNSpec, geo, batch_stats: bool,
-                             bias_dtype=None, residual_dtype=None) -> dict:
+                             bias_dtype=None, residual_dtype=None, *,
+                             bias=None, residual=None) -> dict:
     """Plain version of the backward's launches on the saved tensors (x,
     the forward's output for the ReLU mask, the per-channel mean and
-    biased variance): ``g`` = dy where the output is positive (any output
-    without a tail), ``dx = w r (g - sum(g) / n - xhat sum(g xhat) / n)``
-    with batch statistics (``w r g`` without), ``dw = sum(g xhat)``, ``db
-    = sum(g)``, the residual's gradient ``g``; fp32 throughout, each
-    rounded to its tensor's dtype. ``{"dx", "dw", "db", "dres"}`` (None
-    where there is no such tensor)."""
+    biased variance; for a swish tail the bias and the residual instead of
+    the output): ``g`` = dy where the output is positive (any output
+    without a tail), or for a swish tail ``rnd(dy (s + z s (1 - s)))``
+    with ``s = sigmoid(z)``, z the swish's input recomputed
+    (:func:`_swish_input`) and the product rounded to the tail's dtype;
+    ``dx = w r (g - sum(g) / n - xhat sum(g xhat) / n)`` with batch
+    statistics (``w r g`` without), ``dw = sum(g xhat)``, ``db = sum(g)``,
+    the residual's gradient ``g``; fp32 throughout, each rounded to its
+    tensor's dtype. ``{"dx", "dw", "db", "dres"}`` (None where there is no
+    such tensor)."""
     n, s, c = geo
     g = _view3(dy, geo).float()
-    if spec.tail != "none":
-        g = torch.where(_view3(out, geo) > 0, g, 0.0)
     r = torch.rsqrt(var.float() + epsilon).view(1, c, 1)
-    xh = (_view3(x, geo).float() - mean.float().view(1, c, 1)) * r
+    x3 = _view3(x, geo).float()
+    if spec.tail in SWISH_TAILS:
+        z = _swish_input(x3, mean, r, weight, bias,
+                         None if residual is None else _view3(residual, geo),
+                         spec)
+        sg = 1.0 / (1.0 + torch.exp(-z))
+        g = (g * (sg + z * sg * (1.0 - sg))).to(spec.act).float()
+    elif spec.tail != "none":
+        g = torch.where(_view3(out, geo) > 0, g, 0.0)
+    xh = (x3 - mean.float().view(1, c, 1)) * r
     sg, sgx = g.sum((0, 2)), (g * xh).sum((0, 2))
     w = 1.0 if weight is None else weight.float().reshape(1, c, 1)
     if batch_stats:
@@ -292,7 +332,8 @@ def _launch_apply(x, weight, bias, residual, mean, var, eps, spec: BNSpec,
 
 
 def _launch_bwd(phase: int, x, dy, out, weight, mean, var, eps, spec, geo,
-                part, sums, dw, db, dx, dres, batch_stats: bool):
+                part, sums, dw, db, dx, dres, batch_stats: bool, bias=None,
+                residual=None):
     n, s, c = geo
     dev = x.device
     chunks = -(-n // CHUNK)
@@ -303,7 +344,10 @@ def _launch_bwd(phase: int, x, dy, out, weight, mean, var, eps, spec, geo,
             phase, ptr(x), ptr(dy), ptr(out), ptr(weight), ptr(mean),
             ptr(var), n, s, c, chunks, magic, shift, eps,
             *_codes(x.dtype, dy.dtype, None if out is None else out.dtype,
-                    wd), _TAIL_CODE[spec.tail], ptr(part),
+                    wd), _TAIL_CODE[spec.tail], ptr(bias), ptr(residual),
+            *_codes(None if bias is None else bias.dtype,
+                    None if residual is None else residual.dtype, spec.norm,
+                    spec.wmul, spec.badd, spec.act), ptr(part),
             ptr(_ticket_buffer(dev)), ptr(sums), ptr(dw), ptr(db),
             *_codes(None if dw is None else dw.dtype,
                     None if db is None else db.dtype), ptr(dx), ptr(dres),
@@ -360,8 +404,11 @@ class BatchNorm(torch.autograd.Function):
         launches_fwd[spec.tail].launched(
             2 if batch_stats else 1, _native.io_cost, x, residual, out,
             *([x] if batch_stats else []))
-        ctx.save_for_backward(x, weight, mean, var,
-                              out if spec.tail != "none" else None)
+        swish = spec.tail in SWISH_TAILS
+        ctx.save_for_backward(
+            x, weight, mean, var,
+            out if spec.tail != "none" and not swish else None,
+            bias if swish else None, residual if swish else None)
         ctx.cfg = (batch_stats, eps, spec, geo,
                    None if bias is None else bias.dtype,
                    None if residual is None else residual.dtype)
@@ -369,7 +416,7 @@ class BatchNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, weight, mean, var, out = ctx.saved_tensors
+        x, weight, mean, var, out, bias, residual = ctx.saved_tensors
         batch_stats, eps, spec, geo, b_dt, r_dt = ctx.cfg
         need = ctx.needs_input_grad
         dev = x.device
@@ -388,17 +435,20 @@ class BatchNorm(torch.autograd.Function):
             if r_dt is not None and need[3] else None
         args = (x, dy, out, weight, mean, var, eps, spec, geo, part, sums,
                 dw, db, dx, dres, batch_stats)
+        # the swish tails' recompute reads the bias and the residual
+        extra = {"bias": bias, "residual": residual} \
+            if spec.tail in SWISH_TAILS else {}
         calls = 0
         if dw is not None or db is not None or (dx is not None
                                                 and batch_stats):
-            _launch_bwd(0, *args)
+            _launch_bwd(0, *args, **extra)
             calls += 1
         if dx is not None or dres is not None:
-            _launch_bwd(1, *args)
+            _launch_bwd(1, *args, **extra)
             calls += 1
         if calls:
             launches_bwd[spec.tail].launched(calls, _native.io_cost, x, dy,
-                                             out, dx, dres)
+                                             out, residual, dx, dres)
         wgrad = None if dw is None else dw.view(weight.shape)
         return (dx, wgrad, db, dres, None, None, None, None, None, None,
                 None)

@@ -1,5 +1,6 @@
-"""``paddle.vision`` of the port: the ResNet family (``models``)."""
+"""``paddle.vision`` of the port: the ResNet family (``models``) and the
+detection ops (``ops``)."""
 
-from . import models
+from . import models, ops
 
-__all__ = ["models"]
+__all__ = ["models", "ops"]
