@@ -223,8 +223,10 @@ line per phase:
   K10 against its plain version at the stem's, layer 1's and layer 4's
   shapes and an NHWC view, bf16 under O2 and fp32, training and eval, with
   each fused tail (output, running buffers, statistics and every
-  gradient), three launches bit-equal and a planted fault rejected, and
-  times each form beside its byte bound and ``F.batch_norm``;
+  gradient), every case on its planner's 16-byte route, three launches
+  bit-equal and a planted fault rejected on a case of each route
+  (channels first, channels last), and times each form beside its byte
+  bound and ``F.batch_norm``;
   ``train_resnet50`` trains ``vision.models.resnet50`` at
   ``bench_resnet.py``'s settings (batch 64, 224 x 224, O2 bf16, Momentum)
   eager and captured from one state (bit-equal, cuDNN deterministic),
@@ -342,7 +344,11 @@ KV_ROUNDING_PER_LAYER = 2.0 ** -8
 # K7 flips one element's keep, K8
 # drops one mask column; K5 and K7 must fail bit-equality, K6 and K8
 # FUSED_TOL. K9 (moe_check): the token-major sum skips each token's second
-# route, so the combine must fail bit-equality. K11 (nms_check): the sweep
+# route, so the combine must fail bit-equality. K10 (batch_norm_check): the
+# statistics' fold, which both routes' partials go through, skips block 1's
+# partial, so K10_TOL must reject the output, the running buffers and the
+# statistics of a case on each route. K11
+# (nms_check): the sweep
 # reads row 2's mask words for row 1, so keep must fail bit-equality.
 PLANTED_FAULTS = (
     ("flash_attention",
@@ -406,8 +412,8 @@ PLANTED_FAULTS = (
      "    if (s < 0) continue;  // a dropped route\n",
      "    if (r == r0 + 1) continue;\n"),
     ("batch_norm",
-     "    chan(cnt, m, M, __ldcg(pq), __ldcg(pq + 1), __ldcg(pq + 2));\n",
-     "    if (q == 1) continue;\n"),
+     "      chan(n, m, M2, __ldcg(pq), __ldcg(pq + g.C), __ldcg(pq + 2 * g.C));\n",
+     "      if (q == 1) continue;\n"),
     ("nms",
      "      for (int q = w + lane; q < words; q += 32) removed[q] |= row[q];\n",
      "      if (i == 1) row += words;\n"))
@@ -11019,6 +11025,11 @@ K10_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-4),
 # feed (dw, db, dx's mean terms) is allowed the flipped elements' share
 K10_FLIPS = (8, 1e-6)
 K10_REPLACES = "paddle_tpu/ops/nn_ops.py:210"
+# K10's kernels by name: the statistics, apply, reduce and apply of the
+# col and run routes and the folds (bn_col_*, bn_run_*, bn_fold_*), and a
+# tree's before the routes (bn_stats, bn_apply, bn_bwd_*)
+K10_KERNEL_KEYS = ("bn_col_", "bn_run_", "bn_fold_", "bn_stats", "bn_apply",
+                   "bn_bwd")
 K10_SOURCE = "paddle_tpu_torch/csrc/batch_norm.cu"
 K10_FORMS = ("none", "relu", "add_relu", "swish", "add_swish")
 # the forms on PP-YOLOE's path (and ResNet's none)
@@ -11077,9 +11088,15 @@ K10_CASES = (
 K10_TIMED = {"relu": "stem_relu_bf16", "add_relu": "layer1_add_relu_bf16",
              "none": "layer4_bf16", "swish": "ppyoloe_stem_swish_fp32",
              "add_swish": "ppyoloe_repvgg_add_swish_fp32"}
-# the NHWC view at the detector's shapes, timed besides (PERF.md: its
-# stride-C reads)
-K10_NHWC_TIMED = ("ppyoloe_repvgg_none_fp32", "ppyoloe_neck_swish_fp32")
+# the NHWC view at the detector's shapes, timed besides: RepVGG's plain
+# BN, the neck's, and the stem's in bf16 (8 values a 16-byte load)
+K10_NHWC_TIMED = ("ppyoloe_repvgg_none_fp32", "ppyoloe_neck_swish_fp32",
+                  "ppyoloe_stem_swish_bf16")
+# the cases called three times (bit-equal), one on each route of the
+# kernel's planner (ops/batch_norm.py, bn_plan), and the case on which each
+# route's planted fault (PLANTED_FAULTS) must be rejected
+K10_REPEATED = ("stem_relu_bf16", "ppyoloe_stem_swish_fp32")
+K10_PLANTED = {"run": "stem_relu_bf16", "col": "ppyoloe_stem_swish_fp32"}
 # the case whose gradients are also taken a subset at a time: the leaves
 # asked for and the backward launches that takes (the reduce for dw / db
 # and, with batch statistics, for dx; the apply for dx / dres)
@@ -11298,7 +11315,8 @@ def k10_timing(torch, K10, ins, tail, fmt, dy, o2: bool = True) -> dict:
     t = fused_timing(torch, no_grad(kernel_fn, k_in), no_grad(plain_fn, k_in),
                      no_grad(library_fn, lib_in))
     out = no_grad(kernel_fn, k_in)()
-    t["bound_ms"], t["bound_by"] = bound(0, nbytes(x, res, out), "float32")
+    fwd_bytes = nbytes(x, res, out)
+    t["bound_ms"], t["bound_by"] = bound(0, fwd_bytes, "float32")
     # the backward reads x and dy and writes dx (and the residual's
     # gradient); the ReLU's mask follows from x and the statistics, and
     # only the residual's tail needs a tensor more (the output, or the
@@ -11306,14 +11324,16 @@ def k10_timing(torch, K10, ins, tail, fmt, dy, o2: bool = True) -> dict:
     mask = out if tail == "add_relu" else None
     # a swish tail's backward recomputes its input: the residual again
     mask = res if tail == "add_swish" else mask
+    bwd_bytes = nbytes(x, dy, mask, x, res)
+    bwd_ms, bwd_host = event_and_host(torch, held(kernel_fn), FUSED_ITERS)
     t.update({
-        "bwd_ms": cuda_ms(torch, held(kernel_fn), FUSED_ITERS),
+        "bwd_ms": bwd_ms, "bwd_host_us": bwd_host,
         "bwd_device_ms": library_backward_device_ms(torch, kernel_fn, k_in,
                                                     dy),
         "bwd_plain_ms": cuda_ms(torch, held(plain_fn), 3),
         "bwd_library_device_ms": library_backward_device_ms(
             torch, library_fn, lib_in, dy),
-        "bwd_bound_ms": bound(0, nbytes(x, dy, mask, x, res), "float32")[0],
+        "bwd_bound_ms": bound(0, bwd_bytes, "float32")[0],
         "case": f"{tuple(x.shape)} {dtype_name(x.dtype)} {fmt}, training, "
                 f"tail {tail}, {'O2' if o2 else 'no amp'} (out "
                 f"{dtype_name(out.dtype)}); library: "
@@ -11321,6 +11341,12 @@ def k10_timing(torch, K10, ins, tail, fmt, dy, o2: bool = True) -> dict:
                 f"{f' + F.{act}' if act == 'relu' else ''}"
                 f"{' + F.silu' if act == 'swish' else ''} (fp32 weight), its "
                 f"autograd"})
+    # the bound's bytes over the card's time: GB/s, and the bound's share
+    for pre, nb in (("", fwd_bytes), ("bwd_", bwd_bytes)):
+        dev = t[pre + "device_ms"]
+        t[pre + "bound_gbps"] = None if not dev else nb / dev / 1e6
+        t[pre + "bound_share"] = None if not dev else \
+            t[pre + "bound_ms"] / dev
     return t
 
 
@@ -11344,15 +11370,31 @@ def k10_subsets(torch, K10, ins, case, dy, full) -> dict:
     return out
 
 
-def batch_norm_check(torch, planted_lib) -> dict:
+def k10_plan(K10, x, fmt):
+    """The statistics launch's plan of the kernel's planner for x (route,
+    vector width, grid, threads a block), or None for a tree without the
+    planner."""
+    if not hasattr(K10, "bn_plan"):
+        return None
+    p = K10._plan(K10.bn_geometry(x, fmt), K10._codes("none", x=x.dtype)[1],
+                  x)
+    return {"route": p.route, "mode": p.mode, "vec": p.vec,
+            "grid": list(p.grid),
+            "threads": p.threads, "chunks": p.chunks}
+
+
+def batch_norm_check(torch, planted_libs) -> dict:
     """K10's wrapper (``ops.batch_norm.batch_norm``, its autograd function)
     against its plain version on the same inputs, in every form
     ``K10_CASES`` lists: output, running buffers, batch statistics, and
     the gradients of x, weight, bias and the residual by autograd, within
-    K10_TOL (K10_FLIPS for the ReLU masks); three calls bit-equal; the
-    gradients of a subset of the leaves (``K10_SUBSETS``); a planted fault
-    (the fold skips chunk 1's partial) rejected; each form timed at its
-    ResNet-50 shape (``K10_TIMED``). Returns rows by form."""
+    K10_TOL (K10_FLIPS for the ReLU masks); every case on its planner's
+    16-byte vector route; three calls bit-equal (``K10_REPEATED``: one
+    case a route); the gradients of a subset of the leaves
+    (``K10_SUBSETS``); the planted fault (the statistics' fold skips block
+    1's partial; ``planted_libs`` by route, None to skip) rejected on a
+    case of each route (``K10_PLANTED``); each form timed at its path's
+    shape (``K10_TIMED``, ``K10_NHWC_TIMED``). Returns rows by form."""
     from paddle_tpu_torch.ops import batch_norm as K10
     t_phase = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(24)
@@ -11368,30 +11410,44 @@ def batch_norm_check(torch, planted_lib) -> dict:
         ref = k10_call(torch, K10, ins, case, dy, plain=True)
         pairs, flips = k10_pairs(torch, K10, got, ref, ins, case, dy)
         err, errs = k10_compare(torch, pairs, f"batch_norm {name}")
+        plan = k10_plan(K10, ins[0], fmt)
+        require(plan is None or plan["vec"] == 16 // ins[0].element_size(),
+                f"batch_norm {name}: plan {plan} is not 16 bytes a load")
         row = {"case": name, "shape": list(shape), "dtype": dtype,
                "tail": tail, "training": training, "data_format": fmt,
                "o2": o2, "use_global_stats": ugs,
                "out_dtype": dtype_name(out_dt), "max_abs_err": err,
-               "errs": errs, "mask_flips": flips}
-        if name == "stem_relu_bf16":
+               "errs": errs, "mask_flips": flips, "plan": plan}
+        if name in K10_REPEATED:
             keys = list(got)
             for _ in range(2):
                 again = k10_call(torch, K10, ins, case, dy)
                 require(all(torch.equal(got[k], again[k]) for k in keys),
                         f"batch_norm {name}: three calls differ")
-            with k10_library(K10, planted_lib):
+            row["bit_identical_calls"] = 3
+        for route, pcase in K10_PLANTED.items():
+            if pcase != name or planted_libs is None:
+                continue
+            require(plan is None or (plan["route"] == "run") == (
+                route == "run"), f"batch_norm {name}: plan {plan} is not on "
+                                 f"the {route} route")
+            with k10_library(K10, planted_libs[route]):
                 bad = k10_call(torch, K10, ins, case, dy)
-            row["planted_max_abs_err"], _ = k10_compare(
-                torch, {k: (bad[k], ref[k], "bfloat16")
-                        for k in ("out", "run_mean", "run_var")},
-                f"batch_norm {name} planted", expect_ok=False)
+            # the case's own gate on the output, the running buffers and
+            # the batch statistics
+            row[f"planted_{route}_max_abs_err"], _ = k10_compare(
+                torch, {k: (bad[k], *pairs[k][1:]) for k in (
+                    "out", "run_mean", "run_var", "mean", "var")},
+                f"batch_norm {name} planted ({route} fold)", expect_ok=False)
         if name == K10_SUBSETS_CASE:
             row["subsets"] = k10_subsets(torch, K10, ins, case, dy, got)
         for form, timed in K10_TIMED.items():
             if timed == name:
                 rows[form] = k10_timing(torch, K10, ins, tail, fmt, dy, o2)
+                rows[form]["plan"] = plan
         if name in K10_NHWC_TIMED:
             nhwc[name] = k10_timing(torch, K10, ins, tail, fmt, dy, o2)
+            nhwc[name]["plan"] = plan
         cases.append(row)
         del ins, got, ref, pairs, dy
         gc.collect()
@@ -11440,7 +11496,7 @@ def resnet_family(name: str) -> str:
     layout transposes, the pools, K4, the fc's products, else ``other``
     (the optimizer's and the casts' elementwise kernels among them)."""
     low = name.lower()
-    for keys, fam in ((("bn_stats", "bn_apply", "bn_bwd"), "batch_norm"),
+    for keys, fam in ((K10_KERNEL_KEYS, "batch_norm"),
                       (("nchwtonhwc", "nhwctonchw", "transpose"),
                        "conv_layout"),
                       (("conv", "fprop", "dgrad", "wgrad", "implicit",
@@ -11991,7 +12047,7 @@ def pp_family(name: str) -> str:
     assigner's top-k), the products, else ``other`` (the loss's and the
     optimizer's elementwise kernels, the concatenations, the upsample)."""
     low = name.lower()
-    for keys, fam in ((("bn_stats", "bn_apply", "bn_bwd"), "batch_norm"),
+    for keys, fam in ((K10_KERNEL_KEYS, "batch_norm"),
                       (("nms_mask", "nms_sweep"), "nms"),
                       (("nchwtonhwc", "nhwctonchw", "transpose"),
                        "conv_layout"),
@@ -12550,7 +12606,8 @@ def main() -> int:
         path_launches["transformer_base"] = {
             k: n for k, n in tb_launches.items() if k.endswith("[segs_drop]")}
     if want("batch_norm_check"):
-        k10_rows = batch_norm_check(torch, planted["batch_norm"])
+        k10_rows = batch_norm_check(torch, {
+            r: planted["batch_norm"] for r in K10_PLANTED})
         left_on_card(torch, "batch_norm_check")
     if want("train_resnet50"):
         rn_launches = train_resnet50(torch, smi)

@@ -232,11 +232,16 @@ def _fake_apply(x, w, b, res, mean, var, eps, spec, geo):
 
 
 def _fake_bwd(phase, x, dy, out, w, mean, var, eps, spec, geo, part, sums,
-              dw, db, dx, dres, batch_stats):
+              dw, db, dx, dres, batch_stats, bias=None, residual=None):
+    """The kernel's backward launch: the ReLU tail's mask recomputed from
+    x, the statistics, w and the bias (no saved output), the residual's
+    from the saved output."""
+    if spec.tail == "relu":
+        assert out is None and (bias is not None or db is None)
     r = K10.batch_norm_bwd_reference(
         x, dy, out, w, mean, var, eps, spec, geo, batch_stats,
         None if db is None else db.dtype,
-        None if dres is None else dres.dtype)
+        None if dres is None else dres.dtype, bias=bias, residual=residual)
     bufs = ((dw, "dw"), (db, "db")) if phase == 0 else ((dx, "dx"),
                                                        (dres, "dres"))
     for buf, k in bufs:

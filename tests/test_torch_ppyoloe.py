@@ -327,7 +327,7 @@ def _fake_apply(x, w, b, res, mean, var, eps, spec, geo):
     point."""
     n, s, c = geo
     r = torch.rsqrt(var.view(1, c, 1) + eps)
-    z = K10._swish_input(x.reshape(n // s, c, s).float(), mean, r, w, b,
+    z = K10._tail_input(x.reshape(n // s, c, s).float(), mean, r, w, b,
                          None if res is None else res.reshape(n // s, c, s),
                          spec)
     return (z / (1.0 + torch.exp(-z))).to(spec.out).reshape(x.shape)
